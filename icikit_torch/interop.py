@@ -1,0 +1,35 @@
+"""Carry state between the JAX package and the port, through numpy.
+
+The sort path has no weights; its state is the keys. ``from_jax`` takes
+the numpy array of a JAX array (``np.asarray(jax_array)``) and returns a
+torch tensor of the same dtype and values; ``to_jax`` returns a numpy
+array that ``jnp.asarray`` takes back. Every dtype is kept. bfloat16 is
+the trap: its numpy dtype is ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses, so it travels as its uint16 bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_jax(a, device: str = "cpu") -> torch.Tensor:
+    """numpy (or JAX) array -> torch tensor with the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def to_jax(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy array with the same dtype (bf16 as
+    ``ml_dtypes.bfloat16``, which ``jnp.asarray`` reads)."""
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -1,0 +1,125 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
+its own shared library under ``icikit_torch/build/``, named by a hash of
+its source, so an edited source rebuilds and an unchanged one loads at
+once. Sources compile in parallel, one ``nvcc`` each. A failed build
+raises: there is no fallback.
+
+The libraries have a plain C interface (no PyTorch headers), so a build
+takes seconds. Pointers and the stream pass as ``c_void_p``, sizes as
+``c_int64``; each entry returns ``cudaGetLastError()`` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+BUILD_LOG: dict = {}  # source -> {"seconds", "cached"}
+
+_I64, _I32, _P = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+_IP = ctypes.POINTER(ctypes.c_int)
+
+# C signatures, by library.
+_SIGNATURES = {
+    "bitonic_net": {
+        "icikit_net_pass": [_I32, _P, _P, _I64, _I32, _I32, _IP, _IP, _IP,
+                            _P],
+        "icikit_cross_pass": [_I32, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                              _I32, _I32, _P],
+        "icikit_kernel_regs": [_I32, _IP, _IP],
+    },
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    PATH, else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the icikit_torch kernels are "
+        "built from csrc/ at first use and have no fallback")
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode()
+                                ).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library is built; returns
+    (so path, process, temporary output, start time), the last three
+    None when the library is already built."""
+    src, so = _target(name)
+    if os.path.isfile(so):
+        return so, None, None, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, src]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return so, proc, tmp, time.perf_counter()
+
+
+def build(names=None) -> dict:
+    """Build (in parallel) and load the named libraries; returns
+    ``{name: ctypes.CDLL}``. Raises RuntimeError on a failed build."""
+    names = list(_SIGNATURES) if names is None else list(names)
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        started = {n: _start(n) for n in todo}
+        for n, (so, proc, tmp, t0) in started.items():
+            if proc is None:
+                BUILD_LOG[n] = {"seconds": 0.0, "cached": True}
+            else:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for csrc/{n}.cu "
+                        f"(exit {proc.returncode}):\n{out}")
+                os.replace(tmp, so)
+                BUILD_LOG[n] = {"seconds": time.perf_counter() - t0,
+                                "cached": False}
+            lib = ctypes.CDLL(so)
+            for fn, argtypes in _SIGNATURES[n].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[n] = lib
+        return {n: _libs[n] for n in names}
+
+
+def load(name: str):
+    """The loaded library ``name``, built at first use."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build([name])[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

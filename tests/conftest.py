@@ -56,6 +56,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: fault-injection soak test (worker death, "
         "stragglers, bit-flips, I/O faults; run via `make chaos`)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (icikit_torch kernels); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")
