@@ -8,7 +8,10 @@ never ``jax`` and nothing of ``icikit``.
 
 Ported so far: the distributed bitonic sort (``models.sort``), its two
 network kernels (``ops.cuda_sort``) and the headline bench
-(``python -m icikit_torch.bench.headline``).
+(``python -m icikit_torch.bench.headline``); greedy decoding of the
+transformer (``models.transformer``) with its flash-attention forward
+and fused decode-step kernels (``ops.cuda_attention``) and the decode
+bench (``python -m icikit_torch.bench.decode``).
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one

@@ -19,11 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
 import sys
-import tempfile
-import time
 
 import torch
 
@@ -86,74 +82,29 @@ def time_schedule(log2n: int, t_grid: int, t_big: int, g_max: int,
     }
 
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def _union_us(spans) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(spans):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def profile_sort(log2n: int, sorts: int = 3, seed: int = 0) -> dict:
     """Device activity over ``sorts`` back-to-back ``sort`` calls (p = 1)
-    from a ``torch.profiler`` chrome trace: device milliseconds by
-    kernel name, the busy time (union of kernel, copy and set
-    intervals), and the idle share of the device span (first device
-    event to last) and of the host's wall time (first call to the final
-    synchronise, profiler overhead included)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (``utils.trace.device_activity``): device milliseconds by kernel
+    name, the busy time, and the idle share of the device span and of
+    the host's wall time."""
     from icikit_torch.bench.headline import device_identity, make_keys
     from icikit_torch.models.sort import sort
     from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.trace import device_activity
 
     mesh = make_mesh(1, device="cuda")
     keys = make_keys(1 << log2n, "cuda", seed)
     sort(keys, mesh)  # the build and the allocator's first blocks
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(sorts):
             sort(keys, mesh)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in _DEVICE_CATS and "dur" in e]
-    by_name: dict = {}
-    for e in dev:
-        # "void (anonymous namespace)::net_kernel<int>(...)" -> net_kernel
-        key = re.match(r"(?:void )?([\w:]*)", e["name"].replace(
-            "(anonymous namespace)::", "")).group(1).split("::")[-1]
-        c, t = by_name.get(key, (0, 0.0))
-        by_name[key] = (c + 1, t + e["dur"])
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
-    busy = _union_us(spans)
-    span = (max(e for _, e in spans) - min(s for s, _ in spans)
-            if spans else 0.0)
+
     name, power = device_identity("cuda")
-    return {
-        "profile": {"log2n": log2n, "sorts": sorts,
-                    "device_events": len(dev),
-                    "by_name": {k: {"count": c, "ms": t / 1e3}
-                                for k, (c, t) in sorted(by_name.items())},
-                    "busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
-                    "host_wall_ms": wall_us / 1e3,
-                    "idle_share_of_span": (1 - busy / span) if span
-                    else None,
-                    "idle_share_of_wall": 1 - busy / wall_us},
-        "device": name, "power_limit": power,
-    }
+    return {"profile": {"log2n": log2n, "sorts": sorts,
+                        **device_activity(run)},
+            "device": name, "power_limit": power}
 
 
 def main(argv=None) -> int:

@@ -1,1 +1,2 @@
-"""Device ops: the sorting-network kernels and their drivers."""
+"""Device ops: the sorting-network and attention kernels, their
+drivers, and the tensor ops around them."""

@@ -8,7 +8,8 @@ raises: there is no fallback.
 
 The libraries have a plain C interface (no PyTorch headers), so a build
 takes seconds. Pointers and the stream pass as ``c_void_p``, sizes as
-``c_int64``; each entry returns ``cudaGetLastError()`` after its launch.
+``c_int64``, scales as ``c_float``; each entry returns
+``cudaGetLastError()`` after its launch.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ _libs: dict = {}
 BUILD_LOG: dict = {}  # source -> {"seconds", "cached"}
 
 _I64, _I32, _P = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+_F32 = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures, by library.
@@ -41,6 +43,13 @@ _SIGNATURES = {
         "icikit_cross_pass": [_I32, _P, _P, _I64, _I64, _I32, _I32, _I32,
                               _I32, _I32, _P],
         "icikit_kernel_regs": [_I32, _IP, _IP],
+    },
+    "attention": {
+        "icikit_flash_fwd": [_I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _I32, _I32, _F32, _P],
+        "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                               _I64, _I32, _I64, _I32, _F32, _P],
+        "icikit_attention_regs": [_I32, _IP, _IP],
     },
 }
 

@@ -1,0 +1,170 @@
+"""The port's attention ops against the JAX package's, on the CPU.
+
+The same numpy inputs, made from a seed, go through both packages. JAX
+runs its Pallas kernels in interpret mode, as its own tests do; the
+port runs its kernels' plain versions (the CPU tensors' route).
+
+Tolerances: forward float32 out and lse 1e-5; bf16 out 2e-2 (one bf16
+ulp near 2, where both round P and out to bf16 against different row
+maxima) and lse 1e-3; decode step float32 out 1e-5 and the written
+cache columns bitwise; RoPE 1e-6.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icikit.ops import flash_attention as jfa
+from icikit.ops.rope import apply_rope as j_apply_rope
+from icikit.ops.rope import rope_sincos as j_rope_sincos
+from icikit_torch.interop import from_jax, to_jax
+from icikit_torch.ops import cuda_attention
+from icikit_torch.ops import flash_attention as tfa
+from icikit_torch.ops.rope import apply_rope, rope_sincos
+
+
+def _inputs(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    if dtype == "bfloat16":
+        arrs = [np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
+                for a in arrs]
+    return arrs
+
+
+# (s, causal, d, block_k given to JAX so it takes B3's multi-block
+# route; None leaves JAX's own choice: one block, B5, at s = 64)
+FWD_CASES = [(s, causal, d, bk)
+             for s, bk in ((64, None), (96, None), (256, 64))
+             for causal in (True, False) for d in (32, 128)]
+
+
+@pytest.mark.parametrize("s,causal,d,block_k", FWD_CASES)
+def test_flash_forward_matches_jax_float32(s, causal, d, block_k):
+    q, k, v = _inputs(s * d + causal, [(2, s, 2, d)] * 3, "float32")
+    want_o, want_l = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_k=block_k)
+    cuda_attention.reset_launches()
+    got_o, got_l = tfa.flash_attention_with_lse(
+        from_jax(q), from_jax(k), from_jax(v), causal=causal)
+    assert cuda_attention.LAUNCHES["flash_fwd"] == 0  # CPU: plain version
+    np.testing.assert_allclose(to_jax(got_o), np.asarray(want_o), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(to_jax(got_l), np.asarray(want_l), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("s,causal,d,block_k", [(256, True, 128, 64),
+                                                (96, False, 32, None),
+                                                (64, True, 128, None)])
+def test_flash_forward_matches_jax_bfloat16(s, causal, d, block_k):
+    q, k, v = _inputs(7 + s, [(2, s, 2, d)] * 3, "bfloat16")
+    want_o, want_l = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_k=block_k)
+    got_o, got_l = tfa.flash_attention_with_lse(
+        from_jax(q), from_jax(k), from_jax(v), causal=causal)
+    assert got_o.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_jax(got_o).astype(np.float32),
+                               np.asarray(want_o).astype(np.float32),
+                               atol=2e-2, rtol=0)
+    np.testing.assert_allclose(to_jax(got_l), np.asarray(want_l), atol=1e-3,
+                               rtol=0)
+
+
+def test_dense_fallback_for_causal_cross_lengths():
+    """causal with s_q != s_kv is the one shape both packages send to
+    the dense oracle (end-aligned mask)."""
+    q, = _inputs(3, [(1, 8, 2, 32)], "float32")
+    k, v = _inputs(4, [(1, 24, 2, 32)] * 2, "float32")
+    want_o, want_l = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    got_o, got_l = tfa.flash_attention_with_lse(
+        from_jax(q), from_jax(k), from_jax(v), causal=True)
+    np.testing.assert_allclose(to_jax(got_o), np.asarray(want_o), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(to_jax(got_l), np.asarray(want_l), atol=1e-5,
+                               rtol=0)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True)
+    got = tfa.flash_attention(from_jax(q), from_jax(k), from_jax(v),
+                              causal=True)
+    np.testing.assert_allclose(to_jax(got), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+def test_unported_options_refuse_loudly():
+    q = torch.zeros((1, 8, 1, 32))
+    with pytest.raises(NotImplementedError, match="B4"):
+        tfa.flash_attention(q, q, q, causal=True, softmax_shift=16.0)
+    g = q.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="B6-B8"):
+        tfa.flash_attention_with_lse(g, g, g, causal=True)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tfa.resolve_attention_impl("ring")
+
+
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("cur", [0, 5, 15])
+def test_decode_step_matches_jax(rope, cur):
+    """The port's decode step (plain on the CPU) against JAX's
+    ``decode_step_attention`` called directly, outside shard_map."""
+    rows, total, dh = 6, 16, 128
+    q, k, v = _inputs(cur + 10 * rope, [(rows, dh)] * 3, "float32")
+    kc, vc = _inputs(99, [(rows, total, dh)] * 2, "float32")
+    c, s = j_rope_sincos(jnp.asarray([cur]), dh, 10000.0)
+    cos2 = np.asarray(jnp.concatenate([c, c], -1))
+    sin2 = np.asarray(jnp.concatenate([s, s], -1))
+    scale = dh ** -0.5
+    want, want_kc, want_vc = jfa.decode_step_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kc),
+        jnp.asarray(vc), jnp.int32(cur), jnp.asarray(cos2),
+        jnp.asarray(sin2), scale=scale, rope=rope)
+    t_kc, t_vc = from_jax(kc), from_jax(vc)
+    got, got_kc, got_vc = tfa.decode_step_attention(
+        from_jax(q), from_jax(k), from_jax(v), t_kc, t_vc, cur,
+        from_jax(cos2), from_jax(sin2), scale=scale, rope=rope)
+    assert got_kc is t_kc and got_vc is t_vc      # updated in place
+    np.testing.assert_allclose(to_jax(got), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(to_jax(t_kc), np.asarray(want_kc))
+    np.testing.assert_array_equal(to_jax(t_vc), np.asarray(want_vc))
+
+
+def test_decode_step_gate_and_cache_len():
+    assert tfa.decode_step_supported(128, 1, torch.bfloat16)
+    assert tfa.decode_step_supported(256, 1, torch.float32)
+    assert not tfa.decode_step_supported(8, 1, torch.float32)
+    assert not tfa.decode_step_supported(128, 2, torch.bfloat16)
+    assert not tfa.decode_step_supported(128, 1, torch.float16)
+    assert tfa.decode_step_cache_len(577, torch.bfloat16) == 577
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_apply_rope_matches_jax(per_row):
+    x, = _inputs(5, [(2, 6, 3, 16)], "float32")
+    pos = (np.array([[3, 4, 5, 6, 7, 8], [0, 1, 2, 9, 10, 11]])
+           if per_row else np.arange(2, 8))
+    want = j_apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    got = apply_rope(from_jax(x), torch.from_numpy(pos), 10000.0)
+    np.testing.assert_allclose(to_jax(got), np.asarray(want), atol=1e-6,
+                               rtol=0)
+    jc, js = j_rope_sincos(jnp.asarray(pos), 16, 500.0)
+    tc, ts = rope_sincos(torch.from_numpy(pos), 16, 500.0)
+    np.testing.assert_allclose(to_jax(tc), np.asarray(jc), atol=1e-6)
+    np.testing.assert_allclose(to_jax(ts), np.asarray(js), atol=1e-6)
+
+
+def test_apply_rope_keeps_bfloat16():
+    x, = _inputs(6, [(1, 4, 2, 8)], "bfloat16")
+    want = j_apply_rope(jnp.asarray(x), jnp.arange(4))
+    got = apply_rope(from_jax(x), torch.arange(4))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_jax(got).astype(np.float32),
+                               np.asarray(want).astype(np.float32),
+                               atol=1e-2, rtol=0)
+
