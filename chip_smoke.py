@@ -38,7 +38,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    0.25; then tokens/s by the chained median-of-windows protocol beside
    the unfused arm, prefill ms, the byte-model bound per token and the
    device's idle share from a ``torch.profiler`` trace.
-9. kernels line: every ported kernel with its launches on its main path,
+9. per-kernel numbers of the decode path's kernels at its shapes.
+10. train kernels held against their plain versions on the card:
+   ``flash_fwd`` in constant-shift mode and ``flash_bwd`` at (8, 8,
+   1024, 128) and (1, 8, 2048, 128), causal and full, plus q x 400
+   (the overflow the kernel redoes online), bf16 and float32; the three
+   cross-entropy kernels at T 8192, D 1024, V 32768. Tolerances are in
+   the phase's line (FLASH_TOL, XENT_TOL).
+11. the train path: ``make_train_step`` of the ``base`` preset (random
+   float32 masters from a seeded generator), batch 8, s 1024, bf16,
+   ``remat_policy="except_attn"``, ``softmax_shift=16``, the saved-exp
+   fused head, ``FusedAdam(1e-4)`` with bf16 moments; tokens and targets
+   from ``numpy.random.default_rng(0)``. 12 ``flash_fwd``, 12
+   ``flash_bwd`` and one launch of each cross-entropy kernel per step
+   asserted. At b = 2 the kernel arms are held against the plain arms
+   (dense attention, unfused head) at float32: loss within 1e-4, every
+   gradient leaf within a relative L2 error of 1e-3; the bf16 first-step
+   loss within 1% of that; the loss falling over 5 steps. Then step ms,
+   tokens/s and mfu by median-of-windows, and a ``torch.profiler``
+   trace of one step (idle share, device time by kernel).
+12. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
 
@@ -67,6 +86,25 @@ MULT = -1640531527
 DEC_PRESET, DEC_BATCH, DEC_PROMPT, DEC_NEW = "base", 8, 512, 64
 FP32_LOGIT_TOL = 1e-3
 BF16_LOGIT_TOL = 0.25
+
+# Train path (phases 10-12): the base preset at batch 8, s = 1024.
+TRAIN_PRESET, TRAIN_BATCH, TRAIN_CHECK_BATCH = "base", 8, 2
+TRAIN_TOKENS = TRAIN_BATCH * 1024
+TRAIN_LR = 1e-4
+SHIFT = 16.0
+# (b, h, s, d) of the path's flash launches, and the many-block regime
+FLASH_SHAPES = {"B5-shift": (TRAIN_BATCH, 8, 1024, 128),
+                "B4": (1, 8, 2048, 128)}
+XENT_SHAPE = (TRAIN_TOKENS, 1024, 32768)   # (T, D, V) of the head
+TRAIN_LOSS_TOL = 1e-4      # float32 kernel arms vs plain arms
+TRAIN_GRAD_TOL = 1e-3      # relative L2, each gradient leaf
+TRAIN_BF16_TOL = 1e-2      # bf16 first-step loss vs the fp32 plain arm
+FLASH_TOL = {"bf16": {"out": 2e-2, "lse": 1e-3, "grad": 2e-2,
+                      "grad_hot": 2e-2},
+             "f32": {"out": 1e-4, "lse": 1e-4, "grad": 1e-4,
+                     "grad_hot": 1e-3}}
+XENT_TOL = {"bf16": {"lse": 1e-3, "grad": 2e-2},
+            "f32": {"lse": 1e-4, "grad": 1e-4}}
 
 
 def emit(obj) -> None:
@@ -198,7 +236,7 @@ def decode_path(torch, dev, bw, smi) -> dict:
                                 return_logits=True)
     torch.cuda.synchronize()
     launches = dict(ca.LAUNCHES)
-    want = {"flash_fwd": cfg.n_layers,
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd": 0,
             "decode_step": cfg.n_layers * (DEC_NEW - 1)}
     if launches != want:
         raise AssertionError(f"decode path launches {launches}, want "
@@ -365,6 +403,368 @@ def attention_rows(torch, dev, bw, launches) -> list:
     ]
 
 
+def _rel(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def train_kernel_checks(torch, dev) -> None:
+    """Phase 10: the train path's kernels against their plain versions
+    on the card, at the path's shapes and the many-block (B4/B7) shape."""
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def err(a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    checks = []
+    for dtype, tol in ((torch.bfloat16, FLASH_TOL["bf16"]),
+                       (torch.float32, FLASH_TOL["f32"])):
+        for b, h, s, d in FLASH_SHAPES.values():
+            q, k, v, do = (randn((b, h, s, d), dtype) for _ in range(4))
+            scale = d ** -0.5
+            for causal, hot in ((True, False), (False, False), (True, True)):
+                qq = (q.float() * 400.0).to(dtype) if hot else q
+                out, lse = ca.flash_fwd(qq, k, v, causal, scale,
+                                        shift=SHIFT)
+                w_out, w_lse = ca.flash_fwd_plain(qq, k, v, causal, scale,
+                                                  shift=SHIFT)
+                delta = (do.float() * out.float()).sum(-1)
+                got = ca.flash_bwd(qq, k, v, do, lse, delta, causal, scale)
+                want = ca.flash_bwd_plain(qq, k, v, do, lse, delta, causal,
+                                          scale)
+                e_o = err(out, w_out)
+                e_l = err(lse, w_lse) / (float(w_lse.abs().max())
+                                         if hot else 1.0)
+                e_g = max(_rel(a, c) for a, c in zip(got, want))
+                finite = bool(torch.isfinite(lse).all()) and all(
+                    bool(torch.isfinite(g.float()).all()) for g in got)
+                g_tol = tol["grad_hot"] if hot else tol["grad"]
+                checks.append({
+                    "kernel": "flash_fwd shift + flash_bwd",
+                    "dtype": str(dtype), "shape": [b, h, s, d],
+                    "causal": causal, "q_times_400": hot, "out_err": e_o,
+                    "lse_err": e_l, "grad_rel_err": e_g, "finite": finite,
+                    "ok": finite and e_o <= tol["out"]
+                    and e_l <= tol["lse"] and e_g <= g_tol})
+            del q, k, v, do, out, lse, w_out, w_lse, got, want, delta
+    t, d, v = XENT_SHAPE
+    for dtype, tol in ((torch.bfloat16, XENT_TOL["bf16"]),
+                       (torch.float32, XENT_TOL["f32"])):
+        x = randn((t, d), dtype)
+        w = randn((v, d), dtype, d ** -0.5)
+        tg = torch.randint(0, v, (t,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        dn = randn((t,), torch.float32, 1.0 / t)
+        lse, tgt, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+        chunk = cx.TILE[dtype]
+        p_lse, p_tgt, p_e, p_m = cx.xent_fwd_plain(x, w, tg, True, chunk)
+        e_l = max(err(lse, p_lse), err(tgt, p_tgt))
+        dx = cx.xent_dx_saved(e, mrun, w, tg, lse, dn)
+        e_dx = _rel(dx, cx.xent_dx_saved_plain(p_e, p_m, w, tg, p_lse, dn,
+                                               chunk))
+        dw = cx.xent_dw_saved(e, mrun, x, tg, lse, dn)
+        e_dw = _rel(dw, cx.xent_dw_saved_plain(p_e, p_m, x, tg, p_lse, dn,
+                                               chunk))
+        checks.append({"kernel": "xent_fwd + xent_dx_saved + xent_dw_saved",
+                       "dtype": str(dtype), "shape": [t, d, v],
+                       "lse_tgt_err": e_l, "dx_rel_err": e_dx,
+                       "dw_rel_err": e_dw,
+                       "ok": e_l <= tol["lse"] and e_dx <= tol["grad"]
+                       and e_dw <= tol["grad"]})
+        del x, w, e, mrun, p_e, p_m, dx, dw
+    torch.cuda.synchronize()
+    emit({"phase": "train_kernels", "shift": SHIFT,
+          "tolerance": {"flash": FLASH_TOL, "xent": XENT_TOL,
+                        "why": "float32: sums in other orders, dq by "
+                               "atomics; bf16: P and dS rounded to bf16 "
+                               "against lse values that differ in the "
+                               "last bits, and g rounded to bf16 for "
+                               "the tensor cores where the plain "
+                               "version contracts it in float32; q x 400: "
+                               "logits of ~400 nats, where one float32 "
+                               "ulp of the lse moves P by 3e-5; lse "
+                               "errors there relative to the largest "
+                               "|lse|; TF32 off"},
+          "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"train kernel disagrees with its plain "
+                             f"version: {bad}")
+
+
+def _train_config(dtype, **over):
+    from icikit_torch.bench.train import PRESETS
+    from icikit_torch.models.transformer import TransformerConfig
+    return TransformerConfig(**PRESETS[TRAIN_PRESET], compute_dtype=dtype,
+                             remat_policy="except_attn",
+                             softmax_shift=SHIFT, **over)
+
+
+def train_path(torch, dev, smi) -> dict:
+    """Phase 11: the train step of the base preset; returns the kernel
+    launches of its counted step."""
+    import numpy as np
+
+    from icikit_torch.bench.train import detect_peak, step_flops
+    from icikit_torch.models.transformer import (FusedAdam, init_params,
+                                                 loss_and_metrics,
+                                                 make_model_mesh,
+                                                 make_train_step)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.utils.timing import timeit_windows
+    from icikit_torch.utils.trace import device_activity
+
+    t0 = time.perf_counter()
+    mesh = make_model_mesh(device=dev)
+    cfg = _train_config("bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.default_rng(0)
+    seq = cfg.max_seq
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab,
+                                              (TRAIN_BATCH, seq))
+                                 .astype(np.int32)).to(dev)
+                for _ in range(2))
+
+    # correctness at b = 2, full width and depth: the kernel arms against
+    # the plain arms (dense attention, unfused head) at float32
+    b2 = (tok[:TRAIN_CHECK_BATCH], tgt[:TRAIN_CHECK_BATCH])
+    loss_k, g_k, _ = loss_and_metrics(params, *b2, mesh,
+                                      _train_config("float32"))
+    loss_p, g_p, _ = loss_and_metrics(
+        params, *b2, mesh, _train_config("float32", attention_impl="dense",
+                                         fused_head=False))
+    leaf_err = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
+    del g_k, g_p
+    loss_b, _, _ = loss_and_metrics(params, *b2, mesh, cfg)
+    fp32 = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_diff": abs(float(loss_k) - float(loss_p)),
+            "loss_tolerance": TRAIN_LOSS_TOL,
+            "grad_rel_l2_max": max(leaf_err.values()),
+            "grad_rel_l2": leaf_err, "grad_tolerance": TRAIN_GRAD_TOL}
+    bf16_first = {"loss": float(loss_b),
+                  "rel_diff_to_fp32_plain":
+                      abs(float(loss_b) - float(loss_p)) / float(loss_p),
+                  "tolerance": TRAIN_BF16_TOL}
+
+    # the main path: b = 8 bf16 steps, the second one counted
+    opt, step = make_train_step(
+        mesh, cfg, FusedAdam(TRAIN_LR, mu_dtype=torch.bfloat16,
+                             nu_dtype=torch.bfloat16))
+    st = opt.init(params)
+    losses = []
+    params, st, loss = step(params, st, tok, tgt)  # first-call set-up
+    losses.append(float(loss))
+    ca.reset_launches()
+    cx.reset_launches()
+    params, st, loss = step(params, st, tok, tgt)
+    torch.cuda.synchronize()
+    launches = {**ca.LAUNCHES, **cx.LAUNCHES}
+    losses.append(float(loss))
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd": cfg.n_layers,
+            "decode_step": 0, "xent_fwd": 1, "xent_dx_saved": 1,
+            "xent_dw_saved": 1}
+    if launches != want:
+        raise AssertionError(f"train path launches {launches}, want {want}")
+    for _ in range(3):
+        params, st, loss = step(params, st, tok, tgt)
+        losses.append(float(loss))
+    emit({"phase": "train_check", "preset": TRAIN_PRESET,
+          "batch": TRAIN_BATCH, "seq": seq, "check_batch": TRAIN_CHECK_BATCH,
+          "launches_per_step": launches, "fp32": fp32,
+          "bf16_first_step": bf16_first, "bf16_losses_5_steps": losses,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    ok = (fp32["loss_diff"] <= TRAIN_LOSS_TOL
+          and fp32["grad_rel_l2_max"] <= TRAIN_GRAD_TOL
+          and bf16_first["rel_diff_to_fp32_plain"] <= TRAIN_BF16_TOL
+          and all(np.isfinite(losses)) and losses[-1] < losses[0])
+    if not ok:
+        raise AssertionError(f"train path disagrees with its plain arms or "
+                             f"does not learn: fp32 {fp32}, bf16 "
+                             f"{bf16_first}, losses {losses}")
+
+    # timing: chained steps carried in place, median of windows of at
+    # least 1.5 s (a step is ~0.1 s, and host noise spreads short windows)
+    n_steps = 5
+    flops = step_flops(cfg, TRAIN_BATCH, seq)
+    peak = detect_peak(dev)
+
+    def multi(p, s):
+        out = (p, s, None)
+        for _ in range(n_steps):
+            out = step(out[0], out[1], tok, tgt)
+        return out
+
+    res = timeit_windows(multi, (params, st), lambda a, o: (o[0], o[1]),
+                         windows=3, runs=1, warmup=1, target_window_s=1.5,
+                         floor_s=n_steps * flops / peak if peak else None)
+    step_s = res.median_s / n_steps
+    activity = device_activity(lambda: step(params, st, tok, tgt))
+    emit({"phase": "train_timing", "card": smi,
+          "step_ms": step_s * 1e3,
+          "step_ms_spread": [res.min_s / n_steps * 1e3,
+                             res.max_s / n_steps * 1e3],
+          "windows": res.windows, "suspect": res.suspect,
+          "tokens_per_s": TRAIN_BATCH * seq / step_s,
+          "model_tflops_per_s": flops / step_s / 1e12,
+          "mfu": flops / step_s / peak if peak else None,
+          "step_flops": flops, "peak_flops": peak,
+          "bound_ms": flops / BF16_TENSOR_OPS * 1e3,
+          "profile": activity,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    return launches
+
+
+def train_rows(torch, dev, bw, launches) -> list:
+    """Phase 12's rows for the train path's kernels: each timed at the
+    path's shapes (and B4/B7 at the many-block shape), beside its plain
+    version, a library call and its bound."""
+    import torch.nn.functional as F
+
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(bf)
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / bw, ops / BF16_TENSOR_OPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    rows, notes = [], {}
+    for tag, (b, h, s, d) in FLASH_SHAPES.items():
+        q, k, v, do = (randn((b, h, s, d)) for _ in range(4))
+        scale = d ** -0.5
+        pairs = b * h * s * (s + 1) // 2
+        f_ms = cuda_time_ms(lambda: ca.flash_fwd(q, k, v, True, scale,
+                                                 shift=SHIFT),
+                            iters=50, warmup=5)
+        f_plain = cuda_time_ms(lambda: ca.flash_fwd_plain(
+            q, k, v, True, scale, shift=SHIFT), iters=5)
+        f_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), iters=50, warmup=5)
+        out, lse = ca.flash_fwd(q, k, v, True, scale, shift=SHIFT)
+        f_err = float((out.float() - ca.flash_fwd_plain(
+            q, k, v, True, scale, shift=SHIFT)[0].float()).abs().max())
+        f_bound, f_by = bound(4 * b * h * s * d * 2 + b * h * s * 4,
+                              2 * 2 * d * pairs)
+        rows.append({"name": f"flash_fwd shift ({tag})", "route": "cuda",
+                     "source": "icikit_torch/csrc/attention.cu",
+                     "replaces": ("icikit/ops/flash_attention.py:349 (B5, "
+                                  "shift branch :328)" if tag == "B5-shift"
+                                  else "icikit/ops/flash_attention.py:421 "
+                                       "(B4, _fwd_const_kernel :230)"),
+                     "launches": launches["flash_fwd"], "max_abs_err": f_err,
+                     "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+                     "bound_by": f_by, "library_ms": f_lib})
+        delta = (do.float() * out.float()).sum(-1)
+        b_ms = cuda_time_ms(lambda: ca.flash_bwd(q, k, v, do, lse, delta,
+                                                 True, scale),
+                            iters=20, warmup=3)
+        b_plain = cuda_time_ms(lambda: ca.flash_bwd_plain(
+            q, k, v, do, lse, delta, True, scale), iters=3)
+        b_err = max(_rel(a, c) for a, c in zip(
+            ca.flash_bwd(q, k, v, do, lse, delta, True, scale),
+            ca.flash_bwd_plain(q, k, v, do, lse, delta, True, scale)))
+        lq, lk, lv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            scale=scale)
+        b_lib = cuda_time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True), iters=20, warmup=3)
+        b_bound, b_by = bound(7 * b * h * s * d * 2 + 2 * b * h * s * 4,
+                              5 * 2 * d * pairs)
+        btag = "B6" if tag == "B5-shift" else "B7"
+        rows.append({"name": f"flash_bwd ({btag})", "route": "cuda",
+                     "source": "icikit_torch/csrc/attention.cu",
+                     "replaces": ("icikit/ops/flash_attention.py:701 (B6)"
+                                  if btag == "B6" else
+                                  "icikit/ops/flash_attention.py:653 (B7)"),
+                     "launches": launches["flash_bwd"],
+                     "max_abs_err": b_err,
+                     "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+                     "bound_by": b_by, "library_ms": b_lib})
+        notes[tag] = f"b={b} h={h} s={s} d={d} bf16 causal shift={SHIFT}"
+        del q, k, v, do, out, lse, delta, lq, lk, lv, lo
+
+    t, d, v = XENT_SHAPE
+    x = randn((t, d))
+    w = randn((v, d), d ** -0.5)
+    tg = torch.randint(0, v, (t,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dn = torch.full((t,), 1.0 / t, device=dev)
+    ops = 2 * t * v * d
+    chunk = cx.TILE[bf]
+    fx_ms = cuda_time_ms(lambda: cx.xent_fwd(x, w, tg, save=True), iters=10)
+    fx_plain = cuda_time_ms(lambda: cx.xent_fwd_plain(x, w, tg, True, chunk),
+                            iters=3)
+    lse, tgt, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+    fx_err = float((lse - cx.xent_fwd_plain(x, w, tg, True, chunk)[0])
+                   .abs().max())
+    mm_ms = cuda_time_ms(lambda: torch.matmul(x, w.t()), iters=10)
+    nc = -(-v // chunk)
+    fx_bound, fx_by = bound(t * d * 2 + v * d * 2 + t * 4 + 2 * t * 4
+                            + t * v * 2 + nc * t * 4, ops)
+    rows.append({"name": "xent_fwd (B9)", "route": "cuda",
+                 "source": "icikit_torch/csrc/xent.cu",
+                 "replaces": "icikit/ops/xent.py:283 (B9)",
+                 "launches": launches["xent_fwd"], "max_abs_err": fx_err,
+                 "ms": fx_ms, "plain_ms": fx_plain, "bound_ms": fx_bound,
+                 "bound_by": fx_by, "library_ms": None})
+    for which, fn, plain, other, out_rows in (
+            ("dx", cx.xent_dx_saved, cx.xent_dx_saved_plain, w, t),
+            ("dw", cx.xent_dw_saved, cx.xent_dw_saved_plain, x, v)):
+        k_ms = cuda_time_ms(lambda: fn(e, mrun, other, tg, lse, dn),
+                            iters=10)
+        p_ms = cuda_time_ms(lambda: plain(e, mrun, other, tg, lse, dn, chunk),
+                            iters=3)
+        k_err = _rel(fn(e, mrun, other, tg, lse, dn),
+                     plain(e, mrun, other, tg, lse, dn, chunk))
+        k_bound, k_by = bound(t * v * 2 + nc * t * 4 + other.numel() * 2
+                              + 3 * t * 4 + out_rows * d * 2, ops)
+        rows.append({"name": f"xent_{which}_saved (B10)", "route": "cuda",
+                     "source": "icikit_torch/csrc/xent.cu",
+                     "replaces": ("icikit/ops/xent.py:374 (B10)"
+                                  if which == "dx"
+                                  else "icikit/ops/xent.py:411 (B10)"),
+                     "launches": launches[f"xent_{which}_saved"],
+                     "max_abs_err": k_err, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": k_bound, "bound_by": k_by,
+                     "library_ms": None})
+    torch.cuda.synchronize()
+    emit({"phase": "train_timing_kernels", **notes,
+          "xent": f"T={t} D={d} V={v} bf16, saved flavour",
+          "xent_library": "none: no one PyTorch call forms the logits, "
+                          "their lse and target, or dx/dw from saved "
+                          "exponentials; torch.matmul of x w^T alone "
+                          "(cuBLAS) beside it",
+          "matmul_x_wT_ms": mm_ms,
+          "flash_bwd_library": "SDPA's backward through autograd on the "
+                               "same tensors",
+          "max_abs_err_of_bwd_and_dx_dw": "relative to the largest entry"})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -396,12 +796,20 @@ def main() -> int:
         _build.check(libs["bitonic_net"].icikit_kernel_regs(
             which, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
         regs[name] = {"registers": r.value, "local_bytes": loc.value}
-    for which, name in ((0, "flash_fwd_bf16<128>"), (1, "flash_fwd_f32<128>"),
-                        (2, "decode_step_kernel<bf16, 4>")):
-        r, loc = ctypes.c_int(), ctypes.c_int()
-        _build.check(libs["attention"].icikit_attention_regs(
-            which, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
-        regs[name] = {"registers": r.value, "local_bytes": loc.value}
+    for lib, fn, names in (
+            ("attention", "icikit_attention_regs",
+             ("flash_fwd_bf16<128>", "flash_fwd_f32<128>",
+              "decode_step_kernel<bf16, 4>", "flash_bwd_bf16<128>",
+              "flash_bwd_f32<128>")),
+            ("xent", "icikit_xent_regs",
+             ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
+              "xent_fwd_f32"))):
+        for which, name in enumerate(names):
+            r, loc = ctypes.c_int(), ctypes.c_int()
+            _build.check(getattr(libs[lib], fn)(
+                which, ctypes.byref(r), ctypes.byref(loc)),
+                "kernel attributes")
+            regs[name] = {"registers": r.value, "local_bytes": loc.value}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "log": {k: {"seconds": round(v["seconds"], 2),
                       "cached": v["cached"]}
@@ -601,6 +1009,15 @@ def main() -> int:
 
     # -- 9. per-kernel numbers at the decode path's shapes -------------
     rows += attention_rows(torch, dev, bw, dec_launches)
+
+    # -- 10. train kernels against their plain versions ----------------
+    train_kernel_checks(torch, dev)
+
+    # -- 11. the train path: base, b = 8, s = 1024 ---------------------
+    train_launches = train_path(torch, dev, smi)
+
+    # -- 12. per-kernel numbers at the train path's shapes -------------
+    rows += train_rows(torch, dev, bw, train_launches)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

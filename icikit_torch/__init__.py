@@ -11,7 +11,11 @@ network kernels (``ops.cuda_sort``) and the headline bench
 (``python -m icikit_torch.bench.headline``); greedy decoding of the
 transformer (``models.transformer``) with its flash-attention forward
 and fused decode-step kernels (``ops.cuda_attention``) and the decode
-bench (``python -m icikit_torch.bench.decode``).
+bench (``python -m icikit_torch.bench.decode``); the transformer's
+train step (``make_train_step``) with the flash backward
+(``ops.cuda_attention``), the fused cross-entropy head
+(``ops.cuda_xent``) and the train bench
+(``python -m icikit_torch.bench.train``).
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one

@@ -1,10 +1,12 @@
 """Carry state between the JAX package and the port, through numpy.
 
-The sort path's state is the keys, the decode path's the weights.
-``from_jax`` takes the numpy array of a JAX array
-(``np.asarray(jax_array)``) and returns a torch tensor of the same
-dtype and values; ``to_jax`` returns a numpy array that ``jnp.asarray``
-takes back; ``params_from_jax`` carries a transformer's parameter dict.
+The sort path's state is the keys, the decode path's the weights, the
+train path's the weights and the optimizer state. ``from_jax`` takes
+the numpy array of a JAX array (``np.asarray(jax_array)``) and returns
+a torch tensor of the same dtype and values; ``to_jax`` returns a numpy
+array that ``jnp.asarray`` takes back; ``params_from_jax`` carries a
+transformer's parameter dict and ``opt_state_from_jax`` a
+``FusedAdam`` state.
 Every dtype is kept. bfloat16 is the trap: its numpy dtype is
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so it
 travels as its uint16 bits.
@@ -46,3 +48,13 @@ def params_from_jax(params_np: dict, device: str = "cuda") -> dict:
     ``w1 (L, D, F)``, ``w2 (L, F, D)``, ``w_out (V, D)``), on
     ``device``."""
     return {name: from_jax(a, device) for name, a in params_np.items()}
+
+
+def opt_state_from_jax(state_np, device: str = "cuda"):
+    """The port's ``FusedAdam`` state ``(m, v, t)`` from the numpy arrays
+    of JAX's ``FusedAdam`` state (``({name: m}, {name: v}, t)``): moment
+    dicts in their storage dtypes and the step count as a 0-d int32
+    tensor, on ``device``."""
+    m, v, t = state_np
+    return (params_from_jax(m, device), params_from_jax(v, device),
+            from_jax(np.asarray(t, dtype=np.int32), device).reshape(()))

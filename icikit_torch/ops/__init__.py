@@ -1,2 +1,2 @@
-"""Device ops: the sorting-network and attention kernels, their
-drivers, and the tensor ops around them."""
+"""Device ops: the sorting-network, attention and cross-entropy
+kernels, their drivers, and the tensor ops around them."""

@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -46,10 +48,21 @@ _SIGNATURES = {
     },
     "attention": {
         "icikit_flash_fwd": [_I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                             _I32, _I32, _F32, _P],
+                             _I32, _I32, _F32, _I32, _F32, _P],
+        "icikit_flash_bwd": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I64, _I64, _I64, _I32, _I32, _F32, _F32, _P],
         "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                _I64, _I32, _I64, _I32, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
+    },
+    "xent": {
+        "icikit_xent_fwd": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I64, _I64, _I64, _I32, _P],
+        "icikit_xent_dx": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                           _I64, _I64, _P],
+        "icikit_xent_dw": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                           _I64, _I64, _P],
+        "icikit_xent_regs": [_I32, _IP, _IP],
     },
 }
 
@@ -132,3 +145,30 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+# dtype codes of the attention and cross-entropy entries
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stream(x: torch.Tensor) -> int:
+    """PyTorch's current stream on x's device, as the C entries take it."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_operands(what: str, tensors, dtype) -> None:
+    """Raise unless every tensor is a CUDA tensor of ``dtype`` (float32
+    or bfloat16), contiguous and 16-byte aligned."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA or CPU tensors, got "
+                             f"{t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: every operand must be {dtype}, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be contiguous and "
+                             f"16-byte aligned")
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"{what}: the kernels take float32 or bfloat16, "
+                         f"got {dtype}")

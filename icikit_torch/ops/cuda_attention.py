@@ -1,18 +1,25 @@
 """Attention kernels on Hopper: wrappers, launch counts, plain versions.
 
-Two CUDA kernels (``csrc/attention.cu``) carry the greedy decode path:
+Three CUDA kernels (``csrc/attention.cu``) carry the decode and train
+paths:
 
 - ``flash_fwd`` replaces ``icikit/ops/flash_attention.py``'s
-  ``_fwd_kernel`` (B3, ``_fwd_call``) and ``_fwd_single_kernel`` (B5,
-  ``_fwd_single_call``): the causal or full forward, out and lse.
+  ``_fwd_kernel`` (B3, ``_fwd_call``), ``_fwd_const_kernel`` (B4, the
+  constant-shift forward) and ``_fwd_single_kernel`` (B5,
+  ``_fwd_single_call``): the causal or full forward, out and lse,
+  online or with a constant shift.
+- ``flash_bwd`` replaces ``_bwd_fused_kernel`` (B6, ``_bwd_call``) and
+  ``_bwd_fused_tiled_kernel`` (B7): dq, dk and dv from one
+  recomputation of P per tile.
 - ``decode_step`` replaces ``_decode_step_kernel`` (B13,
   ``decode_step_attention``): RoPE, the cache column write in place and
   the masked single-token attention.
 
 Beside each kernel stands its plain PyTorch version (``flash_fwd_plain``,
-``decode_step_plain``), the same function as whole-tensor ops. A wrapper
-takes the plain version only for a tensor on the CPU; for a CUDA tensor
-it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+``flash_bwd_plain``, ``decode_step_plain``), the same function as
+whole-tensor ops. A wrapper takes the plain version only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,10 +30,13 @@ from icikit_torch.ops import _build
 from icikit_torch.ops.attention import NEG_INF
 from icikit_torch.ops.common import LN2, LOG2E
 
-LAUNCHES = {"flash_fwd": 0, "decode_step": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "decode_step": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_HEAD_DIMS = (64, 128)
+# d_head 32 is the tiny preset's; 64 and 128 the TPU-shaped presets'.
+FLASH_HEAD_DIMS = (32, 64, 128)
+# The constant-shift forward keeps a row whose shifted sum l lies in this
+# range and redoes it online otherwise (the kernel's SUM_LO, SUM_HI).
+SHIFT_SUM_RANGE = (2.0 ** -64, 2.0 ** 64)
 DECODE_HEAD_DIMS = (128, 256)
 
 
@@ -39,13 +49,9 @@ def reset_launches() -> None:
 # Plain versions: whole-tensor ops, any device.
 
 
-def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
-                    causal: bool, scale: float):
-    """Plain version of ``flash_fwd`` on ``(b, h, s, d)`` tensors: the
-    one-block form of the TPU forward (``_fwd_single_kernel``): base-2
-    logits with log2(e) folded into the scale, a direct row max and sum,
-    P cast to the value dtype before PV, division by l at the end.
-    Returns ``(out (b, h, s_q, d) in q's dtype, lse (b, h, s_q) f32)``."""
+def _scaled_logits(qt, kt, causal: bool, scale: float) -> torch.Tensor:
+    """float32 base-2 logits ``q k^T * scale * log2(e)`` with the causal
+    mask's finite NEG_INF, ``(b, h, s_q, s_kv)``."""
     s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) \
         * (scale * LOG2E)
     if causal:
@@ -53,13 +59,57 @@ def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
         keep = (torch.arange(sq, device=qt.device)[:, None]
                 >= torch.arange(sk, device=qt.device)[None, :])
         s = torch.where(keep, s, torch.tensor(NEG_INF, device=qt.device))
-    m = s.amax(dim=-1, keepdim=True)
-    w = torch.exp2(s - m)
-    l = w.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(w.to(vt.dtype).float(), vt.float())
-    out = (acc / l).to(qt.dtype)
-    lse = m[..., 0] * LN2 + torch.log(l[..., 0])
-    return out, lse
+    return s
+
+
+def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                    causal: bool, scale: float, shift: float | None = None):
+    """Plain version of ``flash_fwd`` on ``(b, h, s, d)`` tensors: the
+    one-block form of the TPU forward (``_fwd_single_kernel``): base-2
+    logits with log2(e) folded into the scale, a direct row max and sum
+    (or the constant ``shift`` in its place), P cast to the value dtype
+    before PV, division by l at the end. With ``shift``, a row whose
+    shifted sum l leaves ``SHIFT_SUM_RANGE`` (overflow, total underflow,
+    or weights in exp2's subnormal range) takes the online values: the
+    exact fallback, row by row (the kernel redoes the whole 64-row tile
+    of such a row; the other rows of that tile then differ from this
+    version by rounding). Returns ``(out (b, h, s_q, d) in q's dtype,
+    lse (b, h, s_q) f32)``."""
+    s = _scaled_logits(qt, kt, causal, scale)
+
+    def finish(m):
+        w = torch.exp2(s - m)
+        l = w.sum(dim=-1, keepdim=True)
+        acc = torch.matmul(w.to(vt.dtype).float(), vt.float())
+        return ((acc / l).to(qt.dtype),
+                m[..., 0] * LN2 + torch.log(l[..., 0]), l[..., 0])
+
+    out, lse, _ = finish(s.amax(dim=-1, keepdim=True))
+    if shift is None:
+        return out, lse
+    s_out, s_lse, s_l = finish(torch.full_like(s[..., :1], float(shift)))
+    lo, hi = SHIFT_SUM_RANGE
+    ok = (s_l >= lo) & (s_l <= hi)
+    return (torch.where(ok[..., None], s_out, out),
+            torch.where(ok, s_lse, lse))
+
+
+def flash_bwd_plain(qt, kt, vt, do, lse, delta, causal: bool,
+                    scale: float):
+    """Plain version of ``flash_bwd`` on ``(b, h, s, d)`` tensors, in the
+    order of the TPU's ``_bwd_fused_kernel``: P recomputed in base 2
+    from lse (``_p_tile``), dv = P^T dO with P cast to dO's dtype, dS =
+    P (dP - delta) scale, dq = dS K and dk = dS^T Q with dS cast to the
+    operands' dtype. ``delta`` is rowsum(dO o O) - g_lse ``(b, h, s_q)``
+    float32. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    s = _scaled_logits(qt, kt, causal, scale)
+    p = torch.exp2(s - (lse * LOG2E)[..., None])
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), vt.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.matmul(ds.to(kt.dtype).float(), kt.float())
+    dk = torch.matmul(ds.to(qt.dtype).float().transpose(-1, -2), qt.float())
+    return dq.to(qt.dtype), dk.to(kt.dtype), dv.to(vt.dtype)
 
 
 def _rotate(x: torch.Tensor, cos2: torch.Tensor, sin2: torch.Tensor
@@ -111,59 +161,91 @@ def decode_step_plain(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
 # Kernel wrappers.
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _check_cuda(what: str, tensors, dtype) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: expected CUDA or CPU tensors, got "
-                             f"{t.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{what}: every operand must be {dtype}, got "
-                             f"{t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{what}: operands must be contiguous and "
-                             f"16-byte aligned")
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: the kernel takes float32 or bfloat16, "
-                         f"got {dtype}")
-
-
-def flash_fwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
-              causal: bool, scale: float):
-    """Flash-attention forward on ``(b, h, s, d)`` tensors; returns
-    ``(out (b, h, s_q, d), lse (b, h, s_q) float32, nats)``.
-
-    The kernel replaces ``icikit/ops/flash_attention.py``'s
-    ``_fwd_kernel`` (B3, pallas_call at :421) and ``_fwd_single_kernel``
-    (B5, :349). Bound: one read of q, k, v and one write of out and lse
-    over the card's memory rate (bytes, at the decode prefill's shapes).
-    CPU tensors take :func:`flash_fwd_plain`."""
+def _check_flash_shapes(what, qt, kt, vt, causal):
     b, h, sq, d = qt.shape
     sk = kt.shape[2]
     if kt.shape != (b, h, sk, d) or vt.shape != kt.shape:
-        raise ValueError(f"flash_fwd: shapes {tuple(qt.shape)}, "
+        raise ValueError(f"{what}: shapes {tuple(qt.shape)}, "
                          f"{tuple(kt.shape)}, {tuple(vt.shape)} disagree")
     if causal and sq != sk:
-        raise ValueError("flash_fwd: causal needs s_q == s_kv")
-    if qt.device.type == "cpu":
-        return flash_fwd_plain(qt, kt, vt, causal, scale)
-    _check_cuda("flash_fwd", (qt, kt, vt), qt.dtype)
+        raise ValueError(f"{what}: causal needs s_q == s_kv")
+
+
+def _check_head_dim(what, d):
     if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not in the kernel's "
+        raise ValueError(f"{what}: head dim {d} not in the kernel's "
                          f"{FLASH_HEAD_DIMS}")
+
+
+def flash_fwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+              causal: bool, scale: float, shift: float | None = None):
+    """Flash-attention forward on ``(b, h, s, d)`` tensors; returns
+    ``(out (b, h, s_q, d), lse (b, h, s_q) float32, nats)``. ``shift``
+    (base 2) selects the constant-shift mode, whose overflowing tiles
+    the kernel redoes online itself.
+
+    The kernel replaces ``icikit/ops/flash_attention.py``'s
+    ``_fwd_kernel`` (B3, pallas_call at :421), ``_fwd_const_kernel``
+    (B4) and ``_fwd_single_kernel`` (B5, :349). Bound: one read of q, k,
+    v and one write of out and lse over the card's memory rate (bytes,
+    at the decode prefill's and the train step's shapes). CPU tensors
+    take :func:`flash_fwd_plain`."""
+    _check_flash_shapes("flash_fwd", qt, kt, vt, causal)
+    b, h, sq, d = qt.shape
+    sk = kt.shape[2]
+    if qt.device.type == "cpu":
+        return flash_fwd_plain(qt, kt, vt, causal, scale, shift)
+    _build.check_operands("flash_fwd", (qt, kt, vt), qt.dtype)
+    _check_head_dim("flash_fwd", d)
     out = torch.empty_like(qt)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=qt.device)
     lib = _build.load("attention")
     rc = lib.icikit_flash_fwd(
-        _DTYPE_CODE[qt.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d, int(causal),
-        float(scale) * LOG2E, _stream(qt))
+        _build.DTYPE_CODE[qt.dtype], qt.data_ptr(), kt.data_ptr(),
+        vt.data_ptr(), out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d, int(causal),
+        float(scale) * LOG2E, int(shift is not None),
+        0.0 if shift is None else float(shift), _build.stream(qt))
     _build.check(rc, "flash_fwd launch")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
+
+
+def flash_bwd(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
+    """Flash-attention backward on ``(b, h, s, d)`` tensors: ``do`` is
+    the output cotangent, ``lse`` the forward's, ``delta`` rowsum(dO o
+    O) - g_lse ``(b, h, s_q)`` float32. Returns ``(dq, dk, dv)``.
+
+    The kernel replaces ``icikit/ops/flash_attention.py``'s
+    ``_bwd_fused_kernel`` (B6, pallas_call at :701) and
+    ``_bwd_fused_tiled_kernel`` (B7, :653). dq is summed across CTAs
+    with float32 atomics, so its last bits vary from run to run. Bound:
+    five causal products over the card's bf16 rate (operations, at the
+    train step's shapes). CPU tensors take :func:`flash_bwd_plain`."""
+    _check_flash_shapes("flash_bwd", qt, kt, vt, causal)
+    b, h, sq, d = qt.shape
+    sk = kt.shape[2]
+    if do.shape != qt.shape or lse.shape != (b, h, sq) \
+            or delta.shape != lse.shape:
+        raise ValueError(f"flash_bwd: do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
+                         f"do not fit q {tuple(qt.shape)}")
+    if qt.device.type == "cpu":
+        return flash_bwd_plain(qt, kt, vt, do, lse, delta, causal, scale)
+    _build.check_operands("flash_bwd", (qt, kt, vt, do), qt.dtype)
+    _build.check_operands("flash_bwd statistics", (lse, delta), torch.float32)
+    _check_head_dim("flash_bwd", d)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qt.device)
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    lib = _build.load("attention")
+    rc = lib.icikit_flash_bwd(
+        _build.DTYPE_CODE[qt.dtype], qt.data_ptr(), kt.data_ptr(),
+        vt.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, d, int(causal),
+        float(scale) * LOG2E, float(scale), _build.stream(qt))
+    _build.check(rc, "flash_bwd launch")
+    LAUNCHES["flash_bwd"] += 1
+    return dq.to(qt.dtype), dk, dv
 
 
 def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
@@ -189,8 +271,8 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
     if q.device.type == "cpu":
         return decode_step_plain(q, k, v, kcache, vcache, cur, cos2, sin2,
                                  scale=scale, rope=rope)
-    _check_cuda("decode_step", (q, k, v, kcache, vcache), q.dtype)
-    _check_cuda("decode_step tables", (cos2, sin2), torch.float32)
+    _build.check_operands("decode_step", (q, k, v, kcache, vcache), q.dtype)
+    _build.check_operands("decode_step tables", (cos2, sin2), torch.float32)
     if dh not in DECODE_HEAD_DIMS or cos2.numel() != dh \
             or sin2.numel() != dh:
         raise ValueError(f"decode_step: head dim {dh} not in the kernel's "
@@ -198,10 +280,10 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
     out = torch.empty_like(q)
     lib = _build.load("attention")
     rc = lib.icikit_decode_step(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cos2.data_ptr(), sin2.data_ptr(), kcache.data_ptr(),
         vcache.data_ptr(), out.data_ptr(), rows, total, dh, int(cur),
-        int(rope), float(scale), _stream(q))
+        int(rope), float(scale), _build.stream(q))
     _build.check(rc, "decode_step launch")
     LAUNCHES["decode_step"] += 1
     return out

@@ -1,22 +1,28 @@
-"""Flash attention on Hopper: the forward and the fused decode step.
+"""Flash attention on Hopper: forward, backward and the fused decode step.
 
-The port of ``icikit/ops/flash_attention.py``'s inference surface. The
-forward streams K/V tiles past a resident Q tile with an online softmax
-(``ops.cuda_attention.flash_fwd``, the counterpart of the TPU's B3 and
-B5), so the (s, s) logits never reach device memory; the decode step
-(``decode_step_attention``, B13) applies RoPE, writes the cache column
-in place and attends one token in one launch per layer.
+The port of ``icikit/ops/flash_attention.py``. The forward streams K/V
+tiles past a resident Q tile with an online softmax or a constant shift
+(``ops.cuda_attention.flash_fwd``, the counterpart of the TPU's B3, B4
+and B5), so the (s, s) logits never reach device memory; the backward
+(``flash_bwd``, B6 and B7) recomputes P once per tile from the saved
+lse. ``_Flash`` is the counterpart of the ``_flash`` custom_vjp: its
+residuals are (q, k, v, out, lse), and the lse cotangent folds into
+delta. The decode step (``decode_step_attention``, B13) applies RoPE,
+writes the cache column in place and attends one token in one launch
+per layer.
 
 Layout ``(batch, seq, heads, head_dim)`` at the public functions, as in
-the JAX package. On a CUDA tensor the kernel covers every length (a
-ragged last tile is masked); the one fallback to the dense oracle is a
-matter of semantics, as in JAX: causal attention with s_q != s_kv
-(end-aligned masking, which the kernel does not model). On a CPU tensor
-the kernels' plain versions run.
+the JAX package. On a CUDA tensor the kernels cover every length (a
+ragged last tile is masked) at head dims 32, 64 and 128, and raise for
+any other; the one fallback to the dense oracle is a matter of
+semantics, as in JAX: causal attention with s_q != s_kv (end-aligned
+masking, which the kernels do not model). On a CPU tensor the kernels'
+plain versions run.
 
-Not ported yet, and refused loudly: ``softmax_shift`` (the constant-
-shift forward, B4, in the train slice) and gradients (the backward
-kernels B6-B8).
+``softmax_shift``: the exact fallback of the constant-shift forward
+sits inside the kernel (a tile with an overflowing row is redone
+online), so the backward always sees final, finite (out, lse) with no
+host sync, where JAX re-runs the whole call through a traced cond.
 """
 
 from __future__ import annotations
@@ -49,16 +55,31 @@ def _flash_supported(sq: int, sk: int, causal: bool, device) -> bool:
     return torch.device(device).type in ("cuda", "cpu")
 
 
-def _refuse_unported(q, k, v, softmax_shift) -> None:
-    if softmax_shift is not None:
-        raise NotImplementedError(
-            "softmax_shift (the constant-shift forward, TPU kernel B4) "
-            "is not ported yet: it comes with the train slice")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward in the port yet (TPU "
-            "kernels B6-B8, the train slice); call it under "
-            "torch.no_grad()")
+class _Flash(torch.autograd.Function):
+    """The ``_flash`` custom_vjp (``flash_attention.py:822-853``) on
+    ``(b, h, s, d)`` tensors: forward ``flash_fwd`` (online, or with
+    the constant shift and its in-kernel fallback), residuals (q, k, v,
+    out, lse), backward ``flash_bwd`` with delta = rowsum(dO o O) -
+    g_lse computed here, as ``_flash_bwd`` does (the ring schedule will
+    need the lse cotangent)."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt, causal, scale, shift):
+        out, lse = cuda_attention.flash_fwd(qt, kt, vt, causal, scale,
+                                            shift)
+        ctx.save_for_backward(qt, kt, vt, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        qt, kt, vt, out, lse = ctx.saved_tensors
+        g_out = g_out.contiguous()
+        delta = (g_out.float() * out.float()).sum(dim=-1) - g_lse.float()
+        dq, dk, dv = cuda_attention.flash_bwd(
+            qt, kt, vt, g_out, lse, delta.contiguous(), ctx.causal,
+            ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -66,15 +87,20 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              scale: float | None = None,
                              softmax_shift: float | None = None):
     """Flash attention returning the per-row log-sum-exp as well:
-    ``(out (b, s_q, h, d), lse (b, h, s_q) float32, nats)``."""
-    _refuse_unported(q, k, v, softmax_shift)
+    ``(out (b, s_q, h, d), lse (b, h, s_q) float32, nats)``,
+    differentiable in q, k and v (the lse cotangent included).
+
+    ``softmax_shift`` (base 2) opts into the constant-shift forward.
+    Use it only where a -inf lse cannot occur by design (full causal
+    or dense attention: every row sees a key)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not _flash_supported(q.shape[1], k.shape[1], causal, q.device):
         return _dense_with_lse(q, k, v, causal, scale)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    out, lse = cuda_attention.flash_fwd(qt, kt, vt, bool(causal),
-                                        float(scale))
+    out, lse = _Flash.apply(qt, kt, vt, bool(causal), float(scale),
+                            None if softmax_shift is None
+                            else float(softmax_shift))
     return out.transpose(1, 2), lse
 
 
@@ -83,10 +109,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax_shift: float | None = None) -> torch.Tensor:
     """Fused flash attention; drop-in for ``dense_attention``:
     ``(b, s_q, h, d)`` in q's dtype."""
-    _refuse_unported(q, k, v, softmax_shift)
     if not _flash_supported(q.shape[1], k.shape[1], causal, q.device):
         return dense_attention(q, k, v, causal=causal, scale=scale)
-    return flash_attention_with_lse(q, k, v, causal=causal, scale=scale)[0]
+    return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                    softmax_shift=softmax_shift)[0]
 
 
 def resolve_attention_impl(name: str):

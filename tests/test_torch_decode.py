@@ -77,7 +77,7 @@ def test_greedy_tokens_equal_jax_unfused(pos_encoding, step):
                           make_model_mesh(device="cpu"),
                           TransformerConfig(**cfg, decode_step=step),
                           n_new=6)
-    assert cuda_attention.LAUNCHES == {"flash_fwd": 0, "decode_step": 0}
+    assert set(cuda_attention.LAUNCHES.values()) == {0}  # CPU: plain
     assert got.dtype == torch.int32 and got.shape == (2, 14)
     np.testing.assert_array_equal(got.numpy(), want)
 
