@@ -57,7 +57,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    loss within 1% of that; the loss falling over 5 steps. Then step ms,
    tokens/s and mfu by median-of-windows, and a ``torch.profiler``
    trace of one step (idle share, device time by kernel).
-12. kernels line: every ported kernel with its launches on its main path,
+12. per-kernel numbers of the train path's kernels at its shapes.
+13. the train step's other kernels held against their plain versions on
+   the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
+   T 8192, D 1024, V 32768 (XENT_TOL); the Adam kernel on the base
+   preset's leaves with bf16 and float32 moments, ok absent, true and
+   false, bit for bit; ``flash_bwd_dq``/``flash_bwd_dkv`` at (1, 8, 2048,
+   128) and (1, 4, 8192, 128), causal and full, bf16 and float32, against
+   ``flash_bwd_plain`` and against ``flash_bwd`` (FLASH_TOL of the largest
+   entry, and BLOCK_L2_TOL relative L2 in every 64-row block).
+14. the train arms: ``make_train_step`` of the ``base`` preset, b 8, s
+   1024, bf16, with the recompute head (B10 recompute), the matmul head
+   backward after the saved and the recompute forward (B11), and the
+   one-pass Adam kernel (B12, float32 moments, as ``bench/train.py
+   --optimizer fused-pallas``). Each arm's launches a step asserted; at b
+   2 and float32 each arm held against the plain arms (dense attention,
+   unfused head, PyTorch Adam) and the default arm: loss within 1e-4,
+   every gradient leaf (the Adam arm: every parameter leaf after a step)
+   within a relative L2 error of 1e-3; then step ms, tokens/s and mfu by
+   phase 11's median-of-windows (one function runs every arm); the
+   standalone Adam bench (``bench/adam.py``, 211 M parameters); and the
+   kernels of this phase timed at the arms' shapes.
+15. the long-context path: ``bench.attention.sweep_attention`` at s =
+   32768 and 131072, b 1, h 4, d 128, bf16, causal, fwdbwd, impl
+   ``flash``: one ``flash_bwd`` launch at 32768 and one of each two-pass
+   kernel at 131072 asserted, each verified against the chunked plain
+   oracle; TFLOP/s; the backward's dq, dk and dv at both lengths (``flash_bwd``
+   at 32768, the two-pass kernels at 131072) held to the chunked plain
+   versions within BLOCK_L2_TOL relative L2 in every 64-row block; then
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` timed at (1, 4, 131072, 128)
+   beside their chunked plain versions and SDPA's backward, each bounded
+   by its share (3:4) of the function's five causal products.
+16. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
 
@@ -105,6 +136,29 @@ FLASH_TOL = {"bf16": {"out": 2e-2, "lse": 1e-3, "grad": 2e-2,
                      "grad_hot": 1e-3}}
 XENT_TOL = {"bf16": {"lse": 1e-3, "grad": 2e-2},
             "f32": {"lse": 1e-4, "grad": 1e-4}}
+# The two-pass backward's check shapes, and the long-context path's
+TWO_PASS_SHAPES = ((1, 8, 2048, 128), (1, 4, 8192, 128))
+LONG_SEQS = (32768, 131072)
+LONG_SHAPE = (1, 4, 128)                      # (b, h, d)
+# Long-sequence gradients against their plain versions: relative L2 in
+# each 64-row block (a kernel's tile), the largest over the blocks. dq
+# and dk shrink along the rows, so an error relative to the largest
+# entry would pass a kernel that got the later tiles wrong.
+BLOCK_ROWS = 64
+BLOCK_L2_TOL = {"bf16": 1e-2, "f32": 1e-4}
+# The train arms (phases 11 and 14): config overrides, FusedAdam's
+# use_pallas, and the kernels the arm launches once a step (the Adam
+# kernel once a floating leaf) beside flash_fwd, flash_bwd and xent_fwd
+ARMS = {"default": ({}, False, ("xent_dx_saved", "xent_dw_saved")),
+        "head-recompute": (dict(xent_save_exp=False), False,
+                           ("xent_dx", "xent_dw")),
+        "hb-matmul-saved": (dict(xent_fused_bwd=False), False,
+                            ("xent_g_saved",)),
+        "hb-matmul-recompute": (dict(xent_save_exp=False,
+                                     xent_fused_bwd=False), False,
+                                ("xent_g",)),
+        "adam-kernel": ({}, True, ("xent_dx_saved", "xent_dw_saved",
+                                   "adam"))}
 
 
 def emit(obj) -> None:
@@ -236,7 +290,7 @@ def decode_path(torch, dev, bw, smi) -> dict:
                                 return_logits=True)
     torch.cuda.synchronize()
     launches = dict(ca.LAUNCHES)
-    want = {"flash_fwd": cfg.n_layers, "flash_bwd": 0,
+    want = {**dict.fromkeys(ca.LAUNCHES, 0), "flash_fwd": cfg.n_layers,
             "decode_step": cfg.n_layers * (DEC_NEW - 1)}
     if launches != want:
         raise AssertionError(f"decode path launches {launches}, want "
@@ -415,6 +469,15 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
+def _block_rel_l2(a, b) -> float:
+    """The largest ||a - b|| / ||b|| over the BLOCK_ROWS-row blocks of
+    (b, h, s, d) tensors, in float64."""
+    a, b = (t.double().unflatten(2, (-1, BLOCK_ROWS)) for t in (a, b))
+    num = (a - b).square().sum((-2, -1)).sqrt()
+    den = b.square().sum((-2, -1)).sqrt().clamp_min(1e-300)
+    return float((num / den).max())
+
+
 def train_kernel_checks(torch, dev) -> None:
     """Phase 10: the train path's kernels against their plain versions
     on the card, at the path's shapes and the many-block (B4/B7) shape."""
@@ -514,95 +577,148 @@ def _train_config(dtype, **over):
                              softmax_shift=SHIFT, **over)
 
 
-def train_path(torch, dev, smi) -> dict:
-    """Phase 11: the train step of the base preset; returns the kernel
-    launches of its counted step."""
+def train_cell(torch, dev) -> dict:
+    """The train cell of phases 11 and 14: the base preset's masters (a
+    seeded generator), the b = 8 data (``numpy.random.default_rng(0)``)
+    and, at b = 2 and float32, the loss and gradients of the plain arms
+    (dense attention, unfused head) and of the default arm."""
     import numpy as np
 
     from icikit_torch.bench.train import detect_peak, step_flops
-    from icikit_torch.models.transformer import (FusedAdam, init_params,
+    from icikit_torch.models.transformer import (init_params,
                                                  loss_and_metrics,
-                                                 make_model_mesh,
+                                                 make_model_mesh)
+
+    mesh = make_model_mesh(device=dev)
+    cfg = _train_config("bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab,
+                                              (TRAIN_BATCH, cfg.max_seq))
+                                 .astype(np.int32)).to(dev)
+                for _ in range(2))
+    b2 = (tok[:TRAIN_CHECK_BATCH], tgt[:TRAIN_CHECK_BATCH])
+    plain_cfg = _train_config("float32", attention_impl="dense",
+                              fused_head=False)
+    loss_p, g_p, _ = loss_and_metrics(params, *b2, mesh, plain_cfg)
+    loss_d, g_d, _ = loss_and_metrics(params, *b2, mesh,
+                                      _train_config("float32"))
+    return {"mesh": mesh, "params": params, "tok": tok, "tgt": tgt,
+            "b2": b2, "seq": cfg.max_seq, "plain_cfg": plain_cfg,
+            "plain": (float(loss_p), g_p), "default": (float(loss_d), g_d),
+            "flops": step_flops(cfg, TRAIN_BATCH, cfg.max_seq),
+            "peak": detect_peak(dev)}
+
+
+def train_arm(torch, cell, arm, smi=None) -> dict:
+    """One arm of the train cell (``ARMS``): at b = 2 and float32 held
+    against the plain arms and the default arm (the Adam kernel's arm by
+    its parameters after one step); the b = 8 bf16 step with its launches
+    counted on the second step; step ms, tokens/s and mfu by
+    median-of-windows. With ``smi`` (phase 11's main path) also the bf16
+    first-step loss, the loss falling over 5 steps, a profiler trace and
+    phase 11's two lines. Returns the arm's record, ``ok`` in it."""
+    import numpy as np
+
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 loss_and_metrics,
                                                  make_train_step)
+    from icikit_torch.ops import cuda_adam
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_xent as cx
     from icikit_torch.utils.timing import timeit_windows
     from icikit_torch.utils.trace import device_activity
 
     t0 = time.perf_counter()
-    mesh = make_model_mesh(device=dev)
-    cfg = _train_config("bfloat16")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
-    rng = np.random.default_rng(0)
-    seq = cfg.max_seq
-    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab,
-                                              (TRAIN_BATCH, seq))
-                                 .astype(np.int32)).to(dev)
-                for _ in range(2))
+    over, pallas, kernels = ARMS[arm]
+    mesh, params, b2 = cell["mesh"], cell["params"], cell["b2"]
+    tok, tgt, seq = cell["tok"], cell["tgt"], cell["seq"]
+    (loss_p, g_p), (loss_d, g_d) = cell["plain"], cell["default"]
+    flops, peak = cell["flops"], cell["peak"]
 
-    # correctness at b = 2, full width and depth: the kernel arms against
-    # the plain arms (dense attention, unfused head) at float32
-    b2 = (tok[:TRAIN_CHECK_BATCH], tgt[:TRAIN_CHECK_BATCH])
-    loss_k, g_k, _ = loss_and_metrics(params, *b2, mesh,
-                                      _train_config("float32"))
-    loss_p, g_p, _ = loss_and_metrics(
-        params, *b2, mesh, _train_config("float32", attention_impl="dense",
-                                         fused_head=False))
-    leaf_err = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
-    del g_k, g_p
-    loss_b, _, _ = loss_and_metrics(params, *b2, mesh, cfg)
-    fp32 = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-            "loss_diff": abs(float(loss_k) - float(loss_p)),
-            "loss_tolerance": TRAIN_LOSS_TOL,
-            "grad_rel_l2_max": max(leaf_err.values()),
-            "grad_rel_l2": leaf_err, "grad_tolerance": TRAIN_GRAD_TOL}
-    bf16_first = {"loss": float(loss_b),
-                  "rel_diff_to_fp32_plain":
-                      abs(float(loss_b) - float(loss_p)) / float(loss_p),
-                  "tolerance": TRAIN_BF16_TOL}
+    # float32, b = 2: against the plain arms and the default arm
+    if pallas:
+        def one_step(cfg, adam):
+            p = {k: x.clone() for k, x in params.items()}
+            opt, step = make_train_step(mesh, cfg, adam)
+            p, _, loss = step(p, opt.init(p), *b2)
+            return p, float(loss)
 
-    # the main path: b = 8 bf16 steps, the second one counted
-    opt, step = make_train_step(
-        mesh, cfg, FusedAdam(TRAIN_LR, mu_dtype=torch.bfloat16,
-                             nu_dtype=torch.bfloat16))
-    st = opt.init(params)
-    losses = []
-    params, st, loss = step(params, st, tok, tgt)  # first-call set-up
-    losses.append(float(loss))
-    ca.reset_launches()
-    cx.reset_launches()
-    params, st, loss = step(params, st, tok, tgt)
+        got, loss_k = one_step(_train_config("float32"),
+                               FusedAdam(TRAIN_LR, use_pallas=True))
+        ref_p = one_step(cell["plain_cfg"], FusedAdam(TRAIN_LR))[0]
+        ref_d = one_step(_train_config("float32"), FusedAdam(TRAIN_LR))[0]
+        what = "parameter leaves after one step"
+    else:
+        got, ref_p, ref_d, what = g_d, g_p, g_d, "gradient leaves"
+        loss_k = loss_d
+        if over:
+            loss_k, got, _ = loss_and_metrics(
+                params, *b2, mesh, _train_config("float32", **over))
+            loss_k = float(loss_k)
+    leaf_p = {k: _rel_l2(got[k], ref_p[k]) for k in ref_p}
+    err_d = max(_rel_l2(got[k], ref_d[k]) for k in ref_d)
+    fp32 = {"loss": loss_k, "loss_plain": loss_p, "loss_default_arm": loss_d,
+            "loss_diff_plain": abs(loss_k - loss_p),
+            "loss_diff_default": abs(loss_k - loss_d),
+            "rel_l2_max_plain": max(leaf_p.values()),
+            "rel_l2_max_default": err_d, "compared": what}
+    del got, ref_p, ref_d
+    ok = (fp32["loss_diff_plain"] <= TRAIN_LOSS_TOL
+          and fp32["loss_diff_default"] <= TRAIN_LOSS_TOL
+          and fp32["rel_l2_max_plain"] <= TRAIN_GRAD_TOL
+          and err_d <= TRAIN_GRAD_TOL)
+
+    # b = 8, bf16, the second step counted
+    cfg = _train_config("bfloat16", **over)
+    adam = (FusedAdam(TRAIN_LR, use_pallas=True) if pallas else
+            FusedAdam(TRAIN_LR, mu_dtype=torch.bfloat16,
+                      nu_dtype=torch.bfloat16))
+    p = {k: x.clone() for k, x in params.items()}
+    opt, step = make_train_step(mesh, cfg, adam)
+    st = opt.init(p)
+    p, st, loss = step(p, st, tok, tgt)           # first-call set-up
+    losses = [float(loss)]
+    mods = (ca, cx, cuda_adam)
+    for mod in mods:
+        mod.reset_launches()
+    p, st, loss = step(p, st, tok, tgt)
     torch.cuda.synchronize()
-    launches = {**ca.LAUNCHES, **cx.LAUNCHES}
+    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
     losses.append(float(loss))
-    want = {"flash_fwd": cfg.n_layers, "flash_bwd": cfg.n_layers,
-            "decode_step": 0, "xent_fwd": 1, "xent_dx_saved": 1,
-            "xent_dw_saved": 1}
-    if launches != want:
-        raise AssertionError(f"train path launches {launches}, want {want}")
-    for _ in range(3):
-        params, st, loss = step(params, st, tok, tgt)
-        losses.append(float(loss))
-    emit({"phase": "train_check", "preset": TRAIN_PRESET,
-          "batch": TRAIN_BATCH, "seq": seq, "check_batch": TRAIN_CHECK_BATCH,
-          "launches_per_step": launches, "fp32": fp32,
-          "bf16_first_step": bf16_first, "bf16_losses_5_steps": losses,
-          "seconds": round(time.perf_counter() - t0, 1)})
-    ok = (fp32["loss_diff"] <= TRAIN_LOSS_TOL
-          and fp32["grad_rel_l2_max"] <= TRAIN_GRAD_TOL
-          and bf16_first["rel_diff_to_fp32_plain"] <= TRAIN_BF16_TOL
-          and all(np.isfinite(losses)) and losses[-1] < losses[0])
-    if not ok:
-        raise AssertionError(f"train path disagrees with its plain arms or "
-                             f"does not learn: fp32 {fp32}, bf16 "
-                             f"{bf16_first}, losses {losses}")
+    n_float = sum(torch.is_floating_point(x) for x in params.values())
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": cfg.n_layers,
+            "flash_bwd": cfg.n_layers, "xent_fwd": 1,
+            **{k: n_float if k == "adam" else 1 for k in kernels}}
+    ok = ok and launches == want
+    if smi is not None:
+        for _ in range(3):
+            p, st, loss = step(p, st, tok, tgt)
+            losses.append(float(loss))
+        loss_b = float(loss_and_metrics(params, *b2, mesh, cfg)[0])
+        bf16_first = {"loss": loss_b,
+                      "rel_diff_to_fp32_plain": abs(loss_b - loss_p) / loss_p,
+                      "tolerance": TRAIN_BF16_TOL}
+        ok = (ok and bf16_first["rel_diff_to_fp32_plain"] <= TRAIN_BF16_TOL
+              and losses[-1] < losses[0])
+        emit({"phase": "train_check", "preset": TRAIN_PRESET,
+              "batch": TRAIN_BATCH, "seq": seq,
+              "check_batch": TRAIN_CHECK_BATCH, "launches_per_step": launches,
+              "fp32": {"loss_kernels": loss_k, "loss_plain": loss_p,
+                       "loss_diff": fp32["loss_diff_plain"],
+                       "loss_tolerance": TRAIN_LOSS_TOL,
+                       "grad_rel_l2_max": fp32["rel_l2_max_plain"],
+                       "grad_rel_l2": leaf_p,
+                       "grad_tolerance": TRAIN_GRAD_TOL},
+              "bf16_first_step": bf16_first, "bf16_losses_5_steps": losses,
+              "seconds": round(time.perf_counter() - t0, 1)})
+    ok = ok and bool(np.isfinite(losses).all())
 
     # timing: chained steps carried in place, median of windows of at
-    # least 1.5 s (a step is ~0.1 s, and host noise spreads short windows)
+    # least 1.5 s (a step is ~0.1 s, and host noise spreads short
+    # windows); at most 5 windows, so the five arms fit the time limit
     n_steps = 5
-    flops = step_flops(cfg, TRAIN_BATCH, seq)
-    peak = detect_peak(dev)
 
     def multi(p, s):
         out = (p, s, None)
@@ -610,24 +726,30 @@ def train_path(torch, dev, smi) -> dict:
             out = step(out[0], out[1], tok, tgt)
         return out
 
-    res = timeit_windows(multi, (params, st), lambda a, o: (o[0], o[1]),
+    res = timeit_windows(multi, (p, st), lambda a, o: (o[0], o[1]),
                          windows=3, runs=1, warmup=1, target_window_s=1.5,
+                         max_windows=5,
                          floor_s=n_steps * flops / peak if peak else None)
     step_s = res.median_s / n_steps
-    activity = device_activity(lambda: step(params, st, tok, tgt))
-    emit({"phase": "train_timing", "card": smi,
-          "step_ms": step_s * 1e3,
-          "step_ms_spread": [res.min_s / n_steps * 1e3,
-                             res.max_s / n_steps * 1e3],
-          "windows": res.windows, "suspect": res.suspect,
-          "tokens_per_s": TRAIN_BATCH * seq / step_s,
-          "model_tflops_per_s": flops / step_s / 1e12,
-          "mfu": flops / step_s / peak if peak else None,
-          "step_flops": flops, "peak_flops": peak,
-          "bound_ms": flops / BF16_TENSOR_OPS * 1e3,
-          "profile": activity,
-          "seconds": round(time.perf_counter() - t0, 1)})
-    return launches
+    rec = {"fp32_b2": fp32, "launches_per_step": launches, "want": want,
+           "bf16_losses": losses, "step_ms": step_s * 1e3,
+           "step_ms_spread": [res.min_s / n_steps * 1e3,
+                              res.max_s / n_steps * 1e3],
+           "windows": res.windows, "suspect": res.suspect,
+           "tokens_per_s": TRAIN_BATCH * seq / step_s,
+           "mfu": flops / step_s / peak if peak else None, "ok": ok}
+    if smi is not None:
+        emit({"phase": "train_timing", "card": smi,
+              **{k: rec[k] for k in ("step_ms", "step_ms_spread", "windows",
+                                     "suspect", "tokens_per_s")},
+              "model_tflops_per_s": flops / step_s / 1e12, "mfu": rec["mfu"],
+              "step_flops": flops, "peak_flops": peak,
+              "bound_ms": flops / BF16_TENSOR_OPS * 1e3,
+              "profile": device_activity(lambda: step(p, st, tok, tgt)),
+              "seconds": round(time.perf_counter() - t0, 1)})
+    del p, st, opt, step
+    torch.cuda.empty_cache()
+    return rec
 
 
 def train_rows(torch, dev, bw, launches) -> list:
@@ -765,6 +887,389 @@ def train_rows(torch, dev, bw, launches) -> list:
     return rows
 
 
+def _base_tree_grads(torch, params, gen, cdt):
+    """Random gradients shaped as the train step gives them: the matmul
+    weights' in the compute dtype, the rest float32."""
+    from icikit_torch.models.transformer.model import NARROW_OK
+    return {k: torch.randn(p.shape, generator=gen, device=p.device)
+            .to(cdt if k in NARROW_OK else torch.float32)
+            for k, p in params.items()}
+
+
+def train_arm_kernel_checks(torch, dev) -> None:
+    """Phase 13: the recompute and matmul head kernels, the Adam kernel
+    and the two-pass backward against their plain versions on the card."""
+    from icikit_torch.bench.train import PRESETS
+    from icikit_torch.models.transformer import (TransformerConfig,
+                                                 init_params)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.ops.adam import adam_apply
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    checks = []
+    t, d, v = XENT_SHAPE
+    for dtype, tol in ((torch.bfloat16, XENT_TOL["bf16"]),
+                       (torch.float32, XENT_TOL["f32"])):
+        x = randn((t, d), dtype)
+        w = randn((v, d), dtype, d ** -0.5)
+        tg = torch.randint(0, v, (t,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        dn = randn((t,), torch.float32, 1.0 / t)
+        lse, _, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+        errs = {"xent_g": _rel(cx.xent_g(x, w, tg, lse, dn),
+                               cx.xent_g_plain(x, w, tg, lse, dn)),
+                "xent_g_saved": _rel(
+                    cx.xent_g_saved(e, mrun, tg, lse, dn),
+                    cx.xent_g_saved_plain(e, mrun, tg, lse, dn,
+                                          cx.TILE[dtype])),
+                "xent_dx": _rel(cx.xent_dx(x, w, tg, lse, dn),
+                                cx.xent_dx_plain(x, w, tg, lse, dn)),
+                "xent_dw": _rel(cx.xent_dw(x, w, tg, lse, dn),
+                                cx.xent_dw_plain(x, w, tg, lse, dn))}
+        checks.append({"kernel": "xent_g, xent_g_saved, xent_dx, xent_dw",
+                       "dtype": str(dtype), "shape": [t, d, v],
+                       "rel_err": errs,
+                       "ok": max(errs.values()) <= tol["grad"]})
+        del x, w, e, mrun
+        torch.cuda.empty_cache()
+
+    cfg = TransformerConfig(**PRESETS[TRAIN_PRESET])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    grads = _base_tree_grads(torch, params, gen, torch.bfloat16)
+    for mom in (torch.bfloat16, torch.float32):
+        m0 = {k: randn(p.shape, mom, 0.01) for k, p in params.items()}
+        v0 = {k: randn(p.shape, torch.float32, 0.01).square().to(mom)
+              for k, p in params.items()}
+        for ok in (None, True, False):
+            flag = None if ok is None else torch.tensor(ok, device=dev)
+            runs = []
+            for pallas in (True, False):
+                p1 = {k: x.clone() for k, x in params.items()}
+                m1 = {k: x.clone() for k, x in m0.items()}
+                v1 = {k: x.clone() for k, x in v0.items()}
+                adam_apply(p1, m1, v1, grads, TRAIN_LR, 3,
+                           use_pallas=pallas, ok=flag)
+                runs.append((p1, m1, v1))
+            same = all(torch.equal(a[k], b[k]) for a, b in
+                       zip(runs[0], runs[1]) for k in params)
+            checks.append({"kernel": "adam", "moments": str(mom),
+                           "ok_flag": ok, "leaves": len(params),
+                           "bitwise": same, "ok": same})
+            del runs
+    del params, grads, m0, v0
+    torch.cuda.empty_cache()
+
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        tol, l2_tol = FLASH_TOL[key]["grad"], BLOCK_L2_TOL[key]
+        for b, h, s_, d_ in TWO_PASS_SHAPES:
+            q, k, v_, do = (randn((b, h, s_, d_), dtype) for _ in range(4))
+            scale = d_ ** -0.5
+            for causal in (True, False):
+                out, lse = ca.flash_fwd(q, k, v_, causal, scale)
+                delta = (do.float() * out.float()).sum(-1)
+                args = (q, k, v_, do, lse, delta, causal, scale)
+                got = (ca.flash_bwd_dq(*args), *ca.flash_bwd_dkv(*args))
+                e, l2 = {}, {}
+                for ref, want in (("plain", ca.flash_bwd_plain(*args)),
+                                  ("flash_bwd", ca.flash_bwd(*args))):
+                    e[ref] = max(_rel(a, c) for a, c in zip(got, want))
+                    l2[ref] = max(_block_rel_l2(a, c)
+                                  for a, c in zip(got, want))
+                again = torch.equal(got[0], ca.flash_bwd_dq(*args))
+                checks.append({
+                    "kernel": "flash_bwd_dq + flash_bwd_dkv",
+                    "dtype": str(dtype), "shape": [b, h, s_, d_],
+                    "causal": causal, "rel_err": e, "block_rel_l2": l2,
+                    "dq_repeatable": again,
+                    "ok": max(e.values()) <= tol
+                    and max(l2.values()) <= l2_tol and again})
+            del q, k, v_, do, out, lse, delta, got
+    torch.cuda.synchronize()
+    emit({"phase": "train_arm_kernels",
+          "tolerance": {"xent": XENT_TOL, "flash": FLASH_TOL,
+                        "flash_block_rel_l2": BLOCK_L2_TOL,
+                        "block_rows": BLOCK_ROWS,
+                        "adam": "bit for bit",
+                        "why": "xent: the logits summed in other orders, "
+                               "g rounded to bf16 for the tensor cores "
+                               "against the plain version's float32; the "
+                               "two-pass backward as flash_bwd's, and in "
+                               "each 64-row block by relative L2; Adam: "
+                               "the same float32 operations, each "
+                               "rounded once, in the same order; "
+                               "rel_err relative to the largest entry"},
+          "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"train-arm kernel disagrees with its plain "
+                             f"version: {bad}")
+
+
+def train_arms(torch, dev, bw, smi, cell) -> list:
+    """Phase 14: the base train step through each of the other arms;
+    returns the rows of the kernels these arms launch."""
+    from icikit_torch.bench.adam import run_bench as adam_bench
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.ops.adam import adam_apply
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    results = {arm: train_arm(torch, cell, arm) for arm in ARMS
+               if arm != "default"}
+    emit({"phase": "train_arms", "card": smi, "preset": TRAIN_PRESET,
+          "batch": TRAIN_BATCH, "seq": cell["seq"],
+          "check_batch": TRAIN_CHECK_BATCH,
+          "tolerance": {"loss": TRAIN_LOSS_TOL, "rel_l2": TRAIN_GRAD_TOL},
+          "arms": results, "seconds": round(time.perf_counter() - t0, 1)})
+    if not all(r["ok"] for r in results.values()):
+        raise AssertionError(f"a train arm failed: {results}")
+
+    # the standalone Adam bench: 211 M parameters, float32 moments
+    recs = adam_bench(211.0, runs=2, device=dev, windows=3)
+    emit({"phase": "adam_bench", "card": smi, "records": recs})
+
+    # the kernels of this phase at the arms' shapes
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / bw, ops / BF16_TENSOR_OPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    t, d, v = XENT_SHAPE
+    x = torch.randn((t, d), generator=gen, device=dev).to(bf)
+    w = (torch.randn((v, d), generator=gen, device=dev) * d ** -0.5).to(bf)
+    tg = torch.randint(0, v, (t,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dn = torch.full((t,), 1.0 / t, device=dev)
+    lse, _, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+    chunk = cx.TILE[bf]
+    nc = -(-v // chunk)
+    ops = 2 * t * v * d
+    rows_io = 3 * t * 4
+    kernel_rows = []
+    specs = (
+        ("xent_dx", "xent_dx (B10 recompute)", "icikit/ops/xent.py:374 "
+         "(B10, _dx_kernel, e_ref=None)", "head-recompute",
+         lambda: cx.xent_dx(x, w, tg, lse, dn),
+         lambda: cx.xent_dx_plain(x, w, tg, lse, dn),
+         bound((t * d + v * d + t * d) * 2 + rows_io, 2 * ops)),
+        ("xent_dw", "xent_dw (B10 recompute)", "icikit/ops/xent.py:411 "
+         "(B10, _dw_kernel, e_ref=None)", "head-recompute",
+         lambda: cx.xent_dw(x, w, tg, lse, dn),
+         lambda: cx.xent_dw_plain(x, w, tg, lse, dn),
+         bound((t * d + v * d + v * d) * 2 + rows_io, 2 * ops)),
+        ("xent_g", "xent_g (B11 recompute)", "icikit/ops/xent.py:312 "
+         "(B11, _bwd_kernel)", "hb-matmul-recompute",
+         lambda: cx.xent_g(x, w, tg, lse, dn),
+         lambda: cx.xent_g_plain(x, w, tg, lse, dn),
+         bound((t * d + v * d + t * v) * 2 + rows_io, ops)),
+        ("xent_g_saved", "xent_g_saved (B11 saved)", "icikit/ops/xent.py:335 "
+         "(B11, _g_saved_kernel)", "hb-matmul-saved",
+         lambda: cx.xent_g_saved(e, mrun, tg, lse, dn),
+         lambda: cx.xent_g_saved_plain(e, mrun, tg, lse, dn, chunk),
+         bound(2 * t * v * 2 + nc * t * 4 + rows_io, 0)))
+    for key, name, replaces, arm, kern, plain, (b_ms, b_by) in specs:
+        k_ms = cuda_time_ms(kern, iters=5, warmup=1)
+        p_ms = cuda_time_ms(plain, iters=2, warmup=1)
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": "icikit_torch/csrc/xent.cu", "replaces": replaces,
+            "launches": results[arm]["launches_per_step"][key],
+            "max_abs_err": _rel(kern(), plain()), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    mm_ms = cuda_time_ms(lambda: torch.matmul(x, w.t()), iters=5)
+    del x, w, e, mrun
+    torch.cuda.empty_cache()
+
+    # Adam over the base tree as the fused-pallas arm runs it
+    tree = {k: x.clone() for k, x in cell["params"].items()}
+    grads = _base_tree_grads(torch, tree, gen, bf)
+    mom = [{k: torch.zeros_like(x) for k, x in tree.items()}
+           for _ in range(2)]
+    step_t = torch.tensor(1, device=dev)
+    a_ms = cuda_time_ms(lambda: adam_apply(tree, *mom, grads, TRAIN_LR,
+                                           step_t, use_pallas=True),
+                        iters=10, warmup=2)
+    a_plain = cuda_time_ms(lambda: adam_apply(tree, *mom, grads, TRAIN_LR,
+                                              step_t), iters=5, warmup=1)
+    g32 = [grads[k].float() for k in tree]
+    steps = [torch.ones((), device=dev) for _ in tree]
+    a_lib = cuda_time_ms(lambda: torch._fused_adam_(
+        list(tree.values()), g32, list(mom[0].values()),
+        list(mom[1].values()), [], steps, amsgrad=False, lr=TRAIN_LR,
+        beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+        maximize=False), iters=10, warmup=2)
+    a_bytes = sum(x.numel() * (24 + grads[k].element_size())
+                  for k, x in tree.items())
+    p1 = {k: x.clone() for k, x in tree.items()}
+    m1 = [{k: x.clone() for k, x in mm.items()} for mm in mom]
+    adam_apply(p1, *m1, grads, TRAIN_LR, step_t, use_pallas=True)
+    adam_apply(tree, *mom, grads, TRAIN_LR, step_t)
+    a_err = max(float((p1[k] - tree[k]).abs().max()) for k in tree)
+    kernel_rows.append({
+        "name": "adam (B12), base tree, float32 moments", "route": "cuda",
+        "source": "icikit_torch/csrc/adam.cu",
+        "replaces": "icikit/ops/adam.py:71 (B12, _adam_kernel)",
+        "launches": results["adam-kernel"]["launches_per_step"]["adam"],
+        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+        "bound_ms": a_bytes / bw * 1e3, "bound_by": "bytes",
+        "library_ms": a_lib})
+    torch.cuda.synchronize()
+    emit({"phase": "train_arm_timing_kernels",
+          "xent": f"T={t} D={d} V={v} bf16", "matmul_x_wT_ms": mm_ms,
+          "xent_library": "none: no one PyTorch call forms g or dx/dw "
+                          "from recomputed logits; torch.matmul of x w^T "
+                          "alone (cuBLAS) beside it",
+          "adam": f"the base tree, {len(tree)} leaves, float32 moments, "
+                  "the step's gradient dtypes (matmul weights bf16), "
+                  f"{a_bytes} bytes; ms for the whole tree, one launch "
+                  "a leaf",
+          "adam_library": "torch._fused_adam_ over the same tree with "
+                          "float32 gradients (28 B an element), a "
+                          "yardstick: torch's Adam without weight decay "
+                          "is optax's with eps_root = 0",
+          "max_abs_err": "xent rows relative to the largest entry; adam "
+                         "absolute, parameters after one step"})
+    del tree, grads, mom, p1, m1, g32
+    torch.cuda.empty_cache()
+    return kernel_rows
+
+
+def long_context(torch, dev, bw, smi) -> list:
+    """Phase 15: the long-context attention bench through flash (B7 at
+    32768, the two-pass B8 at 131072); returns the B8 rows."""
+    import torch.nn.functional as F
+
+    from icikit_torch.bench.attention import ORACLE_CHUNK, sweep_attention
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    b, h, d = LONG_SHAPE
+    # one fwdbwd call's launches (each record's verification call), and
+    # the kernels the whole sweep point launched, timing runs included
+    want = {LONG_SEQS[0]: {"flash_fwd": 1, "flash_bwd": 1},
+            LONG_SEQS[1]: {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}}
+    recs, totals = [], {}
+    for seq in LONG_SEQS:
+        ca.reset_launches()
+        recs += sweep_attention((seq,), impls=["flash"], batch=b, heads=h,
+                                d_head=d, dtype="bfloat16", causal=True,
+                                mode="fwdbwd", runs=1, warmup=1, device=dev,
+                                windows=2)
+        torch.cuda.synchronize()
+        totals[seq] = {k: n for k, n in ca.LAUNCHES.items() if n}
+    emit({"phase": "long_context", "card": smi,
+          "command": "sweep_attention((32768, 131072), impls=['flash'], "
+                     "batch=1, heads=4, d_head=128, mode='fwdbwd')",
+          "records": [json.loads(r.to_json()) for r in recs],
+          "sweep_launches": totals,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    bad = [r for r in recs if not r.verified or r.launches != want[r.seq]]
+    bad += [(seq, got) for seq, got in totals.items()
+            if set(got) != set(want[seq])]
+    if bad:
+        raise AssertionError(f"long-context path failed: {bad}")
+
+    # the backward's gradients at each length against the chunked plain
+    # versions, block by block (flash_bwd at 32768, the two-pass kernels
+    # at 131072), and the two-pass kernels timed at 131072
+    gen = torch.Generator(device=dev).manual_seed(8)
+    scale = d ** -0.5
+    checks = []
+    for s in LONG_SEQS:
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = ca.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * out.float()).sum(-1)
+        del out
+        args = (q, k, v, do, lse, delta, True, scale)
+        two = s == LONG_SEQS[1]
+        got = ((ca.flash_bwd_dq(*args), *ca.flash_bwd_dkv(*args)) if two
+               else ca.flash_bwd(*args))
+        want_ = ca.flash_bwd_plain(*args, chunk=ORACLE_CHUNK)
+        names = ("dq", "dk", "dv")
+        rel = {n: _rel(a, c) for n, a, c in zip(names, got, want_)}
+        l2 = {n: _block_rel_l2(a, c) for n, a, c in zip(names, got, want_)}
+        checks.append({"seq": s, "kernels": ("flash_bwd_dq + flash_bwd_dkv"
+                                             if two else "flash_bwd"),
+                       "block_rel_l2": l2, "rel_err": rel,
+                       "ok": max(l2.values()) <= BLOCK_L2_TOL["bf16"]})
+        del got, want_
+        if not two:
+            del q, k, v, do, lse, delta
+            torch.cuda.empty_cache()
+    pairs = b * h * s * (s + 1) // 2
+    prod = 2 * d * pairs                      # one causal product
+    io = 4 * b * h * s * d * 2 + 2 * b * h * s * 4
+    rows = []
+    # the function's five causal products, shared 3:4 as the kernels run
+    # three (dq) and four (dk, dv) of the seven
+    for name, kern, plain, n_prod, out_bytes, errs in (
+            ("flash_bwd_dq", ca.flash_bwd_dq, ca.flash_bwd_dq_plain, 3,
+             b * h * s * d * 2, ("dq",)),
+            ("flash_bwd_dkv", ca.flash_bwd_dkv, ca.flash_bwd_dkv_plain, 4,
+             2 * b * h * s * d * 2, ("dk", "dv"))):
+        k_ms = cuda_time_ms(lambda: kern(*args), iters=3, warmup=1)
+        p_ms = cuda_time_ms(lambda: plain(*args, chunk=ORACLE_CHUNK),
+                            iters=1, warmup=0)
+        t_b = (io + out_bytes) / bw
+        t_o = 5 * n_prod / 7 * prod / BF16_TENSOR_OPS
+        rows.append({"name": f"{name} (B8)", "route": "cuda",
+                     "source": "icikit_torch/csrc/attention.cu",
+                     "replaces": ("icikit/ops/flash_attention.py:745 (B8, "
+                                  "_bwd_dq_kernel)" if name.endswith("dq")
+                                  else "icikit/ops/flash_attention.py:771 "
+                                       "(B8, _bwd_dkv_kernel)"),
+                     "launches": recs[1].launches[name],
+                     "max_abs_err": max(checks[1]["rel_err"][n]
+                                        for n in errs),
+                     "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"})
+    lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                  for t_ in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                        scale=scale)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True), iters=3, warmup=1)
+    for r in rows:
+        r["library_ms"] = lib_ms
+    torch.cuda.synchronize()
+    emit({"phase": "long_context_kernels", "card": smi,
+          "shape": f"b={b} h={h} s={s} d={d} bf16 causal",
+          "checks": checks,
+          "tolerance": {"block_rel_l2": BLOCK_L2_TOL["bf16"],
+                        "block_rows": BLOCK_ROWS},
+          "library": "SDPA's backward (dq, dk and dv together) through "
+                     "autograd on the same tensors, beside each of the two "
+                     "kernels",
+          "bound": "the function's five causal products "
+                   f"({5 * prod / BF16_TENSOR_OPS * 1e3:.2f} ms) shared "
+                   "3:4 between the kernels, which run seven",
+          "ms_sum": rows[0]["ms"] + rows[1]["ms"],
+          "plain": f"the chunked plain versions, {ORACLE_CHUNK} Q rows a "
+                   "step",
+          "max_abs_err": "relative to the largest entry"})
+    del q, k, v, do, lse, delta, lq, lk, lv, lo
+    torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"long-context gradients disagree with the "
+                             f"chunked plain versions: {bad}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -800,10 +1305,15 @@ def main() -> int:
             ("attention", "icikit_attention_regs",
              ("flash_fwd_bf16<128>", "flash_fwd_f32<128>",
               "decode_step_kernel<bf16, 4>", "flash_bwd_bf16<128>",
-              "flash_bwd_f32<128>")),
+              "flash_bwd_f32<128>", "flash_bwd_dq_bf16<128>",
+              "flash_bwd_dq_f32<128>", "flash_bwd_dkv_bf16<128>")),
             ("xent", "icikit_xent_regs",
              ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
-              "xent_fwd_f32"))):
+              "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
+              "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>")),
+            ("adam", "icikit_adam_regs",
+             ("adam_kernel<f32 moments, bf16 g>",
+              "adam_kernel<bf16 moments, bf16 g>"))):
         for which, name in enumerate(names):
             r, loc = ctypes.c_int(), ctypes.c_int()
             _build.check(getattr(libs[lib], fn)(
@@ -1014,10 +1524,25 @@ def main() -> int:
     train_kernel_checks(torch, dev)
 
     # -- 11. the train path: base, b = 8, s = 1024 ---------------------
-    train_launches = train_path(torch, dev, smi)
+    cell = train_cell(torch, dev)
+    main_arm = train_arm(torch, cell, "default", smi)
+    if not main_arm["ok"]:
+        raise AssertionError(f"train path disagrees with its plain arms or "
+                             f"does not learn: {main_arm}")
+    train_launches = main_arm["launches_per_step"]
 
     # -- 12. per-kernel numbers at the train path's shapes -------------
     rows += train_rows(torch, dev, bw, train_launches)
+
+    # -- 13. the train step's other kernels against their plain versions
+    train_arm_kernel_checks(torch, dev)
+
+    # -- 14. the train arms: base, b = 8, s = 1024 -----------------------
+    rows += train_arms(torch, dev, bw, smi, cell)
+    del cell
+
+    # -- 15. the long-context path: s = 32768 and 131072 ----------------
+    rows += long_context(torch, dev, bw, smi)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

@@ -17,9 +17,11 @@ plus ``device`` and ``power_limit``.
     python -m icikit_torch.bench.train --device cpu --preset tiny \\
         --batch 2 --steps 2 --warmup 1 --windows 1
 
-Flags the port has not reached (more than one device, MoE, the Pallas
-save stack, optax, the Pallas Adam, the recompute or matmul heads, the
-remat policies other than nothing and except_attn) raise.
+``--head recompute``, ``--head-bwd matmul`` and ``--optimizer
+fused-pallas`` run the head's other flavours (B10 recompute, B11) and the
+one-pass Adam kernel (B12). Flags the port has not reached (more than
+one device, MoE, the Pallas save stack, optax, the remat policies other
+than nothing and except_attn) raise.
 """
 
 from __future__ import annotations
@@ -124,9 +126,8 @@ def _optimizer(name: str):
             "--optimizer optax: optax transformations are not ported "
             "(ROADMAP A8); use a fused-* optimizer")
     if name == "fused-pallas":
-        raise NotImplementedError(
-            "--optimizer fused-pallas: the one-pass TPU Adam kernel "
-            "(B12) is not ported yet (ROADMAP B12)")
+        # the one-pass kernel (B12) with float32 moments, as JAX's bench
+        return FusedAdam(1e-4, use_pallas=True)
     mom = {}
     if name == "fused-bf16nu":
         mom = dict(nu_dtype=torch.bfloat16)

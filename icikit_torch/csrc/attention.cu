@@ -1,6 +1,6 @@
 // Attention kernels for Hopper (sm_90a), bound with ctypes.
 //
-// Three kernels, one for each group of TPU kernels of
+// Five kernels, one for each group of TPU kernels of
 // icikit/ops/flash_attention.py that the port's paths run:
 //
 //   flash_fwd   <- _fwd_kernel (B3, _fwd_call, pallas_call :421),
@@ -61,6 +61,25 @@
 //      Bound (b=8, h=8, s=1024, d=128, bf16, causal): 117.9 MB, 35.2
 //      us, against five causal products, 42.9 GFLOP, 43.4 us at 989
 //      TFLOP/s: operations.
+//
+//   flash_bwd_dq  <- _bwd_dq_kernel (B8, _bwd_call, pallas_call :745)
+//   flash_bwd_dkv <- _bwd_dkv_kernel (B8, _bwd_call, pallas_call :771).
+//      The deterministic two-pass backward the TPU runs past its 48 MB
+//      whole-sequence dq scratch (sq*d*4 > _DQ_SCRATCH_BYTES_MAX, :626):
+//      no atomics, every output written once. flash_bwd_dq: one CTA per
+//      (batch*head, 64-row Q tile), Q and dO fragments and dq in
+//      registers, walking the K tiles up to the causal bound; S = Q K^T
+//      and dP = dO V^T per tile, dS = P o (dP - delta) * scale rounded to
+//      bf16 and dq += dS K against K^T staged in shared memory.
+//      flash_bwd_dkv is flash_bwd's kernel with its dq part compiled out
+//      (the DQ template flag): one CTA per 64-key tile, dk and dv in
+//      registers, Q tiles from the diagonal. Both recompute P from lse
+//      in base 2 (_p_tile). The pair forms S and dP twice (seven products
+//      where flash_bwd runs five): that is the price of determinism and
+//      of no (b*h, s, d) float32 dq buffer.
+//      Bound (b=1, h=4, s=131072, d=128, bf16, causal): the function's
+//      five causal products, 44.0 TFLOP, 44.5 ms at 989 TFLOP/s
+//      (dq alone three of them, dk/dv four): operations.
 //
 //   decode_step <- _decode_step_kernel (B13, decode_step_attention,
 //                  pallas_call :1120).
@@ -412,7 +431,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // their transposes, dS ([q][key]) and the rows' lse*log2e and delta for
 // each Q tile.
 
-template <int D>
+template <int D, bool DQ>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -545,6 +564,7 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(dka[n], sa, ld32(bq), ld32(bq + 8));
       }
     }
+    if constexpr (DQ) {
     // dS into shared memory as [q][key], rounded to bf16
 #pragma unroll
     for (int j = 0; j < BQB / 8; ++j)
@@ -588,6 +608,7 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
+    }  // DQ
   }
   const int64_t key0 = n0 + kr0, key1 = key0 + 8;
 #pragma unroll
@@ -614,7 +635,7 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // each P/dS tile and head dims c, c+4, ... of dk and dv; for dq, thread
 // (tid/8, tid%8) owns one Q row of the tile and head dims tid%8 + 8i.
 
-template <int D>
+template <int D, bool DQ>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -689,7 +710,7 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         dka[e] += ds * qs[ql * RS + e * 4 + c];
       }
     }
-    {
+    if constexpr (DQ) {
       const int qq = threadIdx.x >> 3, cq = threadIdx.x & 7;
       const int64_t row = m0 + qq;
 #pragma unroll
@@ -707,6 +728,211 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       dk[(bh * sk + key) * D + e * 4 + c] = dka[e];
       dv[(bh * sk + key) * D + e * 4 + c] = dva[e];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq, bf16 on the tensor cores. CTA (batch*head, 64-row Q tile);
+// warp w owns Q rows w*16 .. w*16+15, as in flash_fwd: its Q and dO
+// fragments stay in registers, and lane (g, c) holds rows g and g+8 of
+// every S, dP and dq fragment. Per 64-key tile, in two halves of 32 keys:
+// S = Q K^T and dP = dO V^T (K and V row-major in shared memory), dS
+// rounded to bf16 is the A fragment of dq += dS K (K^T in shared memory).
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int64_t sq, int64_t sk, int causal, float scale_log2,
+                  float scale) {
+  constexpr int RS = D + 8;    // K, V tiles (row-major)
+  constexpr int KTS = BN + 8;  // K^T tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + BN * RS;
+  bf16* kt = vs + BN * RS;
+  const int64_t bh = blockIdx.y;
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const bf16* qb = q + bh * sq * D;
+  const bf16* ob = dout + bh * sq * D;
+  const bf16* kb = k + bh * sk * D;
+  const bf16* vb = v + bh * sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int64_t r0 = m0 + warp * 16 + g, r1 = r0 + 8;
+
+  uint32_t qa[D / 16][4], oa[D / 16][4];
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    const int col = c * 16 + c2;
+    qa[c][0] = r0 < sq ? ld32(qb + r0 * D + col) : 0u;
+    qa[c][1] = r1 < sq ? ld32(qb + r1 * D + col) : 0u;
+    qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
+    qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
+    oa[c][0] = r0 < sq ? ld32(ob + r0 * D + col) : 0u;
+    oa[c][1] = r1 < sq ? ld32(ob + r1 * D + col) : 0u;
+    oa[c][2] = r0 < sq ? ld32(ob + r0 * D + col + 8) : 0u;
+    oa[c][3] = r1 < sq ? ld32(ob + r1 * D + col + 8) : 0u;
+  }
+  const float l2_0 = r0 < sq ? lse[bh * sq + r0] * LOG2E : 0.f;
+  const float l2_1 = r1 < sq ? lse[bh * sq + r1] * LOG2E : 0.f;
+  const float de0 = r0 < sq ? delta[bh * sq + r0] : 0.f;
+  const float de1 = r1 < sq ? delta[bh * sq + r1] : 0.f;
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
+  for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < BN * D / 8; i += MMA_THREADS) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (n0 + r < sk) {
+        kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * D + c8);
+        vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * D + c8);
+      }
+      *reinterpret_cast<uint4*>(ks + r * RS + c8) = kv;
+      *reinterpret_cast<uint4*>(vs + r * RS + c8) = vv;
+      const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) kt[(c8 + e) * KTS + r] = ke[e];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int half = 0; half < BN / 32; ++half) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const int kr = half * 32 + j * 8 + g;
+          const bf16* kp = ks + kr * RS + c * 16 + c2;
+          const bf16* vp = vs + kr * RS + c * 16 + c2;
+          mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
+          mma_bf16(dp[j], oa[c], ld32(vp), ld32(vp + 8));
+        }
+      }
+      // P, then dS in place of S
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t key = n0 + half * 32 + j * 8 + c2 + (e & 1);
+          const int64_t row = e < 2 ? r0 : r1;
+          float p = exp2f(s[j][e] * scale_log2 - (e < 2 ? l2_0 : l2_1));
+          if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
+          s[j][e] = p * (dp[j][e] - (e < 2 ? de0 : de1)) * scale;
+        }
+      }
+      // dq += dS K (dS rounded to bf16)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const uint32_t a[4] = {pack_bf16(s[2 * cc][0], s[2 * cc][1]),
+                               pack_bf16(s[2 * cc][2], s[2 * cc][3]),
+                               pack_bf16(s[2 * cc + 1][0], s[2 * cc + 1][1]),
+                               pack_bf16(s[2 * cc + 1][2], s[2 * cc + 1][3])};
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const bf16* bp = kt + (n * 8 + g) * KTS + half * 32 + cc * 16 + c2;
+          mma_bf16(dqa[n], a, ld32(bp), ld32(bp + 8));
+        }
+      }
+    }
+  }
+  bf16* dqb = dq + bh * sq * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + c2;
+    if (r0 < sq)
+      *reinterpret_cast<uint32_t*>(dqb + r0 * D + col) =
+          pack_bf16(dqa[n][0], dqa[n][1]);
+    if (r1 < sq)
+      *reinterpret_cast<uint32_t*>(dqb + r1 * D + col) =
+          pack_bf16(dqa[n][2], dqa[n][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_dq, float32 with plain FMA. Thread (r = tid/4, c = tid%4) owns
+// Q row r of the tile: keys c, c+4, ... of each S/dP tile and head dims
+// c, c+4, ... of dq, as in flash_fwd_f32; dS goes through shared memory.
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int64_t sq, int64_t sk, int causal, float scale_log2,
+                 float scale) {
+  constexpr int QS = D + 1, PS = BN + 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + BM * QS;
+  float* ks = dos + BM * QS;
+  float* vs = ks + BN * QS;
+  float* ps = vs + BN * QS;
+  const int64_t bh = blockIdx.y;
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  const float* qb = q + bh * sq * D;
+  const float* ob = dout + bh * sq * D;
+  const float* kb = k + bh * sk * D;
+  const float* vb = v + bh * sk * D;
+  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
+  const int64_t row = m0 + r;
+
+  for (int i = threadIdx.x; i < BM * D; i += F32_THREADS) {
+    const int rr = i / D, d = i % D;
+    const bool ok = m0 + rr < sq;
+    qs[rr * QS + d] = ok ? qb[(m0 + rr) * D + d] : 0.f;
+    dos[rr * QS + d] = ok ? ob[(m0 + rr) * D + d] : 0.f;
+  }
+  const float l2 = row < sq ? lse[bh * sq + row] * LOG2E : 0.f;
+  const float de = row < sq ? delta[bh * sq + row] : 0.f;
+  float dqa[D / 4];
+#pragma unroll
+  for (int e = 0; e < D / 4; ++e) dqa[e] = 0.f;
+  const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
+  for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < BN * D; i += F32_THREADS) {
+      const int rr = i / D, d = i % D;
+      const bool ok = n0 + rr < sk;
+      ks[rr * QS + d] = ok ? kb[(n0 + rr) * D + d] : 0.f;
+      vs[rr * QS + d] = ok ? vb[(n0 + rr) * D + d] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < BN / 4; ++i) {
+      const int j = c + 4 * i;
+      float sv = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        sv += qs[r * QS + d] * ks[j * QS + d];
+        dp += dos[r * QS + d] * vs[j * QS + d];
+      }
+      const int64_t key = n0 + j;
+      float p = exp2f(sv * scale_log2 - l2);
+      if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
+      ps[r * PS + j] = p * (dp - de) * scale;
+    }
+    __syncwarp();  // a row's four threads are lanes of one warp
+    for (int j = 0; j < BN; ++j) {
+      const float ds = ps[r * PS + j];
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) dqa[e] += ds * ks[j * QS + e * 4 + c];
+    }
+  }
+  if (row < sq) {
+    float* dqb = dq + (bh * sq + row) * D;
+#pragma unroll
+    for (int e = 0; e < D / 4; ++e) dqb[e * 4 + c] = dqa[e];
   }
 }
 
@@ -890,7 +1116,9 @@ int launch_flash(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+// DQ: flash_bwd (dq summed into the zeroed float32 buffer by atomics);
+// !DQ: flash_bwd_dkv (dk and dv only, dq may be null).
+template <int D, bool DQ>
 int launch_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      float* dq, void* dk, void* dv, int64_t bh, int64_t sq,
@@ -902,9 +1130,9 @@ int launch_flash_bwd(int dtype, const void* q, const void* k, const void* v,
         sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8) + 2 * BQB * (D + 8) +
                         2 * D * (BQB + 8) + BQB * (BN + 8)) +
         sizeof(float) * 2 * BQB;
-    int err = set_smem(flash_bwd_bf16<D>, smem);
+    int err = set_smem(flash_bwd_bf16<D, DQ>, smem);
     if (err) return err;
-    flash_bwd_bf16<D><<<grid, MMA_THREADS, smem, st>>>(
+    flash_bwd_bf16<D, DQ><<<grid, MMA_THREADS, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, dq, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
@@ -912,13 +1140,43 @@ int launch_flash_bwd(int dtype, const void* q, const void* k, const void* v,
   } else if (dtype == 0) {
     const size_t smem = sizeof(float) * (2 * BN * (D + 1) + 2 * BQB * (D + 1) +
                                          2 * BN * (BQB + 1) + 2 * BQB);
-    int err = set_smem(flash_bwd_f32<D>, smem);
+    int err = set_smem(flash_bwd_f32<D, DQ>, smem);
     if (err) return err;
-    flash_bwd_f32<D><<<grid, F32_THREADS, smem, st>>>(
+    flash_bwd_f32<D, DQ><<<grid, F32_THREADS, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, dq, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk,
         causal, scale_log2, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse,
+                        const float* delta, void* dq, int64_t bh, int64_t sq,
+                        int64_t sk, int causal, float scale_log2, float scale,
+                        cudaStream_t st) {
+  const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
+  if (dtype == 1) {
+    const size_t smem = sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8));
+    int err = set_smem(flash_bwd_dq_bf16<D>, smem);
+    if (err) return err;
+    flash_bwd_dq_bf16<D><<<grid, MMA_THREADS, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+        delta, static_cast<bf16*>(dq), sq, sk, causal, scale_log2, scale);
+  } else if (dtype == 0) {
+    const size_t smem =
+        sizeof(float) * (2 * BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
+    int err = set_smem(flash_bwd_dq_f32<D>, smem);
+    if (err) return err;
+    flash_bwd_dq_f32<D><<<grid, F32_THREADS, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), sq, sk, causal, scale_log2, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -975,14 +1233,58 @@ int icikit_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    return launch_flash_bwd<128>(dtype, q, k, v, dout, lse, delta, dq, dk, dv,
-                                 bh, sq, sk, causal, scale_log2, scale, st);
+    return launch_flash_bwd<128, true>(dtype, q, k, v, dout, lse, delta, dq,
+                                       dk, dv, bh, sq, sk, causal, scale_log2,
+                                       scale, st);
   if (d == 64)
-    return launch_flash_bwd<64>(dtype, q, k, v, dout, lse, delta, dq, dk, dv,
-                                bh, sq, sk, causal, scale_log2, scale, st);
+    return launch_flash_bwd<64, true>(dtype, q, k, v, dout, lse, delta, dq,
+                                      dk, dv, bh, sq, sk, causal, scale_log2,
+                                      scale, st);
   if (d == 32)
-    return launch_flash_bwd<32>(dtype, q, k, v, dout, lse, delta, dq, dk, dv,
-                                bh, sq, sk, causal, scale_log2, scale, st);
+    return launch_flash_bwd<32, true>(dtype, q, k, v, dout, lse, delta, dq,
+                                      dk, dv, bh, sq, sk, causal, scale_log2,
+                                      scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The two-pass backward. dq (bh, sq, d) in dtype, written once.
+int icikit_flash_bwd_dq(int dtype, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse,
+                        const float* delta, void* dq, int64_t bh, int64_t sq,
+                        int64_t sk, int d, int causal, float scale_log2,
+                        float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return launch_flash_bwd_dq<128>(dtype, q, k, v, dout, lse, delta, dq, bh,
+                                    sq, sk, causal, scale_log2, scale, st);
+  if (d == 64)
+    return launch_flash_bwd_dq<64>(dtype, q, k, v, dout, lse, delta, dq, bh,
+                                   sq, sk, causal, scale_log2, scale, st);
+  if (d == 32)
+    return launch_flash_bwd_dq<32>(dtype, q, k, v, dout, lse, delta, dq, bh,
+                                   sq, sk, causal, scale_log2, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dk, dv (bh, sk, d) in dtype, written once.
+int icikit_flash_bwd_dkv(int dtype, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, int64_t bh,
+                         int64_t sq, int64_t sk, int d, int causal,
+                         float scale_log2, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return launch_flash_bwd<128, false>(dtype, q, k, v, dout, lse, delta,
+                                        nullptr, dk, dv, bh, sq, sk, causal,
+                                        scale_log2, scale, st);
+  if (d == 64)
+    return launch_flash_bwd<64, false>(dtype, q, k, v, dout, lse, delta,
+                                       nullptr, dk, dv, bh, sq, sk, causal,
+                                       scale_log2, scale, st);
+  if (d == 32)
+    return launch_flash_bwd<32, false>(dtype, q, k, v, dout, lse, delta,
+                                       nullptr, dk, dv, bh, sq, sk, causal,
+                                       scale_log2, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1011,7 +1313,8 @@ int icikit_decode_step(int dtype, const void* q, const void* k, const void* v,
 
 // Kernel attributes for the build log: registers and spills per thread.
 // which: 0 flash_fwd bf16 d128, 1 flash_fwd f32 d128, 2 decode_step bf16
-// dh128, 3 flash_bwd bf16 d128, 4 flash_bwd f32 d128.
+// dh128, 3 flash_bwd bf16 d128, 4 flash_bwd f32 d128, 5 flash_bwd_dq bf16
+// d128, 6 flash_bwd_dq f32 d128, 7 flash_bwd_dkv bf16 d128.
 int icikit_attention_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -1022,9 +1325,15 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
   else if (which == 2)
     err = cudaFuncGetAttributes(&attr, decode_step_kernel<bf16, 4>);
   else if (which == 3)
-    err = cudaFuncGetAttributes(&attr, flash_bwd_bf16<128>);
+    err = cudaFuncGetAttributes(&attr, flash_bwd_bf16<128, true>);
+  else if (which == 4)
+    err = cudaFuncGetAttributes(&attr, flash_bwd_f32<128, true>);
+  else if (which == 5)
+    err = cudaFuncGetAttributes(&attr, flash_bwd_dq_bf16<128>);
+  else if (which == 6)
+    err = cudaFuncGetAttributes(&attr, flash_bwd_dq_f32<128>);
   else
-    err = cudaFuncGetAttributes(&attr, flash_bwd_f32<128>);
+    err = cudaFuncGetAttributes(&attr, flash_bwd_bf16<128, false>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

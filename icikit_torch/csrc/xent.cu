@@ -1,8 +1,8 @@
 // Fused softmax cross-entropy head kernels for Hopper (sm_90a), bound
 // with ctypes.
 //
-// The counterparts of icikit/ops/xent.py's TPU kernels on the train
-// step's default head (xent_save_exp=True, xent_fused_bwd=True):
+// The counterparts of icikit/ops/xent.py's TPU kernels, in the four
+// flavours of the head (save_exp x fused_bwd):
 //
 //   xent_fwd      <- _fwd_kernel / _fwd_kernel_save (B9, _fwd_call,
 //                    pallas_call :283).
@@ -39,6 +39,25 @@
 //      together and L2 absorbs the re-read of e (512 MiB at the base
 //      preset) instead of device memory. Bound: 549.8 GFLOP each, 556 us:
 //      operations.
+//
+//   xent_dx, xent_dw <- _dx_kernel / _dw_kernel with e_ref=None (B10,
+//                    recompute flavour, pallas_calls :374, :411 via
+//                    _dx_call/_dw_call).
+//      dx and dw with g rebuilt from a recomputed logits tile
+//      (_g_chunk_recompute) instead of from e: one more 2*T*V*D product
+//      (bound 1.11 ms each at the base shapes, operations). A CTA holds a
+//      128 x 128 output tile; the rebuild is repeated by each of the D/128
+//      CTAs that share a token (dx) or vocab (dw) tile (see
+//      xent_recompute_bf16).
+//
+//   xent_g        <- _bwd_kernel (B11, _g_call, pallas_call :312).
+//   xent_g_saved  <- _g_saved_kernel (B11, _g_saved_call, :335).
+//      The matmul backward (fused_bwd=False): g = (softmax - onehot) * dnll
+//      written as a (T, V) tensor in the compute dtype, from a logits tile
+//      formed in the kernel (0.556 ms at the base shapes, operations) or
+//      from the saved exponentials (an elementwise pass, 2 x 537 MB, 0.32
+//      ms, bytes); dx = g w and dw = g^T x are then plain matmuls outside
+//      any kernel, as JAX leaves them to XLA (xent.py:469-475).
 //
 // bf16: 8 warps a CTA, each a 32 x 64 piece of the 128 x 128 tile, on the
 // tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), the
@@ -174,6 +193,57 @@ __device__ __forceinline__ void b_frags_kn(uint32_t (&b)[8][2],
   }
 }
 
+// The logits tile: acc (a 128 x 128 tile, this warp's 32 x 64 piece) =
+// A B^T over the contraction D, where row r of A is at a + r * D and row c
+// of B at b + c * D; rows >= nrows of A and >= ncols of B read as zeros.
+// Two-stage cp.async ring in as/bs. The leading barrier lets a caller run
+// it in a loop: no warp still reads the ring from the previous call.
+__device__ __forceinline__ void logits_tile(float (&acc)[2][8][4],
+                                            bf16 (*as)[XT * AS],
+                                            bf16 (*bs)[XN * AS],
+                                            const bf16* a, const bf16* b,
+                                            int64_t nrows, int64_t ncols,
+                                            int64_t D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int wm = warp & 3, wn = warp >> 2;
+  zero_acc(acc);
+  const int nk = (int)((D + XK - 1) / XK);
+  __syncthreads();
+  stage_rows_k(as[0], a, D, nrows, D, 0);
+  stage_rows_k(bs[0], b, D, ncols, D, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();  // stage s landed; every warp is done with stage s^1
+    if (kt + 1 < nk) {
+      stage_rows_k(as[s ^ 1], a, D, nrows, D, (int64_t)(kt + 1) * XK);
+      stage_rows_k(bs[s ^ 1], b, D, ncols, D, (int64_t)(kt + 1) * XK);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < XK / 16; ++kk) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* p = as[s] + (wm * 32 + mi * 16 + g) * AS + kk * 16 + c2;
+        af[mi][0] = ld32(p);
+        af[mi][1] = ld32(p + 8 * AS);
+        af[mi][2] = ld32(p + 8);
+        af[mi][3] = ld32(p + 8 * AS + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const bf16* p = bs[s] + (wn * 64 + ni * 8 + g) * AS + kk * 16 + c2;
+        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
+        mma_bf16(acc[0][ni], af[0], b0, b1);
+        mma_bf16(acc[1][ni], af[1], b0, b1);
+      }
+    }
+  }
+}
+
 // Store a 128 x 128 bf16 accumulator tile at out + row * ld + col.
 __device__ __forceinline__ void store_tile(bf16* out, int64_t ld,
                                            int64_t nrows, int64_t ncols,
@@ -247,42 +317,7 @@ xent_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int wm = warp & 3, wn = warp >> 2;
 
   float acc[2][8][4];
-  zero_acc(acc);
-  const bf16* xb = x + t0 * D;
-  const bf16* wb = w + v0 * D;
-  const int nk = (int)((D + XK - 1) / XK);
-  stage_rows_k(as[0], xb, D, rows, D, 0);
-  stage_rows_k(bs[0], wb, D, cols, D, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    cp_async_wait_all();
-    __syncthreads();  // stage s landed; every warp is done with stage s^1
-    if (kt + 1 < nk) {
-      stage_rows_k(as[s ^ 1], xb, D, rows, D, (int64_t)(kt + 1) * XK);
-      stage_rows_k(bs[s ^ 1], wb, D, cols, D, (int64_t)(kt + 1) * XK);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int kk = 0; kk < XK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* p = as[s] + (wm * 32 + mi * 16 + g) * AS + kk * 16 + c2;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * AS);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * AS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const bf16* p = bs[s] + (wn * 64 + ni * 8 + g) * AS + kk * 16 + c2;
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-        mma_bf16(acc[0][ni], a[0], b0, b1);
-        mma_bf16(acc[1][ni], a[1], b0, b1);
-      }
-    }
-  }
+  logits_tile(acc, as, bs, x + t0 * D, w + v0 * D, rows, cols, D);
 
   // Per row of the tile: the target logit (natural units) and the max
   // (base 2) over this warp's 64 columns, then over both column halves.
@@ -351,17 +386,15 @@ xent_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  T, gridDim.y, blockIdx.x);
 }
 
-// Rebuild g = (e * exp2(m_i - lse*log2e) - onehot(t)) * dnll(t) for 8
-// consecutive vocabulary columns v, v+1, ... of token t, in place.
-__device__ __forceinline__ void rebuild_g8(bf16* p, int64_t t, int64_t v,
-                                           const float* mrun,
-                                           const int* tgt, const float* lse,
-                                           const float* dnll, int64_t T,
-                                           int64_t V, int64_t chunk) {
+// g = (e * exp2(m_i - lse*log2e) - onehot(t)) * dnll(t) for the 8
+// consecutive vocabulary columns v, v+1, ... of token t held in `raw`.
+__device__ __forceinline__ uint4 g8(uint4 raw, int64_t t, int64_t v,
+                                    const float* mrun, const int* tgt,
+                                    const float* lse, const float* dnll,
+                                    int64_t T, int64_t V, int64_t chunk) {
   const float sc = exp2f(mrun[(v / chunk) * T + t] - lse[t] * LOG2E);
   const int64_t target = tgt[t];
   const float dn = dnll[t];
-  uint4 raw = *reinterpret_cast<uint4*>(p);
   bf16* el = reinterpret_cast<bf16*>(&raw);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -370,7 +403,17 @@ __device__ __forceinline__ void rebuild_g8(bf16* p, int64_t t, int64_t v,
                                : 0.f;
     el[j] = __float2bfloat16_rn(gv);
   }
-  *reinterpret_cast<uint4*>(p) = raw;
+  return raw;
+}
+
+// The same, in place in shared memory.
+__device__ __forceinline__ void rebuild_g8(bf16* p, int64_t t, int64_t v,
+                                           const float* mrun,
+                                           const int* tgt, const float* lse,
+                                           const float* dnll, int64_t T,
+                                           int64_t V, int64_t chunk) {
+  *reinterpret_cast<uint4*>(p) = g8(*reinterpret_cast<uint4*>(p), t, v,
+                                    mrun, tgt, lse, dnll, T, V, chunk);
 }
 
 // ---------------------------------------------------------------------------
@@ -504,6 +547,200 @@ xent_dw_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
 }
 
 // ---------------------------------------------------------------------------
+// The recompute flavour and the matmul backward's g (bf16).
+//
+// g_at_tile: g = (exp2(s*log2e - lse*log2e) - onehot) * dnll for this
+// thread's entries of a logits tile `acc` (_g_chunk_recompute), with the
+// token of an entry on its row (TOK_ROWS) or on its column; tl2, ttg and
+// tdn hold the tile's 128 tokens' lse*log2e, target and dnll. Entries
+// outside [0, T) x [0, V) are 0.
+
+template <bool TOK_ROWS>
+__device__ __forceinline__ float g_of(float sv, int row, int col,
+                                      int64_t t0, int64_t v0, int64_t T,
+                                      int64_t V, const float* tl2,
+                                      const int* ttg, const float* tdn) {
+  const int tr = TOK_ROWS ? row : col;
+  const int64_t t = t0 + tr, v = v0 + (TOK_ROWS ? col : row);
+  if (t >= T || v >= V) return 0.f;
+  const float p = exp2f(sv * LOG2E - tl2[tr]);
+  return (p - (v == (int64_t)ttg[tr] ? 1.f : 0.f)) * tdn[tr];
+}
+
+// The 128 tokens t0 .. t0+127 of a tile into shared memory.
+__device__ __forceinline__ void load_tokens(float* tl2, int* ttg, float* tdn,
+                                            const int* tgt, const float* lse,
+                                            const float* dnll, int64_t t0,
+                                            int64_t T) {
+  for (int r = threadIdx.x; r < XT; r += X_THREADS) {
+    const bool ok = t0 + r < T;
+    tl2[r] = ok ? lse[t0 + r] * LOG2E : 0.f;
+    ttg[r] = ok ? tgt[t0 + r] : -1;
+    tdn[r] = ok ? dnll[t0 + r] : 0.f;
+  }
+}
+
+// xent_g: g (T, V) = (softmax(x w^T) - onehot) * dnll in bf16, the logits
+// tile formed in the kernel's own body (_bwd_kernel). Grid (token tiles,
+// vocab tiles), as xent_fwd.
+__global__ void __launch_bounds__(X_THREADS)
+xent_g_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+            const int* __restrict__ tgt, const float* __restrict__ lse,
+            const float* __restrict__ dnll, bf16* __restrict__ gout,
+            int64_t T, int64_t V, int64_t D) {
+  __shared__ __align__(16) bf16 as[2][XT * AS];
+  __shared__ __align__(16) bf16 bs[2][XN * AS];
+  __shared__ float tl2[XT], tdn[XT];
+  __shared__ int ttg[XT];
+  const int64_t t0 = (int64_t)blockIdx.x * XT, v0 = (int64_t)blockIdx.y * XN;
+  const int64_t rows = T - t0 < XT ? T - t0 : XT;
+  const int64_t cols = V - v0 < XN ? V - v0 : XN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int wm = warp & 3, wn = warp >> 2;
+  load_tokens(tl2, ttg, tdn, tgt, lse, dnll, t0, T);
+  float acc[2][8][4];
+  logits_tile(acc, as, bs, x + t0 * D, w + v0 * D, rows, cols, D);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 32 + mi * 16 + g + h * 8;
+        const int col = wn * 64 + ni * 8 + c2;
+        if (row < rows && col < cols) {
+          const float g0 = g_of<true>(acc[mi][ni][2 * h], row, col, t0, v0,
+                                      T, V, tl2, ttg, tdn);
+          const float g1 = g_of<true>(acc[mi][ni][2 * h + 1], row, col + 1,
+                                      t0, v0, T, V, tl2, ttg, tdn);
+          *reinterpret_cast<uint32_t*>(gout + (t0 + row) * V + v0 + col) =
+              pack_bf16(g0, g1);
+        }
+      }
+}
+
+// xent_g_saved: g (T, V) from the saved exponentials (_g_saved_kernel), 8
+// columns a thread: an elementwise pass, bound by its bytes.
+__global__ void __launch_bounds__(X_THREADS)
+xent_g_saved_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
+                  const int* __restrict__ tgt, const float* __restrict__ lse,
+                  const float* __restrict__ dnll, bf16* __restrict__ gout,
+                  int64_t T, int64_t V, int64_t chunk) {
+  const int64_t per_row = V / 8;
+  const int64_t n = T * per_row;
+  for (int64_t i = (int64_t)blockIdx.x * X_THREADS + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * X_THREADS) {
+    const int64_t t = i / per_row, v = (i % per_row) * 8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(e + t * V + v);
+    *reinterpret_cast<uint4*>(gout + t * V + v) =
+        g8(raw, t, v, mrun, tgt, lse, dnll, T, V, chunk);
+  }
+}
+
+// The recompute flavour of the fused backward (_dx_kernel / _dw_kernel
+// with e_ref=None). CTA (D tile, token tile) for dx, (D tile, vocab tile)
+// for dw, a 128 x 128 output tile in registers. For each 128-wide piece
+// of the other dimension: the logits tile (x w^T for dx, w x^T for dw)
+// through logits_tile; g from it, rounded to bf16, into shared memory;
+// then the product's operand (w rows for dx, x rows for dw) staged into
+// the logits ring, which is free by then, and the output tile += g op.
+// The operand tile that feeds the product is the one the logits tile
+// read along D (the TPU's "one fetch, two dots" at D-tile granularity).
+// Every D tile of a row of CTAs recomputes the same logits: D/128 times
+// the 2 T V D of the rebuild (8 at the base preset's D = 1024), the
+// price of holding only a 128 x 128 accumulator a CTA.
+
+constexpr int GS = XN + 8;  // stride of the g tile
+constexpr size_t RECOMPUTE_SMEM =
+    sizeof(bf16) * (4 * XT * AS + XT * GS) + sizeof(float) * 2 * XT +
+    sizeof(int) * XT;
+
+template <bool DX>
+__global__ void __launch_bounds__(X_THREADS)
+xent_recompute_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const int* __restrict__ tgt,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dnll, bf16* __restrict__ out,
+                    int64_t T, int64_t V, int64_t D) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16 (*as)[XT * AS] = reinterpret_cast<bf16 (*)[XT * AS]>(smem_raw);
+  bf16 (*bs)[XN * AS] = reinterpret_cast<bf16 (*)[XN * AS]>(
+      smem_raw + sizeof(bf16) * 2 * XT * AS);
+  bf16* ostage = reinterpret_cast<bf16*>(smem_raw);  // [128][BS] over as/bs
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw + sizeof(bf16) * 4 * XT * AS);
+  float* tl2 = reinterpret_cast<float*>(gs + XT * GS);
+  float* tdn = tl2 + XT;
+  int* ttg = reinterpret_cast<int*>(tdn + XT);
+  const int64_t d0 = (int64_t)blockIdx.x * XN;
+  const int64_t r0 = (int64_t)blockIdx.y * XT;  // token (dx) or vocab (dw)
+  const int64_t nrow_all = DX ? T : V, nk_all = DX ? V : T;
+  const int64_t rows = nrow_all - r0 < XT ? nrow_all - r0 : XT;
+  const int64_t dcols = D - d0 < XN ? D - d0 : XN;
+  const bf16* rsrc = (DX ? x : w) + r0 * D;   // the tile's own rows
+  const bf16* ksrc = DX ? w : x;              // rows along the contraction
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int wm = warp & 3, wn = warp >> 2;
+
+  if (DX) load_tokens(tl2, ttg, tdn, tgt, lse, dnll, r0, T);
+  float oacc[2][8][4];
+  zero_acc(oacc);
+  for (int64_t k0 = 0; k0 < nk_all; k0 += XN) {
+    const int64_t kn = nk_all - k0 < XN ? nk_all - k0 : XN;
+    if (!DX) {
+      __syncthreads();  // the previous piece's tokens are consumed
+      load_tokens(tl2, ttg, tdn, tgt, lse, dnll, k0, T);
+    }
+    float sacc[2][8][4];
+    logits_tile(sacc, as, bs, rsrc, ksrc + k0 * D, rows, kn, D);
+    __syncthreads();  // every warp is done with the ring
+#pragma unroll
+    for (int q4 = 0; q4 < XN / XK; ++q4)
+      stage_k_cols(ostage + q4 * XK * BS, ksrc + d0, D, k0 + q4 * XK,
+                   nk_all, dcols);
+    cp_async_commit();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + mi * 16 + g + h * 8;
+          const int col = wn * 64 + ni * 8 + c2;
+          const int64_t t0 = DX ? r0 : k0, v0 = DX ? k0 : r0;
+          const float g0 = g_of<DX>(sacc[mi][ni][2 * h], row, col, t0, v0,
+                                    T, V, tl2, ttg, tdn);
+          const float g1 = g_of<DX>(sacc[mi][ni][2 * h + 1], row, col + 1,
+                                    t0, v0, T, V, tl2, ttg, tdn);
+          *reinterpret_cast<uint32_t*>(gs + row * GS + col) =
+              pack_bf16(g0, g1);
+        }
+    cp_async_wait_all();
+    __syncthreads();  // g and the operand tile are in place
+#pragma unroll
+    for (int kk = 0; kk < XN / 16; ++kk) {
+      uint32_t a[2][4], b[8][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* p = gs + (wm * 32 + mi * 16 + g) * GS + kk * 16 + c2;
+        a[mi][0] = ld32(p);
+        a[mi][1] = ld32(p + 8 * GS);
+        a[mi][2] = ld32(p + 8);
+        a[mi][3] = ld32(p + 8 * GS + 8);
+      }
+      b_frags_kn(b, ostage, kk, wn);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        mma_bf16(oacc[0][ni], a[0], b[ni][0], b[ni][1]);
+        mma_bf16(oacc[1][ni], a[1], b[ni][0], b[ni][1]);
+      }
+    }
+  }
+  store_tile(out + r0 * D + d0, D, rows, dcols, oacc);
+}
+
+// ---------------------------------------------------------------------------
 // float32 forms with plain FMA (the card's float32 checks). 64 x 64 tiles;
 // thread (ty = tid/16, tx = tid%16) owns rows ty + 16i and columns
 // tx + 16j, so a row's 16 threads are one half-warp.
@@ -519,6 +756,47 @@ __device__ __forceinline__ float g_at(const float* e, const float* mrun,
   return (p - (v == (int64_t)tgt[t] ? 1.f : 0.f)) * dnll[t];
 }
 
+// The float32 logits tile: acc[i][j] = row ty + 16i, column tx + 16j of
+// the 64 x 64 tile A B^T (rows of A at a + r * D, of B at b + c * D; rows
+// >= nrows of A and >= ncols of B read as zeros). Each contraction step
+// starts with a barrier, so a caller may run it in a loop.
+__device__ __forceinline__ void logits_tile_f32(float (&acc)[4][4],
+                                                float (*as)[FS],
+                                                float (*bs)[FS],
+                                                const float* a,
+                                                const float* b,
+                                                int64_t nrows, int64_t ncols,
+                                                int64_t D) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int64_t k0 = 0; k0 < D; k0 += FK) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < FT * FK; i += F_THREADS) {
+      const int r = i / FK, k = i % FK;
+      const bool kok = k0 + k < D;
+      as[k][r] = kok && r < nrows ? a[r * D + k0 + k] : 0.f;
+      bs[k][r] = kok && r < ncols ? b[r * D + k0 + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = as[k][ty + 16 * i];
+        bv[i] = bs[k][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(F_THREADS)
 xent_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
              const int* __restrict__ tgt, float* __restrict__ e,
@@ -530,30 +808,8 @@ xent_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
   const int64_t t0 = (int64_t)blockIdx.x * FT, v0 = (int64_t)blockIdx.y * FT;
   const int64_t rows = T - t0 < FT ? T - t0 : FT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[4][4] = {};
-  for (int64_t k0 = 0; k0 < D; k0 += FK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FT * FK; i += F_THREADS) {
-      const int r = i / FK, k = i % FK;
-      const bool kok = k0 + k < D;
-      as[k][r] = kok && t0 + r < T ? x[(t0 + r) * D + k0 + k] : 0.f;
-      bs[k][r] = kok && v0 + r < V ? w[(v0 + r) * D + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = as[k][ty + 16 * i];
-        b[i] = bs[k][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-  }
+  float acc[4][4];
+  logits_tile_f32(acc, as, bs, x + t0 * D, w + v0 * D, T - t0, V - v0, D);
   const int64_t chunk = blockIdx.y;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -680,6 +936,111 @@ xent_dw_f32(const float* __restrict__ e, const float* __restrict__ mrun,
     }
 }
 
+// The float32 forms of xent_g, xent_g_saved and the recompute dx/dw.
+
+__device__ __forceinline__ float g_recompute_at(float sv, int64_t t,
+                                                int64_t v, const int* tgt,
+                                                const float* lse,
+                                                const float* dnll, int64_t T,
+                                                int64_t V) {
+  if (t >= T || v >= V) return 0.f;
+  const float p = exp2f(sv * LOG2E - lse[t] * LOG2E);
+  return (p - (v == (int64_t)tgt[t] ? 1.f : 0.f)) * dnll[t];
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+xent_g_f32(const float* __restrict__ x, const float* __restrict__ w,
+           const int* __restrict__ tgt, const float* __restrict__ lse,
+           const float* __restrict__ dnll, float* __restrict__ gout,
+           int64_t T, int64_t V, int64_t D) {
+  __shared__ float as[FK][FS], bs[FK][FS];
+  const int64_t t0 = (int64_t)blockIdx.x * FT, v0 = (int64_t)blockIdx.y * FT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[4][4];
+  logits_tile_f32(acc, as, bs, x + t0 * D, w + v0 * D, T - t0, V - v0, D);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t t = t0 + ty + 16 * i, v = v0 + tx + 16 * j;
+      if (t < T && v < V)
+        gout[t * V + v] = g_recompute_at(acc[i][j], t, v, tgt, lse, dnll, T,
+                                         V);
+    }
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+xent_g_saved_f32(const float* __restrict__ e, const float* __restrict__ mrun,
+                 const int* __restrict__ tgt, const float* __restrict__ lse,
+                 const float* __restrict__ dnll, float* __restrict__ gout,
+                 int64_t T, int64_t V, int64_t chunk) {
+  const int64_t n = T * V;
+  for (int64_t i = (int64_t)blockIdx.x * F_THREADS + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * F_THREADS)
+    gout[i] = g_at(e, mrun, tgt, lse, dnll, i / V, i % V, T, V, chunk);
+}
+
+// CTA (D tile, token tile) for dx, (D tile, vocab tile) for dw, 64 x 64;
+// for each 64-wide piece of the other dimension: the logits tile, g into
+// shared memory, the operand tile, the product. D/64 CTAs recompute each
+// logits tile.
+template <bool DX>
+__global__ void __launch_bounds__(F_THREADS)
+xent_recompute_f32(const float* __restrict__ x, const float* __restrict__ w,
+                   const int* __restrict__ tgt,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dnll, float* __restrict__ out,
+                   int64_t T, int64_t V, int64_t D) {
+  __shared__ float as[FK][FS], bs[FK][FS];
+  __shared__ float gsm[FT][FS], osm[FT][FS];
+  const int64_t d0 = (int64_t)blockIdx.x * FT;
+  const int64_t r0 = (int64_t)blockIdx.y * FT;
+  const int64_t nrow_all = DX ? T : V, nk_all = DX ? V : T;
+  const float* rsrc = (DX ? x : w) + r0 * D;
+  const float* ksrc = DX ? w : x;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float oacc[4][4] = {};
+  for (int64_t k0 = 0; k0 < nk_all; k0 += FT) {
+    float sacc[4][4];
+    logits_tile_f32(sacc, as, bs, rsrc, ksrc + k0 * D, nrow_all - r0,
+                    nk_all - k0, D);
+    for (int i = threadIdx.x; i < FT * FT; i += F_THREADS) {
+      const int k = i / FT, c = i % FT;
+      osm[k][c] = k0 + k < nk_all && d0 + c < D ? ksrc[(k0 + k) * D + d0 + c]
+                                                : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t rr = r0 + ty + 16 * i, kk = k0 + tx + 16 * j;
+        gsm[ty + 16 * i][tx + 16 * j] =
+            DX ? g_recompute_at(sacc[i][j], rr, kk, tgt, lse, dnll, T, V)
+               : g_recompute_at(sacc[i][j], kk, rr, tgt, lse, dnll, T, V);
+      }
+    __syncthreads();
+    for (int k = 0; k < FT; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = gsm[ty + 16 * i][k];
+        bv[i] = osm[k][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) oacc[i][j] += av[i] * bv[j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t r = r0 + ty + 16 * i, d = d0 + tx + 16 * j;
+      if (r < nrow_all && d < D) out[r * D + d] = oacc[i][j];
+    }
+}
+
 inline unsigned tiles(int64_t n, int t) { return (unsigned)((n + t - 1) / t); }
 
 }  // namespace
@@ -754,8 +1115,88 @@ int icikit_xent_dw(int dtype, const void* e, const float* mrun, const void* x,
   return (int)cudaGetLastError();
 }
 
+// x (T, D), w (V, D) in dtype, tgt, lse, dnll (T,) -> g (T, V) in dtype,
+// the logits recomputed (the matmul backward's recompute flavour).
+int icikit_xent_g(int dtype, const void* x, const void* w, const int* tgt,
+                  const float* lse, const float* dnll, void* g, int64_t T,
+                  int64_t V, int64_t D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    xent_g_bf16<<<dim3(tiles(T, XT), tiles(V, XN)), X_THREADS, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), tgt, lse,
+        dnll, static_cast<bf16*>(g), T, V, D);
+  } else if (dtype == 0) {
+    xent_g_f32<<<dim3(tiles(T, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), tgt, lse,
+        dnll, static_cast<float*>(g), T, V, D);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// e (T, V) in dtype, mrun (V / chunk, T), tgt, lse, dnll (T,) -> g (T, V)
+// in dtype (the matmul backward's saved flavour).
+int icikit_xent_g_saved(int dtype, const void* e, const float* mrun,
+                        const int* tgt, const float* lse, const float* dnll,
+                        void* g, int64_t T, int64_t V, int64_t chunk,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t blocks_max = 132 * 16;
+  if (dtype == 1) {
+    const int64_t n = T * (V / 8);
+    const int64_t nb = (n + X_THREADS - 1) / X_THREADS;
+    xent_g_saved_bf16<<<(unsigned)(nb < blocks_max ? nb : blocks_max),
+                        X_THREADS, 0, st>>>(
+        static_cast<const bf16*>(e), mrun, tgt, lse, dnll,
+        static_cast<bf16*>(g), T, V, chunk);
+  } else if (dtype == 0) {
+    const int64_t nb = (T * V + F_THREADS - 1) / F_THREADS;
+    xent_g_saved_f32<<<(unsigned)(nb < blocks_max ? nb : blocks_max),
+                       F_THREADS, 0, st>>>(
+        static_cast<const float*>(e), mrun, tgt, lse, dnll,
+        static_cast<float*>(g), T, V, chunk);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The recompute flavour of the fused backward: x (T, D), w (V, D) in dtype,
+// tgt, lse, dnll (T,) -> dx (T, D) when dx_side, else dw (V, D), in dtype.
+int icikit_xent_recompute(int dtype, int dx_side, const void* x,
+                          const void* w, const int* tgt, const float* lse,
+                          const float* dnll, void* out, int64_t T, int64_t V,
+                          int64_t D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t rows = dx_side ? T : V;
+  if (dtype == 1) {
+    const dim3 grid(tiles(D, XN), tiles(rows, XT));
+    auto kernel = dx_side ? xent_recompute_bf16<true>
+                          : xent_recompute_bf16<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)RECOMPUTE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, X_THREADS, RECOMPUTE_SMEM, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), tgt, lse,
+        dnll, static_cast<bf16*>(out), T, V, D);
+  } else if (dtype == 0) {
+    const dim3 grid(tiles(D, FT), tiles(rows, FT));
+    auto kernel = dx_side ? xent_recompute_f32<true>
+                          : xent_recompute_f32<false>;
+    kernel<<<grid, F_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), tgt, lse,
+        dnll, static_cast<float*>(out), T, V, D);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // Kernel attributes for the build log: which 0 xent_fwd bf16, 1 dx bf16,
-// 2 dw bf16, 3 xent_fwd f32.
+// 2 dw bf16, 3 xent_fwd f32, 4 xent_g bf16, 5 xent_g_saved bf16, 6 the
+// recompute dx bf16, 7 the recompute dw bf16.
 int icikit_xent_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -765,8 +1206,16 @@ int icikit_xent_regs(int which, int* regs, int* local_bytes) {
     err = cudaFuncGetAttributes(&attr, xent_dx_bf16);
   else if (which == 2)
     err = cudaFuncGetAttributes(&attr, xent_dw_bf16);
-  else
+  else if (which == 3)
     err = cudaFuncGetAttributes(&attr, xent_fwd_f32);
+  else if (which == 4)
+    err = cudaFuncGetAttributes(&attr, xent_g_bf16);
+  else if (which == 5)
+    err = cudaFuncGetAttributes(&attr, xent_g_saved_bf16);
+  else if (which == 6)
+    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<true>);
+  else
+    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<false>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -456,7 +456,9 @@ class FusedAdam:
     there is no separable update tree. ``lr`` is a float or a
     ``step -> lr`` callable (step a device tensor). ``mu_dtype`` and
     ``nu_dtype`` store the moments narrow; the arithmetic stays float32.
-    ``use_pallas`` asks for the TPU kernel B12, not ported yet."""
+    ``use_pallas`` runs each floating leaf through the one-pass CUDA
+    kernel (``ops.cuda_adam``, the counterpart of the TPU kernel B12)
+    instead of PyTorch's elementwise ops."""
 
     def __init__(self, lr=3e-4, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, use_pallas: bool = False,
@@ -534,10 +536,6 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
         raise NotImplementedError(
             "make_train_step takes a FusedAdam: optax transformations "
             "and optim.py are not ported yet (ROADMAP A8)")
-    if optimizer.use_pallas:
-        raise NotImplementedError(
-            "FusedAdam(use_pallas=True), the one-pass TPU Adam kernel "
-            "(B12), is not ported yet (ROADMAP B12)")
     from icikit_torch.ops.adam import adam_apply
 
     cdt = DTYPES[cfg.compute_dtype]
@@ -569,7 +567,7 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
         lr = opt.lr(t_next) if callable(opt.lr) else opt.lr
         ok = _grads_finite(loss, grads) if guard == "device" else None
         adam_apply(params, m, v, grads, lr, t_next, opt.b1, opt.b2,
-                   opt.eps, ok=ok)
+                   opt.eps, use_pallas=opt.use_pallas, ok=ok)
         t.copy_(t_next if ok is None else torch.where(ok, t_next, t))
         if guard == "device":
             return params, (m, v, t), loss, ok

@@ -51,6 +51,11 @@ _SIGNATURES = {
                              _I32, _I32, _F32, _I32, _F32, _P],
         "icikit_flash_bwd": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _I64, _I64, _I32, _I32, _F32, _F32, _P],
+        "icikit_flash_bwd_dq": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64,
+                                _I64, _I64, _I32, _I32, _F32, _F32, _P],
+        "icikit_flash_bwd_dkv": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I64, _I64, _I64, _I32, _I32, _F32, _F32,
+                                 _P],
         "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                _I64, _I32, _I64, _I32, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
@@ -62,7 +67,18 @@ _SIGNATURES = {
                            _I64, _I64, _P],
         "icikit_xent_dw": [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                            _I64, _I64, _P],
+        "icikit_xent_g": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                          _P],
+        "icikit_xent_g_saved": [_I32, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                _I64, _P],
+        "icikit_xent_recompute": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64,
+                                  _I64, _I64, _P],
         "icikit_xent_regs": [_I32, _IP, _IP],
+    },
+    "adam": {
+        "icikit_adam": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _F32,
+                        _F32, _F32, _F32, _F32, _P],
+        "icikit_adam_regs": [_I32, _IP, _IP],
     },
 }
 

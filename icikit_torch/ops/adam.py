@@ -13,14 +13,18 @@ moments are widened on load, and the new moments are rounded once on
 store, so bf16 moments cost only their storage rounding.
 
 The port updates in place: p, m and v are overwritten (JAX's train step
-donates them instead). ``use_pallas=True`` asks for the one-pass TPU
-kernel (B12), which is not ported yet; the default formulation is the
-one the JAX train step runs (``FusedAdam(use_pallas=False)``).
+donates them instead). The default formulation is the one the JAX train
+step runs (``FusedAdam(use_pallas=False)``): PyTorch elementwise ops.
+``use_pallas=True`` runs every floating leaf through the one-pass CUDA
+kernel (``ops.cuda_adam.adam_leaf``, the counterpart of the TPU kernel
+B12), whose plain version is that default formulation.
 """
 
 from __future__ import annotations
 
 import torch
+
+from icikit_torch.ops import cuda_adam
 
 
 def adam_scalars(lr, step, b1: float = 0.9, b2: float = 0.999
@@ -38,39 +42,18 @@ def adam_scalars(lr, step, b1: float = 0.9, b2: float = 0.999
     return torch.stack([lr_t.reshape(()), c1.reshape(()), c2.reshape(())])
 
 
-def _leaf_update(p, m, v, g, scalars, b1: float, b2: float, eps: float,
-                 ok=None) -> None:
-    """``_leaf_update_xla`` on one leaf, written into p, m and v. With
-    ``ok`` (a bool scalar tensor) the update commits only where it is
-    true, with no host sync: the on-device skip of ``guard="device"``."""
-    lr, c1, c2 = scalars[0], scalars[1], scalars[2]
-    g32 = g.float()
-    m32 = m.float() * b1 + g32 * (1.0 - b1)
-    v32 = v.float() * b2 + (g32 * g32) * (1.0 - b2)
-    p_new = p - lr * (m32 * c1) / (torch.sqrt(v32 * c2) + eps)
-    m_new, v_new = m32.to(m.dtype), v32.to(v.dtype)
-    if ok is not None:
-        p_new = torch.where(ok, p_new, p)
-        m_new = torch.where(ok, m_new, m)
-        v_new = torch.where(ok, v_new, v)
-    p.copy_(p_new)
-    m.copy_(m_new)
-    v.copy_(v_new)
-
-
 @torch.no_grad()
 def adam_apply(params: dict, m: dict, v: dict, grads: dict, lr, step,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                use_pallas: bool = False, ok=None):
     """Whole-tree Adam, in place. ``lr`` and ``step`` may be tensors on
     the device. Returns ``(params, m, v)``, the same dicts, updated.
-    Non-floating leaves are left as they are. ``ok``: see
-    :func:`_leaf_update`."""
-    if use_pallas:
-        raise NotImplementedError(
-            "adam_apply(use_pallas=True), the one-pass TPU Adam kernel "
-            "(B12), is not ported yet (ROADMAP B12); the default "
-            "formulation is the one the train step runs")
+    Non-floating leaves are left as they are. ``use_pallas``: each
+    floating leaf through the one-pass kernel (one launch a leaf), else
+    the PyTorch formulation. ``ok``: a bool scalar tensor; where false,
+    nothing is written (``guard="device"``)."""
+    update = (cuda_adam.adam_leaf if use_pallas
+              else cuda_adam.adam_leaf_plain)
     scalars = None
     for k in params:
         p = params[k]
@@ -80,5 +63,5 @@ def adam_apply(params: dict, m: dict, v: dict, grads: dict, lr, step,
             step_t = step if isinstance(step, torch.Tensor) \
                 else torch.tensor(step, device=p.device)
             scalars = adam_scalars(lr, step_t.to(p.device), b1, b2)
-        _leaf_update(p, m[k], v[k], grads[k], scalars, b1, b2, eps, ok)
+        update(p, m[k], v[k], grads[k], scalars, b1, b2, eps, ok)
     return params, m, v

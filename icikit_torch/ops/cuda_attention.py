@@ -11,15 +11,22 @@ paths:
 - ``flash_bwd`` replaces ``_bwd_fused_kernel`` (B6, ``_bwd_call``) and
   ``_bwd_fused_tiled_kernel`` (B7): dq, dk and dv from one
   recomputation of P per tile.
+- ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel`` (B8, ``_bwd_call`` past the dq scratch budget):
+  the deterministic two-pass backward, each output written once.
 - ``decode_step`` replaces ``_decode_step_kernel`` (B13,
   ``decode_step_attention``): RoPE, the cache column write in place and
   the masked single-token attention.
 
 Beside each kernel stands its plain PyTorch version (``flash_fwd_plain``,
-``flash_bwd_plain``, ``decode_step_plain``), the same function as
-whole-tensor ops. A wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches.
+``flash_bwd_plain``, ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``,
+``decode_step_plain``), the same function as whole-tensor ops; the
+attention ones take ``chunk`` to walk the Q rows a chunk at a time, so
+that a long sequence's logits never exist whole (131072 keys: 2 GB for a
+1024-row chunk of 4 heads, where the whole matrix would take 275 GB). A
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from icikit_torch.ops import _build
 from icikit_torch.ops.attention import NEG_INF
 from icikit_torch.ops.common import LN2, LOG2E
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "decode_step": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "decode_step": 0}
 
 # d_head 32 is the tiny preset's; 64 and 128 the TPU-shaped presets'.
 FLASH_HEAD_DIMS = (32, 64, 128)
@@ -49,33 +57,33 @@ def reset_launches() -> None:
 # Plain versions: whole-tensor ops, any device.
 
 
-def _scaled_logits(qt, kt, causal: bool, scale: float) -> torch.Tensor:
+def _scaled_logits(qt, kt, causal: bool, scale: float,
+                   q0: int = 0) -> torch.Tensor:
     """float32 base-2 logits ``q k^T * scale * log2(e)`` with the causal
-    mask's finite NEG_INF, ``(b, h, s_q, s_kv)``."""
+    mask's finite NEG_INF, ``(b, h, s_q, s_kv)``; ``q0`` is the position
+    of q's first row (a chunk of a longer sequence)."""
     s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) \
         * (scale * LOG2E)
     if causal:
         sq, sk = qt.shape[2], kt.shape[2]
-        keep = (torch.arange(sq, device=qt.device)[:, None]
+        keep = (torch.arange(q0, q0 + sq, device=qt.device)[:, None]
                 >= torch.arange(sk, device=qt.device)[None, :])
         s = torch.where(keep, s, torch.tensor(NEG_INF, device=qt.device))
     return s
 
 
-def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
-                    causal: bool, scale: float, shift: float | None = None):
-    """Plain version of ``flash_fwd`` on ``(b, h, s, d)`` tensors: the
-    one-block form of the TPU forward (``_fwd_single_kernel``): base-2
-    logits with log2(e) folded into the scale, a direct row max and sum
-    (or the constant ``shift`` in its place), P cast to the value dtype
-    before PV, division by l at the end. With ``shift``, a row whose
-    shifted sum l leaves ``SHIFT_SUM_RANGE`` (overflow, total underflow,
-    or weights in exp2's subnormal range) takes the online values: the
-    exact fallback, row by row (the kernel redoes the whole 64-row tile
-    of such a row; the other rows of that tile then differ from this
-    version by rounding). Returns ``(out (b, h, s_q, d) in q's dtype,
-    lse (b, h, s_q) f32)``."""
-    s = _scaled_logits(qt, kt, causal, scale)
+def _row_chunks(sq: int, sk: int, causal: bool, chunk: int | None):
+    """(first row, end row, end key) of each Q-row chunk: a causal chunk
+    needs only the keys up to its last row, the rest are masked to an
+    exact 0 in P."""
+    step = sq if chunk is None else chunk
+    for r0 in range(0, sq, step):
+        r1 = min(r0 + step, sq)
+        yield r0, r1, (r1 if causal else sk)
+
+
+def _fwd_rows(qt, kt, vt, causal, scale, shift, q0):
+    s = _scaled_logits(qt, kt, causal, scale, q0)
 
     def finish(m):
         w = torch.exp2(s - m)
@@ -94,22 +102,88 @@ def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
             torch.where(ok, s_lse, lse))
 
 
+def flash_fwd_plain(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                    causal: bool, scale: float, shift: float | None = None,
+                    chunk: int | None = None):
+    """Plain version of ``flash_fwd`` on ``(b, h, s, d)`` tensors: the
+    one-block form of the TPU forward (``_fwd_single_kernel``): base-2
+    logits with log2(e) folded into the scale, a direct row max and sum
+    (or the constant ``shift`` in its place), P cast to the value dtype
+    before PV, division by l at the end. With ``shift``, a row whose
+    shifted sum l leaves ``SHIFT_SUM_RANGE`` (overflow, total underflow,
+    or weights in exp2's subnormal range) takes the online values: the
+    exact fallback, row by row (the kernel redoes the whole 64-row tile
+    of such a row; the other rows of that tile then differ from this
+    version by rounding). ``chunk``: Q rows a step (None: all). Returns
+    ``(out (b, h, s_q, d) in q's dtype, lse (b, h, s_q) f32)``."""
+    sk = kt.shape[2]
+    parts = [_fwd_rows(qt[:, :, r0:r1], kt[:, :, :k1], vt[:, :, :k1],
+                       causal, scale, shift, r0)
+             for r0, r1, k1 in _row_chunks(qt.shape[2], sk, causal, chunk)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([o for o, _ in parts], dim=2),
+            torch.cat([l for _, l in parts], dim=2))
+
+
+def _bwd_plain(qt, kt, vt, do, lse, delta, causal, scale, chunk,
+               want_dq: bool, want_dkv: bool):
+    """The backward's arithmetic, Q-row chunk by chunk: dq, dk, dv (None
+    where not wanted). dk and dv sum over the chunks in float32."""
+    b, h, sq, d = qt.shape
+    sk = kt.shape[2]
+    dqs = []
+    if want_dkv:
+        dk = torch.zeros((b, h, sk, d), dtype=torch.float32,
+                         device=qt.device)
+        dv = torch.zeros_like(dk)
+    for r0, r1, k1 in _row_chunks(sq, sk, causal, chunk):
+        q_, do_ = qt[:, :, r0:r1], do[:, :, r0:r1]
+        k_, v_ = kt[:, :, :k1], vt[:, :, :k1]
+        s = _scaled_logits(q_, k_, causal, scale, r0)
+        p = torch.exp2(s - (lse[..., r0:r1] * LOG2E)[..., None])
+        dp = torch.matmul(do_.float(), v_.float().transpose(-1, -2))
+        ds = p * (dp - delta[..., r0:r1, None]) * scale
+        if want_dq:
+            dqs.append(torch.matmul(ds.to(kt.dtype).float(), k_.float()))
+        if want_dkv:
+            dv[:, :, :k1] += torch.matmul(
+                p.to(do.dtype).float().transpose(-1, -2), do_.float())
+            dk[:, :, :k1] += torch.matmul(
+                ds.to(qt.dtype).float().transpose(-1, -2), q_.float())
+        del s, p, dp, ds
+    return (torch.cat(dqs, dim=2).to(qt.dtype) if want_dq else None,
+            dk.to(kt.dtype) if want_dkv else None,
+            dv.to(vt.dtype) if want_dkv else None)
+
+
 def flash_bwd_plain(qt, kt, vt, do, lse, delta, causal: bool,
-                    scale: float):
+                    scale: float, chunk: int | None = None):
     """Plain version of ``flash_bwd`` on ``(b, h, s, d)`` tensors, in the
     order of the TPU's ``_bwd_fused_kernel``: P recomputed in base 2
     from lse (``_p_tile``), dv = P^T dO with P cast to dO's dtype, dS =
     P (dP - delta) scale, dq = dS K and dk = dS^T Q with dS cast to the
     operands' dtype. ``delta`` is rowsum(dO o O) - g_lse ``(b, h, s_q)``
-    float32. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
-    s = _scaled_logits(qt, kt, causal, scale)
-    p = torch.exp2(s - (lse * LOG2E)[..., None])
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    dp = torch.matmul(do.float(), vt.float().transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
-    dq = torch.matmul(ds.to(kt.dtype).float(), kt.float())
-    dk = torch.matmul(ds.to(qt.dtype).float().transpose(-1, -2), qt.float())
-    return dq.to(qt.dtype), dk.to(kt.dtype), dv.to(vt.dtype)
+    float32. ``chunk``: Q rows a step (None: all). Returns ``(dq, dk,
+    dv)`` in q's, k's and v's dtypes."""
+    return _bwd_plain(qt, kt, vt, do, lse, delta, causal, scale, chunk,
+                      True, True)
+
+
+def flash_bwd_dq_plain(qt, kt, vt, do, lse, delta, causal: bool,
+                       scale: float, chunk: int | None = None):
+    """Plain version of ``flash_bwd_dq`` (``_bwd_dq_kernel``): dq alone,
+    by the arithmetic of :func:`flash_bwd_plain`."""
+    return _bwd_plain(qt, kt, vt, do, lse, delta, causal, scale, chunk,
+                      True, False)[0]
+
+
+def flash_bwd_dkv_plain(qt, kt, vt, do, lse, delta, causal: bool,
+                        scale: float, chunk: int | None = None):
+    """Plain version of ``flash_bwd_dkv`` (``_bwd_dkv_kernel``): ``(dk,
+    dv)``, by the arithmetic of :func:`flash_bwd_plain`."""
+    return _bwd_plain(qt, kt, vt, do, lse, delta, causal, scale, chunk,
+                      False, True)[1:]
 
 
 def _rotate(x: torch.Tensor, cos2: torch.Tensor, sin2: torch.Tensor
@@ -210,6 +284,23 @@ def flash_fwd(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     return out, lse
 
 
+def _check_bwd(what, qt, kt, vt, do, lse, delta, causal) -> bool:
+    """Check a backward's operands; True when they lie on the CPU."""
+    _check_flash_shapes(what, qt, kt, vt, causal)
+    b, h, sq, d = qt.shape
+    if do.shape != qt.shape or lse.shape != (b, h, sq) \
+            or delta.shape != lse.shape:
+        raise ValueError(f"{what}: do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
+                         f"do not fit q {tuple(qt.shape)}")
+    if qt.device.type == "cpu":
+        return True
+    _build.check_operands(what, (qt, kt, vt, do), qt.dtype)
+    _build.check_operands(f"{what} statistics", (lse, delta), torch.float32)
+    _check_head_dim(what, d)
+    return False
+
+
 def flash_bwd(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
     """Flash-attention backward on ``(b, h, s, d)`` tensors: ``do`` is
     the output cotangent, ``lse`` the forward's, ``delta`` rowsum(dO o
@@ -221,19 +312,10 @@ def flash_bwd(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
     with float32 atomics, so its last bits vary from run to run. Bound:
     five causal products over the card's bf16 rate (operations, at the
     train step's shapes). CPU tensors take :func:`flash_bwd_plain`."""
-    _check_flash_shapes("flash_bwd", qt, kt, vt, causal)
+    if _check_bwd("flash_bwd", qt, kt, vt, do, lse, delta, causal):
+        return flash_bwd_plain(qt, kt, vt, do, lse, delta, causal, scale)
     b, h, sq, d = qt.shape
     sk = kt.shape[2]
-    if do.shape != qt.shape or lse.shape != (b, h, sq) \
-            or delta.shape != lse.shape:
-        raise ValueError(f"flash_bwd: do {tuple(do.shape)}, lse "
-                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
-                         f"do not fit q {tuple(qt.shape)}")
-    if qt.device.type == "cpu":
-        return flash_bwd_plain(qt, kt, vt, do, lse, delta, causal, scale)
-    _build.check_operands("flash_bwd", (qt, kt, vt, do), qt.dtype)
-    _build.check_operands("flash_bwd statistics", (lse, delta), torch.float32)
-    _check_head_dim("flash_bwd", d)
     dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qt.device)
     dk = torch.empty_like(kt)
     dv = torch.empty_like(vt)
@@ -246,6 +328,56 @@ def flash_bwd(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
     _build.check(rc, "flash_bwd launch")
     LAUNCHES["flash_bwd"] += 1
     return dq.to(qt.dtype), dk, dv
+
+
+def flash_bwd_dq(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
+    """dq of the two-pass backward, operands as :func:`flash_bwd`'s;
+    returns dq in q's dtype, each row written once by the CTA of its Q
+    tile (deterministic).
+
+    The kernel replaces ``icikit/ops/flash_attention.py``'s
+    ``_bwd_dq_kernel`` (B8, pallas_call at :745). Bound: three causal
+    products (S, dP, dS K) over the card's bf16 rate (operations). CPU
+    tensors take :func:`flash_bwd_dq_plain`."""
+    if _check_bwd("flash_bwd_dq", qt, kt, vt, do, lse, delta, causal):
+        return flash_bwd_dq_plain(qt, kt, vt, do, lse, delta, causal, scale)
+    b, h, sq, d = qt.shape
+    dq = torch.empty_like(qt)
+    lib = _build.load("attention")
+    rc = lib.icikit_flash_bwd_dq(
+        _build.DTYPE_CODE[qt.dtype], qt.data_ptr(), kt.data_ptr(),
+        vt.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b * h, sq, kt.shape[2], d, int(causal),
+        float(scale) * LOG2E, float(scale), _build.stream(qt))
+    _build.check(rc, "flash_bwd_dq launch")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(qt, kt, vt, do, lse, delta, causal: bool, scale: float):
+    """dk and dv of the two-pass backward, operands as
+    :func:`flash_bwd`'s; returns ``(dk, dv)``, each key's rows written
+    once by the CTA of its key tile.
+
+    The kernel (``flash_bwd``'s with its dq part compiled out) replaces
+    ``icikit/ops/flash_attention.py``'s ``_bwd_dkv_kernel`` (B8,
+    pallas_call at :771). Bound: four causal products (S, dP, P^T dO,
+    dS^T Q), operations. CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    if _check_bwd("flash_bwd_dkv", qt, kt, vt, do, lse, delta, causal):
+        return flash_bwd_dkv_plain(qt, kt, vt, do, lse, delta, causal,
+                                   scale)
+    b, h, sq, d = qt.shape
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    lib = _build.load("attention")
+    rc = lib.icikit_flash_bwd_dkv(
+        _build.DTYPE_CODE[qt.dtype], qt.data_ptr(), kt.data_ptr(),
+        vt.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, sq, kt.shape[2], d,
+        int(causal), float(scale) * LOG2E, float(scale), _build.stream(qt))
+    _build.check(rc, "flash_bwd_dkv launch")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
 
 
 def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,

@@ -1,8 +1,8 @@
 """Cross-entropy head kernels on Hopper: wrappers, launch counts, plain
 versions.
 
-Three CUDA kernels (``csrc/xent.cu``) carry the train step's default
-head (saved exponentials, fused backward):
+Seven CUDA kernels (``csrc/xent.cu``) carry the head's four flavours
+(save_exp x fused_bwd; the train step's default is saved and fused):
 
 - ``xent_fwd`` replaces ``icikit/ops/xent.py``'s ``_fwd_kernel`` /
   ``_fwd_kernel_save`` (B9, ``_fwd_call``): per token the lse of the
@@ -11,6 +11,12 @@ head (saved exponentials, fused backward):
 - ``xent_dx_saved`` and ``xent_dw_saved`` replace ``_dx_saved_kernel``
   and ``_dw_saved_kernel`` (B10, ``_dx_call``/``_dw_call``): dx and dw
   from g rebuilt out of e, never written out.
+- ``xent_dx`` and ``xent_dw`` replace ``_dx_kernel`` and ``_dw_kernel``
+  with ``e_ref=None`` (B10, recompute flavour): g rebuilt from a
+  recomputed logits tile.
+- ``xent_g`` and ``xent_g_saved`` replace ``_bwd_kernel`` (B11,
+  ``_g_call``) and ``_g_saved_kernel`` (B11, ``_g_saved_call``): the
+  matmul backward's g written out as a ``(T, V)`` tensor.
 
 The residual's layout is the port's own: e ``(T, V)`` in the compute
 dtype and ``mrun (V / chunk, T)`` float32, the max of each
@@ -32,7 +38,8 @@ import torch
 from icikit_torch.ops import _build
 from icikit_torch.ops.common import LN2, LOG2E
 
-LAUNCHES = {"xent_fwd": 0, "xent_dx_saved": 0, "xent_dw_saved": 0}
+LAUNCHES = {"xent_fwd": 0, "xent_dx_saved": 0, "xent_dw_saved": 0,
+            "xent_dx": 0, "xent_dw": 0, "xent_g": 0, "xent_g_saved": 0}
 
 # The kernels' square CTA tile: its width on the vocabulary is the chunk
 # of mrun, its height the token tile whose CTAs merge their partials.
@@ -107,6 +114,40 @@ def xent_dw_saved_plain(e, mrun, x, targets, lse, dnll,
     """Plain version of ``xent_dw_saved``: dw = g^T x in float32, cast
     to x's dtype."""
     g = _g_plain(e, mrun, targets, lse, dnll, chunk)
+    return torch.matmul(g.t(), x.float()).to(x.dtype)
+
+
+def xent_g_saved_plain(e, mrun, targets, lse, dnll,
+                       chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """Plain version of ``xent_g_saved``: g from e, in e's dtype."""
+    return _g_plain(e, mrun, targets, lse, dnll, chunk).to(e.dtype)
+
+
+def _g_recompute_plain(x, w, targets, lse, dnll) -> torch.Tensor:
+    """g = (exp2(s log2(e) - lse log2(e)) - onehot) * dnll in float32 from
+    the float32 logits s = x w^T (``_g_chunk_recompute``)."""
+    s = torch.matmul(x.float(), w.float().t())
+    p = torch.exp2(s * LOG2E - (lse * LOG2E)[:, None])
+    onehot = torch.nn.functional.one_hot(targets.long(), w.shape[0]).float()
+    return (p - onehot) * dnll.float()[:, None]
+
+
+def xent_g_plain(x, w, targets, lse, dnll) -> torch.Tensor:
+    """Plain version of ``xent_g``: the recomputed g in x's dtype."""
+    return _g_recompute_plain(x, w, targets, lse, dnll).to(x.dtype)
+
+
+def xent_dx_plain(x, w, targets, lse, dnll) -> torch.Tensor:
+    """Plain version of ``xent_dx``: dx = g w in float32 from the
+    recomputed g, cast to x's dtype."""
+    g = _g_recompute_plain(x, w, targets, lse, dnll)
+    return torch.matmul(g, w.float()).to(x.dtype)
+
+
+def xent_dw_plain(x, w, targets, lse, dnll) -> torch.Tensor:
+    """Plain version of ``xent_dw``: dw = g^T x in float32 from the
+    recomputed g, cast to x's dtype."""
+    g = _g_recompute_plain(x, w, targets, lse, dnll)
     return torch.matmul(g.t(), x.float()).to(x.dtype)
 
 
@@ -222,3 +263,107 @@ def xent_dw_saved(e, mrun, x, targets, lse, dnll) -> torch.Tensor:
     :411). Bound: 2 T V D operations. CPU tensors take
     :func:`xent_dw_saved_plain`."""
     return _backward("dw", e, mrun, x, targets, lse, dnll)
+
+
+def xent_g_saved(e, mrun, targets, lse, dnll) -> torch.Tensor:
+    """The matmul backward's g ``(T, V)`` in e's dtype, rebuilt from the
+    forward's residual. The kernel replaces ``icikit/ops/xent.py``'s
+    ``_g_saved_kernel`` (B11, pallas_call at :335). Bound: reading e and
+    writing g (bytes). CPU tensors take :func:`xent_g_saved_plain`."""
+    t, v = e.shape
+    if targets.shape != (t,) or lse.shape != (t,) or dnll.shape != (t,):
+        raise ValueError(f"xent_g_saved: e {tuple(e.shape)} and rows "
+                         f"{tuple(targets.shape)} disagree")
+    cpu = e.device.type == "cpu"
+    if not cpu:
+        _build.check_operands("xent_g_saved", (e,), e.dtype)
+        _build.check_operands("xent_g_saved mrun", (mrun,), torch.float32)
+        _check_widths("xent_g_saved", e.dtype, 8, v)
+    chunk = PLAIN_CHUNK if cpu else TILE[e.dtype]
+    if mrun.shape != (-(-v // chunk), t):
+        raise ValueError(f"xent_g_saved: mrun {tuple(mrun.shape)} does not "
+                         f"fit e {tuple(e.shape)}")
+    if cpu:
+        return xent_g_saved_plain(e, mrun, targets, lse, dnll, chunk)
+    tg, ls, dn = _rows(targets, lse, dnll)
+    g = torch.empty_like(e)
+    rc = _build.load("xent").icikit_xent_g_saved(
+        _build.DTYPE_CODE[e.dtype], e.data_ptr(), mrun.data_ptr(),
+        tg.data_ptr(), ls.data_ptr(), dn.data_ptr(), g.data_ptr(), t, v,
+        chunk, _build.stream(e))
+    _build.check(rc, "xent_g_saved launch")
+    LAUNCHES["xent_g_saved"] += 1
+    return g
+
+
+def _recompute_operands(what, x, w, targets, lse, dnll) -> bool:
+    """Check the recompute kernels' operands; True when on the CPU."""
+    t, d = x.shape
+    v = w.shape[0]
+    if w.shape != (v, d) or targets.shape != (t,) or lse.shape != (t,) \
+            or dnll.shape != (t,):
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, rows {tuple(targets.shape)} "
+                         f"disagree")
+    if x.device.type == "cpu":
+        return True
+    _build.check_operands(what, (x, w), x.dtype)
+    _check_widths(what, x.dtype, d, v)
+    return False
+
+
+def xent_g(x, w, targets, lse, dnll) -> torch.Tensor:
+    """The matmul backward's g ``(T, V)`` in x's dtype, the logits
+    recomputed tile by tile in the kernel. Replaces
+    ``icikit/ops/xent.py``'s ``_bwd_kernel`` (B11, pallas_call at :312).
+    Bound: the logits product, 2 T V D operations. CPU tensors take
+    :func:`xent_g_plain`."""
+    if _recompute_operands("xent_g", x, w, targets, lse, dnll):
+        return xent_g_plain(x, w, targets, lse, dnll)
+    t, d = x.shape
+    v = w.shape[0]
+    tg, ls, dn = _rows(targets, lse, dnll)
+    g = torch.empty((t, v), dtype=x.dtype, device=x.device)
+    rc = _build.load("xent").icikit_xent_g(
+        _build.DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
+        tg.data_ptr(), ls.data_ptr(), dn.data_ptr(), g.data_ptr(), t, v, d,
+        _build.stream(x))
+    _build.check(rc, "xent_g launch")
+    LAUNCHES["xent_g"] += 1
+    return g
+
+
+def _recompute(which: str, x, w, targets, lse, dnll) -> torch.Tensor:
+    what = f"xent_{which}"
+    if _recompute_operands(what, x, w, targets, lse, dnll):
+        plain = xent_dx_plain if which == "dx" else xent_dw_plain
+        return plain(x, w, targets, lse, dnll)
+    t, d = x.shape
+    v = w.shape[0]
+    tg, ls, dn = _rows(targets, lse, dnll)
+    out = torch.empty((t, d) if which == "dx" else (v, d), dtype=x.dtype,
+                      device=x.device)
+    rc = _build.load("xent").icikit_xent_recompute(
+        _build.DTYPE_CODE[x.dtype], int(which == "dx"), x.data_ptr(),
+        w.data_ptr(), tg.data_ptr(), ls.data_ptr(), dn.data_ptr(),
+        out.data_ptr(), t, v, d, _build.stream(x))
+    _build.check(rc, f"{what} launch")
+    LAUNCHES[what] += 1
+    return out
+
+
+def xent_dx(x, w, targets, lse, dnll) -> torch.Tensor:
+    """dx ``(T, D)`` = g w with g rebuilt from recomputed logits tiles.
+    The kernel replaces ``icikit/ops/xent.py``'s ``_dx_kernel`` with
+    ``e_ref=None`` (B10 recompute flavour, pallas_call at :374). Bound:
+    the rebuild and the contraction, 2 x 2 T V D operations. CPU tensors
+    take :func:`xent_dx_plain`."""
+    return _recompute("dx", x, w, targets, lse, dnll)
+
+
+def xent_dw(x, w, targets, lse, dnll) -> torch.Tensor:
+    """dw ``(V, D)`` = g^T x with g rebuilt as for dx. The kernel
+    replaces ``_dw_kernel`` with ``e_ref=None`` (B10 recompute flavour,
+    pallas_call at :411). Bound: 2 x 2 T V D operations. CPU tensors
+    take :func:`xent_dw_plain`."""
+    return _recompute("dw", x, w, targets, lse, dnll)

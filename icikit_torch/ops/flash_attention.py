@@ -5,11 +5,13 @@ tiles past a resident Q tile with an online softmax or a constant shift
 (``ops.cuda_attention.flash_fwd``, the counterpart of the TPU's B3, B4
 and B5), so the (s, s) logits never reach device memory; the backward
 (``flash_bwd``, B6 and B7) recomputes P once per tile from the saved
-lse. ``_Flash`` is the counterpart of the ``_flash`` custom_vjp: its
-residuals are (q, k, v, out, lse), and the lse cotangent folds into
-delta. The decode step (``decode_step_attention``, B13) applies RoPE,
-writes the cache column in place and attends one token in one launch
-per layer.
+lse; past the TPU's dq scratch budget (``_DQ_SCRATCH_BYTES_MAX``) it is
+the deterministic two-pass pair ``flash_bwd_dq``/``flash_bwd_dkv`` (B8),
+routed as JAX's ``_bwd_call`` routes. ``_Flash`` is the counterpart of
+the ``_flash`` custom_vjp: its residuals are (q, k, v, out, lse), and
+the lse cotangent folds into delta. The decode step
+(``decode_step_attention``, B13) applies RoPE, writes the cache column
+in place and attends one token in one launch per layer.
 
 Layout ``(batch, seq, heads, head_dim)`` at the public functions, as in
 the JAX package. On a CUDA tensor the kernels cover every length (a
@@ -31,6 +33,22 @@ import torch
 
 from icikit_torch.ops import cuda_attention
 from icikit_torch.ops.attention import dense_attention, masked_logits
+
+
+# The TPU's whole-sequence float32 dq scratch budget, copied from
+# icikit/ops/flash_attention.py:626: a backward with s_q * d * 4 bytes of
+# dq above it runs the two-pass kernels (B8), at or below it flash_bwd
+# (B6/B7), as _bwd_call:734 decides. Read at call time, so a test can
+# lower it as it lowers JAX's.
+_DQ_SCRATCH_BYTES_MAX = 48 * 1024 * 1024
+
+
+def bwd_two_pass(sq: int, d: int) -> bool:
+    """Does the backward of ``sq`` query rows at head dim ``d`` take the
+    two-pass kernels (B8)? The port has no TPU blocks, so JAX's
+    one-block case (always B6) has no counterpart: at the default budget
+    it never reaches the two-pass route."""
+    return sq * d * 4 > _DQ_SCRATCH_BYTES_MAX
 
 
 def _dense_with_lse(q, k, v, causal, scale):
@@ -59,8 +77,9 @@ class _Flash(torch.autograd.Function):
     """The ``_flash`` custom_vjp (``flash_attention.py:822-853``) on
     ``(b, h, s, d)`` tensors: forward ``flash_fwd`` (online, or with
     the constant shift and its in-kernel fallback), residuals (q, k, v,
-    out, lse), backward ``flash_bwd`` with delta = rowsum(dO o O) -
-    g_lse computed here, as ``_flash_bwd`` does (the ring schedule will
+    out, lse), backward ``flash_bwd`` (or, past the dq scratch budget,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``) with delta = rowsum(dO o O)
+    - g_lse computed here, as ``_flash_bwd`` does (the ring schedule will
     need the lse cotangent)."""
 
     @staticmethod
@@ -75,10 +94,14 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g_out, g_lse):
         qt, kt, vt, out, lse = ctx.saved_tensors
         g_out = g_out.contiguous()
-        delta = (g_out.float() * out.float()).sum(dim=-1) - g_lse.float()
-        dq, dk, dv = cuda_attention.flash_bwd(
-            qt, kt, vt, g_out, lse, delta.contiguous(), ctx.causal,
-            ctx.scale)
+        delta = ((g_out.float() * out.float()).sum(dim=-1)
+                 - g_lse.float()).contiguous()
+        args = (qt, kt, vt, g_out, lse, delta, ctx.causal, ctx.scale)
+        if bwd_two_pass(qt.shape[2], qt.shape[3]):
+            dq = cuda_attention.flash_bwd_dq(*args)
+            dk, dv = cuda_attention.flash_bwd_dkv(*args)
+        else:
+            dq, dk, dv = cuda_attention.flash_bwd(*args)
         return dq, dk, dv, None, None, None
 
 

@@ -3,16 +3,17 @@
 The port of ``icikit/ops/xent.py``. The unfused head materializes the
 (T, V) float32 logits between the head product and the loss; the fused
 one forms each logits tile inside the kernel and keeps only per-token
-statistics (``ops.cuda_xent.xent_fwd``, the counterpart of B9), and its
-backward rebuilds g = (softmax - onehot) dnll tile by tile and contracts
-it on the spot (``xent_dx_saved``/``xent_dw_saved``, B10), so the g
-matrix never reaches device memory.
+statistics (``ops.cuda_xent.xent_fwd``, the counterpart of B9). Its
+backward comes in JAX's four flavours, save_exp x fused_bwd:
 
-Ported: the saved-exponential flavour with the fused backward
-(``save_exp=True, fused_bwd=True``, the train step's default). Refused
-loudly, naming their ROADMAP rows: the recompute flavour of the fused
-backward (``save_exp=False``, B10's recompute kernels) and the matmul
-backward (``fused_bwd=False``, B11).
+- fused (the default): dx and dw come straight out of two kernels that
+  rebuild each tile of g = (softmax - onehot) dnll and contract it on the
+  spot, so g never reaches device memory; g is rebuilt from the saved
+  exponentials (``xent_dx_saved``/``xent_dw_saved``, B10 saved) or from
+  a recomputed logits tile (``xent_dx``/``xent_dw``, B10 recompute).
+- matmul (``fused_bwd=False``): one kernel writes g as a (T, V) tensor
+  in the compute dtype (``xent_g_saved`` or ``xent_g``, B11) and dx =
+  g w, dw = g^T x are plain matmuls, as JAX leaves them to XLA.
 
 The head weight is taken (V, D), embedding orientation, as in JAX. On
 a CPU tensor the kernels' plain versions run.
@@ -52,23 +53,42 @@ def xent_supported(t: int, d: int, v: int, dtype,
 
 
 class _Xent(torch.autograd.Function):
-    """The ``_xent`` custom_vjp (``xent.py:426-476``), saved flavour with
-    the fused backward: the forward keeps (e, mrun, lse) as residuals,
-    the backward launches the dx and dw kernels."""
+    """The ``_xent`` custom_vjp (``xent.py:426-476``) in its four
+    flavours: with ``save`` the forward keeps (e, mrun) beside (x, w,
+    targets, lse) as residuals; the backward is ``_xent_bwd``'s, fused
+    or matmul by ``fuse``."""
 
     @staticmethod
-    def forward(ctx, x, w, targets):
-        lse, tgt, e, mrun = cuda_xent.xent_fwd(x, w, targets, save=True)
-        ctx.save_for_backward(x, w, targets, lse, e, mrun)
+    def forward(ctx, x, w, targets, save, fuse):
+        if save:
+            lse, tgt, e, mrun = cuda_xent.xent_fwd(x, w, targets, save=True)
+            ctx.save_for_backward(x, w, targets, lse, e, mrun)
+        else:
+            lse, tgt = cuda_xent.xent_fwd(x, w, targets, save=False)
+            ctx.save_for_backward(x, w, targets, lse)
+        ctx.save, ctx.fuse = save, fuse
         return lse - tgt
 
     @staticmethod
     def backward(ctx, dnll):
-        x, w, targets, lse, e, mrun = ctx.saved_tensors
+        x, w, targets, lse, *saved = ctx.saved_tensors
         dnll = dnll.float().contiguous()
-        dx = cuda_xent.xent_dx_saved(e, mrun, w, targets, lse, dnll)
-        dw = cuda_xent.xent_dw_saved(e, mrun, x, targets, lse, dnll)
-        return dx.to(x.dtype), dw.to(w.dtype), None
+        if ctx.fuse and ctx.save:
+            e, mrun = saved
+            dx = cuda_xent.xent_dx_saved(e, mrun, w, targets, lse, dnll)
+            dw = cuda_xent.xent_dw_saved(e, mrun, x, targets, lse, dnll)
+        elif ctx.fuse:
+            dx = cuda_xent.xent_dx(x, w, targets, lse, dnll)
+            dw = cuda_xent.xent_dw(x, w, targets, lse, dnll)
+        else:
+            g = (cuda_xent.xent_g_saved(*saved, targets, lse, dnll)
+                 if ctx.save else
+                 cuda_xent.xent_g(x, w, targets, lse, dnll))
+            # JAX's out-of-kernel products (xent.py:469-475): float32
+            # accumulation, one rounding to the operand dtype
+            dx = torch.matmul(g, w)
+            dw = torch.matmul(g.t(), x)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
 
 
 def fused_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
@@ -79,10 +99,11 @@ def fused_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     float32, differentiable in x and w.
 
     x ``(T, D)`` and w ``(V, D)`` share one dtype (bf16 or float32);
-    targets ``(T,)`` integer class ids in ``[0, V)``. Raises
-    ``ValueError`` for shapes JAX's tiling cannot cover (callers gate on
-    :func:`xent_supported`) and ``NotImplementedError`` for the flavours
-    not ported yet."""
+    targets ``(T,)`` integer class ids in ``[0, V)``. ``save_exp`` keeps
+    the forward's exponentials for the backward instead of recomputing
+    the logits; ``fused_bwd=False`` writes g out and contracts it with
+    two matmuls. Raises ``ValueError`` for shapes JAX's tiling cannot
+    cover (callers gate on :func:`xent_supported`)."""
     t, d = x.shape
     v = w.shape[0]
     if w.shape[1] != d or targets.shape != (t,):
@@ -97,13 +118,5 @@ def fused_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
             f"fused xent needs T divisible by min(block_t={block_t}, T), "
             f"V divisible by min(block_v={block_v}, V) and D % 128 == 0; "
             f"got T={t} D={d} V={v} (use the unfused path)")
-    if not fused_bwd:
-        raise NotImplementedError(
-            "fused_xent(fused_bwd=False), the matmul backward that writes "
-            "g out (TPU kernel B11), is not ported yet (ROADMAP B11)")
-    if not save_exp:
-        raise NotImplementedError(
-            "fused_xent(save_exp=False), the recompute flavour of the "
-            "fused backward (TPU kernel B10's _dx_kernel/_dw_kernel), is "
-            "not ported yet (ROADMAP B10, recompute flavour)")
-    return _Xent.apply(x, w, targets.to(torch.int32))
+    return _Xent.apply(x, w, targets.to(torch.int32), bool(save_exp),
+                       bool(fused_bwd))

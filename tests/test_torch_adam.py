@@ -9,6 +9,18 @@ bit here except where XLA fuses differently, which this arithmetic does
 not invite); bf16 moments within one bf16 ulp (2^-8 relative), since a
 float32 value one ulp either side of a rounding boundary may round the
 other way in the other framework.
+
+``adam_apply(use_pallas=True)`` (each leaf through the one-pass kernel
+B12; on the CPU its plain version) against JAX's ``use_pallas=True`` on
+the (32, 128) leaf its Pallas kernel covers and the (24, 128) leaf its
+sublane gate sends to XLA (``tests/test_optim.py``). JAX's Pallas kernel
+contracts the moment updates into fused multiply-adds where its XLA form
+and the port round each product (``tests/test_optim.py`` allows the
+same): against it, params 1e-6 relative and 1e-7 absolute, float32
+moments 1e-6 relative and 1e-7 absolute, bf16 moments one bf16 ulp at
+the lower edge of a binade (2^-7 relative) and 1e-9 absolute (a moment
+that cancels to about 0, where the FMA keeps a residue of ~1e-10).
+Where JAX's gate takes XLA, the port's moments equal its bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch
 from icikit.ops.adam import adam_apply as j_adam_apply
 from icikit.ops.adam import adam_scalars as j_adam_scalars
 from icikit_torch.interop import from_jax, opt_state_from_jax, to_jax
+from icikit_torch.ops import cuda_adam
 from icikit_torch.ops.adam import adam_apply, adam_scalars
 
 SHAPES = {"w": (16, 24), "b": (24,), "s": (3, 4, 5)}
@@ -89,3 +102,62 @@ def test_device_guard_select_commits_nothing():
                1, ok=torch.tensor(False))
     for d, b in zip((tp, tm, tv), before):
         assert all(torch.equal(d[k], b[k]) for k in SHAPES)
+
+
+@pytest.mark.parametrize("rows", [32, 24])
+@pytest.mark.parametrize("mom_dtype", ["float32", "bfloat16"])
+def test_adam_kernel_route_matches_jax_pallas(rows, mom_dtype):
+    from icikit.ops.adam import _use_pallas
+
+    rng = np.random.default_rng(rows)
+    mdt = jnp.dtype(mom_dtype)
+    p = rng.normal(size=(rows, 128)).astype(np.float32)
+    m = np.asarray(jnp.asarray(rng.normal(size=(rows, 128)) * 0.1, mdt))
+    v = np.asarray(jnp.asarray(rng.random((rows, 128)) * 0.01, mdt))
+    g = np.asarray(jnp.asarray(rng.normal(size=(rows, 128)), jnp.bfloat16))
+    covered = _use_pallas(*(jnp.asarray(a) for a in (p, m, v, g)))
+    assert covered == (rows == 32)  # bf16 gradients: rows % 16
+    jp, jm, jv = j_adam_apply({"w": jnp.asarray(p)}, {"w": jnp.asarray(m)},
+                              {"w": jnp.asarray(v)}, {"w": jnp.asarray(g)},
+                              1e-3, jnp.int32(2), use_pallas=True)
+    tp, tm, tv = ({"w": from_jax(a)} for a in (p, m, v))
+    cuda_adam.reset_launches()
+    adam_apply(tp, tm, tv, {"w": from_jax(g)}, 1e-3, 2, use_pallas=True)
+    assert cuda_adam.LAUNCHES["adam"] == 0  # CPU: the plain version
+    np.testing.assert_allclose(to_jax(tp["w"]), np.asarray(jp["w"]),
+                               rtol=1e-6, atol=1e-7)
+    for got, want in ((tm["w"], jm["w"]), (tv["w"], jv["w"])):
+        assert got.dtype == (torch.float32 if mom_dtype == "float32"
+                             else torch.bfloat16)
+        got = to_jax(got).astype(np.float32)
+        want = np.asarray(want).astype(np.float32)
+        if not covered:
+            np.testing.assert_array_equal(got, want)
+        elif mom_dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-9)
+
+
+def test_adam_apply_routes_every_floating_leaf_through_the_kernel():
+    """``use_pallas=True`` sends each floating leaf to the kernel's
+    wrapper (no sublane gate) and leaves integer leaves alone."""
+    calls = []
+    real = cuda_adam.adam_leaf
+
+    def spy(p, *a, **k):
+        calls.append(tuple(p.shape))
+        return real(p, *a, **k)
+
+    p = {"a": torch.ones(5), "b": torch.ones((3, 7)),
+         "i": torch.ones(2, dtype=torch.int32)}
+    m = {k: torch.zeros_like(x) for k, x in p.items()}
+    v = {k: torch.zeros_like(x) for k, x in p.items()}
+    try:
+        cuda_adam.adam_leaf = spy
+        adam_apply(p, m, v, {k: torch.ones_like(x) for k, x in p.items()},
+                   1e-3, 1, use_pallas=True)
+    finally:
+        cuda_adam.adam_leaf = real
+    assert calls == [(5,), (3, 7)]
+    assert torch.equal(p["i"], torch.ones(2, dtype=torch.int32))

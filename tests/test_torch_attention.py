@@ -18,6 +18,8 @@ written cache columns bitwise; RoPE 1e-6.
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,26 +107,29 @@ def test_dense_fallback_for_causal_cross_lengths():
 
 
 def test_unported_options_refuse_loudly():
-    """What this slice leaves unported raises, naming its ROADMAP row:
-    the recompute-flavour fused head and the matmul head backward (B10
-    recompute, B11), the one-pass Adam kernel (B12) and the remat
-    policies other than nothing and except_attn."""
+    """What the port leaves unported raises, naming its ROADMAP row: the
+    remat policies other than nothing and except_attn, and attention
+    impls other than flash and dense (the ring schedule). The recompute
+    and matmul head backwards (B10 recompute, B11) and the one-pass Adam
+    kernel (B12), which raised before they were ported, now run."""
     from icikit_torch.models.transformer import (TransformerConfig,
                                                  make_model_mesh,
                                                  make_train_step)
     from icikit_torch.ops.adam import adam_apply
     from icikit_torch.ops.xent import fused_xent
 
-    x = torch.zeros((8, 128))
-    w = torch.zeros((16, 128))
+    x = torch.zeros((8, 128), requires_grad=True)
+    w = torch.zeros((16, 128), requires_grad=True)
     t = torch.zeros((8,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B10, recompute"):
-        fused_xent(x, w, t, save_exp=False)
-    with pytest.raises(NotImplementedError, match="B11"):
-        fused_xent(x, w, t, save_exp=True, fused_bwd=False)
+    for save, fuse in ((False, True), (True, False), (False, False)):
+        nll = fused_xent(x, w, t, save_exp=save, fused_bwd=fuse)
+        dx, dw = torch.autograd.grad(nll.sum(), (x, w))
+        torch.testing.assert_close(nll, torch.full((8,), math.log(16.0)))
+        assert dx.shape == x.shape and dw.shape == w.shape
     p = {"a": torch.zeros(4)}
-    with pytest.raises(NotImplementedError, match="B12"):
-        adam_apply(p, p, p, p, 1e-3, 1, use_pallas=True)
+    adam_apply(p, {"a": torch.zeros(4)}, {"a": torch.zeros(4)},
+               {"a": torch.ones(4)}, 1e-3, 1, use_pallas=True)
+    torch.testing.assert_close(p["a"], torch.full((4,), -1e-3))
     mesh = make_model_mesh(device="cpu")
     with pytest.raises(NotImplementedError, match="remat_policy='dots'"):
         make_train_step(mesh, TransformerConfig(remat_policy="dots"))
@@ -242,8 +247,7 @@ def test_flash_gradients_match_jax(s, block, causal, d):
     want = _jax_grads(q, k, v, g_out, g_lse, causal, block)
     cuda_attention.reset_launches()
     got = _torch_grads(q, k, v, g_out, g_lse, causal)
-    assert cuda_attention.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0,
-                                       "decode_step": 0}
+    assert set(cuda_attention.LAUNCHES.values()) == {0}  # CPU: plain
     _close(got, want, 1e-5)
 
 

@@ -278,7 +278,8 @@ def test_xent_kernels_match_plain(dtype, t, d, v, no_tf32):
     dx = cx.xent_dx_saved(e, mrun, w, tg, lse, dn)
     dw = cx.xent_dw_saved(e, mrun, x, tg, lse, dn)
     assert cx.LAUNCHES == {"xent_fwd": 1, "xent_dx_saved": 1,
-                           "xent_dw_saved": 1}
+                           "xent_dw_saved": 1, "xent_dx": 0, "xent_dw": 0,
+                           "xent_g": 0, "xent_g_saved": 0}
     _grad_close((dx, dw),
                 (cx.xent_dx_saved_plain(pe, pm, w, tg, plse, dn, chunk),
                  cx.xent_dw_saved_plain(pe, pm, x, tg, plse, dn, chunk)),
@@ -315,7 +316,175 @@ def test_train_step_launches_every_kernel(gen):
         _, _, loss = step(params, opt.init(params), tok.to(dev),
                           tok.roll(1, 1).to(dev))
         losses[dev] = float(loss)
-    assert ca.LAUNCHES == {"flash_fwd": 2, "flash_bwd": 2, "decode_step": 0}
+    assert ca.LAUNCHES == {"flash_fwd": 2, "flash_bwd": 2, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0, "decode_step": 0}
     assert cx.LAUNCHES == {"xent_fwd": 1, "xent_dx_saved": 1,
-                           "xent_dw_saved": 1}
+                           "xent_dw_saved": 1, "xent_dx": 0, "xent_dw": 0,
+                           "xent_g": 0, "xent_g_saved": 0}
+    assert abs(losses["cuda"] - losses["cpu"]) < 1e-4
+
+
+# ------------------------------------------- the train step's other arms
+# Tolerances: the two-pass backward as flash_bwd's (float32 1e-4 of the
+# largest entry, bf16 2e-2); the recompute and g kernels: float32 1e-4 of
+# the largest entry (the logits summed in another order), bf16 2e-2 (g
+# rounded to bf16 by both, the bf16 dx/dw contracting it against the
+# plain version's float32); the Adam kernel bit for bit (the same float32
+# operations, each rounded once, in the same order).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
+                                 (256, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_two_pass_matches_plain(dtype, s, d, causal, no_tf32):
+    gen = no_tf32
+    q, k, v, do = (_randn((2, 3, s, d), dtype, gen) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = ca.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1) \
+        - 0.1 * torch.randn(lse.shape, generator=gen, device="cuda")
+    ca.reset_launches()
+    dq = ca.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = ca.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    assert ca.LAUNCHES["flash_bwd_dq"] == 1
+    assert ca.LAUNCHES["flash_bwd_dkv"] == 1 and ca.LAUNCHES["flash_bwd"] == 0
+    assert [g.dtype for g in (dq, dk, dv)] == [dtype] * 3
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    want = ca.flash_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    _grad_close((dq, dk, dv), want, tol)
+    # the plain versions chunk by chunk agree with the whole-matrix form
+    # (in bf16 to the kernels' tolerance: cuBLAS sums the logits of other
+    # shapes in other orders, and P is rounded to bf16 after that)
+    _grad_close((ca.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                       scale, chunk=96),
+                 *ca.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                         scale, chunk=96)), want, tol)
+    # deterministic: a second run gives the same bits
+    assert torch.equal(dq, ca.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                           scale))
+
+
+def test_flash_attention_takes_the_two_pass_route_past_the_budget(
+        gen, monkeypatch):
+    from icikit_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (_randn((1, 300, 2, 64), torch.float32, gen)
+               .requires_grad_(True) for _ in range(3))
+    grads = {}
+    for budget in (fa._DQ_SCRATCH_BYTES_MAX, 0):
+        monkeypatch.setattr(fa, "_DQ_SCRATCH_BYTES_MAX", budget)
+        ca.reset_launches()
+        fa.flash_attention(q, k, v, causal=True).sum().backward()
+        grads[budget] = [t.grad.clone() for t in (q, k, v)]
+        for t in (q, k, v):
+            t.grad = None
+        two = budget == 0
+        assert ca.LAUNCHES["flash_bwd"] == int(not two)
+        assert ca.LAUNCHES["flash_bwd_dq"] == ca.LAUNCHES[
+            "flash_bwd_dkv"] == int(two)
+    _grad_close(grads[0], grads[fa._DQ_SCRATCH_BYTES_MAX], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v", [(256, 128, 512), (300, 136, 1000)])
+def test_xent_recompute_and_g_kernels_match_plain(dtype, t, d, v, no_tf32):
+    gen = no_tf32
+    x = _randn((t, d), dtype, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda")
+    lse, tgt, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+    chunk = cx.TILE[dtype]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    cx.reset_launches()
+    g = cx.xent_g(x, w, tg, lse, dn)
+    gs = cx.xent_g_saved(e, mrun, tg, lse, dn)
+    dx = cx.xent_dx(x, w, tg, lse, dn)
+    dw = cx.xent_dw(x, w, tg, lse, dn)
+    assert {k: cx.LAUNCHES[k] for k in ("xent_g", "xent_g_saved", "xent_dx",
+                                        "xent_dw")} == dict.fromkeys(
+        ("xent_g", "xent_g_saved", "xent_dx", "xent_dw"), 1)
+    assert g.dtype == gs.dtype == dx.dtype == dw.dtype == dtype
+    _grad_close((g, dx, dw), (cx.xent_g_plain(x, w, tg, lse, dn),
+                              cx.xent_dx_plain(x, w, tg, lse, dn),
+                              cx.xent_dw_plain(x, w, tg, lse, dn)), tol)
+    _grad_close((gs,), (cx.xent_g_saved_plain(e, mrun, tg, lse, dn,
+                                              chunk),), 1e-5)
+    # the recomputed and the saved g are the same softmax
+    _grad_close((gs,), (g,), tol)
+
+
+from icikit_torch.ops import cuda_adam  # noqa: E402
+
+
+@pytest.mark.parametrize("mom", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ok", [None, True, False])
+def test_adam_kernel_matches_plain_bitwise(mom, grad, ok, gen):
+    from icikit_torch.ops.adam import adam_scalars
+
+    sc = adam_scalars(3e-3, torch.tensor(7, device="cuda"))
+    flag = None if ok is None else torch.tensor(ok, device="cuda")
+    for shape in ((1000,), (24, 128), (3, 5, 7)):
+        p = torch.randn(shape, generator=gen, device="cuda")
+        m = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(mom)
+        v = (0.01 * torch.rand(shape, generator=gen, device="cuda")).to(mom)
+        g = torch.randn(shape, generator=gen, device="cuda").to(grad)
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        cuda_adam.reset_launches()
+        cuda_adam.adam_leaf(pk, mk, vk, g, sc, 0.9, 0.999, 1e-8, flag)
+        assert cuda_adam.LAUNCHES["adam"] == 1
+        cuda_adam.adam_leaf_plain(p, m, v, g, sc, 0.9, 0.999, 1e-8, flag)
+        assert torch.equal(pk, p) and torch.equal(mk, m) \
+            and torch.equal(vk, v)
+        if ok is False:
+            assert cuda_adam.LAUNCHES["adam"] == 1
+
+
+@pytest.mark.parametrize("arm", ["recompute", "matmul-saved",
+                                 "matmul-recompute", "adam-kernel"])
+def test_train_step_arms_launch_their_kernels(arm, gen):
+    """One tiny train step on the card in each arm launches that arm's
+    kernels once a step (the Adam kernel once a floating leaf) and
+    agrees with the same step on the CPU."""
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 TransformerConfig,
+                                                 init_params,
+                                                 make_model_mesh,
+                                                 make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    head = dict(xent_save_exp=arm != "recompute" and arm != "matmul-recompute",
+                xent_fused_bwd=not arm.startswith("matmul"))
+    cfg = TransformerConfig(vocab=256, d_model=128, n_heads=4, d_head=32,
+                            d_ff=256, n_layers=2, max_seq=64,
+                            compute_dtype="float32",
+                            remat_policy="except_attn", **head)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.randint(0, 256, (2, 64), generator=torch.Generator()
+                        .manual_seed(1), dtype=torch.int32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: x.clone().to(dev) for k, x in cpu.items()}
+        opt, step = make_train_step(
+            make_model_mesh(device=dev), cfg,
+            FusedAdam(1e-3, use_pallas=arm == "adam-kernel"))
+        st = opt.init(params)
+        step(params, st, tok.to(dev), tok.roll(1, 1).to(dev))
+        cx.reset_launches()
+        cuda_adam.reset_launches()
+        _, _, loss = step(params, st, tok.to(dev), tok.roll(1, 1).to(dev))
+        losses[dev] = float(loss)
+    want = {"recompute": {"xent_fwd": 1, "xent_dx": 1, "xent_dw": 1},
+            "matmul-saved": {"xent_fwd": 1, "xent_g_saved": 1},
+            "matmul-recompute": {"xent_fwd": 1, "xent_g": 1},
+            "adam-kernel": {"xent_fwd": 1, "xent_dx_saved": 1,
+                            "xent_dw_saved": 1}}[arm]
+    assert {k: n for k, n in cx.LAUNCHES.items() if n} == want
+    assert cuda_adam.LAUNCHES["adam"] == (len(cpu) if arm == "adam-kernel"
+                                          else 0)
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-4

@@ -131,6 +131,55 @@ def test_three_fused_adam_steps_match_jax(moments):
                                    rtol=0, atol=1e-4, err_msg=k)
 
 
+# The train step's other arms: the recompute head (B10 recompute), the
+# matmul head backward with the saved and the recomputed g (B11), and the
+# one-pass Adam kernel (B12), each against JAX's same arm.
+ARMS = {"head-recompute": (dict(xent_save_exp=False), False),
+        "hb-matmul-saved": (dict(xent_fused_bwd=False), False),
+        "hb-matmul-recompute": (dict(xent_save_exp=False,
+                                     xent_fused_bwd=False), False),
+        "adam-kernel": (dict(), True)}
+
+
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_train_arms_match_jax(arm):
+    """Three steps of each arm against JAX's (its Pallas kernels in
+    interpret mode, the port's plain versions), float32: the losses 1e-5
+    relative and each parameter leaf 1e-5 in relative L2 (Adam divides
+    each entry's step by its own gradient scale, so an entry whose
+    gradient sits at the float32 noise of the two frameworks' sums moves
+    by up to lr = 1e-2 either way: one entry in 65536 here moves 1.4e-4,
+    so an entrywise bound would hold only by luck). JAX's step with its
+    Pallas Adam fails on jax 0.9.0 in interpret mode under shard_map (the
+    vma check, as its fused decode does), so the Adam kernel's arm is
+    held against JAX's XLA Adam, the same function (``tests/test_torch_adam.py`` holds the kernel's route
+    against JAX's Pallas kernel called directly)."""
+    over, pallas = ARMS[arm]
+    cfg = dict(CFG, pos_encoding="rope", **over)
+    mesh, jparams, tok, tgt, tparams = _both(cfg, seed=13)
+    opt, jstep = j_make_train_step(mesh, JConfig(**cfg), JFusedAdam(1e-2))
+    jst = opt.init(jparams)
+    want = []
+    for _ in range(3):
+        jparams, jst, loss = jstep(jparams, jst, jnp.asarray(tok),
+                                   jnp.asarray(tgt))
+        want.append(float(loss))
+    opt, step = make_train_step(make_model_mesh(device="cpu"),
+                                TransformerConfig(**cfg),
+                                FusedAdam(1e-2, use_pallas=pallas))
+    st = opt.init(tparams)
+    got = []
+    for _ in range(3):
+        tparams, st, loss = step(tparams, st, torch.from_numpy(tok),
+                                 torch.from_numpy(tgt))
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[2] < got[0]
+    for k, v in jparams.items():
+        a, b = tparams[k].double().numpy(), np.asarray(v, np.float64)
+        assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), k
+
+
 def test_step_from_carried_jax_state_matches_jax():
     """One step from JAX's optimizer state after two steps (non-zero
     moments, t = 2), carried over by ``opt_state_from_jax``."""
@@ -226,9 +275,14 @@ def test_train_refusals_name_their_items():
             make_train_step(mesh, TransformerConfig(**dict(CFG, **over)))
     with pytest.raises(ValueError, match="unknown remat_policy"):
         make_train_step(mesh, TransformerConfig(remat_policy="all"))
-    with pytest.raises(NotImplementedError, match="B12"):
-        make_train_step(mesh, TransformerConfig(**CFG),
-                        FusedAdam(use_pallas=True))
+    # the one-pass Adam kernel (B12) and the head's other flavours (B10
+    # recompute, B11) are ported: their steps build and run
+    for cfg_over, adam in ((dict(), FusedAdam(use_pallas=True)),
+                           (dict(xent_save_exp=False), None),
+                           (dict(xent_fused_bwd=False), None)):
+        opt, step = make_train_step(
+            mesh, TransformerConfig(**dict(CFG, **cfg_over)), adam)
+        assert opt.use_pallas == (adam is not None)
     with pytest.raises(NotImplementedError, match="A5"):
         make_train_step(mesh, TransformerConfig(**CFG), guard="device",
                         grad_check="ring")
@@ -276,6 +330,18 @@ def test_train_bench_runs_on_cpu_with_jax_record_keys():
     assert rec["metric"] == "train_tiny_dp1tp1sp1_b2_rp-except_attn"
     assert rec["head"] == "saved" and rec["mfu"] is None
     assert rec["device"] == "cpu" and np.isfinite(rec["loss"])
+    for flags, tag in ((["--head", "recompute"], "_head-recompute"),
+                       (["--head-bwd", "matmul"], "_hb-matmul"),
+                       (["--optimizer", "fused-pallas"],
+                        "_opt-fused-pallas")):
+        r = subprocess.run([sys.executable, "-m", "icikit_torch.bench.train",
+                            "--device", "cpu", "--preset", "tiny", "--batch",
+                            "2", "--steps", "1", "--warmup", "1",
+                            "--windows", "1", *flags], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        assert rec["metric"].endswith(tag) and np.isfinite(rec["loss"])
     r = subprocess.run([sys.executable, "-m", "icikit_torch.bench.train",
                         "--device", "cpu", "--preset", "tiny", "--dp", "2"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
