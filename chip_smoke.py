@@ -88,7 +88,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` timed at (1, 4, 131072, 128)
    beside their chunked plain versions and SDPA's backward, each bounded
    by its share (3:4) of the function's five causal products.
-16. kernels line: every ported kernel with its launches on its main path,
+16. the head dim 256: ``flash_fwd``, ``flash_bwd`` and the two-pass pair
+   at d = 256 (WIDE_SHAPES) against their plain versions, bf16 and
+   float32, with FLASH_TOL and BLOCK_L2_TOL; ``decode_step`` at dh 256
+   and 384; ``greedy_generate`` of a d_head-256 MHA config (the base
+   width, 4 heads, 2 layers), b 8, prompt 512, 16 new, its prefill
+   ``flash_fwd`` and step launches asserted and its float32 tokens held
+   to the plain arms; a float32 b 2 train step of that config against
+   the plain arms (loss and gradients, flash launches asserted).
+17. the int8 kernels against their plain versions: ``quant_matvec``
+   (B15) at every (N, K) of the int8 path, rows 8 and 4096, x in bf16
+   and float32 (QMV_TOL, relative to the largest entry);
+   ``decode_step_q8`` (B14) at 64 rows, dh 128 and 256, 576 columns, cur
+   0, 1, 300, 575 (Q8_STEP_TOL; the int8 cache columns bit for bit).
+18. the int8 decode path: ``greedy_generate`` of the ``base`` preset with
+   decode_quant="int8", decode_step="fused", quant_matvec="auto",
+   attention "flash", bf16, b 8, prompt 512, 64 new, the weights
+   quantized once outside the timing: 12 ``flash_fwd``, 756
+   ``decode_step_q8`` and 3136 ``quant_matvec`` launches asserted, no
+   ``decode_step``; the caches int8 with float32 scales; at float32 the
+   tokens equal the plain arms' (decode_step "unfused", quant_matvec
+   "xla", attention "dense") except after a near-tie
+   (INT8_FP32_LOGIT_TOL); at bf16 the first step's logits within
+   BF16_LOGIT_TOL; the int8-vs-bf16 token agreement as information;
+   tokens/s by the chained median-of-windows beside the bf16 fused arm,
+   prefill ms, the int8 byte-model bound and the idle share.
+19. per-kernel numbers of B15 and B14 at the int8 path's shapes.
+20. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
 
@@ -159,6 +185,28 @@ ARMS = {"default": ({}, False, ("xent_dx_saved", "xent_dw_saved")),
                                 ("xent_g",)),
         "adam-kernel": ({}, True, ("xent_dx_saved", "xent_dw_saved",
                                    "adam"))}
+# Phase 16: the flash kernels' d = 256 builds at (b, h, s, d), and a
+# d_head-256 MHA config at the base width cut to two layers
+WIDE_SHAPES = ((2, 4, 1024, 256), (1, 4, 2048, 256))
+WIDE_CFG = dict(n_heads=4, d_head=256, n_layers=2)
+WIDE_NEW = 16
+TRAIN_SEQ_WIDE = 1024
+# Phases 17-19, the int8 decode path: B15's (N, K) on it, its rows (the
+# step's b and the prefill's b * s), the rows the kernels line reports,
+# and the tolerances (relative to the largest |reference| entry for B15,
+# absolute for B14's float32 output)
+Q8_SHAPES = {"wqkv": (3072, 1024), "wo": (1024, 1024), "w1": (4096, 1024),
+             "w2": (1024, 4096), "w_out": (32768, 1024)}
+Q8_ROWS = (DEC_BATCH, DEC_BATCH * DEC_PROMPT)
+Q8_ROW_ENTRIES = (("wqkv", DEC_BATCH), ("w_out", DEC_BATCH),
+                  ("w1", DEC_BATCH * DEC_PROMPT))
+QMV_TOL = {"bf16": 1e-4, "f32": 1e-5}
+Q8_STEP_TOL = 1e-5
+# int8 float32 tokens against the plain arms: a K/V element that sits
+# within float32 rounding of an int8 rounding boundary lands on the
+# neighbouring int8 value in one arm, which moves the logits by far more
+# than float32 rounding does
+INT8_FP32_LOGIT_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -572,9 +620,10 @@ def train_kernel_checks(torch, dev) -> None:
 def _train_config(dtype, **over):
     from icikit_torch.bench.train import PRESETS
     from icikit_torch.models.transformer import TransformerConfig
-    return TransformerConfig(**PRESETS[TRAIN_PRESET], compute_dtype=dtype,
-                             remat_policy="except_attn",
-                             softmax_shift=SHIFT, **over)
+    return TransformerConfig(**{**PRESETS[TRAIN_PRESET],
+                                "compute_dtype": dtype,
+                                "remat_policy": "except_attn",
+                                "softmax_shift": SHIFT, **over})
 
 
 def train_cell(torch, dev) -> dict:
@@ -1270,6 +1319,501 @@ def long_context(torch, dev, bw, smi) -> list:
     return rows
 
 
+def wide_head_checks(torch, dev, smi) -> None:
+    """Phase 16: the flash kernels at d = 256 and the fused step at dh 256
+    and 384 against their plain versions; a d_head-256 generate and a
+    float32 train step of that config against the plain arms."""
+    import dataclasses
+
+    from icikit_torch.bench.train import PRESETS
+    from icikit_torch.models.transformer import (TransformerConfig,
+                                                 greedy_generate,
+                                                 init_params,
+                                                 loss_and_metrics,
+                                                 make_model_mesh)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops.rope import rope_sincos
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def err(a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    checks = []
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        tol, l2_tol = FLASH_TOL[key], BLOCK_L2_TOL[key]
+        for b, h, s_, d in WIDE_SHAPES:
+            q, k, v, do = (randn((b, h, s_, d), dtype) for _ in range(4))
+            scale = d ** -0.5
+            for causal in (True, False):
+                out, lse = ca.flash_fwd(q, k, v, causal, scale)
+                w_out, w_lse = ca.flash_fwd_plain(q, k, v, causal, scale)
+                delta = (do.float() * out.float()).sum(-1)
+                args = (q, k, v, do, lse, delta, causal, scale)
+                want = ca.flash_bwd_plain(*args)
+                got = {"flash_bwd": ca.flash_bwd(*args),
+                       "two_pass": (ca.flash_bwd_dq(*args),
+                                    *ca.flash_bwd_dkv(*args))}
+                rel = {n: max(_rel(a, c) for a, c in zip(g, want))
+                       for n, g in got.items()}
+                l2 = {n: max(_block_rel_l2(a, c) for a, c in zip(g, want))
+                      for n, g in got.items()}
+                e_o, e_l = err(out, w_out), err(lse, w_lse)
+                checks.append({
+                    "kernel": "flash_fwd, flash_bwd, flash_bwd_dq + "
+                              "flash_bwd_dkv", "dtype": key,
+                    "shape": [b, h, s_, d], "causal": causal,
+                    "out_err": e_o, "lse_err": e_l, "grad_rel_err": rel,
+                    "grad_block_rel_l2": l2,
+                    "ok": e_o <= tol["out"] and e_l <= tol["lse"]
+                    and max(rel.values()) <= tol["grad"]
+                    and max(l2.values()) <= l2_tol})
+                del out, lse, w_out, w_lse, delta, want, got
+            del q, k, v, do
+        rows, total = 64, DEC_PROMPT + DEC_NEW
+        for dh in (256, 384):
+            for cur in sorted({0, min(300, total - 1), total - 1}):
+                q, k, v = (randn((rows, dh), dtype) for _ in range(3))
+                kc, vc = (randn((rows, total, dh), dtype) for _ in range(2))
+                c, s_ = rope_sincos(torch.tensor([cur], device=dev), dh)
+                cos2, sin2 = torch.cat([c, c], -1), torch.cat([s_, s_], -1)
+                kc2, vc2 = kc.clone(), vc.clone()
+                got = ca.decode_step(q, k, v, kc, vc, cur, cos2, sin2,
+                                     scale=dh ** -0.5, rope=True)
+                want = ca.decode_step_plain(q, k, v, kc2, vc2, cur, cos2,
+                                            sin2, scale=dh ** -0.5, rope=True)
+                e_o = err(got, want)
+                same = bool(torch.equal(kc, kc2) and torch.equal(vc, vc2))
+                checks.append({"kernel": "decode_step", "dtype": key,
+                               "rows": rows, "total": total, "dh": dh,
+                               "cur": cur, "out_err": e_o,
+                               "cache_bitwise": same,
+                               "ok": e_o <= tol["out"] and same})
+    torch.cuda.synchronize()
+    bad = [c for c in checks if not c["ok"]]
+
+    # the d_head-256 path: a generate at bf16 with its launches counted
+    # and at float32 against the plain arms; a float32 b 2 train step
+    mesh = make_model_mesh(device=dev)
+    base = dict(PRESETS[DEC_PRESET], **WIDE_CFG)
+    cfg = TransformerConfig(**base, decode_step="fused",
+                            attention_impl="flash")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    prompt = torch.randint(0, cfg.vocab, (DEC_BATCH, DEC_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    greedy_generate(params, prompt, mesh, cfg, 2)
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    out = greedy_generate(params, prompt, mesh, cfg, WIDE_NEW)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ca.LAUNCHES.items() if n}
+    want_l = {"flash_fwd": cfg.n_layers,
+              "decode_step": cfg.n_layers * (WIDE_NEW - 1)}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t32, lg32 = greedy_generate(params, prompt, mesh, f32, WIDE_NEW,
+                                return_logits=True)
+    t32p, lg32p = greedy_generate(params, prompt, mesh, dataclasses.replace(
+        f32, decode_step="unfused", attention_impl="dense"), WIDE_NEW,
+        return_logits=True)
+    div = _first_divergence(t32, t32p, lg32, lg32p, DEC_PROMPT,
+                            FP32_LOGIT_TOL)
+    bad_div = [r for r in div if r["max_logit_diff"] > FP32_LOGIT_TOL
+               or (r["first_diff"] is not None and not r["near_tie"])]
+    del lg32, lg32p
+    tcfg = _train_config("float32", **WIDE_CFG)
+    tok = torch.randint(0, cfg.vocab, (TRAIN_CHECK_BATCH, TRAIN_SEQ_WIDE),
+                        generator=gen, device=dev, dtype=torch.int32)
+    tgt = tok.roll(1, 1)
+    ca.reset_launches()
+    loss_k, g_k, _ = loss_and_metrics(params, tok, tgt, mesh, tcfg)
+    torch.cuda.synchronize()
+    t_launches = {k: n for k, n in ca.LAUNCHES.items() if n}
+    loss_p, g_p, _ = loss_and_metrics(params, tok, tgt, mesh,
+                                      dataclasses.replace(
+                                          tcfg, attention_impl="dense",
+                                          fused_head=False))
+    train = {"loss": float(loss_k), "loss_plain": float(loss_p),
+             "loss_diff": abs(float(loss_k) - float(loss_p)),
+             "rel_l2_max": max(_rel_l2(g_k[k], g_p[k]) for k in g_p),
+             "launches": t_launches}
+    ok_path = (launches == want_l and not bad_div
+               and tuple(out.shape) == (DEC_BATCH, DEC_PROMPT + WIDE_NEW)
+               and t_launches == {"flash_fwd": tcfg.n_layers,
+                                  "flash_bwd": tcfg.n_layers}
+               and train["loss_diff"] <= TRAIN_LOSS_TOL
+               and train["rel_l2_max"] <= TRAIN_GRAD_TOL)
+    emit({"phase": "wide_head", "card": smi,
+          "tolerance": {"flash": FLASH_TOL, "block_rel_l2": BLOCK_L2_TOL,
+                        "decode_step": "out as flash's, cache bitwise",
+                        "generate_fp32_logits": FP32_LOGIT_TOL,
+                        "train_loss": TRAIN_LOSS_TOL,
+                        "train_rel_l2": TRAIN_GRAD_TOL},
+          "checks": checks,
+          "generate": {"config": base, "batch": DEC_BATCH,
+                       "prompt": DEC_PROMPT, "n_new": WIDE_NEW,
+                       "launches_bf16": launches, "want": want_l,
+                       "fp32_tokens_identical": bool(torch.equal(t32, t32p)),
+                       "fp32_rows": div},
+          "train_fp32_b2": dict(train, seq=TRAIN_SEQ_WIDE),
+          "seconds": round(time.perf_counter() - t0, 1)})
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    if bad or not ok_path:
+        raise AssertionError(f"d = 256 checks failed: kernels {bad}, path "
+                             f"{launches} {bad_div} {train}")
+
+
+def _q8_step_operands(torch, gen, dev, rows, total, dh, cur, qdtype):
+    """The int8 step's operands: q, the fresh column (int8 and its
+    dequant), int8 caches and their scale rows holding the column's."""
+    from icikit_torch.ops.quant import dequantize_last, quantize_last
+
+    q = torch.randn((rows, dh), generator=gen, device=dev).to(qdtype)
+    kq, ks = quantize_last(torch.randn((rows, dh), generator=gen,
+                                       device=dev))
+    vq, vs = quantize_last(torch.randn((rows, dh), generator=gen,
+                                       device=dev))
+    kc, kcs = quantize_last(torch.randn((rows, total, dh), generator=gen,
+                                        device=dev))
+    vc, vcs = quantize_last(torch.randn((rows, total, dh), generator=gen,
+                                        device=dev))
+    kcs[:, cur], vcs[:, cur] = ks, vs
+    return (q, kq, vq, dequantize_last(kq, ks), dequantize_last(vq, vs),
+            kc, vc, kcs, vcs)
+
+
+def int8_kernel_checks(torch, dev) -> None:
+    """Phase 17: B15 at every (N, K) of the int8 path, rows 8 and 4096,
+    and B14 at the path's step shape, against their plain versions."""
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_quant as cq
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    checks = []
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for rows in Q8_ROWS:
+            for n, k in Q8_SHAPES.values():
+                x = torch.randn((rows, k), generator=gen,
+                                device=dev).to(dtype)
+                w8 = torch.randint(-127, 128, (n, k), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                sc = torch.rand((n,), generator=gen, device=dev) / 127
+                got, want = cq.quant_matvec(x, w8, sc), \
+                    cq.quant_matvec_plain(x, w8, sc)
+                e = _rel(got, want)
+                checks.append({"kernel": "quant_matvec", "dtype": key,
+                               "rows": rows, "n": n, "k": k, "rel_err": e,
+                               "ok": e <= QMV_TOL[key]})
+                del x, w8, sc, got, want
+        rows, total = DEC_BATCH * 8, DEC_PROMPT + DEC_NEW
+        for dh in (128, 256):
+            for cur in sorted({0, 1, min(300, total - 1), total - 1}):
+                ops = _q8_step_operands(torch, gen, dev, rows, total, dh,
+                                        cur, dtype)
+                kc2, vc2 = ops[5].clone(), ops[6].clone()
+                want = ca.decode_step_q8_plain(*ops[:5], kc2, vc2, *ops[7:],
+                                               cur, scale=dh ** -0.5)
+                got = ca.decode_step_q8(*ops, cur, scale=dh ** -0.5)
+                e = float((got - want).abs().max())
+                same = bool(torch.equal(ops[5], kc2)
+                            and torch.equal(ops[6], vc2))
+                checks.append({"kernel": "decode_step_q8", "q_dtype": key,
+                               "rows": rows, "total": total, "dh": dh,
+                               "cur": cur, "out_err": e,
+                               "cache_bitwise": same,
+                               "ok": e <= Q8_STEP_TOL and same})
+    torch.cuda.synchronize()
+    emit({"phase": "int8_kernels",
+          "tolerance": {"quant_matvec": QMV_TOL, "decode_step_q8":
+                        Q8_STEP_TOL,
+                        "why": "quant_matvec: rel_err is the largest |error| "
+                               "over the largest |reference| entry; the "
+                               "products are exact in both (int8 in bf16 or "
+                               "float32), the sums of K terms in other "
+                               "orders (bf16 x on the tensor cores, float32 "
+                               "x by FMA); decode_step_q8: the output "
+                               "absolute, float32 sums in other orders, the "
+                               "int8 cache columns bit for bit; TF32 off"},
+          "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"int8 kernel disagrees with its plain version: "
+                             f"{bad}")
+
+
+def int8_decode_path(torch, dev, bw, smi) -> dict:
+    """Phase 18: the int8 decode path at the base preset; returns the
+    kernel launches of its main run and its trace's device time by
+    kernel."""
+    import dataclasses
+
+    from icikit_torch.bench.decode import decode_bytes_per_token, make_config
+    from icikit_torch.models.transformer import (greedy_generate,
+                                                 init_params,
+                                                 make_model_mesh)
+    from icikit_torch.models.transformer.decode import (
+        _DecodeCtx, _prefill, maybe_quantize_params)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_quant as cq
+    from icikit_torch.utils.timing import cuda_time_ms, timeit_windows
+    from icikit_torch.utils.trace import device_activity
+
+    t0 = time.perf_counter()
+    mesh = make_model_mesh(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plain = dict(decode_step="unfused", quant_matvec="xla",
+                 attention_impl="dense")
+
+    def config(dtype, **over):
+        return make_config(DEC_PRESET, DEC_PROMPT, DEC_NEW,
+                           **{"decode_step": "fused",
+                              "attention_impl": "flash",
+                              "decode_quant": "int8",
+                              "quant_matvec": "auto",
+                              "compute_dtype": dtype, **over})
+
+    cfg = config("bfloat16")
+    fp = init_params(cfg, gen, dev)          # phase 8's masters and prompt
+    prompt = torch.randint(0, cfg.vocab, (DEC_BATCH, DEC_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    params = maybe_quantize_params(fp, mesh, cfg)   # once, outside timing
+
+    # the main path's run, counted
+    greedy_generate(params, prompt, mesh, cfg, 2)   # first-call set-up
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    cq.reset_launches()
+    out, lg16 = greedy_generate(params, prompt, mesh, cfg, DEC_NEW,
+                                return_logits=True)
+    torch.cuda.synchronize()
+    launches = {**ca.LAUNCHES, **cq.LAUNCHES}
+    per_call = 4 * cfg.n_layers + 1
+    want = {**dict.fromkeys(launches, 0), "flash_fwd": cfg.n_layers,
+            "decode_step_q8": cfg.n_layers * (DEC_NEW - 1),
+            "quant_matvec": per_call * DEC_NEW}
+    if launches != want:
+        raise AssertionError(f"int8 decode path launches {launches}, want "
+                             f"{want}")
+    ok_shape = (tuple(out.shape) == (DEC_BATCH, DEC_PROMPT + DEC_NEW)
+                and bool(torch.equal(out[:, :DEC_PROMPT], prompt))
+                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab
+                and bool(torch.isfinite(lg16).all()))
+    if not ok_shape:
+        raise AssertionError("int8 decode path output malformed")
+    ctx = _DecodeCtx(cfg, params)
+    _, (kcs, vcs, kss, vss) = _prefill(ctx, prompt, DEC_PROMPT,
+                                       DEC_PROMPT + DEC_NEW, True)
+    caches = {"k_v": sorted({str(c.dtype) for c in kcs + vcs}),
+              "scales": sorted({str(c.dtype) for c in kss + vss}),
+              "k_shape": list(kcs[0].shape), "scale_shape": list(kss[0].shape)}
+    del ctx, kcs, vcs, kss, vss
+    if caches["k_v"] != ["torch.int8"] or caches["scales"] != [
+            "torch.float32"]:
+        raise AssertionError(f"int8 path caches: {caches}")
+
+    # bf16 against the plain arms: first-step logits; token agreement with
+    # the bf16 (unquantized) fused path, as information
+    out_p, lg16_p = greedy_generate(params, prompt, mesh,
+                                    config("bfloat16", **plain), DEC_NEW,
+                                    return_logits=True)
+    d16 = (lg16[0] - lg16_p[0]).abs()
+    out_fp = greedy_generate(fp, prompt, mesh, config(
+        "bfloat16", decode_quant="none"), DEC_NEW)
+    bf16 = {"first_logits_max_diff": float(d16.max()),
+            "first_logits_mean_diff": float(d16.mean()),
+            "tolerance": BF16_LOGIT_TOL,
+            "token_equal_share_plain_arms": float(
+                (out[:, DEC_PROMPT:] == out_p[:, DEC_PROMPT:]).float().mean()),
+            "token_agreement_with_bf16_path_info": float(
+                (out[:, DEC_PROMPT:] == out_fp[:, DEC_PROMPT:]).float()
+                .mean())}
+    del lg16, lg16_p
+
+    # float32: tokens identical up to near-ties
+    c32 = config("float32")
+    t32, lg32 = greedy_generate(params, prompt, mesh, c32, DEC_NEW,
+                                return_logits=True)
+    t32p, lg32p = greedy_generate(params, prompt, mesh,
+                                  config("float32", **plain), DEC_NEW,
+                                  return_logits=True)
+    rows = _first_divergence(t32, t32p, lg32, lg32p, DEC_PROMPT,
+                             INT8_FP32_LOGIT_TOL)
+    fp32 = {"tokens_identical": bool(torch.equal(t32, t32p)),
+            "logit_tolerance": INT8_FP32_LOGIT_TOL, "rows": rows}
+    del lg32, lg32p
+    emit({"phase": "int8_decode_check", "preset": DEC_PRESET,
+          "batch": DEC_BATCH, "prompt": DEC_PROMPT, "n_new": DEC_NEW,
+          "launches": launches, "caches": caches, "bf16": bf16, "fp32": fp32,
+          "fp32_tolerance_why": "a K/V element within float32 rounding of "
+                                "an int8 rounding boundary quantizes to the "
+                                "neighbouring value in one arm (the kernel "
+                                "and cuBLAS sum the projections in other "
+                                "orders); one int8 step of a K column moves "
+                                "an attention logit by "
+                                "|q_d| amax/127/sqrt(dh)",
+          "seconds": round(time.perf_counter() - t0, 1)})
+    bad32 = [r for r in rows if r["max_logit_diff"] > INT8_FP32_LOGIT_TOL
+             or (r["first_diff"] is not None and not r["near_tie"])]
+    if bad32 or bf16["first_logits_max_diff"] > BF16_LOGIT_TOL:
+        raise AssertionError(f"int8 decode path disagrees with its plain "
+                             f"arms: fp32 {bad32}, bf16 {bf16}")
+
+    # timing: the int8 fused arm beside phase 8's bf16 fused arm
+    ctr = [0]
+
+    def chain(args, o):
+        ctr[0] += 1
+        nxt = o[:, -DEC_PROMPT:].clone()
+        nxt[0, 0] = ctr[0] % cfg.vocab
+        return (nxt,)
+
+    cache_len = DEC_PROMPT + DEC_NEW
+    bytes8 = decode_bytes_per_token(cfg, DEC_BATCH, cache_len,
+                                    bytes_dtype="int8")
+    bytes16 = decode_bytes_per_token(cfg, DEC_BATCH, cache_len)
+    arms = {}
+    for name, c, p, nbytes in (
+            ("int8_fused", cfg, params, bytes8),
+            ("bf16_fused", dataclasses.replace(cfg, decode_quant="none"), fp,
+             bytes16)):
+        res = timeit_windows(
+            lambda x, c=c, p=p: greedy_generate(p, x, mesh, c, DEC_NEW),
+            (prompt,), chain, windows=3, runs=2, warmup=1,
+            floor_s=DEC_NEW * nbytes / bw)
+        arms[name] = {"per_token_ms": res.median_s / DEC_NEW * 1e3,
+                      "spread_ms": [res.min_s / DEC_NEW * 1e3,
+                                    res.max_s / DEC_NEW * 1e3],
+                      "tokens_per_s": DEC_BATCH * DEC_NEW / res.median_s,
+                      "generate_ms": res.median_s * 1e3,
+                      "bound_ms_per_token": nbytes / bw * 1e3,
+                      "windows": res.windows, "suspect": res.suspect}
+    prefill_ms = cuda_time_ms(
+        lambda: greedy_generate(params, prompt, mesh, cfg, 1), iters=5)
+    activity = device_activity(
+        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW))
+    emit({"phase": "int8_decode_timing", "card": smi, "arms": arms,
+          "prefill_ms": prefill_ms,
+          "step_ms_excluding_prefill": (arms["int8_fused"]["generate_ms"]
+                                        - prefill_ms) / (DEC_NEW - 1),
+          "bound_ms_per_token": bytes8 / bw * 1e3, "bytes_per_token": bytes8,
+          "read_gbps": bytes8 / (arms["int8_fused"]["per_token_ms"] * 1e-3)
+          / 1e9,
+          "profile": activity,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    del params, fp
+    torch.cuda.empty_cache()
+    return launches, activity["by_name"]
+
+
+def int8_rows(torch, dev, bw, launches, path_trace) -> list:
+    """Phase 19's rows for B15 and B14, timed at the int8 path's shapes
+    by CUDA events around back-to-back launches, as every row is; beside
+    them in the phase line, each kernel's device time a launch in phase
+    18's trace of the main path (``path_trace``: its ``by_name``). At
+    the step's 8 rows a launch takes less device time than the host
+    takes to issue it, so the events there time the host."""
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_quant as cq
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def bound(nbytes, ops, rate):
+        t_b, t_o = nbytes / bw, ops / rate
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    rows_out, shapes = [], {}
+    for rows in Q8_ROWS:
+        for name, (n, k) in Q8_SHAPES.items():
+            x = torch.randn((rows, k), generator=gen, device=dev).to(bf)
+            w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            sc = torch.rand((n,), generator=gen, device=dev) / 127
+            it = 100 if rows <= 16 else 10
+            k_ms = cuda_time_ms(lambda: cq.quant_matvec(x, w8, sc),
+                                iters=it, warmup=3)
+            p_ms = cuda_time_ms(lambda: cq.quant_matvec_plain(x, w8, sc),
+                                iters=10, warmup=2)
+            w16 = w8.to(bf)
+            mm_ms = cuda_time_ms(lambda: torch.matmul(x, w16.t()), iters=it,
+                                 warmup=3)
+            try:
+                s16 = sc.to(bf)
+                lib_ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(
+                    x, w8, s16), iters=it, warmup=3)
+            except (RuntimeError, NotImplementedError) as exc:
+                lib_ms, lib_why = None, f"{type(exc).__name__}: {exc}"[:160]
+            else:
+                lib_why = "torch._weight_int8pack_mm (bf16 out)"
+            b_ms, b_by = bound(n * k + rows * k * 2 + n * 4 + rows * n * 4,
+                               2 * rows * n * k, BF16_TENSOR_OPS)
+            e = _rel(cq.quant_matvec(x, w8, sc), cq.quant_matvec_plain(x, w8,
+                                                                       sc))
+            shapes[f"{name} rows {rows}"] = {
+                "n": n, "k": k, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "library": lib_why, "cublas_bf16_ms": mm_ms, "rel_err": e}
+            if (name, rows) in Q8_ROW_ENTRIES:
+                rows_out.append({
+                    "name": f"quant_matvec (B15) {name}, rows {rows}",
+                    "route": "cuda", "source": "icikit_torch/csrc/quant.cu",
+                    "replaces": "icikit/ops/quant.py:167 (B15, "
+                                "_matvec_kernel :108)",
+                    "launches": launches["quant_matvec"], "max_abs_err": e,
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms})
+            del x, w8, sc, w16
+    r_, total, dh = DEC_BATCH * 8, DEC_PROMPT + DEC_NEW, 128
+    cur = DEC_PROMPT + (DEC_NEW - 1) // 2       # the steps' mean column
+    ops = _q8_step_operands(torch, gen, dev, r_, total, dh, cur, bf)
+    s_ms = cuda_time_ms(lambda: ca.decode_step_q8(*ops, cur,
+                                                  scale=dh ** -0.5),
+                        iters=100, warmup=5)
+    s_plain = cuda_time_ms(lambda: ca.decode_step_q8_plain(
+        *ops, cur, scale=dh ** -0.5), iters=10)
+    s_err = float((ca.decode_step_q8(*ops, cur, scale=dh ** -0.5)
+                   - ca.decode_step_q8_plain(*ops[:5], ops[5].clone(),
+                                             ops[6].clone(), *ops[7:], cur,
+                                             scale=dh ** -0.5)).abs().max())
+    s_bytes = (2 * r_ * cur * dh + 2 * r_ * cur * 4   # int8 K/V, scales
+               + r_ * dh * 2 + 2 * r_ * dh + 2 * r_ * dh * 4  # q, columns
+               + r_ * dh * 4 + 2 * r_ * dh)           # out, column writes
+    s_bound, s_by = bound(s_bytes, 2 * 2 * r_ * (cur + 1) * dh, VECTOR_OPS)
+    rows_out.append({
+        "name": "decode_step_q8 (B14)", "route": "cuda",
+        "source": "icikit_torch/csrc/attention.cu",
+        "replaces": "icikit/ops/flash_attention.py:1229 (B14, "
+                    "_decode_step_q8_kernel :1137)",
+        "launches": launches["decode_step_q8"], "max_abs_err": s_err,
+        "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
+        "bound_by": s_by, "library_ms": None})
+    torch.cuda.synchronize()
+    path_us = {k: 1e3 * v["ms"] / v["count"] for k, v in path_trace.items()
+               if k in ("qmv_bf16_skinny", "qmv_bf16_tile",
+                        "decode_step_q8_kernel")}
+    emit({"phase": "int8_timing_kernels", "quant_matvec": shapes,
+          "ms": "CUDA events around 100 (rows 8) or 10 back-to-back "
+                "calls; at rows 8 they time the host's launches",
+          "path_trace_device_us_per_launch": path_us,
+          "quant_matvec_bound": "int8 weights, bf16 x, float32 scales and "
+                                "out once; products at the bf16 tensor "
+                                "rate",
+          "decode_step_q8": f"rows={r_} total={total} dh={dh} cur={cur} "
+                            f"bf16 q, {s_bytes} bytes",
+          "decode_step_q8_library": "none: no one PyTorch call writes the "
+                                    "int8 column and attends over int8 "
+                                    "caches with folded scales",
+          "max_abs_err": "quant_matvec relative to the largest entry; "
+                         "decode_step_q8 absolute"})
+    return rows_out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1304,9 +1848,18 @@ def main() -> int:
     for lib, fn, names in (
             ("attention", "icikit_attention_regs",
              ("flash_fwd_bf16<128>", "flash_fwd_f32<128>",
-              "decode_step_kernel<bf16, 4>", "flash_bwd_bf16<128>",
+              "decode_step_kernel<bf16>", "flash_bwd_bf16<128>",
               "flash_bwd_f32<128>", "flash_bwd_dq_bf16<128>",
-              "flash_bwd_dq_f32<128>", "flash_bwd_dkv_bf16<128>")),
+              "flash_bwd_dq_f32<128>", "flash_bwd_dkv_bf16<128>",
+              "flash_fwd_bf16<256>", "flash_fwd_f32<256>",
+              "flash_bwd_bf16<256>", "flash_bwd_f32<256>",
+              "flash_bwd_dq_bf16<256>", "flash_bwd_dq_f32<256>",
+              "flash_bwd_dkv_bf16<256>", "flash_bwd_dkv_f32<256>",
+              "decode_step_q8_kernel<bf16>",
+              "decode_step_q8_kernel<float>")),
+            ("quant", "icikit_quant_regs",
+             ("qmv_bf16_skinny", "qmv_bf16_tile", "qmv_f32<16, 32>",
+              "qmv_f32<64, 64>")),
             ("xent", "icikit_xent_regs",
              ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
@@ -1543,6 +2096,18 @@ def main() -> int:
 
     # -- 15. the long-context path: s = 32768 and 131072 ----------------
     rows += long_context(torch, dev, bw, smi)
+
+    # -- 16. d = 256: the flash kernels, the step, a generate, a step ----
+    wide_head_checks(torch, dev, smi)
+
+    # -- 17. the int8 kernels against their plain versions --------------
+    int8_kernel_checks(torch, dev)
+
+    # -- 18. the int8 decode path: base, b = 8, prompt 512, 64 new ------
+    q8_launches, q8_trace = int8_decode_path(torch, dev, bw, smi)
+
+    # -- 19. per-kernel numbers at the int8 path's shapes ---------------
+    rows += int8_rows(torch, dev, bw, q8_launches, q8_trace)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

@@ -1,7 +1,9 @@
 """Decode throughput: tokens/s of greedy generation with a KV cache.
 
 The port of ``python -m icikit.bench.decode`` for its greedy,
-non-speculative, non-quantized rows. Prefill a prompt, generate
+non-speculative rows, bf16 or int8 (``--decode-quant int8``: weights
+quantized once, outside the timing, and int8 KV caches; the metric
+carries ``_q8``). Prefill a prompt, generate
 ``n_new`` tokens, report tokens/s and per-token milliseconds by the
 chained median-of-windows protocol (each run's prompt is the previous
 run's generated tail, with one counter token so no two runs see the
@@ -11,6 +13,8 @@ with the JAX record's keys plus ``device`` and ``power_limit``.
 
     python -m icikit_torch.bench.decode --preset base --batch 8 \\
         --prompt 512 --new 64 --decode-step fused
+    python -m icikit_torch.bench.decode --preset base --batch 8 \\
+        --prompt 512 --new 64 --decode-step fused --decode-quant int8
     python -m icikit_torch.bench.decode --device cpu --preset tiny \\
         --batch 2 --prompt 8 --new 4
 """
@@ -24,19 +28,48 @@ import sys
 import torch
 
 
+BYTES_DTYPES = ("bf16", "int8")
+
+
+def quant_scale_count(cfg) -> int:
+    """float32 per-output-channel scales the int8 decode dict adds
+    (``models/transformer/quant`` layouts), as JAX counts them."""
+    L, D, H, Dh, F = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                      cfg.d_head, cfg.d_ff)
+    kv = cfg.n_kv_heads or cfg.n_heads
+    if kv != cfg.n_heads:
+        attn = L * H * Dh + L * 2 * kv * Dh      # wq + wkv
+    else:
+        attn = L * 3 * H * Dh                     # wqkv
+    return attn + L * D + L * F + L * D + cfg.vocab  # wo, w1, w2, w_out
+
+
 def decode_bytes_per_token(cfg, batch: int, cache_len: float,
-                           vmem_resident: int = 0) -> float:
+                           vmem_resident: int = 0,
+                           bytes_dtype: str = "bf16") -> float:
     """Device-memory bytes one decode step must read: every matmul
-    weight once as a bf16 copy (the embedding is a b-row gather, not a
-    full read, so it is left out) plus the bf16 KV cache of
-    ``cache_len`` columns. ``vmem_resident`` is the JAX model's share of
-    the weights a TPU keeps in VMEM across steps; the H100 has no such
-    store (50 MB of L2 is not reserved for weights), so it is 0."""
+    weight once (the embedding is a b-row gather, not a full read, so
+    it is left out) plus the KV cache of ``cache_len`` columns, at two
+    bytes an element (``bytes_dtype="bf16"``) or one (``"int8"``, which
+    adds the float32 scales: one per weight output channel, one per
+    cache column and K/V head). ``vmem_resident`` is the JAX model's
+    share of the weights a TPU keeps in VMEM across steps; the H100 has
+    no such store (50 MB of L2 is not reserved for weights), so it is
+    0."""
     from icikit_torch.bench.train import matmul_param_count
+    if bytes_dtype not in BYTES_DTYPES:
+        raise ValueError(f"unknown bytes_dtype {bytes_dtype!r} "
+                         f"(known: {', '.join(BYTES_DTYPES)})")
+    wb = 1.0 if bytes_dtype == "int8" else 2.0
     kv_heads = cfg.n_kv_heads or cfg.n_heads
     params = matmul_param_count(cfg) - cfg.vocab * cfg.d_model
     cache = 2 * batch * cache_len * kv_heads * cfg.d_head * cfg.n_layers
-    return max(0.0, 2.0 * params - vmem_resident) + 2.0 * cache
+    param_bytes, cache_bytes = wb * params, wb * cache
+    if bytes_dtype == "int8":
+        param_bytes += 4.0 * quant_scale_count(cfg)
+        cache_bytes += 4.0 * 2 * batch * cache_len * kv_heads \
+            * cfg.n_layers
+    return max(0.0, param_bytes - vmem_resident) + cache_bytes
 
 
 def make_config(preset: str, prompt_len: int, n_new: int, **over):
@@ -51,12 +84,14 @@ def make_config(preset: str, prompt_len: int, n_new: int, **over):
 
 def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
               runs: int = 3, windows: int = 3,
-              decode_step: str = "unfused", device: str = "cuda") -> dict:
+              decode_step: str = "unfused", device: str = "cuda",
+              decode_quant: str = "none") -> dict:
     from icikit_torch.bench.headline import device_identity
     from icikit_torch.bench.sort import hbm_nameplate_bytes
     from icikit_torch.models.transformer import (
         greedy_generate, init_params, make_model_mesh)
-    from icikit_torch.models.transformer.decode import _resolve_decode_step
+    from icikit_torch.models.transformer.decode import (
+        _resolve_decode_step, maybe_quantize_params)
     from icikit_torch.utils.timing import timeit_windows
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -64,10 +99,14 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
                            "the CPU")
     if n_new < 2:
         raise ValueError("n_new must be >= 2")
-    cfg = make_config(preset, prompt_len, n_new, decode_step=decode_step)
+    cfg = make_config(preset, prompt_len, n_new, decode_step=decode_step,
+                      decode_quant=decode_quant)
+    bytes_dtype = "int8" if decode_quant == "int8" else "bf16"
     mesh = make_model_mesh(device=device)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
+    # int8: quantized once, outside the timing loop, so the rows price
+    # the int8 stream and not the one-time conversion
+    params = maybe_quantize_params(init_params(cfg, gen, device), mesh, cfg)
     p0 = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                        device=device, dtype=torch.int32)
 
@@ -83,7 +122,8 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
         return (nxt,)
 
     cache_len = prompt_len + n_new
-    per_token_bytes = decode_bytes_per_token(cfg, batch, cache_len)
+    per_token_bytes = decode_bytes_per_token(cfg, batch, cache_len,
+                                             bytes_dtype=bytes_dtype)
     bw = hbm_nameplate_bytes() if torch.device(device).type == "cuda" \
         else None
     floor_s = n_new * per_token_bytes / bw if bw else None
@@ -91,15 +131,16 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
                          warmup=1, floor_s=floor_s)
     per_token_s = res.median_s / n_new
     step_tag = "" if decode_step == "unfused" else f"_{decode_step}"
+    q_tag = "_q8" if decode_quant == "int8" else ""
     name, power = device_identity(device)
     return {
-        "metric": f"decode_{preset}_dp1tp1_b{batch}_p{prompt_len}"
+        "metric": f"decode_{preset}_dp1tp1_b{batch}{q_tag}_p{prompt_len}"
                   f"_n{n_new}_greedy{step_tag}",
         "decode_step": decode_step,
         "decode_step_resolved": ("fused" if _resolve_decode_step(cfg, device)
                                  else "unfused"),
-        "decode_quant": "none",
-        "bytes_dtype": "bf16",
+        "decode_quant": decode_quant,
+        "bytes_dtype": bytes_dtype,
         "backend": torch.device(device).type,
         "value": round(batch / per_token_s, 1),
         "unit": "tokens/s",
@@ -107,7 +148,7 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
         "read_gbps": round(per_token_bytes / per_token_s / 1e9, 1),
         "batch": batch,
         "includes_prefill": True,
-        "bytes_model": "bf16-weights-and-cache-no-resident",
+        "bytes_model": f"{bytes_dtype}-weights-and-cache-no-resident",
         "vmem_resident_bytes": 0,
         "bound_ms_per_token": (per_token_bytes / bw * 1e3) if bw else None,
         "protocol": "median-of-windows",
@@ -133,12 +174,15 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--decode-step", default="unfused",
                     choices=["auto", "fused", "unfused"])
+    ap.add_argument("--decode-quant", default="none",
+                    choices=["none", "int8"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(json.dumps(run_bench(args.preset, args.batch, args.prompt,
                                args.n_new, args.runs,
                                decode_step=args.decode_step,
-                               device=args.device)))
+                               device=args.device,
+                               decode_quant=args.decode_quant)))
     return 0
 
 

@@ -1,6 +1,6 @@
 // Attention kernels for Hopper (sm_90a), bound with ctypes.
 //
-// Five kernels, one for each group of TPU kernels of
+// Six kernels, one for each group of TPU kernels of
 // icikit/ops/flash_attention.py that the port's paths run:
 //
 //   flash_fwd   <- _fwd_kernel (B3, _fwd_call, pallas_call :421),
@@ -31,7 +31,11 @@
 //      both products on the tensor cores with mma.sync m16n8k16 (bf16
 //      in, fp32 accumulate); P is rounded to bf16 before PV, as the TPU
 //      kernel does. float32: the same tiles with plain FMA. Head dims
-//      32, 64 and 128.
+//      32, 64, 128 and 256. At 256 a warp cannot hold a 16 x 256 float32
+//      accumulator (128 registers) beside its Q fragments, so eight warps
+//      run the tile: two to each 16-row group, each forming the group's S
+//      over all of d and owning half of the output columns (col_groups;
+//      the backward kernels split their outputs the same way).
 //      Bound (b=8, h=8, s=1024, d=128, bf16, causal): 67.4 MB read and
 //      written, 20.1 us at 3.35 TB/s, against 17.2 GFLOP, 17.4 us at
 //      989 TFLOP/s: bytes. Each K/V tile is read once per Q tile but
@@ -83,6 +87,8 @@
 //
 //   decode_step <- _decode_step_kernel (B13, decode_step_attention,
 //                  pallas_call :1120).
+//   decode_step_q8 <- _decode_step_q8_kernel (B14,
+//                  decode_step_attention_q8, pallas_call :1229).
 //      One token of decode attention for one (batch*head) row per CTA:
 //      split-half RoPE of q and k in float32, rounded back to the input
 //      dtype (:1022-1023); the k/v column written at `cur` in place into
@@ -96,10 +102,20 @@
 //      the written column equals the reference's and the plain
 //      version's bit for bit.
 //      Bound (64 rows, ~544 columns, dh 128, bf16): 17.8 MB of K and V,
-//      5.3 us at 3.35 TB/s: bytes. Eight warps stream the columns with
-//      each lane holding dh/32 contiguous elements, so every row read is
-//      one coalesced 256-byte segment. 64 CTAs leave half of the 132 SMs
-//      idle; a split-K (flash-decoding) form is a later design.
+//      5.3 us at 3.35 TB/s: bytes. Eight warps stream the columns; a
+//      lane holds four contiguous elements of each 128-wide chunk of a
+//      row, so a warp reads one coalesced segment a row a chunk and any
+//      head dim that is a multiple of 128 runs (JAX's gate). 64 CTAs leave
+//      half of the 132 SMs idle; a split-K (flash-decoding) form is a
+//      later design.
+//      decode_step_q8 is the same step over int8 caches, as the TPU's:
+//      q arrives rotated and the fresh column quantized (written in place
+//      at cur) and dequantized (the t == cur term); K's per-column float32
+//      scale multiplies the int8 logit row, V's folds into the weights
+//      before the value product; float32 softmax and output. RoPE, the
+//      column's quantization and the scale-row write stay outside the
+//      launch, as in JAX. Bound (64 rows, cur 543, dh 128): 8.9 MB of
+//      int8 K and V and 0.28 MB of scales, 2.8 us: bytes.
 //
 // Every entry returns cudaGetLastError() after its launch.
 
@@ -120,6 +136,18 @@ constexpr int MMA_THREADS = 128;   // bf16: 4 warps x 16 rows
 constexpr int F32_THREADS = 256;   // f32: 4 threads a row
 constexpr int DEC_THREADS = 256;   // decode: 8 warps
 constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_EPL = 4;         // decode: elements a lane a chunk
+constexpr int DEC_CW = 32 * DEC_EPL;  // decode: a row chunk, 128 elements
+
+// Column groups of the bf16 flash kernels: at d = 256 one warp cannot
+// hold a 16 x d float32 accumulator (128 registers) beside its operand
+// fragments, so two warps share each 16-row (or 16-key) group, each
+// owning half of the output columns, and 8 warps run a CTA. Both warps
+// of a group form the group's S (and dP) tiles over all of d.
+template <int D>
+__host__ __device__ constexpr int col_groups() {
+  return D > 128 ? 2 : 1;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -151,12 +179,14 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd, bf16 on the tensor cores. Warp w owns Q rows w*16 .. w*16+15
-// of the tile; lane (g = lane/4, c = lane%4) holds rows g and g+8 of every
-// mma fragment (PTX ISA m16n8k16 layouts), so the row statistics reduce
-// over the 4 lanes of a group and the S accumulators are already P's A
-// fragments. use_shift runs the constant-shift pass first and redoes the
-// tile online only when a row's sum left [SUM_LO, SUM_HI].
+// flash_fwd, bf16 on the tensor cores. Warp w owns Q rows (w&3)*16 ..
+// +15 of the tile and output columns (w>>2)*DW .. +DW-1 (DW = d /
+// col_groups, all of d below 256); lane (g = lane/4, c = lane%4) holds
+// rows g and g+8 of every mma fragment (PTX ISA m16n8k16 layouts), so
+// the row statistics reduce over the 4 lanes of a group and the S
+// accumulators are already P's A fragments. use_shift runs the
+// constant-shift pass first and redoes the tile online only when a row's
+// sum left [SUM_LO, SUM_HI].
 
 // The shift pass's row sum is kept when it lies in [2^-64, 2^64]: every
 // weight that matters is then a normal float and P V cannot overflow.
@@ -167,11 +197,13 @@ __device__ __forceinline__ bool bad_sum(float l) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out,
                float* __restrict__ lse, int64_t sq, int64_t sk, int causal,
                float scale_log2, int use_shift, float shift) {
+  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
+  constexpr int DW = D / CG;   // output columns a warp
   constexpr int KS = D + 8;    // K tile row stride (bf16), 16-byte aligned
   constexpr int VS = BN + 8;   // V^T tile row stride
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -184,7 +216,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + bh * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int64_t r0 = m0 + warp * 16 + g, r1 = r0 + 8;
+  const int cb = (warp >> 2) * DW;  // this warp's first output column
+  const int64_t r0 = m0 + (warp & 3) * 16 + g, r1 = r0 + 8;
 
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -195,18 +228,18 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
     qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
   }
-  float o[D / 8][4];
+  float o[DW / 8][4];
   float mx0, mx1, l0, l1;
   const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
   for (int pass = use_shift ? 0 : 1; pass < 2; ++pass) {
     const bool online = pass == 1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int n = 0; n < DW / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     mx0 = mx1 = online ? -INFINITY : shift;
     l0 = l1 = 0.f;
     for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
       __syncthreads();  // the previous tile is consumed
-      for (int i = threadIdx.x; i < BN * D / 8; i += MMA_THREADS) {
+      for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
         const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
         uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
         if (n0 + r < sk) {
@@ -277,7 +310,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx1 = mn1;
       if (online) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DW / 8; ++n) {
           o[n][0] *= al0;
           o[n][1] *= al0;
           o[n][2] *= al1;
@@ -291,8 +324,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
                                 pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const bf16* vp = vt + (n * 8 + g) * VS + c * 16 + c2;
+        for (int n = 0; n < DW / 8; ++n) {
+          const bf16* vp = vt + (cb + n * 8 + g) * VS + c * 16 + c2;
           mma_bf16(o[n], pa, ld32(vp), ld32(vp + 8));
         }
       }
@@ -305,8 +338,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ob = out + bh * sq * D;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + c2;
+  for (int n = 0; n < DW / 8; ++n) {
+    const int col = cb + n * 8 + c2;
     if (r0 < sq)
       *reinterpret_cast<uint32_t*>(ob + r0 * D + col) =
           pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
@@ -314,7 +347,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(ob + r1 * D + col) =
           pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
-  if ((lane & 3) == 0) {
+  if ((lane & 3) == 0 && cb == 0) {
     if (r0 < sq) lse[bh * sq + r0] = mx0 * LN2 + logf(l0);
     if (r1 < sq) lse[bh * sq + r1] = mx1 * LN2 + logf(l1);
   }
@@ -425,20 +458,24 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // flash_bwd, bf16 on the tensor cores. CTA (batch*head, 64-key tile);
-// warp w owns keys w*16 .. w*16+15 for S^T, dP^T, dk and dv, and, for
-// dq, Q rows (w&1)*16 .. +15 of each 32-row Q tile by half of the head
-// dim. Shared memory: K, V (row-major) and K^T for the CTA's life; Q, dO,
+// warp w owns keys (w&3)*16 .. +15 for S^T and dP^T, and columns
+// (w>>2)*DW .. +DW-1 of those keys' dk and dv; for dq, Q rows (w&1)*16 ..
+// +15 of each 32-row Q tile by a 2/warps share of the head dim. Shared
+// memory: K, V (row-major) and K^T for the CTA's life; Q, dO,
 // their transposes, dS ([q][key]) and the rows' lse*log2e and delta for
 // each Q tile.
 
 template <int D, bool DQ>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
 flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int64_t sq, int64_t sk, int causal,
                float scale_log2, float scale) {
+  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
+  constexpr int DW = D / CG;    // dk, dv columns a warp
+  constexpr int DQW = D / (2 * CG);  // dq columns a warp
   constexpr int RS = D + 8;     // row-major tiles (K, V, Q, dO)
   constexpr int KTS = BN + 8;   // K^T
   constexpr int QTS = BQB + 8;  // Q^T, dO^T
@@ -462,9 +499,10 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + bh * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int kr0 = warp * 16 + g;  // this lane's keys: kr0 and kr0 + 8
+  const int kr0 = (warp & 3) * 16 + g;  // this lane's keys: kr0, kr0 + 8
+  const int cb = (warp >> 2) * DW;      // this warp's first dk/dv column
 
-  for (int i = threadIdx.x; i < BN * D / 8; i += MMA_THREADS) {
+  for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
     const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
     if (n0 + r < sk) {
@@ -477,15 +515,15 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 8; ++e) kt[(c8 + e) * KTS + r] = ke[e];
   }
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DW / 8][4], dva[DW / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
   for (int64_t m0 = causal ? n0 : 0; m0 < sq; m0 += BQB) {
     __syncthreads();  // the previous Q tile is consumed
-    for (int i = threadIdx.x; i < BQB * D / 8; i += MMA_THREADS) {
+    for (int i = threadIdx.x; i < BQB * D / 8; i += NT) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
       if (m0 + r < sq) {
@@ -557,29 +595,32 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(dpt[2 * cc + 1][0], dpt[2 * cc + 1][1]),
                               pack_bf16(dpt[2 * cc + 1][2], dpt[2 * cc + 1][3])};
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* bo = dot + (n * 8 + g) * QTS + cc * 16 + c2;
-        const bf16* bq = qt + (n * 8 + g) * QTS + cc * 16 + c2;
+      for (int n = 0; n < DW / 8; ++n) {
+        const bf16* bo = dot + (cb + n * 8 + g) * QTS + cc * 16 + c2;
+        const bf16* bq = qt + (cb + n * 8 + g) * QTS + cc * 16 + c2;
         mma_bf16(dva[n], pa, ld32(bo), ld32(bo + 8));
         mma_bf16(dka[n], sa, ld32(bq), ld32(bq + 8));
       }
     }
     if constexpr (DQ) {
-    // dS into shared memory as [q][key], rounded to bf16
+    // dS into shared memory as [q][key], rounded to bf16 (one warp of
+    // each column group writes it)
+    if (cb == 0) {
 #pragma unroll
-    for (int j = 0; j < BQB / 8; ++j)
+      for (int j = 0; j < BQB / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dss[(j * 8 + c2 + (e & 1)) * DSS + kr0 + (e >> 1) * 8] =
-            __float2bfloat16_rn(dpt[j][e]);
+        for (int e = 0; e < 4; ++e)
+          dss[(j * 8 + c2 + (e & 1)) * DSS + kr0 + (e >> 1) * 8] =
+              __float2bfloat16_rn(dpt[j][e]);
+    }
     __syncthreads();
-    // dq += dS K: Q rows qr, qr + 8 and half of the head dim a warp
+    // dq += dS K: Q rows qr, qr + 8 and DQW columns of the head dim a warp
     {
       const int qr = (warp & 1) * 16 + g;
-      const int dbase = (warp >> 1) * (D / 2);
-      float acc[D / 16][4];
+      const int dbase = (warp >> 1) * DQW;
+      float acc[DQW / 8][4];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n)
+      for (int n = 0; n < DQW / 8; ++n)
         acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
       for (int c = 0; c < BN / 16; ++c) {
@@ -587,14 +628,14 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * DSS), ld32(ap + 8),
                                ld32(ap + 8 * DSS + 8)};
 #pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
+        for (int n = 0; n < DQW / 8; ++n) {
           const bf16* bp = kt + (dbase + n * 8 + g) * KTS + c * 16 + c2;
           mma_bf16(acc[n], a, ld32(bp), ld32(bp + 8));
         }
       }
       const int64_t row0 = m0 + qr, row1 = row0 + 8;
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
+      for (int n = 0; n < DQW / 8; ++n) {
         const int col = dbase + n * 8 + c2;
         if (row0 < sq) {
           float* p = dq + (bh * sq + row0) * D + col;
@@ -612,8 +653,8 @@ flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const int64_t key0 = n0 + kr0, key1 = key0 + 8;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + c2;
+  for (int n = 0; n < DW / 8; ++n) {
+    const int col = cb + n * 8 + c2;
     if (key0 < sk) {
       *reinterpret_cast<uint32_t*>(dk + (bh * sk + key0) * D + col) =
           pack_bf16(dka[n][0], dka[n][1]);
@@ -733,26 +774,34 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // flash_bwd_dq, bf16 on the tensor cores. CTA (batch*head, 64-row Q tile);
-// warp w owns Q rows w*16 .. w*16+15, as in flash_fwd: its Q and dO
-// fragments stay in registers, and lane (g, c) holds rows g and g+8 of
-// every S, dP and dq fragment. Per 64-key tile, in two halves of 32 keys:
+// warp w owns Q rows (w&3)*16 .. +15 and dq columns (w>>2)*DW .. +DW-1,
+// as in flash_fwd: its Q and dO fragments stay in registers (in shared
+// memory at d = 256), and lane (g, c) holds rows g and g+8 of every S,
+// dP and dq fragment. Per 64-key tile, in two halves of 32 keys:
 // S = Q K^T and dP = dO V^T (K and V row-major in shared memory), dS
 // rounded to bf16 is the A fragment of dq += dS K (K^T in shared memory).
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
+__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   int64_t sq, int64_t sk, int causal, float scale_log2,
                   float scale) {
-  constexpr int RS = D + 8;    // K, V tiles (row-major)
+  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
+  constexpr int DW = D / CG;   // dq columns a warp
+  // two column groups: the Q and dO fragments of all of d would take
+  // 128 registers beside dq's, so they stay in shared memory
+  constexpr bool QSMEM = CG > 1;
+  constexpr int RS = D + 8;    // K, V, Q, dO tiles (row-major)
   constexpr int KTS = BN + 8;  // K^T tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + BN * RS;
   bf16* kt = vs + BN * RS;
+  bf16* qsm = kt + D * KTS;    // QSMEM only
+  bf16* osm = qsm + BM * RS;
   const int64_t bh = blockIdx.y;
   const int64_t m0 = (int64_t)blockIdx.x * BM;
   const bf16* qb = q + bh * sq * D;
@@ -761,33 +810,48 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + bh * sk * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int64_t r0 = m0 + warp * 16 + g, r1 = r0 + 8;
+  const int rl = (warp & 3) * 16 + g;  // this lane's tile rows: rl, rl + 8
+  const int cb = (warp >> 2) * DW;     // this warp's first dq column
+  const int64_t r0 = m0 + rl, r1 = r0 + 8;
 
-  uint32_t qa[D / 16][4], oa[D / 16][4];
+  uint32_t qa[QSMEM ? 1 : D / 16][4], oa[QSMEM ? 1 : D / 16][4];
+  if constexpr (QSMEM) {
+    for (int i = threadIdx.x; i < BM * D / 8; i += NT) {
+      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
+      if (m0 + r < sq) {
+        qv = *reinterpret_cast<const uint4*>(qb + (m0 + r) * D + c8);
+        ov = *reinterpret_cast<const uint4*>(ob + (m0 + r) * D + c8);
+      }
+      *reinterpret_cast<uint4*>(qsm + r * RS + c8) = qv;
+      *reinterpret_cast<uint4*>(osm + r * RS + c8) = ov;
+    }
+  } else {
 #pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
-    const int col = c * 16 + c2;
-    qa[c][0] = r0 < sq ? ld32(qb + r0 * D + col) : 0u;
-    qa[c][1] = r1 < sq ? ld32(qb + r1 * D + col) : 0u;
-    qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
-    qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
-    oa[c][0] = r0 < sq ? ld32(ob + r0 * D + col) : 0u;
-    oa[c][1] = r1 < sq ? ld32(ob + r1 * D + col) : 0u;
-    oa[c][2] = r0 < sq ? ld32(ob + r0 * D + col + 8) : 0u;
-    oa[c][3] = r1 < sq ? ld32(ob + r1 * D + col + 8) : 0u;
+    for (int c = 0; c < D / 16; ++c) {
+      const int col = c * 16 + c2;
+      qa[c][0] = r0 < sq ? ld32(qb + r0 * D + col) : 0u;
+      qa[c][1] = r1 < sq ? ld32(qb + r1 * D + col) : 0u;
+      qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
+      qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
+      oa[c][0] = r0 < sq ? ld32(ob + r0 * D + col) : 0u;
+      oa[c][1] = r1 < sq ? ld32(ob + r1 * D + col) : 0u;
+      oa[c][2] = r0 < sq ? ld32(ob + r0 * D + col + 8) : 0u;
+      oa[c][3] = r1 < sq ? ld32(ob + r1 * D + col + 8) : 0u;
+    }
   }
   const float l2_0 = r0 < sq ? lse[bh * sq + r0] * LOG2E : 0.f;
   const float l2_1 = r1 < sq ? lse[bh * sq + r1] * LOG2E : 0.f;
   const float de0 = r0 < sq ? delta[bh * sq + r0] : 0.f;
   const float de1 = r1 < sq ? delta[bh * sq + r1] : 0.f;
-  float dqa[D / 8][4];
+  float dqa[DW / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  for (int n = 0; n < DW / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
   const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
   for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BN * D / 8; i += MMA_THREADS) {
+    for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
       const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (n0 + r < sk) {
@@ -814,8 +878,19 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int kr = half * 32 + j * 8 + g;
           const bf16* kp = ks + kr * RS + c * 16 + c2;
           const bf16* vp = vs + kr * RS + c * 16 + c2;
-          mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
-          mma_bf16(dp[j], oa[c], ld32(vp), ld32(vp + 8));
+          if constexpr (QSMEM) {
+            const bf16* qp = qsm + rl * RS + c * 16 + c2;
+            const bf16* op = osm + rl * RS + c * 16 + c2;
+            const uint32_t a[4] = {ld32(qp), ld32(qp + 8 * RS), ld32(qp + 8),
+                                   ld32(qp + 8 * RS + 8)};
+            const uint32_t o4[4] = {ld32(op), ld32(op + 8 * RS),
+                                    ld32(op + 8), ld32(op + 8 * RS + 8)};
+            mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
+            mma_bf16(dp[j], o4, ld32(vp), ld32(vp + 8));
+          } else {
+            mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
+            mma_bf16(dp[j], oa[c], ld32(vp), ld32(vp + 8));
+          }
         }
       }
       // P, then dS in place of S
@@ -838,8 +913,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                pack_bf16(s[2 * cc + 1][0], s[2 * cc + 1][1]),
                                pack_bf16(s[2 * cc + 1][2], s[2 * cc + 1][3])};
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const bf16* bp = kt + (n * 8 + g) * KTS + half * 32 + cc * 16 + c2;
+        for (int n = 0; n < DW / 8; ++n) {
+          const bf16* bp =
+              kt + (cb + n * 8 + g) * KTS + half * 32 + cc * 16 + c2;
           mma_bf16(dqa[n], a, ld32(bp), ld32(bp + 8));
         }
       }
@@ -847,8 +923,8 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   bf16* dqb = dq + bh * sq * D;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + c2;
+  for (int n = 0; n < DW / 8; ++n) {
+    const int col = cb + n * 8 + c2;
     if (r0 < sq)
       *reinterpret_cast<uint32_t*>(dqb + r0 * D + col) =
           pack_bf16(dqa[n][0], dqa[n][1]);
@@ -871,13 +947,15 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ delta, float* __restrict__ dq,
                  int64_t sq, int64_t sk, int causal, float scale_log2,
                  float scale) {
-  constexpr int QS = D + 1, PS = BN + 1;
+  // at d = 256 a 64-key tile of K and V would not fit beside Q and dO
+  constexpr int BNK = D > 128 ? 32 : BN;  // keys a tile
+  constexpr int QS = D + 1, PS = BNK + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* dos = qs + BM * QS;
   float* ks = dos + BM * QS;
-  float* vs = ks + BN * QS;
-  float* ps = vs + BN * QS;
+  float* vs = ks + BNK * QS;
+  float* ps = vs + BNK * QS;
   const int64_t bh = blockIdx.y;
   const int64_t m0 = (int64_t)blockIdx.x * BM;
   const float* qb = q + bh * sq * D;
@@ -899,9 +977,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < D / 4; ++e) dqa[e] = 0.f;
   const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
-  for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
+  for (int64_t n0 = 0; n0 < n_end; n0 += BNK) {
     __syncthreads();
-    for (int i = threadIdx.x; i < BN * D; i += F32_THREADS) {
+    for (int i = threadIdx.x; i < BNK * D; i += F32_THREADS) {
       const int rr = i / D, d = i % D;
       const bool ok = n0 + rr < sk;
       ks[rr * QS + d] = ok ? kb[(n0 + rr) * D + d] : 0.f;
@@ -909,7 +987,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < BN / 4; ++i) {
+    for (int i = 0; i < BNK / 4; ++i) {
       const int j = c + 4 * i;
       float sv = 0.f, dp = 0.f;
 #pragma unroll 8
@@ -923,7 +1001,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       ps[r * PS + j] = p * (dp - de) * scale;
     }
     __syncwarp();  // a row's four threads are lanes of one warp
-    for (int j = 0; j < BN; ++j) {
+    for (int j = 0; j < BNK; ++j) {
       const float ds = ps[r * PS + j];
 #pragma unroll
       for (int e = 0; e < D / 4; ++e) dqa[e] += ds * ks[j * QS + e * 4 + c];
@@ -937,8 +1015,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// decode_step. Lane l of each warp holds elements [l*EPL, (l+1)*EPL) of a
-// dh = 32*EPL row.
+// decode_step. Lane l of each warp holds elements [l*DEC_EPL,
+// (l+1)*DEC_EPL) of each DEC_CW-wide chunk of a row.
 
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* p, float (&x)[N]) {
@@ -986,33 +1064,33 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   return y;
 }
 
-template <typename T, int EPL>
+template <typename T>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ cos2,
                    const float* __restrict__ sin2, T* kc, T* vc,
-                   T* __restrict__ out, int64_t total, int64_t cur, int rope,
-                   float scale) {
-  constexpr int DH = 32 * EPL;
+                   T* __restrict__ out, int64_t total, int dh, int64_t cur,
+                   int rope, float scale) {
   extern __shared__ __align__(16) float fsm[];
   float* qs = fsm;                  // rotated q (input-dtype values)
-  float* kn = qs + DH;              // rotated k
-  float* part = kn + DH;            // DEC_WARPS x DH partial sums
-  float* red = part + DEC_WARPS * DH;
+  float* kn = qs + dh;              // rotated k
+  float* part = kn + dh;            // DEC_WARPS x dh partial sums
+  float* red = part + DEC_WARPS * dh;
   float* w = red + DEC_WARPS;       // cur + 1 logits, then weights
   const int64_t rowi = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qr = q + rowi * DH;
-  const T* kr = k + rowi * DH;
-  const T* vr = v + rowi * DH;
-  T* kcr = kc + rowi * total * DH;
-  T* vcr = vc + rowi * total * DH;
+  const int nch = dh / DEC_CW;
+  const T* qr = q + rowi * dh;
+  const T* kr = k + rowi * dh;
+  const T* vr = v + rowi * dh;
+  T* kcr = kc + rowi * total * dh;
+  T* vcr = vc + rowi * total * dh;
 
-  for (int d = threadIdx.x; d < DH; d += DEC_THREADS) {
+  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
     float qd = to_f(qr[d]), kd = to_f(kr[d]);
     if (rope) {
       // x * cos2 + rot * sin2, rot = [-x2, x1], the first product fused
-      const int h = DH / 2;
+      const int h = dh / 2;
       const float c = cos2[d], s = sin2[d];
       const float qr_ = d < h ? -to_f(qr[d + h]) : to_f(qr[d - h]);
       const float kr_ = d < h ? -to_f(kr[d + h]) : to_f(kr[d - h]);
@@ -1022,27 +1100,30 @@ decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T kt = from_f<T>(kd);
     qs[d] = to_f(from_f<T>(qd));
     kn[d] = to_f(kt);
-    kcr[cur * DH + d] = kt;            // the cache column, in place
-    vcr[cur * DH + d] = vr[d];
+    kcr[cur * dh + d] = kt;            // the cache column, in place
+    vcr[cur * dh + d] = vr[d];
   }
   __syncthreads();
 
-  float qreg[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) qreg[e] = qs[lane * EPL + e];
   for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-    float kx[EPL];
-    load_row<T, EPL>(kcr + t * DH + lane * EPL, kx);
     float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * DEC_CW + lane * DEC_EPL;
+      float kx[DEC_EPL];
+      load_row<T, DEC_EPL>(kcr + t * dh + d0, kx);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc += qreg[e] * kx[e];
+      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kx[e];
+    }
     acc = warp_sum(acc);
     if (lane == 0) w[t] = acc * scale;
   }
   if (warp == 0) {
     float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * DEC_CW + lane * DEC_EPL;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc += qreg[e] * kn[lane * EPL + e];
+      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kn[d0 + e];
+    }
     acc = warp_sum(acc);
     if (lane == 0) w[cur] = acc * scale;
   }
@@ -1059,25 +1140,137 @@ decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   l = block_reduce<false>(l, red);  // its barrier publishes w[]
 
-  float acc[EPL];
+  for (int ch = 0; ch < nch; ++ch) {
+    const int d0 = ch * DEC_CW + lane * DEC_EPL;
+    float acc[DEC_EPL];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
-  for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-    const float wt = to_f(from_f<T>(w[t]));
-    float vx[EPL];
-    load_row<T, EPL>(vcr + t * DH + lane * EPL, vx);
+    for (int e = 0; e < DEC_EPL; ++e) acc[e] = 0.f;
+    for (int64_t t = warp; t < cur; t += DEC_WARPS) {
+      const float wt = to_f(from_f<T>(w[t]));
+      float vx[DEC_EPL];
+      load_row<T, DEC_EPL>(vcr + t * dh + d0, vx);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] += wt * vx[e];
+      for (int e = 0; e < DEC_EPL; ++e) acc[e] += wt * vx[e];
+    }
+#pragma unroll
+    for (int e = 0; e < DEC_EPL; ++e) part[warp * dh + d0 + e] = acc[e];
   }
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) part[warp * DH + lane * EPL + e] = acc[e];
   __syncthreads();
   const float w_cur = w[cur];
-  for (int d = threadIdx.x; d < DH; d += DEC_THREADS) {
+  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
     float sum = 0.f;
-    for (int ww = 0; ww < DEC_WARPS; ++ww) sum += part[ww * DH + d];
+    for (int ww = 0; ww < DEC_WARPS; ++ww) sum += part[ww * dh + d];
     sum += w_cur * to_f(vr[d]);
-    out[rowi * DH + d] = from_f<T>(sum / l);
+    out[rowi * dh + d] = from_f<T>(sum / l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode_step_q8: decode_step over int8 caches, for one (batch*head) row a
+// CTA, with the chunked row walk above (four int8 a lane a chunk, one
+// 128-byte segment a warp a row). q arrives rotated and the fresh column
+// quantized (kq, vq) and dequantized (kdq, vdq); the scale rows arrive
+// holding the fresh column's scale at cur.
+
+__device__ __forceinline__ void load_i8x4(const int8_t* p, float (&x)[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  x[0] = (float)c.x;
+  x[1] = (float)c.y;
+  x[2] = (float)c.z;
+  x[3] = (float)c.w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_step_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
+                      const int8_t* __restrict__ vq,
+                      const float* __restrict__ kdq,
+                      const float* __restrict__ vdq, int8_t* kc, int8_t* vc,
+                      const float* __restrict__ ksc,
+                      const float* __restrict__ vsc, float* __restrict__ out,
+                      int64_t total, int dh, int64_t cur, float scale) {
+  static_assert(DEC_EPL == 4, "load_i8x4 reads four int8 a lane");
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                  // q in float32
+  float* kd = qs + dh;              // the fresh column, dequantized
+  float* part = kd + dh;            // DEC_WARPS x dh partial sums
+  float* red = part + DEC_WARPS * dh;
+  float* w = red + DEC_WARPS;       // cur + 1 logits, then weights
+  const int64_t rowi = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = dh / DEC_CW;
+  int8_t* kcr = kc + rowi * total * dh;
+  int8_t* vcr = vc + rowi * total * dh;
+  const float* kscr = ksc + rowi * total;
+  const float* vscr = vsc + rowi * total;
+
+  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
+    qs[d] = to_f(q[rowi * dh + d]);
+    kd[d] = kdq[rowi * dh + d];
+    kcr[cur * dh + d] = kq[rowi * dh + d];  // the int8 column, in place
+    vcr[cur * dh + d] = vq[rowi * dh + d];
+  }
+  __syncthreads();
+
+  // logits: (q . k_t) * kscale_t * scale over t < cur, q . kdq at cur
+  for (int64_t t = warp; t < cur; t += DEC_WARPS) {
+    float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * DEC_CW + lane * DEC_EPL;
+      float kx[DEC_EPL];
+      load_i8x4(kcr + t * dh + d0, kx);
+#pragma unroll
+      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kx[e];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) w[t] = acc * kscr[t] * scale;
+  }
+  if (warp == 0) {
+    float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      const int d0 = ch * DEC_CW + lane * DEC_EPL;
+#pragma unroll
+      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kd[d0 + e];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) w[cur] = acc * scale;
+  }
+  __syncthreads();
+
+  float m = NEG_INF;
+  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) m = fmaxf(m, w[t]);
+  m = block_reduce<true>(m, red);
+  float l = 0.f;
+  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) {
+    const float e = expf(w[t] - m);
+    w[t] = e;
+    l += e;
+  }
+  l = block_reduce<false>(l, red);  // its barrier publishes w[]
+
+  // values: the weights times V's column scale, then the int8 rows
+  for (int ch = 0; ch < nch; ++ch) {
+    const int d0 = ch * DEC_CW + lane * DEC_EPL;
+    float acc[DEC_EPL];
+#pragma unroll
+    for (int e = 0; e < DEC_EPL; ++e) acc[e] = 0.f;
+    for (int64_t t = warp; t < cur; t += DEC_WARPS) {
+      const float wt = w[t] * vscr[t];
+      float vx[DEC_EPL];
+      load_i8x4(vcr + t * dh + d0, vx);
+#pragma unroll
+      for (int e = 0; e < DEC_EPL; ++e) acc[e] += wt * vx[e];
+    }
+#pragma unroll
+    for (int e = 0; e < DEC_EPL; ++e) part[warp * dh + d0 + e] = acc[e];
+  }
+  __syncthreads();
+  const float w_cur = w[cur];
+  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
+    float sum = 0.f;
+    for (int ww = 0; ww < DEC_WARPS; ++ww) sum += part[ww * dh + d];
+    sum += w_cur * vdq[rowi * dh + d];
+    out[rowi * dh + d] = sum / l;
   }
 }
 
@@ -1097,7 +1290,7 @@ int launch_flash(int dtype, const void* q, const void* k, const void* v,
     const size_t smem = sizeof(bf16) * (BN * (D + 8) + D * (BN + 8));
     int err = set_smem(flash_fwd_bf16<D>, smem);
     if (err) return err;
-    flash_fwd_bf16<D><<<grid, MMA_THREADS, smem, st>>>(
+    flash_fwd_bf16<D><<<grid, MMA_THREADS * col_groups<D>(), smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, sq, sk,
         causal, scale_log2, use_shift, shift);
@@ -1132,7 +1325,7 @@ int launch_flash_bwd(int dtype, const void* q, const void* k, const void* v,
         sizeof(float) * 2 * BQB;
     int err = set_smem(flash_bwd_bf16<D, DQ>, smem);
     if (err) return err;
-    flash_bwd_bf16<D, DQ><<<grid, MMA_THREADS, smem, st>>>(
+    flash_bwd_bf16<D, DQ><<<grid, MMA_THREADS * col_groups<D>(), smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, dq, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
@@ -1161,16 +1354,19 @@ int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
                         cudaStream_t st) {
   const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
   if (dtype == 1) {
-    const size_t smem = sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8));
+    constexpr int CG = col_groups<D>();
+    const size_t smem = sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8) +
+                                        (CG > 1 ? 2 * BM * (D + 8) : 0));
     int err = set_smem(flash_bwd_dq_bf16<D>, smem);
     if (err) return err;
-    flash_bwd_dq_bf16<D><<<grid, MMA_THREADS, smem, st>>>(
+    flash_bwd_dq_bf16<D><<<grid, MMA_THREADS * CG, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, static_cast<bf16*>(dq), sq, sk, causal, scale_log2, scale);
   } else if (dtype == 0) {
+    constexpr int BNK = D > 128 ? 32 : BN;  // the kernel's key tile
     const size_t smem =
-        sizeof(float) * (2 * BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
+        sizeof(float) * (2 * BM * (D + 1) + 2 * BNK * (D + 1) + BM * (BNK + 1));
     int err = set_smem(flash_bwd_dq_f32<D>, smem);
     if (err) return err;
     flash_bwd_dq_f32<D><<<grid, F32_THREADS, smem, st>>>(
@@ -1183,19 +1379,38 @@ int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int EPL>
+size_t decode_smem(int dh, int64_t cur) {
+  return sizeof(float) *
+         (2 * (size_t)dh + DEC_WARPS * (size_t)dh + DEC_WARPS + cur + 1);
+}
+
+template <typename T>
 int launch_decode(const void* q, const void* k, const void* v,
                   const float* cos2, const float* sin2, void* kc, void* vc,
-                  void* out, int64_t rows, int64_t total, int64_t cur,
+                  void* out, int64_t rows, int64_t total, int dh, int64_t cur,
                   int rope, float scale, cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * (2 * 32 * EPL + DEC_WARPS * 32 * EPL + DEC_WARPS + cur + 1);
-  int err = set_smem(decode_step_kernel<T, EPL>, smem);
+  const size_t smem = decode_smem(dh, cur);
+  int err = set_smem(decode_step_kernel<T>, smem);
   if (err) return err;
-  decode_step_kernel<T, EPL><<<(unsigned)rows, DEC_THREADS, smem, st>>>(
+  decode_step_kernel<T><<<(unsigned)rows, DEC_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cos2, sin2, static_cast<T*>(kc),
-      static_cast<T*>(vc), static_cast<T*>(out), total, cur, rope, scale);
+      static_cast<T*>(vc), static_cast<T*>(out), total, dh, cur, rope, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_decode_q8(const void* q, const int8_t* kq, const int8_t* vq,
+                     const float* kdq, const float* vdq, int8_t* kc,
+                     int8_t* vc, const float* ksc, const float* vsc,
+                     float* out, int64_t rows, int64_t total, int dh,
+                     int64_t cur, float scale, cudaStream_t st) {
+  const size_t smem = decode_smem(dh, cur);
+  int err = set_smem(decode_step_q8_kernel<T>, smem);
+  if (err) return err;
+  decode_step_q8_kernel<T><<<(unsigned)rows, DEC_THREADS, smem, st>>>(
+      static_cast<const T*>(q), kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
+      total, dh, cur, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1204,46 +1419,41 @@ int launch_decode(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q (bh, sq, d), k and v (bh, sk, d),
-// out (bh, sq, d), lse (bh, sq) float32. d: 32, 64 or 128. use_shift:
-// the constant-shift mode with base-2 shift `shift`.
+// out (bh, sq, d), lse (bh, sq) float32. d: 32, 64, 128 or 256.
+// use_shift: the constant-shift mode with base-2 shift `shift`.
 int icikit_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                      void* out, float* lse, int64_t bh, int64_t sq, int64_t sk,
                      int d, int causal, float scale_log2, int use_shift,
                      float shift, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return launch_flash<128>(dtype, q, k, v, out, lse, bh, sq, sk, causal,
-                             scale_log2, use_shift, shift, st);
-  if (d == 64)
-    return launch_flash<64>(dtype, q, k, v, out, lse, bh, sq, sk, causal,
-                            scale_log2, use_shift, shift, st);
-  if (d == 32)
-    return launch_flash<32>(dtype, q, k, v, out, lse, bh, sq, sk, causal,
-                            scale_log2, use_shift, shift, st);
+#define FWD(D)                                                            \
+  launch_flash<D>(dtype, q, k, v, out, lse, bh, sq, sk, causal, scale_log2, \
+                  use_shift, shift, st)
+  if (d == 128) return FWD(128);
+  if (d == 64) return FWD(64);
+  if (d == 32) return FWD(32);
+  if (d == 256) return FWD(256);
+#undef FWD
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype as above. q, dout (bh, sq, d), k, v, dk, dv (bh, sk, d) in dtype;
 // lse, delta (bh, sq) float32; dq (bh, sq, d) float32, zeroed by the
-// caller and summed into. d: 32, 64 or 128.
+// caller and summed into. d: 32, 64, 128 or 256.
 int icikit_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      float* dq, void* dk, void* dv, int64_t bh, int64_t sq,
                      int64_t sk, int d, int causal, float scale_log2,
                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return launch_flash_bwd<128, true>(dtype, q, k, v, dout, lse, delta, dq,
-                                       dk, dv, bh, sq, sk, causal, scale_log2,
-                                       scale, st);
-  if (d == 64)
-    return launch_flash_bwd<64, true>(dtype, q, k, v, dout, lse, delta, dq,
-                                      dk, dv, bh, sq, sk, causal, scale_log2,
-                                      scale, st);
-  if (d == 32)
-    return launch_flash_bwd<32, true>(dtype, q, k, v, dout, lse, delta, dq,
-                                      dk, dv, bh, sq, sk, causal, scale_log2,
-                                      scale, st);
+#define BWD(D)                                                             \
+  launch_flash_bwd<D, true>(dtype, q, k, v, dout, lse, delta, dq, dk, dv, bh, \
+                            sq, sk, causal, scale_log2, scale, st)
+  if (d == 128) return BWD(128);
+  if (d == 64) return BWD(64);
+  if (d == 32) return BWD(32);
+  if (d == 256) return BWD(256);
+#undef BWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1254,15 +1464,14 @@ int icikit_flash_bwd_dq(int dtype, const void* q, const void* k,
                         int64_t sk, int d, int causal, float scale_log2,
                         float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return launch_flash_bwd_dq<128>(dtype, q, k, v, dout, lse, delta, dq, bh,
-                                    sq, sk, causal, scale_log2, scale, st);
-  if (d == 64)
-    return launch_flash_bwd_dq<64>(dtype, q, k, v, dout, lse, delta, dq, bh,
-                                   sq, sk, causal, scale_log2, scale, st);
-  if (d == 32)
-    return launch_flash_bwd_dq<32>(dtype, q, k, v, dout, lse, delta, dq, bh,
-                                   sq, sk, causal, scale_log2, scale, st);
+#define BDQ(D)                                                           \
+  launch_flash_bwd_dq<D>(dtype, q, k, v, dout, lse, delta, dq, bh, sq, sk, \
+                         causal, scale_log2, scale, st)
+  if (d == 128) return BDQ(128);
+  if (d == 64) return BDQ(64);
+  if (d == 32) return BDQ(32);
+  if (d == 256) return BDQ(256);
+#undef BDQ
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1273,67 +1482,83 @@ int icikit_flash_bwd_dkv(int dtype, const void* q, const void* k,
                          int64_t sq, int64_t sk, int d, int causal,
                          float scale_log2, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return launch_flash_bwd<128, false>(dtype, q, k, v, dout, lse, delta,
-                                        nullptr, dk, dv, bh, sq, sk, causal,
-                                        scale_log2, scale, st);
-  if (d == 64)
-    return launch_flash_bwd<64, false>(dtype, q, k, v, dout, lse, delta,
-                                       nullptr, dk, dv, bh, sq, sk, causal,
-                                       scale_log2, scale, st);
-  if (d == 32)
-    return launch_flash_bwd<32, false>(dtype, q, k, v, dout, lse, delta,
-                                       nullptr, dk, dv, bh, sq, sk, causal,
-                                       scale_log2, scale, st);
+#define BKV(D)                                                              \
+  launch_flash_bwd<D, false>(dtype, q, k, v, dout, lse, delta, nullptr, dk, \
+                             dv, bh, sq, sk, causal, scale_log2, scale, st)
+  if (d == 128) return BKV(128);
+  if (d == 64) return BKV(64);
+  if (d == 32) return BKV(32);
+  if (d == 256) return BKV(256);
+#undef BKV
   return (int)cudaErrorInvalidValue;
 }
 
 // q, k, v, out (rows, dh); caches (rows, total, dh), written at column cur;
-// cos2, sin2 (dh,) float32. dh: 128 or 256.
+// cos2, sin2 (dh,) float32. dh: a positive multiple of 128.
 int icikit_decode_step(int dtype, const void* q, const void* k, const void* v,
                        const float* cos2, const float* sin2, void* kc,
                        void* vc, void* out, int64_t rows, int64_t total,
                        int dh, int64_t cur, int rope, float scale,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dh == 128)
-    return launch_decode<bf16, 4>(q, k, v, cos2, sin2, kc, vc, out, rows,
-                                  total, cur, rope, scale, st);
-  if (dtype == 1 && dh == 256)
-    return launch_decode<bf16, 8>(q, k, v, cos2, sin2, kc, vc, out, rows,
-                                  total, cur, rope, scale, st);
-  if (dtype == 0 && dh == 128)
-    return launch_decode<float, 4>(q, k, v, cos2, sin2, kc, vc, out, rows,
-                                   total, cur, rope, scale, st);
-  if (dtype == 0 && dh == 256)
-    return launch_decode<float, 8>(q, k, v, cos2, sin2, kc, vc, out, rows,
-                                   total, cur, rope, scale, st);
+  if (dh < DEC_CW || dh % DEC_CW) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch_decode<bf16>(q, k, v, cos2, sin2, kc, vc, out, rows, total,
+                               dh, cur, rope, scale, st);
+  if (dtype == 0)
+    return launch_decode<float>(q, k, v, cos2, sin2, kc, vc, out, rows, total,
+                                dh, cur, rope, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel attributes for the build log: registers and spills per thread.
-// which: 0 flash_fwd bf16 d128, 1 flash_fwd f32 d128, 2 decode_step bf16
-// dh128, 3 flash_bwd bf16 d128, 4 flash_bwd f32 d128, 5 flash_bwd_dq bf16
-// d128, 6 flash_bwd_dq f32 d128, 7 flash_bwd_dkv bf16 d128.
+// dtype: q's (0 = float32, 1 = bfloat16). q (rows, dh); kq, vq (rows, dh)
+// int8, kdq, vdq (rows, dh) float32; caches (rows, total, dh) int8, written
+// at column cur; ksc, vsc (rows, total) float32; out (rows, dh) float32.
+// dh: a positive multiple of 128.
+int icikit_decode_step_q8(int dtype, const void* q, const int8_t* kq,
+                          const int8_t* vq, const float* kdq,
+                          const float* vdq, int8_t* kc, int8_t* vc,
+                          const float* ksc, const float* vsc, float* out,
+                          int64_t rows, int64_t total, int dh, int64_t cur,
+                          float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh < DEC_CW || dh % DEC_CW) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch_decode_q8<bf16>(q, kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
+                                  rows, total, dh, cur, scale, st);
+  if (dtype == 0)
+    return launch_decode_q8<float>(q, kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
+                                   rows, total, dh, cur, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel attributes for the build log: registers and spills per thread,
+// by index into the table below.
 int icikit_attention_regs(int which, int* regs, int* local_bytes) {
+  const void* fns[] = {
+      (const void*)flash_fwd_bf16<128>,         // 0
+      (const void*)flash_fwd_f32<128>,          // 1
+      (const void*)decode_step_kernel<bf16>,    // 2
+      (const void*)flash_bwd_bf16<128, true>,   // 3
+      (const void*)flash_bwd_f32<128, true>,    // 4
+      (const void*)flash_bwd_dq_bf16<128>,      // 5
+      (const void*)flash_bwd_dq_f32<128>,       // 6
+      (const void*)flash_bwd_bf16<128, false>,  // 7
+      (const void*)flash_fwd_bf16<256>,         // 8
+      (const void*)flash_fwd_f32<256>,          // 9
+      (const void*)flash_bwd_bf16<256, true>,   // 10
+      (const void*)flash_bwd_f32<256, true>,    // 11
+      (const void*)flash_bwd_dq_bf16<256>,      // 12
+      (const void*)flash_bwd_dq_f32<256>,       // 13
+      (const void*)flash_bwd_bf16<256, false>,  // 14
+      (const void*)flash_bwd_f32<256, false>,   // 15
+      (const void*)decode_step_q8_kernel<bf16>,   // 16
+      (const void*)decode_step_q8_kernel<float>,  // 17
+  };
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err;
-  if (which == 0)
-    err = cudaFuncGetAttributes(&attr, flash_fwd_bf16<128>);
-  else if (which == 1)
-    err = cudaFuncGetAttributes(&attr, flash_fwd_f32<128>);
-  else if (which == 2)
-    err = cudaFuncGetAttributes(&attr, decode_step_kernel<bf16, 4>);
-  else if (which == 3)
-    err = cudaFuncGetAttributes(&attr, flash_bwd_bf16<128, true>);
-  else if (which == 4)
-    err = cudaFuncGetAttributes(&attr, flash_bwd_f32<128, true>);
-  else if (which == 5)
-    err = cudaFuncGetAttributes(&attr, flash_bwd_dq_bf16<128>);
-  else if (which == 6)
-    err = cudaFuncGetAttributes(&attr, flash_bwd_dq_f32<128>);
-  else
-    err = cudaFuncGetAttributes(&attr, flash_bwd_bf16<128, false>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

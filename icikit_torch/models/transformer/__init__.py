@@ -2,10 +2,11 @@
 
 Ported so far, on one device: the configuration, parameter init, the
 greedy decode path (``greedy_generate``, through the flash forward and
-fused decode-step kernels) and the train step (``loss_fn``,
+fused decode-step kernels, in bf16/float32 or int8 through the int8
+matvec and int8 decode-step kernels) and the train step (``loss_fn``,
 ``make_train_step`` with ``FusedAdam``, through the flash forward and
 backward and the fused cross-entropy head kernels). MoE, pipelines,
-sampled, speculative and int8 decode come in later slices.
+sampled and speculative decode come in later slices.
 """
 
 from icikit_torch.models.transformer.decode import (  # noqa: F401

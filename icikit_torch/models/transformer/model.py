@@ -164,10 +164,6 @@ def check_ported(cfg: TransformerConfig) -> None:
             "n_experts > 0 (the MoE FFN, moe.py) is not ported yet: it "
             "waits with the kernel-free modules of ROADMAP A8, queued "
             "after the last TPU kernels")
-    if cfg.decode_quant == "int8":
-        raise NotImplementedError(
-            "decode_quant='int8' (TPU kernels B14, B15) is not ported "
-            "yet: it is the int8 decode slice")
     if cfg.draft_head:
         raise NotImplementedError(
             "draft_head (draft.py, the speculative drafter) is not "

@@ -58,6 +58,8 @@ _SIGNATURES = {
                                  _P],
         "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                _I64, _I32, _I64, _I32, _F32, _P],
+        "icikit_decode_step_q8": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I64, _I64, _I32, _I64, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
     },
     "xent": {
@@ -79,6 +81,10 @@ _SIGNATURES = {
         "icikit_adam": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _F32,
                         _F32, _F32, _F32, _F32, _P],
         "icikit_adam_regs": [_I32, _IP, _IP],
+    },
+    "quant": {
+        "icikit_quant_matvec": [_I32, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+        "icikit_quant_regs": [_I32, _IP, _IP],
     },
 }
 

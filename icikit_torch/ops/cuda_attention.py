@@ -1,6 +1,6 @@
 """Attention kernels on Hopper: wrappers, launch counts, plain versions.
 
-Three CUDA kernels (``csrc/attention.cu``) carry the decode and train
+The CUDA kernels of ``csrc/attention.cu`` carry the decode and train
 paths:
 
 - ``flash_fwd`` replaces ``icikit/ops/flash_attention.py``'s
@@ -17,16 +17,19 @@ paths:
 - ``decode_step`` replaces ``_decode_step_kernel`` (B13,
   ``decode_step_attention``): RoPE, the cache column write in place and
   the masked single-token attention.
+- ``decode_step_q8`` replaces ``_decode_step_q8_kernel`` (B14,
+  ``decode_step_attention_q8``): the same step over int8 caches with
+  per-column float32 scales folded into the logits and the weights.
 
 Beside each kernel stands its plain PyTorch version (``flash_fwd_plain``,
 ``flash_bwd_plain``, ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``,
-``decode_step_plain``), the same function as whole-tensor ops; the
-attention ones take ``chunk`` to walk the Q rows a chunk at a time, so
-that a long sequence's logits never exist whole (131072 keys: 2 GB for a
-1024-row chunk of 4 heads, where the whole matrix would take 275 GB). A
-wrapper takes the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches.
+``decode_step_plain``, ``decode_step_q8_plain``), the same function as
+whole-tensor ops; the flash ones take ``chunk`` to walk the Q rows a
+chunk at a time, so that a long sequence's logits never exist whole
+(131072 keys: 2 GB for a 1024-row chunk of 4 heads, where the whole
+matrix would take 275 GB). A wrapper takes the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -38,14 +41,22 @@ from icikit_torch.ops.attention import NEG_INF
 from icikit_torch.ops.common import LN2, LOG2E
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "decode_step": 0}
+            "flash_bwd_dkv": 0, "decode_step": 0, "decode_step_q8": 0}
 
-# d_head 32 is the tiny preset's; 64 and 128 the TPU-shaped presets'.
-FLASH_HEAD_DIMS = (32, 64, 128)
+# d_head 32 is the tiny preset's; 64 and 128 the TPU-shaped presets';
+# 256 the widest head the decode gate's configs train and prefill with.
+FLASH_HEAD_DIMS = (32, 64, 128, 256)
 # The constant-shift forward keeps a row whose shifted sum l lies in this
 # range and redoes it online otherwise (the kernel's SUM_LO, SUM_HI).
 SHIFT_SUM_RANGE = (2.0 ** -64, 2.0 ** 64)
-DECODE_HEAD_DIMS = (128, 256)
+# The decode steps walk a row in chunks of this many elements, so they
+# take any head dim that is a positive multiple of it (JAX's gate).
+DECODE_CHUNK = 128
+
+
+def decode_head_dim_ok(dh: int) -> bool:
+    """Does the fused decode step (B13, B14) take head dim ``dh``?"""
+    return dh >= DECODE_CHUNK and dh % DECODE_CHUNK == 0
 
 
 def reset_launches() -> None:
@@ -231,6 +242,34 @@ def decode_step_plain(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
     return (acc / l).to(q.dtype)
 
 
+def decode_step_q8_plain(q, kq, vq, kdq, vdq, kcache, vcache, kscale,
+                         vscale, cur: int, *, scale: float) -> torch.Tensor:
+    """Plain version of ``decode_step_q8``: q ``(rows, dh)`` already
+    rotated, the fresh column ``kq``/``vq`` int8 and ``kdq``/``vdq``
+    its float32 dequant ``(rows, dh)``, int8 caches ``(rows, total,
+    dh)`` and their float32 column scales ``(rows, total)``. Writes
+    ``kq``/``vq`` at column ``cur`` of the caches in place and returns
+    the float32 attention ``(rows, dh)``, in the order of
+    ``_decode_step_q8_kernel``: float32 logits of q against the int8
+    past columns times K's column scale, then the logit scale; the
+    ``cur`` term from ``kdq``; natural exp; the weights times V's column
+    scale before the value product; the ``cur`` value from ``vdq``."""
+    kcache[:, cur] = kq
+    vcache[:, cur] = vq
+    qf = q.float()
+    raw = torch.einsum("rd,rtd->rt", qf, kcache[:, :cur].float())
+    past = raw * kscale[:, :cur] * scale
+    now = (qf * kdq.float()).sum(dim=-1, keepdim=True) * scale
+    logits = torch.cat([past, now], dim=-1)
+    m = logits.amax(dim=-1, keepdim=True)
+    w = torch.exp(logits - m)
+    l = w.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("rt,rtd->rd", w[:, :cur] * vscale[:, :cur],
+                       vcache[:, :cur].float())
+    acc = acc + w[:, cur:] * vdq.float()
+    return acc / l
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 
@@ -405,10 +444,10 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
                                  scale=scale, rope=rope)
     _build.check_operands("decode_step", (q, k, v, kcache, vcache), q.dtype)
     _build.check_operands("decode_step tables", (cos2, sin2), torch.float32)
-    if dh not in DECODE_HEAD_DIMS or cos2.numel() != dh \
+    if not decode_head_dim_ok(dh) or cos2.numel() != dh \
             or sin2.numel() != dh:
-        raise ValueError(f"decode_step: head dim {dh} not in the kernel's "
-                         f"{DECODE_HEAD_DIMS}, or tables not ({dh},)")
+        raise ValueError(f"decode_step: head dim {dh} is not a multiple "
+                         f"of {DECODE_CHUNK}, or tables not ({dh},)")
     out = torch.empty_like(q)
     lib = _build.load("attention")
     rc = lib.icikit_decode_step(
@@ -418,4 +457,55 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
         int(rope), float(scale), _build.stream(q))
     _build.check(rc, "decode_step launch")
     LAUNCHES["decode_step"] += 1
+    return out
+
+
+def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
+                   cur: int, *, scale: float) -> torch.Tensor:
+    """One decode step of attention over int8 caches for ``rows = b *
+    h`` rows, operands as :func:`decode_step_q8_plain`'s (q float32 or
+    bf16); the int8 column ``kq``/``vq`` is written at ``cur`` in place.
+    Returns the float32 attention ``(rows, dh)``.
+
+    The kernel replaces ``icikit/ops/flash_attention.py``'s
+    ``_decode_step_q8_kernel`` (B14, pallas_call at :1229). Bound:
+    reading the ``cur`` past int8 columns of K and V and their scales
+    (bytes). CPU tensors take :func:`decode_step_q8_plain`."""
+    rows, dh = q.shape
+    total = kcache.shape[1]
+    if (any(t.shape != q.shape for t in (kq, vq, kdq, vdq))
+            or kcache.shape != (rows, total, dh)
+            or vcache.shape != kcache.shape
+            or kscale.shape != (rows, total)
+            or vscale.shape != kscale.shape):
+        raise ValueError("decode_step_q8: q and the fresh column must be "
+                         "(rows, dh), the caches (rows, total, dh) and "
+                         "their scales (rows, total)")
+    if not 0 <= cur < total:
+        raise ValueError(f"decode_step_q8: cur={cur} outside [0, {total})")
+    if q.device.type == "cpu":
+        return decode_step_q8_plain(q, kq, vq, kdq, vdq, kcache, vcache,
+                                    kscale, vscale, cur, scale=scale)
+    _build.check_operands("decode_step_q8 q", (q,), q.dtype)
+    _build.check_operands("decode_step_q8 float32 operands",
+                          (kdq, vdq, kscale, vscale), torch.float32)
+    for t in (kq, vq, kcache, vcache):
+        if (t.device.type != "cuda" or t.dtype != torch.int8
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError("decode_step_q8: the fresh column and the "
+                             "caches must be contiguous, 16-byte aligned "
+                             "CUDA int8 tensors")
+    if not decode_head_dim_ok(dh):
+        raise ValueError(f"decode_step_q8: head dim {dh} is not a "
+                         f"multiple of {DECODE_CHUNK}")
+    out = torch.empty((rows, dh), dtype=torch.float32, device=q.device)
+    lib = _build.load("attention")
+    rc = lib.icikit_decode_step_q8(
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(),
+        vq.data_ptr(), kdq.data_ptr(), vdq.data_ptr(), kcache.data_ptr(),
+        vcache.data_ptr(), kscale.data_ptr(), vscale.data_ptr(),
+        out.data_ptr(), rows, total, dh, int(cur), float(scale),
+        _build.stream(q))
+    _build.check(rc, "decode_step_q8 launch")
+    LAUNCHES["decode_step_q8"] += 1
     return out

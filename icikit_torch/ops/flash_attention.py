@@ -11,15 +11,19 @@ routed as JAX's ``_bwd_call`` routes. ``_Flash`` is the counterpart of
 the ``_flash`` custom_vjp: its residuals are (q, k, v, out, lse), and
 the lse cotangent folds into delta. The decode step
 (``decode_step_attention``, B13) applies RoPE, writes the cache column
-in place and attends one token in one launch per layer.
+in place and attends one token in one launch per layer; its int8 form
+(``decode_step_attention_q8``, B14) attends over int8 caches.
 
 Layout ``(batch, seq, heads, head_dim)`` at the public functions, as in
 the JAX package. On a CUDA tensor the kernels cover every length (a
-ragged last tile is masked) at head dims 32, 64 and 128, and raise for
-any other; the one fallback to the dense oracle is a matter of
-semantics, as in JAX: causal attention with s_q != s_kv (end-aligned
-masking, which the kernels do not model). On a CPU tensor the kernels'
-plain versions run.
+ragged last tile is masked) at the head dims of ``FLASH_HEAD_DIMS`` (32,
+64, 128 and 256). Two shapes take the dense oracle instead, a route
+decided by ``_flash_supported`` before any launch, as JAX's gate sends
+its unsupported shapes to the oracle: causal attention with s_q != s_kv
+(end-aligned masking, which the kernels do not model), and on a CUDA
+device a head dim outside ``FLASH_HEAD_DIMS`` (16, 48 or 96, say). A
+direct kernel call at such a head dim raises. On a CPU tensor the
+kernels' plain versions run, at every head dim.
 
 ``softmax_shift``: the exact fallback of the constant-shift forward
 sits inside the kernel (a tile with an overflowing row is redone
@@ -64,13 +68,19 @@ def _dense_with_lse(q, k, v, causal, scale):
     return out.to(q.dtype), lse
 
 
-def _flash_supported(sq: int, sk: int, causal: bool, device) -> bool:
-    """Does the flash path take this shape on ``device``? The kernel
-    covers every length on ``cuda`` and its plain version every length
-    on ``cpu``; causal attention with s_q != s_kv goes to the oracle."""
+def _flash_supported(sq: int, sk: int, d: int, causal: bool,
+                     device) -> bool:
+    """Does the flash path take this shape on ``device``? The kernels
+    cover every length at the head dims of ``FLASH_HEAD_DIMS`` on
+    ``cuda``, their plain versions every length and head dim on
+    ``cpu``; causal attention with s_q != s_kv, and a ``cuda`` head dim
+    the kernels are not built for, go to the oracle."""
     if causal and sq != sk:
         return False
-    return torch.device(device).type in ("cuda", "cpu")
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return d in cuda_attention.FLASH_HEAD_DIMS
+    return kind == "cpu"
 
 
 class _Flash(torch.autograd.Function):
@@ -118,7 +128,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     or dense attention: every row sees a key)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not _flash_supported(q.shape[1], k.shape[1], causal, q.device):
+    if not _flash_supported(q.shape[1], k.shape[1], q.shape[-1], causal,
+                            q.device):
         return _dense_with_lse(q, k, v, causal, scale)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     out, lse = _Flash.apply(qt, kt, vt, bool(causal), float(scale),
@@ -132,7 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax_shift: float | None = None) -> torch.Tensor:
     """Fused flash attention; drop-in for ``dense_attention``:
     ``(b, s_q, h, d)`` in q's dtype."""
-    if not _flash_supported(q.shape[1], k.shape[1], causal, q.device):
+    if not _flash_supported(q.shape[1], k.shape[1], q.shape[-1], causal,
+                            q.device):
         return dense_attention(q, k, v, causal=causal, scale=scale)
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
                                     softmax_shift=softmax_shift)[0]
@@ -151,17 +163,18 @@ def resolve_attention_impl(name: str):
 
 
 def decode_step_supported(d_head: int, n_rep: int, dtype) -> bool:
-    """Gate of the fused decode step: MHA only (GQA keeps an
-    un-repeated cache the kernel does not model) and a head dim the
-    kernel is built for (128 or 256: the TPU's lane-exact widths that
-    fit eight warps of dh/32 elements a lane), in float32 or bf16."""
-    return (n_rep == 1 and d_head in cuda_attention.DECODE_HEAD_DIMS
+    """Gate of the fused decode steps (B13, and B14 under int8), JAX's:
+    MHA only (GQA keeps an un-repeated cache the kernels do not model)
+    and a head dim that is a positive multiple of 128 (the kernels walk
+    a row in 128-wide chunks), in float32 or bf16."""
+    return (n_rep == 1 and cuda_attention.decode_head_dim_ok(d_head)
             and dtype in (torch.float32, torch.bfloat16))
 
 
-def decode_step_cache_len(total: int, dtype=None) -> int:
-    """Cache columns the fused step wants: ``total`` itself. The TPU
-    pads to its sublane multiple; a CTA reads any column count."""
+def decode_step_cache_len(total: int, dtype=None, lane: bool = False) -> int:
+    """Cache columns the fused steps want: ``total`` itself, ``lane`` or
+    not. The TPU pads to its sublane multiple (``lane=True``: to 128,
+    for the int8 step's scale rows); a CTA reads any column count."""
     return total
 
 
@@ -178,4 +191,23 @@ def decode_step_attention(q, k, v, kcache, vcache, cur: int, cos, sin, *,
     attn = cuda_attention.decode_step(q, k, v, kcache, vcache, int(cur),
                                       cos, sin, scale=float(scale),
                                       rope=bool(rope))
+    return attn, kcache, vcache
+
+
+def decode_step_attention_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale,
+                             vscale, cur: int, *, scale: float):
+    """Fused single-token decode step over int8 KV caches (MHA), under
+    JAX's signature.
+
+    q ``(rows, dh)`` already rotated; ``kq``/``vq`` the fresh column
+    quantized ``(rows, dh)`` int8 and ``kdq``/``vdq`` the same column
+    dequantized, float32 (the ``t == cur`` patch); int8 caches ``(rows,
+    total, dh)``, updated **in place** at column ``cur``; float32 column
+    scales ``kscale``/``vscale`` ``(rows, total)`` already holding the
+    fresh column's at ``cur`` (the caller writes them). Returns ``(attn
+    (rows, dh) float32, kcache, vcache)``; the caches returned are the
+    caller's tensors. Check ``decode_step_supported`` first."""
+    attn = cuda_attention.decode_step_q8(q, kq, vq, kdq, vdq, kcache,
+                                         vcache, kscale, vscale, int(cur),
+                                         scale=float(scale))
     return attn, kcache, vcache

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from icikit.ops import flash_attention as jfa
+from icikit.ops.quant import quantize_last as j_quantize_last
 from icikit.ops.rope import apply_rope as j_apply_rope
 from icikit.ops.rope import rope_sincos as j_rope_sincos
 from icikit_torch.interop import from_jax, to_jax
@@ -171,6 +172,74 @@ def test_decode_step_gate_and_cache_len():
     assert not tfa.decode_step_supported(128, 2, torch.bfloat16)
     assert not tfa.decode_step_supported(128, 1, torch.float16)
     assert tfa.decode_step_cache_len(577, torch.bfloat16) == 577
+    assert tfa.decode_step_cache_len(577, torch.int8, lane=True) == 577
+
+
+@pytest.mark.parametrize("d_head", [64, 96, 128, 192, 256, 384, 512, 640])
+@pytest.mark.parametrize("n_rep", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_gate_equals_jax(d_head, n_rep, dtype):
+    """JAX's gate: MHA and any positive multiple of 128 (its backend test
+    passes on the CPU); the port takes the same shapes in both dtypes."""
+    want = jfa.decode_step_supported(d_head, n_rep, jnp.float32)
+    assert tfa.decode_step_supported(d_head, n_rep, dtype) == want
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128, 256])
+def test_flash_gate_takes_the_built_head_dims_on_cuda(d):
+    """The flash path's head-dim gate is a pure function of the shape and
+    the device: on ``cuda`` the kernels' builds (32, 64, 128, 256), every
+    head dim on the CPU, and causal s_q != s_kv on neither."""
+    assert tfa._flash_supported(64, 64, d, True, "cuda") == (
+        d in (32, 64, 128, 256))
+    assert tfa._flash_supported(64, 64, d, False, "cpu")
+    assert not tfa._flash_supported(32, 64, d, True, "cpu")
+    assert not tfa._flash_supported(64, 64, d, True, "meta")
+
+
+def _q8_step_inputs(seed, rows, total, dh, cur):
+    """float32 q, the fresh column quantized and dequantized, and int8
+    caches with their scale rows (the fresh column's scale at cur)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((rows, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((rows, dh)).astype(np.float32)
+            for _ in range(2))
+    kq, ksn = (np.asarray(a) for a in j_quantize_last(jnp.asarray(k)))
+    vq, vsn = (np.asarray(a) for a in j_quantize_last(jnp.asarray(v)))
+    kc, kcs = (np.array(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, total, dh)).astype(np.float32))))
+    vc, vcs = (np.array(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, total, dh)).astype(np.float32))))
+    kcs[:, cur], vcs[:, cur] = ksn, vsn
+    kdq = kq.astype(np.float32) * ksn[:, None]
+    vdq = vq.astype(np.float32) * vsn[:, None]
+    return q, kq, vq, kdq, vdq, kc, vc, kcs, vcs
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("cur", [0, 1, 70, 127])
+def test_decode_step_q8_matches_jax(dh, cur):
+    """The port's int8 step (plain on the CPU) against JAX's
+    ``decode_step_attention_q8`` called directly (interpret): the output
+    within 1e-6 (float32 sums in other orders), the written int8 cache
+    columns bit for bit."""
+    rows, total = 6, 128
+    args = _q8_step_inputs(cur + dh, rows, total, dh, cur)
+    scale = dh ** -0.5
+    want, want_kc, want_vc = jfa.decode_step_attention_q8(
+        *(jnp.asarray(a) for a in args), jnp.int32(cur), scale=scale)
+    t_args = [from_jax(a) for a in args]
+    t_kc, t_vc = t_args[5], t_args[6]
+    cuda_attention.reset_launches()
+    got, got_kc, got_vc = tfa.decode_step_attention_q8(*t_args, cur,
+                                                       scale=scale)
+    assert cuda_attention.LAUNCHES["decode_step_q8"] == 0   # CPU: plain
+    assert got_kc is t_kc and got_vc is t_vc      # updated in place
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(to_jax(got), np.asarray(want), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_array_equal(to_jax(t_kc), np.asarray(want_kc))
+    np.testing.assert_array_equal(to_jax(t_vc), np.asarray(want_vc))
 
 
 @pytest.mark.parametrize("per_row", [False, True])

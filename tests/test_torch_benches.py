@@ -93,3 +93,45 @@ def test_adam_bench_runs_its_arms_on_cpu():
     for r in recs:
         assert r["device"] == "cpu" and r["ms"] > 0 and r["value"] >= 0
         assert r["elements"] == 390 * 128 and r["bound_ms"] is None
+
+
+def test_decode_bench_int8_cli_on_cpu():
+    """The int8 rows of the decode bench: the ``_q8`` metric, the int8
+    byte model, the fused step resolved, on the CPU."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, "-m", "icikit_torch.bench.decode",
+                        "--device", "cpu", "--preset", "tiny128", "--batch",
+                        "2", "--prompt", "8", "--new", "4", "--decode-quant",
+                        "int8", "--decode-step", "fused", "--runs", "1"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["metric"] == "decode_tiny128_dp1tp1_b2_q8_p8_n4_greedy_fused"
+    assert rec["decode_quant"] == "int8" and rec["bytes_dtype"] == "int8"
+    assert rec["decode_step_resolved"] == "fused"
+    assert rec["bytes_model"] == "int8-weights-and-cache-no-resident"
+    assert rec["value"] > 0 and rec["device"] == "cpu"
+
+
+@pytest.mark.parametrize("bytes_dtype", ["bf16", "int8"])
+def test_decode_byte_model_int8_matches_jax(bytes_dtype):
+    """The decode byte model at ``base`` b 8, 576 columns, no resident
+    share, equals JAX's at both widths; int8 reads 301.9 MB a step."""
+    from icikit.bench.decode import decode_bytes_per_token as j_bytes
+    from icikit.bench.decode import quant_scale_count as j_scales
+    from icikit.models.transformer import TransformerConfig as JConfig
+    from icikit_torch.bench.decode import (decode_bytes_per_token,
+                                           make_config, quant_scale_count)
+
+    cfg = make_config("base", 512, 64)
+    jcfg = JConfig(**{f: getattr(cfg, f) for f in (
+        "vocab", "d_model", "n_heads", "d_head", "d_ff", "n_layers",
+        "max_seq")})
+    assert decode_bytes_per_token(cfg, 8, 576, bytes_dtype=bytes_dtype) \
+        == j_bytes(jcfg, 8, 576, vmem_resident=0, bytes_dtype=bytes_dtype)
+    assert quant_scale_count(cfg) == j_scales(jcfg) == 143_360
+    if bytes_dtype == "int8":
+        assert round(decode_bytes_per_token(cfg, 8, 576, bytes_dtype="int8")
+                     / 1e5) == 3019

@@ -116,7 +116,8 @@ def no_tf32(gen):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64)])
+@pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
+                                 (200, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_matches_plain(dtype, tol, s, d, causal, no_tf32):
     gen = no_tf32
@@ -135,10 +136,11 @@ def test_flash_fwd_matches_plain(dtype, tol, s, d, causal, no_tf32):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("cur", [0, 1, 37, 95])
-def test_decode_step_matches_plain_and_writes_in_place(dtype, rope, cur,
+@pytest.mark.parametrize("dh", [128, 256, 384])
+def test_decode_step_matches_plain_and_writes_in_place(dtype, rope, cur, dh,
                                                        no_tf32):
     gen = no_tf32
-    rows, total, dh = 6, 96, 128
+    rows, total = 6, 96
     q, k, v = (_randn((rows, dh), dtype, gen) for _ in range(3))
     kc, vc = (_randn((rows, total, dh), dtype, gen) for _ in range(2))
     c, s = rope_sincos(torch.tensor([cur], device="cuda"), dh)
@@ -192,7 +194,7 @@ def _grad_close(got, want, rel):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
-                                 (256, 32)])
+                                 (256, 32), (200, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_shift_and_backward_match_plain(dtype, s, d, causal,
                                               no_tf32):
@@ -317,7 +319,8 @@ def test_train_step_launches_every_kernel(gen):
                           tok.roll(1, 1).to(dev))
         losses[dev] = float(loss)
     assert ca.LAUNCHES == {"flash_fwd": 2, "flash_bwd": 2, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0, "decode_step": 0}
+                           "flash_bwd_dkv": 0, "decode_step": 0,
+                           "decode_step_q8": 0}
     assert cx.LAUNCHES == {"xent_fwd": 1, "xent_dx_saved": 1,
                            "xent_dw_saved": 1, "xent_dx": 0, "xent_dw": 0,
                            "xent_g": 0, "xent_g_saved": 0}
@@ -335,7 +338,7 @@ def test_train_step_launches_every_kernel(gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
-                                 (256, 32)])
+                                 (256, 32), (200, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_two_pass_matches_plain(dtype, s, d, causal, no_tf32):
     gen = no_tf32
@@ -488,3 +491,174 @@ def test_train_step_arms_launch_their_kernels(arm, gen):
     assert cuda_adam.LAUNCHES["adam"] == (len(cpu) if arm == "adam-kernel"
                                           else 0)
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-4
+
+
+# ------------------------------------------------- int8 decode kernels
+# Tolerances: quant_matvec 1e-4 of the largest |reference| entry for bf16
+# x (exact products, float32 sums on the tensor cores in another order)
+# and 1e-5 for float32 x (FMA sums in another order); decode_step_q8 out
+# 1e-5 absolute (float32 sums in another order, the same scale folding)
+# and the int8 cache columns bit for bit.
+
+from icikit_torch.ops import cuda_quant as cq  # noqa: E402
+
+QMV_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 300])
+@pytest.mark.parametrize("n,k", [(256, 128), (3072, 1024), (1024, 4096)])
+def test_quant_matvec_matches_plain(dtype, rows, n, k, no_tf32):
+    gen = no_tf32
+    x = _randn((rows, k), dtype, gen)
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device="cuda") / 127
+    cq.reset_launches()
+    got = cq.quant_matvec(x, w8, sc)
+    assert cq.LAUNCHES["quant_matvec"] == 1 and got.dtype == torch.float32
+    want = cq.quant_matvec_plain(x, w8, sc)
+    torch.testing.assert_close(got, want, rtol=0, atol=QMV_TOL[dtype]
+                               * float(want.abs().max()))
+
+
+def test_quant_matvec_gate_and_qmm_routes(gen):
+    """Off the gate a CUDA call raises (and ``qmm(impl="pallas")`` with
+    it); ``"auto"`` launches the kernel where the gate accepts and takes
+    the plain form where it does not; ``"xla"`` never launches."""
+    from icikit_torch.ops.quant import qmm, quant_matvec
+
+    x = _randn((4, 8, 256), torch.bfloat16, gen)
+    w8 = torch.randint(-127, 128, (384, 256), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((384,), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="unsupported"):
+        quant_matvec(x[0, :, :200].contiguous(), w8[:, :200].contiguous(),
+                     sc)
+    with pytest.raises(ValueError, match="unsupported"):
+        qmm(x[..., :200], w8[:, :200], sc, impl="pallas")
+    cq.reset_launches()
+    a = qmm(x, w8, sc, impl="auto")
+    assert cq.LAUNCHES["quant_matvec"] == 1 and a.shape == (4, 8, 384)
+    b = qmm(x, w8, sc, impl="xla")
+    qmm(x[..., :200], w8[:, :200], sc, impl="auto")
+    assert cq.LAUNCHES["quant_matvec"] == 1
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [128, 256, 384])
+@pytest.mark.parametrize("cur", [0, 1, 37, 95])
+def test_decode_step_q8_matches_plain_and_writes_in_place(qdtype, dh, cur,
+                                                          no_tf32):
+    from icikit_torch.ops.quant import dequantize_last, quantize_last
+
+    gen = no_tf32
+    rows, total = 6, 96
+    q = _randn((rows, dh), qdtype, gen)
+    kq, ks = quantize_last(_randn((rows, dh), torch.float32, gen))
+    vq, vs = quantize_last(_randn((rows, dh), torch.float32, gen))
+    kc, kcs = quantize_last(_randn((rows, total, dh), torch.float32, gen))
+    vc, vcs = quantize_last(_randn((rows, total, dh), torch.float32, gen))
+    kcs[:, cur], vcs[:, cur] = ks, vs
+    kc2, vc2 = kc.clone(), vc.clone()
+    args = (kq, vq, dequantize_last(kq, ks), dequantize_last(vq, vs))
+    want = ca.decode_step_q8_plain(q, *args, kc2, vc2, kcs, vcs, cur,
+                                   scale=dh ** -0.5)
+    ca.reset_launches()
+    got = ca.decode_step_q8(q, *args, kc, vc, kcs, vcs, cur,
+                            scale=dh ** -0.5)
+    assert ca.LAUNCHES["decode_step_q8"] == 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("pos_encoding", ["learned", "rope"])
+def test_int8_generate_launches_b14_and_b15(pos_encoding, gen):
+    """The int8 fused generate of tiny128 on the card launches the int8
+    matvec for every projection and the unembedding and the int8 step
+    once a layer a step, and at float32 gives the plain arms' tokens."""
+    import dataclasses
+
+    from icikit_torch.bench.train import PRESETS
+    from icikit_torch.models.transformer import (TransformerConfig,
+                                                 greedy_generate,
+                                                 init_params,
+                                                 make_model_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**PRESETS["tiny128"], compute_dtype="float32",
+                            pos_encoding=pos_encoding, decode_quant="int8",
+                            decode_step="fused", quant_matvec="auto")
+    params = init_params(cfg, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, 8), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    mesh = make_model_mesh(device="cuda")
+    ca.reset_launches()
+    cq.reset_launches()
+    got = greedy_generate(params, prompt, mesh, cfg, 10)
+    L = cfg.n_layers
+    assert ca.LAUNCHES["decode_step_q8"] == L * 9
+    assert ca.LAUNCHES["decode_step"] == 0
+    assert cq.LAUNCHES["quant_matvec"] == 10 * (4 * L + 1)
+    want = greedy_generate(params, prompt, mesh, dataclasses.replace(
+        cfg, decode_step="unfused", quant_matvec="xla",
+        attention_impl="dense"), 10)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_routes_unbuilt_head_dims_to_dense(gen):
+    """A CUDA call at a head dim the kernels are not built for (96)
+    takes the dense oracle, decided before any launch; d 256 launches."""
+    from icikit_torch.ops.attention import dense_attention
+    from icikit_torch.ops.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for d, launches in ((96, 0), (256, 1)):
+        q, k, v = (_randn((1, 80, 2, d), torch.float32, gen)
+                   for _ in range(3))
+        ca.reset_launches()
+        out = flash_attention(q, k, v, causal=True)
+        assert ca.LAUNCHES["flash_fwd"] == launches
+        torch.testing.assert_close(out, dense_attention(q, k, v, causal=True),
+                                   atol=1e-4, rtol=0)
+
+
+def test_d_head_256_generate_and_train_step(gen):
+    """A d_head-256 MHA config on the card: greedy_generate launches the
+    prefill's flash_fwd and the fused step at float32 and gives the
+    plain arms' tokens; a train step launches flash_fwd and flash_bwd and
+    its loss equals the plain arms'."""
+    import dataclasses
+
+    from icikit_torch.models.transformer import (TransformerConfig,
+                                                 greedy_generate,
+                                                 init_params,
+                                                 loss_and_metrics,
+                                                 make_model_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, d_head=256,
+                            d_ff=512, n_layers=2, max_seq=64,
+                            compute_dtype="float32", decode_step="fused",
+                            pos_encoding="rope", remat=False)
+    params = init_params(cfg, gen, "cuda")
+    mesh = make_model_mesh(device="cuda")
+    prompt = torch.randint(0, 256, (2, 16), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    ca.reset_launches()
+    got = greedy_generate(params, prompt, mesh, cfg, 6)
+    assert ca.LAUNCHES["flash_fwd"] == 2 and ca.LAUNCHES["decode_step"] == 10
+    plain = dataclasses.replace(cfg, decode_step="unfused",
+                                attention_impl="dense")
+    assert torch.equal(got, greedy_generate(params, prompt, mesh, plain, 6))
+    tok = torch.randint(0, 256, (2, 64), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ca.reset_launches()
+    loss, _, _ = loss_and_metrics(params, tok, tok.roll(1, 1), mesh, cfg)
+    assert ca.LAUNCHES["flash_fwd"] == 2 and ca.LAUNCHES["flash_bwd"] == 2
+    loss_p, _, _ = loss_and_metrics(params, tok, tok.roll(1, 1), mesh,
+                                    dataclasses.replace(
+                                        plain, fused_head=False))
+    assert abs(float(loss) - float(loss_p)) < 1e-4

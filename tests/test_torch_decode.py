@@ -11,6 +11,14 @@ prefill's last-position logits agree within 0.05 absolute, three bf16
 ulps at logits of 2 to 4 (an ulp is 2^-6 there): the two frameworks
 round the bf16 activations at different places (XLA keeps float32
 inside its fusions).
+
+int8 decode: the port's int8 tokens at float32 equal JAX's int8
+``greedy_generate`` in its XLA form (``quant_matvec="xla"``,
+``decode_step="unfused"``) bit for bit: JAX's int8 generate through its
+Pallas kernels fails under the same vma check. The port's fused int8
+step (its plain version here) is held to the port's unfused int8
+tokens, the contract of JAX's
+``test_fused_decode_step_q8_token_identity``.
 """
 
 from __future__ import annotations
@@ -196,7 +204,6 @@ def test_unported_paths_refuse_loudly():
     mesh = make_model_mesh(device="cpu")
     gen = torch.Generator().manual_seed(0)
     for over, what in ((dict(n_experts=2), "n_experts"),
-                       (dict(decode_quant="int8"), "B14"),
                        (dict(draft_head=True), "draft_head")):
         with pytest.raises(NotImplementedError, match=what):
             init_params(TransformerConfig(**CFG, **over), gen, "cpu")
@@ -204,6 +211,8 @@ def test_unported_paths_refuse_loudly():
         make_model_mesh(tp=2)
     with pytest.raises(NotImplementedError, match="sampled decode"):
         sample_generate()
+    # int8 decode is ported: its config initializes
+    init_params(TransformerConfig(**CFG, decode_quant="int8"), gen, "cpu")
     cfg = TransformerConfig(**CFG)
     params = init_params(cfg, gen, "cpu")
     with pytest.raises(ValueError, match="max_seq"):
@@ -236,3 +245,117 @@ def test_decode_bench_runs_on_cpu_with_jax_record_keys():
     assert rec["decode_step_resolved"] == "fused"
     assert rec["device"] == "cpu" and rec["power_limit"] is None
     assert rec["value"] > 0 and rec["unit"] == "tokens/s"
+
+
+# ------------------------------------------------------------ int8 decode
+
+
+def _jax_int8_tokens(cfg: dict, mesh, jparams, prompt, n_new):
+    pd = jax.device_put(jnp.asarray(prompt),
+                        NamedSharding(mesh, P("dp", None)))
+    return np.asarray(j_generate(
+        jparams, pd, mesh, JConfig(**cfg, decode_quant="int8",
+                                   quant_matvec="xla",
+                                   decode_step="unfused"), n_new=n_new))
+
+
+@pytest.mark.parametrize("over", [dict(), dict(pos_encoding="rope"),
+                                  dict(n_kv_heads=2, pos_encoding="rope")],
+                         ids=["learned", "rope", "gqa"])
+def test_int8_tokens_equal_jax_xla_form(over):
+    """tests/test_decode.py's CFG (d_head 8), learned, RoPE and GQA: the
+    port's int8 generate (every qmm impl; on the CPU each is the float32
+    product then the scale) equals JAX's bit for bit."""
+    cfg = dict(CFG, **over)
+    mesh, jparams, prompt, tparams = _both(cfg, seed=4, batch=3)
+    want = _jax_int8_tokens(cfg, mesh, jparams, prompt, 8)
+    for impl in ("auto", "xla"):
+        got = greedy_generate(tparams, torch.from_numpy(prompt),
+                              make_model_mesh(device="cpu"),
+                              TransformerConfig(**cfg, decode_quant="int8",
+                                                quant_matvec=impl), n_new=8)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("pos_encoding", ["learned", "rope"])
+def test_int8_fused_step_tokens_equal_unfused(pos_encoding):
+    """tiny128 at float32: the port's fused int8 step (B14's plain
+    version, with B15's through ``quant_matvec="pallas"``) gives the
+    port's unfused int8 tokens, and both equal JAX's XLA-form int8
+    generate."""
+    from icikit.bench.train import PRESETS as J_PRESETS
+    from icikit_torch.ops import cuda_quant
+
+    cfg = dict(J_PRESETS["tiny128"], compute_dtype="float32",
+               pos_encoding=pos_encoding)
+    mesh, jparams, prompt, tparams = _both(cfg, seed=3)
+    want = _jax_int8_tokens(cfg, mesh, jparams, prompt, 10)
+    base = TransformerConfig(**cfg, decode_quant="int8")
+    cuda_attention.reset_launches()
+    cuda_quant.reset_launches()
+    outs = {step: greedy_generate(
+        tparams, torch.from_numpy(prompt), make_model_mesh(device="cpu"),
+        TransformerConfig(**cfg, decode_quant="int8", decode_step=step,
+                          quant_matvec="pallas"), n_new=10).numpy()
+        for step in ("fused", "unfused")}
+    assert set(cuda_attention.LAUNCHES.values()) == {0}   # CPU: plain
+    assert cuda_quant.LAUNCHES["quant_matvec"] == 0
+    np.testing.assert_array_equal(outs["fused"], outs["unfused"])
+    np.testing.assert_array_equal(outs["fused"], want)
+    # pre-quantized params give the same tokens
+    from icikit_torch.models.transformer.decode import maybe_quantize_params
+    mesh_t = make_model_mesh(device="cpu")
+    qparams = maybe_quantize_params(tparams, mesh_t, base)
+    assert maybe_quantize_params(qparams, mesh_t, base) is qparams
+    np.testing.assert_array_equal(
+        greedy_generate(qparams, torch.from_numpy(prompt), mesh_t,
+                        TransformerConfig(**cfg, decode_quant="int8",
+                                          decode_step="fused"),
+                        n_new=10).numpy(), want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_caches_and_leaves_stay_int8(fused):
+    """The prefill's caches are int8 with float32 scales, in the fused
+    layout (b*h, total, dh) / (b*h, total) or the unfused one, and
+    _DecodeCtx casts no int8 leaf and no scale."""
+    from icikit.bench.train import PRESETS as J_PRESETS
+    from icikit_torch.models.transformer.decode import (
+        _DecodeCtx, _prefill, maybe_quantize_params)
+
+    cfg = TransformerConfig(**J_PRESETS["tiny128"],
+                            compute_dtype="bfloat16", decode_quant="int8")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = make_model_mesh(device="cpu")
+    ctx = _DecodeCtx(cfg, maybe_quantize_params(params, mesh, cfg))
+    for lp in ctx.layers:
+        for k in ("wqkv", "wo", "w1", "w2"):
+            assert lp[k].dtype == torch.int8, k
+            assert lp[k + "_s"].dtype == torch.float32, k
+        assert lp["ln1"].dtype == torch.float32
+    assert ctx.w_out.dtype == torch.int8
+    assert ctx.w_out_s.dtype == torch.float32
+    b, s, total = 2, 8, 12
+    prompt = torch.randint(0, cfg.vocab, (b, s), dtype=torch.int32)
+    _, (kcs, vcs, kss, vss) = _prefill(ctx, prompt, s, total, fused)
+    h, dh = cfg.n_heads, cfg.d_head
+    shape = (b * h, total, dh) if fused else (b, total, h, dh)
+    for c in kcs + vcs:
+        assert c.dtype == torch.int8 and tuple(c.shape) == shape
+        assert not bool(c[:, s:].any())
+    for c in kss + vss:
+        assert c.dtype == torch.float32 and tuple(c.shape) == shape[:-1]
+
+
+def test_d_head_256_tokens_equal_jax_unfused():
+    """A d_head-256 MHA config (the flash kernels' widest build, the
+    decode gate's second width) through both step arms equals JAX."""
+    cfg = dict(FUSED, d_head=256, pos_encoding="rope")
+    mesh, jparams, prompt, tparams = _both(cfg, seed=5)
+    want = _jax_tokens(cfg, mesh, jparams, prompt, 6)
+    for step in ("fused", "unfused"):
+        got = greedy_generate(tparams, torch.from_numpy(prompt),
+                              make_model_mesh(device="cpu"),
+                              TransformerConfig(**cfg, decode_step=step),
+                              n_new=6)
+        np.testing.assert_array_equal(got.numpy(), want)

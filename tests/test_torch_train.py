@@ -93,6 +93,23 @@ def test_loss_and_gradients_match_jax(pos_encoding, kv_heads, shift):
                                    err_msg=k)
 
 
+
+def test_loss_and_gradients_match_jax_at_d_head_256():
+    """A d_head-256 MHA config (the widest flash build): loss and every
+    gradient leaf as the d_head-32 cases, through the flash forward with
+    the shift and its backward (plain versions here)."""
+    cfg = dict(CFG, d_model=256, n_heads=2, d_head=256, pos_encoding="rope")
+    mesh, jparams, tok, tgt, tparams = _both(cfg, seed=9)
+    jl, jg, _ = j_loss(jparams, jnp.asarray(tok), jnp.asarray(tgt), mesh,
+                       JConfig(**cfg))
+    loss, grads, _ = _port_loss(tparams, tok, tgt, cfg)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    for k, want in jg.items():
+        want = np.asarray(want)
+        np.testing.assert_allclose(grads[k].numpy(), want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=k)
+
 def _jax_steps(cfg, mesh, jparams, tok, tgt, mom, n):
     opt, step = j_make_train_step(mesh, JConfig(**cfg),
                                   JFusedAdam(1e-2, **mom))
