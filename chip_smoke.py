@@ -114,7 +114,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    tokens/s by the chained median-of-windows beside the bf16 fused arm,
    prefill ms, the int8 byte-model bound and the idle share.
 19. per-kernel numbers of B15 and B14 at the int8 path's shapes.
-20. kernels line: every ported kernel with its launches on its main path,
+20. B17's kernels against their plain versions: ``tile_mxu`` and the
+   four ``tile_ablate`` variants at (1, 2, 512, d), d = 64 and 128, bq =
+   bk = 64, within TILE_TOL of the largest |plain| entry (both round w
+   to bf16 at scores whose float32 sums differ in order).
+21. the tile-floor path: ``bench.tile_floor.measure`` at s = 32768, h 8,
+   d = 64 and 128, 3 windows: the six variants' per-tile us beside the
+   per-tile bound (4 bq bk d operations at 989 TFLOP/s) and the render's
+   decomposition (what exp2 and the running max cost inside
+   ``flash_fwd``'s loop); ``tile_mxu``, ``tile_ablate`` and
+   ``flash_fwd`` launched; then the five kernels against their plain
+   versions at (1, 8, 32768, d), d = 64 and 128, within TILE_TOL, and
+   at d = 64 timed, ``softmax_ks1`` beside non-causal
+   ``scaled_dot_product_attention`` (the same function).
+22. B16's kernels against their plain versions, bit for bit: every slice
+   shape and dtype of the save-stack path's stacks at slices 0, 5, 11,
+   and a slice off JAX's gate, which takes the plain copy and launches
+   nothing.
+23. the save-stack train path: ``make_train_step`` of the ``base`` preset,
+   b 8, s 1024, bf16, phase 11's config with ``save_stack="pallas"``:
+   84 ``stack_write``, 12 ``stack_read``, 24 ``flash_fwd``, 12
+   ``flash_bwd`` and one launch of each cross-entropy kernel a step
+   asserted (SAVE_STACK_LAUNCHES); at b 2 and float32 held against the
+   default and the plain arms with phase 11's tolerances, the bf16
+   first-step loss and the loss falling over 5 steps; step ms, tokens/s
+   and mfu by phase 11's median-of-windows beside a second run of the
+   default arm, and the idle share from a ``torch.profiler`` trace; then
+   B16's kernels timed at the residual slice beside ``copy_``.
+24. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
 
@@ -185,6 +212,33 @@ ARMS = {"default": ({}, False, ("xent_dx_saved", "xent_dw_saved")),
                                 ("xent_g",)),
         "adam-kernel": ({}, True, ("xent_dx_saved", "xent_dw_saved",
                                    "adam"))}
+# The save-stack arm (phase 23), an arm in ARMS' form run on its own
+# path; a step at base: 12 layers, each writing its input and its six
+# gradient slices (ln1, ln2, wqkv, wo, w1, w2, all on JAX's gate)
+# through stack_write, reading its input back through stack_read and
+# running its forward again in the backward
+SAVE_STACK_ARM = (dict(save_stack="pallas"), False,
+                  ("xent_dx_saved", "xent_dw_saved"))
+SAVE_STACK_LAUNCHES = {"stack_write": 12 * 7, "stack_read": 12,
+                       "flash_fwd": 24, "flash_bwd": 12}
+# Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
+# (h, seq) at head dims 64 and 128; the check tolerance, relative to the
+# largest |plain| entry
+TILE_CHECK = (1, 2, 512)
+TILE_PATH = (8, 32768)
+TILE_DIMS = (64, 128)
+TILE_TOL = 2e-2
+# Phase 22, B16: the slice shapes and dtypes of the save-stack path's
+# stacks (the residual, then the gradient leaves at grad_dtype="compute"),
+# the slices checked, and a slice off JAX's gate (9 rows of bf16)
+STACK_SLICES = {"residual": ((TRAIN_BATCH, 1024, 1024), "bfloat16"),
+                "wqkv": ((1024, 3, 8, 128), "bfloat16"),
+                "wo": ((8, 128, 1024), "bfloat16"),
+                "w1": ((1024, 4096), "bfloat16"),
+                "w2": ((4096, 1024), "bfloat16"),
+                "ln1, ln2": ((1024,), "float32")}
+STACK_CHECK_I = (0, 5, 11)
+STACK_OFF_GATE = ((9, 128), "bfloat16")
 # Phase 16: the flash kernels' d = 256 builds at (b, h, s, d), and a
 # d_head-256 MHA config at the base width cut to two layers
 WIDE_SHAPES = ((2, 4, 1024, 256), (1, 4, 2048, 256))
@@ -660,27 +714,28 @@ def train_cell(torch, dev) -> dict:
             "peak": detect_peak(dev)}
 
 
-def train_arm(torch, cell, arm, smi=None) -> dict:
-    """One arm of the train cell (``ARMS``): at b = 2 and float32 held
-    against the plain arms and the default arm (the Adam kernel's arm by
-    its parameters after one step); the b = 8 bf16 step with its launches
-    counted on the second step; step ms, tokens/s and mfu by
-    median-of-windows. With ``smi`` (phase 11's main path) also the bf16
-    first-step loss, the loss falling over 5 steps, a profiler trace and
-    phase 11's two lines. Returns the arm's record, ``ok`` in it."""
+def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
+    """One arm of the train cell, ``spec`` in ``ARMS``' form: at b = 2
+    and float32 held against the plain arms and the default arm (the Adam
+    kernel's arm by its parameters after one step); the b = 8 bf16 step
+    with its launches counted on the second step; step ms, tokens/s and
+    mfu by median-of-windows. With ``smi`` (the main paths of phases 11
+    and 23) also the bf16 first-step loss, the loss falling over 5 steps,
+    a profiler trace and the lines ``{phase}_check`` and
+    ``{phase}_timing``. Returns the arm's record, ``ok`` in it."""
     import numpy as np
 
     from icikit_torch.models.transformer import (FusedAdam,
                                                  loss_and_metrics,
                                                  make_train_step)
-    from icikit_torch.ops import cuda_adam
+    from icikit_torch.ops import cuda_adam, cuda_stack
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_xent as cx
     from icikit_torch.utils.timing import timeit_windows
     from icikit_torch.utils.trace import device_activity
 
     t0 = time.perf_counter()
-    over, pallas, kernels = ARMS[arm]
+    over, pallas, kernels = spec
     mesh, params, b2 = cell["mesh"], cell["params"], cell["b2"]
     tok, tgt, seq = cell["tok"], cell["tgt"], cell["seq"]
     (loss_p, g_p), (loss_d, g_d) = cell["plain"], cell["default"]
@@ -729,7 +784,7 @@ def train_arm(torch, cell, arm, smi=None) -> dict:
     st = opt.init(p)
     p, st, loss = step(p, st, tok, tgt)           # first-call set-up
     losses = [float(loss)]
-    mods = (ca, cx, cuda_adam)
+    mods = (ca, cx, cuda_adam, cuda_stack)
     for mod in mods:
         mod.reset_launches()
     p, st, loss = step(p, st, tok, tgt)
@@ -740,6 +795,8 @@ def train_arm(torch, cell, arm, smi=None) -> dict:
     want = {**dict.fromkeys(launches, 0), "flash_fwd": cfg.n_layers,
             "flash_bwd": cfg.n_layers, "xent_fwd": 1,
             **{k: n_float if k == "adam" else 1 for k in kernels}}
+    if cfg.save_stack == "pallas":
+        want.update(SAVE_STACK_LAUNCHES)
     ok = ok and launches == want
     if smi is not None:
         for _ in range(3):
@@ -751,7 +808,8 @@ def train_arm(torch, cell, arm, smi=None) -> dict:
                       "tolerance": TRAIN_BF16_TOL}
         ok = (ok and bf16_first["rel_diff_to_fp32_plain"] <= TRAIN_BF16_TOL
               and losses[-1] < losses[0])
-        emit({"phase": "train_check", "preset": TRAIN_PRESET,
+        emit({"phase": f"{phase}_check", "preset": TRAIN_PRESET,
+              "arm": arm,
               "batch": TRAIN_BATCH, "seq": seq,
               "check_batch": TRAIN_CHECK_BATCH, "launches_per_step": launches,
               "fp32": {"loss_kernels": loss_k, "loss_plain": loss_p,
@@ -788,13 +846,14 @@ def train_arm(torch, cell, arm, smi=None) -> dict:
            "tokens_per_s": TRAIN_BATCH * seq / step_s,
            "mfu": flops / step_s / peak if peak else None, "ok": ok}
     if smi is not None:
-        emit({"phase": "train_timing", "card": smi,
+        rec["profile"] = device_activity(lambda: step(p, st, tok, tgt))
+        emit({"phase": f"{phase}_timing", "card": smi, "arm": arm,
               **{k: rec[k] for k in ("step_ms", "step_ms_spread", "windows",
                                      "suspect", "tokens_per_s")},
               "model_tflops_per_s": flops / step_s / 1e12, "mfu": rec["mfu"],
               "step_flops": flops, "peak_flops": peak,
               "bound_ms": flops / BF16_TENSOR_OPS * 1e3,
-              "profile": device_activity(lambda: step(p, st, tok, tgt)),
+              "profile": rec["profile"],
               "seconds": round(time.perf_counter() - t0, 1)})
     del p, st, opt, step
     torch.cuda.empty_cache()
@@ -1070,8 +1129,8 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
     from icikit_torch.utils.timing import cuda_time_ms
 
     t0 = time.perf_counter()
-    results = {arm: train_arm(torch, cell, arm) for arm in ARMS
-               if arm != "default"}
+    results = {arm: train_arm(torch, cell, arm, spec)
+               for arm, spec in ARMS.items() if arm != "default"}
     emit({"phase": "train_arms", "card": smi, "preset": TRAIN_PRESET,
           "batch": TRAIN_BATCH, "seq": cell["seq"],
           "check_batch": TRAIN_CHECK_BATCH,
@@ -1814,6 +1873,302 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     return rows_out
 
 
+def tile_floor_kernel_checks(torch, dev) -> None:
+    """Phase 20: B17's five kernels against their plain versions at
+    TILE_CHECK, head dims 64 and 128, bq = bk = 64."""
+    from icikit_torch.bench.tile_floor import ABLATIONS, LOG2E_JAX
+    from icikit_torch.ops import cuda_tile_floor as ctf
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, h, s = TILE_CHECK
+    checks = []
+    for d in TILE_DIMS:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        scale_log2 = d ** -0.5 * LOG2E_JAX
+        pairs = [("mxu", ctf.tile_mxu(q, k, v, scale_log2),
+                  ctf.mxu_plain(q, k, v, scale_log2))]
+        pairs += [(name, ctf.tile_ablate(q, k, v, scale_log2, e, m),
+                   ctf.ablate_plain(q, k, v, scale_log2, e, m))
+                  for name, e, m in ABLATIONS]
+        for name, got, want in pairs:
+            err = _rel(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            checks.append({"variant": name, "d": d, "rel_err": err,
+                           "finite": finite,
+                           "ok": finite and err <= TILE_TOL})
+    torch.cuda.synchronize()
+    emit({"phase": "tile_floor_kernels", "shape": [b, h, s],
+          "dims": list(TILE_DIMS), "tolerance": TILE_TOL,
+          "why": "bf16: the kernel and the plain version round w to bf16 "
+                 "at scores whose float32 sums differ in order, so a "
+                 "score on a rounding boundary rounds apart; the error "
+                 "is relative to the largest |plain| entry",
+          "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"tile-floor kernel disagrees with its plain "
+                             f"version: {bad}")
+
+
+def tile_floor_path(torch, dev, bw, smi) -> list:
+    """Phase 21: the tile-floor study (``bench.tile_floor.measure``) at
+    TILE_PATH for each head dim, its launches counted; then B17's five
+    kernels against their plain versions at the path's shapes, both head
+    dims, within TILE_TOL; returns the rows of B17's kernels timed at the
+    path's d = 64 shape."""
+    from icikit_torch.bench.tile_floor import (ABLATIONS, LOG2E_JAX,
+                                               measure, render, tile_ops)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_tile_floor as ctf
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    h, seq = TILE_PATH
+    results = {}
+    ctf.reset_launches()
+    ca.reset_launches()
+    for d in TILE_DIMS:
+        recs = measure(seq, d=d, h=h, windows=3, device=dev)
+        results[d] = {r["variant"]: r for r in recs}
+    torch.cuda.synchronize()
+    launches = {**ctf.LAUNCHES, "flash_fwd": ca.LAUNCHES["flash_fwd"]}
+    ok = all(n > 0 for n in launches.values()) and all(
+        r["per_tile_us"] > 0 and r["tiles"] > 0
+        for by in results.values() for r in by.values())
+    for d, by in results.items():
+        bound_us = tile_ops(64, 64, d) / BF16_TENSOR_OPS * 1e6
+        emit({"phase": "tile_floor", "card": smi, "h": h, "seq": seq,
+              "d": d, "launches": launches,
+              "per_tile_us": {n: r["per_tile_us"] for n, r in by.items()},
+              "per_tile_bound_us": bound_us,
+              "bound_by": "operations (4 bq bk d at 989 TFLOP/s)",
+              "tiles": {n: r["tiles"] for n, r in by.items()},
+              "median_s": {n: r["median_s"] for n, r in by.items()},
+              "spread_s": {n: r["spread_s"] for n, r in by.items()},
+              "session_quality": by["mxu"]["session_quality"],
+              "render": render(list(by.values())).splitlines(),
+              "seconds": round(time.perf_counter() - t0, 1)})
+    if not ok:
+        raise AssertionError(f"tile-floor path: a kernel was not launched "
+                             f"or a variant gave no time: {launches}")
+
+    # B17's five kernels against their plain versions at the path's
+    # shapes, both head dims (these launches come after the count); then
+    # at d = 64 each kernel timed beside its plain version, and
+    # softmax_ks1 beside the one PyTorch call that computes its function,
+    # non-causal scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(9)
+    checks, rows, timing = [], [], {}
+    for d in TILE_DIMS:
+        q, k, v = (torch.randn((1, h, seq, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        scale_log2 = d ** -0.5 * LOG2E_JAX
+        variants = {"mxu": (
+            "tile_mxu", lambda: ctf.tile_mxu(q, k, v, scale_log2),
+            lambda: ctf.mxu_plain(q, k, v, scale_log2))}
+        for name, e, m in ABLATIONS:
+            variants[name] = (
+                "tile_ablate",
+                lambda e=e, m=m: ctf.tile_ablate(q, k, v, scale_log2, e, m),
+                lambda e=e, m=m: ctf.ablate_plain(q, k, v, scale_log2, e, m))
+        errs = {}
+        for name, (_, kern, plain) in variants.items():
+            got, want = kern(), plain()
+            errs[name] = _rel(got, want)
+            finite = bool(torch.isfinite(got.float()).all())
+            checks.append({"variant": name, "d": d, "rel_err": errs[name],
+                           "finite": finite,
+                           "ok": finite and errs[name] <= TILE_TOL})
+            del got, want
+        if d != TILE_DIMS[0]:
+            del q, k, v
+            continue
+        tiles = h * (seq // ctf.TILE) ** 2
+        t_ops = tiles * tile_ops(ctf.TILE, ctf.TILE, d) / BF16_TENSOR_OPS
+        t_bytes = 4 * q.numel() * 2 / bw
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5)
+
+        lib_ms = cuda_time_ms(sdpa, iters=3, warmup=1)
+        timing = {"library_rel_err_vs_softmax_ks1": _rel(
+            sdpa(), ctf.ablate_plain(q, k, v, scale_log2, True, True))}
+        for name, row_name in (("mxu", "tile_mxu (B17)"),
+                               ("softmax_ks1",
+                                "tile_ablate softmax_ks1 (B17)")):
+            key, kern, plain = variants[name]
+            rows.append({
+                "name": row_name, "route": "cuda",
+                "source": "icikit_torch/csrc/tile_floor.cu",
+                "replaces": (
+                    "icikit/bench/tile_floor.py:174 (B17, _mxu_kernel)"
+                    if key == "tile_mxu" else
+                    "icikit/bench/tile_floor.py:199 (B17, _ablate_kernel)"),
+                "launches": launches[key], "max_abs_err": errs[name],
+                "ms": cuda_time_ms(kern, iters=3, warmup=1),
+                "plain_ms": cuda_time_ms(plain, iters=1, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms if name == "softmax_ks1" else None})
+        del q, k, v
+    torch.cuda.synchronize()
+    emit({"phase": "tile_floor_path_checks", "h": h, "seq": seq,
+          "dims": list(TILE_DIMS), "tolerance": TILE_TOL,
+          "why": "as phase 20, at the path's shapes",
+          "checks": checks})
+    emit({"phase": "tile_floor_timing_kernels", "card": smi,
+          "shape": f"b=1 h={h} s={seq} d={TILE_DIMS[0]} bf16, the full "
+                   f"rectangle of {h * (seq // ctf.TILE) ** 2} 64 x 64 "
+                   "tiles",
+          "launches": "the tile-floor path's, both head dims (tile_ablate "
+                      "over its four variants)",
+          "library": "softmax_ks1: non-causal scaled_dot_product_attention "
+                     "at scale d**-0.5 (softmax attention, the function "
+                     "the online softmax computes); mxu: none, no PyTorch "
+                     "call computes its unnormalized sum",
+          "max_abs_err": "relative to the largest |plain| entry",
+          **timing})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"tile-floor kernel disagrees with its plain "
+                             f"version at the path's shapes: {bad}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def stack_kernel_checks(torch, dev) -> None:
+    """Phase 22: B16's kernels against their plain versions, bit for bit,
+    at every slice shape and dtype of the save-stack path's stacks and
+    the slices STACK_CHECK_I; a slice off JAX's gate takes the plain copy
+    and launches nothing."""
+    from icikit_torch.ops import cuda_stack as cst
+    from icikit_torch.ops import stack_write as sw
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n_layers = SAVE_STACK_LAUNCHES["stack_read"]
+    checks = []
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    for name, (shape, dtype) in {**STACK_SLICES,
+                                 "off the gate": STACK_OFF_GATE}.items():
+        dt = getattr(torch, dtype)
+        stack = torch.randn((n_layers,) + shape, generator=gen,
+                            device=dev).to(dt)
+        want = stack.clone()
+        gated = sw.stack_supported(shape, dt)
+        cst.reset_launches()
+        same = True
+        for i in STACK_CHECK_I:
+            x = torch.randn(shape, generator=gen, device=dev)
+            sw.stack_write(stack, x, i)
+            cst.stack_write_plain(want, x.to(dt), i)
+            same = (same and torch.equal(bits(stack), bits(want))
+                    and torch.equal(bits(sw.stack_read(stack, i)),
+                                    bits(cst.stack_read_plain(want, i))))
+        torch.cuda.synchronize()
+        n = len(STACK_CHECK_I) if gated else 0
+        launched = dict(cst.LAUNCHES)
+        checks.append({"stack": name, "slice": list(shape), "dtype": dtype,
+                       "on_gate": gated, "launches": launched,
+                       "bitwise": same,
+                       "ok": same and launched == {"stack_write": n,
+                                                   "stack_read": n}})
+        del stack, want
+    emit({"phase": "stack_kernels", "layers": n_layers,
+          "slices": list(STACK_CHECK_I), "tolerance": "bit for bit (a copy)",
+          "checks": checks})
+    bad = [c for c in checks if not c["ok"]]
+    if bad or checks[-1]["on_gate"]:
+        raise AssertionError(f"save-stack kernel disagrees with its plain "
+                             f"version or routes wrongly: {checks}")
+
+
+def save_stack_path(torch, dev, bw, smi, default_ms) -> list:
+    """Phase 23: the base train step with ``save_stack="pallas"``
+    (``SAVE_STACK_ARM``), its launches asserted, held at b = 2
+    and float32 against the default and plain arms, then timed beside a
+    second run of the default arm; returns B16's rows at the path's
+    shapes."""
+    from icikit_torch.ops import cuda_stack as cst
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    cell = train_cell(torch, dev)
+    rec = train_arm(torch, cell, "save-stack", SAVE_STACK_ARM, smi,
+                    phase="save_stack")
+    again = train_arm(torch, cell, "default", ARMS["default"])
+    emit({"phase": "save_stack_ab", "card": smi,
+          "step_ms": {"default (phase 11)": default_ms,
+                      "save-stack": rec["step_ms"],
+                      "default (again)": again["step_ms"]},
+          "spread_ms": {"save-stack": rec["step_ms_spread"],
+                        "default (again)": again["step_ms_spread"]},
+          "tokens_per_s": {"save-stack": rec["tokens_per_s"],
+                           "default (again)": again["tokens_per_s"]},
+          "mfu": {"save-stack": rec["mfu"], "default (again)": again["mfu"]},
+          "seconds": round(time.perf_counter() - t0, 1)})
+    if not (rec["ok"] and again["ok"]):
+        raise AssertionError(f"save-stack path disagrees with its plain "
+                             f"arms, launches otherwise or does not learn: "
+                             f"{rec} {again}")
+    del cell
+    torch.cuda.empty_cache()
+
+    # B16's kernels at the residual slice, the path's largest
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = STACK_SLICES["residual"][0]
+    stack = torch.randn((SAVE_STACK_LAUNCHES["stack_read"],) + shape,
+                        generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty_like(x)
+    nbytes = x.numel() * 2
+    launches = rec["launches_per_step"]
+    rows = []
+    for key, kern, plain, lib, check in (
+            ("stack_write", lambda: cst.stack_write(stack, x, 5),
+             lambda: cst.stack_write_plain(stack, x, 5),
+             lambda: stack[5].copy_(x),
+             lambda: float((cst.stack_write(stack.clone(), x, 5)[5].float()
+                            - x.float()).abs().max())),
+            ("stack_read", lambda: cst.stack_read(stack, 5),
+             lambda: cst.stack_read_plain(stack, 5),
+             lambda: out.copy_(stack[5]),
+             lambda: float((cst.stack_read(stack, 5).float()
+                            - stack[5].float()).abs().max()))):
+        rows.append({
+            "name": f"{key} (B16)", "route": "cuda",
+            "source": "icikit_torch/csrc/stack_write.cu",
+            "replaces": ("icikit/ops/stack_write.py:126 (B16, "
+                         "_write_kernel)" if key == "stack_write" else
+                         "icikit/ops/stack_write.py:158 (B16, _read_kernel)"),
+            "launches": launches[key], "max_abs_err": check(),
+            "ms": cuda_time_ms(kern, iters=50, warmup=5),
+            "plain_ms": cuda_time_ms(plain, iters=50, warmup=5),
+            "bound_ms": 2 * nbytes / bw * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_time_ms(lib, iters=50, warmup=5)})
+    torch.cuda.synchronize()
+    traced = {k: v for k, v in rec["profile"]["by_name"].items()
+              if k.startswith("stack_")}
+    emit({"phase": "save_stack_timing_kernels",
+          "shape": f"the residual slice {list(shape)} bf16 ({nbytes} "
+                   f"bytes) of a ({SAVE_STACK_LAUNCHES['stack_read']}, "
+                   "...) stack",
+          "ms": "CUDA events over back-to-back calls: the host's call "
+                "rate where it exceeds the kernel's time",
+          "device_ms_in_step_trace": traced,
+          "library": "stack[i].copy_(x) for the write, out.copy_(stack[i]) "
+                     "into a preallocated slice for the read",
+          "launches": "a save-stack step's"})
+    del stack, x, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1866,7 +2221,13 @@ def main() -> int:
               "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>")),
             ("adam", "icikit_adam_regs",
              ("adam_kernel<f32 moments, bf16 g>",
-              "adam_kernel<bf16 moments, bf16 g>"))):
+              "adam_kernel<bf16 moments, bf16 g>")),
+            ("stack_write", "icikit_stack_regs",
+             ("stack_write_kernel", "stack_read_kernel")),
+            ("tile_floor", "icikit_tile_floor_regs",
+             ("tile_mxu<64>", "tile_ablate<64, exp2, max>",
+              "tile_ablate<64, -, ->", "tile_mxu<128>",
+              "tile_ablate<128, exp2, max>"))):
         for which, name in enumerate(names):
             r, loc = ctypes.c_int(), ctypes.c_int()
             _build.check(getattr(libs[lib], fn)(
@@ -2078,7 +2439,7 @@ def main() -> int:
 
     # -- 11. the train path: base, b = 8, s = 1024 ---------------------
     cell = train_cell(torch, dev)
-    main_arm = train_arm(torch, cell, "default", smi)
+    main_arm = train_arm(torch, cell, "default", ARMS["default"], smi)
     if not main_arm["ok"]:
         raise AssertionError(f"train path disagrees with its plain arms or "
                              f"does not learn: {main_arm}")
@@ -2108,6 +2469,20 @@ def main() -> int:
 
     # -- 19. per-kernel numbers at the int8 path's shapes ---------------
     rows += int8_rows(torch, dev, bw, q8_launches, q8_trace)
+
+    # -- 20. B17's kernels against their plain versions ------------------
+    tile_floor_kernel_checks(torch, dev)
+
+    # -- 21. the tile-floor path: s = 32768, h 8, d 64 and 128 ----------
+    rows += tile_floor_path(torch, dev, bw, smi)
+
+    # -- 22. B16's kernels against their plain versions ------------------
+    stack_kernel_checks(torch, dev)
+
+    # -- 23. the save-stack train path: base, b = 8, s = 1024 ----------
+    rows += save_stack_path(torch, dev, bw, smi, main_arm["step_ms"])
+
+    # -- 24. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

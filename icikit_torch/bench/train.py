@@ -19,9 +19,10 @@ plus ``device`` and ``power_limit``.
 
 ``--head recompute``, ``--head-bwd matmul`` and ``--optimizer
 fused-pallas`` run the head's other flavours (B10 recompute, B11) and the
-one-pass Adam kernel (B12). Flags the port has not reached (more than
-one device, MoE, the Pallas save stack, optax, the remat policies other
-than nothing and except_attn) raise.
+one-pass Adam kernel (B12); ``--save-stack pallas`` the layer stack
+through the explicit save stack and its kernels (B16), JAX's A/B arm.
+Flags the port has not reached (more than one device, MoE, optax, the
+remat policies other than nothing and except_attn) raise.
 """
 
 from __future__ import annotations

@@ -306,7 +306,9 @@ def check_train_ported(cfg: TransformerConfig) -> None:
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          f"(known: {', '.join(sorted(REMAT_POLICIES))})")
-    if cfg.remat and cfg.remat_policy not in PORTED_REMAT_POLICIES:
+    # the save stack rematerializes whole layers whatever the policy says
+    if (cfg.remat and cfg.save_stack == "xla"
+            and cfg.remat_policy not in PORTED_REMAT_POLICIES):
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported yet (ported: "
             f"{', '.join(PORTED_REMAT_POLICIES)}); it waits with "
@@ -315,10 +317,6 @@ def check_train_ported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "vocab_parallel (the Megatron head over tp) is not ported: it "
             "needs the model mesh's tp > 1 (ROADMAP A5)")
-    if cfg.save_stack != "xla":
-        raise NotImplementedError(
-            "save_stack='pallas' (ops/stack_write.py, TPU kernel B16) is "
-            "not ported yet (ROADMAP B16)")
     if cfg.grad_dtype not in ("compute", "float32"):
         raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r} "
                          "(known: compute, float32)")
@@ -329,10 +327,14 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
     """The forward on one device: int tokens (b, s) -> float32 logits
     (b, s, V), or with ``head="hidden"`` the final normed hidden state
     (b, s, D) in the compute dtype, which the fused head consumes.
-    ``remat``: False, ``"nothing"`` (each layer under checkpoint) or
-    ``"except_attn"`` (the projection and the FFN checkpointed under the
-    dots policy, attention outside, so the backward never re-runs the
-    flash forward)."""
+    ``save_stack="pallas"`` runs the whole layer stack through
+    ``ops.stack_write.remat_scan_stacked`` (each layer's input saved in
+    an explicit stack by the save-stack kernel, the layer rebuilt in the
+    backward), whatever ``remat`` says, as JAX decides it before its
+    remat branches. Otherwise ``remat``: False, ``"nothing"`` (each
+    layer under checkpoint) or ``"except_attn"`` (the projection and the
+    FFN checkpointed under the dots policy, attention outside, so the
+    backward never re-runs the flash forward)."""
     from icikit_torch.ops.flash_attention import resolve_attention_impl
     from icikit_torch.ops.rope import apply_rope
 
@@ -345,7 +347,9 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
     x = x.to(cdt)
     n_rep = _n_rep(cfg)
 
-    def attention(q, k, v):
+    # positions rides as an argument, as in JAX, where the save stack's
+    # custom-vjp boundary needs it so
+    def attention(q, k, v, positions):
         if cfg.pos_encoding == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -359,9 +363,10 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
     def ffn(x, lp):
         return _dense_ffn_block(x, lp, cdt, lambda m: m)
 
-    def layer(x, lp):
+    def layer(x, lp, positions):
         q, k, v = _attn_pre(x, lp, cdt)
-        return ffn(_attn_post(x, attention(q, k, v), lp, cdt), lp)
+        return ffn(_attn_post(x, attention(q, k, v, positions), lp, cdt),
+                   lp)
 
     def pre(x, lp):
         return _attn_pre(x, lp, cdt)
@@ -369,19 +374,29 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
     def post(x, attn, lp):
         return ffn(_attn_post(x, attn, lp, cdt), lp)
 
-    # unbind, not index: its backward stacks the per-layer gradients
-    # once instead of scattering each into a zeroed full-size leaf
     keys = _layer_keys(cfg)
-    per_layer = {k: params[k].unbind(0) for k in keys}
-    for li in range(cfg.n_layers):
-        lp = {k: per_layer[k][li] for k in keys}
-        if not cfg.remat:
-            x = layer(x, lp)
-        elif cfg.remat_policy == "except_attn":
-            q, k, v = _checkpointed(pre, x, lp, dots=True)
-            x = _checkpointed(post, x, attention(q, k, v), lp, dots=True)
-        else:  # "nothing"
-            x = _checkpointed(layer, x, lp, dots=False)
+    if cfg.save_stack == "pallas":
+        from icikit_torch.ops.stack_write import remat_scan_stacked
+
+        # the dense FFN has no auxiliary loss (MoE's is not ported)
+        no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _ = remat_scan_stacked(
+            lambda x, lp, positions: (layer(x, lp, positions), no_aux), x,
+            {k: params[k] for k in keys}, positions)
+    else:
+        # unbind, not index: its backward stacks the per-layer gradients
+        # once instead of scattering each into a zeroed full-size leaf
+        per_layer = {k: params[k].unbind(0) for k in keys}
+        for li in range(cfg.n_layers):
+            lp = {k: per_layer[k][li] for k in keys}
+            if not cfg.remat:
+                x = layer(x, lp, positions)
+            elif cfg.remat_policy == "except_attn":
+                q, k, v = _checkpointed(pre, x, lp, dots=True)
+                x = _checkpointed(post, x, attention(q, k, v, positions),
+                                  lp, dots=True)
+            else:  # "nothing"
+                x = _checkpointed(layer, x, lp, positions, dots=False)
     x = _rms_norm(x, params["ln_f"]).to(cdt)
     if head == "hidden":
         return x

@@ -86,6 +86,17 @@ _SIGNATURES = {
         "icikit_quant_matvec": [_I32, _P, _P, _P, _P, _I64, _I64, _I64, _P],
         "icikit_quant_regs": [_I32, _IP, _IP],
     },
+    "stack_write": {
+        "icikit_stack_write": [_P, _P, _I64, _I64, _I64, _P],
+        "icikit_stack_read": [_P, _P, _I64, _I64, _I64, _P],
+        "icikit_stack_regs": [_I32, _IP, _IP],
+    },
+    "tile_floor": {
+        "icikit_tile_mxu": [_P, _P, _P, _P, _I64, _I64, _I32, _F32, _P],
+        "icikit_tile_ablate": [_I32, _I32, _P, _P, _P, _P, _I64, _I64, _I32,
+                               _F32, _P],
+        "icikit_tile_floor_regs": [_I32, _IP, _IP],
+    },
 }
 
 

@@ -662,3 +662,114 @@ def test_d_head_256_generate_and_train_step(gen):
                                     dataclasses.replace(
                                         plain, fused_head=False))
     assert abs(float(loss) - float(loss_p)) < 1e-4
+
+
+# ------------------------------------------- the save stack and B17
+# Tolerances: the stack kernels bit for bit (a copy); the tile-floor
+# kernels 2e-2 of the largest |plain| entry in bf16 (both round w to bf16
+# before the value product, at scores whose float32 sums differ in order).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slice_shape", [(16, 128), (2, 8, 128), (1024,),
+                                         (3072, 1024)])
+def test_stack_kernels_match_plain_bitwise(dtype, slice_shape, gen):
+    from icikit_torch.ops import cuda_stack as cst
+    from icikit_torch.ops import stack_write as sw
+
+    stack = _randn((5,) + slice_shape, dtype, gen)
+    want = stack.clone()
+    n = int(sw.stack_supported(slice_shape, dtype))   # (1024,) bf16: off
+    for i in (0, 2, 4):
+        x = _randn(slice_shape, torch.float32, gen)
+        cst.reset_launches()
+        sw.stack_write(stack, x, i)
+        cst.stack_write_plain(want, x.to(dtype), i)
+        got = sw.stack_read(stack, i)
+        assert cst.LAUNCHES == {"stack_write": n, "stack_read": n}
+        assert torch.equal(stack.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got, cst.stack_read_plain(want, i))
+
+
+def test_stack_off_the_gate_takes_the_plain_copy_and_raw_calls_check(gen):
+    from icikit_torch.ops import cuda_stack as cst
+    from icikit_torch.ops import stack_write as sw
+
+    stack = _randn((3, 9, 128), torch.bfloat16, gen)   # 9 % 16 rows
+    x = _randn((9, 128), torch.bfloat16, gen)
+    cst.reset_launches()
+    sw.stack_write(stack, x, 1)
+    assert torch.equal(sw.stack_read(stack, 1), x)
+    assert cst.LAUNCHES == {"stack_write": 0, "stack_read": 0}
+    # a direct kernel call on a CUDA tensor launches or raises
+    cst.stack_write(stack, x, 2)
+    assert cst.LAUNCHES["stack_write"] == 1 and torch.equal(stack[2], x)
+    with pytest.raises(ValueError, match="dtype"):
+        cst.stack_write(stack, x.float(), 0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cst.stack_write(_randn((2, 5), torch.float32, gen),
+                        _randn((5,), torch.float32, gen), 0)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("variant", ["mxu", "softmax_ks1", "no_exp2",
+                                     "no_max", "no_exp2_no_max"])
+def test_tile_floor_kernels_match_plain(variant, d, no_tf32):
+    from icikit_torch.bench.tile_floor import ABLATIONS
+    from icikit_torch.ops import cuda_tile_floor as ctf
+
+    gen = no_tf32
+    q, k, v = (_randn((1, 2, 256, d), torch.bfloat16, gen)
+               for _ in range(3))
+    s = d ** -0.5 * 1.442695
+    ctf.reset_launches()
+    if variant == "mxu":
+        got, want = ctf.tile_mxu(q, k, v, s), ctf.mxu_plain(q, k, v, s)
+        assert ctf.LAUNCHES == {"tile_mxu": 1, "tile_ablate": 0}
+    else:
+        flags = {n: (e, m) for n, e, m in ABLATIONS}[variant]
+        got = ctf.tile_ablate(q, k, v, s, *flags)
+        want = ctf.ablate_plain(q, k, v, s, *flags)
+        assert ctf.LAUNCHES == {"tile_mxu": 0, "tile_ablate": 1}
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max())
+    with pytest.raises(ValueError, match="head dims"):
+        ctf.tile_mxu(*(t[..., :32].contiguous() for t in (q, k, v)), s)
+
+
+def test_save_stack_step_launches_the_stack_kernels(gen):
+    """One small save-stack step on the card: each layer writes its input
+    and its four gated gradient slices (the norms' 128-element float32
+    slices take the plain copy), reads its input back and runs the flash
+    forward twice (the backward rebuilds the layer); the loss agrees with
+    the default arm's."""
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 TransformerConfig,
+                                                 init_params,
+                                                 make_model_mesh,
+                                                 make_train_step)
+    from icikit_torch.ops import cuda_stack as cst
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dict(vocab=256, d_model=128, n_heads=4, d_head=32, d_ff=256,
+                n_layers=2, max_seq=64, compute_dtype="float32",
+                remat_policy="except_attn")
+    params = init_params(TransformerConfig(**base), gen, "cuda")
+    tok = torch.randint(0, 256, (2, 64), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    losses = {}
+    for stack in ("xla", "pallas"):
+        p = {k: v.clone() for k, v in params.items()}
+        opt, step = make_train_step(
+            make_model_mesh(device="cuda"),
+            TransformerConfig(**base, save_stack=stack), FusedAdam(1e-3))
+        ca.reset_launches()
+        cst.reset_launches()
+        _, _, loss = step(p, opt.init(p), tok, tok.roll(1, 1))
+        torch.cuda.synchronize()
+        losses[stack] = float(loss)
+        if stack == "pallas":
+            assert cst.LAUNCHES == {"stack_write": 2 * 5, "stack_read": 2}
+            assert ca.LAUNCHES["flash_fwd"] == 4
+            assert ca.LAUNCHES["flash_bwd"] == 2
+    assert abs(losses["pallas"] - losses["xla"]) < 1e-5
