@@ -45,46 +45,76 @@
 //   flash_bwd   <- _bwd_fused_kernel (B6, _bwd_call, pallas_call :701)
 //                  and _bwd_fused_tiled_kernel (B7,
 //                  _bwd_fused_tiled_call, :653).
-//      dq, dk and dv from one recomputation of P per tile (_p_tile:
+//   flash_bwd_dq  <- _bwd_dq_kernel (B8, _bwd_call, pallas_call :745)
+//   flash_bwd_dkv <- _bwd_dkv_kernel (B8, _bwd_call, pallas_call :771).
+//      dq, dk and dv from a recomputation of P per tile (_p_tile:
 //      exp2(s*scale*log2e - lse*log2e)): dv = P^T dO, dS = P o (dP -
 //      delta) * scale, dq = dS K, dk = dS^T Q, with delta = rowsum(dO o
-//      O) - g_lse computed by the caller. One CTA per (batch*head,
-//      64-key tile) holds its K and V tile (and K^T) in shared memory
-//      and dk, dv in registers, and walks the 32-row Q tiles from the
-//      causal diagonal to the end: this loop takes the place of the
+//      O) - g_lse computed by the caller; P and dS are rounded to bf16
+//      before their products, as on the TPU, with float32 accumulation.
+//      flash_bwd is one kernel for B6 (one block, s <= 1024) and B7
+//      (many blocks): a CTA owns a tile of keys, holds its K and V in
+//      shared memory and dk, dv in registers, and walks the Q steps from
+//      the causal diagonal to the end; this loop takes the place of the
 //      TPU's sequential grid, whose carried accumulators do not
 //      translate to CTAs that run in no order. dq is summed across the
 //      CTAs of a head with float32 atomicAdd into a zeroed (b*h, s, d)
 //      buffer (the TPU's whole-sequence VMEM dq scratch, :626), so its
-//      summation order varies from run to run. bf16: S^T and dP^T are
-//      computed key-major, so their mma accumulators are the A
-//      fragments of the dv and dk products; P and dS are rounded to
-//      bf16 before those products, as on the TPU; dS goes through
-//      shared memory, transposed, for dq. float32: plain FMA. One
-//      kernel covers B6 (one block, s <= 1024) and B7 (many blocks).
-//      Bound (b=8, h=8, s=1024, d=128, bf16, causal): 117.9 MB, 35.2
-//      us, against five causal products, 42.9 GFLOP, 43.4 us at 989
-//      TFLOP/s: operations.
-//
-//   flash_bwd_dq  <- _bwd_dq_kernel (B8, _bwd_call, pallas_call :745)
-//   flash_bwd_dkv <- _bwd_dkv_kernel (B8, _bwd_call, pallas_call :771).
-//      The deterministic two-pass backward the TPU runs past its 48 MB
-//      whole-sequence dq scratch (sq*d*4 > _DQ_SCRATCH_BYTES_MAX, :626):
-//      no atomics, every output written once. flash_bwd_dq: one CTA per
-//      (batch*head, 64-row Q tile), Q and dO fragments and dq in
-//      registers, walking the K tiles up to the causal bound; S = Q K^T
-//      and dP = dO V^T per tile, dS = P o (dP - delta) * scale rounded to
-//      bf16 and dq += dS K against K^T staged in shared memory.
-//      flash_bwd_dkv is flash_bwd's kernel with its dq part compiled out
-//      (the DQ template flag): one CTA per 64-key tile, dk and dv in
-//      registers, Q tiles from the diagonal. Both recompute P from lse
-//      in base 2 (_p_tile). The pair forms S and dP twice (seven products
-//      where flash_bwd runs five): that is the price of determinism and
-//      of no (b*h, s, d) float32 dq buffer.
-//      Bound (b=1, h=4, s=131072, d=128, bf16, causal): the function's
-//      five causal products, 44.0 TFLOP, 44.5 ms at 989 TFLOP/s
-//      (dq alone three of them, dk/dv four): operations.
-//
+//      last bits vary from run to run. The adds are 16-byte vector
+//      atomics (sm_90): a quarter as many as scalar ones, which set the
+//      pace at s = 1024-2048. flash_bwd_dkv is the same kernel
+//      with its dq part compiled out (the DQ template flag); with
+//      flash_bwd_dq, a CTA owning a tile of Q rows and walking the key
+//      tiles up to the causal bound, it is the deterministic two-pass backward
+//      the TPU runs past its 48 MB dq scratch (sq*d*4 >
+//      _DQ_SCRATCH_BYTES_MAX): no atomics, every output written once,
+//      at the price of forming S and dP twice (seven products where
+//      flash_bwd runs five). float32: plain FMA, the card's check.
+//      Bound: operations. (b=8, h=8, s=1024, d=128, causal): 117.9 MB,
+//      35.2 us, against five causal products, 42.9 GFLOP, 43.4 us at 989
+//      TFLOP/s. (b=1, h=4, s=131072, d=128, causal): the five causal
+//      products, 44.0 TFLOP, 44.5 ms (dq alone three, dk/dv four).
+//      What held the first design back was the staging, not the
+//      products: synchronous global loads before every step, scalar
+//      2-byte stores to build K^T, Q^T and dO^T, scalar 32-bit fragment
+//      reads for mma.sync, the mask on every element and 32-row steps, so
+//      the tensor cores idled ~90% of the time. The bf16 design now:
+//      - every product on wgmma (m64nNk16, bf16 in, float32 accumulate):
+//        a warpgroup owns 64 keys (flash_bwd, flash_bwd_dkv) or 64 Q rows
+//        (flash_bwd_dq). S^T and dP^T (S and dP) read both operands from
+//        shared memory; their accumulators, rounded to bf16, are the
+//        register A operands of dv = P^T dO and dk = dS^T Q (dq = dS K),
+//        as in FlashAttention-3; flash_bwd's dq = dS K reads dS^T from
+//        shared memory;
+//      - no transposed copies: the operands that the products need
+//        transposed (Q, dO and K as B, dS^T as A) are read MN-major from
+//        the row tiles through the descriptor's transpose bit. Tiles are
+//        stored as 8 x 8 core matrices (cm_off), the layout a descriptor
+//        reads without swizzle, with no padding;
+//      - a ring of two shared-memory stages filled by cp.async (16 bytes
+//        a copy, a ragged edge zero-filled): the next 64-row Q step (Q,
+//        dO, lse, delta) of the key-owning kernel, the next 64-key K/V
+//        tile of the dq kernel, is in flight while the current one's
+//        products run; one barrier a step (two with flash_bwd's dq);
+//      - 128 keys a CTA (two warpgroups) where d <= 128, 64 at d = 256
+//        (two warpgroups splitting the columns, col_groups); 128 Q rows a
+//        dq CTA where d <= 128 (two warpgroups sharing each K/V stage),
+//        64 at d = 256. At d = 128: 145 KiB and 1 CTA an SM for the
+//        key-owning kernel (129 KiB without dq), 128 KiB and 1 for dq;
+//      - the causal work order: the key-owning grid starts at key tile 0
+//        (the most Q steps), the dq grid at the last Q tile (the most key
+//        tiles), batch*head the fastest grid index, so the longest CTAs
+//        of every head go first and the short ones fill the tail; a dq
+//        warpgroup skips a key tile above all its rows;
+//      - only a warp's block that the causal diagonal or a ragged edge
+//        crosses takes the per-element mask.
+//      The dq kernel forms P while dP's product runs (wgmma.wait_group
+//      1); the key-owning kernel waits for S^T and dP^T together (the same
+//      overlap measured slower there). There is no ping-pong between
+//      warpgroups and no producer warp yet: what overlaps is the ring's
+//      copies with the products and one warpgroup's softmax with the
+//      other's products.
+
 //   decode_step <- _decode_step_kernel (B13, decode_step_attention,
 //                  pallas_call :1120).
 //   decode_step_q8 <- _decode_step_q8_kernel (B14,
@@ -131,7 +161,7 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BM = 64;             // Q rows a CTA
 constexpr int BN = 64;             // keys a tile
-constexpr int BQB = 32;            // Q rows a backward step
+constexpr int BQB = 32;            // Q rows a float32 backward step
 constexpr int MMA_THREADS = 128;   // bf16: 4 warps x 16 rows
 constexpr int F32_THREADS = 256;   // f32: 4 threads a row
 constexpr int DEC_THREADS = 256;   // decode: 8 warps
@@ -176,6 +206,282 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 (or 4) bytes from global into shared memory without a register
+// round trip; the bytes past src_bytes are zero-filled (src_bytes 0: a row
+// beyond the tensor, which reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// This thread's copies have landed, and are visible to wgmma's (async
+// proxy) reads once the CTA has passed a barrier after.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Plain shared-memory stores made visible to wgmma's reads (with a
+// barrier after).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tiles that wgmma reads are stored as 8 x 8 core matrices (8 rows of 16
+// bytes, 128 contiguous bytes), in row-major order of core matrices: the
+// 16-byte chunk c8 of row r of a tile with CH chunks a row lies at byte
+// cm_off<CH>(r, c8). No padding: a core matrix's eight rows are
+// contiguous, so its reads and fills touch all 32 banks.
+template <int CH>
+__device__ __forceinline__ int cm_off(int r, int c8) {
+  return ((r >> 3) * CH + c8) * 128 + (r & 7) * 16;
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: the start address,
+// LBO (the byte stride between core matrices along K) and SBO (along M or
+// N). A tile in cm_off order read with K along its rows' chunks (K-major:
+// Q, K, V, dO as the operands of S and dP) has LBO 128 and SBO CH * 128;
+// read with K along its rows (MN-major, the transpose bit set: dO, Q and
+// K as the B operands of dv, dk and dq, dS^T as dq's A) LBO CH * 128 and
+// SBO 128.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
+                                              int sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// R rows of a (rows, D) bf16 tensor from row0 into a cm_off tile by
+// cp.async, rows past `rows` zero-filled; NT threads. Eight neighbouring
+// threads fill one core matrix.
+template <int D, int R, int NT>
+__device__ __forceinline__ void cp_tile(unsigned char* dst, const bf16* src,
+                                        int64_t row0, int64_t rows) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int j = 0; j < (R * CH + NT - 1) / NT; ++j) {
+    const int i = j * NT + threadIdx.x;
+    if (R * CH % NT != 0 && i >= R * CH) break;
+    const int r = (i >> 3) / CH * 8 + (i & 7), c8 = (i >> 3) % CH;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + cm_off<CH>(r, c8),
+               ok ? src + (row0 + r) * D + c8 * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// wgmma m64nNk16, bf16 in, float32 accumulate, for one warpgroup (128
+// threads): D (+)= A B with A (64 x 16) from a descriptor (ss) or from
+// registers (rs: warp w holds rows 16w .. 16w+15 as mma.sync m16n8k16's A
+// fragment) and B (16 x N) from a descriptor; TA/TB: the operand is
+// MN-major. Thread (warp w, lane g*4 + c) holds d[4j .. 4j+3] = rows
+// 16w + g and 16w + g + 8, columns 8j + 2c and 8j + 2c + 1, as
+// mma.sync's accumulator of n-tile j. scale_d 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+}
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
+  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
+  if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+// wg_fence: before a warpgroup's first wgmma on registers that plain
+// instructions wrote. wg_commit closes a group of wgmmas; wg_wait<N>
+// returns when at most the last N groups are still running (groups end
+// in order). fence_regs then orders the plain instructions that read an
+// accumulator after the wait.
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The A fragment (16 x 16, bf16) of k-chunk cc from an accumulator held
+// as mma.sync/wgmma n-tiles of 8 columns (d[4j .. 4j+3] for n-tile j).
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
+                                         int cc) {
+  const float* x = d + 8 * cc;
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -457,215 +763,240 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd, bf16 on the tensor cores. CTA (batch*head, 64-key tile);
-// warp w owns keys (w&3)*16 .. +15 for S^T and dP^T, and columns
-// (w>>2)*DW .. +DW-1 of those keys' dk and dv; for dq, Q rows (w&1)*16 ..
-// +15 of each 32-row Q tile by a 2/warps share of the head dim. Shared
-// memory: K, V (row-major) and K^T for the CTA's life; Q, dO,
-// their transposes, dS ([q][key]) and the rows' lse*log2e and delta for
-// each Q tile.
+// flash_bwd and flash_bwd_dkv, bf16 on wgmma. CTA (batch*head, KEYS-key
+// tile), blockIdx.y = 0 first: under the causal mask it walks the most Q
+// tiles. Warpgroup i owns keys (i % KWG)*64 .. +63 for S^T and dP^T and
+// columns (i / KWG)*DW .. +DW-1 of those keys' dk and dv (col_groups).
+// Shared memory, every tile in cm_off order: K and V for the CTA's life;
+// a ring of two stages, each one 64-row Q step (Q and dO, the rows' lse
+// and delta), filled by cp.async while the other stage's products run;
+// and, with DQ, the step's dS^T ([key][q]).
+
+// Keys a CTA (128: two warpgroups, where the registers allow); Q rows a
+// step (and a stage of the ring).
+template <int D>
+__host__ __device__ constexpr int bwd_keys() {
+  return D <= 128 ? 128 : 64;
+}
+constexpr int BQ = 64;
 
 template <int D, bool DQ>
-__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
+struct BwdKv {
+  static constexpr int CG = col_groups<D>();
+  static constexpr int KEYS = bwd_keys<D>();
+  static constexpr int KWG = KEYS / 64;       // warpgroups a column group
+  static constexpr int NWG = KWG * CG;
+  static constexpr int NT = 128 * NWG;
+  static constexpr int CH = D / 8;            // 16-byte chunks a row
+  // S^T and dP^T rows (Q rows) a warpgroup holds at once: where the dk
+  // and dv accumulators take 128 registers (d 256, and d 128 beside dq's
+  // part) the step runs in halves, so that nothing spills
+  static constexpr int QSUB = D > 128 || (DQ && D == 128) ? 32 : 64;
+  static constexpr int TILE_Q = BQ * D * 2;   // bytes of a Q or dO tile
+  static constexpr int STAGE = 2 * TILE_Q + 2 * BQ * 4;
+  static constexpr int TILE_K = KEYS * D * 2;
+  static constexpr int DSS = KEYS * BQ * 2;   // dS^T [key][q]
+  static constexpr size_t smem() {
+    return 2 * TILE_K + 2 * STAGE + (DQ ? DSS : 0);
+  }
+};
+
+// P^T and dS^T in place of S^T and dP^T for the lane's keys key0 and
+// key0 + 8 and the Q rows from q0 of the step at m0 (accumulator element
+// i: key row (i >> 1) & 1, column (i >> 2) * 8 + c2 + (i & 1)): P from
+// lse in base 2, dS = P o (dP - delta) * scale. MASKED: the causal
+// diagonal or a ragged edge crosses the warp's block.
+template <bool MASKED, int R>
+__device__ __forceinline__ void p_ds_t(float (&st)[R], float (&dpt)[R],
+                                       const float* ls, const float* dls,
+                                       int q0, int c2, int64_t key0,
+                                       int64_t m0, int64_t sq, int64_t sk,
+                                       int causal, float scale_log2,
+                                       float scale) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int ql = q0 + (i >> 2) * 8 + c2 + (i & 1);
+    float p = exp2f(st[i] * scale_log2 - ls[ql] * LOG2E);
+    if (MASKED) {
+      const int64_t key = key0 + ((i >> 1) & 1) * 8, row = m0 + ql;
+      if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
+    }
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - dls[ql]) * scale;
+  }
+}
+
+template <int D, bool DQ>
+__global__ void __launch_bounds__(BwdKv<D, DQ>::NT)
 flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int64_t sq, int64_t sk, int causal,
                float scale_log2, float scale) {
-  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
-  constexpr int DW = D / CG;    // dk, dv columns a warp
-  constexpr int DQW = D / (2 * CG);  // dq columns a warp
-  constexpr int RS = D + 8;     // row-major tiles (K, V, Q, dO)
-  constexpr int KTS = BN + 8;   // K^T
-  constexpr int QTS = BQB + 8;  // Q^T, dO^T
-  constexpr int DSS = BN + 8;   // dS [q][key]
+  using C = BwdKv<D, DQ>;
+  constexpr int KEYS = C::KEYS, NT = C::NT, CH = C::CH, QSUB = C::QSUB;
+  constexpr int DW = D / C::CG;  // dk, dv columns a warpgroup
+  constexpr int KS = CH * 128;   // bytes between 8-row groups of a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BN * RS;
-  bf16* kt = vs + BN * RS;
-  bf16* qs = kt + D * KTS;
-  bf16* dos = qs + BQB * RS;
-  bf16* qt = dos + BQB * RS;
-  bf16* dot = qt + D * QTS;
-  bf16* dss = dot + D * QTS;
-  float* lse2s = reinterpret_cast<float*>(dss + BQB * DSS);
-  float* dels = lse2s + BQB;
-  const int64_t bh = blockIdx.y;
-  const int64_t n0 = (int64_t)blockIdx.x * BN;
+  unsigned char* ks = smem_raw;
+  unsigned char* vs = ks + C::TILE_K;
+  unsigned char* ring = vs + C::TILE_K;
+  unsigned char* dss = ring + 2 * C::STAGE;
+  const int64_t bh = blockIdx.x;
+  const int64_t n0 = (int64_t)blockIdx.y * KEYS;
   const bf16* qb = q + bh * sq * D;
   const bf16* dob = dout + bh * sq * D;
-  const bf16* kb = k + bh * sk * D;
-  const bf16* vb = v + bh * sk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int kr0 = (warp & 3) * 16 + g;  // this lane's keys: kr0, kr0 + 8
-  const int cb = (warp >> 2) * DW;      // this warp's first dk/dv column
+  const float* lb = lse + bh * sq;
+  const float* db = delta + bh * sq;
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+  const int kw0 = (wgi % C::KWG) * 64;  // this warpgroup's first key
+  const int cb = (wgi / C::KWG) * DW;   // its first dk/dv column
+  const int kl = kw0 + warp * 16 + g;   // the lane's keys: kl, kl + 8
+  const int64_t key0 = n0 + kl;
 
-  for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (n0 + r < sk) {
-      kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * D + c8);
-      vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * D + c8);
-    }
-    *reinterpret_cast<uint4*>(ks + r * RS + c8) = kv;
-    *reinterpret_cast<uint4*>(vs + r * RS + c8) = vv;
-    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) kt[(c8 + e) * KTS + r] = ke[e];
-  }
-  float dka[DW / 8][4], dva[DW / 8][4];
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  auto load_step = [&](int s, int64_t m0) {
+    unsigned char* st = ring + s * C::STAGE;
+    cp_tile<D, BQ, NT>(st, qb, m0, sq);
+    cp_tile<D, BQ, NT>(st + C::TILE_Q, dob, m0, sq);
+    float* ls = reinterpret_cast<float*>(st + 2 * C::TILE_Q);
+    const int t = threadIdx.x & (BQ - 1);
+    const bool ok = m0 + t < sq;
+    if (threadIdx.x < BQ)
+      cp_async4(ls + t, ok ? lb + m0 + t : lb, ok ? 4 : 0);
+    else if (threadIdx.x < 2 * BQ)
+      cp_async4(ls + BQ + t, ok ? db + m0 + t : db, ok ? 4 : 0);
+  };
 
-  for (int64_t m0 = causal ? n0 : 0; m0 < sq; m0 += BQB) {
-    __syncthreads();  // the previous Q tile is consumed
-    for (int i = threadIdx.x; i < BQB * D / 8; i += NT) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
-      if (m0 + r < sq) {
-        qv = *reinterpret_cast<const uint4*>(qb + (m0 + r) * D + c8);
-        ov = *reinterpret_cast<const uint4*>(dob + (m0 + r) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(qs + r * RS + c8) = qv;
-      *reinterpret_cast<uint4*>(dos + r * RS + c8) = ov;
-      const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-      const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qt[(c8 + e) * QTS + r] = qe[e];
-        dot[(c8 + e) * QTS + r] = oe[e];
-      }
-    }
-    if (threadIdx.x < BQB) {
-      const int64_t row = m0 + threadIdx.x;
-      lse2s[threadIdx.x] = row < sq ? lse[bh * sq + row] * LOG2E : 0.f;
-      dels[threadIdx.x] = row < sq ? delta[bh * sq + row] : 0.f;
-    }
-    __syncthreads();
+  const int64_t m_begin = causal ? n0 : 0;
+  const int64_t steps = m_begin < sq ? (sq - m_begin + BQ - 1) / BQ : 0;
+  cp_tile<D, KEYS, NT>(ks, k + bh * sk * D, n0, sk);
+  cp_tile<D, KEYS, NT>(vs, v + bh * sk * D, n0, sk);
+  if (steps > 0) load_step(0, m_begin);
+  cp_async_commit();
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x 32 rows
-    float st[BQB / 8][4], dpt[BQB / 8][4];
+  float dka[DW / 2], dva[DW / 2];
 #pragma unroll
-    for (int j = 0; j < BQB / 8; ++j)
+  for (int i = 0; i < DW / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int64_t it = 0; it < steps; ++it) {
+    const int64_t m0 = m_begin + it * BQ;
+    cp_async_wait_all();
+    __syncthreads();  // step it has landed; step it-1's stage is free
+    if (it + 1 < steps) load_step((it + 1) & 1, m0 + BQ);
+    cp_async_commit();
+    const unsigned char* qs = ring + (it & 1) * C::STAGE;
+    const unsigned char* dos = qs + C::TILE_Q;
+    const float* ls = reinterpret_cast<const float*>(qs + 2 * C::TILE_Q);
+    const float* dls = ls + BQ;
+    // only the diagonal and the ragged edges take the per-element mask
+    const bool masked = (causal && n0 + kl - g + 15 > m0) || m0 + BQ > sq ||
+                        n0 + kl - g + 16 > sk;
+
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    for (int h = 0; h < BQ / QSUB; ++h) {
+      // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x QSUB rows
+      float st[QSUB / 2], dpt[QSUB / 2];
+      const int ka = (kw0 / 8) * KS, qa = (h * QSUB / 8) * KS;
+      wg_fence();
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const bf16* kp = ks + kr0 * RS + c * 16 + c2;
-      const bf16* vp = vs + kr0 * RS + c * 16 + c2;
-      const uint32_t ka[4] = {ld32(kp), ld32(kp + 8 * RS), ld32(kp + 8),
-                              ld32(kp + 8 * RS + 8)};
-      const uint32_t va[4] = {ld32(vp), ld32(vp + 8 * RS), ld32(vp + 8),
-                              ld32(vp + 8 * RS + 8)};
-#pragma unroll
-      for (int j = 0; j < BQB / 8; ++j) {
-        const bf16* qp = qs + (j * 8 + g) * RS + c * 16 + c2;
-        const bf16* op = dos + (j * 8 + g) * RS + c * 16 + c2;
-        mma_bf16(st[j], ka, ld32(qp), ld32(qp + 8));
-        mma_bf16(dpt[j], va, ld32(op), ld32(op + 8));
+      for (int kc = 0; kc < D / 16; ++kc) {
+        wgmma_ss<QSUB, 0, 0>(st, gmma_desc(ks + ka + kc * 256, 128, KS),
+                             gmma_desc(qs + qa + kc * 256, 128, KS), kc > 0);
+        wgmma_ss<QSUB, 0, 0>(dpt, gmma_desc(vs + ka + kc * 256, 128, KS),
+                             gmma_desc(dos + qa + kc * 256, 128, KS), kc > 0);
       }
-    }
-    // P^T and dS^T in place
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (masked)
+        p_ds_t<true>(st, dpt, ls, dls, h * QSUB, c2, key0, m0, sq, sk, causal,
+                     scale_log2, scale);
+      else
+        p_ds_t<false>(st, dpt, ls, dls, h * QSUB, c2, key0, m0, sq, sk,
+                      causal, scale_log2, scale);
+      // dv += P^T dO and dk += dS^T Q (P and dS rounded to bf16; the
+      // accumulators of S^T and dP^T are the A fragments)
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < BQB / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = j * 8 + c2 + (e & 1);
-        const int64_t key = n0 + kr0 + (e >> 1) * 8;
-        const int64_t row = m0 + ql;
-        float p = exp2f(st[j][e] * scale_log2 - lse2s[ql]);
-        if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - dels[ql]) * scale;
+      for (int cc = 0; cc < QSUB / 16; ++cc) {
+        uint32_t pa[4], sa[4];
+        acc_to_a(pa, st, cc);
+        acc_to_a(sa, dpt, cc);
+        const int off = qa + cc * 2 * KS + (cb / 8) * 128;
+        wgmma_rs<DW, 1>(dva, pa, gmma_desc(dos + off, KS, 128), 1);
+        wgmma_rs<DW, 1>(dka, sa, gmma_desc(qs + off, KS, 128), 1);
+        if constexpr (DQ) {
+          // dS^T rows kl, kl + 8 into [key][q], by one column group
+          if (cb == 0) {
+            const int qc = h * QSUB + cc * 16 + c2;
+            auto put = [&](int key, int qq, uint32_t x) {
+              *reinterpret_cast<uint32_t*>(dss + cm_off<BQ / 8>(key, qq / 8) +
+                                           (qq & 7) * 2) = x;
+            };
+            put(kl, qc, sa[0]);
+            put(kl + 8, qc, sa[1]);
+            put(kl, qc + 8, sa[2]);
+            put(kl + 8, qc + 8, sa[3]);
+          }
+        }
       }
-    }
-    // dv += P^T dO and dk += dS^T Q (P and dS rounded to bf16)
-#pragma unroll
-    for (int cc = 0; cc < BQB / 16; ++cc) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * cc][0], st[2 * cc][1]),
-                              pack_bf16(st[2 * cc][2], st[2 * cc][3]),
-                              pack_bf16(st[2 * cc + 1][0], st[2 * cc + 1][1]),
-                              pack_bf16(st[2 * cc + 1][2], st[2 * cc + 1][3])};
-      const uint32_t sa[4] = {pack_bf16(dpt[2 * cc][0], dpt[2 * cc][1]),
-                              pack_bf16(dpt[2 * cc][2], dpt[2 * cc][3]),
-                              pack_bf16(dpt[2 * cc + 1][0], dpt[2 * cc + 1][1]),
-                              pack_bf16(dpt[2 * cc + 1][2], dpt[2 * cc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < DW / 8; ++n) {
-        const bf16* bo = dot + (cb + n * 8 + g) * QTS + cc * 16 + c2;
-        const bf16* bq = qt + (cb + n * 8 + g) * QTS + cc * 16 + c2;
-        mma_bf16(dva[n], pa, ld32(bo), ld32(bo + 8));
-        mma_bf16(dka[n], sa, ld32(bq), ld32(bq + 8));
-      }
+      wg_commit();
+      wg_wait<0>();
     }
     if constexpr (DQ) {
-    // dS into shared memory as [q][key], rounded to bf16 (one warp of
-    // each column group writes it)
-    if (cb == 0) {
+      // dq += dS K for the step's 64 rows, summed into the float32 buffer
+      // by atomics: warpgroup i takes DQN columns, all 64 rows
+      constexpr int DQN = D / C::NWG;
+      constexpr int DSK = BQ / 8 * 128;  // dS^T bytes between 8 keys
+      fence_proxy_async();
+      __syncthreads();  // dS^T is complete
+      float acc[DQN / 2];
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < BQB / 8; ++j)
+      for (int kc = 0; kc < KEYS / 16; ++kc)
+        wgmma_ss<DQN, 1, 1>(acc, gmma_desc(dss + kc * 2 * DSK, DSK, 128),
+                            gmma_desc(ks + kc * 2 * KS + (wgi * DQN / 8) * 128,
+                                      KS, 128),
+                            kc > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      // one 16-byte atomic a lane an n-tile: lanes c and c^1 swap halves,
+      // the even lane then adds four columns of row g, the odd of g + 8
+      const bool even = (lane & 1) == 0;
+      const int64_t row = m0 + warp * 16 + g + (even ? 0 : 8);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dss[(j * 8 + c2 + (e & 1)) * DSS + kr0 + (e >> 1) * 8] =
-              __float2bfloat16_rn(dpt[j][e]);
-    }
-    __syncthreads();
-    // dq += dS K: Q rows qr, qr + 8 and DQW columns of the head dim a warp
-    {
-      const int qr = (warp & 1) * 16 + g;
-      const int dbase = (warp >> 1) * DQW;
-      float acc[DQW / 8][4];
-#pragma unroll
-      for (int n = 0; n < DQW / 8; ++n)
-        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-      for (int c = 0; c < BN / 16; ++c) {
-        const bf16* ap = dss + qr * DSS + c * 16 + c2;
-        const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * DSS), ld32(ap + 8),
-                               ld32(ap + 8 * DSS + 8)};
-#pragma unroll
-        for (int n = 0; n < DQW / 8; ++n) {
-          const bf16* bp = kt + (dbase + n * 8 + g) * KTS + c * 16 + c2;
-          mma_bf16(acc[n], a, ld32(bp), ld32(bp + 8));
-        }
-      }
-      const int64_t row0 = m0 + qr, row1 = row0 + 8;
-#pragma unroll
-      for (int n = 0; n < DQW / 8; ++n) {
-        const int col = dbase + n * 8 + c2;
-        if (row0 < sq) {
-          float* p = dq + (bh * sq + row0) * D + col;
-          atomicAdd(p, acc[n][0]);
-          atomicAdd(p + 1, acc[n][1]);
-        }
-        if (row1 < sq) {
-          float* p = dq + (bh * sq + row1) * D + col;
-          atomicAdd(p, acc[n][2]);
-          atomicAdd(p + 1, acc[n][3]);
-        }
+      for (int j = 0; j < DQN / 8; ++j) {
+        const float* a = acc + 4 * j;
+        const float x0 = __shfl_xor_sync(0xffffffffu, even ? a[2] : a[0], 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, even ? a[3] : a[1], 1);
+        if (row < sq)
+          atomicAdd(reinterpret_cast<float4*>(
+                        dq + (bh * sq + row) * D + wgi * DQN + j * 8 +
+                        (c2 & 4)),
+                    even ? make_float4(a[0], a[1], x0, x1)
+                         : make_float4(x0, x1, a[2], a[3]));
       }
     }
-    }  // DQ
   }
-  const int64_t key0 = n0 + kr0, key1 = key0 + 8;
+  cp_async_wait_all();
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    const int col = cb + n * 8 + c2;
+  for (int j = 0; j < DW / 8; ++j) {
+    const int col = cb + j * 8 + c2;
     if (key0 < sk) {
       *reinterpret_cast<uint32_t*>(dk + (bh * sk + key0) * D + col) =
-          pack_bf16(dka[n][0], dka[n][1]);
+          pack_bf16(dka[4 * j], dka[4 * j + 1]);
       *reinterpret_cast<uint32_t*>(dv + (bh * sk + key0) * D + col) =
-          pack_bf16(dva[n][0], dva[n][1]);
+          pack_bf16(dva[4 * j], dva[4 * j + 1]);
     }
-    if (key1 < sk) {
-      *reinterpret_cast<uint32_t*>(dk + (bh * sk + key1) * D + col) =
-          pack_bf16(dka[n][2], dka[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + (bh * sk + key1) * D + col) =
-          pack_bf16(dva[n][2], dva[n][3]);
+    if (key0 + 8 < sk) {
+      *reinterpret_cast<uint32_t*>(dk + (bh * sk + key0 + 8) * D + col) =
+          pack_bf16(dka[4 * j + 2], dka[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dv + (bh * sk + key0 + 8) * D + col) =
+          pack_bf16(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
 }
@@ -773,164 +1104,144 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// flash_bwd_dq, bf16 on the tensor cores. CTA (batch*head, 64-row Q tile);
-// warp w owns Q rows (w&3)*16 .. +15 and dq columns (w>>2)*DW .. +DW-1,
-// as in flash_fwd: its Q and dO fragments stay in registers (in shared
-// memory at d = 256), and lane (g, c) holds rows g and g+8 of every S,
-// dP and dq fragment. Per 64-key tile, in two halves of 32 keys:
-// S = Q K^T and dP = dO V^T (K and V row-major in shared memory), dS
-// rounded to bf16 is the A fragment of dq += dS K (K^T in shared memory).
+// flash_bwd_dq, bf16 on wgmma. CTA (batch*head, ROWS-row Q tile), the tile
+// with the most key tiles first (blockIdx.y = 0 takes the last Q tile).
+// Warpgroup i forms S and dP for rows (i % RWG)*64 .. +63 and owns their
+// dq columns (i / RWG)*DW .. +DW-1 (col_groups); thread (warp w, lane
+// g*4 + c) holds rows 16w + g and 16w + g + 8 of its 64. Q and dO stay in
+// shared memory; a ring of two stages of 64-key K and V tiles, shared by
+// the row warpgroups, is filled by cp.async while the other stage's
+// products run (a third stage measured no faster); every tile in cm_off
+// order. dS rounded to bf16 is
+// the register A operand of dq += dS K, which reads K MN-major.
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
+struct BwdQ {
+  static constexpr int CG = col_groups<D>();
+  static constexpr int RWG = D <= 128 ? 2 : 1;  // row warpgroups
+  static constexpr int ROWS = 64 * RWG;
+  static constexpr int NT = 128 * RWG * CG;
+  static constexpr int CH = D / 8;
+  static constexpr int TILE = BN * D * 2;  // bytes of a 64-row tile
+  static constexpr size_t smem() { return 2 * RWG * TILE + 2 * 2 * TILE; }
+};
+
+template <int D>
+__global__ void __launch_bounds__(BwdQ<D>::NT)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dq,
                   int64_t sq, int64_t sk, int causal, float scale_log2,
                   float scale) {
-  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
-  constexpr int DW = D / CG;   // dq columns a warp
-  // two column groups: the Q and dO fragments of all of d would take
-  // 128 registers beside dq's, so they stay in shared memory
-  constexpr bool QSMEM = CG > 1;
-  constexpr int RS = D + 8;    // K, V, Q, dO tiles (row-major)
-  constexpr int KTS = BN + 8;  // K^T tile
+  using C = BwdQ<D>;
+  constexpr int NT = C::NT, TILE = C::TILE, ROWS = C::ROWS;
+  constexpr int DW = D / C::CG;   // dq columns a warpgroup
+  constexpr int KS = C::CH * 128; // bytes between 8-row groups of a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BN * RS;
-  bf16* kt = vs + BN * RS;
-  bf16* qsm = kt + D * KTS;    // QSMEM only
-  bf16* osm = qsm + BM * RS;
-  const int64_t bh = blockIdx.y;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const bf16* qb = q + bh * sq * D;
-  const bf16* ob = dout + bh * sq * D;
+  unsigned char* qs = smem_raw;
+  unsigned char* dos = qs + C::RWG * TILE;
+  unsigned char* ring = dos + C::RWG * TILE;  // stage s: K, then V
+  const int64_t bh = blockIdx.x;
+  const int64_t m0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * ROWS;
   const bf16* kb = k + bh * sk * D;
   const bf16* vb = v + bh * sk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int rl = (warp & 3) * 16 + g;  // this lane's tile rows: rl, rl + 8
-  const int cb = (warp >> 2) * DW;     // this warp's first dq column
-  const int64_t r0 = m0 + rl, r1 = r0 + 8;
+  const int wgi = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+  const int rw = (wgi % C::RWG) * 64 + warp * 16;  // the warp's first row
+  const int cb = (wgi / C::RWG) * DW;  // the warpgroup's first dq column
+  const int qo = (rw - warp * 16) / 8 * KS;  // its 64 rows in Q and dO
+  const int64_t r0 = m0 + rw + g, r1 = r0 + 8;
+  // the warpgroup's last row: key tiles past it are masked out whole
+  const int64_t wg_last = m0 + rw - warp * 16 + 63;
 
-  uint32_t qa[QSMEM ? 1 : D / 16][4], oa[QSMEM ? 1 : D / 16][4];
-  if constexpr (QSMEM) {
-    for (int i = threadIdx.x; i < BM * D / 8; i += NT) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
-      if (m0 + r < sq) {
-        qv = *reinterpret_cast<const uint4*>(qb + (m0 + r) * D + c8);
-        ov = *reinterpret_cast<const uint4*>(ob + (m0 + r) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(qsm + r * RS + c8) = qv;
-      *reinterpret_cast<uint4*>(osm + r * RS + c8) = ov;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const int col = c * 16 + c2;
-      qa[c][0] = r0 < sq ? ld32(qb + r0 * D + col) : 0u;
-      qa[c][1] = r1 < sq ? ld32(qb + r1 * D + col) : 0u;
-      qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
-      qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
-      oa[c][0] = r0 < sq ? ld32(ob + r0 * D + col) : 0u;
-      oa[c][1] = r1 < sq ? ld32(ob + r1 * D + col) : 0u;
-      oa[c][2] = r0 < sq ? ld32(ob + r0 * D + col + 8) : 0u;
-      oa[c][3] = r1 < sq ? ld32(ob + r1 * D + col + 8) : 0u;
-    }
-  }
+  auto load_kv = [&](int s, int64_t n0) {
+    unsigned char* kst = ring + s * 2 * TILE;
+    cp_tile<D, BN, NT>(kst, kb, n0, sk);
+    cp_tile<D, BN, NT>(kst + TILE, vb, n0, sk);
+  };
+  const int64_t n_end = causal && m0 + ROWS < sk ? m0 + ROWS : sk;
+  const int64_t tiles = (n_end + BN - 1) / BN;
+  cp_tile<D, ROWS, NT>(qs, q + bh * sq * D, m0, sq);
+  cp_tile<D, ROWS, NT>(dos, dout + bh * sq * D, m0, sq);
+  if (tiles > 0) load_kv(0, 0);
+  cp_async_commit();
   const float l2_0 = r0 < sq ? lse[bh * sq + r0] * LOG2E : 0.f;
   const float l2_1 = r1 < sq ? lse[bh * sq + r1] * LOG2E : 0.f;
   const float de0 = r0 < sq ? delta[bh * sq + r0] : 0.f;
   const float de1 = r1 < sq ? delta[bh * sq + r1] : 0.f;
-  float dqa[DW / 8][4];
+  float dqa[DW / 2];
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) dqa[i] = 0.f;
 
-  const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
-  for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (n0 + r < sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * D + c8);
-        vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(ks + r * RS + c8) = kv;
-      *reinterpret_cast<uint4*>(vs + r * RS + c8) = vv;
-      const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kt[(c8 + e) * KTS + r] = ke[e];
-    }
-    __syncthreads();
+  for (int64_t it = 0; it < tiles; ++it) {
+    const int64_t n0 = it * BN;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; tile it-1's stage is free
+    if (it + 1 < tiles) load_kv((it + 1) & 1, n0 + BN);
+    cp_async_commit();
+    if (causal && n0 > wg_last) continue;  // every key above every row
+    const unsigned char* ks = ring + (it & 1) * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
 
+    // S = Q K^T, then dP = dO V^T: the warpgroup's 64 rows x 64 keys; P
+    // is formed while dP runs, then dS in place of S. Only the diagonal
+    // and the ragged last tile take the per-element mask (rows past sq
+    // are never written).
+    float s[BN / 2], dp[BN / 2];
+    wg_fence();
 #pragma unroll
-    for (int half = 0; half < BN / 32; ++half) {
-      float s[4][4], dp[4][4];
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_ss<BN, 0, 0>(s, gmma_desc(qs + qo + kc * 256, 128, KS),
+                         gmma_desc(ks + kc * 256, 128, KS), kc > 0);
+    wg_commit();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_ss<BN, 0, 0>(dp, gmma_desc(dos + qo + kc * 256, 128, KS),
+                         gmma_desc(vs + kc * 256, 128, KS), kc > 0);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(s);
+    const bool masked = (causal && n0 + BN - 1 > m0 + rw) || n0 + BN > sk;
 #pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          const int kr = half * 32 + j * 8 + g;
-          const bf16* kp = ks + kr * RS + c * 16 + c2;
-          const bf16* vp = vs + kr * RS + c * 16 + c2;
-          if constexpr (QSMEM) {
-            const bf16* qp = qsm + rl * RS + c * 16 + c2;
-            const bf16* op = osm + rl * RS + c * 16 + c2;
-            const uint32_t a[4] = {ld32(qp), ld32(qp + 8 * RS), ld32(qp + 8),
-                                   ld32(qp + 8 * RS + 8)};
-            const uint32_t o4[4] = {ld32(op), ld32(op + 8 * RS),
-                                    ld32(op + 8), ld32(op + 8 * RS + 8)};
-            mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
-            mma_bf16(dp[j], o4, ld32(vp), ld32(vp + 8));
-          } else {
-            mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
-            mma_bf16(dp[j], oa[c], ld32(vp), ld32(vp + 8));
-          }
-        }
+    for (int i = 0; i < BN / 2; ++i) {
+      const bool lo = (i & 2) == 0;  // row r0, else r1
+      float p = exp2f(s[i] * scale_log2 - (lo ? l2_0 : l2_1));
+      if (masked) {
+        const int64_t key = n0 + (i >> 2) * 8 + c2 + (i & 1);
+        if (key >= sk || (causal && key > (lo ? r0 : r1))) p = 0.f;
       }
-      // P, then dS in place of S
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int64_t key = n0 + half * 32 + j * 8 + c2 + (e & 1);
-          const int64_t row = e < 2 ? r0 : r1;
-          float p = exp2f(s[j][e] * scale_log2 - (e < 2 ? l2_0 : l2_1));
-          if (key >= sk || row >= sq || (causal && key > row)) p = 0.f;
-          s[j][e] = p * (dp[j][e] - (e < 2 ? de0 : de1)) * scale;
-        }
-      }
-      // dq += dS K (dS rounded to bf16)
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const uint32_t a[4] = {pack_bf16(s[2 * cc][0], s[2 * cc][1]),
-                               pack_bf16(s[2 * cc][2], s[2 * cc][3]),
-                               pack_bf16(s[2 * cc + 1][0], s[2 * cc + 1][1]),
-                               pack_bf16(s[2 * cc + 1][2], s[2 * cc + 1][3])};
-#pragma unroll
-        for (int n = 0; n < DW / 8; ++n) {
-          const bf16* bp =
-              kt + (cb + n * 8 + g) * KTS + half * 32 + cc * 16 + c2;
-          mma_bf16(dqa[n], a, ld32(bp), ld32(bp + 8));
-        }
-      }
+      s[i] = p;
     }
+    wg_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      s[i] = s[i] * (dp[i] - ((i & 2) == 0 ? de0 : de1)) * scale;
+    // dq += dS K (dS rounded to bf16)
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < BN / 16; ++cc) {
+      uint32_t a[4];
+      acc_to_a(a, s, cc);
+      wgmma_rs<DW, 1>(dqa, a,
+                      gmma_desc(ks + cc * 2 * KS + (cb / 8) * 128, KS, 128),
+                      1);
+    }
+    wg_commit();
+    wg_wait<0>();
   }
+  cp_async_wait_all();
   bf16* dqb = dq + bh * sq * D;
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    const int col = cb + n * 8 + c2;
+  for (int j = 0; j < DW / 8; ++j) {
+    const int col = cb + j * 8 + c2;
     if (r0 < sq)
       *reinterpret_cast<uint32_t*>(dqb + r0 * D + col) =
-          pack_bf16(dqa[n][0], dqa[n][1]);
+          pack_bf16(dqa[4 * j], dqa[4 * j + 1]);
     if (r1 < sq)
       *reinterpret_cast<uint32_t*>(dqb + r1 * D + col) =
-          pack_bf16(dqa[n][2], dqa[n][3]);
+          pack_bf16(dqa[4 * j + 2], dqa[4 * j + 3]);
   }
 }
 
@@ -1317,20 +1628,20 @@ int launch_flash_bwd(int dtype, const void* q, const void* k, const void* v,
                      float* dq, void* dk, void* dv, int64_t bh, int64_t sq,
                      int64_t sk, int causal, float scale_log2, float scale,
                      cudaStream_t st) {
-  const dim3 grid((unsigned)((sk + BN - 1) / BN), (unsigned)bh);
   if (dtype == 1) {
-    const size_t smem =
-        sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8) + 2 * BQB * (D + 8) +
-                        2 * D * (BQB + 8) + BQB * (BN + 8)) +
-        sizeof(float) * 2 * BQB;
-    int err = set_smem(flash_bwd_bf16<D, DQ>, smem);
+    using C = BwdKv<D, DQ>;
+    const int64_t tiles = (sk + C::KEYS - 1) / C::KEYS;
+    if (tiles > 65535) return (int)cudaErrorInvalidValue;
+    int err = set_smem(flash_bwd_bf16<D, DQ>, C::smem());
     if (err) return err;
-    flash_bwd_bf16<D, DQ><<<grid, MMA_THREADS * col_groups<D>(), smem, st>>>(
+    const dim3 grid((unsigned)bh, (unsigned)tiles);
+    flash_bwd_bf16<D, DQ><<<grid, C::NT, C::smem(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, dq, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
         causal, scale_log2, scale);
   } else if (dtype == 0) {
+    const dim3 grid((unsigned)((sk + BN - 1) / BN), (unsigned)bh);
     const size_t smem = sizeof(float) * (2 * BN * (D + 1) + 2 * BQB * (D + 1) +
                                          2 * BN * (BQB + 1) + 2 * BQB);
     int err = set_smem(flash_bwd_f32<D, DQ>, smem);
@@ -1352,14 +1663,14 @@ int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
                         const float* delta, void* dq, int64_t bh, int64_t sq,
                         int64_t sk, int causal, float scale_log2, float scale,
                         cudaStream_t st) {
-  const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
   if (dtype == 1) {
-    constexpr int CG = col_groups<D>();
-    const size_t smem = sizeof(bf16) * (2 * BN * (D + 8) + D * (BN + 8) +
-                                        (CG > 1 ? 2 * BM * (D + 8) : 0));
-    int err = set_smem(flash_bwd_dq_bf16<D>, smem);
+    using C = BwdQ<D>;
+    const int64_t tiles = (sq + C::ROWS - 1) / C::ROWS;
+    if (tiles > 65535) return (int)cudaErrorInvalidValue;
+    int err = set_smem(flash_bwd_dq_bf16<D>, C::smem());
     if (err) return err;
-    flash_bwd_dq_bf16<D><<<grid, MMA_THREADS * CG, smem, st>>>(
+    const dim3 grid((unsigned)bh, (unsigned)tiles);
+    flash_bwd_dq_bf16<D><<<grid, C::NT, C::smem(), st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
         delta, static_cast<bf16*>(dq), sq, sk, causal, scale_log2, scale);
@@ -1369,6 +1680,7 @@ int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
         sizeof(float) * (2 * BM * (D + 1) + 2 * BNK * (D + 1) + BM * (BNK + 1));
     int err = set_smem(flash_bwd_dq_f32<D>, smem);
     if (err) return err;
+    const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
     flash_bwd_dq_f32<D><<<grid, F32_THREADS, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -1377,6 +1689,16 @@ int launch_flash_bwd_dq(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename KernelT>
+int occupancy(KernelT kernel, int threads, size_t smem, int* smem_bytes,
+              int* ctas_per_sm) {
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kernel, threads, smem);
 }
 
 size_t decode_smem(int dh, int64_t cur) {
@@ -1554,6 +1876,12 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
       (const void*)flash_bwd_f32<256, false>,   // 15
       (const void*)decode_step_q8_kernel<bf16>,   // 16
       (const void*)decode_step_q8_kernel<float>,  // 17
+      (const void*)flash_bwd_bf16<32, true>,    // 18
+      (const void*)flash_bwd_bf16<64, true>,    // 19
+      (const void*)flash_bwd_dq_bf16<32>,       // 20
+      (const void*)flash_bwd_dq_bf16<64>,       // 21
+      (const void*)flash_bwd_bf16<32, false>,   // 22
+      (const void*)flash_bwd_bf16<64, false>,   // 23
   };
   if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
     return (int)cudaErrorInvalidValue;
@@ -1563,6 +1891,27 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
+}
+
+// The bf16 backward kernels' dynamic shared memory a CTA, as their
+// launchers set it, and the CTAs an SM holds at that size. which: 0 =
+// flash_bwd, 1 = flash_bwd_dq, 2 = flash_bwd_dkv. d: 32, 64, 128 or 256.
+int icikit_flash_bwd_occupancy(int which, int d, int* smem_bytes,
+                               int* ctas_per_sm) {
+#define OCC(D)                                                             \
+  (which == 0   ? occupancy(flash_bwd_bf16<D, true>, BwdKv<D, true>::NT,   \
+                            BwdKv<D, true>::smem(), smem_bytes, ctas_per_sm) \
+   : which == 1 ? occupancy(flash_bwd_dq_bf16<D>, BwdQ<D>::NT,             \
+                            BwdQ<D>::smem(), smem_bytes, ctas_per_sm)        \
+                : occupancy(flash_bwd_bf16<D, false>, BwdKv<D, false>::NT,  \
+                            BwdKv<D, false>::smem(), smem_bytes, ctas_per_sm))
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  if (d == 128) return OCC(128);
+  if (d == 64) return OCC(64);
+  if (d == 32) return OCC(32);
+  if (d == 256) return OCC(256);
+#undef OCC
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -61,6 +61,7 @@ _SIGNATURES = {
         "icikit_decode_step_q8": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I64, _I64, _I32, _I64, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
+        "icikit_flash_bwd_occupancy": [_I32, _I32, _IP, _IP],
     },
     "xent": {
         "icikit_xent_fwd": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -135,3 +135,15 @@ def test_decode_byte_model_int8_matches_jax(bytes_dtype):
     if bytes_dtype == "int8":
         assert round(decode_bytes_per_token(cfg, 8, 576, bytes_dtype="int8")
                      / 1e5) == 3019
+
+
+def test_flash_bwd_ab_refuses_without_a_card(monkeypatch):
+    """The backward A/B bench times kernels on the card only: without
+    one it exits before building anything."""
+    import torch
+
+    from icikit_torch.bench import flash_bwd_ab
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        flash_bwd_ab.main(["--a", "a.cu", "--b", "b.cu"])

@@ -192,9 +192,15 @@ def _grad_close(got, want, rel):
                                    atol=rel * scale)
 
 
+# The backward kernels' edges: lengths on and beside their tiles (64 rows
+# or keys a ring stage, 64 or 128 a CTA), at every head dim built.
+BWD_EDGE_SHAPES = [(s, d) for s in (65, 127, 129, 1000, 4097)
+                   for d in (32, 64, 128, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
-                                 (256, 32), (200, 256)])
+                                 (256, 32), (200, 256)] + BWD_EDGE_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_shift_and_backward_match_plain(dtype, s, d, causal,
                                               no_tf32):
@@ -338,7 +344,7 @@ def test_train_step_launches_every_kernel(gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
-                                 (256, 32), (200, 256)])
+                                 (256, 32), (200, 256)] + BWD_EDGE_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_two_pass_matches_plain(dtype, s, d, causal, no_tf32):
     gen = no_tf32
@@ -366,6 +372,8 @@ def test_flash_two_pass_matches_plain(dtype, s, d, causal, no_tf32):
     # deterministic: a second run gives the same bits
     assert torch.equal(dq, ca.flash_bwd_dq(q, k, v, do, lse, delta, causal,
                                            scale))
+    dk2, dv2 = ca.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 def test_flash_attention_takes_the_two_pass_route_past_the_budget(
