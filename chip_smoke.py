@@ -22,7 +22,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 6. timed launches: K1 and K2 timed at the main path's shapes.
 7. attention kernels held against their plain versions on the card:
    ``flash_fwd`` at (b, h, d) = (8, 8, 128), s = 512 and 768, and at
-   (1, 8, 128), s = 2048, in bf16 and float32, causal and not;
+   (1, 8, 128), s = 2048, in bf16 and float32, causal and not; at its
+   tile edges (FWD_EDGES: s 65, 127, 129, 1000, 4097 at d 32, 64, 128,
+   256, b 2, h 3), online and shift 16, causal and not;
    ``decode_step`` at 64 rows, dh 128, 576 columns, cur = 0, 1, 300,
    575, RoPE on and off, bf16 and float32. Tolerances: float32 out and
    lse 1e-4; bf16 out 2e-2 (P is rounded to bf16 before PV in the
@@ -43,7 +45,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 10. train kernels held against their plain versions on the card:
    ``flash_fwd`` in constant-shift mode and ``flash_bwd`` at (8, 8,
    1024, 128) and (1, 8, 2048, 128), causal and full, plus q x 400
-   (the overflow the kernel redoes online), bf16 and float32; the three
+   (the overflow the kernel redoes online), bf16 and float32; the redo
+   where q x 400 lies only in the second warpgroup's rows or only in the
+   ragged last Q tile (REDO_EDGES, d 64, 128, 256), its hot rows bitwise
+   equal to the online pass's, their lse held relative to their largest
+   |lse| and the other rows' absolute; the three
    cross-entropy kernels at T 8192, D 1024, V 32768. Tolerances are in
    the phase's line (FLASH_TOL, XENT_TOL).
 11. the train path: ``make_train_step`` of the ``base`` preset (random
@@ -89,8 +95,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the two-pass outputs bitwise equal across two calls; then
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` timed at (1, 4, 131072, 128)
    beside their chunked plain versions and SDPA's backward, each bounded
-   by its share (3:4) of the function's five causal products; the bf16
-   backward kernels' registers, shared memory a CTA and CTAs an SM.
+   by its share (3:4) of the function's five causal products;
+   ``flash_fwd`` held to its chunked plain version at 131072 (out by
+   BLOCK_L2_TOL in every 64-row block, lse by FLASH_TOL) and timed alone beside SDPA's causal forward and its bound (the two
+   causal products, 17.8 ms); the bf16 flash kernels' registers, shared
+   memory a CTA and CTAs an SM at every head dim.
 16. the head dim 256: ``flash_fwd``, ``flash_bwd`` and the two-pass pair
    at d = 256 (WIDE_SHAPES) against their plain versions, bf16 and
    float32, with FLASH_TOL and BLOCK_L2_TOL; ``decode_step`` at dh 256
@@ -174,6 +183,11 @@ DEC_PRESET, DEC_BATCH, DEC_PROMPT, DEC_NEW = "base", 8, 512, 64
 FP32_LOGIT_TOL = 1e-3
 BF16_LOGIT_TOL = 0.25
 
+# Phase 7: the forward's tile edges, lengths on and beside its 64- and
+# 128-row (and key) tiles at every head dim built, at (b, h) = (2, 3)
+FWD_EDGES = tuple((s, d) for s in (65, 127, 129, 1000, 4097)
+                  for d in (32, 64, 128, 256))
+
 # Train path (phases 10-12): the base preset at batch 8, s = 1024.
 TRAIN_PRESET, TRAIN_BATCH, TRAIN_CHECK_BATCH = "base", 8, 2
 TRAIN_TOKENS = TRAIN_BATCH * 1024
@@ -182,6 +196,10 @@ SHIFT = 16.0
 # (b, h, s, d) of the path's flash launches, and the many-block regime
 FLASH_SHAPES = {"B5-shift": (TRAIN_BATCH, 8, 1024, 128),
                 "B4": (1, 8, 2048, 128)}
+# Phase 10: the shift's overflow redo at the forward's tile edges, (s,
+# rows x 400): the second warpgroup's 64 rows of each 128-row CTA, and
+# the ragged last Q tile
+REDO_EDGES = ((256, ((64, 128), (192, 256))), (1000, ((960, 1000),)))
 XENT_SHAPE = (TRAIN_TOKENS, 1024, 32768)   # (T, D, V) of the head
 TRAIN_LOSS_TOL = 1e-4      # float32 kernel arms vs plain arms
 TRAIN_GRAD_TOL = 1e-3      # relative L2, each gradient leaf
@@ -305,6 +323,22 @@ def attention_checks(torch, dev) -> None:
                                "shape": [b, h, s, 128], "causal": causal,
                                "out_err": e_o, "lse_err": e_l,
                                "ok": e_o <= o_tol and e_l <= l_tol})
+            del q, k, v, out, lse, want, want_lse
+        for s, d in FWD_EDGES:
+            q, k, v = (randn((2, 3, s, d), dtype) for _ in range(3))
+            for causal in (True, False):
+                for shift in (None, SHIFT):
+                    out, lse = ca.flash_fwd(q, k, v, causal, d ** -0.5,
+                                            shift=shift)
+                    want, want_lse = ca.flash_fwd_plain(
+                        q, k, v, causal, d ** -0.5, shift=shift)
+                    e_o, e_l = err(out, want), err(lse, want_lse)
+                    checks.append({"kernel": "flash_fwd", "edge": True,
+                                   "dtype": str(dtype),
+                                   "shape": [2, 3, s, d], "causal": causal,
+                                   "shift": shift, "out_err": e_o,
+                                   "lse_err": e_l,
+                                   "ok": e_o <= o_tol and e_l <= l_tol})
             del q, k, v, out, lse, want, want_lse
         rows, total, dh = 64, 576, 128
         for rope in (True, False):
@@ -629,6 +663,44 @@ def train_kernel_checks(torch, dev) -> None:
                     "ok": finite and e_o <= tol["out"]
                     and e_l <= tol["lse"] and e_g <= g_tol})
             del q, k, v, do, out, lse, w_out, w_lse, got, want, delta
+    # the shift's redo where q x 400 lies only in the second warpgroup's
+    # rows of each 128-row CTA, or only in the ragged last Q tile: the
+    # hot rows carry the online pass's bits
+    for dtype, tol in ((torch.bfloat16, FLASH_TOL["bf16"]),
+                       (torch.float32, FLASH_TOL["f32"])):
+        for s, hot in REDO_EDGES:
+            for d in (64, 128, 256):
+                q, k, v = (randn((1, 4, s, d), dtype) for _ in range(3))
+                for a, b_ in hot:
+                    q[:, :, a:b_] = (q[:, :, a:b_].float() * 400.0).to(dtype)
+                out, lse = ca.flash_fwd(q, k, v, True, 0.125, shift=SHIFT)
+                ref, ref_lse = ca.flash_fwd(q, k, v, True, 0.125)
+                w_out, w_lse = ca.flash_fwd_plain(q, k, v, True, 0.125,
+                                                  shift=SHIFT)
+                rows = torch.cat([torch.arange(a, b_) for a, b_ in hot]
+                                 ).to(dev)
+                same = bool(torch.equal(out[:, :, rows], ref[:, :, rows])
+                            and torch.equal(lse[:, :, rows],
+                                            ref_lse[:, :, rows]))
+                e_o = err(out, w_out)
+                # the hot rows' lse relative to their largest |lse|, the
+                # other rows' absolute
+                is_hot = torch.zeros(s, dtype=torch.bool, device=dev)
+                is_hot[rows] = True
+                e_hot = (err(lse[:, :, is_hot], w_lse[:, :, is_hot])
+                         / float(w_lse[:, :, is_hot].abs().max()))
+                e_cold = err(lse[:, :, ~is_hot], w_lse[:, :, ~is_hot])
+                finite = bool(torch.isfinite(lse).all()) and bool(
+                    torch.isfinite(out.float()).all())
+                checks.append({
+                    "kernel": "flash_fwd shift redo", "dtype": str(dtype),
+                    "shape": [1, 4, s, d], "hot_rows": hot,
+                    "hot_rows_bitwise_online": same, "out_err": e_o,
+                    "lse_err_hot_rows_rel": e_hot,
+                    "lse_err_other_rows": e_cold, "finite": finite,
+                    "ok": finite and same and e_o <= tol["out"]
+                    and e_hot <= tol["lse"] and e_cold <= tol["lse"]})
+                del q, k, v, out, lse, ref, ref_lse, w_out, w_lse
     t, d, v = XENT_SHAPE
     for dtype, tol in ((torch.bfloat16, XENT_TOL["bf16"]),
                        (torch.float32, XENT_TOL["f32"])):
@@ -1255,23 +1327,29 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
     return kernel_rows
 
 
-def bwd_occupancy(d: int) -> dict:
-    """The bf16 backward kernels at head dim d: registers and local bytes
-    a thread, dynamic shared memory a CTA and CTAs an SM."""
+def flash_occupancy() -> dict:
+    """The bf16 flash kernels at every head dim: registers and local
+    bytes a thread, dynamic shared memory a CTA and CTAs an SM."""
     from icikit_torch.ops import _build
     lib = _build.load("attention")
-    regs_at = {128: (3, 5, 7), 256: (10, 12, 14), 32: (18, 20, 22),
-               64: (19, 21, 23)}[d]
+    # indices into icikit_attention_regs: flash_bwd, flash_bwd_dq,
+    # flash_bwd_dkv, flash_fwd (icikit_flash_occupancy's order)
+    regs_at = {32: (18, 20, 22, 24), 64: (19, 21, 23, 25),
+               128: (3, 5, 7, 0), 256: (10, 12, 14, 8)}
     occ = {}
-    for which, (name, ri) in enumerate(zip(
-            ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"), regs_at)):
-        r, loc, smem, ctas = (ctypes.c_int() for _ in range(4))
-        _build.check(lib.icikit_attention_regs(
-            ri, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
-        _build.check(lib.icikit_flash_bwd_occupancy(
-            which, d, ctypes.byref(smem), ctypes.byref(ctas)), "occupancy")
-        occ[name] = {"registers": r.value, "local_bytes": loc.value,
-                     "smem_bytes": smem.value, "ctas_per_sm": ctas.value}
+    for d, idx in regs_at.items():
+        for which, (name, ri) in enumerate(zip(
+                ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"),
+                idx)):
+            r, loc, smem, ctas = (ctypes.c_int() for _ in range(4))
+            _build.check(lib.icikit_attention_regs(
+                ri, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
+            _build.check(lib.icikit_flash_occupancy(
+                which, d, ctypes.byref(smem), ctypes.byref(ctas)),
+                "occupancy")
+            occ[f"{name} d{d}"] = {
+                "registers": r.value, "local_bytes": loc.value,
+                "smem_bytes": smem.value, "ctas_per_sm": ctas.value}
     return occ
 
 
@@ -1323,9 +1401,18 @@ def long_context(torch, dev, bw, smi) -> list:
                        .to(torch.bfloat16) for _ in range(4))
         out, lse = ca.flash_fwd(q, k, v, True, scale)
         delta = (do.float() * out.float()).sum(-1)
+        two = s == LONG_SEQS[1]
+        if two:  # the forward against its chunked plain version
+            w_out, w_lse = ca.flash_fwd_plain(q, k, v, True, scale,
+                                              chunk=ORACLE_CHUNK)
+            # out shrinks along the rows as the gradients do: held by
+            # block, its error relative to the largest entry only shown
+            fwd_err = {"out_block_rel_l2": _block_rel_l2(out, w_out),
+                       "out_rel": _rel(out, w_out),
+                       "lse": float((lse - w_lse).abs().max())}
+            del w_out, w_lse
         del out
         args = (q, k, v, do, lse, delta, True, scale)
-        two = s == LONG_SEQS[1]
         got = ((ca.flash_bwd_dq(*args), *ca.flash_bwd_dkv(*args)) if two
                else ca.flash_bwd(*args))
         names = ("dq", "dk", "dv")
@@ -1383,11 +1470,39 @@ def long_context(torch, dev, bw, smi) -> list:
         lo, (lq, lk, lv), do, retain_graph=True), iters=3, warmup=1)
     for r in rows:
         r["library_ms"] = lib_ms
+    # the forward alone, beside SDPA's causal forward and its bound (the
+    # two causal products)
+    f_ms = cuda_time_ms(lambda: ca.flash_fwd(q, k, v, True, scale),
+                        iters=3, warmup=1)
+    f_plain = cuda_time_ms(lambda: ca.flash_fwd_plain(
+        q, k, v, True, scale, chunk=ORACLE_CHUNK), iters=1, warmup=0)
+    f_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), iters=3, warmup=1)
+    t_b = (4 * b * h * s * d * 2 + b * h * s * 4) / bw
+    t_o = 2 * prod / BF16_TENSOR_OPS
+    fwd_ok = (fwd_err["out_block_rel_l2"] <= BLOCK_L2_TOL["bf16"]
+              and fwd_err["lse"] <= FLASH_TOL["bf16"]["lse"])
+    rows.append({"name": "flash_fwd (B3, long context)", "route": "cuda",
+                 "source": "icikit_torch/csrc/attention.cu",
+                 "replaces": "icikit/ops/flash_attention.py:421 (B3, "
+                             "_fwd_kernel)",
+                 "launches": recs[1].launches["flash_fwd"],
+                 "max_abs_err": fwd_err["out_rel"], "ms": f_ms,
+                 "plain_ms": f_plain, "bound_ms": max(t_b, t_o) * 1e3,
+                 "bound_by": "bytes" if t_b >= t_o else "operations",
+                 "library_ms": f_lib})
     torch.cuda.synchronize()
     emit({"phase": "long_context_kernels", "card": smi,
           "shape": f"b={b} h={h} s={s} d={d} bf16 causal",
+          "flash_fwd": {"ms": f_ms, "sdpa_forward_ms": f_lib,
+                        "bound_ms": max(t_b, t_o) * 1e3,
+                        "err_vs_chunked_plain": fwd_err,
+                        "tolerance": {
+                            "out_block_rel_l2": BLOCK_L2_TOL["bf16"],
+                            "lse": FLASH_TOL["bf16"]["lse"]},
+                        "ok": fwd_ok},
           "checks": checks,
-          "occupancy": bwd_occupancy(d),
+          "occupancy": flash_occupancy(),
           "tolerance": {"block_rel_l2": BLOCK_L2_TOL["bf16"],
                         "block_rows": BLOCK_ROWS},
           "library": "SDPA's backward (dq, dk and dv together) through "
@@ -1403,9 +1518,10 @@ def long_context(torch, dev, bw, smi) -> list:
     del q, k, v, do, lse, delta, lq, lk, lv, lo
     torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
-    if bad:
-        raise AssertionError(f"long-context gradients disagree with the "
-                             f"chunked plain versions: {bad}")
+    if bad or not fwd_ok:
+        raise AssertionError(f"long-context forward or gradients disagree "
+                             f"with the chunked plain versions: {bad}, "
+                             f"forward {fwd_err}")
     return rows
 
 
@@ -2245,7 +2361,8 @@ def main() -> int:
               "decode_step_q8_kernel<float>",
               "flash_bwd_bf16<32>", "flash_bwd_bf16<64>",
               "flash_bwd_dq_bf16<32>", "flash_bwd_dq_bf16<64>",
-              "flash_bwd_dkv_bf16<32>", "flash_bwd_dkv_bf16<64>")),
+              "flash_bwd_dkv_bf16<32>", "flash_bwd_dkv_bf16<64>",
+              "flash_fwd_bf16<32>", "flash_fwd_bf16<64>")),
             ("quant", "icikit_quant_regs",
              ("qmv_bf16_skinny", "qmv_bf16_tile", "qmv_f32<16, 32>",
               "qmv_f32<64, 64>")),

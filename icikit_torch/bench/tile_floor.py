@@ -5,7 +5,8 @@ variants over identical tile grids, so that the differences between
 them decompose one tile's time into its pieces:
 
 - ``full``: the port's production forward (``flash_fwd``, causal,
-  online softmax), over the causal tiles it runs at its 64 x 64
+  online softmax; the wgmma design, 128 x 128 tiles at these head
+  dims), its time over the causal tiles at the study's 64 x 64
   geometry, the diagonal included;
 - ``mxu``: both tile products and the least glue, no softmax
   statistics (``tile_mxu``, B17);
@@ -13,10 +14,11 @@ them decompose one tile's time into its pieces:
   online-softmax loop with exp2 and/or the running max taken out
   (``tile_ablate``, B17), each over the full rectangle of tiles.
 
-``tile_mxu`` and ``tile_ablate`` run ``flash_fwd``'s own loop (64-row Q
-tiles, 64-key tiles, four warps, mma.sync; ``csrc/tile_floor.cu``), so
-the differences say what exp2 and the running max cost inside the port's
-forward. The card has no counterpart of the TPU kernel's ks banking:
+``tile_mxu`` and ``tile_ablate`` run the loop of ``flash_fwd``'s first
+design (64-row Q tiles, 64-key tiles, four warps, mma.sync;
+``csrc/tile_floor.cu``), kept as the study's fixed reference, so the
+differences say what exp2 and the running max cost inside that loop;
+``full`` is no longer their sum. The card has no counterpart of the TPU kernel's ks banking:
 the shipped arm is one online softmax. Each variant is timed by the
 median-of-windows protocol over a chain (``out * 0.999`` fed back as
 q), windows faster than the tiles' products at the card's nameplate
@@ -91,7 +93,7 @@ def measure(seq: int, d: int = 64, h: int = 8, windows: int = 3,
             "session_quality": res.session_quality(),
             "device": name, "power_limit": power})
 
-    # the causal forward's tiles at its own 64 x 64 geometry: the lower
+    # the causal forward's work in the study's 64 x 64 tiles: the lower
     # triangle, the diagonal included
     add("full", lambda q, k, v: cuda_attention.flash_fwd(q, k, v, True,
                                                           scale)[0],

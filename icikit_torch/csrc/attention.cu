@@ -9,10 +9,10 @@
 //      Causal or full flash-attention forward: out and the per-row
 //      log-sum-exp in nats. On the TPU, B5 is the one-K-block case of
 //      B3/B4 (no carried statistics); here it is the same loop run once,
-//      so one kernel computes all three. One CTA per (batch*head,
-//      64-row Q tile); K/V tiles of 64 keys are staged through shared
-//      memory and the loop stops at the causal diagonal (_last_valid_k's
-//      fetch elision as a loop bound). Online softmax in base 2 with
+//      so one kernel computes all three. One CTA per (batch*head, Q
+//      tile); K/V tiles are staged through shared memory and the loop
+//      stops at the causal diagonal (_last_valid_k's fetch elision as a
+//      loop bound). Online softmax in base 2 with
 //      log2(e) folded into the scale, float32 statistics and
 //      accumulator; masked entries take the finite NEG_INF
 //      (flash_attention.py:93-99), and a ragged last tile is masked
@@ -26,21 +26,48 @@
 //      online softmax, so the caller always gets final, finite (out,
 //      lse) with no extra launch and no host sync. The range is stricter
 //      than JAX's test: a finite l below it means the row's weights sat
-//      in exp2's subnormal range (few significant bits), and one above it
-//      lets P V overflow while l does not. bf16: four warps, each owning 16 Q rows, run
-//      both products on the tensor cores with mma.sync m16n8k16 (bf16
-//      in, fp32 accumulate); P is rounded to bf16 before PV, as the TPU
-//      kernel does. float32: the same tiles with plain FMA. Head dims
-//      32, 64, 128 and 256. At 256 a warp cannot hold a 16 x 256 float32
-//      accumulator (128 registers) beside its Q fragments, so eight warps
-//      run the tile: two to each 16-row group, each forming the group's S
-//      over all of d and owning half of the output columns (col_groups;
-//      the backward kernels split their outputs the same way).
+//      in exp2's subnormal range (few significant bits, or flushed to
+//      zero), and one above it lets P V overflow while l does not.
 //      Bound (b=8, h=8, s=1024, d=128, bf16, causal): 67.4 MB read and
 //      written, 20.1 us at 3.35 TB/s, against 17.2 GFLOP, 17.4 us at
-//      989 TFLOP/s: bytes. Each K/V tile is read once per Q tile but
-//      from L2; the design keeps S and P out of device memory. wgmma,
-//      TMA and a pipelined ring of tiles are later work.
+//      989 TFLOP/s: bytes. (b=1, h=4, s=131072, d=128, causal): two
+//      causal products, 17.6 TFLOP, 17.8 ms: operations.
+//      bf16:
+//      - both products on wgmma (m64nNk16, bf16 in, float32 accumulate):
+//        a consumer warpgroup owns 64 Q rows; S = Q K^T reads Q and K
+//        K-major from shared memory; S's accumulator, rounded to bf16 (as
+//        the TPU kernel rounds P), is the register A operand of O += P V,
+//        which reads V MN-major through the descriptor's transpose bit:
+//        no transposed copy of V;
+//      - a producer warpgroup, one thread of which keeps a ring of two
+//        K/V stages full by TMA, a 64-column (128-byte) block of a tile a
+//        copy through a 3-d tensor map {d, s, b*h} whose rows past s read
+//        as zeros (the ragged edge); full and empty mbarriers a stage pace
+//        it against the consumers, with no CTA-wide barrier in the loop;
+//        Q is loaded once. setmaxnreg gives the producer's registers to
+//        the consumers (24 and 240). The blocks land in wgmma's 128-byte
+//        swizzle (64-byte at d = 32), which descriptors read K-major (Q,
+//        K) and MN-major (V) alike. A 16-byte box (one core-matrix column
+//        a copy, the unswizzled layout) took 1.66x the time at 131072,
+//        cp.async by the consumers themselves about 2x;
+//      - 128 Q rows (two consumer warpgroups sharing each stage) and
+//        128-key tiles where d <= 128; 64 and 64 at d = 256, where O's
+//        64 x 256 float32 accumulator would take 128 registers a thread
+//        (one warpgroup spilled 364 bytes): two warpgroups form the same
+//        S and each keeps half of O's columns (col_groups, as the
+//        backward);
+//      - the causal work order: the grid starts at the last Q tile (the
+//        most key tiles), batch*head the fastest grid index;
+//      - only a warp's rows that the causal diagonal or a ragged edge
+//        crosses take the per-element mask; the weights come from
+//        ex2.approx.ftz with the scale folded into one FMA (exp2f took
+//        1.4-7% longer);
+//      - in shift mode no max chain and no rescale of O; the redo check
+//        is an OR over the consumers (a named barrier), whose verdict
+//        reaches the producer through an mbarrier; then both walk the key
+//        tiles again, the ring's phases running on.
+//      float32: 64-row tiles of 64 keys with plain FMA (the card's
+//      float32 check).
 //
 //   flash_bwd   <- _bwd_fused_kernel (B6, _bwd_call, pallas_call :701)
 //                  and _bwd_fused_tiled_kernel (B7,
@@ -149,6 +176,7 @@
 //
 // Every entry returns cudaGetLastError() after its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -162,7 +190,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BM = 64;             // Q rows a CTA
 constexpr int BN = 64;             // keys a tile
 constexpr int BQB = 32;            // Q rows a float32 backward step
-constexpr int MMA_THREADS = 128;   // bf16: 4 warps x 16 rows
 constexpr int F32_THREADS = 256;   // f32: 4 threads a row
 constexpr int DEC_THREADS = 256;   // decode: 8 warps
 constexpr int DEC_WARPS = DEC_THREADS / 32;
@@ -192,20 +219,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -281,6 +294,16 @@ __device__ __forceinline__ void cp_tile(unsigned char* dst, const bf16* src,
     cp_async16(dst + cm_off<CH>(r, c8),
                ok ? src + (row0 + r) * D + c8 * 8 : src, ok ? 16 : 0);
   }
+}
+
+// The descriptor of a tile in wgmma's swizzled layouts (layout 1: 128-byte
+// swizzle, 2: 64-byte): for K-major operands SBO is the stride of 8-row
+// groups (LBO unused), the k16 steps inside a swizzled row 32 bytes apart;
+// for MN-major ones LBO is the stride of SW/2-column blocks along M/N and
+// SBO that of 8-row groups along K.
+__device__ __forceinline__ uint64_t gmma_desc_sw(const void* p, int lbo,
+                                                 int sbo, int layout) {
+  return gmma_desc(p, lbo, sbo) | ((uint64_t)layout << 62);
 }
 
 // wgmma m64nNk16, bf16 in, float32 accumulate, for one warpgroup (128
@@ -485,14 +508,79 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
 }
 
 // ---------------------------------------------------------------------------
-// flash_fwd, bf16 on the tensor cores. Warp w owns Q rows (w&3)*16 ..
-// +15 of the tile and output columns (w>>2)*DW .. +DW-1 (DW = d /
-// col_groups, all of d below 256); lane (g = lane/4, c = lane%4) holds
-// rows g and g+8 of every mma fragment (PTX ISA m16n8k16 layouts), so
-// the row statistics reduce over the 4 lanes of a group and the S
-// accumulators are already P's A fragments. use_shift runs the
-// constant-shift pass first and redoes the tile online only when a row's
-// sum left [SUM_LO, SUM_HI].
+// flash_fwd, bf16 on wgmma. CTA (batch*head, ROWS-row Q tile), the tile
+// with the most key tiles first (blockIdx.y = 0 takes the last Q tile):
+// RWG * CG consumer warpgroups and one producer warpgroup. Consumer i owns
+// Q rows (i % RWG)*64 .. +63 of the tile and their O columns (i / RWG)*DW
+// .. +DW-1 (col_groups: at d 256 two warpgroups form the same S and each
+// keeps half of O): S = Q K^T (m64nBKk16, Q and K K-major from shared
+// memory) and O += P V (P rounded to bf16, the register A operand from S's
+// accumulator; V read MN-major through the descriptor's transpose bit), O
+// and the row statistics in registers. Thread (warp w, lane g*4 + c)
+// holds rows 16w + g and 16w + g + 8 of its 64, so a row's max reduces
+// over the 4 lanes of a quad; its sum is kept a lane and reduced once,
+// after the last tile. The producer fills Q once and a ring of NS stages
+// of K and V by TMA; full/empty mbarriers pace the two sides. use_shift
+// runs the constant-shift pass first and redoes the CTA's tile online
+// only when a row's sum left [SUM_LO, SUM_HI].
+
+// mbarriers and TMA (sm_90). An mbarrier's phase completes when its
+// arrivals (and, after expect_tx, the bytes a TMA copy signs for) are in;
+// mbar_wait(parity) returns once the phase of that parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(b)),
+      "r"(parity)
+      : "memory");
+}
+// One box of a 3-d tensor map {d, s, bh} (a block of columns from c0 of
+// the rows from r0 of head bh) into dst, signed for at mbarrier b; rows
+// past s are zero-filled.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                       int c0, int r0, int bh, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bh),
+      "r"(smem_u32(b))
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// OR of `pred` over the n threads that reach named barrier id.
+__device__ __forceinline__ bool bar_or(int id, int n, bool pred) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred q, p;\nsetp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred p, %2, %3, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)pred), "r"(id), "r"(n)
+      : "memory");
+  return r != 0;
+}
 
 // The shift pass's row sum is kept when it lies in [2^-64, 2^64]: every
 // weight that matters is then a normal float and P V cannot overflow.
@@ -503,159 +591,266 @@ __device__ __forceinline__ bool bad_sum(float l) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS * col_groups<D>())
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ out,
+struct Fwd {
+  static constexpr int CG = col_groups<D>();
+  static constexpr int RWG = D <= 128 ? 2 : 1;  // row warpgroups
+  static constexpr int CWG = RWG * CG;          // consumer warpgroups
+  static constexpr int ROWS = 64 * RWG;
+  static constexpr int NT = 128 * (CWG + 1);    // and the producer's
+  // keys a tile; BK >= ROWS, so that every key tile below a CTA's causal
+  // bound reaches into every warpgroup's rows
+  static constexpr int BK = D <= 128 ? 128 : 64;
+  static_assert(BK >= ROWS, "a warpgroup would skip whole key tiles");
+  static constexpr int NS = 2;                   // ring stages
+  static constexpr int TILE_Q = ROWS * D * 2;
+  static constexpr int TILE_K = BK * D * 2;      // bytes of a K or V tile
+  // tiles as blocks of SW-byte rows (SW/2 columns) in wgmma's SW-byte
+  // swizzle, one TMA box a block; LAYOUT is the descriptors' swizzle code
+  static constexpr int SW = D >= 64 ? 128 : 64;
+  static constexpr int CB = D * 2 / SW;
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;
+  // Q, the ring, then the mbarriers: full and empty a stage, Q's, and the
+  // redo decision's (with its flag); and room to align the tiles to 1024
+  // bytes (the swizzle's period)
+  static constexpr int BARS = TILE_Q + 2 * NS * TILE_K;
+  static constexpr size_t smem() { return 1024 + BARS + (2 * NS + 3) * 8; }
+};
+
+// exp2 on the special-function unit, subnormal results flushed to zero:
+// a weight below 2^-126 of the row's max (or, in shift mode, of 2^shift)
+// adds nothing a float32 sum of the row keeps.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P in place of S for the lane's rows r0 (accumulator elements i with
+// i & 2 == 0) and r0 + 8, keys n0 + (i >> 2) * 8 + c2 + (i & 1):
+// exp2(s * scale_log2 - m), the scale folded into one FMA, against the
+// running max m (ONLINE, taken over the unscaled scores: the scale is
+// positive; al0, al1 rescale O) or the constant shift held in mx0, mx1;
+// NEG_INF where masked (MASKED: the causal diagonal or the ragged edge
+// crosses the warp's rows); l0, l1 are the lane's share of the row sums.
+template <bool MASKED, bool ONLINE, int R>
+__device__ __forceinline__ void fwd_p(float (&s)[R], float& mx0, float& mx1,
+                                      float& l0, float& l1, float& al0,
+                                      float& al1, int64_t n0, int c2,
+                                      int64_t r0, int64_t sk, int causal,
+                                      float scale_log2) {
+  float tm0 = NEG_INF, tm1 = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (MASKED) {
+      const int64_t key = n0 + (i >> 2) * 8 + c2 + (i & 1);
+      if (key >= sk || (causal && key > r0 + (i & 2) * 4)) s[i] = NEG_INF;
+    }
+    if (ONLINE) {
+      if (i & 2) tm1 = fmaxf(tm1, s[i]);
+      else tm0 = fmaxf(tm0, s[i]);
+    }
+  }
+  al0 = al1 = 1.f;
+  if (ONLINE) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+    }
+    const float mn0 = fmaxf(mx0, tm0 * scale_log2);
+    const float mn1 = fmaxf(mx1, tm1 * scale_log2);
+    al0 = ex2(mx0 - mn0);
+    al1 = ex2(mx1 - mn1);
+    mx0 = mn0;
+    mx1 = mn1;
+  }
+  const float b0 = -mx0, b1 = -mx1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float p = ex2(fmaf(s[i], scale_log2, i & 2 ? b1 : b0));
+    s[i] = p;
+    if (i & 2) rs1 += p;
+    else rs0 += p;
+  }
+  l0 = l0 * al0 + rs0;
+  l1 = l1 * al1 + rs1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::NT, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                float* __restrict__ lse, int64_t sq, int64_t sk, int causal,
                float scale_log2, int use_shift, float shift) {
-  constexpr int CG = col_groups<D>(), NT = MMA_THREADS * CG;
-  constexpr int DW = D / CG;   // output columns a warp
-  constexpr int KS = D + 8;    // K tile row stride (bf16), 16-byte aligned
-  constexpr int VS = BN + 8;   // V^T tile row stride
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vt = ks + BN * KS;
-  const int64_t bh = blockIdx.y;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const bf16* qb = q + bh * sq * D;
-  const bf16* kb = k + bh * sk * D;
-  const bf16* vb = v + bh * sk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int cb = (warp >> 2) * DW;  // this warp's first output column
-  const int64_t r0 = m0 + (warp & 3) * 16 + g, r1 = r0 + 8;
-
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
-    const int col = c * 16 + c2;
-    qa[c][0] = r0 < sq ? ld32(qb + r0 * D + col) : 0u;
-    qa[c][1] = r1 < sq ? ld32(qb + r1 * D + col) : 0u;
-    qa[c][2] = r0 < sq ? ld32(qb + r0 * D + col + 8) : 0u;
-    qa[c][3] = r1 < sq ? ld32(qb + r1 * D + col + 8) : 0u;
+  using C = Fwd<D>;
+  constexpr int BK = C::BK, NS = C::NS, CT = 128 * C::CWG;
+  constexpr int DW = D / C::CG;   // O columns a consumer warpgroup
+  constexpr int SW = C::SW, QB = C::ROWS * SW, KB = BK * SW;  // block bytes
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  unsigned char* qs =
+      fwd_smem + ((1024 - (smem_u32(fwd_smem) & 1023)) & 1023);
+  unsigned char* ring = qs + C::TILE_Q;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + C::BARS);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+  uint64_t* redo_bar = qbar + 1;
+  int* redo_flag = reinterpret_cast<int*>(redo_bar + 1);
+  const int bh = blockIdx.x;
+  const int64_t m0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * C::ROWS;
+  const int wgi = threadIdx.x >> 7;
+  const int64_t n_end = causal && m0 + C::ROWS < sk ? m0 + C::ROWS : sk;
+  const int64_t tiles = (n_end + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CT);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(redo_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float o[DW / 8][4];
+  __syncthreads();
+
+  if (wgi == C::CWG) {
+    // the producer: one thread keeps the ring full by TMA, a column block
+    // of a tile a copy; tile t goes to stage t % NS once the consumers
+    // have released the tile NS before it
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * C::CWG) {
+      mbar_expect_tx(qbar, C::TILE_Q);
+      for (int j = 0; j < C::CB; ++j)
+        tma_box(qs + j * QB, &tq, j * SW / 2, (int)m0, bh, qbar);
+      int seq = 0;
+      for (int pass = use_shift ? 0 : 1; pass < 2; ++pass) {
+        for (int64_t it = 0; it < tiles; ++it, ++seq) {
+          const int st = seq % NS;
+          if (seq >= NS) mbar_wait(empty + st, (seq / NS - 1) & 1);
+          unsigned char* ks = ring + st * 2 * C::TILE_K;
+          mbar_expect_tx(full + st, 2 * C::TILE_K);
+          for (int j = 0; j < C::CB; ++j) {
+            tma_box(ks + j * KB, &tk, j * SW / 2, (int)(it * BK), bh,
+                    full + st);
+            tma_box(ks + C::TILE_K + j * KB, &tv, j * SW / 2, (int)(it * BK),
+                    bh, full + st);
+          }
+        }
+        if (pass == 0) {  // the consumers' verdict on the shift pass
+          mbar_wait(redo_bar, 0);
+          if (!*redo_flag) break;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<240>();
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+  const int rw = (wgi % C::RWG) * 64 + warp * 16;  // the warp's first row
+  const int cb = (wgi / C::RWG) * DW;  // the warpgroup's first O column
+  const int qo = (rw - warp * 16) * SW;  // its 64 rows in Q
+  const int64_t r0 = m0 + rw + g, r1 = r0 + 8;
+  mbar_wait(qbar, 0);
+
+  float o[DW / 2];
   float mx0, mx1, l0, l1;
-  const int64_t n_end = causal && m0 + BM < sk ? m0 + BM : sk;
+  int seq = 0;
   for (int pass = use_shift ? 0 : 1; pass < 2; ++pass) {
     const bool online = pass == 1;
 #pragma unroll
-    for (int n = 0; n < DW / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    for (int i = 0; i < DW / 2; ++i) o[i] = 0.f;
     mx0 = mx1 = online ? -INFINITY : shift;
     l0 = l1 = 0.f;
-    for (int64_t n0 = 0; n0 < n_end; n0 += BN) {
-      __syncthreads();  // the previous tile is consumed
-      for (int i = threadIdx.x; i < BN * D / 8; i += NT) {
-        const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (n0 + r < sk) {
-          kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * D + c8);
-          vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * D + c8);
-        }
-        *reinterpret_cast<uint4*>(ks + r * KS + c8) = kv;
-        const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) vt[(c8 + e) * VS + r] = ve[e];
-      }
-      __syncthreads();
+    for (int64_t it = 0; it < tiles; ++it, ++seq) {
+      const int64_t n0 = it * BK;
+      const int st = seq % NS;
+      mbar_wait(full + st, (seq / NS) & 1);
+      const unsigned char* ks = ring + st * 2 * C::TILE_K;
+      const unsigned char* vs = ks + C::TILE_K;
 
-      float s[BN / 8][4];
+      // S = Q K^T: the warpgroup's 64 rows x BK keys
+      float s[BK / 2];
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          const bf16* kp = ks + (j * 8 + g) * KS + c * 16 + c2;
-          mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
-        }
-      }
-      float tm0 = NEG_INF, tm1 = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int64_t key = n0 + j * 8 + c2 + (e & 1);
-          const int64_t row = e < 2 ? r0 : r1;
-          float val = s[j][e] * scale_log2;
-          if (key >= sk || (causal && key > row)) val = NEG_INF;
-          s[j][e] = val;
-        }
-        tm0 = fmaxf(tm0, fmaxf(s[j][0], s[j][1]));
-        tm1 = fmaxf(tm1, fmaxf(s[j][2], s[j][3]));
-      }
-      float mn0 = shift, mn1 = shift, al0 = 1.f, al1 = 1.f;
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_ss<BK, 0, 0>(
+            s,
+            gmma_desc_sw(qs + kc * 32 / SW * QB + qo + kc * 32 % SW, 16,
+                         8 * SW, C::LAYOUT),
+            gmma_desc_sw(ks + kc * 32 / SW * KB + kc * 32 % SW, 16, 8 * SW,
+                         C::LAYOUT),
+            kc > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      // only the diagonal and the ragged last tile take the per-element
+      // mask (rows past sq are never written)
+      const bool masked = (causal && n0 + BK - 1 > m0 + rw) || n0 + BK > sk;
+      float al0, al1;
+#define FWD_P(M, O)                                                       \
+  fwd_p<M, O>(s, mx0, mx1, l0, l1, al0, al1, n0, c2, r0, sk, causal, \
+              scale_log2)
       if (online) {
+        if (masked) FWD_P(true, true);
+        else FWD_P(false, true);
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
-          tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
-        }
-        mn0 = fmaxf(mx0, tm0);
-        mn1 = fmaxf(mx1, tm1);
-        al0 = exp2f(mx0 - mn0);
-        al1 = exp2f(mx1 - mn1);
+        for (int i = 0; i < DW / 2; ++i) o[i] *= i & 2 ? al1 : al0;
+      } else {
+        if (masked) FWD_P(true, false);
+        else FWD_P(false, false);
       }
-      float rs0 = 0.f, rs1 = 0.f;
+#undef FWD_P
+      // O += P V (P rounded to bf16; V read MN-major)
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        s[j][0] = exp2f(s[j][0] - mn0);
-        s[j][1] = exp2f(s[j][1] - mn0);
-        s[j][2] = exp2f(s[j][2] - mn1);
-        s[j][3] = exp2f(s[j][3] - mn1);
-        rs0 += s[j][0] + s[j][1];
-        rs1 += s[j][2] + s[j][3];
+      for (int cc = 0; cc < BK / 16; ++cc) {
+        uint32_t a[4];
+        acc_to_a(a, s, cc);
+        wgmma_rs<DW, 1>(o, a,
+                        gmma_desc_sw(vs + cb * 2 / SW * KB + cc * 16 * SW,
+                                     KB, 8 * SW, C::LAYOUT),
+                        1);
       }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty + st);  // the stage is read
+    }
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-        rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-      }
-      l0 = l0 * al0 + rs0;
-      l1 = l1 * al1 + rs1;
-      mx0 = mn0;
-      mx1 = mn1;
-      if (online) {
-#pragma unroll
-        for (int n = 0; n < DW / 8; ++n) {
-          o[n][0] *= al0;
-          o[n][1] *= al0;
-          o[n][2] *= al1;
-          o[n][3] *= al1;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < BN / 16; ++c) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
-                                pack_bf16(s[2 * c][2], s[2 * c][3]),
-                                pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                                pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-        for (int n = 0; n < DW / 8; ++n) {
-          const bf16* vp = vt + (cb + n * 8 + g) * VS + c * 16 + c2;
-          mma_bf16(o[n], pa, ld32(vp), ld32(vp + 8));
-        }
-      }
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     if (!online) {
+      // redo the CTA's tile online when any row's sum left the range
       const bool bad = (r0 < sq && bad_sum(l0)) || (r1 < sq && bad_sum(l1));
-      if (!__syncthreads_or(bad)) break;  // every row of the tile is final
+      const bool redo = bar_or(1, CT, bad);
+      if (threadIdx.x == 0) {
+        *redo_flag = redo;
+        mbar_arrive(redo_bar);
+      }
+      if (!redo) break;  // every row of the tile is final
     }
   }
-  bf16* ob = out + bh * sq * D;
+
+  bf16* ob = out + (int64_t)bh * sq * D;
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-  for (int n = 0; n < DW / 8; ++n) {
-    const int col = cb + n * 8 + c2;
+  for (int t = 0; t < DW / 8; ++t) {
+    const int col = cb + t * 8 + c2;
     if (r0 < sq)
       *reinterpret_cast<uint32_t*>(ob + r0 * D + col) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+          pack_bf16(o[4 * t] * inv0, o[4 * t + 1] * inv0);
     if (r1 < sq)
       *reinterpret_cast<uint32_t*>(ob + r1 * D + col) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+          pack_bf16(o[4 * t + 2] * inv1, o[4 * t + 3] * inv1);
   }
   if ((lane & 3) == 0 && cb == 0) {
-    if (r0 < sq) lse[bh * sq + r0] = mx0 * LN2 + logf(l0);
-    if (r1 < sq) lse[bh * sq + r1] = mx1 * LN2 + logf(l1);
+    if (r0 < sq) lse[(int64_t)bh * sq + r0] = mx0 * LN2 + logf(l0);
+    if (r1 < sq) lse[(int64_t)bh * sq + r1] = mx1 * LN2 + logf(l1);
   }
 }
 
@@ -1591,21 +1786,76 @@ int set_smem(KernelT kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so that the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (bh, s, d) bf16 tensor as {d, s, bh}, a box sw/2
+// columns of `rows` rows landing in the sw-byte swizzle; rows past s
+// read as zeros.
+int tile_map(CUtensorMap* map, const void* p, int64_t bh, int64_t s, int d,
+             int rows, int sw) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)(s * d * 2)};
+  const cuuint32_t box[3] = {(cuuint32_t)sw / 2, (cuuint32_t)rows, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(p), dims, strides, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 template <int D>
 int launch_flash(int dtype, const void* q, const void* k, const void* v,
                  void* out, float* lse, int64_t bh, int64_t sq, int64_t sk,
                  int causal, float scale_log2, int use_shift, float shift,
                  cudaStream_t st) {
-  const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
   if (dtype == 1) {
-    const size_t smem = sizeof(bf16) * (BN * (D + 8) + D * (BN + 8));
-    int err = set_smem(flash_fwd_bf16<D>, smem);
+    using C = Fwd<D>;
+    const int64_t tiles = (sq + C::ROWS - 1) / C::ROWS;
+    if (tiles > 65535 || bh > INT32_MAX || sq > INT32_MAX || sk > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    int err = tile_map(&tq, q, bh, sq, D, C::ROWS, C::SW);
+    if (!err) err = tile_map(&tk, k, bh, sk, D, C::BK, C::SW);
+    if (!err) err = tile_map(&tv, v, bh, sk, D, C::BK, C::SW);
+    if (!err) err = set_smem(flash_fwd_bf16<D>, C::smem());
     if (err) return err;
-    flash_fwd_bf16<D><<<grid, MMA_THREADS * col_groups<D>(), smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, sq, sk,
-        causal, scale_log2, use_shift, shift);
+    const dim3 grid((unsigned)bh, (unsigned)tiles);
+    flash_fwd_bf16<D><<<grid, C::NT, C::smem(), st>>>(
+        tq, tk, tv, static_cast<bf16*>(out), lse, sq, sk, causal, scale_log2,
+        use_shift, shift);
   } else if (dtype == 0) {
+    const dim3 grid((unsigned)((sq + BM - 1) / BM), (unsigned)bh);
     const size_t smem =
         sizeof(float) * (BM * (D + 1) + BN * (D + 1) + BN * D + BM * (BN + 1));
     int err = set_smem(flash_fwd_f32<D>, smem);
@@ -1882,6 +2132,8 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
       (const void*)flash_bwd_dq_bf16<64>,       // 21
       (const void*)flash_bwd_bf16<32, false>,   // 22
       (const void*)flash_bwd_bf16<64, false>,   // 23
+      (const void*)flash_fwd_bf16<32>,          // 24
+      (const void*)flash_fwd_bf16<64>,          // 25
   };
   if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
     return (int)cudaErrorInvalidValue;
@@ -1893,19 +2145,22 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
   return 0;
 }
 
-// The bf16 backward kernels' dynamic shared memory a CTA, as their
+// The bf16 flash kernels' dynamic shared memory a CTA, as their
 // launchers set it, and the CTAs an SM holds at that size. which: 0 =
-// flash_bwd, 1 = flash_bwd_dq, 2 = flash_bwd_dkv. d: 32, 64, 128 or 256.
-int icikit_flash_bwd_occupancy(int which, int d, int* smem_bytes,
-                               int* ctas_per_sm) {
+// flash_bwd, 1 = flash_bwd_dq, 2 = flash_bwd_dkv, 3 = flash_fwd. d: 32,
+// 64, 128 or 256.
+int icikit_flash_occupancy(int which, int d, int* smem_bytes,
+                           int* ctas_per_sm) {
 #define OCC(D)                                                             \
   (which == 0   ? occupancy(flash_bwd_bf16<D, true>, BwdKv<D, true>::NT,   \
                             BwdKv<D, true>::smem(), smem_bytes, ctas_per_sm) \
    : which == 1 ? occupancy(flash_bwd_dq_bf16<D>, BwdQ<D>::NT,             \
                             BwdQ<D>::smem(), smem_bytes, ctas_per_sm)        \
-                : occupancy(flash_bwd_bf16<D, false>, BwdKv<D, false>::NT,  \
-                            BwdKv<D, false>::smem(), smem_bytes, ctas_per_sm))
-  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+   : which == 2 ? occupancy(flash_bwd_bf16<D, false>, BwdKv<D, false>::NT,  \
+                            BwdKv<D, false>::smem(), smem_bytes, ctas_per_sm) \
+                : occupancy(flash_fwd_bf16<D>, Fwd<D>::NT, Fwd<D>::smem(),  \
+                            smem_bytes, ctas_per_sm))
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   if (d == 128) return OCC(128);
   if (d == 64) return OCC(64);
   if (d == 32) return OCC(32);

@@ -4,7 +4,9 @@ Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
 its own shared library under ``icikit_torch/build/``, named by a hash of
 its source, so an edited source rebuilds and an unchanged one loads at
 once. Sources compile in parallel, one ``nvcc`` each. A failed build
-raises: there is no fallback.
+raises: there is no fallback. ``build_sources`` builds other versions of
+a library the same way (a source path, an output directory and extra
+nvcc flags in the hash), for A/B benches.
 
 The libraries have a plain C interface (no PyTorch headers), so a build
 takes seconds. Pointers and the stream pass as ``c_void_p``, sizes as
@@ -61,7 +63,7 @@ _SIGNATURES = {
         "icikit_decode_step_q8": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _I64, _I64, _I32, _I64, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
-        "icikit_flash_bwd_occupancy": [_I32, _I32, _IP, _IP],
+        "icikit_flash_occupancy": [_I32, _I32, _IP, _IP],
     },
     "xent": {
         "icikit_xent_fwd": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -118,28 +120,61 @@ def nvcc_path() -> str:
         "built from csrc/ at first use and have no fallback")
 
 
-def _target(name: str) -> tuple[str, str]:
-    src = os.path.join(CSRC, f"{name}.cu")
+def _target(name: str, src: str | None = None, out_dir: str = BUILD_DIR,
+            flags=()) -> tuple[str, str]:
+    src = src or os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        digest = hashlib.sha256(f.read() + " ".join([*ARCH_FLAGS, *flags])
+                                .encode()).hexdigest()[:16]
+    return src, os.path.join(out_dir, f"lib{name}-{digest}.so")
 
 
-def _start(name: str):
-    """Start ``nvcc`` for ``name`` unless its library is built; returns
-    (so path, process, temporary output, start time), the last three
-    None when the library is already built."""
-    src, so = _target(name)
+def _start(name: str, src: str | None = None, out_dir: str = BUILD_DIR,
+           flags=()):
+    """Start ``nvcc`` for ``name`` (``csrc/{name}.cu`` unless ``src`` is
+    given) unless its library is built; returns (so path, process,
+    temporary output, start time), the last three None when the library
+    is already built."""
+    src, so = _target(name, src, out_dir, flags)
     if os.path.isfile(so):
         return so, None, None, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", *flags, "-shared",
            "-Xcompiler", "-fPIC", "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return so, proc, tmp, time.perf_counter()
+
+
+def _finish(name: str, so: str, proc, tmp, t0, optional: bool = False):
+    """Wait for one build started by ``_start``, load the library and
+    bind ``name``'s C signatures (only those it exports when
+    ``optional``); returns (library, nvcc's output, seconds or None when
+    it was built before). nvcc's output is kept beside the library."""
+    log = so[:-3] + ".log"
+    if proc is None:
+        seconds = None
+    else:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} "
+                               f"(exit {proc.returncode}):\n{out}")
+        with open(log, "w") as f:
+            f.write(out)
+        os.replace(tmp, so)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in _SIGNATURES[name].items():
+        if optional and not hasattr(lib, fn):
+            continue
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    output = ""
+    if os.path.isfile(log):
+        with open(log) as f:
+            output = f.read()
+    return lib, output, seconds
 
 
 def build(names=None) -> dict:
@@ -149,24 +184,30 @@ def build(names=None) -> dict:
     with _lock:
         todo = [n for n in names if n not in _libs]
         started = {n: _start(n) for n in todo}
-        for n, (so, proc, tmp, t0) in started.items():
-            if proc is None:
-                BUILD_LOG[n] = {"seconds": 0.0, "cached": True}
-            else:
-                out, _ = proc.communicate()
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for csrc/{n}.cu "
-                        f"(exit {proc.returncode}):\n{out}")
-                os.replace(tmp, so)
-                BUILD_LOG[n] = {"seconds": time.perf_counter() - t0,
-                                "cached": False}
-            lib = ctypes.CDLL(so)
-            for fn, argtypes in _SIGNATURES[n].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _libs[n] = lib
+        for n, args in started.items():
+            _libs[n], _, seconds = _finish(n, *args)
+            BUILD_LOG[n] = {"seconds": seconds or 0.0,
+                            "cached": seconds is None}
         return {n: _libs[n] for n in names}
+
+
+def build_sources(name: str, sources: dict, out_dir: str, flags=()) -> dict:
+    """Build (in parallel) other versions of library ``name``:
+    ``sources`` maps a key to a source path, each built with the extra
+    nvcc ``flags`` into ``out_dir`` (named by a hash of the source and
+    the flags) and bound to ``name``'s signatures where it exports them.
+    Returns ``{key: (ctypes.CDLL, nvcc's output)}``; the output is the
+    one of the build that made the library."""
+    flags = tuple(flags)
+    paths = {k: _target(name, src, out_dir, flags)[1]
+             for k, src in sources.items()}
+    started = {}  # one build a library, however many keys name it
+    for k, src in sources.items():
+        if paths[k] not in started:
+            started[paths[k]] = _start(name, src, out_dir, flags)
+    built = {so: _finish(name, *args, optional=True)[:2]
+             for so, args in started.items()}
+    return {k: built[so] for k, so in paths.items()}
 
 
 def load(name: str):

@@ -4,8 +4,9 @@ versions.
 ``tile_mxu`` and ``tile_ablate`` launch ``csrc/tile_floor.cu``'s
 kernels, which replace ``icikit/bench/tile_floor.py``'s ``_mxu_kernel``
 (B17, pallas_call at :174) and ``_ablate_kernel`` (B17, :199). Both run
-``flash_fwd``'s tile loop (64-row Q tiles, 64-key K/V tiles, four warps,
-mma.sync) over the full rectangle of tiles:
+the tile loop of ``flash_fwd``'s first design, kept as the study's fixed
+reference (64-row Q tiles, 64-key K/V tiles, four warps, mma.sync), over
+the full rectangle of tiles:
 
 - ``tile_mxu``: o = sum over key tiles of bf16(q k^T * scale_log2) v, the
   two products with the least glue and no softmax statistics;
@@ -33,7 +34,7 @@ from icikit_torch.ops import _build
 
 LAUNCHES = {"tile_mxu": 0, "tile_ablate": 0}
 
-# The kernels' geometry: flash_fwd's 64-row Q and 64-key K/V tiles.
+# The kernels' geometry: 64-row Q and 64-key K/V tiles.
 TILE = 64
 HEAD_DIMS = (64, 128)
 

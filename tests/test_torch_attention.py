@@ -86,6 +86,35 @@ def test_flash_forward_matches_jax_bfloat16(s, causal, d, block_k):
                                rtol=0)
 
 
+# Lengths that are not multiples of 128 but that JAX's flash route takes
+# (one Q block of s <= 1024 with s % 8 == 0, _pick_q_block; K blocks of a
+# multiple of 8 dividing s, here five), at the head dims whose kernel
+# tiles differ on the card (d 64: 128-row CTAs and 128-key tiles; d 256:
+# 64 and 64), online and with the constant shift, causal and full.
+EDGE_CASES = [(s, bk, d, shift, causal)
+              for s, bk in ((200, 40), (520, 104)) for d in (64, 256)
+              for shift in (None, 16.0) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("s,block_k,d,shift,causal", EDGE_CASES)
+def test_flash_forward_at_ragged_lengths_matches_jax(s, block_k, d, shift,
+                                                     causal):
+    assert jfa._flash_supported(s, s, causal) is not None  # JAX's flash
+    q, k, v = _inputs(s + d, [(1, s, 2, d)] * 3, "float32")
+    want_o, want_l = jfa.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_k=block_k, softmax_shift=shift)
+    cuda_attention.reset_launches()
+    got_o, got_l = tfa.flash_attention_with_lse(
+        from_jax(q), from_jax(k), from_jax(v), causal=causal,
+        softmax_shift=shift)
+    assert cuda_attention.LAUNCHES["flash_fwd"] == 0  # CPU: plain version
+    np.testing.assert_allclose(to_jax(got_o), np.asarray(want_o), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(to_jax(got_l), np.asarray(want_l), atol=1e-5,
+                               rtol=0)
+
+
 def test_dense_fallback_for_causal_cross_lengths():
     """causal with s_q != s_kv is the one shape both packages send to
     the dense oracle (end-aligned mask)."""

@@ -138,12 +138,111 @@ def test_decode_byte_model_int8_matches_jax(bytes_dtype):
 
 
 def test_flash_bwd_ab_refuses_without_a_card(monkeypatch):
-    """The backward A/B bench times kernels on the card only: without
-    one it exits before building anything."""
+    """The flash A/B bench (its backward kernels here) times kernels on
+    the card only: without one it exits before building anything."""
     import torch
 
-    from icikit_torch.bench import flash_bwd_ab
+    from icikit_torch.bench import flash_ab
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
-        flash_bwd_ab.main(["--a", "a.cu", "--b", "b.cu"])
+        flash_ab.main(["--a", "a.cu", "--b", "b.cu", "--kernels", "bwd"])
+
+
+def test_flash_ab_forward_shapes_and_bounds():
+    """The forward's A/B shapes are the paths' (online at the prefill
+    and at 131072, shift 16 at the train step's and the many-block
+    shape), with the bounds that PERF.md carries for them: bytes at the
+    prefill and the train step, the two causal products at the others;
+    an unknown shape or kernel is refused before anything builds."""
+    from icikit_torch.bench import flash_ab
+
+    assert flash_ab.FWD_SHAPES == {
+        "B3": ((8, 8, 512, 128), None),
+        "B5-shift": ((8, 8, 1024, 128), 16.0),
+        "B4": ((1, 8, 2048, 128), 16.0),
+        "long": ((1, 4, 131072, 128), None)}
+    want = {"B3": (0.01006, "bytes"), "B5-shift": (0.02011, "bytes"),
+            "B4": (0.00869, "operations"), "long": (17.788, "operations")}
+    for tag, (ms, by) in want.items():
+        got_ms, got_by = flash_ab.bound_ms("fwd", flash_ab.FWD_SHAPES[tag][0])
+        assert got_by == by and got_ms == pytest.approx(ms, rel=1e-3), tag
+    # the backward's B8 bound: the five causal products, 44.47 ms
+    ms, by = flash_ab.bound_ms("bwd", flash_ab.BWD_SHAPES["B8"])
+    assert by == "operations" and ms == pytest.approx(44.47, rel=1e-3)
+    for argv in (["--kernels", "fwd,xyz"], ["--fwd-shapes", "B9"]):
+        with pytest.raises(SystemExit):
+            flash_ab.main(["--a", "a.cu", "--b", "b.cu", *argv])
+
+
+def test_flash_ab_holds_b_to_a(monkeypatch):
+    """B's outputs are held to A's block by block: a late block whose
+    entries are small and wrong fails the block relative L2 though its
+    error is small beside the largest entry; a run whose outputs departed
+    exits 1 unless --timing-only."""
+    import torch
+
+    from icikit_torch.bench import flash_ab
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((1, 2, 256, 32), generator=gen)
+    a[:, :, 128:] *= 1e-3
+    b = a.clone()
+    b[:, :, 192:] = -b[:, :, 192:]
+    assert flash_ab._rel(b, a) < flash_ab.TOL["block_rel_l2"]
+    assert flash_ab.block_rel_l2(b, a) == pytest.approx(2.0)
+    assert flash_ab.block_rel_l2(a, a) == 0.0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        monkeypatch.setattr(flash_ab, "run", lambda *args, ok=ok: ok)
+        argv = ["--a", "a.cu", "--b", "b.cu"]
+        assert flash_ab.main(argv) == (0 if ok else 1)
+        assert flash_ab.main([*argv, "--timing-only"]) == 0
+
+
+def test_build_keys_libraries_by_source_and_flags(tmp_path):
+    """A library is named by a hash of its source and its nvcc flags, in
+    the directory asked for: another source, or the same source with
+    other flags, builds anew; the package's own sources keep the key
+    they had (the flags alone)."""
+    from icikit_torch.ops import _build
+
+    src = tmp_path / "a.cu"
+    src.write_text("// one\n")
+    out = str(tmp_path / "ab")
+    _, plain = _build._target("attention", str(src), out)
+    _, verbose = _build._target("attention", str(src), out,
+                                ("-Xptxas", "-v"))
+    assert os.path.dirname(plain) == out and plain != verbose
+    assert os.path.basename(plain).startswith("libattention-")
+    src.write_text("// two\n")
+    assert _build._target("attention", str(src), out)[1] != plain
+    own_src, own = _build._target("attention")
+    assert own_src == os.path.join(_build.CSRC, "attention.cu")
+    assert os.path.dirname(own) == _build.BUILD_DIR
+
+
+def test_build_sources_builds_a_library_once(monkeypatch, tmp_path):
+    """Two keys naming the same source and flags share one build (one
+    nvcc, one temporary file), and each key gets the library."""
+    from icikit_torch.ops import _build
+
+    src = tmp_path / "a.cu"
+    src.write_text("// one\n")
+    other = tmp_path / "b.cu"
+    other.write_text("// two\n")
+    calls = []
+
+    def start(name, s, out_dir, flags):
+        calls.append(s)
+        return s, None, None, None
+
+    monkeypatch.setattr(_build, "_start", start)
+    monkeypatch.setattr(_build, "_finish",
+                        lambda name, so, *a, optional: (so, "log", None))
+    got = _build.build_sources("attention", {"A": str(src), "B": str(src),
+                                             "C": str(other)},
+                               str(tmp_path / "ab"), ["-Xptxas", "-v"])
+    assert calls == [str(src), str(other)]
+    assert got == {"A": (str(src), "log"), "B": (str(src), "log"),
+                   "C": (str(other), "log")}

@@ -114,10 +114,17 @@ def no_tf32(gen):
     return gen
 
 
+# The flash kernels' edges: lengths on and beside their tiles (64 or 128
+# rows or keys a ring stage, 64 or 128 Q rows or keys a CTA), at every
+# head dim built.
+BWD_EDGE_SHAPES = [(s, d) for s in (65, 127, 129, 1000, 4097)
+                   for d in (32, 64, 128, 256)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
-                                 (200, 256)])
+                                 (200, 256)] + BWD_EDGE_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_matches_plain(dtype, tol, s, d, causal, no_tf32):
     gen = no_tf32
@@ -192,12 +199,6 @@ def _grad_close(got, want, rel):
                                    atol=rel * scale)
 
 
-# The backward kernels' edges: lengths on and beside their tiles (64 rows
-# or keys a ring stage, 64 or 128 a CTA), at every head dim built.
-BWD_EDGE_SHAPES = [(s, d) for s in (65, 127, 129, 1000, 4097)
-                   for d in (32, 64, 128, 256)]
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,d", [(64, 128), (200, 128), (512, 64),
                                  (256, 32), (200, 256)] + BWD_EDGE_SHAPES)
@@ -238,6 +239,47 @@ def test_flash_shift_overflow_redoes_the_tile_online(dtype, no_tf32):
                                atol=1e-5 if dtype == torch.float32
                                else 2e-2)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=0)
+
+
+# The overflow redo at the forward's tile edges: q x 400 only in the
+# second warpgroup's 64 rows of each 128-row CTA (rows 64-127 and 192-255
+# of s 256), and only in the ragged last Q tile of s 1000 (rows 960-999).
+REDO_EDGES = [(256, ((64, 128), (192, 256))), (1000, ((960, 1000),))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s,hot", REDO_EDGES)
+def test_flash_shift_overflow_redo_at_the_tile_edges(dtype, d, s, hot,
+                                                     no_tf32):
+    """The CTA-wide redo catches hot rows wherever they lie in the tile:
+    their rows carry the online pass's bits, and every row stays within
+    the plain version's (which falls back row by row) tolerance; the hot
+    rows' lse errors relative to their largest |lse|, as phase 10 of
+    chip_smoke.py holds q x 400, the other rows' absolute."""
+    gen = no_tf32
+    q, k, v = (_randn((1, 4, s, d), dtype, gen) for _ in range(3))
+    for a, b in hot:
+        q[:, :, a:b] = (q[:, :, a:b].float() * 400.0).to(dtype)
+    out, lse = ca.flash_fwd(q, k, v, True, 0.125, shift=16.0)
+    ref, ref_lse = ca.flash_fwd(q, k, v, True, 0.125)
+    want, want_lse = ca.flash_fwd_plain(q, k, v, True, 0.125, shift=16.0)
+    assert bool(torch.isfinite(lse).all()) and bool(
+        torch.isfinite(out.float()).all())
+    rows = torch.cat([torch.arange(a, b) for a, b in hot]).cuda()
+    assert torch.equal(out[:, :, rows], ref[:, :, rows])
+    assert torch.equal(lse[:, :, rows], ref_lse[:, :, rows])
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=1e-4 if f32 else 2e-2)
+    tol = 1e-4 if f32 else 1e-3
+    is_hot = torch.zeros(s, dtype=torch.bool, device=rows.device)
+    is_hot[rows] = True
+    torch.testing.assert_close(
+        lse[:, :, is_hot], want_lse[:, :, is_hot], rtol=0,
+        atol=tol * float(want_lse[:, :, is_hot].abs().max()))
+    torch.testing.assert_close(lse[:, :, ~is_hot], want_lse[:, :, ~is_hot],
+                               rtol=0, atol=tol)
 
 
 def test_flash_attention_runs_the_tiny_head_dim(gen):
