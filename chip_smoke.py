@@ -7,7 +7,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``).
 2. build: the kernels from ``icikit_torch/csrc`` with ``nvcc`` (sm_90a),
-   with each listed kernel's registers and local (spill) bytes a thread.
+   with each listed kernel's registers and local (spill) bytes a thread;
+   the Adam and save-stack kernels must use no local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 and K2 alone, ``local_sort`` at 2^16 and 2^20 for int32,
    float32, uint32 and bfloat16 plus a non-power-of-two length, and
@@ -77,14 +78,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    1024, bf16, with the recompute head (B10 recompute), the matmul head
    backward after the saved and the recompute forward (B11), and the
    one-pass Adam kernel (B12, float32 moments, as ``bench/train.py
-   --optimizer fused-pallas``). Each arm's launches a step asserted; at b
+   --optimizer fused-pallas``: one launch a step over the whole tree).
+   Each arm's launches a step asserted; at b
    2 and float32 each arm held against the plain arms (dense attention,
    unfused head, PyTorch Adam) and the default arm: loss within 1e-4,
    every gradient leaf (the Adam arm: every parameter leaf after a step)
    within a relative L2 error of 1e-3; then step ms, tokens/s and mfu by
    phase 11's median-of-windows (one function runs every arm); the
-   standalone Adam bench (``bench/adam.py``, 211 M parameters); and the
-   kernels of this phase timed at the arms' shapes.
+   standalone Adam bench (``bench/adam.py``, 211 M parameters, bf16 and
+   float32 gradients); and the kernels of this phase timed at the arms'
+   shapes: the Adam kernel over the base tree at the step's gradient
+   dtypes and at float32 gradients, each beside the bound of its own
+   bytes, ``torch._fused_adam_`` at float32 gradients beside the second.
 15. the long-context path: ``bench.attention.sweep_attention`` at s =
    32768 and 131072, b 1, h 4, d 128, bf16, causal, fwdbwd, impl
    ``flash``: one ``flash_bwd`` launch at 32768 and one of each two-pass
@@ -152,7 +157,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    first-step loss and the loss falling over 5 steps; step ms, tokens/s
    and mfu by phase 11's median-of-windows beside a second run of the
    default arm, and the idle share from a ``torch.profiler`` trace; then
-   B16's kernels timed at the residual slice beside ``copy_``.
+   B16's kernels timed cold at the residual slice (the 12 slices of the
+   stack in rotation, device time behind a sleep kernel) beside
+   ``copy_`` timed the same way, their device time a launch in the
+   step's trace, the host's time a call (the full per-call path, the
+   layer loop's checked-once copier and ``copy_``) and the card's copy
+   rate at 1 GiB.
 24. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
@@ -164,6 +174,7 @@ last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -222,7 +233,8 @@ BLOCK_ROWS = 64
 BLOCK_L2_TOL = {"bf16": 1e-2, "f32": 1e-4}
 # The train arms (phases 11 and 14): config overrides, FusedAdam's
 # use_pallas, and the kernels the arm launches once a step (the Adam
-# kernel once a floating leaf) beside flash_fwd, flash_bwd and xent_fwd
+# kernel once, over the whole tree) beside flash_fwd, flash_bwd and
+# xent_fwd
 ARMS = {"default": ({}, False, ("xent_dx_saved", "xent_dw_saved")),
         "head-recompute": (dict(xent_save_exp=False), False,
                            ("xent_dx", "xent_dw")),
@@ -242,6 +254,10 @@ SAVE_STACK_ARM = (dict(save_stack="pallas"), False,
                   ("xent_dx_saved", "xent_dw_saved"))
 SAVE_STACK_LAUNCHES = {"stack_write": 12 * 7, "stack_read": 12,
                        "flash_fwd": 24, "flash_bwd": 12}
+# Phase 2: kernels that must use no local memory (registers only)
+NO_LOCAL_MEMORY = ("adam_tree_kernel<f32 moments>",
+                   "adam_tree_kernel<bf16 moments>", "stack_write_kernel",
+                   "stack_read_kernel")
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
 # (h, seq) at head dims 64 and 128; the check tolerance, relative to the
 # largest |plain| entry
@@ -866,10 +882,9 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
     torch.cuda.synchronize()
     launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
     losses.append(float(loss))
-    n_float = sum(torch.is_floating_point(x) for x in params.values())
     want = {**dict.fromkeys(launches, 0), "flash_fwd": cfg.n_layers,
             "flash_bwd": cfg.n_layers, "xent_fwd": 1,
-            **{k: n_float if k == "adam" else 1 for k in kernels}}
+            **dict.fromkeys(kernels, 1)}
     if cfg.save_stack == "pallas":
         want.update(SAVE_STACK_LAUNCHES)
     ok = ok and launches == want
@@ -1199,8 +1214,10 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
     """Phase 14: the base train step through each of the other arms;
     returns the rows of the kernels these arms launch."""
     from icikit_torch.bench.adam import run_bench as adam_bench
+    from icikit_torch.bench.stream_ab import adam_bytes, device_ms
+    from icikit_torch.ops import cuda_adam
     from icikit_torch.ops import cuda_xent as cx
-    from icikit_torch.ops.adam import adam_apply
+    from icikit_torch.ops.adam import adam_scalars
     from icikit_torch.utils.timing import cuda_time_ms
 
     t0 = time.perf_counter()
@@ -1214,8 +1231,11 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
     if not all(r["ok"] for r in results.values()):
         raise AssertionError(f"a train arm failed: {results}")
 
-    # the standalone Adam bench: 211 M parameters, float32 moments
-    recs = adam_bench(211.0, runs=2, device=dev, windows=3)
+    # the standalone Adam bench: 211 M parameters, float32 moments, bf16
+    # and float32 gradients (the library's yardstick takes float32)
+    recs = [r for gdt in ("bfloat16", "float32")
+            for r in adam_bench(211.0, runs=2, grad_dtype=gdt, device=dev,
+                                windows=3)]
     emit({"phase": "adam_bench", "card": smi, "records": recs})
 
     # the kernels of this phase at the arms' shapes
@@ -1273,39 +1293,49 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
     del x, w, e, mrun
     torch.cuda.empty_cache()
 
-    # Adam over the base tree as the fused-pallas arm runs it
-    tree = {k: x.clone() for k, x in cell["params"].items()}
-    grads = _base_tree_grads(torch, tree, gen, bf)
-    mom = [{k: torch.zeros_like(x) for k, x in tree.items()}
-           for _ in range(2)]
-    step_t = torch.tensor(1, device=dev)
-    a_ms = cuda_time_ms(lambda: adam_apply(tree, *mom, grads, TRAIN_LR,
-                                           step_t, use_pallas=True),
-                        iters=10, warmup=2)
-    a_plain = cuda_time_ms(lambda: adam_apply(tree, *mom, grads, TRAIN_LR,
-                                              step_t), iters=5, warmup=1)
-    g32 = [grads[k].float() for k in tree]
+    # Adam over the base tree as the fused-pallas arm runs it: the tree
+    # kernel at the step's gradient dtypes and at float32 gradients, the
+    # library's fused Adam at float32 gradients (the same bytes as the
+    # second), each beside the bound of its own bytes; device time by
+    # CUDA events over calls queued behind a sleep kernel
+    keys = list(cell["params"])
+    tree = [cell["params"][k].clone() for k in keys]
+    g_step = _base_tree_grads(torch, cell["params"], gen, bf)
+    g_step = [g_step[k] for k in keys]
+    g32 = [g.float() for g in g_step]
+    mom = [[torch.zeros_like(x) for x in tree] for _ in range(2)]
+    sc = adam_scalars(TRAIN_LR, torch.tensor(1, device=dev))
+    a_launches = results["adam-kernel"]["launches_per_step"]["adam"]
     steps = [torch.ones((), device=dev) for _ in tree]
-    a_lib = cuda_time_ms(lambda: torch._fused_adam_(
-        list(tree.values()), g32, list(mom[0].values()),
-        list(mom[1].values()), [], steps, amsgrad=False, lr=TRAIN_LR,
-        beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
-        maximize=False), iters=10, warmup=2)
-    a_bytes = sum(x.numel() * (24 + grads[k].element_size())
-                  for k, x in tree.items())
-    p1 = {k: x.clone() for k, x in tree.items()}
-    m1 = [{k: x.clone() for k, x in mm.items()} for mm in mom]
-    adam_apply(p1, *m1, grads, TRAIN_LR, step_t, use_pallas=True)
-    adam_apply(tree, *mom, grads, TRAIN_LR, step_t)
-    a_err = max(float((p1[k] - tree[k]).abs().max()) for k in tree)
-    kernel_rows.append({
-        "name": "adam (B12), base tree, float32 moments", "route": "cuda",
-        "source": "icikit_torch/csrc/adam.cu",
-        "replaces": "icikit/ops/adam.py:71 (B12, _adam_kernel)",
-        "launches": results["adam-kernel"]["launches_per_step"]["adam"],
-        "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
-        "bound_ms": a_bytes / bw * 1e3, "bound_by": "bytes",
-        "library_ms": a_lib})
+    a_lib = device_ms(lambda: torch._fused_adam_(
+        tree, g32, *mom, [], steps, amsgrad=False, lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, maximize=False), 10, 500.0)
+    adam_info = {}
+    for tag, gs in (("the step's gradients", g_step),
+                    ("float32 gradients", g32)):
+        a_ms = device_ms(lambda: cuda_adam.adam_tree(
+            tree, *mom, gs, sc, 0.9, 0.999, 1e-8), 10, 500.0)
+        a_plain = device_ms(lambda: cuda_adam.adam_tree_plain(
+            tree, *mom, gs, sc, 0.9, 0.999, 1e-8), 3, 5000.0)
+        runs = []
+        for kern in (cuda_adam.adam_tree, cuda_adam.adam_tree_plain):
+            st = [[x.clone() for x in t] for t in (tree, *mom)]
+            kern(*st, gs, sc, 0.9, 0.999, 1e-8)
+            runs.append(st)
+        a_err = max(float((a - b).abs().max()) for x, y in zip(*runs)
+                    for a, b in zip(x, y))
+        del runs
+        a_bytes = adam_bytes(tree, gs)
+        adam_info[tag] = {"bytes": a_bytes, "ms": a_ms,
+                          "tb_per_s": a_bytes / (a_ms * 1e-3) / 1e12}
+        kernel_rows.append({
+            "name": f"adam (B12), base tree, {tag}", "route": "cuda",
+            "source": "icikit_torch/csrc/adam.cu",
+            "replaces": "icikit/ops/adam.py:71 (B12, _adam_kernel)",
+            "launches": a_launches, "max_abs_err": a_err, "ms": a_ms,
+            "plain_ms": a_plain, "bound_ms": a_bytes / bw * 1e3,
+            "bound_by": "bytes",
+            "library_ms": a_lib if tag == "float32 gradients" else None})
     torch.cuda.synchronize()
     emit({"phase": "train_arm_timing_kernels",
           "xent": f"T={t} D={d} V={v} bf16", "matmul_x_wT_ms": mm_ms,
@@ -1313,16 +1343,18 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
                           "from recomputed logits; torch.matmul of x w^T "
                           "alone (cuBLAS) beside it",
           "adam": f"the base tree, {len(tree)} leaves, float32 moments, "
-                  "the step's gradient dtypes (matmul weights bf16), "
-                  f"{a_bytes} bytes; ms for the whole tree, one launch "
-                  "a leaf",
+                  "at the step's gradient dtypes (matmul weights bf16) "
+                  "and at float32 gradients; ms for the whole tree, one "
+                  "launch, device time behind a sleep kernel",
+          "adam_rows": adam_info, "adam_library_ms": a_lib,
           "adam_library": "torch._fused_adam_ over the same tree with "
-                          "float32 gradients (28 B an element), a "
-                          "yardstick: torch's Adam without weight decay "
-                          "is optax's with eps_root = 0",
+                          "float32 gradients (28 B an element, the bytes "
+                          "of the float32-gradient row), a yardstick: "
+                          "torch's Adam without weight decay is optax's "
+                          "with eps_root = 0",
           "max_abs_err": "xent rows relative to the largest entry; adam "
-                         "absolute, parameters after one step"})
-    del tree, grads, mom, p1, m1, g32
+                         "absolute, p, m and v after one update"})
+    del tree, g_step, g32, mom
     torch.cuda.empty_cache()
     return kernel_rows
 
@@ -2241,8 +2273,8 @@ def save_stack_path(torch, dev, bw, smi, default_ms) -> list:
     and float32 against the default and plain arms, then timed beside a
     second run of the default arm; returns B16's rows at the path's
     shapes."""
+    from icikit_torch.bench.stream_ab import device_ms, run_copy, run_host
     from icikit_torch.ops import cuda_stack as cst
-    from icikit_torch.utils.timing import cuda_time_ms
 
     t0 = time.perf_counter()
     cell = train_cell(torch, dev)
@@ -2266,25 +2298,36 @@ def save_stack_path(torch, dev, bw, smi, default_ms) -> list:
     del cell
     torch.cuda.empty_cache()
 
-    # B16's kernels at the residual slice, the path's largest
+    # B16's kernels at the residual slice, the path's largest, cold: the
+    # 12 slices of a (12, ...) stack in rotation (192 MiB, past the 50 MB
+    # L2); device time a launch by CUDA events over launches queued
+    # behind a sleep kernel, beside copy_ timed the same way
     gen = torch.Generator(device=dev).manual_seed(11)
     shape = STACK_SLICES["residual"][0]
-    stack = torch.randn((SAVE_STACK_LAUNCHES["stack_read"],) + shape,
-                        generator=gen, device=dev).to(torch.bfloat16)
+    n_slices = SAVE_STACK_LAUNCHES["stack_read"]
+    stack = torch.randn((n_slices,) + shape, generator=gen,
+                        device=dev).to(torch.bfloat16)
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     out = torch.empty_like(x)
     nbytes = x.numel() * 2
     launches = rec["launches_per_step"]
+    traced = {k: v for k, v in rec["profile"]["by_name"].items()
+              if k.startswith("stack_")}
+
+    def rotating(fn):
+        it = itertools.cycle(range(n_slices))
+        return lambda: fn(next(it))
+
     rows = []
     for key, kern, plain, lib, check in (
-            ("stack_write", lambda: cst.stack_write(stack, x, 5),
-             lambda: cst.stack_write_plain(stack, x, 5),
-             lambda: stack[5].copy_(x),
+            ("stack_write", lambda i: cst.stack_write(stack, x, i),
+             lambda i: cst.stack_write_plain(stack, x, i),
+             lambda i: stack[i].copy_(x),
              lambda: float((cst.stack_write(stack.clone(), x, 5)[5].float()
                             - x.float()).abs().max())),
-            ("stack_read", lambda: cst.stack_read(stack, 5),
-             lambda: cst.stack_read_plain(stack, 5),
-             lambda: out.copy_(stack[5]),
+            ("stack_read", lambda i: cst.stack_read(stack, i),
+             lambda i: cst.stack_read_plain(stack, i),
+             lambda i: out.copy_(stack[i]),
              lambda: float((cst.stack_read(stack, 5).float()
                             - stack[5].float()).abs().max()))):
         rows.append({
@@ -2294,25 +2337,29 @@ def save_stack_path(torch, dev, bw, smi, default_ms) -> list:
                          "_write_kernel)" if key == "stack_write" else
                          "icikit/ops/stack_write.py:158 (B16, _read_kernel)"),
             "launches": launches[key], "max_abs_err": check(),
-            "ms": cuda_time_ms(kern, iters=50, warmup=5),
-            "plain_ms": cuda_time_ms(plain, iters=50, warmup=5),
+            "ms": device_ms(rotating(kern), 240, 60.0),
+            "plain_ms": device_ms(rotating(plain), 240, 60.0),
             "bound_ms": 2 * nbytes / bw * 1e3, "bound_by": "bytes",
-            "library_ms": cuda_time_ms(lib, iters=50, warmup=5)})
+            "library_ms": device_ms(rotating(lib), 240, 60.0)})
     torch.cuda.synchronize()
-    traced = {k: v for k, v in rec["profile"]["by_name"].items()
-              if k.startswith("stack_")}
-    emit({"phase": "save_stack_timing_kernels",
-          "shape": f"the residual slice {list(shape)} bf16 ({nbytes} "
-                   f"bytes) of a ({SAVE_STACK_LAUNCHES['stack_read']}, "
-                   "...) stack",
-          "ms": "CUDA events over back-to-back calls: the host's call "
-                "rate where it exceeds the kernel's time",
-          "device_ms_in_step_trace": traced,
-          "library": "stack[i].copy_(x) for the write, out.copy_(stack[i]) "
-                     "into a preallocated slice for the read",
-          "launches": "a save-stack step's"})
     del stack, x, out
     torch.cuda.empty_cache()
+    host = run_host(gen)
+    copy = run_copy()
+    emit({"phase": "save_stack_timing_kernels", "card": smi,
+          "shape": f"the residual slice {list(shape)} bf16 ({nbytes} "
+                   f"bytes) of a ({n_slices}, ...) stack, the slices in "
+                   "rotation (cold)",
+          "ms": "device time a launch: CUDA events over 240 launches "
+                "queued behind a sleep kernel, so the host's call rate "
+                "does not show",
+          "device_ms_a_launch_in_step_trace": {
+              k: v["ms"] / v["count"] for k, v in traced.items()},
+          "device_ms_in_step_trace": traced,
+          "library": "stack[i].copy_(x) for the write, out.copy_(stack[i]) "
+                     "into a preallocated slice for the read, rotating",
+          "host_us_a_call": host, "copy_1GiB": copy,
+          "launches": "a save-stack step's"})
     return rows
 
 
@@ -2371,8 +2418,8 @@ def main() -> int:
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
               "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>")),
             ("adam", "icikit_adam_regs",
-             ("adam_kernel<f32 moments, bf16 g>",
-              "adam_kernel<bf16 moments, bf16 g>")),
+             ("adam_tree_kernel<f32 moments>",
+              "adam_tree_kernel<bf16 moments>")),
             ("stack_write", "icikit_stack_regs",
              ("stack_write_kernel", "stack_read_kernel")),
             ("tile_floor", "icikit_tile_floor_regs",
@@ -2390,6 +2437,10 @@ def main() -> int:
                       "cached": v["cached"]}
                   for k, v in _build.BUILD_LOG.items()},
           "kernels": regs})
+    spilled = {k: regs[k] for k in NO_LOCAL_MEMORY
+               if regs[k]["local_bytes"]}
+    if spilled:
+        raise AssertionError(f"kernels use local memory: {spilled}")
 
     # -- 3. kernels against their plain versions ------------------------
     gen = torch.Generator(device=dev).manual_seed(1)

@@ -79,14 +79,16 @@ def bound_ms(kernels: str, bhsd) -> tuple:
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def _ptxas_regs(log: str) -> dict:
-    """{kernel: (registers, spill bytes)} of the bf16 flash kernels, from
+def _ptxas_regs(log: str, keep=None) -> dict:
+    """{kernel: (registers, spill bytes)} of the kernels whose mangled
+    name ``keep`` accepts (by default the bf16 flash kernels), from
     nvcc's ``-Xptxas -v`` output."""
+    keep = keep or (lambda name: "flash_" in name and "f32" not in name)
     lines = log.splitlines()
     regs = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if not m or "flash_" not in m.group(1) or "f32" in m.group(1):
+        if not m or not keep(m.group(1)):
             continue
         fn = subprocess.run(["c++filt", m.group(1)], capture_output=True,
                             text=True).stdout.strip()

@@ -19,12 +19,16 @@
 //      Bound: bytes, one read and one write of the slice: 2 x 16 MiB /
 //      3.35 TB/s = 10.0 us for the base train step's residual slice (b 8,
 //      s 1024, d 1024, bf16), 5.0 us for a bf16 w1 gradient slice.
-//      Design for that bound: a grid-stride loop, 16 bytes a thread a
-//      step (uint4), neighbouring threads on neighbouring addresses, so
-//      each warp moves 512 contiguous bytes a step; up to 16 CTAs of 256
-//      threads an SM keep enough loads in flight to stream. The base
-//      pointers and the slice size must be 16-byte aligned (the wrapper
-//      raises otherwise): JAX's gate (slice size a multiple of 128
+//      Design for that bound: a persistent grid (the SMs times the CTAs an
+//      SM the occupancy API reports) of 256 threads; a thread issues LOADS
+//      16-byte loads before their stores, so LOADS x 16 bytes are in
+//      flight a thread, neighbouring threads on neighbouring addresses
+//      (a warp moves 512 contiguous bytes a load); the side of the copy
+//      that is touched once streams past L2 (ld.global.cs for a read's
+//      slice, st.global.cs for a write's), and the side the next layer
+//      uses (the input written, the slice read out) keeps its lines. The
+//      base pointers and the slice size must be 16-byte aligned (the
+//      wrapper raises otherwise): JAX's gate (slice size a multiple of 128
 //      elements) makes every slice on the path a multiple of 256 bytes.
 //
 // Every entry returns cudaGetLastError() after its launch.
@@ -35,14 +39,35 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int64_t MAX_BLOCKS = 132 * 16;
+constexpr int LOADS = 4;
 
+// SRC_ONCE: the source is touched once (a read's stack slice): it is
+// loaded with the streaming hint. Else the destination is (a write's
+// slice, read back only in the backward): it is stored with the
+// streaming hint, and the source (the layer's input, which the layer
+// reads next) keeps its L2 lines.
+template <bool SRC_ONCE>
 __device__ __forceinline__ void copy16(uint4* __restrict__ dst,
                                        const uint4* __restrict__ src,
                                        int64_t n16) {
-  for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < n16;
-       j += (int64_t)gridDim.x * THREADS)
-    dst[j] = src[j];
+  const int64_t step = (int64_t)gridDim.x * THREADS * LOADS;
+  for (int64_t j0 = (int64_t)blockIdx.x * THREADS * LOADS + threadIdx.x;
+       j0 < n16; j0 += step) {
+    uint4 r[LOADS];
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k)
+      if (j0 + k * THREADS < n16)
+        r[k] = SRC_ONCE ? __ldcs(src + j0 + k * THREADS)
+                        : src[j0 + k * THREADS];
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k)
+      if (j0 + k * THREADS < n16) {
+        if (SRC_ONCE)
+          dst[j0 + k * THREADS] = r[k];
+        else
+          __stcs(dst + j0 + k * THREADS, r[k]);
+      }
+  }
 }
 
 // stack + i * slice_bytes <- x
@@ -50,8 +75,8 @@ __global__ void __launch_bounds__(THREADS)
 stack_write_kernel(unsigned char* __restrict__ stack,
                    const unsigned char* __restrict__ x, int64_t i,
                    int64_t slice_bytes) {
-  copy16(reinterpret_cast<uint4*>(stack + i * slice_bytes),
-         reinterpret_cast<const uint4*>(x), slice_bytes / 16);
+  copy16<false>(reinterpret_cast<uint4*>(stack + i * slice_bytes),
+                reinterpret_cast<const uint4*>(x), slice_bytes / 16);
 }
 
 // out <- stack + i * slice_bytes
@@ -59,15 +84,25 @@ __global__ void __launch_bounds__(THREADS)
 stack_read_kernel(const unsigned char* __restrict__ stack,
                   unsigned char* __restrict__ out, int64_t i,
                   int64_t slice_bytes) {
-  copy16(reinterpret_cast<uint4*>(out),
-         reinterpret_cast<const uint4*>(stack + i * slice_bytes),
-         slice_bytes / 16);
+  copy16<true>(reinterpret_cast<uint4*>(out),
+               reinterpret_cast<const uint4*>(stack + i * slice_bytes),
+               slice_bytes / 16);
 }
 
-unsigned blocks_for(int64_t slice_bytes) {
-  int64_t blocks = (slice_bytes / 16 + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  return (unsigned)(blocks < 1 ? 1 : blocks);
+// The grid for a slice: enough CTAs for one pass, at most the SMs times
+// the CTAs an SM holds.
+unsigned blocks_for(const void* kernel, int64_t slice_bytes) {
+  static int64_t cap = 0;
+  if (cap == 0) {
+    int dev = 0, sms = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, THREADS, 0);
+    cap = (int64_t)(sms > 0 ? sms : 1) * (per > 0 ? per : 1);
+  }
+  const int64_t per_cta = (int64_t)THREADS * LOADS * 16;
+  const int64_t blocks = (slice_bytes + per_cta - 1) / per_cta;
+  return (unsigned)(blocks < 1 ? 1 : blocks < cap ? blocks : cap);
 }
 
 bool bad_args(const void* a, const void* b, int64_t i, int64_t n_slices,
@@ -87,8 +122,9 @@ int icikit_stack_write(void* stack, const void* x, int64_t i,
                        int64_t n_slices, int64_t slice_bytes, void* stream) {
   if (bad_args(stack, x, i, n_slices, slice_bytes))
     return (int)cudaErrorInvalidValue;
-  stack_write_kernel<<<blocks_for(slice_bytes), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  stack_write_kernel<<<blocks_for((const void*)stack_write_kernel,
+                                  slice_bytes),
+                       THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned char*>(stack),
       static_cast<const unsigned char*>(x), i, slice_bytes);
   return (int)cudaGetLastError();
@@ -99,8 +135,8 @@ int icikit_stack_read(const void* stack, void* out, int64_t i,
                       int64_t n_slices, int64_t slice_bytes, void* stream) {
   if (bad_args(stack, out, i, n_slices, slice_bytes))
     return (int)cudaErrorInvalidValue;
-  stack_read_kernel<<<blocks_for(slice_bytes), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  stack_read_kernel<<<blocks_for((const void*)stack_read_kernel, slice_bytes),
+                      THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(stack),
       static_cast<unsigned char*>(out), i, slice_bytes);
   return (int)cudaGetLastError();

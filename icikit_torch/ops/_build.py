@@ -81,8 +81,8 @@ _SIGNATURES = {
         "icikit_xent_regs": [_I32, _IP, _IP],
     },
     "adam": {
-        "icikit_adam": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _F32,
-                        _F32, _F32, _F32, _F32, _P],
+        "icikit_adam_tree": [_I32, ctypes.POINTER(_I64), _I32, _I64, _P, _P,
+                             _F32, _F32, _F32, _F32, _F32, _P],
         "icikit_adam_regs": [_I32, _IP, _IP],
     },
     "quant": {

@@ -16,8 +16,9 @@ The port updates in place: p, m and v are overwritten (JAX's train step
 donates them instead). The default formulation is the one the JAX train
 step runs (``FusedAdam(use_pallas=False)``): PyTorch elementwise ops.
 ``use_pallas=True`` runs every floating leaf through the one-pass CUDA
-kernel (``ops.cuda_adam.adam_leaf``, the counterpart of the TPU kernel
-B12), whose plain version is that default formulation.
+kernel (``ops.cuda_adam.adam_tree``, the counterpart of the TPU kernel
+B12), one launch for the tree, whose plain version is that default
+formulation.
 """
 
 from __future__ import annotations
@@ -48,20 +49,21 @@ def adam_apply(params: dict, m: dict, v: dict, grads: dict, lr, step,
                use_pallas: bool = False, ok=None):
     """Whole-tree Adam, in place. ``lr`` and ``step`` may be tensors on
     the device. Returns ``(params, m, v)``, the same dicts, updated.
-    Non-floating leaves are left as they are. ``use_pallas``: each
-    floating leaf through the one-pass kernel (one launch a leaf), else
-    the PyTorch formulation. ``ok``: a bool scalar tensor; where false,
-    nothing is written (``guard="device"``)."""
-    update = (cuda_adam.adam_leaf if use_pallas
-              else cuda_adam.adam_leaf_plain)
-    scalars = None
-    for k in params:
-        p = params[k]
-        if not torch.is_floating_point(p):
-            continue
-        if scalars is None:
-            step_t = step if isinstance(step, torch.Tensor) \
-                else torch.tensor(step, device=p.device)
-            scalars = adam_scalars(lr, step_t.to(p.device), b1, b2)
-        update(p, m[k], v[k], grads[k], scalars, b1, b2, eps, ok)
+    Non-floating leaves are left as they are. ``use_pallas``: the
+    floating leaves through the one-pass kernel, one launch for the tree
+    (``cuda_adam.adam_tree``), else the PyTorch formulation. ``ok``: a
+    bool scalar tensor; where false, nothing is written
+    (``guard="device"``)."""
+    keys = [k for k in params if torch.is_floating_point(params[k])]
+    if not keys:
+        return params, m, v
+    dev = params[keys[0]].device
+    step_t = step if isinstance(step, torch.Tensor) \
+        else torch.tensor(step, device=dev)
+    scalars = adam_scalars(lr, step_t.to(dev), b1, b2)
+    update = (cuda_adam.adam_tree if use_pallas
+              else cuda_adam.adam_tree_plain)
+    update([params[k] for k in keys], [m[k] for k in keys],
+           [v[k] for k in keys], [grads[k] for k in keys], scalars, b1, b2,
+           eps, ok)
     return params, m, v

@@ -97,12 +97,17 @@ def stack_read(stack: torch.Tensor, i: int, slice_shape=None
     return cuda_stack.stack_read(stack, i).reshape(shape)
 
 
-def _writer(impl: str):
-    return stack_write if impl == "pallas" else stack_write_plain
-
-
-def _reader(impl: str):
-    return stack_read if impl == "pallas" else stack_read_plain
+def _copier(impl: str, stack: torch.Tensor):
+    """(write(x, i), read(i)) for one stack of the layer loop: where
+    ``impl`` is "pallas" and JAX's gate takes the stack's slices, the
+    slice kernels through a ``cuda_stack.SliceCopier`` (the stack
+    checked once; a CPU stack takes the plain copies there); else the
+    plain copies."""
+    if impl == "pallas" and stack_supported(stack.shape[1:], stack.dtype):
+        c = cuda_stack.SliceCopier(stack)
+        return c.write, c.read
+    return (lambda x, i: stack_write_plain(stack, x, i),
+            lambda i: stack_read_plain(stack, i))
 
 
 class _RematScanStacked(torch.autograd.Function):
@@ -112,15 +117,15 @@ class _RematScanStacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, layer_fn, impl, keys, positions, x0, *leaves):
-        write = _writer(impl)
         n_layers = leaves[0].shape[0]
         # every slice is written before it is read: no zero fill
         stack = torch.empty((n_layers,) + tuple(x0.shape), dtype=x0.dtype,
                             device=x0.device)
+        write = _copier(impl, stack)[0]
         x = x0
         aux = torch.zeros((), dtype=torch.float32, device=x0.device)
         for l in range(n_layers):
-            write(stack, x, l)
+            write(x, l)
             x, a = layer_fn(x, {k: t[l] for k, t in zip(keys, leaves)},
                             positions)
             aux = aux + a
@@ -131,12 +136,13 @@ class _RematScanStacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dx, daux):
         stack, positions, *leaves = ctx.saved_tensors
-        write, read = _writer(ctx.impl), _reader(ctx.impl)
+        read = _copier(ctx.impl, stack)[1]
         daux = daux.float()
         dstacks = [torch.empty_like(t) for t in leaves]
+        writes = [_copier(ctx.impl, s)[0] for s in dstacks]
         for l in reversed(range(len(stack))):
             with torch.enable_grad():
-                x_l = read(stack, l).requires_grad_(True)
+                x_l = read(l).requires_grad_(True)
                 lp = {k: t[l].detach().requires_grad_(True)
                       for k, t in zip(ctx.keys, leaves)}
                 y, a = ctx.layer_fn(x_l, lp, positions)
@@ -147,9 +153,9 @@ class _RematScanStacked(torch.autograd.Function):
                 grads = torch.autograd.grad(outs, [x_l, *lp.values()], cts,
                                             allow_unused=True)
             dx = grads[0] if grads[0] is not None else torch.zeros_like(x_l)
-            for s, g, t in zip(dstacks, grads[1:], leaves):
+            for write, g, t in zip(writes, grads[1:], leaves):
                 # a leaf the layer does not use gets zeros, as in JAX
-                write(s, torch.zeros_like(t[l]) if g is None else g, l)
+                write(torch.zeros_like(t[l]) if g is None else g, l)
         return (None, None, None, None, dx, *dstacks)
 
 

@@ -140,24 +140,132 @@ def test_adam_kernel_route_matches_jax_pallas(rows, mom_dtype):
 
 
 def test_adam_apply_routes_every_floating_leaf_through_the_kernel():
-    """``use_pallas=True`` sends each floating leaf to the kernel's
-    wrapper (no sublane gate) and leaves integer leaves alone."""
+    """``use_pallas=True`` sends the floating leaves, in the tree's
+    order, to the kernel's wrapper in one call (no sublane gate) and
+    leaves integer leaves alone."""
     calls = []
-    real = cuda_adam.adam_leaf
+    real = cuda_adam.adam_tree
 
-    def spy(p, *a, **k):
-        calls.append(tuple(p.shape))
-        return real(p, *a, **k)
+    def spy(ps, ms, vs, gs, *a, **k):
+        calls.append([tuple(p.shape) for p in ps])
+        return real(ps, ms, vs, gs, *a, **k)
 
-    p = {"a": torch.ones(5), "b": torch.ones((3, 7)),
-         "i": torch.ones(2, dtype=torch.int32)}
+    p = {"a": torch.ones(5), "i": torch.ones(2, dtype=torch.int32),
+         "b": torch.ones((3, 7))}
     m = {k: torch.zeros_like(x) for k, x in p.items()}
     v = {k: torch.zeros_like(x) for k, x in p.items()}
     try:
-        cuda_adam.adam_leaf = spy
+        cuda_adam.adam_tree = spy
         adam_apply(p, m, v, {k: torch.ones_like(x) for k, x in p.items()},
                    1e-3, 1, use_pallas=True)
     finally:
-        cuda_adam.adam_leaf = real
-    assert calls == [(5,), (3, 7)]
+        cuda_adam.adam_tree = real
+    assert calls == [[(5,), (3, 7)]]
     assert torch.equal(p["i"], torch.ones(2, dtype=torch.int32))
+    assert not torch.equal(p["a"], torch.ones(5))
+
+
+# a tree with odd sizes and mixed gradient dtypes, as the kernel's table
+# takes it (one moment dtype a tree), and an int leaf the update skips
+MIXED = {"one": ((1,), "bfloat16"), "seven": ((7,), "float32"),
+         "k": ((1000,), "bfloat16"), "w": ((24, 40), "float32"),
+         "h": ((3, 5, 7), "float16"), "i": ((4,), None)}
+
+
+@pytest.mark.parametrize("mom_dtype", ["float32", "bfloat16"])
+def test_adam_tree_plain_matches_jax_on_a_mixed_tree(mom_dtype):
+    """``adam_tree_plain`` (through ``adam_apply(use_pallas=True)`` on
+    the CPU, and called directly) against JAX's XLA-form ``adam_apply``
+    from carried moments, with the moments' tolerances of
+    ``test_adam_apply_matches_jax``; the int leaf untouched. Params
+    within 1e-7 absolute or one float32 ulp of their value: PyTorch's
+    CPU sqrt is not correctly rounded (it departs from numpy's and XLA's
+    on about 0.7% of float32 inputs), which moves p by one ulp in about
+    one element of 25,000 (4 of 100,000 unit-scale elements in a probe),
+    and one ulp at |p| >= 1 exceeds 1e-7."""
+    rng = np.random.default_rng(5)
+    mdt = jnp.dtype(mom_dtype)
+
+    def arr(shape, scale, dtype):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return np.asarray(jnp.asarray(a).astype(dtype))
+
+    p, m, v, g = {}, {}, {}, {}
+    for k, (shape, gdt) in MIXED.items():
+        if gdt is None:
+            p[k] = m[k] = v[k] = g[k] = np.arange(4, dtype=np.int32)
+            continue
+        p[k] = arr(shape, 1.0, np.float32)
+        m[k] = arr(shape, 0.1, mdt)
+        v[k] = np.abs(arr(shape, 0.01, mdt))
+        g[k] = arr(shape, 1.0, jnp.dtype(gdt))
+    jp, jm, jv = j_adam_apply(*({k: jnp.asarray(a) for k, a in d.items()}
+                                for d in (p, m, v, g)),
+                              3e-3, jnp.int32(4), use_pallas=False)
+    tp, tm, tv, tg = ({k: from_jax(a) for k, a in d.items()}
+                      for d in (p, m, v, g))
+    keys = [k for k in MIXED if MIXED[k][1] is not None]
+    direct = [[d[k].clone() for k in keys] for d in (tp, tm, tv)]
+    cuda_adam.reset_launches()
+    adam_apply(tp, tm, tv, tg, 3e-3, 4, use_pallas=True)
+    assert cuda_adam.LAUNCHES["adam"] == 0        # CPU: the plain version
+    cuda_adam.adam_tree_plain(*direct, [tg[k] for k in keys],
+                              adam_scalars(3e-3, 4), 0.9, 0.999, 1e-8)
+    assert np.array_equal(to_jax(tp["i"]), p["i"])
+    for j, k in enumerate(keys):
+        for d, got in zip((tp, tm, tv), direct):
+            assert torch.equal(d[k], got[j]), k
+        np.testing.assert_allclose(to_jax(tp[k]), np.asarray(jp[k]),
+                                   atol=1e-7, rtol=2 ** -23)
+        for got, want in ((tm[k], jm[k]), (tv[k], jv[k])):
+            assert got.dtype == getattr(torch, mom_dtype)
+            got = to_jax(got).astype(np.float32)
+            want = np.asarray(want).astype(np.float32)
+            if mom_dtype == "float32":
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=2 ** -8, atol=0)
+
+
+def _chunks(n, h, chunk):
+    return max(1, -(-(n - max(h, 0)) // chunk))
+
+
+@pytest.mark.parametrize("n_leaves", [1, 48, 100])
+def test_leaf_table_partitions_the_leaves_into_launches(n_leaves):
+    """At most MAX_LEAVES non-empty leaves a launch, in the tree's order,
+    each leaf's first chunk the sum of the chunks before it in its launch
+    (a chunk never spans two leaves), empty leaves left out."""
+    rng = np.random.default_rng(n_leaves)
+    ns = [int(x) for x in rng.integers(1, 3 * cuda_adam.CHUNK, n_leaves)]
+    ns[n_leaves // 2] = 0                                # an empty leaf
+    heads = [min(int(h), n) for h, n in
+             zip(rng.integers(-1, 8, n_leaves), ns)]
+    launches = cuda_adam._leaf_table(ns, heads)
+    live = [i for i, n in enumerate(ns) if n]
+    assert [i for idx, _, _ in launches for i in idx] == live
+    assert len(launches) == -(-len(live) // cuda_adam.MAX_LEAVES)
+    for idx, firsts, total in launches:
+        assert 1 <= len(idx) <= cuda_adam.MAX_LEAVES
+        sizes = [_chunks(ns[i], heads[i], cuda_adam.CHUNK) for i in idx]
+        assert firsts == [sum(sizes[:j]) for j in range(len(idx))]
+        assert total == sum(sizes)
+    # by hand: a one-element leaf, an empty one, an exact chunk, a head
+    # of 3 leaving 4094 for one chunk, and a scalar leaf of three chunks
+    assert cuda_adam._leaf_table([1, 0, 4096, 4097, 8193],
+                                 [0, 0, 0, 3, -1], chunk=4096) == [
+        ([0, 2, 3, 4], [0, 1, 2, 3], 6)]
+    assert cuda_adam._leaf_table([0, 0], [0, 0]) == []
+
+
+def test_head_finds_the_common_alignment():
+    """The scalar head before every pointer of a leaf is 16-byte aligned:
+    0 for aligned pointers, 7 for views one element in (float32 p and
+    moments, bf16 g: 4 + 28 and 2 + 14 bytes), -1 where no head of 0-7
+    elements aligns them all."""
+    f32, bf = 4, 2
+    assert cuda_adam._head((256, 512, 768, 1024), (f32, f32, f32, bf)) == 0
+    assert cuda_adam._head((260, 516, 772, 1026), (f32, f32, f32, bf)) == 7
+    assert cuda_adam._head((260, 514, 770, 1026), (f32, bf, bf, bf)) == 7
+    assert cuda_adam._head((264, 520, 520, 520), (f32, f32, f32, f32)) == 2
+    assert cuda_adam._head((260, 512, 768, 1024), (f32, f32, f32, bf)) == -1

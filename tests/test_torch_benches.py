@@ -200,6 +200,45 @@ def test_flash_ab_holds_b_to_a(monkeypatch):
         assert flash_ab.main([*argv, "--timing-only"]) == 0
 
 
+def test_stream_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The Adam and save-stack A/B bench times kernels on the card only:
+    without one it exits before building anything, and a directory
+    without both sources is refused first."""
+    import torch
+
+    from icikit_torch.bench import stream_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        stream_ab.main(["--a", csrc, "--b", csrc])
+    with pytest.raises(SystemExit):
+        stream_ab.main(["--a", csrc, "--b", os.path.join(ROOT, "tests")])
+
+
+def test_stream_ab_bytes_bounds_and_verdict(monkeypatch):
+    """Adam's bytes (p, m and v read and written, g read: 26 B an
+    element at bf16 gradients, 28 at float32, float32 moments), the
+    16 MiB slice copy's bound (10.0 us), and the verdict: a run whose B
+    departed from A exits 1 unless --timing-only."""
+    import torch
+
+    from icikit_torch.bench import stream_ab
+
+    p = torch.zeros(10)
+    assert stream_ab.adam_bytes([p], [p.bfloat16()]) == 260
+    assert stream_ab.adam_bytes([p, p], [p, p.half()]) == 280 + 260
+    assert stream_ab.bound_ms(2 * 16 * 2 ** 20) == pytest.approx(0.010016,
+                                                                 rel=1e-4)
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        monkeypatch.setattr(stream_ab, "run", lambda *args, ok=ok: ok)
+        argv = ["--a", csrc, "--b", csrc]
+        assert stream_ab.main(argv) == (0 if ok else 1)
+        assert stream_ab.main([*argv, "--timing-only"]) == 0
+
+
 def test_build_keys_libraries_by_source_and_flags(tmp_path):
     """A library is named by a hash of its source and its nvcc flags, in
     the directory asked for: another source, or the same source with

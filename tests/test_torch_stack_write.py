@@ -106,6 +106,44 @@ def test_index_is_checked():
             tsw.stack_read(stack, bad)
 
 
+@pytest.mark.parametrize("slice_shape,dtype,x_dtype",
+                         [((16, 128), torch.float32, torch.float32),
+                          ((2, 8, 128), torch.bfloat16, torch.float32),
+                          ((1024,), torch.float32, torch.bfloat16),
+                          ((9, 128), torch.bfloat16, torch.bfloat16)],
+                         ids=str)
+def test_checked_once_copier_equals_the_plain_copies(slice_shape, dtype,
+                                                     x_dtype):
+    """The layer loop's copiers (a stack checked once, then writes and
+    reads by index) equal the plain copies bit for bit on the CPU, on
+    the gate and off it ((9, 128) bf16), with x cast to the stack's
+    dtype; they launch nothing here and check their index."""
+    rng = np.random.default_rng(3)
+    stack = torch.from_numpy(rng.standard_normal((4,) + slice_shape)
+                             .astype(np.float32)).to(dtype)
+    want = stack.clone()
+    write, read = tsw._copier("pallas", stack)
+    cuda_stack.reset_launches()
+    for i in (3, 0, 2):
+        x = torch.from_numpy(rng.standard_normal(slice_shape)
+                             .astype(np.float32)).to(x_dtype)
+        write(x, i)
+        cuda_stack.stack_write_plain(want, x, i)
+        assert torch.equal(stack.view(torch.uint8), want.view(torch.uint8))
+        got = read(i)
+        assert got.dtype == dtype and got.shape == slice_shape
+        assert torch.equal(got.view(torch.uint8),
+                           cuda_stack.stack_read_plain(want, i)
+                           .view(torch.uint8))
+    assert set(cuda_stack.LAUNCHES.values()) == {0}
+    if tsw.stack_supported(slice_shape, dtype):
+        for bad in (4, -1):
+            with pytest.raises(ValueError, match="stack index"):
+                write(x, bad)
+            with pytest.raises(ValueError, match="stack index"):
+                read(bad)
+
+
 # ------------------------------------------- explicit-stack layer scan
 
 
