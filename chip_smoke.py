@@ -8,10 +8,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``).
 2. build: the kernels from ``icikit_torch/csrc`` with ``nvcc`` (sm_90a),
    with each listed kernel's registers and local (spill) bytes a thread;
-   the Adam and save-stack kernels must use no local memory.
+   the sort, Adam and save-stack kernels must use no local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
-   card: K1 and K2 alone, ``local_sort`` at 2^16 and 2^20 for int32,
-   float32, uint32 and bfloat16 plus a non-power-of-two length, and
+   card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
+   at G_MAX bits, 1 bit and a middle range, merge_only and in place,
+   ``local_sort`` at 2^16 and 2^20 for int32, float32, uint32 and
+   bfloat16 plus a non-power-of-two length (int32, float32), and
    ``merge_bitonic`` at 2^20. Integers must agree bitwise, floats by
    value (the tolerance is exact).
 4. main: ``sort`` of 2^28 int32 keys with p = 1 (the headline): 0
@@ -20,7 +22,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``torch.sort`` and the memory-bandwidth bound of its launches.
 5. ranks: the rank-vectorised sort of 2^24 keys at p = 2, 4, 8, whose
    merges run K2's merge-only pass.
-6. timed launches: K1 and K2 timed at the main path's shapes.
+6. timed launches: K1 and K2 timed at the main path's shapes (K1's
+   in-tile sort, K2's most strided pass), and every launch of the
+   2^28 schedule timed by events between launches and summed by kind
+   (the in-tile sort, the round passes, the cross passes), beside the
+   byte bound and the in-tile sort's int32 issue time.
 7. attention kernels held against their plain versions on the card:
    ``flash_fwd`` at (b, h, d) = (8, 8, 128), s = 512 and 768, and at
    (1, 8, 128), s = 2048, in bf16 and float32, causal and not; at its
@@ -69,8 +75,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. the train step's other kernels held against their plain versions on
    the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
    T 8192, D 1024, V 32768 (XENT_TOL); the Adam kernel on the base
-   preset's leaves with bf16 and float32 moments, ok absent, true and
-   false, bit for bit; ``flash_bwd_dq``/``flash_bwd_dkv`` at (1, 8, 2048,
+   preset's leaves with each (m, v) pair of bf16 and float32 moments, ok
+   absent, true and false, bit for bit; a bf16 step at V = 61, d_model
+   128 (RAGGED_CFG), whose head the gate sends to the unfused path, its
+   loss within TRAIN_BF16_TOL of the float32 plain arms', no xent
+   launch; ``flash_bwd_dq``/``flash_bwd_dkv`` at (1, 8, 2048,
    128) and (1, 4, 8192, 128), causal and full, bf16 and float32, against
    ``flash_bwd_plain`` and against ``flash_bwd`` (FLASH_TOL of the largest
    entry, and BLOCK_L2_TOL relative L2 in every 64-row block).
@@ -221,6 +230,10 @@ FLASH_TOL = {"bf16": {"out": 2e-2, "lse": 1e-3, "grad": 2e-2,
                      "grad_hot": 1e-3}}
 XENT_TOL = {"bf16": {"lse": 1e-3, "grad": 2e-2},
             "f32": {"lse": 1e-4, "grad": 1e-4}}
+# Phase 13: a config whose bf16 head the gate sends to the unfused path
+# (V not a multiple of 8) at d_model 128
+RAGGED_CFG = dict(vocab=61, d_model=128, n_heads=4, d_head=32, d_ff=512,
+                  n_layers=2, max_seq=256)
 # The two-pass backward's check shapes, and the long-context path's
 TWO_PASS_SHAPES = ((1, 8, 2048, 128), (1, 4, 8192, 128))
 LONG_SEQS = (32768, 131072)
@@ -254,10 +267,15 @@ SAVE_STACK_ARM = (dict(save_stack="pallas"), False,
                   ("xent_dx_saved", "xent_dw_saved"))
 SAVE_STACK_LAUNCHES = {"stack_write": 12 * 7, "stack_read": 12,
                        "flash_fwd": 24, "flash_bwd": 12}
+# bitonic_net.cu's kernels in icikit_kernel_regs' order: K1 at tiles of
+# 2^10..2^15 keys, K2 at 1..10 bits
+SORT_KERNELS = tuple(f"net_kernel<{L}>" for L in range(10, 16)) + tuple(
+    f"cross_kernel<{g}>" for g in range(1, 11))
 # Phase 2: kernels that must use no local memory (registers only)
-NO_LOCAL_MEMORY = ("adam_tree_kernel<f32 moments>",
-                   "adam_tree_kernel<bf16 moments>", "stack_write_kernel",
-                   "stack_read_kernel")
+NO_LOCAL_MEMORY = SORT_KERNELS + (
+    "adam_tree_kernel<f32 moments>", "adam_tree_kernel<bf16 moments>",
+    "adam_tree_kernel<f32 m, bf16 v>", "adam_tree_kernel<bf16 m, f32 v>",
+    "stack_write_kernel", "stack_read_kernel")
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
 # (h, seq) at head dims 64 and 128; the check tolerance, relative to the
 # largest |plain| entry
@@ -1141,9 +1159,10 @@ def train_arm_kernel_checks(torch, dev) -> None:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     grads = _base_tree_grads(torch, params, gen, torch.bfloat16)
-    for mom in (torch.bfloat16, torch.float32):
+    f32, bf = torch.float32, torch.bfloat16
+    for mom, vdt in ((bf, bf), (f32, f32), (f32, bf), (bf, f32)):
         m0 = {k: randn(p.shape, mom, 0.01) for k, p in params.items()}
-        v0 = {k: randn(p.shape, torch.float32, 0.01).square().to(mom)
+        v0 = {k: randn(p.shape, torch.float32, 0.01).square().to(vdt)
               for k, p in params.items()}
         for ok in (None, True, False):
             flag = None if ok is None else torch.tensor(ok, device=dev)
@@ -1157,12 +1176,13 @@ def train_arm_kernel_checks(torch, dev) -> None:
                 runs.append((p1, m1, v1))
             same = all(torch.equal(a[k], b[k]) for a, b in
                        zip(runs[0], runs[1]) for k in params)
-            checks.append({"kernel": "adam", "moments": str(mom),
+            checks.append({"kernel": "adam", "m": str(mom), "v": str(vdt),
                            "ok_flag": ok, "leaves": len(params),
                            "bitwise": same, "ok": same})
             del runs
     del params, grads, m0, v0
     torch.cuda.empty_cache()
+    checks.append(ragged_vocab_check(torch, dev))
 
     for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         tol, l2_tol = FLASH_TOL[key]["grad"], BLOCK_L2_TOL[key]
@@ -1208,6 +1228,55 @@ def train_arm_kernel_checks(torch, dev) -> None:
     if bad:
         raise AssertionError(f"train-arm kernel disagrees with its plain "
                              f"version: {bad}")
+
+
+def ragged_vocab_check(torch, dev) -> dict:
+    """A bf16 train step at V = 61, d_model = 128 (RAGGED_CFG): the gate
+    sends its head to the unfused path before any launch, since the bf16
+    head kernels read 16-byte rows of V. At b 2 the bf16 loss is held to
+    the float32 plain arms' (dense attention, unfused head) within
+    TRAIN_BF16_TOL, no xent kernel runs and flash_fwd does (twice a
+    layer: the config's default remat recomputes the layer); a FusedAdam
+    step gives a finite loss."""
+    import numpy as np
+
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 TransformerConfig,
+                                                 init_params,
+                                                 loss_and_metrics,
+                                                 make_model_mesh,
+                                                 make_train_step)
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+
+    mesh = make_model_mesh(device=dev)
+    cfg = TransformerConfig(**RAGGED_CFG, compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                         dev)
+    rng = np.random.default_rng(3)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab,
+                                              (2, cfg.max_seq))
+                                 .astype(np.int32)).to(dev)
+                for _ in range(2))
+    plain = TransformerConfig(**RAGGED_CFG, compute_dtype="float32",
+                              attention_impl="dense", fused_head=False)
+    loss_p = float(loss_and_metrics(params, tok, tgt, mesh, plain)[0])
+    ca.reset_launches()
+    cx.reset_launches()
+    loss_b = float(loss_and_metrics(params, tok, tgt, mesh, cfg)[0])
+    launches = {**{k: n for k, n in ca.LAUNCHES.items() if n},
+                **{k: n for k, n in cx.LAUNCHES.items() if n}}
+    opt, step = make_train_step(mesh, cfg, FusedAdam(TRAIN_LR))
+    p = {k: x.clone() for k, x in params.items()}
+    _, _, loss_s = step(p, opt.init(p), tok, tgt)
+    rel = abs(loss_b - loss_p) / loss_p
+    return {"kernel": "bf16 head at a ragged V (the unfused route)",
+            "config": RAGGED_CFG, "loss_bf16": loss_b, "loss_fp32_plain":
+            loss_p, "rel_diff": rel, "tolerance": TRAIN_BF16_TOL,
+            "launches": launches, "step_loss": float(loss_s),
+            "ok": rel <= TRAIN_BF16_TOL and "xent_fwd" not in launches
+            and launches.get("flash_fwd", 0) > 0
+            and bool(np.isfinite(float(loss_s)))}
 
 
 def train_arms(torch, dev, bw, smi, cell) -> list:
@@ -2369,6 +2438,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from icikit_torch.bench import sort_ab
     from icikit_torch.bench.sort import hbm_nameplate_bytes
     from icikit_torch.models.sort import check_sort, sort
     from icikit_torch.ops import _build
@@ -2389,7 +2459,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     regs = {}
-    for which, name in ((0, "net_kernel<int>"), (1, "cross_kernel<int>")):
+    for which, name in enumerate(SORT_KERNELS):
         r, loc = ctypes.c_int(), ctypes.c_int()
         _build.check(libs["bitonic_net"].icikit_kernel_regs(
             which, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
@@ -2419,7 +2489,9 @@ def main() -> int:
               "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>")),
             ("adam", "icikit_adam_regs",
              ("adam_tree_kernel<f32 moments>",
-              "adam_tree_kernel<bf16 moments>")),
+              "adam_tree_kernel<bf16 moments>",
+              "adam_tree_kernel<f32 m, bf16 v>",
+              "adam_tree_kernel<bf16 m, f32 v>")),
             ("stack_write", "icikit_stack_regs",
              ("stack_write_kernel", "stack_read_kernel")),
             ("tile_floor", "icikit_tile_floor_regs",
@@ -2470,21 +2542,35 @@ def main() -> int:
     checks = []
     cs.reset_launches()
     t = cs.T_GRID
+    log2t = cs.ilog2(t)
     for dtype in (torch.int32, torch.float32):
         x = rand(t, dtype)
-        rounds = cs._sort_rounds(cs.ilog2(t))
+        rounds = cs._sort_rounds(log2t)
         got = cs.net_pass(x, t, rounds)
         want = cs.net_pass_plain(x, t, rounds)
         checks.append(("net_pass single tile", str(dtype), t,
                        same(got, want) and same(got, torch.sort(x).values)))
-        span = 1 << 20
+        # a round pass whose direction bit lies above the tile, in place;
+        # K2 at G_MAX bits (the top of a 2^26 span), 1 bit and a middle
+        # range, merge_only, and in place
+        span = 1 << 26
         x = rand(span * 2, dtype)
-        for lo, hi in ((0, 6), (0, 0), (3, 6)):
+        rnd = [(27, tuple(t >> i for i in range(1, log2t + 1)))]
+        y = x.clone()
+        cs.net_pass(y, t, rnd, out=y)
+        checks.append(("net_pass round, in place", str(dtype), span * 2,
+                       same(y, cs.net_pass_plain(x, t, rnd))))
+        top = cs.ilog2(span // t) - 1
+        for lo, hi in ((top - cs.G_MAX + 1, top), (0, 0), (3, 6)):
             for mo in (False, True):
-                got = cs.cross_pass(x, span, t, lo, hi, mo)
                 want = cs.cross_pass_plain(x, span, t, lo, hi, mo)
-                checks.append((f"cross_pass bits[{lo},{hi}] merge={mo}",
-                               str(dtype), span * 2, same(got, want)))
+                got = cs.cross_pass(x, span, t, lo, hi, mo)
+                y = x.clone()
+                cs.cross_pass(y, span, t, lo, hi, mo, out=y)
+                checks.append((f"cross_pass bits[{lo},{hi}] merge={mo}, "
+                               f"and in place", str(dtype), span * 2,
+                               same(got, want) and same(y, want)))
+        del x, y, got, want
     for n in (1 << 16, 1 << 20):
         for dtype in (torch.int32, torch.float32, torch.uint32,
                       torch.bfloat16):
@@ -2492,10 +2578,12 @@ def main() -> int:
             got = cs.local_sort(x)
             want = cs.local_sort(x, plain=True)
             checks.append(("local_sort", str(dtype), n, same(got, want)))
-    x = rand(1_000_003, torch.int32)
-    got = cs.local_sort(x)
-    checks.append(("local_sort non-pow2", "torch.int32", x.numel(),
-                   same(got, cs.local_sort(x, plain=True))))
+    for dtype in (torch.int32, torch.float32):
+        x = rand(1_000_003, dtype)
+        got = cs.local_sort(x)
+        checks.append(("local_sort non-pow2", str(dtype), x.numel(),
+                       same(got, cs.local_sort(x, plain=True))
+                       and same(got, torch.sort(x).values)))
     a = torch.sort(rand(1 << 19, torch.int32)).values
     b = torch.sort(rand(1 << 19, torch.int32), descending=True).values
     v = torch.cat([a, b])
@@ -2581,9 +2669,10 @@ def main() -> int:
         warmup=1)
     k1_err = max_err(cs.net_pass(keys, cs.T_GRID, rounds, out=buf),
                      cs.net_pass_plain(keys, cs.T_GRID, rounds))
-    # K2: the last round's most strided pass (bits [hi-G_MAX+1, hi])
-    hi = 27 - log2t
-    lo = hi - cs.G_MAX + 1
+    # K2: the last round's most strided pass, as the schedule splits it
+    plan = cs.sort_schedule(n)
+    lo, hi = next((s[3], s[4]) for s in plan
+                  if s[0] == "cross" and s[1] == n)
     k2_ms = cuda_time_ms(lambda: cs.cross_pass(keys, n, cs.T_GRID, lo, hi,
                                                False, out=buf), iters=10)
     k2_plain_ms = cuda_time_ms(
@@ -2605,9 +2694,26 @@ def main() -> int:
     if k1_err != 0 or k2_err != 0:
         raise AssertionError(f"kernel error at main shapes: {k1_err} "
                              f"{k2_err}")
+    # every launch of the main path's schedule, timed by events between
+    # launches (the sort A/B bench's launch loop), summed by kind: the median
+    # of three sorts a launch
+    calls = sort_ab.plan_calls(_build.load("bitonic_net"), keys, buf, plan)
+    sort_ab.timed_sort(calls)
+    runs = [sort_ab.timed_sort(calls) for _ in range(3)]
+    if not torch.equal(buf, torch.sort(keys).values):
+        raise AssertionError("the timed schedule did not sort")
+    kinds = sort_ab.by_kind(plan, [sorted(ms)[1] for ms in zip(*runs)], n)
+    rows_ms = cuda_time_ms(lambda: torch.sort(keys.view(-1, cs.T_GRID),
+                                              dim=-1), iters=3)
     emit({"phase": "timed_launches",
           "net_kernel": f"n=2^28 int32, tile 2^{log2t}, {stages} stages",
           "cross_kernel": f"n=2^28 int32, span 2^28, bits [{lo}, {hi}]",
+          "by_kind": kinds, "sorts_ms": [sum(ms) for ms in runs],
+          "net_kernel_int32_issue_ms": sort_ab.int32_issue_ms(n, stages),
+          "nearest_library_to_the_tile_sort": {
+              "call": f"torch.sort(x.view(-1, {cs.T_GRID}), dim=-1)",
+              "ms": rows_ms,
+              "why": "not the same function: every row ascending"},
           "seconds": round(time.perf_counter() - t_start, 1)})
     rows = [
         {"name": "net_kernel (K1)", "route": "cuda",

@@ -28,6 +28,9 @@ def time_schedule(log2n: int, t_grid: int, t_big: int, g_max: int,
                   reps: int = 5, seed: int = 0) -> dict:
     from icikit_torch.bench.headline import device_identity, make_keys
     from icikit_torch.bench.sort import hbm_nameplate_bytes
+    from icikit_torch.bench.sort_ab import (by_kind, kind_of, plan_calls,
+                                            timed_sort)
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_sort as cs
     from icikit_torch.utils.timing import _median
 
@@ -35,48 +38,27 @@ def time_schedule(log2n: int, t_grid: int, t_big: int, g_max: int,
     plan = cs.sort_schedule(n, t_grid, t_big, g_max)
     keys = make_keys(n, "cuda", seed)
     buf = torch.empty_like(keys)
-    per_pass = [[] for _ in plan]
-    totals = []
-    for rep in range(reps + 1):
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(plan) + 1)]
-        events[0].record()
-        cur = keys
-        for i, step in enumerate(plan):
-            if step[0] == "net":
-                cur = cs.net_pass(cur, step[1], step[2], out=buf)
-            else:
-                cur = cs.cross_pass(cur, *step[1:], out=buf)
-            events[i + 1].record()
-        torch.cuda.synchronize()
-        if rep == 0:  # warm-up
-            if not torch.equal(buf, torch.sort(keys).values):
-                raise AssertionError("schedule did not sort")
-            continue
-        for i in range(len(plan)):
-            per_pass[i].append(events[i].elapsed_time(events[i + 1]))
-        totals.append(events[0].elapsed_time(events[-1]))
-    rows, by_kind = [], {}
-    for step, ts in zip(plan, per_pass):
-        ms = _median(ts)
+    calls = plan_calls(_build.load("bitonic_net"), keys, buf, plan)
+    timed_sort(calls)  # warm-up
+    if not torch.equal(buf, torch.sort(keys).values):
+        raise AssertionError("schedule did not sort")
+    runs = [timed_sort(calls) for _ in range(reps)]
+    per_pass = [_median(ts) for ts in zip(*runs)]
+    rows = []
+    for step, ms in zip(plan, per_pass):
         if step[0] == "net":
-            kind = "net_sort" if step[2][0][0] == 1 else "net_round"
             shape = {"tile": step[1],
                      "stages": sum(len(s) for _, s in step[2])}
         else:
-            kind = "cross"
             shape = {"span": step[1], "bits": [step[3], step[4]]}
-        rows.append({"kind": kind, **shape, "ms": ms})
-        by_kind.setdefault(kind, [0, 0.0])
-        by_kind[kind][0] += 1
-        by_kind[kind][1] += ms
+        rows.append({"kind": kind_of(step), **shape, "ms": ms})
     bw = hbm_nameplate_bytes()
     name, power = device_identity("cuda")
     return {
         "log2n": log2n, "t_grid": t_grid, "t_big": t_big, "g_max": g_max,
-        "launches": len(plan), "median_total_ms": _median(totals),
-        "by_kind": {k: {"launches": c, "ms": t}
-                    for k, (c, t) in by_kind.items()},
+        "launches": len(plan),
+        "median_total_ms": _median([sum(ms) for ms in runs]),
+        "by_kind": by_kind(plan, per_pass, n),
         "bound_ms": (len(plan) * 2 * n * 4 / bw * 1e3) if bw else None,
         "passes": rows, "device": name, "power_limit": power,
     }
@@ -110,7 +92,7 @@ def profile_sort(log2n: int, sorts: int = 3, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2n", type=int, default=28)
-    ap.add_argument("--t-grid", default="13",
+    ap.add_argument("--t-grid", default="14",
                     help="comma-separated log2 tile sizes (T_BIG = tile)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="also trace N sort calls with torch.profiler")

@@ -131,7 +131,8 @@ def adam_fn(lib, ps, ms, vs, gs, sc):
                                          gs, sc, 0.9, 0.999, 1e-8, None, st)
     entry = lib.icikit_adam
     entry.argtypes, entry.restype = _LEAF_ENTRY, ctypes.c_int
-    calls = [(cuda_adam._MOMENT_CODE[m.dtype], cuda_adam._GRAD_CODE[g.dtype],
+    calls = [(cuda_adam._MOMENT_CODE[(m.dtype, v.dtype)],
+              cuda_adam._GRAD_CODE[g.dtype],
               p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
               sc.data_ptr(), None, p.numel(), 0.9, 1.0 - 0.9, 0.999,
               1.0 - 0.999, 1e-8, st) for p, m, v, g in zip(ps, ms, vs, gs)]

@@ -3,7 +3,8 @@
 //   adam_tree <- _adam_kernel (B12, icikit/ops/adam.py:50, _leaf_update_pallas,
 //                pallas_call :71).
 //      One pass over every floating leaf of a parameter tree: read p
-//      (float32), m and v (float32 or bf16, one dtype for the tree) and g
+//      (float32), m and v (each float32 or bf16, one pair for the launch:
+//      the template's M and V) and g
 //      (float32, bf16 or fp16, a leaf's own, widened in registers), write
 //      p, m and v in place. optax.adam with eps_root = 0:
 //        m' = b1 m + (1 - b1) g,  v' = b2 v + (1 - b2) g^2,
@@ -84,9 +85,10 @@ struct Table {
   int32_t chunk;   // elements a chunk, a multiple of VEC
 };
 
-// A stage: TILE elements of p (float32), m and v (M) and g (up to 4 B).
-template <typename M> __host__ __device__ constexpr int stage_bytes() {
-  return TILE * (4 + 2 * (int)sizeof(M) + 4);
+// A stage: TILE elements of p (float32), m (M), v (V) and g (up to 4 B).
+template <typename M, typename V>
+__host__ __device__ constexpr int stage_bytes() {
+  return TILE * (4 + (int)sizeof(M) + (int)sizeof(V) + 4);
 }
 
 struct Hyper {
@@ -115,8 +117,8 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
 }
 
 // Elements [a, b) of a leaf as scalars, a consumer an element a step.
-template <typename M, typename G>
-__device__ __forceinline__ void scalar_range(float* p, M* m, M* v,
+template <typename M, typename V, typename G>
+__device__ __forceinline__ void scalar_range(float* p, M* m, V* v,
                                              const G* g, int64_t a,
                                              int64_t b, const Hyper& h) {
   for (int64_t i = a + threadIdx.x; i < b; i += CT) {
@@ -124,7 +126,7 @@ __device__ __forceinline__ void scalar_range(float* p, M* m, M* v,
     update(pf, mf, vf, to_f(g[i]), h);
     p[i] = pf;
     m[i] = from_f<M>(mf);
-    v[i] = from_f<M>(vf);
+    v[i] = from_f<V>(vf);
   }
 }
 
@@ -223,17 +225,18 @@ __device__ __forceinline__ void sts8(void* dst, const Raw<T>& r) {
 }
 
 // One group of 8 elements of a stage, in place in shared memory.
-template <typename M, typename G>
+template <typename M, typename V, typename G>
 __device__ __forceinline__ void group_smem(unsigned char* st, int j,
                                            const Hyper& h) {
+  constexpr int mb = (int)sizeof(M), vb = (int)sizeof(V);
   unsigned char* sp = st + 32 * j;
-  unsigned char* sm = st + 4 * TILE + (int)sizeof(M) * 8 * j;
-  unsigned char* sv = st + 4 * TILE + (int)sizeof(M) * TILE +
-                      (int)sizeof(M) * 8 * j;
-  const unsigned char* sg = st + 4 * TILE + 2 * (int)sizeof(M) * TILE +
+  unsigned char* sm = st + 4 * TILE + mb * 8 * j;
+  unsigned char* sv = st + (4 + mb) * TILE + vb * 8 * j;
+  const unsigned char* sg = st + (4 + mb + vb) * TILE +
                             (int)sizeof(G) * 8 * j;
   Raw<float> rp;
-  Raw<M> rm, rv;
+  Raw<M> rm;
+  Raw<V> rv;
   Raw<G> rg;
   lds8(rp, sp);
   lds8(rm, sm);
@@ -252,25 +255,25 @@ __device__ __forceinline__ void group_smem(unsigned char* st, int j,
   sts8(sv, rv);
 }
 
-template <typename M, typename G>
+template <typename M, typename V, typename G>
 __device__ __forceinline__ void leaf_scalars(const Leaf& L, int64_t a,
                                              int64_t b, const Hyper& h) {
-  scalar_range(L.p, static_cast<M*>(L.m), static_cast<M*>(L.v),
+  scalar_range(L.p, static_cast<M*>(L.m), static_cast<V*>(L.v),
                static_cast<const G*>(L.g), a, b, h);
 }
 
-template <typename M>
+template <typename M, typename V>
 __device__ __forceinline__ void scalars_any(const Leaf& L, int64_t a,
                                             int64_t b, const Hyper& h) {
   if (L.gcode == 0)
-    leaf_scalars<M, float>(L, a, b, h);
+    leaf_scalars<M, V, float>(L, a, b, h);
   else if (L.gcode == 1)
-    leaf_scalars<M, bf16>(L, a, b, h);
+    leaf_scalars<M, V, bf16>(L, a, b, h);
   else
-    leaf_scalars<M, __half>(L, a, b, h);
+    leaf_scalars<M, V, __half>(L, a, b, h);
 }
 
-template <typename M>
+template <typename M, typename V>
 __global__ void __launch_bounds__(THREADS)
 adam_tree_kernel(const __grid_constant__ Table tab,
                  const float* __restrict__ sc, const bool* __restrict__ ok,
@@ -295,8 +298,8 @@ adam_tree_kernel(const __grid_constant__ Table tab,
   const bool producer = threadIdx.x >= CT;
   if (producer && threadIdx.x != CT) return;
   const Hyper h{b1, omb1, b2, omb2, eps, s_sc[0], s_sc[1], s_sc[2]};
-  const int mb = (int)sizeof(M);
-  constexpr int SB = stage_bytes<M>();
+  const int mb = (int)sizeof(M), vb = (int)sizeof(V);
+  constexpr int SB = stage_bytes<M, V>();
   // producer and consumers walk the same chunks and tiles; seq numbers
   // the CTA's tiles, tile seq on stage seq % NS
   int li = 0;  // a CTA's chunks rise, so its leaf only moves forward
@@ -309,10 +312,10 @@ adam_tree_kernel(const __grid_constant__ Table tab,
     const int64_t a = base + k * tab.chunk;
     const int64_t b = a + tab.chunk < L.n ? a + tab.chunk : L.n;
     if (L.head < 0) {
-      if (!producer) scalars_any<M>(L, a, b, h);
+      if (!producer) scalars_any<M, V>(L, a, b, h);
       continue;
     }
-    if (!producer && k == 0 && base > 0) scalars_any<M>(L, 0, base, h);
+    if (!producer && k == 0 && base > 0) scalars_any<M, V>(L, 0, base, h);
     const int64_t body = (b - a) / VEC * VEC;
     const int gb = L.gcode == 0 ? 4 : 2;
     for (int64_t t0 = 0; t0 < body; t0 += TILE, ++seq) {
@@ -323,13 +326,13 @@ adam_tree_kernel(const __grid_constant__ Table tab,
       if (producer) {
         // the stage is free once the tile NS before has been written back
         if (seq >= NS) mbar_wait(empty + s, (int)(((seq / NS) - 1) & 1));
-        mbar_expect_tx(full + s, cnt * (4 + 2 * mb + gb));
+        mbar_expect_tx(full + s, cnt * (4 + mb + vb + gb));
         bulk_load(st, L.p + e, 4 * cnt, full + s);
         bulk_load(st + 4 * TILE, static_cast<M*>(L.m) + e, mb * cnt,
                   full + s);
-        bulk_load(st + 4 * TILE + mb * TILE, static_cast<M*>(L.v) + e,
-                  mb * cnt, full + s);
-        bulk_load(st + 4 * TILE + 2 * mb * TILE,
+        bulk_load(st + 4 * TILE + mb * TILE, static_cast<V*>(L.v) + e,
+                  vb * cnt, full + s);
+        bulk_load(st + 4 * TILE + (mb + vb) * TILE,
                   static_cast<const unsigned char*>(L.g) + e * gb, gb * cnt,
                   full + s);
         continue;
@@ -340,19 +343,19 @@ adam_tree_kernel(const __grid_constant__ Table tab,
       const int j = threadIdx.x;
       if (j < cnt / VEC) {
         if (L.gcode == 0)
-          group_smem<M, float>(st, j, h);
+          group_smem<M, V, float>(st, j, h);
         else if (L.gcode == 1)
-          group_smem<M, bf16>(st, j, h);
+          group_smem<M, V, bf16>(st, j, h);
         else
-          group_smem<M, __half>(st, j, h);
+          group_smem<M, V, __half>(st, j, h);
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync 1, %0;\n" ::"n"(CT) : "memory");
       if (threadIdx.x == 0) {
         bulk_store(L.p + e, st, 4 * cnt);
         bulk_store(static_cast<M*>(L.m) + e, st + 4 * TILE, mb * cnt);
-        bulk_store(static_cast<M*>(L.v) + e, st + 4 * TILE + mb * TILE,
-                   mb * cnt);
+        bulk_store(static_cast<V*>(L.v) + e, st + 4 * TILE + mb * TILE,
+                   vb * cnt);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         if (seq >= 1) {
           // the previous tile's stores have read its stage: release it
@@ -361,31 +364,40 @@ adam_tree_kernel(const __grid_constant__ Table tab,
         }
       }
     }
-    if (!producer) scalars_any<M>(L, a + body, b, h);
+    if (!producer) scalars_any<M, V>(L, a + body, b, h);
   }
   if (threadIdx.x == 0)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The persistent grid: the SMs times the CTAs an SM holds.
-template <typename M>
+template <typename M, typename V>
 int64_t grid_cap() {
   static int64_t cap = 0;
   if (cap == 0) {
     int dev = 0, sms = 0, per = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(adam_tree_kernel<M>,
+    cudaFuncSetAttribute(adam_tree_kernel<M, V>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         NS * stage_bytes<M>());
+                         NS * stage_bytes<M, V>());
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, adam_tree_kernel<M>, THREADS, NS * stage_bytes<M>());
+        &per, adam_tree_kernel<M, V>, THREADS, NS * stage_bytes<M, V>());
     cap = (int64_t)(sms > 0 ? sms : 1) * (per > 0 ? per : 1);
   }
   return cap;
 }
 
 int64_t elem_bytes(int code) { return code == 0 ? 4 : 2; }
+
+// The moment dtypes of a launch (mdtype): 0 float32 m and v, 1 bf16 m
+// and v, 2 float32 m and bf16 v, 3 bf16 m and float32 v; the bytes an
+// element of m (which 0) or v (which 1).
+int64_t moment_bytes(int mdtype, int which) {
+  const bool bf = mdtype == 1 || (mdtype == 2 && which == 1) ||
+                  (mdtype == 3 && which == 0);
+  return bf ? 2 : 4;
+}
 
 // The host's table, checked: codes, heads, alignment of the vector body
 // and the chunk prefix sums; false where any is wrong.
@@ -394,7 +406,7 @@ bool fill(Table& tab, int mdtype, const int64_t* rows, int count,
   if (count < 1 || count > MAX_LEAVES || chunk <= 0 || chunk % VEC ||
       chunk > (1 << 30))
     return false;
-  const int64_t mb = mdtype == 0 ? 4 : 2;
+  const int64_t mb = moment_bytes(mdtype, 0), vb = moment_bytes(mdtype, 1);
   int64_t total = 0;
   for (int i = 0; i < count; ++i) {
     const int64_t* r = rows + (int64_t)ROW * i;
@@ -413,7 +425,7 @@ bool fill(Table& tab, int mdtype, const int64_t* rows, int count,
     const int64_t base = L.head < 0 ? 0 : L.head;
     if (L.head >= 0 &&
         ((r[0] + 4 * base) % 16 || (r[1] + mb * base) % 16 ||
-         (r[2] + mb * base) % 16 || (r[3] + elem_bytes(L.gcode) * base) % 16))
+         (r[2] + vb * base) % 16 || (r[3] + elem_bytes(L.gcode) * base) % 16))
       return false;
     const int64_t rest = L.n - base;
     total += rest > 0 ? (rest + chunk - 1) / chunk : 1;
@@ -424,21 +436,35 @@ bool fill(Table& tab, int mdtype, const int64_t* rows, int count,
   return true;
 }
 
-template <typename M>
-int launch(const Table& tab, const float* sc, const bool* ok, float b1,
-           float omb1, float b2, float omb2, float eps, cudaStream_t st) {
-  const int64_t cap = grid_cap<M>();
+// h: the hyperparameters (its lr, c1, c2 unused: the kernel reads them).
+template <typename M, typename V>
+int launch(const Table& tab, const float* sc, const bool* ok, const Hyper& h,
+           cudaStream_t st) {
+  const int64_t cap = grid_cap<M, V>();
   const int64_t grid = tab.chunks < cap ? tab.chunks : cap;
-  adam_tree_kernel<M><<<(unsigned)grid, THREADS, NS * stage_bytes<M>(),
-                        st>>>(tab, sc, ok, b1, omb1, b2, omb2, eps);
+  adam_tree_kernel<M, V><<<(unsigned)grid, THREADS,
+                           NS * stage_bytes<M, V>(), st>>>(
+      tab, sc, ok, h.b1, h.omb1, h.b2, h.omb2, h.eps);
   return (int)cudaGetLastError();
+}
+
+// The kernel of each mdtype.
+cudaError_t attrs(int mdtype, cudaFuncAttributes* a) {
+  switch (mdtype) {
+    case 0: return cudaFuncGetAttributes(a, adam_tree_kernel<float, float>);
+    case 1: return cudaFuncGetAttributes(a, adam_tree_kernel<bf16, bf16>);
+    case 2: return cudaFuncGetAttributes(a, adam_tree_kernel<float, bf16>);
+    case 3: return cudaFuncGetAttributes(a, adam_tree_kernel<bf16, float>);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// mdtype: the tree's moment dtype (0 float32, 1 bfloat16). rows: count
+// mdtype: the moments' dtypes (0 float32 m and v, 1 bf16 m and v, 2
+// float32 m and bf16 v, 3 bf16 m and float32 v). rows: count
 // leaves of 8 int64 each: p, m, v and g as device addresses, n, the
 // leaf's first chunk, g's dtype code (0 float32, 1 bfloat16, 2 float16)
 // and head (-1 or the scalar elements before the 16-byte aligned body).
@@ -449,21 +475,22 @@ int icikit_adam_tree(int mdtype, const int64_t* rows, int count,
                      float omb1, float b2, float omb2, float eps,
                      void* stream) {
   Table tab;
-  if ((mdtype != 0 && mdtype != 1) || !fill(tab, mdtype, rows, count, chunk))
+  if (mdtype < 0 || mdtype > 3 || !fill(tab, mdtype, rows, count, chunk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return mdtype == 0
-             ? launch<float>(tab, sc, ok, b1, omb1, b2, omb2, eps, st)
-             : launch<bf16>(tab, sc, ok, b1, omb1, b2, omb2, eps, st);
+  const Hyper h{b1, omb1, b2, omb2, eps, 0.f, 0.f, 0.f};
+  switch (mdtype) {
+    case 0: return launch<float, float>(tab, sc, ok, h, st);
+    case 1: return launch<bf16, bf16>(tab, sc, ok, h, st);
+    case 2: return launch<float, bf16>(tab, sc, ok, h, st);
+    default: return launch<bf16, float>(tab, sc, ok, h, st);
+  }
 }
 
-// Kernel attributes for the build log: which 0 float32 moments, 1 bf16
-// moments.
+// Kernel attributes for the build log: which is an mdtype.
 int icikit_adam_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = which == 0
-      ? cudaFuncGetAttributes(&attr, adam_tree_kernel<float>)
-      : cudaFuncGetAttributes(&attr, adam_tree_kernel<bf16>);
+  const cudaError_t err = attrs(which, &attr);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -46,6 +46,7 @@ _SIGNATURES = {
                             _P],
         "icikit_cross_pass": [_I32, _P, _P, _I64, _I64, _I32, _I32, _I32,
                               _I32, _I32, _P],
+        "icikit_cross_log2cb": [_I32],
         "icikit_kernel_regs": [_I32, _IP, _IP],
     },
     "attention": {

@@ -4,7 +4,8 @@
 ``icikit/ops/adam.py``'s ``_adam_kernel`` (B12, ``_leaf_update_pallas``,
 pallas_call at :71): one pass over a tree's floating leaves that reads
 p, m, v and g and writes p, m and v in place, one launch for up to
-``MAX_LEAVES`` leaves (the TPU runs one pallas_call a leaf).
+``MAX_LEAVES`` leaves whose moments share a (m dtype, v dtype) pair (the
+TPU runs one pallas_call a leaf, each moment in its own dtype).
 ``adam_leaf`` is a tree of one. ``adam_leaf_plain`` is the same function
 on one leaf as PyTorch elementwise ops, the XLA formulation the train
 step runs by default (``_leaf_update_xla``), and ``adam_tree_plain`` the
@@ -12,7 +13,7 @@ same over a tree; the kernel rounds every operation once in the same
 order, so kernel and plain version agree bit for bit. A wrapper takes
 the plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches: one
-a tree of at most ``MAX_LEAVES`` non-empty leaves.
+a tree of at most ``MAX_LEAVES`` non-empty leaves and one moment pair.
 
 The TPU kernel covers a leaf only when its (rows, 128) view meets the
 operands' sublane rule (``_use_pallas``) and leaves the rest to XLA; a
@@ -37,7 +38,11 @@ CHUNK = 4096
 _VEC = 8        # a chunk's body is a multiple of 8 elements (16 bytes)
 _ROW = 8        # int64 fields a leaf in the C entry's table
 
-_MOMENT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry's code of each (m dtype, v dtype) pair: one kernel each
+_MOMENT_CODE = {(torch.float32, torch.float32): 0,
+                (torch.bfloat16, torch.bfloat16): 1,
+                (torch.float32, torch.bfloat16): 2,
+                (torch.bfloat16, torch.float32): 3}
 _GRAD_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -110,16 +115,15 @@ def _leaf_table(ns, heads, max_leaves: int = MAX_LEAVES,
 
 def _check_tree(ps, ms, vs, gs, scalars, ok) -> None:
     dev = ps[0].device
-    mdt = ms[0].dtype
     for p, m, v, g in zip(ps, ms, vs, gs):
         for t in (p, m, v, g):
             if t.device != dev:
                 raise ValueError(f"adam: operands on {t.device} and {dev}")
         if p.dtype != torch.float32:
             raise ValueError("adam: the kernel takes float32 parameters")
-        if m.dtype != mdt or v.dtype != mdt or mdt not in _MOMENT_CODE:
-            raise ValueError(f"adam: the tree's moments must share float32 "
-                             f"or bfloat16, got {mdt}, {m.dtype}, {v.dtype}")
+        if (m.dtype, v.dtype) not in _MOMENT_CODE:
+            raise ValueError(f"adam: moments must be float32 or bfloat16, "
+                             f"got m {m.dtype}, v {v.dtype}")
         if g.dtype not in _GRAD_CODE:
             raise ValueError(f"adam: gradients must be float32, bfloat16 or "
                              f"float16, got {g.dtype}")
@@ -140,8 +144,10 @@ def _check_tree(ps, ms, vs, gs, scalars, ok) -> None:
 def adam_tree(ps, ms, vs, gs, scalars, b1: float, b2: float, eps: float,
               ok=None) -> None:
     """Adam over a tree's floating leaves, in place, one launch for each
-    ``MAX_LEAVES`` non-empty leaves: ``ps`` float32; ``ms`` and ``vs``
-    all float32 or all bf16; each of ``gs`` float32, bf16 or float16
+    ``MAX_LEAVES`` non-empty leaves of one (m dtype, v dtype) pair (a
+    tree whose moments share one pair takes one launch): ``ps`` float32;
+    each of ``ms`` and ``vs`` float32 or bf16; each of ``gs`` float32,
+    bf16 or float16
     (widened in registers); lists in one order. ``scalars`` a (3,)
     float32 tensor on their device; ``ok`` None or a bool scalar tensor
     on it (false: nothing is written). Bound: the bytes of one read of
@@ -160,19 +166,31 @@ def adam_tree(ps, ms, vs, gs, scalars, b1: float, b2: float, eps: float,
     if ps[0].device.type == "cpu":
         return adam_tree_plain(ps, ms, vs, gs, scalars, b1, b2, eps, ok)
     _check_tree(ps, ms, vs, gs, scalars, ok)
-    LAUNCHES["adam"] += _launch(_build.load("adam").icikit_adam_tree, ps,
-                                ms, vs, gs, scalars, b1, b2, eps, ok,
-                                _build.stream(ps[0]))
+    entry = _build.load("adam").icikit_adam_tree
+    for idx in _pairs(ms, vs).values():
+        LAUNCHES["adam"] += _launch(
+            entry, *([d[i] for i in idx] for d in (ps, ms, vs, gs)),
+            scalars, b1, b2, eps, ok, _build.stream(ps[0]))
+
+
+def _pairs(ms, vs) -> dict:
+    """The leaves' indices by (m dtype, v dtype), in the tree's order."""
+    groups = {}
+    for i, (m, v) in enumerate(zip(ms, vs)):
+        groups.setdefault((m.dtype, v.dtype), []).append(i)
+    return groups
 
 
 def _launch(entry, ps, ms, vs, gs, scalars, b1, b2, eps, ok, stream) -> int:
     """Launch ``entry`` (a library's ``icikit_adam_tree``) over checked
-    leaves, one launch a ``_leaf_table`` launch; returns the launches."""
+    leaves of one moment pair, one launch a ``_leaf_table`` launch;
+    returns the launches."""
     gs = [g.contiguous() for g in gs]
-    msize = ms[0].element_size()
+    code = _MOMENT_CODE[(ms[0].dtype, vs[0].dtype)]
     ns = [p.numel() for p in ps]
     heads = [min(_head((p.data_ptr(), m.data_ptr(), v.data_ptr(),
-                        g.data_ptr()), (4, msize, msize, g.element_size())),
+                        g.data_ptr()), (4, m.element_size(), v.element_size(),
+                                        g.element_size())),
                  n) for p, m, v, g, n in zip(ps, ms, vs, gs, ns)]
     sc = scalars.contiguous()
     okp = None if ok is None else ok.data_ptr()
@@ -184,7 +202,7 @@ def _launch(entry, ps, ms, vs, gs, scalars, b1, b2, eps, ok, stream) -> int:
                      gs[i].data_ptr(), ns[i], c0, _GRAD_CODE[gs[i].dtype],
                      heads[i]]
         table = (ctypes.c_int64 * (_ROW * len(idx)))(*rows)
-        rc = entry(_MOMENT_CODE[ms[0].dtype], table, len(idx), CHUNK,
+        rc = entry(code, table, len(idx), CHUNK,
                    sc.data_ptr(), okp, b1, 1.0 - b1, b2, 1.0 - b2, eps,
                    stream)
         _build.check(rc, "adam launch")

@@ -6,22 +6,30 @@ stride fits in a tile *inside* the tile, so the array crosses device
 memory once per *group* of stages:
 
 - K1 ``net_pass`` (``csrc/bitonic_net.cu`` ``net_kernel``, replaces
-  ``_net_call``): one CTA per tile; all stages with stride < tile, back
-  to back, in registers (strides < 512) and shared memory.
+  ``_net_call``): one CTA per tile of up to 2^15 keys, 32 keys a
+  thread; all stages with stride < tile, back to back, as min/max
+  pairs inside a thread's registers, the keys moved between three
+  register windows through shared memory.
 - K2 ``cross_pass`` (``cross_kernel``, replaces ``_cross_call``): the
   stages of one merge round with stride >= tile whose Q-axis bits lie in
-  [lo, hi], in one pass over a (n/span, A, G, B*tile) view.
+  [lo, hi] (at most ``G_MAX_KERNEL`` of them), in one pass over a
+  (n/span, A, G, B*tile) view; a CTA takes 2^14 keys, 2^G rows of
+  2^(14-G) columns.
 
 Direction (``pallas_sort.py:27-40``): every stage is a plain ascending
 compare-exchange; descending spans are order-reversed at round
-boundaries (``~x`` for int32, ``-x`` for float32), the flip bit being a
-bit of the element's global index. uint32 rides the int32 kernel
-through the order-preserving bijection ``u ^ 0x80000000``; bf16/f16 are
-widened exactly to float32. Below ``MIN_KERNEL`` elements, and with
+boundaries, the flip bit being a bit of the element's global index. The
+plain versions reverse by ``~x`` for int32 and ``-x`` for float32; the
+kernels sort float32 keys as the int32 image of their bit pattern
+(``x ^ ((x >> 31) & 0x7fffffff)``, order-preserving) and reverse by
+``~x`` for both. uint32 rides the int32 kernel through the
+order-preserving bijection ``u ^ 0x80000000``; bf16/f16 are widened
+exactly to float32. Below ``MIN_KERNEL`` elements, and with
 ``backend="torch"``, the sort is ``torch.sort``, as the JAX package
 calls ``jnp.sort`` there. NaN order follows min/max, so callers with
-NaNs pass ``backend="torch"``; -0.0 and 0.0 compare equal and keep an
-arbitrary relative order.
+NaNs pass ``backend="torch"``; -0.0 and 0.0 compare equal: the plain
+versions keep them in an arbitrary relative order, the kernels put -0.0
+first, and the values agree.
 
 Each kernel has a plain PyTorch version beside it (``net_pass_plain``,
 ``cross_pass_plain``): the same rounds and flips as stage-by-stage
@@ -30,10 +38,13 @@ wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises.
 
 Geometry differs from the TPU's (T_GRID 2^15, T_BIG 2^17, G_MAX 11 in
-VMEM): a CTA holds at most 227 KB, so the port's tile is 2^13 int32
-(32 KB), a span up to T_BIG = T_GRID runs as one tile, and a cross pass
-covers up to G_MAX = 9 bits with a (2^9, 32) block. The network, and so
-the output, does not depend on the geometry.
+VMEM): a CTA holds at most 227 KB of shared memory, so K1 takes tiles of
+up to 2^15 int32 (128 KiB). The default, T_GRID = T_BIG = 2^14 and
+G_MAX 10 with each round's cross stages split evenly (33 launches at
+2^28), gave the fastest whole sort on an H100 among the geometries
+tried (``bench/sort_ab.py``; ``PERF.md``): a 2^15 tile saves three
+launches but holds one CTA an SM, whose round passes ran 1.5x slower.
+The network, and so the output, does not depend on the geometry.
 """
 
 from __future__ import annotations
@@ -46,21 +57,20 @@ from icikit_torch.ops import _build
 from icikit_torch.utils.dtypes import sentinel_for
 from icikit_torch.utils.mesh import ilog2, is_pow2
 
-T_GRID = 1 << 13
-T_BIG = 1 << 13
-G_MAX = 9
+T_GRID = 1 << 14
+T_BIG = 1 << 14
+G_MAX = 10
 
 # Below this size the launches lose to one library sort (the
 # reference's MIN_PALLAS).
 MIN_KERNEL = 1 << 13
 
-# K1 holds 16 elements per thread and at most 1024 threads; K2 a block
-# of at most CROSS_ELEMS elements (64 KB of int32), rows of >= 32.
-NET_TILE_MIN = 1 << 9
-NET_TILE_MAX = 1 << 14
+# K1 holds 32 keys a thread, 32 to 1024 threads a tile; K2 a block of
+# CROSS_ELEMS keys, 2^G rows for G up to G_MAX_KERNEL.
+NET_TILE_MIN = 1 << 10
+NET_TILE_MAX = 1 << 15
 CROSS_ELEMS = 1 << 14
-CROSS_CB_MIN = 32
-SMEM_MAX = 227 * 1024
+G_MAX_KERNEL = 10
 
 _KERNEL_DTYPES = (torch.int32, torch.uint32, torch.float32)
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
@@ -203,6 +213,15 @@ def _check_cuda(x: torch.Tensor, out, what: str) -> torch.Tensor:
     return out
 
 
+def round_arrays(rounds):
+    """K1's C arrays for ``rounds``: each round's direction bit (-1:
+    ascending) and log2 of its first and last stride."""
+    db = (ctypes.c_int * 32)(*[-1 if d is None else d for d, _ in rounds])
+    hi = (ctypes.c_int * 32)(*[ilog2(s[0]) if s else 0 for _, s in rounds])
+    lo = (ctypes.c_int * 32)(*[ilog2(s[-1]) if s else 1 for _, s in rounds])
+    return db, hi, lo
+
+
 def net_pass(x: torch.Tensor, tile: int, rounds, out=None) -> torch.Tensor:
     """K1, replacing ``icikit/ops/pallas_sort.py`` ``_net_call``
     (pallas_call at :206): every round in ``rounds`` on each tile of
@@ -229,9 +248,7 @@ def net_pass(x: torch.Tensor, tile: int, rounds, out=None) -> torch.Tensor:
                 s[0] >> i for i in range(len(s))]):
             raise ValueError(f"net_pass: strides {s} must descend by "
                              f"halves below the tile {tile}")
-    db = (ctypes.c_int * 32)(*[-1 if d is None else d for d, _ in rounds])
-    hi = (ctypes.c_int * 32)(*[ilog2(s[0]) if s else 0 for _, s in rounds])
-    lo = (ctypes.c_int * 32)(*[ilog2(s[-1]) if s else 1 for _, s in rounds])
+    db, hi, lo = round_arrays(rounds)
     lib = _build.load("bitonic_net")
     rc = lib.icikit_net_pass(
         _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), n, ilog2(tile),
@@ -239,12 +256,6 @@ def net_pass(x: torch.Tensor, tile: int, rounds, out=None) -> torch.Tensor:
     _build.check(rc, "net_pass launch")
     LAUNCHES["net"] += 1
     return out
-
-
-def cross_block(tile: int, lo_bit: int, hi_bit: int) -> int:
-    """K2's block width cb: G * cb <= CROSS_ELEMS, cb >= 32, cb | tile."""
-    g = 1 << (hi_bit - lo_bit + 1)
-    return min(tile, max(CROSS_CB_MIN, CROSS_ELEMS // g))
 
 
 def cross_pass(x: torch.Tensor, span: int, tile: int, lo_bit: int,
@@ -266,15 +277,18 @@ def cross_pass(x: torch.Tensor, span: int, tile: int, lo_bit: int,
         res = cross_pass_plain(x, span, tile, lo_bit, hi_bit, merge_only)
         return res if out is None else out.copy_(res)
     out = _check_cuda(x, out, "cross_pass")
-    cb = cross_block(tile, lo_bit, hi_bit)
-    smem = (1 << (hi_bit - lo_bit + 1)) * cb * x.element_size()
-    if cb < CROSS_CB_MIN or smem > SMEM_MAX:
-        raise ValueError(f"cross_pass: {hi_bit - lo_bit + 1} bits need "
-                         f"{smem} B of shared memory (max {SMEM_MAX})")
+    g = hi_bit - lo_bit + 1
+    if g > G_MAX_KERNEL:
+        raise ValueError(f"cross_pass: {g} bits in one pass; the kernel "
+                         f"takes at most {G_MAX_KERNEL}")
+    if n % CROSS_ELEMS or x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"cross_pass: the kernel takes n a multiple of "
+                         f"{CROSS_ELEMS} on 16-byte aligned buffers; got "
+                         f"n={n}")
     lib = _build.load("bitonic_net")
     rc = lib.icikit_cross_pass(
         _DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), n, span,
-        ilog2(tile), lo_bit, hi_bit, ilog2(cb), int(merge_only),
+        ilog2(tile), lo_bit, hi_bit, ilog2(CROSS_ELEMS) - g, int(merge_only),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "cross_pass launch")
     LAUNCHES["cross"] += 1
@@ -285,11 +299,29 @@ def cross_pass(x: torch.Tensor, span: int, tile: int, lo_bit: int,
 # Drivers: a schedule of passes, run by the kernels or their plain versions.
 
 
+def cross_ranges(bits: int, g_max: int):
+    """The Q-axis bit ranges ``(lo, hi)`` of a merge round's ``bits``
+    cross-tile stages, highest first: ``ceil(bits / g_max)`` passes
+    whose widths differ by at most one (11 bits at g_max 10: 6 + 5). The
+    reference's ``_build_sort`` fills each pass to g_max from the top
+    (10 + 1); K2's 1-bit and 10-bit passes stream slowest. The stages,
+    and so the output, are the same."""
+    passes = -(-bits // g_max)
+    base, extra = divmod(bits, passes)
+    out, hi = [], bits - 1
+    for i in range(passes):
+        w = base + (i < extra)
+        out.append((hi - w + 1, hi))
+        hi -= w
+    return out
+
+
 def sort_schedule(n: int, t_grid: int = T_GRID, t_big: int = T_BIG,
                   g_max: int = G_MAX):
     """The passes of a full sort of n (power of two) elements:
     ``("net", tile, rounds)`` and ``("cross", span, tile, lo, hi,
-    merge_only)`` (``_build_sort``, pallas_sort.py:304-347)."""
+    merge_only)`` (``_build_sort``, pallas_sort.py:304-347; the cross
+    stages of a round split by :func:`cross_ranges`)."""
     log2n, log2t = ilog2(n), ilog2(t_grid)
     if n <= t_grid:
         return [("net", n, _sort_rounds(log2n))]
@@ -299,11 +331,8 @@ def sort_schedule(n: int, t_grid: int = T_GRID, t_big: int = T_BIG,
         if span <= t_big:
             plan.append(("net", span, _one_round(i)))
             continue
-        hi = i - log2t
-        while hi >= 0:
-            lo = max(0, hi - g_max + 1)
+        for lo, hi in cross_ranges(i - log2t + 1, g_max):
             plan.append(("cross", span, t_grid, lo, hi, False))
-            hi = lo - 1
         plan.append(("net", t_grid,
                      [(i + 1, tuple(1 << j for j in range(log2t - 1, -1,
                                                            -1)))]))
@@ -313,15 +342,12 @@ def sort_schedule(n: int, t_grid: int = T_GRID, t_big: int = T_BIG,
 def merge_schedule(n: int, t_grid: int = T_GRID, t_big: int = T_BIG,
                    g_max: int = G_MAX):
     """The passes that sort a bitonic span of n elements ascending
-    (``_build_merge``, pallas_sort.py:350-368)."""
+    (``_build_merge``, pallas_sort.py:350-368; the cross stages split by
+    :func:`cross_ranges`)."""
     if n <= t_big:
         return [("net", n, _merge_rounds(n // 2))]
-    plan = []
-    hi = ilog2(n // t_grid) - 1
-    while hi >= 0:
-        lo = max(0, hi - g_max + 1)
-        plan.append(("cross", n, t_grid, lo, hi, True))
-        hi = lo - 1
+    plan = [("cross", n, t_grid, lo, hi, True)
+            for lo, hi in cross_ranges(ilog2(n // t_grid), g_max)]
     plan.append(("net", t_grid, _merge_rounds(t_grid // 2)))
     return plan
 

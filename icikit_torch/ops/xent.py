@@ -45,9 +45,15 @@ def xent_supported(t: int, d: int, v: int, dtype,
     """Whether the fused head covers this shape: JAX's decision
     (``icikit/ops/xent.py:479-489``: float32 or bf16, d % 128 == 0,
     T % min(block_t, T) == 0, V % min(block_v, V) == 0), so that both
-    packages take the same head. Else callers take the unfused
-    log_softmax path."""
+    packages take the same head, with one departure: bf16 at a V that is
+    not a multiple of 8 takes the unfused head, because the bf16 kernels
+    read 16-byte rows of V (JAX's gate takes V = 61, 257 or 1001 below
+    its 2048-wide block). The decision rests on the shape and dtype
+    alone, so a CPU tensor and a CUDA tensor take the same head. Else
+    callers take the unfused log_softmax path."""
     if dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if dtype == torch.bfloat16 and v % 8:
         return False
     return d % 128 == 0 and _tiles(t, v, block_t, block_v) is not None
 
@@ -103,7 +109,8 @@ def fused_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     the forward's exponentials for the backward instead of recomputing
     the logits; ``fused_bwd=False`` writes g out and contracts it with
     two matmuls. Raises ``ValueError`` for shapes JAX's tiling cannot
-    cover (callers gate on :func:`xent_supported`)."""
+    cover and for bf16 at a V that is not a multiple of 8 (callers gate
+    on :func:`xent_supported`)."""
     t, d = x.shape
     v = w.shape[0]
     if w.shape[1] != d or targets.shape != (t,):
@@ -118,5 +125,9 @@ def fused_xent(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
             f"fused xent needs T divisible by min(block_t={block_t}, T), "
             f"V divisible by min(block_v={block_v}, V) and D % 128 == 0; "
             f"got T={t} D={d} V={v} (use the unfused path)")
+    if x.dtype == torch.bfloat16 and v % 8:
+        raise ValueError(f"fused xent in bf16 needs V % 8 == 0 (the "
+                         f"kernels read 16-byte rows); got V={v} (use the "
+                         f"unfused path, as the gate does)")
     return _Xent.apply(x, w, targets.to(torch.int32), bool(save_exp),
                        bool(fused_bwd))

@@ -269,3 +269,76 @@ def test_head_finds_the_common_alignment():
     assert cuda_adam._head((260, 514, 770, 1026), (f32, bf, bf, bf)) == 7
     assert cuda_adam._head((264, 520, 520, 520), (f32, f32, f32, f32)) == 2
     assert cuda_adam._head((260, 512, 768, 1024), (f32, f32, f32, bf)) == -1
+
+
+@pytest.mark.parametrize("rows", [32, 24])
+@pytest.mark.parametrize("m_dtype,v_dtype", [("float32", "bfloat16"),
+                                             ("bfloat16", "float32")])
+def test_mixed_moments_match_jax_pallas(rows, m_dtype, v_dtype):
+    """``adam_tree_plain`` with moments of two dtypes (FusedAdam's
+    float32 m and bf16 v, and the reverse) against JAX's
+    ``adam_apply(use_pallas=True)`` called directly, which writes each
+    moment in its own dtype: the (32, 128) leaf its Pallas kernel covers
+    and the (24, 128) leaf its sublane gate sends to XLA. Tolerances as
+    ``test_adam_kernel_route_matches_jax_pallas``: params 1e-6 relative
+    and 1e-7 absolute (one float32 ulp of PyTorch's CPU sqrt inside
+    them), float32 moments 1e-6 and 1e-7, bf16 moments one bf16 ulp at
+    the lower edge of a binade and 1e-9 absolute; moments bit for bit
+    where JAX's gate takes XLA. ``adam_apply(use_pallas=True)`` on the
+    CPU takes the same plain version, without a launch."""
+    from icikit.ops.adam import _use_pallas
+
+    rng = np.random.default_rng(rows + len(m_dtype))
+    mdt, vdt = jnp.dtype(m_dtype), jnp.dtype(v_dtype)
+    p = rng.normal(size=(rows, 128)).astype(np.float32)
+    m = np.asarray(jnp.asarray(rng.normal(size=(rows, 128)) * 0.1, mdt))
+    v = np.asarray(jnp.asarray(rng.random((rows, 128)) * 0.01, vdt))
+    g = np.asarray(jnp.asarray(rng.normal(size=(rows, 128)), jnp.bfloat16))
+    covered = _use_pallas(*(jnp.asarray(a) for a in (p, m, v, g)))
+    assert covered == (rows == 32)
+    jp, jm, jv = j_adam_apply({"w": jnp.asarray(p)}, {"w": jnp.asarray(m)},
+                              {"w": jnp.asarray(v)}, {"w": jnp.asarray(g)},
+                              1e-3, jnp.int32(2), use_pallas=True)
+    tp, tm, tv = (from_jax(a) for a in (p, m, v))
+    cuda_adam.adam_tree_plain([tp], [tm], [tv], [from_jax(g)],
+                              adam_scalars(1e-3, 2), 0.9, 0.999, 1e-8)
+    tree = [{"w": from_jax(a)} for a in (p, m, v)]
+    cuda_adam.reset_launches()
+    adam_apply(*tree, {"w": from_jax(g)}, 1e-3, 2, use_pallas=True)
+    assert cuda_adam.LAUNCHES["adam"] == 0
+    for d, got in zip(tree, (tp, tm, tv)):
+        assert torch.equal(d["w"], got)
+    assert (tm.dtype, tv.dtype) == (getattr(torch, m_dtype),
+                                    getattr(torch, v_dtype))
+    np.testing.assert_allclose(to_jax(tp), np.asarray(jp["w"]), rtol=1e-6,
+                               atol=1e-7)
+    for got, want, dt in ((tm, jm["w"], m_dtype), (tv, jv["w"], v_dtype)):
+        assert np.asarray(want).dtype == jnp.dtype(dt)
+        got = to_jax(got).astype(np.float32)
+        want = np.asarray(want).astype(np.float32)
+        if not covered:
+            np.testing.assert_array_equal(got, want)
+        elif dt == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-9)
+
+
+def test_leaves_group_by_moment_pair():
+    """The wrapper launches once a (m dtype, v dtype) pair, each group in
+    the tree's order; every pair of float32 and bf16 has its own kernel
+    code, and a moment of another dtype is refused before any launch."""
+    f32, bf = torch.float32, torch.bfloat16
+    ms = [torch.zeros(2, dtype=d) for d in (f32, bf, f32, f32)]
+    vs = [torch.zeros(2, dtype=d) for d in (f32, f32, bf, f32)]
+    assert cuda_adam._pairs(ms, vs) == {(f32, f32): [0, 3], (bf, f32): [1],
+                                        (f32, bf): [2]}
+    assert sorted(cuda_adam._MOMENT_CODE.values()) == [0, 1, 2, 3]
+    assert cuda_adam._MOMENT_CODE[(f32, f32)] == 0
+    assert cuda_adam._MOMENT_CODE[(bf, bf)] == 1
+    p = torch.zeros(2)
+    with pytest.raises(ValueError, match="moments must be float32 or"):
+        cuda_adam._check_tree([p], [p.half()], [p], [p],
+                              torch.zeros(3), None)
+    cuda_adam._check_tree([p], [p.bfloat16()], [p], [p], torch.zeros(3),
+                          None)

@@ -239,6 +239,89 @@ def test_stream_ab_bytes_bounds_and_verdict(monkeypatch):
         assert stream_ab.main([*argv, "--timing-only"]) == 0
 
 
+def test_sort_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The sort A/B bench times the kernels on the card only: without
+    one it exits before building anything; a directory without
+    ``bitonic_net.cu`` and a malformed geometry are refused first."""
+    import torch
+
+    from icikit_torch.bench import sort_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        sort_ab.main(["--a", csrc, "--b", csrc])
+    with pytest.raises(SystemExit):
+        sort_ab.main(["--a", csrc, "--b", os.path.join(ROOT, "tests")])
+    with pytest.raises(SystemExit):
+        sort_ab.main(["--a", csrc, "--b", csrc, "--geom-b", "14,14,10,odd"])
+
+
+def _reference_plan(n, tile, g_max):
+    """The reference's ``_build_sort`` grouping (pallas_sort.py:304-347)
+    at t_big = tile: each round's cross passes filled to g_max bits from
+    the top."""
+    from icikit_torch.ops import cuda_sort as cs
+
+    log2t = cs.ilog2(tile)
+    plan = [("net", tile, cs._sort_rounds(log2t))]
+    for i in range(log2t, cs.ilog2(n)):
+        hi = i - log2t
+        while hi >= 0:
+            lo = max(0, hi - g_max + 1)
+            plan.append(("cross", 1 << (i + 1), tile, lo, hi, False))
+            hi = lo - 1
+        plan.append(("net", tile, [(i + 1, tuple(
+            1 << j for j in range(log2t - 1, -1, -1)))]))
+    return plan
+
+
+def test_sort_ab_kinds_bounds_and_verdict(monkeypatch):
+    """A 2^28 schedule split by kind (the in-tile sort, the other K1
+    launches, K2) with its stages; the byte bound (0.641 ms a launch)
+    and the in-tile sort's int32 issue time (1.69 ms for the 105 stages
+    of a 2^14 tile); the parent's K2 block width for a source without
+    ``icikit_cross_log2cb``; the verdict: a departure exits 1 unless
+    --timing-only."""
+    import torch
+
+    from icikit_torch.bench import sort_ab
+    from icikit_torch.ops import cuda_sort as cs
+
+    n = 1 << 28
+    plan = cs.sort_schedule(n, 1 << 14, 1 << 14, 10)
+    kinds = sort_ab.by_kind(plan, [1.0] * len(plan), n)
+    assert {k: v["launches"] for k, v in kinds.items()} == {
+        "net_sort": 1, "net_round": 14, "cross": 18}
+    assert kinds["net_sort"]["stages"] == 105
+    assert kinds["cross"]["stages"] == sum(range(1, 15))
+    assert kinds["cross"]["ms"] == 18.0
+    assert sort_ab.bytes_ms(n) == pytest.approx(0.641, abs=1e-3)
+    assert sort_ab.int32_issue_ms(n, 105) == pytest.approx(1.685, abs=1e-3)
+    assert sort_ab._geom("13,13,9,greedy") == (13, 13, 9, "greedy")
+    # the reference's grouping: 11 bits at g_max 10 as 10 + 1, not 6 + 5
+    assert [(s[3], s[4]) for s in sort_ab.greedy(plan, 10)
+            if s[0] == "cross" and s[1] == 1 << 25] == [(1, 10), (0, 0)]
+    assert [(s[3], s[4]) for s in plan
+            if s[0] == "cross" and s[1] == 1 << 25] == [(5, 10), (0, 4)]
+    assert sort_ab.greedy(cs.sort_schedule(n, 1 << 13, 1 << 13, 9), 9) == \
+        _reference_plan(n, 1 << 13, 9)
+    assert sort_ab._geom("14,14,10") == (14, 14, 10, "even")
+
+    class Parent:     # a library without icikit_cross_log2cb
+        pass
+
+    assert [sort_ab.log2cb(Parent(), 1 << 13, g) for g in (1, 5, 9)] == [
+        13, 9, 5]
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        monkeypatch.setattr(sort_ab, "run", lambda *args, ok=ok: ok)
+        argv = ["--a", csrc, "--b", csrc]
+        assert sort_ab.main(argv) == (0 if ok else 1)
+        assert sort_ab.main([*argv, "--timing-only"]) == 0
+
+
 def test_build_keys_libraries_by_source_and_flags(tmp_path):
     """A library is named by a hash of its source and its nvcc flags, in
     the directory asked for: another source, or the same source with

@@ -38,7 +38,7 @@ def _rand(n, dtype, gen):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_net_and_cross_passes_match_plain_versions(dtype, gen):
     x = _rand(1 << 16, dtype, gen)
-    for log2t in (9, 13, 14):
+    for log2t in (10, 13, 15):
         rounds = cs._sort_rounds(log2t)
         assert torch.equal(cs.net_pass(x, 1 << log2t, rounds),
                            cs.net_pass_plain(x, 1 << log2t, rounds))
@@ -48,6 +48,39 @@ def test_net_and_cross_passes_match_plain_versions(dtype, gen):
                 cs.cross_pass(x, 1 << 16, 1 << 13, lo, hi, merge_only),
                 cs.cross_pass_plain(x, 1 << 16, 1 << 13, lo, hi,
                                     merge_only))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_passes_at_the_main_geometry_match_plain_versions(dtype, gen):
+    """K1 at T_GRID (the in-tile sort, and a round pass whose direction
+    bit lies above the tile, in place) and K2 at the main path's tile:
+    G_MAX bits, a 1-bit pass, a middle range, merge_only, in place."""
+    t, span = cs.T_GRID, 1 << 26
+    x = _rand(span, dtype, gen)
+    for rounds in (cs._sort_rounds(cs.ilog2(t)),
+                   [(20, tuple(t >> i for i in range(1, cs.ilog2(t) + 1)))]):
+        want = cs.net_pass_plain(x, t, rounds)
+        assert torch.equal(cs.net_pass(x, t, rounds), want)
+        y = x.clone()
+        assert cs.net_pass(y, t, rounds, out=y) is y
+        assert torch.equal(y, want)
+    top = cs.ilog2(span // t) - 1
+    for lo, hi in ((top - cs.G_MAX + 1, top), (0, 0), (2, 6)):
+        for merge_only in (False, True):
+            want = cs.cross_pass_plain(x, span, t, lo, hi, merge_only)
+            assert torch.equal(cs.cross_pass(x, span, t, lo, hi, merge_only),
+                               want)
+            y = x.clone()
+            assert cs.cross_pass(y, span, t, lo, hi, merge_only, out=y) is y
+            assert torch.equal(y, want)
+
+
+def test_local_sort_at_a_length_not_a_power_of_two(gen):
+    for dtype in (torch.int32, torch.float32):
+        x = _rand(1_000_003, dtype, gen)
+        got = cs.local_sort(x)
+        assert torch.equal(got, cs.local_sort(x, plain=True))
+        assert torch.equal(got, torch.sort(x).values)
 
 
 def test_in_place_passes_and_launch_counts(gen):
@@ -338,6 +371,36 @@ def test_xent_kernels_match_plain(dtype, t, d, v, no_tf32):
     torch.testing.assert_close(again[0], lse, atol=0, rtol=0)
 
 
+def test_bf16_head_at_a_ragged_vocab_takes_the_stated_route(gen):
+    """bf16 at V = 61, d = 128: the gate sends the head to the unfused
+    path before any launch (the bf16 kernels read 16-byte rows of V), so
+    a train step runs on the card with no xent launch and agrees with the
+    same step on the CPU (bf16: 2e-2)."""
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 TransformerConfig,
+                                                 init_params,
+                                                 make_model_mesh,
+                                                 make_train_step)
+
+    cfg = TransformerConfig(vocab=61, d_model=128, n_heads=4, d_head=32,
+                            d_ff=256, n_layers=2, max_seq=64,
+                            compute_dtype="bfloat16")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.randint(0, 61, (2, 64), generator=torch.Generator()
+                        .manual_seed(1), dtype=torch.int32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: t.clone().to(dev) for k, t in cpu.items()}
+        opt, step = make_train_step(make_model_mesh(device=dev), cfg,
+                                    FusedAdam(1e-3))
+        cx.reset_launches()
+        _, _, loss = step(params, opt.init(params), tok.to(dev),
+                          tok.roll(1, 1).to(dev))
+        losses[dev] = float(loss)
+    assert set(cx.LAUNCHES.values()) == {0}
+    assert abs(losses["cuda"] - losses["cpu"]) < 2e-2 * abs(losses["cpu"])
+
+
 def test_train_step_launches_every_kernel(gen):
     """One tiny train step on the card: each layer launches flash_fwd
     and flash_bwd once, the head each xent kernel once; the loss agrees
@@ -498,16 +561,17 @@ def test_adam_kernel_matches_plain_bitwise(mom, grad, ok, gen):
             assert cuda_adam.LAUNCHES["adam"] == 1
 
 
-def _tree(sizes, grads, mom, gen, offset=0):
+def _tree(sizes, grads, mom, gen, offset=0, vmom=None):
     """Leaves of ``sizes`` with gradients of ``grads`` in turn, as views
-    ``offset`` elements into their buffers."""
+    ``offset`` elements into their buffers; v in ``vmom`` if given, else
+    in m's ``mom``."""
     out = []
     for i, n in enumerate(sizes):
         def mk(dtype, scale, n=n):
             t = scale * torch.randn(n + offset, generator=gen, device="cuda")
             return (t.abs() if scale == 0.01 else t).to(dtype)[offset:]
-        out.append((mk(torch.float32, 1.0), mk(mom, 0.1), mk(mom, 0.01),
-                    mk(grads[i % len(grads)], 1.0)))
+        out.append((mk(torch.float32, 1.0), mk(mom, 0.1),
+                    mk(vmom or mom, 0.01), mk(grads[i % len(grads)], 1.0)))
     return [list(t) for t in zip(*out)]
 
 
@@ -552,6 +616,42 @@ def test_adam_tree_of_100_leaves_takes_three_launches(mom, gen):
     cuda_adam.reset_launches()
     cuda_adam.adam_tree(*leaves, sc, 0.9, 0.999, 1e-8)
     assert cuda_adam.LAUNCHES["adam"] == 3
+    cuda_adam.adam_tree_plain(*ref, leaves[3], sc, 0.9, 0.999, 1e-8)
+    for got, want in zip(leaves[:3], ref):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("m_dtype,v_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_adam_tree_with_mixed_moments_matches_plain_bitwise(m_dtype,
+                                                           v_dtype, gen):
+    """Moments of two dtypes (FusedAdam's float32 m and bf16 v, and the
+    reverse): one launch over the tree, heads and tails included, bit
+    for bit with the plain version; a tree holding all four (m, v) pairs
+    takes one launch a pair."""
+    from icikit_torch.ops.adam import adam_scalars
+
+    sc = adam_scalars(3e-3, torch.tensor(7, device="cuda"))
+    grads = (torch.bfloat16, torch.float32, torch.float16)
+    leaves = [a + b for a, b in zip(
+        _tree((1, 7, 1000, (1 << 20) + 3), grads, m_dtype, gen,
+              vmom=v_dtype),
+        _tree((5000,), grads, m_dtype, gen, offset=1, vmom=v_dtype))]
+    ref = [[t.clone() for t in ts] for ts in leaves[:3]]
+    cuda_adam.reset_launches()
+    cuda_adam.adam_tree(*leaves, sc, 0.9, 0.999, 1e-8)
+    assert cuda_adam.LAUNCHES["adam"] == 1
+    cuda_adam.adam_tree_plain(*ref, leaves[3], sc, 0.9, 0.999, 1e-8)
+    for got, want in zip(leaves[:3], ref):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    f32, bf = torch.float32, torch.bfloat16
+    leaves = [sum(ts, []) for ts in zip(*(
+        _tree((3000, 9), grads, m, gen, vmom=v)
+        for m, v in ((f32, f32), (bf, f32), (f32, bf), (bf, bf))))]
+    ref = [[t.clone() for t in ts] for ts in leaves[:3]]
+    cuda_adam.reset_launches()
+    cuda_adam.adam_tree(*leaves, sc, 0.9, 0.999, 1e-8)
+    assert cuda_adam.LAUNCHES["adam"] == 4
     cuda_adam.adam_tree_plain(*ref, leaves[3], sc, 0.9, 0.999, 1e-8)
     for got, want in zip(leaves[:3], ref):
         assert all(torch.equal(a, b) for a, b in zip(got, want))

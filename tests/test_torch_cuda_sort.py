@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from icikit.ops import merge as jmerge
 from icikit.ops import pallas_sort as ps
+from icikit_torch.bench import sort_ab
 from icikit_torch.interop import from_jax, to_jax
 from icikit_torch.ops import cuda_sort as cs
 from icikit_torch.ops import merge as tmerge
@@ -113,10 +114,18 @@ def test_merge_bitonic_rows_are_independent_spans():
 
 
 def test_geometry_does_not_change_the_network_output():
-    x = _keys("float32", 1 << 14, seed=3)
+    """At 2^17 keys every geometry runs cross passes, the default's (2^14
+    tiles, G_MAX 10, even splits), the one before the Hopper redesign
+    (2^13, 9, greedy splits) and a 2^15 tile among them."""
+    x = _keys("float32", 1 << 17, seed=3)
     outs = [to_jax(cs.local_sort(from_jax(x), backend="kernel", **g))
             for g in ({}, SMALL, MULTI_RANGE,
-                      dict(t_grid=1 << 12, t_big=1 << 12, g_max=1))]
+                      dict(t_grid=1 << 12, t_big=1 << 12, g_max=1),
+                      dict(t_grid=1 << 15, t_big=1 << 15, g_max=10),
+                      dict(t_grid=1 << 10, t_big=1 << 11, g_max=10))]
+    plan = sort_ab.greedy(cs.sort_schedule(1 << 17, 1 << 13, 1 << 13, 9),
+                          9)
+    outs.append(to_jax(cs.run_schedule(from_jax(x), plan)))
     for o in outs[1:]:
         assert np.array_equal(o.view(np.uint32), outs[0].view(np.uint32))
 
@@ -138,13 +147,23 @@ def test_schedule_pass_counts():
     """The phased schedule: one tile sort, then per merge round the
     cross passes (ceil(bits / g_max)) and one in-tile pass."""
     plan = cs.sort_schedule(1 << 28)
-    assert plan[0] == ("net", cs.T_GRID, cs._sort_rounds(13))
-    assert sum(s[0] == "net" for s in plan) == 1 + (28 - 13)
-    assert sum(s[0] == "cross" for s in plan) == 9 * 1 + 6 * 2
-    assert cs.sort_passes(1 << 28) == len(plan) == 37
+    assert (cs.T_GRID, cs.T_BIG, cs.G_MAX) == (1 << 14, 1 << 14, 10)
+    assert plan[0] == ("net", cs.T_GRID, cs._sort_rounds(14))
+    assert sum(s[0] == "net" for s in plan) == 1 + (28 - 14)
+    # rounds 14..27 cross 1..14 bits: ten take one pass, four take two
+    assert sum(s[0] == "cross" for s in plan) == 10 * 1 + 4 * 2
+    assert cs.sort_passes(1 << 28) == len(plan) == 33
+    # split evenly: 11..14 bits as 6 + 5 .. 7 + 7, no 1-bit pass there
+    assert [s[4] - s[3] + 1 for s in plan if s[0] == "cross"][-2:] == [7, 7]
+    assert cs.sort_passes(1 << 28, 1 << 15, 1 << 15, 10) == 30
+    # the geometry before the Hopper redesign: 2^13 tiles, G_MAX 9
+    assert cs.sort_passes(1 << 28, 1 << 13, 1 << 13, 9) == 37
     assert cs.sort_passes(100) == 0
     assert cs.merge_schedule(1 << 13) == [("net", 1 << 13,
                                            cs._merge_rounds(1 << 12))]
+    assert cs.merge_schedule(2 * cs.T_GRID) == [
+        ("cross", 2 * cs.T_GRID, cs.T_GRID, 0, 0, True),
+        ("net", cs.T_GRID, cs._merge_rounds(cs.T_GRID // 2))]
 
 
 @pytest.mark.parametrize("kind", ["int32", "uint32", "float32"])

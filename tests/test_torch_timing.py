@@ -72,9 +72,9 @@ def test_sort_floor_by_card_name(name, bps):
     if bps is None:
         assert floor is None
     else:
-        # the port's geometry: 37 launches, each reading and writing 1 GiB
-        assert sort_passes(1 << 28) == 37
-        assert floor == pytest.approx(2 * 4 * (1 << 28) * 37 / bps)
+        # the port's geometry: 33 launches, each reading and writing 1 GiB
+        assert sort_passes(1 << 28) == 33
+        assert floor == pytest.approx(2 * 4 * (1 << 28) * 33 / bps)
 
 
 def test_sort_floor_counts_every_rank_on_one_card():

@@ -185,3 +185,69 @@ def test_head_flavours_agree_with_each_other():
             for save in (True, False) for fuse in (True, False)]
     for other in runs[1:]:
         _close(other, runs[0], 1e-6, 1e-6)
+
+
+@pytest.mark.parametrize("v", [61, 257, 1001])
+def test_bf16_ragged_vocab_gate_and_route_agree(v):
+    """bf16 at a V that is not a multiple of 8, d 128: JAX's gate takes
+    the fused head, the port's declines it (its bf16 kernels read
+    16-byte rows of V), and every decision of the port agrees: the
+    gate, the model's route and ``fused_xent``'s refusal, decided from
+    shape and dtype alone, so the same on any device. float32 at the
+    same V keeps JAX's decision."""
+    from icikit_torch.models.transformer.model import (TransformerConfig,
+                                                       _use_fused_head)
+
+    t = 64
+    assert jx.xent_supported(t, 128, v, jnp.bfloat16)
+    assert not tx.xent_supported(t, 128, v, torch.bfloat16)
+    assert tx.xent_supported(t, 128, v, torch.float32) == \
+        jx.xent_supported(t, 128, v, jnp.float32)
+    cfg = TransformerConfig(vocab=v, d_model=128, n_heads=4, d_head=32,
+                            d_ff=256, n_layers=1, max_seq=32,
+                            compute_dtype="bfloat16")
+    assert not _use_fused_head(cfg, 2, 32)
+    x, w, tg, _ = _inputs(v, t, 128, v, "bfloat16")
+    with pytest.raises(ValueError, match="V % 8"):
+        tx.fused_xent(from_jax(x), from_jax(w), from_jax(tg), save_exp=True)
+
+
+def test_bf16_ragged_vocab_head_matches_jax():
+    """The port's loss at bf16, V = 61, d_model 128 (its unfused head,
+    the gate's route) against JAX's (its fused head, Pallas interpret
+    mode), on JAX's weights and the same tokens: the loss within the
+    file's bf16 2e-2 (relative) and the head weight's gradient within
+    2e-2 of its largest entry."""
+    from icikit.models.transformer import TransformerConfig as JConfig
+    from icikit.models.transformer import init_params as j_init_params
+    from icikit.models.transformer.model import loss_and_metrics as j_loss
+    from icikit.models.transformer.model import make_model_mesh as j_mesh
+    from icikit_torch.interop import params_from_jax
+    from icikit_torch.models.transformer import (TransformerConfig,
+                                                 loss_and_metrics,
+                                                 make_model_mesh)
+
+    cfg = dict(vocab=61, d_model=128, n_heads=4, d_head=32, d_ff=256,
+               n_layers=1, max_seq=32, compute_dtype="bfloat16",
+               remat_policy="except_attn")
+    assert jx.xent_supported(64, 128, 61, jnp.bfloat16)
+    mesh = j_mesh(dp=1, tp=1, sp=1)
+    jparams = j_init_params(jax.random.key(7), JConfig(**cfg), mesh)
+    rng = np.random.default_rng(7)
+    tok, tgt = (rng.integers(0, 61, (2, 32)).astype(np.int32)
+                for _ in range(2))
+    jl, jg, _ = j_loss(jparams, jnp.asarray(tok), jnp.asarray(tgt), mesh,
+                       JConfig(**cfg))
+    tparams = params_from_jax({k: np.asarray(a) for k, a in jparams.items()},
+                              "cpu")
+    cuda_xent.reset_launches()
+    tl, tgrads, _ = loss_and_metrics(tparams, torch.from_numpy(tok),
+                                     torch.from_numpy(tgt),
+                                     make_model_mesh(device="cpu"),
+                                     TransformerConfig(**cfg))
+    assert set(cuda_xent.LAUNCHES.values()) == {0}
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-2)
+    got = to_jax(tgrads["w_out"]).astype(np.float32)
+    want = np.asarray(jg["w_out"]).astype(np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
