@@ -7,8 +7,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``).
 2. build: the kernels from ``icikit_torch/csrc`` with ``nvcc`` (sm_90a),
-   with each listed kernel's registers and local (spill) bytes a thread;
-   the sort, Adam and save-stack kernels must use no local memory.
+   with each listed kernel's registers and local (spill) bytes a thread
+   and the recompute head's clusters the card holds at once; the sort,
+   Adam, save-stack, recompute head and int8 step kernels must use no
+   local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
    at G_MAX bits, 1 bit and a middle range, merge_only and in place,
@@ -74,7 +76,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 12. per-kernel numbers of the train path's kernels at its shapes.
 13. the train step's other kernels held against their plain versions on
    the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
-   T 8192, D 1024, V 32768 (XENT_TOL); the Adam kernel on the base
+   T 8192, D 1024, V 32768 (XENT_TOL), ``xent_dx`` and ``xent_dw`` also at
+   the ragged RECOMPUTE_RAGGED in bf16; the Adam kernel on the base
    preset's leaves with each (m, v) pair of bf16 and float32 moments, ok
    absent, true and false, bit for bit; a bf16 step at V = 61, d_model
    128 (RAGGED_CFG), whose head the gate sends to the unfused path, its
@@ -126,7 +129,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (B15) at every (N, K) of the int8 path, rows 8 and 4096, x in bf16
    and float32 (QMV_TOL, relative to the largest entry);
    ``decode_step_q8`` (B14) at 64 rows, dh 128 and 256, 576 columns, cur
-   0, 1, 300, 575 (Q8_STEP_TOL; the int8 cache columns bit for bit).
+   0, 1, 127, 128, 300, 543, 575, and at rows 8, cur 543 and rows 1, cur
+   575, where the picker leaves the last split empty (Q8_STEP_TOL; the
+   int8 cache columns bit for bit).
 18. the int8 decode path: ``greedy_generate`` of the ``base`` preset with
    decode_quant="int8", decode_step="fused", quant_matvec="auto",
    attention "flash", bf16, b 8, prompt 512, 64 new, the weights
@@ -138,8 +143,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (INT8_FP32_LOGIT_TOL); at bf16 the first step's logits within
    BF16_LOGIT_TOL; the int8-vs-bf16 token agreement as information;
    tokens/s by the chained median-of-windows beside the bf16 fused arm,
-   prefill ms, the int8 byte-model bound and the idle share.
-19. per-kernel numbers of B15 and B14 at the int8 path's shapes.
+   prefill ms, the int8 byte-model bound and the idle share; the trace
+   must show 756 ``decode_step_q8_kernel`` launches.
+19. per-kernel numbers of B15 and B14 at the int8 path's shapes (B14's
+   time a launch on the device, behind a sleep kernel).
 20. B17's kernels against their plain versions: ``tile_mxu`` and the
    four ``tile_ablate`` variants at (1, 2, 512, d), d = 64 and 128, bq =
    bk = 64, within TILE_TOL of the largest |plain| entry (both round w
@@ -234,6 +241,10 @@ XENT_TOL = {"bf16": {"lse": 1e-3, "grad": 2e-2},
 # (V not a multiple of 8) at d_model 128
 RAGGED_CFG = dict(vocab=61, d_model=128, n_heads=4, d_head=32, d_ff=512,
                   n_layers=2, max_seq=256)
+# Phase 13: the recompute head kernels (B10 recompute) at (T, D, V) off
+# every tile of theirs (128 rows, 256-column slices of D, 64-wide steps),
+# and past one cluster's D 2048 (the 128 x 128 tiled kernels)
+RECOMPUTE_RAGGED = ((300, 136, 1000), (1000, 520, 4104), (300, 2176, 1000))
 # The two-pass backward's check shapes, and the long-context path's
 TWO_PASS_SHAPES = ((1, 8, 2048, 128), (1, 4, 8192, 128))
 LONG_SEQS = (32768, 131072)
@@ -275,7 +286,10 @@ SORT_KERNELS = tuple(f"net_kernel<{L}>" for L in range(10, 16)) + tuple(
 NO_LOCAL_MEMORY = SORT_KERNELS + (
     "adam_tree_kernel<f32 moments>", "adam_tree_kernel<bf16 moments>",
     "adam_tree_kernel<f32 m, bf16 v>", "adam_tree_kernel<bf16 m, f32 v>",
-    "stack_write_kernel", "stack_read_kernel")
+    "stack_write_kernel", "stack_read_kernel",
+    "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
+    "xent_recompute_bf16_tiled<dx>", "xent_recompute_bf16_tiled<dw>",
+    "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>")
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
 # (h, seq) at head dims 64 and 128; the check tolerance, relative to the
 # largest |plain| entry
@@ -1154,6 +1168,21 @@ def train_arm_kernel_checks(torch, dev) -> None:
                        "ok": max(errs.values()) <= tol["grad"]})
         del x, w, e, mrun
         torch.cuda.empty_cache()
+    for t_, d_, v_ in RECOMPUTE_RAGGED:
+        x = randn((t_, d_), torch.bfloat16)
+        w = randn((v_, d_), torch.bfloat16, d_ ** -0.5)
+        tg = torch.randint(0, v_, (t_,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        dn = randn((t_,), torch.float32, 1.0 / t_)
+        lse, _ = cx.xent_fwd(x, w, tg, save=False)
+        errs = {"xent_dx": _rel(cx.xent_dx(x, w, tg, lse, dn),
+                                cx.xent_dx_plain(x, w, tg, lse, dn)),
+                "xent_dw": _rel(cx.xent_dw(x, w, tg, lse, dn),
+                                cx.xent_dw_plain(x, w, tg, lse, dn))}
+        checks.append({"kernel": "xent_dx, xent_dw (ragged)",
+                       "dtype": "torch.bfloat16", "shape": [t_, d_, v_],
+                       "rel_err": errs,
+                       "ok": max(errs.values()) <= XENT_TOL["bf16"]["grad"]})
 
     cfg = TransformerConfig(**PRESETS[TRAIN_PRESET])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1817,9 +1846,14 @@ def int8_kernel_checks(torch, dev) -> None:
                                "rows": rows, "n": n, "k": k, "rel_err": e,
                                "ok": e <= QMV_TOL[key]})
                 del x, w8, sc, got, want
-        rows, total = DEC_BATCH * 8, DEC_PROMPT + DEC_NEW
+        total = DEC_PROMPT + DEC_NEW
         for dh in (128, 256):
-            for cur in sorted({0, 1, min(300, total - 1), total - 1}):
+            # the path's rows; then rows 8 at cur 543 (33 splits of 17
+            # columns) and rows 1 at cur 575 (35 of 17), whose last split
+            # the picker leaves empty
+            for rows, cur in [(DEC_BATCH * 8, c) for c in sorted(
+                    {0, 1, 127, 128, min(300, total - 1), 543, total - 1})
+                    ] + [(8, 543), (1, total - 1)]:
                 ops = _q8_step_operands(torch, gen, dev, rows, total, dh,
                                         cur, dtype)
                 kc2, vc2 = ops[5].clone(), ops[6].clone()
@@ -1831,8 +1865,9 @@ def int8_kernel_checks(torch, dev) -> None:
                             and torch.equal(ops[6], vc2))
                 checks.append({"kernel": "decode_step_q8", "q_dtype": key,
                                "rows": rows, "total": total, "dh": dh,
-                               "cur": cur, "out_err": e,
-                               "cache_bitwise": same,
+                               "cur": cur, "splits": ca.decode_splits(
+                                   rows, cur, ca._sm_count(ops[0].device)),
+                               "out_err": e, "cache_bitwise": same,
                                "ok": e <= Q8_STEP_TOL and same})
     torch.cuda.synchronize()
     emit({"phase": "int8_kernels",
@@ -2003,7 +2038,10 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
         lambda: greedy_generate(params, prompt, mesh, cfg, 1), iters=5)
     activity = device_activity(
         lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW))
+    traced_q8 = activity["by_name"].get("decode_step_q8_kernel",
+                                        {}).get("count", 0)
     emit({"phase": "int8_decode_timing", "card": smi, "arms": arms,
+          "traced_decode_step_q8_launches": traced_q8,
           "prefill_ms": prefill_ms,
           "step_ms_excluding_prefill": (arms["int8_fused"]["generate_ms"]
                                         - prefill_ms) / (DEC_NEW - 1),
@@ -2014,6 +2052,10 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
           "seconds": round(time.perf_counter() - t0, 1)})
     del params, fp
     torch.cuda.empty_cache()
+    if traced_q8 != want["decode_step_q8"]:
+        raise AssertionError(f"the traced int8 generate ran "
+                             f"decode_step_q8_kernel {traced_q8} times, "
+                             f"want {want['decode_step_q8']}")
     return launches, activity["by_name"]
 
 
@@ -2024,6 +2066,7 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     18's trace of the main path (``path_trace``: its ``by_name``). At
     the step's 8 rows a launch takes less device time than the host
     takes to issue it, so the events there time the host."""
+    from icikit_torch.bench.stream_ab import device_ms
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_quant as cq
     from icikit_torch.utils.timing import cuda_time_ms
@@ -2079,9 +2122,13 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     r_, total, dh = DEC_BATCH * 8, DEC_PROMPT + DEC_NEW, 128
     cur = DEC_PROMPT + (DEC_NEW - 1) // 2       # the steps' mean column
     ops = _q8_step_operands(torch, gen, dev, r_, total, dh, cur, bf)
-    s_ms = cuda_time_ms(lambda: ca.decode_step_q8(*ops, cur,
-                                                  scale=dh ** -0.5),
-                        iters=100, warmup=5)
+    # device time a launch behind a sleep kernel: the host issues a call
+    # more slowly than the card runs it
+    s_ms = device_ms(lambda: ca.decode_step_q8(*ops, cur, scale=dh ** -0.5),
+                     100, 250.0)
+    s_events = cuda_time_ms(lambda: ca.decode_step_q8(*ops, cur,
+                                                      scale=dh ** -0.5),
+                            iters=100, warmup=5)
     s_plain = cuda_time_ms(lambda: ca.decode_step_q8_plain(
         *ops, cur, scale=dh ** -0.5), iters=10)
     s_err = float((ca.decode_step_q8(*ops, cur, scale=dh ** -0.5)
@@ -2112,7 +2159,12 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
                                 "out once; products at the bf16 tensor "
                                 "rate",
           "decode_step_q8": f"rows={r_} total={total} dh={dh} cur={cur} "
-                            f"bf16 q, {s_bytes} bytes",
+                            f"bf16 q, {s_bytes} bytes, splits "
+                            f"{ca.decode_splits(r_, cur, ca._sm_count(dev))}",
+          "decode_step_q8_ms": "device time a launch behind a sleep "
+                               "kernel; by CUDA events around 100 "
+                               "back-to-back calls (the host's rate): "
+                               f"{s_events}",
           "decode_step_q8_library": "none: no one PyTorch call writes the "
                                     "int8 column and attends over int8 "
                                     "caches with folded scales",
@@ -2486,7 +2538,9 @@ def main() -> int:
             ("xent", "icikit_xent_regs",
              ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
-              "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>")),
+              "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
+              "xent_recompute_bf16_tiled<dx>",
+              "xent_recompute_bf16_tiled<dw>")),
             ("adam", "icikit_adam_regs",
              ("adam_tree_kernel<f32 moments>",
               "adam_tree_kernel<bf16 moments>",
@@ -2504,11 +2558,21 @@ def main() -> int:
                 which, ctypes.byref(r), ctypes.byref(loc)),
                 "kernel attributes")
             regs[name] = {"registers": r.value, "local_bytes": loc.value}
+    # the recompute head's clusters (B10): how many the card holds at
+    # once at the base width
+    clusters = {}
+    for side, name in ((1, "xent_dx"), (0, "xent_dw")):
+        c, size = ctypes.c_int(), ctypes.c_int()
+        _build.check(libs["xent"].icikit_xent_recompute_clusters(
+            side, XENT_SHAPE[1], ctypes.byref(c), ctypes.byref(size)),
+            "cluster occupancy")
+        clusters[name] = {"clusters_resident": c.value,
+                          "cluster_size": size.value}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "log": {k: {"seconds": round(v["seconds"], 2),
                       "cached": v["cached"]}
                   for k, v in _build.BUILD_LOG.items()},
-          "kernels": regs})
+          "kernels": regs, "recompute_clusters": clusters})
     spilled = {k: regs[k] for k in NO_LOCAL_MEMORY
                if regs[k]["local_bytes"]}
     if spilled:

@@ -1,0 +1,164 @@
+"""The recompute head's backward (B10 recompute, ``xent_recompute_bf16``
+dx and dw) of two source directories, timed in turns on one card.
+
+Builds ``xent.cu`` of each directory (with the headers beside it) with
+``nvcc`` (for ``sm_90a``, ``-Xptxas -v``) through
+``ops._build.build_sources`` into ``icikit_torch/build/ab/``, named by a
+hash of the sources and the flags, then times the recompute dx and dw of
+source A, B, B, A by CUDA events over back-to-back launches on the same
+tensors, at the ``base`` train step's head: T 8192, D 1024, V 32768,
+bf16, lse from the plain forward. Beside each: the bound (the rebuild and
+the contraction, 2 x 2 T V D operations at 989 TFLOP/s, against x, w
+and the output once at 3.35 TB/s: the larger), the plain version's time,
+and cuBLAS's ``x @ w.T`` alone (no one PyTorch call forms dx or dw from
+recomputed logits; the head rows of ``PERF.md`` carry this yardstick).
+
+B's dx and dw are held to A's and to the plain versions within
+``chip_smoke.py``'s bf16 head tolerance (phase 13's XENT_TOL: 2e-2 of
+the largest entry; g is rounded to bf16 for the tensor cores, the plain
+version contracts it in float32): a departure marks the record ``"ok":
+false`` and exits 1, unless ``--timing-only``. Prints one JSON line a
+kernel, the kernels' registers and spills as ptxas reported them, and
+the card's name and power limit. Needs a CUDA card.
+
+    python -m icikit_torch.bench.xent_ab --a OLD_DIR --b icikit_torch/csrc
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+
+import torch
+
+from icikit_torch.ops import _build
+
+MEM_BPS = 3.35e12          # H100 SXM HBM3, NVIDIA's data sheet
+BF16_TENSOR_OPS = 989e12   # dense bf16, the same
+SHAPE = (8192, 1024, 32768)   # (T, D, V) of the base step's head
+KERNELS = ("dx", "dw")
+TOL = 2e-2                 # chip_smoke.py's XENT_TOL["bf16"]["grad"]
+ITERS = 5
+
+
+def bound_ms(which: str, t: int, d: int, v: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for the recompute ``which`` at (T, D, V) in bf16: x and w read, the
+    output ((T, D) or (V, D)) written, targets, lse and dnll read once,
+    against the logits' rebuild and the contraction, 2 x 2 T V D."""
+    out_rows = t if which == "dx" else v
+    nbytes = (t * d + v * d + out_rows * d) * 2 + 3 * t * 4
+    ops = 2 * 2 * t * v * d
+    t_b, t_o = nbytes / MEM_BPS, ops / BF16_TENSOR_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def build(a_dir: str, b_dir: str) -> dict:
+    """{"A"/"B": (library, {kernel: (registers, spill bytes)})}, the two
+    sources compiled in parallel."""
+    from icikit_torch.bench.flash_ab import _ptxas_regs
+
+    built = _build.build_sources(
+        "xent", {n: os.path.join(d, "xent.cu")
+                 for n, d in (("A", a_dir), ("B", b_dir))},
+        os.path.join(_build.BUILD_DIR, "ab"), ("-Xptxas", "-v"))
+    return {n: (lib, _ptxas_regs(log, lambda k: "xent_recompute_bf16" in k))
+            for n, (lib, log) in built.items()}
+
+
+def recompute_call(lib, which: str, x, w, tg, lse, dn, out):
+    """One library's recompute ``which`` into ``out``, a no-argument
+    call."""
+    t, d = x.shape
+    v = w.shape[0]
+    st = torch.cuda.current_stream().cuda_stream
+    args = [1, int(which == "dx"), x.data_ptr(), w.data_ptr(),
+            tg.data_ptr(), lse.data_ptr(), dn.data_ptr(), out.data_ptr(),
+            t, v, d, st]
+    return lambda: _build.check(lib.icikit_xent_recompute(*args),
+                                f"xent_{which}")
+
+
+def _rel(x, y) -> float:
+    return float((x.float() - y.float()).abs().max()
+                 / y.float().abs().max().clamp_min(1e-30))
+
+
+def run(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 12) -> bool:
+    """Time and compare the two sources; whether B's outputs held to A's
+    and to the plain versions for both kernels."""
+    from icikit_torch.bench.flash_ab import _turns, event_ms
+    from icikit_torch.ops import cuda_xent as cx
+
+    libs = build(a_dir, b_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, d, v = shape
+    bf = torch.bfloat16
+    x = torch.randn((t, d), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(bf)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.full((t,), 1.0 / t, device="cuda")
+    lse, _ = cx.xent_fwd_plain(x, w, tg, save=False)
+    lse = lse.float().contiguous()
+    mm_ms = event_ms(lambda: torch.matmul(x, w.t()), ITERS)
+    ok = True
+    for which in KERNELS:
+        rows = t if which == "dx" else v
+        outs = {n: torch.empty((rows, d), dtype=bf, device="cuda")
+                for n in "AB"}
+        fns = {n: {which: recompute_call(libs[n][0], which, x, w, tg, lse,
+                                         dn, outs[n])} for n in "AB"}
+        ms = _turns(fns, ITERS)
+        plain = cx.xent_dx_plain if which == "dx" else cx.xent_dw_plain
+        want = plain(x, w, tg, lse, dn)
+        plain_ms = event_ms(lambda: plain(x, w, tg, lse, dn), 2)
+        bnd, by = bound_ms(which, t, d, v)
+        rec = {"kernel": f"xent_{which} (B10 recompute)",
+               "shape": {"T": t, "D": d, "V": v}, "dtype": "bfloat16",
+               "turns": "A B B A",
+               "ms": {n: ms[n][which] for n in "AB"},
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "cublas_x_wT_ms": mm_ms, "library_ms": None,
+               "rel_err": {"b_vs_a": _rel(outs["B"], outs["A"]),
+                           "b_vs_plain": _rel(outs["B"], want),
+                           "a_vs_plain": _rel(outs["A"], want)},
+               "tolerance": TOL}
+        rec["ok"] = (rec["rel_err"]["b_vs_a"] <= TOL
+                     and rec["rel_err"]["b_vs_plain"] <= TOL)
+        print(json.dumps(rec), flush=True)
+        ok &= rec["ok"]
+        del outs, fns, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"registers_spill_bytes": {n: libs[n][1] for n in "AB"},
+                      "sources": {"A": a_dir, "B": b_dir}}))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip())
+    return ok
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--a", required=True, help="directory of arm A's xent.cu")
+    p.add_argument("--b", required=True, help="the same for arm B")
+    p.add_argument("--timing-only", action="store_true",
+                   help="exit 0 even where B's outputs depart from A's")
+    args = p.parse_args(argv)
+    missing = [os.path.join(d, "xent.cu") for d in (args.a, args.b)
+               if not os.path.isfile(os.path.join(d, "xent.cu"))]
+    if missing:
+        p.error(f"missing sources: {missing}")
+    if not torch.cuda.is_available():
+        raise SystemExit("xent_ab needs a CUDA card")
+    ok = run(args.a, args.b)
+    return 0 if ok or args.timing_only else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

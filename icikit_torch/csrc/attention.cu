@@ -172,7 +172,14 @@
 //      before the value product; float32 softmax and output. RoPE, the
 //      column's quantization and the scale-row write stay outside the
 //      launch, as in JAX. Bound (64 rows, cur 543, dh 128): 8.9 MB of
-//      int8 K and V and 0.28 MB of scales, 2.8 us: bytes.
+//      int8 K and V and 0.28 MB of scales, 2.8 us: bytes. One CTA a row
+//      (the first design) left half the SMs idle and walked a row's
+//      columns with one 128-byte segment a warp in flight, 0.10-0.18
+//      TB/s. Now a row's columns are split across CTAs, (rows, splits)
+//      with rows x splits >= 2 x the SMs (the wrapper's decode_splits),
+//      16-byte loads four deep a lane, and the splits' (max, sum, value)
+//      partials merged by the row's last CTA in the same launch (one
+//      launch a layer a step, as before: the int8 path is host-bound).
 //
 // Every entry returns cudaGetLastError() after its launch.
 
@@ -181,6 +188,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -214,15 +223,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 // 16 (or 4) bytes from global into shared memory without a register
@@ -265,19 +265,6 @@ __device__ __forceinline__ int cm_off(int r, int c8) {
   return ((r >> 3) * CH + c8) * 128 + (r & 7) * 16;
 }
 
-// wgmma's shared-memory matrix descriptor, no swizzle: the start address,
-// LBO (the byte stride between core matrices along K) and SBO (along M or
-// N). A tile in cm_off order read with K along its rows' chunks (K-major:
-// Q, K, V, dO as the operands of S and dP) has LBO 128 and SBO CH * 128;
-// read with K along its rows (MN-major, the transpose bit set: dO, Q and
-// K as the B operands of dv, dk and dq, dS^T as dq's A) LBO CH * 128 and
-// SBO 128.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
-                                              int sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
-
 // R rows of a (rows, D) bf16 tensor from row0 into a cm_off tile by
 // cp.async, rows past `rows` zero-filled; NT threads. Eight neighbouring
 // threads fill one core matrix.
@@ -294,217 +281,6 @@ __device__ __forceinline__ void cp_tile(unsigned char* dst, const bf16* src,
     cp_async16(dst + cm_off<CH>(r, c8),
                ok ? src + (row0 + r) * D + c8 * 8 : src, ok ? 16 : 0);
   }
-}
-
-// The descriptor of a tile in wgmma's swizzled layouts (layout 1: 128-byte
-// swizzle, 2: 64-byte): for K-major operands SBO is the stride of 8-row
-// groups (LBO unused), the k16 steps inside a swizzled row 32 bytes apart;
-// for MN-major ones LBO is the stride of SW/2-column blocks along M/N and
-// SBO that of 8-row groups along K.
-__device__ __forceinline__ uint64_t gmma_desc_sw(const void* p, int lbo,
-                                                 int sbo, int layout) {
-  return gmma_desc(p, lbo, sbo) | ((uint64_t)layout << 62);
-}
-
-// wgmma m64nNk16, bf16 in, float32 accumulate, for one warpgroup (128
-// threads): D (+)= A B with A (64 x 16) from a descriptor (ss) or from
-// registers (rs: warp w holds rows 16w .. 16w+15 as mma.sync m16n8k16's A
-// fragment) and B (16 x N) from a descriptor; TA/TB: the operand is
-// MN-major. Thread (warp w, lane g*4 + c) holds d[4j .. 4j+3] = rows
-// 16w + g and 16w + g + 8, columns 8j + 2c and 8j + 2c + 1, as
-// mma.sync's accumulator of n-tile j. scale_d 0 overwrites d.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
-}
-
-template <int N, int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, scale_d);
-  if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, scale_d);
-  if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
-  if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
-}
-template <int N, int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
-  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
-  if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
-}
-// wg_fence: before a warpgroup's first wgmma on registers that plain
-// instructions wrote. wg_commit closes a group of wgmmas; wg_wait<N>
-// returns when at most the last N groups are still running (groups end
-// in order). fence_regs then orders the plain instructions that read an
-// accumulator after the wait.
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The A fragment (16 x 16, bf16) of k-chunk cc from an accumulator held
-// as mma.sync/wgmma n-tiles of 8 columns (d[4j .. 4j+3] for n-tile j).
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
-                                         int cc) {
-  const float* x = d + 8 * cc;
-  a[0] = pack_bf16(x[0], x[1]);
-  a[1] = pack_bf16(x[2], x[3]);
-  a[2] = pack_bf16(x[4], x[5]);
-  a[3] = pack_bf16(x[6], x[7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -524,52 +300,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
 // runs the constant-shift pass first and redoes the CTA's tile online
 // only when a row's sum left [SUM_LO, SUM_HI].
 
-// mbarriers and TMA (sm_90). An mbarrier's phase completes when its
-// arrivals (and, after expect_tx, the bytes a TMA copy signs for) are in;
-// mbar_wait(parity) returns once the phase of that parity has completed.
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(b)),
-      "r"(parity)
-      : "memory");
-}
-// One box of a 3-d tensor map {d, s, bh} (a block of columns from c0 of
-// the rows from r0 of head bh) into dst, signed for at mbarrier b; rows
-// past s are zero-filled.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                       int c0, int r0, int bh, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bh),
-      "r"(smem_u32(b))
-      : "memory");
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
 // OR of `pred` over the n threads that reach named barrier id.
 __device__ __forceinline__ bool bar_or(int id, int n, bool pred) {
   uint32_t r;
@@ -1672,145 +1402,231 @@ decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// decode_step_q8: decode_step over int8 caches, for one (batch*head) row a
-// CTA, with the chunked row walk above (four int8 a lane a chunk, one
-// 128-byte segment a warp a row). q arrives rotated and the fresh column
-// quantized (kq, vq) and dequantized (kdq, vdq); the scale rows arrive
-// holding the fresh column's scale at cur.
+// decode_step_q8: decode_step over int8 caches, a row's past columns split
+// across CTAs (flash-decoding). CTA (row, split) of Q8_THREADS threads
+// walks columns [split * span, min((split + 1) * span, cur)), span =
+// ceil(cur / splits): eight lanes cover a 128-byte chunk of a column, 16
+// bytes a lane, so a warp reads four columns a load and each lane keeps
+// Q8_UNROLL loads in flight; a column's dot product reduces over its 8
+// lanes. The split's logits (q . k_t) * kscale_t * scale sit in shared
+// memory, then its max m, its sum l of exp(logit - m) and its value
+// partial acc[dh] = sum_t exp(logit_t - m) * vscale_t * v_t (V read in a
+// second pass, its lines prefetched into L2 during the first) go to a
+// float32 workspace. The last CTA of the row (an atomic count, as the
+// cross-entropy head's merge) adds the t == cur term from kdq and vdq,
+// merges the partials by log-sum-exp and writes the row. Split 0 writes
+// the fresh int8 column at cur; no CTA reads column cur from the cache.
 
-__device__ __forceinline__ void load_i8x4(const int8_t* p, float (&x)[4]) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  x[0] = (float)c.x;
-  x[1] = (float)c.y;
-  x[2] = (float)c.z;
-  x[3] = (float)c.w;
+constexpr int Q8_THREADS = 128;                    // 4 warps
+constexpr int Q8_WARPS = Q8_THREADS / 32;
+constexpr int Q8_LANES = 8;                        // lanes a 128-byte chunk
+constexpr int Q8_GROUPS = Q8_THREADS / Q8_LANES;   // columns a CTA a load
+constexpr int Q8_UNROLL = 4;                       // loads in flight a lane
+static_assert(Q8_THREADS == 128, "a thread a dim of each 128-wide chunk");
+
+// The 16 int8 of a 16-byte load, as floats.
+__device__ __forceinline__ void i8x16(const int4 raw, float (&x)[16]) {
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    x[j] = (float)((int)((unsigned)w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+}
+
+// Reductions over the CTA's Q8_THREADS through red[Q8_WARPS]; every
+// thread gets the result.
+template <bool MAX>
+__device__ __forceinline__ float q8_reduce(float x, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  x = MAX ? warp_max(x) : warp_sum(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float y = red[0];
+#pragma unroll
+  for (int w = 1; w < Q8_WARPS; ++w) y = MAX ? fmaxf(y, red[w]) : y + red[w];
+  __syncthreads();
+  return y;
+}
+
+size_t q8_smem(int dh, int64_t span, int splits) {
+  const int64_t wn = span > splits ? span : splits;
+  return sizeof(float) *
+         ((size_t)dh + Q8_WARPS + Q8_WARPS * 128 + (size_t)wn);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
+__global__ void __launch_bounds__(Q8_THREADS)
 decode_step_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                       const int8_t* __restrict__ vq,
                       const float* __restrict__ kdq,
                       const float* __restrict__ vdq, int8_t* kc, int8_t* vc,
                       const float* __restrict__ ksc,
                       const float* __restrict__ vsc, float* __restrict__ out,
-                      int64_t total, int dh, int64_t cur, float scale) {
-  static_assert(DEC_EPL == 4, "load_i8x4 reads four int8 a lane");
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                  // q in float32
-  float* kd = qs + dh;              // the fresh column, dequantized
-  float* part = kd + dh;            // DEC_WARPS x dh partial sums
-  float* red = part + DEC_WARPS * dh;
-  float* w = red + DEC_WARPS;       // cur + 1 logits, then weights
-  const int64_t rowi = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nch = dh / DEC_CW;
-  int8_t* kcr = kc + rowi * total * dh;
-  int8_t* vcr = vc + rowi * total * dh;
-  const float* kscr = ksc + rowi * total;
-  const float* vscr = vsc + rowi * total;
+                      float* ws, unsigned* counter, int64_t total, int dh,
+                      int64_t cur, float scale) {
+  extern __shared__ __align__(16) float q8sm[];
+  float* qs = q8sm;                  // q in float32
+  float* red = qs + dh;              // Q8_WARPS
+  float* part = red + Q8_WARPS;      // Q8_WARPS x 128 value partials
+  float* w = part + Q8_WARPS * 128;  // the split's logits, then weights
+  __shared__ bool last;
+  const int64_t row = blockIdx.x;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = tid / Q8_LANES, l8 = tid % Q8_LANES;
+  const int nch = dh / 128;
+  const int8_t* kcr = kc + row * total * dh;
+  const int8_t* vcr = vc + row * total * dh;
+  const float* kscr = ksc + row * total;
+  const float* vscr = vsc + row * total;
+  const int64_t span = (cur + splits - 1) / splits;
+  const int64_t t0 = split * span;
+  const int64_t t1 = t0 + span < cur ? t0 + span : cur;
+  const int64_t n = t1 > t0 ? t1 - t0 : 0;
 
-  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
-    qs[d] = to_f(q[rowi * dh + d]);
-    kd[d] = kdq[rowi * dh + d];
-    kcr[cur * dh + d] = kq[rowi * dh + d];  // the int8 column, in place
-    vcr[cur * dh + d] = vq[rowi * dh + d];
+  if (split == 0)  // the int8 column, in place
+    for (int d = tid * 16; d < dh; d += Q8_THREADS * 16) {
+      *reinterpret_cast<int4*>(kc + (row * total + cur) * dh + d) =
+          *reinterpret_cast<const int4*>(kq + row * dh + d);
+      *reinterpret_cast<int4*>(vc + (row * total + cur) * dh + d) =
+          *reinterpret_cast<const int4*>(vq + row * dh + d);
+    }
+  for (int d = tid; d < dh; d += Q8_THREADS) qs[d] = to_f(q[row * dh + d]);
+  __syncthreads();
+
+  // the split's raw logits q . k_t, a 128-byte chunk of each column a
+  // pass; the same lane group keeps a column across the passes
+  for (int ch = 0; ch < nch; ++ch) {
+    const int d0 = ch * 128 + l8 * 16;
+    float qv[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) qv[j] = qs[d0 + j];
+    for (int64_t i0 = 0; i0 < n; i0 += Q8_GROUPS * Q8_UNROLL) {
+      int4 raw[Q8_UNROLL];  // warp-uniform trip count: the shuffles below
+#pragma unroll
+      for (int u = 0; u < Q8_UNROLL; ++u) {
+        const int64_t i = i0 + u * Q8_GROUPS + grp;
+        if (i < n) {
+          const int64_t off = (t0 + i) * dh + d0;
+          raw[u] = __ldg(reinterpret_cast<const int4*>(kcr + off));
+          if (l8 == 0)
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vcr + off));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < Q8_UNROLL; ++u) {
+        const int64_t i = i0 + u * Q8_GROUPS + grp;
+        float kx[16];
+        i8x16(i < n ? raw[u] : make_int4(0, 0, 0, 0), kx);
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc += qv[j] * kx[j];
+#pragma unroll
+        for (int off = 1; off < Q8_LANES; off <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (l8 == 0 && i < n) w[i] = ch ? w[i] + acc : acc;
+      }
+    }
   }
   __syncthreads();
 
-  // logits: (q . k_t) * kscale_t * scale over t < cur, q . kdq at cur
-  for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-    float acc = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int d0 = ch * DEC_CW + lane * DEC_EPL;
-      float kx[DEC_EPL];
-      load_i8x4(kcr + t * dh + d0, kx);
-#pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kx[e];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) w[t] = acc * kscr[t] * scale;
+  // the split's max and sum; V's column scale folds into the weights
+  float m = -INFINITY;
+  for (int64_t i = tid; i < n; i += Q8_THREADS) {
+    const float lg = w[i] * kscr[t0 + i] * scale;
+    w[i] = lg;
+    m = fmaxf(m, lg);
   }
-  if (warp == 0) {
-    float acc = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int d0 = ch * DEC_CW + lane * DEC_EPL;
-#pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kd[d0 + e];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) w[cur] = acc * scale;
-  }
-  __syncthreads();
-
-  float m = NEG_INF;
-  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) m = fmaxf(m, w[t]);
-  m = block_reduce<true>(m, red);
+  m = q8_reduce<true>(m, red);
   float l = 0.f;
-  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) {
-    const float e = expf(w[t] - m);
-    w[t] = e;
+  for (int64_t i = tid; i < n; i += Q8_THREADS) {
+    const float e = expf(w[i] - m);
+    w[i] = e * vscr[t0 + i];
     l += e;
   }
-  l = block_reduce<false>(l, red);  // its barrier publishes w[]
+  l = q8_reduce<false>(l, red);  // its barrier publishes w[]
 
-  // values: the weights times V's column scale, then the int8 rows
+  // the split's value partial, a 128-wide chunk of dh a pass
+  float* wsr = ws + (row * splits + split) * (int64_t)(dh + 2);
   for (int ch = 0; ch < nch; ++ch) {
-    const int d0 = ch * DEC_CW + lane * DEC_EPL;
-    float acc[DEC_EPL];
+    const int d0 = ch * 128 + l8 * 16;
+    float acc[16];
 #pragma unroll
-    for (int e = 0; e < DEC_EPL; ++e) acc[e] = 0.f;
-    for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-      const float wt = w[t] * vscr[t];
-      float vx[DEC_EPL];
-      load_i8x4(vcr + t * dh + d0, vx);
+    for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+    for (int64_t i0 = 0; i0 < n; i0 += Q8_GROUPS * Q8_UNROLL) {
+      int4 raw[Q8_UNROLL];
 #pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc[e] += wt * vx[e];
+      for (int u = 0; u < Q8_UNROLL; ++u) {
+        const int64_t i = i0 + u * Q8_GROUPS + grp;
+        if (i < n)
+          raw[u] = __ldg(reinterpret_cast<const int4*>(vcr + (t0 + i) * dh +
+                                                      d0));
+      }
+#pragma unroll
+      for (int u = 0; u < Q8_UNROLL; ++u) {
+        const int64_t i = i0 + u * Q8_GROUPS + grp;
+        if (i < n) {
+          const float wt = w[i];
+          float vx[16];
+          i8x16(raw[u], vx);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[j] += wt * vx[j];
+        }
+      }
     }
+    // over the warp's four lane groups, then over the warps
 #pragma unroll
-    for (int e = 0; e < DEC_EPL; ++e) part[warp * dh + d0 + e] = acc[e];
+    for (int j = 0; j < 16; ++j) {
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 8);
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 16);
+    }
+    if (lane < Q8_LANES)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) part[warp * 128 + l8 * 16 + j] = acc[j];
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < Q8_WARPS; ++ww) s += part[ww * 128 + tid];
+    wsr[2 + ch * 128 + tid] = s;
+    __syncthreads();
   }
+  if (tid == 0) {
+    wsr[0] = m;
+    wsr[1] = l;
+  }
+
+  // the row's last CTA merges the splits and the t == cur term
+  __threadfence();
   __syncthreads();
-  const float w_cur = w[cur];
-  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
+  if (tid == 0) last = atomicAdd(counter + row, 1u) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float dot = 0.f;
+  for (int d = tid; d < dh; d += Q8_THREADS) dot += qs[d] * kdq[row * dh + d];
+  const float lc = q8_reduce<false>(dot, red) * scale;
+  const float* wrow = ws + row * splits * (int64_t)(dh + 2);
+  float mx = lc;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, __ldcg(wrow + s * (dh + 2)));
+  for (int s = tid; s < splits; s += Q8_THREADS)  // each split's rescale
+    w[s] = expf(__ldcg(wrow + s * (dh + 2)) - mx);
+  __syncthreads();
+  const float ec = expf(lc - mx);
+  float lt = ec;
+  for (int s = 0; s < splits; ++s) lt += __ldcg(wrow + s * (dh + 2) + 1) * w[s];
+  for (int d = tid; d < dh; d += Q8_THREADS) {
     float sum = 0.f;
-    for (int ww = 0; ww < DEC_WARPS; ++ww) sum += part[ww * dh + d];
-    sum += w_cur * vdq[rowi * dh + d];
-    out[rowi * dh + d] = sum / l;
+    for (int s = 0; s < splits; ++s)
+      sum += __ldcg(wrow + s * (dh + 2) + 2 + d) * w[s];
+    sum += ec * vdq[row * dh + d];
+    out[row * dh + d] = sum / lt;
   }
+  if (tid == 0) counter[row] = 0u;  // ready for the next call
 }
 
 template <typename KernelT>
 int set_smem(KernelT kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query, so that the library links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The TMA map of a (bh, s, d) bf16 tensor as {d, s, bh}, a box sw/2
@@ -1975,14 +1791,16 @@ template <typename T>
 int launch_decode_q8(const void* q, const int8_t* kq, const int8_t* vq,
                      const float* kdq, const float* vdq, int8_t* kc,
                      int8_t* vc, const float* ksc, const float* vsc,
-                     float* out, int64_t rows, int64_t total, int dh,
-                     int64_t cur, float scale, cudaStream_t st) {
-  const size_t smem = decode_smem(dh, cur);
+                     float* out, float* ws, unsigned* counter, int64_t rows,
+                     int64_t total, int dh, int64_t cur, int splits,
+                     float scale, cudaStream_t st) {
+  const size_t smem = q8_smem(dh, (cur + splits - 1) / splits, splits);
   int err = set_smem(decode_step_q8_kernel<T>, smem);
   if (err) return err;
-  decode_step_q8_kernel<T><<<(unsigned)rows, DEC_THREADS, smem, st>>>(
-      static_cast<const T*>(q), kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
-      total, dh, cur, scale);
+  decode_step_q8_kernel<T><<<dim3((unsigned)rows, (unsigned)splits),
+                             Q8_THREADS, smem, st>>>(
+      static_cast<const T*>(q), kq, vq, kdq, vdq, kc, vc, ksc, vsc, out, ws,
+      counter, total, dh, cur, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2085,22 +1903,28 @@ int icikit_decode_step(int dtype, const void* q, const void* k, const void* v,
 
 // dtype: q's (0 = float32, 1 = bfloat16). q (rows, dh); kq, vq (rows, dh)
 // int8, kdq, vdq (rows, dh) float32; caches (rows, total, dh) int8, written
-// at column cur; ksc, vsc (rows, total) float32; out (rows, dh) float32.
-// dh: a positive multiple of 128.
-int icikit_decode_step_q8(int dtype, const void* q, const int8_t* kq,
-                          const int8_t* vq, const float* kdq,
-                          const float* vdq, int8_t* kc, int8_t* vc,
-                          const float* ksc, const float* vsc, float* out,
-                          int64_t rows, int64_t total, int dh, int64_t cur,
-                          float scale, void* stream) {
+// at column cur; ksc, vsc (rows, total) float32; out (rows, dh) float32;
+// ws (rows * splits * (dh + 2)) float32 scratch; counter (rows,) uint32,
+// zero, left zero. dh: a positive multiple of 128; splits: 1 .. 65535.
+int icikit_decode_step_q8_split(int dtype, const void* q, const int8_t* kq,
+                                const int8_t* vq, const float* kdq,
+                                const float* vdq, int8_t* kc, int8_t* vc,
+                                const float* ksc, const float* vsc,
+                                float* out, float* ws, unsigned* counter,
+                                int64_t rows, int64_t total, int dh,
+                                int64_t cur, int splits, float scale,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh < DEC_CW || dh % DEC_CW) return (int)cudaErrorInvalidValue;
+  if (dh < 128 || dh % 128 || splits < 1 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch_decode_q8<bf16>(q, kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
-                                  rows, total, dh, cur, scale, st);
+                                  ws, counter, rows, total, dh, cur, splits,
+                                  scale, st);
   if (dtype == 0)
-    return launch_decode_q8<float>(q, kq, vq, kdq, vdq, kc, vc, ksc, vsc, out,
-                                   rows, total, dh, cur, scale, st);
+    return launch_decode_q8<float>(q, kq, vq, kdq, vdq, kc, vc, ksc, vsc,
+                                   out, ws, counter, rows, total, dh, cur,
+                                   splits, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -45,10 +45,10 @@
 //                    _dx_call/_dw_call).
 //      dx and dw with g rebuilt from a recomputed logits tile
 //      (_g_chunk_recompute) instead of from e: one more 2*T*V*D product
-//      (bound 1.11 ms each at the base shapes, operations). A CTA holds a
-//      128 x 128 output tile; the rebuild is repeated by each of the D/128
-//      CTAs that share a token (dx) or vocab (dw) tile (see
-//      xent_recompute_bf16).
+//      (bound 1.11 ms each at the base shapes, operations). bf16 up to D
+//      2048: a thread-block cluster along D on wgmma and TMA forms each
+//      logits tile once (see xent_recompute_bf16); past D 2048, 128 x 128
+//      tiles that each form the logits over D (xent_recompute_bf16_tiled).
 //
 //   xent_g        <- _bwd_kernel (B11, _g_call, pallas_call :312).
 //   xent_g_saved  <- _g_saved_kernel (B11, _g_saved_call, :335).
@@ -59,9 +59,10 @@
 //      ms, bytes); dx = g w and dw = g^T x are then plain matmuls outside
 //      any kernel, as JAX leaves them to XLA (xent.py:469-475).
 //
-// bf16: 8 warps a CTA, each a 32 x 64 piece of the 128 x 128 tile, on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), the
-// operands staged through shared memory by cp.async, double-buffered.
+// bf16 (all but the recompute flavour up to D 2048): 8 warps a CTA, each
+// a 32 x 64 piece of the 128 x 128 tile, on the tensor cores with mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), the operands staged through
+// shared memory by cp.async, double-buffered.
 // Operands whose contraction dimension is not contiguous in memory (w in
 // dx, e and x in dw) are read with ldmatrix.trans. g is rounded to bf16
 // to enter the tensor cores, where the TPU contracts it in float32
@@ -69,12 +70,17 @@
 // states the cost. float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
 // Every entry returns cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -98,11 +104,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -111,10 +112,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Four 8x8 bf16 matrices, each delivered transposed (the mma B or A
@@ -639,30 +636,361 @@ xent_g_saved_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
 }
 
 // The recompute flavour of the fused backward (_dx_kernel / _dw_kernel
-// with e_ref=None). CTA (D tile, token tile) for dx, (D tile, vocab tile)
-// for dw, a 128 x 128 output tile in registers. For each 128-wide piece
-// of the other dimension: the logits tile (x w^T for dx, w x^T for dw)
-// through logits_tile; g from it, rounded to bf16, into shared memory;
-// then the product's operand (w rows for dx, x rows for dw) staged into
-// the logits ring, which is free by then, and the output tile += g op.
-// The operand tile that feeds the product is the one the logits tile
-// read along D (the TPU's "one fetch, two dots" at D-tile granularity).
-// Every D tile of a row of CTAs recomputes the same logits: D/128 times
-// the 2 T V D of the rebuild (8 at the base preset's D = 1024), the
-// price of holding only a 128 x 128 accumulator a CTA.
+// with e_ref=None), bf16: out = g op with op = w for dx (T, D) and x for
+// dw (V, D), g = (exp2(s*log2e - lse*log2e) - onehot) * dnll rounded to
+// bf16 and s = x w^T recomputed a 64-wide step of the other dimension
+// (vocabulary for dx, tokens for dw) at a time.
+//
+// A CTA's registers hold at most a 128 x 256 float32 output tile beside
+// the logits, and a row tile's output spans all of D (1024 at the base
+// preset), so C = D / 256 CTAs (rounded up to 1, 2, 4 or 8) share a row
+// tile. The first design gave each its own 128 x 128 tile and had every
+// one recompute the whole logits tile over D: D/128 = 8 rebuilds. Here
+// the C CTAs form a thread-block cluster along D. CTA c holds the rows'
+// slice c of D (128 x 256, loaded once by TMA) and streams the other
+// operand's slice c, 64 rows a step, through a 3-stage TMA ring; a step
+// reads the tile once for both products (the TPU's "one fetch, two
+// dots"):
+//   - the partial logits over its slice, S_c (128 x 64, wgmma m64n64k16,
+//     both operands K-major in the 128-byte swizzle), into shared memory
+//     in float32;
+//   - after a cluster barrier, CTA c sums rows [c*128/C, (c+1)*128/C) of
+//     the C partials through distributed shared memory, forms g there
+//     (0 outside [0, T) x [0, V)) and writes it in bf16 into every CTA's
+//     g tile (the token data in shared memory, copied a step ahead);
+//   - after a second cluster barrier, out += g op_c (wgmma m64n128k16 x
+//     2, g from registers by ldmatrix, the tile read MN-major through the
+//     descriptor's transpose bit).
+// The barriers are split (arrive, then wait) around the logits' issue.
+// Each logits tile is formed once (rebuild factor 1): 2 x 2 T V D
+// operations in all, the bound's (1.11 ms at the base shapes). Two
+// warpgroups (64 rows each) run both products and the exchange; thread 0
+// issues the ring's copies, each after the cluster barrier that shows
+// both warpgroups done with the stage. Every wgmma group has one
+// unconditional wait (conditional ones made ptxas serialize the groups),
+// yet a group's issue holds its warps for most of its run, so the
+// exchange, paced by the cluster's shared-memory network and its
+// barriers, runs beside the products rather than under them. Variants
+// with a separate exchanger warpgroup, paced by mbarriers that each CTA
+// arrives on in every CTA, were slower: their remote arrivals cost more
+// than the cluster barriers. D up to RC_CMAX * 256; wider heads take
+// xent_recompute_bf16_tiled.
+
+constexpr int RC_ROWS = 128;    // output rows a CTA, two warpgroups
+constexpr int RC_DS = 256;      // columns of D a CTA
+constexpr int RC_KT = 64;       // the other dimension a step
+constexpr int RC_NS = 3;        // ring stages
+constexpr int RC_THREADS = 256;
+constexpr int RC_CMAX = 8;      // the largest portable cluster
+constexpr int RC_SW = 128;      // swizzle bytes: a TMA box is 64 columns
+constexpr int RC_CB = RC_DS * 2 / RC_SW;        // column blocks a slice
+constexpr int RC_RBOX = RC_ROWS * RC_SW;        // bytes of a row block
+constexpr int RC_KBOX = RC_KT * RC_SW;          // bytes of a step's block
+constexpr int RC_RTILE = RC_CB * RC_RBOX;       // the rows' slice, 64 KB
+constexpr int RC_KTILE = RC_CB * RC_KBOX;       // a stage, 32 KB
+constexpr int RC_SST = RC_KT + 4;  // float stride of the partial logits
+constexpr int RC_GST = RC_KT + 8;  // bf16 stride of g (ldmatrix: no
+                                   // bank conflicts)
+constexpr size_t RC_SMEM = 1024 + RC_RTILE + RC_NS * RC_KTILE +
+                           sizeof(float) * RC_ROWS * RC_SST +
+                           sizeof(bf16) * RC_ROWS * RC_GST +
+                           3 * 4 * RC_ROWS + sizeof(uint64_t) * (RC_NS + 1);
+
+// Four 8x8 bf16 matrices, not transposed: the mma A fragment of a 16 x
+// 16 tile whose rows lie in shared memory.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// S_c of step i for warpgroup wg's 64 rows (issued, not waited for):
+// K-major A (the rows' slice) and B (the step's tile in its stage), the
+// 16 k16 steps of the slice in one wgmma group.
+__device__ __forceinline__ void rc_logits(float (&s)[RC_KT / 2],
+                                          const unsigned char* rs,
+                                          const unsigned char* ring,
+                                          uint64_t* full, int i, int wg) {
+  const unsigned char* ks = ring + (i % RC_NS) * RC_KTILE;
+  mbar_wait(full + i % RC_NS, (i / RC_NS) & 1);
+  wg_fence();
+#pragma unroll
+  for (int kc = 0; kc < RC_DS / 16; ++kc)
+    wgmma_ss<RC_KT, 0, 0>(
+        s,
+        gmma_desc_sw(rs + kc * 32 / RC_SW * RC_RBOX + wg * 64 * RC_SW +
+                         kc * 32 % RC_SW,
+                     16, 8 * RC_SW, 1),
+        gmma_desc_sw(ks + kc * 32 / RC_SW * RC_KBOX + kc * 32 % RC_SW, 16,
+                     8 * RC_SW, 1),
+        kc > 0);
+  wg_commit();
+}
+
+// The two halves of a cluster barrier: arrive (releasing this thread's
+// writes to the cluster) and wait (acquiring every thread's writes before
+// their arrive).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// out += g op_c for warpgroup wg (issued, not waited for): g's A
+// fragments by ldmatrix, the stage's tile MN-major.
+__device__ __forceinline__ void rc_product(float (&o)[2][64],
+                                           const bf16* gbuf,
+                                           const unsigned char* ks, int wg) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  uint32_t a[RC_KT / 16][4];
+#pragma unroll
+  for (int cc = 0; cc < RC_KT / 16; ++cc)
+    ldsm_x4(a[cc], gbuf + (wg * 64 + warp * 16 + (lane & 15)) * RC_GST +
+                       cc * 16 + (lane >> 4) * 8);
+  wg_fence();
+#pragma unroll
+  for (int cc = 0; cc < RC_KT / 16; ++cc)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      wgmma_rs<128, 1>(o[h], a[cc],
+                       gmma_desc_sw(ks + h * 2 * RC_KBOX + cc * 16 * RC_SW,
+                                    RC_KBOX, 8 * RC_SW, 1),
+                       1);
+  wg_commit();
+}
+
+// Rows [rank*128/C, +128/C) of a step's logits summed over the cluster's C
+// partials, then g = (exp2(s*log2e - lse*log2e) - onehot) * dnll rounded
+// to bf16 into every CTA's g tile. A thread takes 8/C float4s of a row
+// (the same four columns in each), a float4's C remote loads at once.
+// Token data: tls (lse), ttg, tdn for the tile's 128 rows (dx) or the
+// step's 64 columns (dw); g is 0 outside [0, T) x [0, V).
+template <int C, bool DX>
+__device__ __forceinline__ void rc_reduce(cg::cluster_group& cl, int rank,
+                                          const float* sbuf, bf16* gbuf,
+                                          const float* tls, const int* ttg,
+                                          const float* tdn, int64_t r0,
+                                          int64_t k0, int64_t T, int64_t V) {
+  constexpr int RP = RC_ROWS / C, ITEMS = RP * (RC_KT / 4) / RC_THREADS;
+  const int tid = threadIdx.x;
+#pragma unroll 1
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = tid + it * RC_THREADS;
+    const int r = rank * RP + e / (RC_KT / 4), c4 = e % (RC_KT / 4) * 4;
+    float4 p[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      p[q] = *reinterpret_cast<const float4*>(
+          cl.map_shared_rank(sbuf + r * RC_SST + c4, q));
+    float4 acc = p[0];
+#pragma unroll
+    for (int q = 1; q < C; ++q) {
+      acc.x += p[q].x;
+      acc.y += p[q].y;
+      acc.z += p[q].z;
+      acc.w += p[q].w;
+    }
+    const float sv[4] = {acc.x, acc.y, acc.z, acc.w};
+    float gv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int tk = DX ? r : c4 + j;  // the token's slot
+      const int64_t t = DX ? r0 + r : k0 + c4 + j;
+      const int64_t v = DX ? k0 + c4 + j : r0 + r;
+      gv[j] = 0.f;
+      if (t < T && v < V) {
+        const float pr = exp2f(sv[j] * LOG2E - tls[tk] * LOG2E);
+        gv[j] = (pr - (v == (int64_t)ttg[tk] ? 1.f : 0.f)) * tdn[tk];
+      }
+    }
+    const uint2 packed =
+        make_uint2(pack_bf16(gv[0], gv[1]), pack_bf16(gv[2], gv[3]));
+#pragma unroll
+    for (int q = 0; q < C; ++q)
+      *reinterpret_cast<uint2*>(
+          cl.map_shared_rank(gbuf + r * RC_GST + c4, q)) = packed;
+  }
+}
+
+// The tokens of slot `slot` (dx: the tile's rows from t0; dw: a step's
+// columns from t0), 4-byte copies by threads below n, zero past T.
+__device__ __forceinline__ void rc_tokens(float* tls, int* ttg, float* tdn,
+                                          const float* lse, const int* tgt,
+                                          const float* dnll, int64_t t0,
+                                          int n, int64_t T) {
+  const int tid = threadIdx.x;
+  if (tid < n) {
+    const int64_t t = t0 + tid;
+    const int ok = t < T ? 4 : 0;
+    const int64_t tc = t < T ? t : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(tls + tid)),
+                 "l"(lse + tc), "r"(ok));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(ttg + tid)),
+                 "l"(tgt + tc), "r"(ok));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(tdn + tid)),
+                 "l"(dnll + tc), "r"(ok));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <bool DX>
+__global__ void __launch_bounds__(RC_THREADS, 1)
+xent_recompute_bf16(const __grid_constant__ CUtensorMap tr,
+                    const __grid_constant__ CUtensorMap tk,
+                    const int* __restrict__ tgt,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dnll, bf16* __restrict__ out,
+                    int64_t T, int64_t V, int64_t D) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  extern __shared__ __align__(1024) unsigned char rc_smem[];
+  unsigned char* rs =
+      rc_smem + ((1024 - (smem_u32(rc_smem) & 1023)) & 1023);
+  unsigned char* ring = rs + RC_RTILE;
+  float* sbuf = reinterpret_cast<float*>(ring + RC_NS * RC_KTILE);
+  bf16* gbuf = reinterpret_cast<bf16*>(sbuf + RC_ROWS * RC_SST);
+  // token data: the tile's 128 rows (dx), or two steps' 64 columns (dw)
+  float* tls = reinterpret_cast<float*>(gbuf + RC_ROWS * RC_GST);
+  float* tdn = tls + RC_ROWS;
+  int* ttg = reinterpret_cast<int*>(tdn + RC_ROWS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ttg + RC_ROWS);
+  uint64_t* rbar = full + RC_NS;
+  const int64_t nrow_all = DX ? T : V, nk_all = DX ? V : T;
+  const int64_t r0 = (int64_t)blockIdx.y * RC_ROWS;
+  const int d0 = rank * RC_DS;  // the grid's x is the cluster
+  const int nk = (int)((nk_all + RC_KT - 1) / RC_KT);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < RC_NS; ++i) mbar_init(full + i, 1);
+    mbar_init(rbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // dx: the tile's rows; dw: step 0's columns (slot 0; step i's in slot
+  // i % 2, each RC_KT wide)
+  rc_tokens(tls, ttg, tdn, lse, tgt, dnll, DX ? r0 : 0,
+            DX ? RC_ROWS : RC_KT, T);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  auto load_step = [&](int i) {  // the step's tile into stage i % RC_NS
+    const int st = i % RC_NS;
+    mbar_expect_tx(full + st, RC_KTILE);
+    for (int j = 0; j < RC_CB; ++j)
+      tma_box2(ring + st * RC_KTILE + j * RC_KBOX, &tk, d0 + j * RC_SW / 2,
+               i * RC_KT, full + st);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(rbar, RC_RTILE);
+    for (int j = 0; j < RC_CB; ++j)
+      tma_box2(rs + j * RC_RBOX, &tr, d0 + j * RC_SW / 2, (int)r0, rbar);
+    for (int i = 0; i < RC_NS && i < nk; ++i) load_step(i);
+  }
+
+  // The pipeline, one wait a group and none conditional (so that ptxas
+  // keeps the groups asynchronous): at step i the logits of step i+1 (of
+  // step nk-1 again at the last step, thrown away) run through the
+  // exchange of step i, and the product of step i through the store of
+  // the next partial.
+  float s[RC_KT / 2];
+  float o[2][64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) o[h][j] = 0.f;
+  mbar_wait(rbar, 0);
+  if (nk > 0) {
+    rc_logits(s, rs, ring, full, 0, wg);
+    wg_wait<0>();
+    fence_regs(s);
+  }
+  for (int i = 0; i < nk; ++i) {
+    // this CTA's partial S_i, float32, into its own shared memory
+    const int row = wg * 64 + warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < RC_KT / 8; ++j) {
+      *reinterpret_cast<float2*>(sbuf + row * RC_SST + 8 * j + c2) =
+          make_float2(s[4 * j], s[4 * j + 1]);
+      *reinterpret_cast<float2*>(sbuf + (row + 8) * RC_SST + 8 * j + c2) =
+          make_float2(s[4 * j + 2], s[4 * j + 3]);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // dw's tokens
+    cluster_arrive();  // A: this CTA's partial (and tokens) in place
+    const int nx = i + 1 < nk ? i + 1 : i;
+    rc_logits(s, rs, ring, full, nx, wg);  // runs through the exchange
+    wg_wait<1>();  // the product of step i-1 has read its stage
+    cluster_wait();  // A: every partial in place; every g tile read
+    const int slot = DX ? 0 : (i & 1) * RC_KT;
+    const int64_t k0 = (int64_t)i * RC_KT;
+#define RC_REDUCE(CC)                                                      \
+  rc_reduce<CC, DX>(cl, rank, sbuf, gbuf, tls + slot, ttg + slot,          \
+                    tdn + slot, r0, k0, T, V)
+    if (C == 4) RC_REDUCE(4);
+    else if (C == 8) RC_REDUCE(8);
+    else if (C == 2) RC_REDUCE(2);
+    else RC_REDUCE(1);
+#undef RC_REDUCE
+    if (!DX && i + 1 < nk)  // the next step's tokens, into the other slot
+      rc_tokens(tls + (slot ^ RC_KT), ttg + (slot ^ RC_KT),
+                tdn + (slot ^ RC_KT), lse, tgt, dnll, k0 + RC_KT, RC_KT, T);
+    cluster_arrive();  // B: g written everywhere; the partials read
+    cluster_wait();
+    if (tid == 0 && i > 0 && i - 1 + RC_NS < nk) load_step(i - 1 + RC_NS);
+    rc_product(o, gbuf, ring + (i % RC_NS) * RC_KTILE, wg);
+    wg_wait<1>();  // the logits of step nx are in; the product runs on
+    fence_regs(s);
+  }
+  wg_wait<0>();
+  fence_regs(o[0]);
+  fence_regs(o[1]);
+
+  // the output tile: rows r0 + wg*64 + warp*16 + g (+8), columns d0 +
+  // h*128 + 8j + c2 (+1)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int64_t rr = r0 + wg * 64 + warp * 16 + g + hf * 8;
+        const int64_t col = d0 + h * 128 + 8 * j + c2;
+        if (rr < nrow_all && col < D)
+          *reinterpret_cast<uint32_t*>(out + rr * D + col) =
+              pack_bf16(o[h][4 * j + 2 * hf], o[h][4 * j + 2 * hf + 1]);
+      }
+}
+
+// The recompute flavour in bf16 past D = RC_CMAX * 256, where one
+// cluster cannot hold a row tile's output: CTA (D tile, token tile) for
+// dx, (D tile, vocab tile) for dw, a 128 x 128 output tile in registers
+// (mma.sync m16n8k16, cp.async double-buffered, as the saved flavour).
+// For each 128-wide piece of the other dimension: the logits tile (x w^T
+// for dx, w x^T for dw) through logits_tile; g from it, rounded to bf16,
+// into shared memory; then the product's operand (w rows for dx, x rows
+// for dw) staged into the logits ring, which is free by then, and the
+// output tile += g op. Every D tile of a row of CTAs recomputes the same
+// logits: D/128 times the 2 T V D of the rebuild (17 at D 2176, 32 at
+// 4096), the price of holding only a 128 x 128 accumulator a CTA.
 
 constexpr int GS = XN + 8;  // stride of the g tile
-constexpr size_t RECOMPUTE_SMEM =
+constexpr size_t TILED_SMEM =
     sizeof(bf16) * (4 * XT * AS + XT * GS) + sizeof(float) * 2 * XT +
     sizeof(int) * XT;
 
 template <bool DX>
 __global__ void __launch_bounds__(X_THREADS)
-xent_recompute_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const int* __restrict__ tgt,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dnll, bf16* __restrict__ out,
-                    int64_t T, int64_t V, int64_t D) {
+xent_recompute_bf16_tiled(const bf16* __restrict__ x,
+                          const bf16* __restrict__ w,
+                          const int* __restrict__ tgt,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dnll,
+                          bf16* __restrict__ out, int64_t T, int64_t V,
+                          int64_t D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16 (*as)[XT * AS] = reinterpret_cast<bf16 (*)[XT * AS]>(smem_raw);
   bf16 (*bs)[XN * AS] = reinterpret_cast<bf16 (*)[XN * AS]>(
@@ -1043,6 +1371,82 @@ xent_recompute_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 inline unsigned tiles(int64_t n, int t) { return (unsigned)((n + t - 1) / t); }
 
+// The TMA map of a (rows, cols) bf16 tensor as {cols, rows}, a box of 64
+// columns (128 bytes) and box_rows rows landing in the 128-byte swizzle;
+// rows and columns past the tensor's read as zeros.
+int rows_map(CUtensorMap* map, const void* p, int64_t rows, int64_t cols,
+             int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)RC_SW / 2, (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(p), dims, strides, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The cluster size of the recompute kernel at width D: D / 256 CTAs
+// rounded up to a power of two, 0 past RC_CMAX (the tiled kernel's
+// widths).
+int recompute_cluster(int64_t D) {
+  int c = 1;
+  while ((int64_t)c * RC_DS < D) c *= 2;
+  return c <= RC_CMAX ? c : 0;
+}
+
+int launch_recompute_bf16(int dx_side, const void* x, const void* w,
+                          const int* tgt, const float* lse,
+                          const float* dnll, void* out, int64_t T,
+                          int64_t V, int64_t D, cudaStream_t st) {
+  const int C = recompute_cluster(D);
+  const int64_t rows = dx_side ? T : V, krows = dx_side ? V : T;
+  if (!C) {  // past one cluster: the 128 x 128 tiles
+    auto kernel = dx_side ? xent_recompute_bf16_tiled<true>
+                          : xent_recompute_bf16_tiled<false>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILED_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(tiles(D, XN), tiles(rows, XT)), X_THREADS, TILED_SMEM,
+             st>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   tgt, lse, dnll, static_cast<bf16*>(out), T, V, D);
+    return (int)cudaGetLastError();
+  }
+  if (rows < 1 || tiles(rows, RC_ROWS) > 65535 || krows > INT32_MAX ||
+      rows > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tr, tk;
+  int err = rows_map(&tr, dx_side ? x : w, rows, D, RC_ROWS);
+  if (!err) err = rows_map(&tk, dx_side ? w : x, krows, D, RC_KT);
+  if (err) return err;
+  auto kernel =
+      dx_side ? xent_recompute_bf16<true> : xent_recompute_bf16<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)C, tiles(rows, RC_ROWS));
+  cfg.blockDim = dim3(RC_THREADS);
+  cfg.dynamicSmemBytes = RC_SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tr, tk, tgt, lse, dnll,
+                         static_cast<bf16*>(out), T, V, D);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1170,18 +1574,10 @@ int icikit_xent_recompute(int dtype, int dx_side, const void* x,
                           int64_t D, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t rows = dx_side ? T : V;
-  if (dtype == 1) {
-    const dim3 grid(tiles(D, XN), tiles(rows, XT));
-    auto kernel = dx_side ? xent_recompute_bf16<true>
-                          : xent_recompute_bf16<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)RECOMPUTE_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, X_THREADS, RECOMPUTE_SMEM, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), tgt, lse,
-        dnll, static_cast<bf16*>(out), T, V, D);
-  } else if (dtype == 0) {
+  if (dtype == 1)
+    return launch_recompute_bf16(dx_side, x, w, tgt, lse, dnll, out, T, V, D,
+                                 st);
+  if (dtype == 0) {
     const dim3 grid(tiles(D, FT), tiles(rows, FT));
     auto kernel = dx_side ? xent_recompute_f32<true>
                           : xent_recompute_f32<false>;
@@ -1194,9 +1590,36 @@ int icikit_xent_recompute(int dtype, int dx_side, const void* x,
   return (int)cudaGetLastError();
 }
 
+// The recompute kernel's clusters that the card holds at once at width
+// D (cudaOccupancyMaxActiveClusters) and its cluster size.
+int icikit_xent_recompute_clusters(int dx_side, int64_t D, int* clusters,
+                                   int* cluster_size) {
+  const int C = recompute_cluster(D);
+  if (!C) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      dx_side ? xent_recompute_bf16<true> : xent_recompute_bf16<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)C, 1024);
+  cfg.blockDim = dim3(RC_THREADS);
+  cfg.dynamicSmemBytes = RC_SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  *cluster_size = C;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, &cfg);
+}
+
 // Kernel attributes for the build log: which 0 xent_fwd bf16, 1 dx bf16,
 // 2 dw bf16, 3 xent_fwd f32, 4 xent_g bf16, 5 xent_g_saved bf16, 6 the
-// recompute dx bf16, 7 the recompute dw bf16.
+// recompute dx bf16, 7 the recompute dw bf16, 8 and 9 their tiled forms
+// past D 2048.
 int icikit_xent_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -1214,8 +1637,12 @@ int icikit_xent_regs(int which, int* regs, int* local_bytes) {
     err = cudaFuncGetAttributes(&attr, xent_g_saved_bf16);
   else if (which == 6)
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<true>);
-  else
+  else if (which == 7)
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<false>);
+  else if (which == 8)
+    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<true>);
+  else
+    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<false>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -2,8 +2,8 @@
 
 Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
 its own shared library under ``icikit_torch/build/``, named by a hash of
-its source, so an edited source rebuilds and an unchanged one loads at
-once. Sources compile in parallel, one ``nvcc`` each. A failed build
+its source and of the headers beside it (``csrc/hopper.cuh``), so an
+edited source or header rebuilds and an unchanged one loads at once. Sources compile in parallel, one ``nvcc`` each. A failed build
 raises: there is no fallback. ``build_sources`` builds other versions of
 a library the same way (a source path, an output directory and extra
 nvcc flags in the hash), for A/B benches.
@@ -17,6 +17,7 @@ takes seconds. Pointers and the stream pass as ``c_void_p``, sizes as
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -61,8 +62,9 @@ _SIGNATURES = {
                                  _P],
         "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                                _I64, _I32, _I64, _I32, _F32, _P],
-        "icikit_decode_step_q8": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I64, _I64, _I32, _I64, _F32, _P],
+        "icikit_decode_step_q8_split": [_I32, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _P, _P, _I64, _I64,
+                                        _I32, _I64, _I32, _F32, _P],
         "icikit_attention_regs": [_I32, _IP, _IP],
         "icikit_flash_occupancy": [_I32, _I32, _IP, _IP],
     },
@@ -80,6 +82,7 @@ _SIGNATURES = {
         "icikit_xent_recompute": [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64,
                                   _I64, _I64, _P],
         "icikit_xent_regs": [_I32, _IP, _IP],
+        "icikit_xent_recompute_clusters": [_I32, _I64, _IP, _IP],
     },
     "adam": {
         "icikit_adam_tree": [_I32, ctypes.POINTER(_I64), _I32, _I64, _P, _P,
@@ -123,11 +126,17 @@ def nvcc_path() -> str:
 
 def _target(name: str, src: str | None = None, out_dir: str = BUILD_DIR,
             flags=()) -> tuple[str, str]:
+    """(source, library path): the library is named by a hash of the
+    source, of every header (``*.cuh``) beside it, which a source may
+    include, and of the flags."""
     src = src or os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join([*ARCH_FLAGS, *flags])
-                                .encode()).hexdigest()[:16]
-    return src, os.path.join(out_dir, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    src_dir = os.path.dirname(os.path.abspath(src))
+    for path in [src] + sorted(glob.glob(os.path.join(src_dir, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join([*ARCH_FLAGS, *flags]).encode())
+    return src, os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str, src: str | None = None, out_dir: str = BUILD_DIR,

@@ -54,9 +54,27 @@ SHIFT_SUM_RANGE = (2.0 ** -64, 2.0 ** 64)
 DECODE_CHUNK = 128
 
 
+# The int8 step splits a row's past columns across CTAs: at least this
+# many columns a split (one a lane group of the kernel's CTA), and enough
+# splits for this many CTAs an SM where the columns allow.
+DECODE_SPLIT_MIN_COLS = 16
+DECODE_CTAS_PER_SM = 2
+
+
 def decode_head_dim_ok(dh: int) -> bool:
     """Does the fused decode step (B13, B14) take head dim ``dh``?"""
     return dh >= DECODE_CHUNK and dh % DECODE_CHUNK == 0
+
+
+def decode_splits(rows: int, cur: int, sms: int) -> int:
+    """The splits of each row's ``cur`` past columns in the int8 step:
+    enough that ``rows * splits`` reaches ``DECODE_CTAS_PER_SM`` CTAs a
+    streaming multiprocessor, but no split under
+    ``DECODE_SPLIT_MIN_COLS`` columns; 1 when ``cur`` is below that (at
+    ``cur`` 0 the one CTA a row only writes the column and adds the
+    ``cur`` term). Never more splits than ``cur`` columns."""
+    want = -(-DECODE_CTAS_PER_SM * sms // rows)
+    return max(1, min(want, cur // DECODE_SPLIT_MIN_COLS))
 
 
 def reset_launches() -> None:
@@ -460,6 +478,31 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
     return out
 
 
+_SMS: dict = {}
+_Q8_WORK: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _q8_workspace(q, rows: int, dh: int, splits: int):
+    """The int8 step's split partials (float32) and per-row counters
+    (zero, left zero by the kernel), one pair a device and stream, grown
+    to the most partials and rows a call has needed."""
+    key = (q.device, _build.stream(q))
+    ws, counter = _Q8_WORK.get(key, (None, None))
+    if ws is None or ws.numel() < rows * splits * (dh + 2):
+        ws = torch.empty(rows * splits * (dh + 2), dtype=torch.float32,
+                         device=q.device)
+    if counter is None or counter.numel() < rows:
+        counter = torch.zeros(rows, dtype=torch.int32, device=q.device)
+    _Q8_WORK[key] = ws, counter
+    return ws, counter
+
+
 def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
                    cur: int, *, scale: float) -> torch.Tensor:
     """One decode step of attention over int8 caches for ``rows = b *
@@ -470,7 +513,9 @@ def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
     The kernel replaces ``icikit/ops/flash_attention.py``'s
     ``_decode_step_q8_kernel`` (B14, pallas_call at :1229). Bound:
     reading the ``cur`` past int8 columns of K and V and their scales
-    (bytes). CPU tensors take :func:`decode_step_q8_plain`."""
+    (bytes). It splits each row's columns across the CTAs that
+    :func:`decode_splits` picks and merges them in the same launch. CPU
+    tensors take :func:`decode_step_q8_plain`."""
     rows, dh = q.shape
     total = kcache.shape[1]
     if (any(t.shape != q.shape for t in (kq, vq, kdq, vdq))
@@ -498,14 +543,18 @@ def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
     if not decode_head_dim_ok(dh):
         raise ValueError(f"decode_step_q8: head dim {dh} is not a "
                          f"multiple of {DECODE_CHUNK}")
+    splits = decode_splits(rows, cur, _sm_count(q.device))
+    ws, counter = _q8_workspace(q, rows, dh, splits)
     out = torch.empty((rows, dh), dtype=torch.float32, device=q.device)
     lib = _build.load("attention")
-    rc = lib.icikit_decode_step_q8(
+    rc = lib.icikit_decode_step_q8_split(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), kq.data_ptr(),
         vq.data_ptr(), kdq.data_ptr(), vdq.data_ptr(), kcache.data_ptr(),
         vcache.data_ptr(), kscale.data_ptr(), vscale.data_ptr(),
-        out.data_ptr(), rows, total, dh, int(cur), float(scale),
-        _build.stream(q))
+        out.data_ptr(), ws.data_ptr(), counter.data_ptr(), rows, total, dh,
+        int(cur), splits, float(scale), _build.stream(q))
+    if rc:  # the row counters may be part-way: zero them for the next call
+        counter.zero_()
     _build.check(rc, "decode_step_q8 launch")
     LAUNCHES["decode_step_q8"] += 1
     return out

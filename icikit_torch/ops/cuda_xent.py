@@ -356,8 +356,11 @@ def xent_dx(x, w, targets, lse, dnll) -> torch.Tensor:
     """dx ``(T, D)`` = g w with g rebuilt from recomputed logits tiles.
     The kernel replaces ``icikit/ops/xent.py``'s ``_dx_kernel`` with
     ``e_ref=None`` (B10 recompute flavour, pallas_call at :374). Bound:
-    the rebuild and the contraction, 2 x 2 T V D operations. CPU tensors
-    take :func:`xent_dx_plain`."""
+    the rebuild and the contraction, 2 x 2 T V D operations. In bf16 up
+    to D 2048 the CTAs that share a row tile form a thread-block cluster
+    along D, so each logits tile is formed once; wider heads take 128 x
+    128 tiles that each form the logits (D/128 times). CPU tensors take
+    :func:`xent_dx_plain`."""
     return _recompute("dx", x, w, targets, lse, dnll)
 
 

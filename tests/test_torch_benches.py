@@ -368,3 +368,87 @@ def test_build_sources_builds_a_library_once(monkeypatch, tmp_path):
     assert calls == [str(src), str(other)]
     assert got == {"A": (str(src), "log"), "B": (str(src), "log"),
                    "C": (str(other), "log")}
+
+
+def test_build_hashes_the_headers_beside_a_source(tmp_path):
+    """An edit to a header beside a source (the shared ``hopper.cuh``)
+    renames the library, so a stale build is never loaded; a header
+    elsewhere does not; the package's own sources hash theirs."""
+    from icikit_torch.ops import _build
+
+    src = tmp_path / "xent.cu"
+    src.write_text('#include "hopper.cuh"\n')
+    head = tmp_path / "hopper.cuh"
+    head.write_text("// one\n")
+    out = str(tmp_path / "ab")
+    _, first = _build._target("xent", str(src), out)
+    head.write_text("// two\n")
+    _, second = _build._target("xent", str(src), out)
+    assert first != second
+    (tmp_path / "ab").mkdir()
+    (tmp_path / "ab" / "other.cuh").write_text("// three\n")
+    assert _build._target("xent", str(src), out)[1] == second
+    assert os.path.isfile(os.path.join(_build.CSRC, "hopper.cuh"))
+
+
+def test_xent_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The recompute head's A/B bench times kernels on the card only:
+    without one it exits before building anything, and a directory
+    without ``xent.cu`` is refused first."""
+    import torch
+
+    from icikit_torch.bench import xent_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        xent_ab.main(["--a", csrc, "--b", csrc])
+    with pytest.raises(SystemExit):
+        xent_ab.main(["--a", csrc, "--b", os.path.join(ROOT, "tests")])
+
+
+def test_xent_ab_shape_bounds_and_verdict(monkeypatch):
+    """The A/B shape is the base step's head (T 8192, D 1024, V 32768);
+    the bound of dx and of dw is the rebuild and the contraction, 2 x 2 T
+    V D operations, 1.112 ms at 989 TFLOP/s (their bytes, ~88 MB, take
+    0.026 ms); a run whose B departed exits 1 unless --timing-only."""
+    import torch
+
+    from icikit_torch.bench import xent_ab
+
+    assert xent_ab.SHAPE == (8192, 1024, 32768)
+    assert xent_ab.TOL == 2e-2
+    for which in ("dx", "dw"):
+        ms, by = xent_ab.bound_ms(which, *(8192, 1024, 32768))
+        assert by == "operations" and ms == pytest.approx(1.1117, rel=1e-3)
+    ms, by = xent_ab.bound_ms("dx", 8, 4096, 16)
+    assert by == "bytes"
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        seen = []
+        monkeypatch.setattr(xent_ab, "run",
+                            lambda *a, ok=ok: seen.append(a) or ok)
+        argv = ["--a", csrc, "--b", csrc]
+        assert xent_ab.main(argv) == (0 if ok else 1)
+        assert xent_ab.main([*argv, "--timing-only"]) == 0
+        assert seen == [(csrc, csrc)] * 2
+
+
+def test_flash_ab_decode_q8_shapes_and_bounds():
+    """``--kernels decode_q8`` times the int8 step at the int8 path's
+    64 rows, 576 columns, cur 543, dh 128 and 256, against the bound of
+    its bytes (2.78 us at dh 128: 8.9 MB of int8 K and V, 0.28 MB of
+    scales); its products at the float32 rate take less."""
+    from icikit_torch.bench import flash_ab
+
+    assert "decode_q8" in flash_ab.KERNELS
+    assert flash_ab.Q8_SHAPES == {"dh128": (64, 576, 128, 543),
+                                  "dh256": (64, 576, 256, 543)}
+    assert flash_ab.Q8_TOL == 1e-5
+    for tag, want in (("dh128", 0.0027827), ("dh256", 0.0054824)):
+        ms, by = flash_ab.q8_bound_ms(*flash_ab.Q8_SHAPES[tag])
+        assert by == "bytes" and ms == pytest.approx(want, rel=1e-4), tag
+    with pytest.raises(SystemExit):
+        flash_ab.main(["--a", "a.cu", "--b", "b.cu", "--kernels",
+                       "decode_q8,xyz"])

@@ -534,6 +534,68 @@ def test_xent_recompute_and_g_kernels_match_plain(dtype, t, d, v, no_tf32):
     _grad_close((gs,), (g,), tol)
 
 
+# The bf16 recompute kernels (B10 recompute, one thread-block cluster
+# along D) at shapes off every tile of theirs: T and V off the 128-row
+# tile and the 64-wide step, D off the 256-column slices, at cluster sizes
+# 1, 4 and 8 (with whole slices past D), and the base step's head; the
+# tolerance as the recompute kernels' above (bf16 2e-2 of the largest
+# entry).
+@pytest.mark.parametrize("t,d,v", [(300, 136, 1000), (200, 520, 264),
+                                   (130, 1544, 200), (64, 2048, 128),
+                                   (1000, 1032, 4104), (8192, 1024, 32768)])
+def test_xent_recompute_bf16_cluster_matches_plain(t, d, v, no_tf32):
+    gen = no_tf32
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda") / t
+    lse, _ = cx.xent_fwd(x, w, tg, save=False)
+    cx.reset_launches()
+    got = (cx.xent_dx(x, w, tg, lse, dn), cx.xent_dw(x, w, tg, lse, dn))
+    assert cx.LAUNCHES["xent_dx"] == cx.LAUNCHES["xent_dw"] == 1
+    assert [g.shape for g in got] == [(t, d), (v, d)]
+    _grad_close(got, (cx.xent_dx_plain(x, w, tg, lse, dn),
+                      cx.xent_dw_plain(x, w, tg, lse, dn)), 2e-2)
+
+
+# Past D 2048 (one cluster of 8 CTAs, 256 columns each) the bf16
+# recompute kernels take 128 x 128 tiles that each form the logits, at
+# the same tolerance; the fused head's recompute flavour keeps its route
+# there, as JAX's gate decides.
+@pytest.mark.parametrize("t,d,v", [(300, 2176, 1000), (256, 4096, 512)])
+def test_xent_recompute_bf16_past_one_cluster_matches_plain(t, d, v,
+                                                            no_tf32):
+    from icikit_torch.ops.xent import fused_xent, xent_supported
+
+    gen = no_tf32
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda") / t
+    lse, _ = cx.xent_fwd(x, w, tg, save=False)
+    cx.reset_launches()
+    got = (cx.xent_dx(x, w, tg, lse, dn), cx.xent_dw(x, w, tg, lse, dn))
+    assert cx.LAUNCHES["xent_dx"] == cx.LAUNCHES["xent_dw"] == 1
+    _grad_close(got, (cx.xent_dx_plain(x, w, tg, lse, dn),
+                      cx.xent_dw_plain(x, w, tg, lse, dn)), 2e-2)
+    if t % 128 == 0:
+        assert xent_supported(t, d, v, torch.bfloat16)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        cx.reset_launches()
+        fused_xent(xg, wg, tg, save_exp=False, fused_bwd=True).sum(
+        ).backward()
+        assert cx.LAUNCHES["xent_dx"] == cx.LAUNCHES["xent_dw"] == 1
+        ones = torch.ones_like(dn)
+        lse, _ = cx.xent_fwd(x, w, tg, save=False)
+        _grad_close((xg.grad, wg.grad),
+                    (cx.xent_dx_plain(x, w, tg, lse, ones),
+                     cx.xent_dw_plain(x, w, tg, lse, ones)), 2e-2)
+
+
 from icikit_torch.ops import cuda_adam  # noqa: E402
 
 
@@ -780,6 +842,51 @@ def test_decode_step_q8_matches_plain_and_writes_in_place(qdtype, dh, cur,
     assert ca.LAUNCHES["decode_step_q8"] == 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("cur", [0, 1, 127, 128, 543, 575])
+@pytest.mark.parametrize("ctas_per_sm", [None, 64])
+def test_decode_step_q8_splits_match_plain(qdtype, dh, cur, ctas_per_sm,
+                                           no_tf32, monkeypatch):
+    """The int8 step split across CTAs at the int8 path's 64 rows and
+    576 columns, with the picker's splits and with its splits for 64
+    CTAs an SM (as many as cur allows: 33 splits of 17 columns at cur
+    543, the last one empty): the output within 1e-5 of the plain
+    version's, and the fresh column written once, bit for bit as the
+    plain version writes it, the rest of the caches untouched."""
+    from icikit_torch.ops.quant import dequantize_last, quantize_last
+
+    if ctas_per_sm:
+        monkeypatch.setattr(ca, "DECODE_CTAS_PER_SM", ctas_per_sm)
+    gen = no_tf32
+    rows, total = 64, 576
+    q = _randn((rows, dh), qdtype, gen)
+    kq, ks = quantize_last(_randn((rows, dh), torch.float32, gen))
+    vq, vs = quantize_last(_randn((rows, dh), torch.float32, gen))
+    kc, kcs = quantize_last(_randn((rows, total, dh), torch.float32, gen))
+    vc, vcs = quantize_last(_randn((rows, total, dh), torch.float32, gen))
+    kcs[:, cur], vcs[:, cur] = ks, vs
+    kc0, vc0 = kc.clone(), vc.clone()
+    kc2, vc2 = kc.clone(), vc.clone()
+    args = (kq, vq, dequantize_last(kq, ks), dequantize_last(vq, vs))
+    want = ca.decode_step_q8_plain(q, *args, kc2, vc2, kcs, vcs, cur,
+                                   scale=dh ** -0.5)
+    ca.reset_launches()
+    got = ca.decode_step_q8(q, *args, kc, vc, kcs, vcs, cur,
+                            scale=dh ** -0.5)
+    assert ca.LAUNCHES["decode_step_q8"] == 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    assert torch.equal(kc[:, cur], kq) and torch.equal(vc[:, cur], vq)
+    keep = torch.arange(total, device="cuda") != cur
+    assert torch.equal(kc[:, keep], kc0[:, keep])
+    assert torch.equal(vc[:, keep], vc0[:, keep])
+    # a second call on the same workspace gives the same bits
+    again = ca.decode_step_q8(q, *args, kc, vc, kcs, vcs, cur,
+                              scale=dh ** -0.5)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("pos_encoding", ["learned", "rope"])

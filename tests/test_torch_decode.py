@@ -359,3 +359,108 @@ def test_d_head_256_tokens_equal_jax_unfused():
                               TransformerConfig(**cfg, decode_step=step),
                               n_new=6)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------- the int8 step's splits
+# The kernel splits each row's past columns across CTAs and merges the
+# splits' (max, sum, value) partials by log-sum-exp. Below: its split
+# picker, and a plain model of the split-and-merge held to the port's
+# plain int8 step and to JAX's ``decode_step_attention_q8`` (interpret
+# mode, as JAX's own tests run it), within 1e-6 absolute (float32 sums in
+# other orders; the int8 columns bit for bit).
+
+from icikit.ops import flash_attention as jfa  # noqa: E402
+from icikit.ops.quant import quantize_last as j_quantize_last  # noqa: E402
+
+
+def test_decode_splits_picker():
+    """Enough CTAs for two an SM at the int8 path's 64 rows (5 splits of
+    ~109 columns at cur 543 on 132 SMs), no split under 16 columns, one
+    where cur is under 16 (cur 0 included), never more splits than past
+    columns, and one split a row once the rows alone fill the card."""
+    ds = cuda_attention.decode_splits
+    assert ds(64, 543, 132) == 5 and 64 * 5 >= 2 * 132
+    assert ds(64, 575, 132) == 5 and ds(8, 543, 132) == 33
+    assert ds(1, 4096, 132) == 256 and ds(1, 1 << 20, 132) == 264
+    assert ds(264, 575, 132) == 1 and ds(1000, 575, 132) == 1
+    for rows in (1, 8, 64, 300):
+        for cur in range(0, 200):
+            s = ds(rows, cur, 132)
+            assert 1 <= s <= max(1, cur) and s * 16 <= max(16, cur)
+            assert s == 1 or rows * s <= 2 * 132 + rows
+
+
+def _q8_split_model(q, kq, vq, kdq, vdq, kc, vc, ks, vs, cur, scale,
+                    splits):
+    """The kernel's split-and-merge as whole-tensor ops: the int8 column
+    written at cur; split j takes columns [j*span, min((j+1)*span,
+    cur)), span = ceil(cur / splits), and keeps its max m_j, its sum l_j
+    of exp(logit - m_j) and its values sum_t exp(logit_t - m_j) vscale_t
+    v_t (an empty split: -inf, 0, 0); the merge adds the cur term from
+    kdq, vdq."""
+    kc[:, cur] = kq
+    vc[:, cur] = vq
+    qf = q.float()
+    span = -(-cur // splits)
+    parts = []
+    for j in range(splits):
+        t0, t1 = j * span, min((j + 1) * span, cur)
+        if t1 <= t0:
+            parts.append((torch.full((q.shape[0], 1), -torch.inf),
+                          torch.zeros(q.shape[0], 1), torch.zeros_like(qf)))
+            continue
+        lg = (torch.einsum("rd,rtd->rt", qf, kc[:, t0:t1].float())
+              * ks[:, t0:t1] * scale)
+        m = lg.amax(-1, keepdim=True)
+        e = torch.exp(lg - m)
+        parts.append((m, e.sum(-1, keepdim=True), torch.einsum(
+            "rt,rtd->rd", e * vs[:, t0:t1], vc[:, t0:t1].float())))
+    lc = (qf * kdq.float()).sum(-1, keepdim=True) * scale
+    mx = torch.stack([lc] + [m for m, _, _ in parts]).amax(0)
+    ec = torch.exp(lc - mx)
+    lt = ec + sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mx) for m, _, a in parts)
+    return (acc + ec * vdq.float()) / lt
+
+
+def _q8_inputs(seed, rows, total, dh, cur):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((rows, dh)).astype(np.float32)
+    kq, ksn = (np.asarray(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, dh)).astype(np.float32))))
+    vq, vsn = (np.asarray(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, dh)).astype(np.float32))))
+    kc, kcs = (np.array(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, total, dh)).astype(np.float32))))
+    vc, vcs = (np.array(a) for a in j_quantize_last(jnp.asarray(
+        rng.standard_normal((rows, total, dh)).astype(np.float32))))
+    kcs[:, cur], vcs[:, cur] = ksn, vsn
+    kdq = kq.astype(np.float32) * ksn[:, None]
+    vdq = vq.astype(np.float32) * vsn[:, None]
+    return q, kq, vq, kdq, vdq, kc, vc, kcs, vcs
+
+
+@pytest.mark.parametrize("cur", [0, 3, 40, 63])
+def test_q8_split_merge_model_matches_plain_and_jax(cur):
+    """At 1, 4 and 7 splits (empty splits where cur < splits, and at cur
+    0), the split-and-merge gives the plain int8 step's output and JAX's
+    within 1e-6, and writes the same int8 column."""
+    rows, total, dh = 4, 64, 128
+    args = _q8_inputs(cur, rows, total, dh, cur)
+    scale = dh ** -0.5
+    want_j, want_kc, want_vc = jfa.decode_step_attention_q8(
+        *(jnp.asarray(a) for a in args), jnp.int32(cur), scale=scale)
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    plain = cuda_attention.decode_step_q8_plain(
+        *t[:5], t[5].clone(), t[6].clone(), *t[7:], cur, scale=scale)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want_j), atol=1e-6,
+                               rtol=0)
+    for splits in (1, 4, 7):
+        kc, vc = t[5].clone(), t[6].clone()
+        got = _q8_split_model(*t[:5], kc, vc, *t[7:], cur, scale, splits)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_j),
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(kc.numpy(), np.asarray(want_kc))
+        np.testing.assert_array_equal(vc.numpy(), np.asarray(want_vc))

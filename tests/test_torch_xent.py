@@ -121,7 +121,8 @@ GATE_CASES = [(8192, 1024, 32768, "bfloat16"), (64, 128, 256, "float32"),
               (1000, 128, 512, "float32"), (2048, 128, 3000, "bfloat16"),
               (2048, 96, 4096, "float32"), (100, 128, 61, "float32"),
               (64, 128, 256, "float16"), (3072, 256, 2048, "bfloat16"),
-              (1536, 128, 2048, "float32")]
+              (1536, 128, 2048, "float32"), (1024, 2176, 2048, "bfloat16"),
+              (1024, 4096, 2048, "bfloat16")]
 
 
 @pytest.mark.parametrize("t,d,v,dtype", GATE_CASES)
