@@ -9,8 +9,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build: the kernels from ``icikit_torch/csrc`` with ``nvcc`` (sm_90a),
    with each listed kernel's registers and local (spill) bytes a thread
    and the recompute head's clusters the card holds at once; the sort,
-   Adam, save-stack, recompute head and int8 step kernels must use no
-   local memory.
+   Adam, save-stack, recompute head, decode step (bf16 and int8) and
+   skinny int8 matvec kernels must use no local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
    at G_MAX bits, 1 bit and a middle range, merge_only and in place,
@@ -34,8 +34,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (1, 8, 128), s = 2048, in bf16 and float32, causal and not; at its
    tile edges (FWD_EDGES: s 65, 127, 129, 1000, 4097 at d 32, 64, 128,
    256, b 2, h 3), online and shift 16, causal and not;
-   ``decode_step`` at 64 rows, dh 128, 576 columns, cur = 0, 1, 300,
-   575, RoPE on and off, bf16 and float32. Tolerances: float32 out and
+   ``decode_step`` at 64 rows, dh 128, 576 columns, cur = 0, 1, 79, 80
+   (where its splits go from 4 to 5), 300, 543, 575, RoPE on and off,
+   bf16 and float32. Tolerances: float32 out and
    lse 1e-4; bf16 out 2e-2 (P is rounded to bf16 before PV in the
    kernel, against its running row max) and lse 1e-3; the cache columns
    bitwise. TF32 is off for both matmul backends.
@@ -49,8 +50,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the first differing step), at bf16 the first step's logits within
    0.25; then tokens/s by the chained median-of-windows protocol beside
    the unfused arm, prefill ms, the byte-model bound per token and the
-   device's idle share from a ``torch.profiler`` trace.
-9. per-kernel numbers of the decode path's kernels at its shapes.
+   device's idle share from a ``torch.profiler`` trace, which must show
+   756 ``decode_step_kernel`` launches.
+9. per-kernel numbers of the decode path's kernels at its shapes:
+   ``decode_step`` by device time a launch behind a sleep kernel, its
+   caches rotated past the L2 as the path's 12 layers' are, beside its
+   bound and its device time a launch in phase 8's trace.
 10. train kernels held against their plain versions on the card:
    ``flash_fwd`` in constant-shift mode and ``flash_bwd`` at (8, 8,
    1024, 128) and (1, 8, 2048, 128), causal and full, plus q x 400
@@ -145,8 +150,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    tokens/s by the chained median-of-windows beside the bf16 fused arm,
    prefill ms, the int8 byte-model bound and the idle share; the trace
    must show 756 ``decode_step_q8_kernel`` launches.
-19. per-kernel numbers of B15 and B14 at the int8 path's shapes (B14's
-   time a launch on the device, behind a sleep kernel).
+19. per-kernel numbers of B15 and B14 at the int8 path's shapes: at
+   rows 8 B15 at each of the five products, ``torch._weight_int8pack_mm``
+   and cuBLAS's bf16 product, and B14, by device time a launch behind a
+   sleep kernel, weights or caches rotated past the L2, each beside its
+   bound, and B15's sum a step; rows 4096 by events.
 20. B17's kernels against their plain versions: ``tile_mxu`` and the
    four ``tile_ablate`` variants at (1, 2, 512, d), d = 64 and 128, bq =
    bk = 64, within TILE_TOL of the largest |plain| entry (both round w
@@ -289,7 +297,10 @@ NO_LOCAL_MEMORY = SORT_KERNELS + (
     "stack_write_kernel", "stack_read_kernel",
     "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
     "xent_recompute_bf16_tiled<dx>", "xent_recompute_bf16_tiled<dw>",
-    "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>")
+    "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>",
+    "decode_step_kernel<bf16>", "decode_step_kernel<float>") + tuple(
+    f"qmv_bf16_skinny<{cpw}, 1>" for cpw in (1, 2, 4, 8)) + tuple(
+    f"qmv_bf16_skinny<{cpw}, 2>" for cpw in (1, 2, 4))
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
 # (h, seq) at head dims 64 and 128; the check tolerance, relative to the
 # largest |plain| entry
@@ -346,6 +357,7 @@ def smi_line() -> str:
 
 def attention_checks(torch, dev) -> None:
     """Phase 7: each attention kernel against its plain version."""
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops.rope import rope_sincos
 
@@ -390,7 +402,8 @@ def attention_checks(torch, dev) -> None:
             del q, k, v, out, lse, want, want_lse
         rows, total, dh = 64, 576, 128
         for rope in (True, False):
-            for cur in (0, 1, 300, 575):
+            # 4 splits at cur 79, 5 from 80 (decode_splits at 132 SMs)
+            for cur in (0, 1, 79, 80, 300, 543, 575):
                 q, k, v = (randn((rows, dh), dtype) for _ in range(3))
                 kc, vc = (randn((rows, total, dh), dtype) for _ in range(2))
                 c, s_ = rope_sincos(torch.tensor([cur], device=dev), dh)
@@ -405,6 +418,8 @@ def attention_checks(torch, dev) -> None:
                 same = bool(torch.equal(kc, kc2) and torch.equal(vc, vc2))
                 checks.append({"kernel": "decode_step", "dtype": str(dtype),
                                "rows": rows, "total": total, "cur": cur,
+                               "splits": ca.decode_splits(
+                                   rows, cur, _build.sm_count(q.device)),
                                "rope": rope, "out_err": e_o,
                                "cache_bitwise": same,
                                "ok": e_o <= o_tol and same})
@@ -412,9 +427,9 @@ def attention_checks(torch, dev) -> None:
     emit({"phase": "attention_kernels",
           "tolerance": "float32 out and lse 1e-4; bf16 out 2e-2 (P is "
                        "rounded to bf16 before PV, against the kernel's "
-                       "running row max and the plain version's final "
-                       "one) and lse 1e-3; cache columns bitwise; TF32 "
-                       "off",
+                       "running row max, or the decode split's own max, "
+                       "and the plain version's final one) and lse 1e-3; "
+                       "cache columns bitwise; TF32 off",
           "checks": checks})
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -554,7 +569,10 @@ def decode_path(torch, dev, bw, smi) -> dict:
         lambda: greedy_generate(params, prompt, mesh, cfg, 1), iters=5)
     activity = device_activity(
         lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW))
+    traced = activity["by_name"].get("decode_step_kernel",
+                                     {}).get("count", 0)
     emit({"phase": "decode_timing", "card": smi, "arms": arms,
+          "traced_decode_step_launches": traced,
           "prefill_ms": prefill_ms,
           "step_ms_excluding_prefill": (arms["fused"]["generate_ms"]
                                         - prefill_ms) / (DEC_NEW - 1),
@@ -564,14 +582,23 @@ def decode_path(torch, dev, bw, smi) -> dict:
           / (arms["fused"]["per_token_ms"] * 1e-3) / 1e9,
           "profile": activity,
           "seconds": round(time.perf_counter() - t0, 1)})
-    return launches
+    if traced != want["decode_step"]:
+        raise AssertionError(f"the traced generate ran decode_step_kernel "
+                             f"{traced} times, want {want['decode_step']}")
+    return launches, activity["by_name"]
 
 
-def attention_rows(torch, dev, bw, launches) -> list:
+def attention_rows(torch, dev, bw, launches, path_trace) -> list:
     """Phase 9's rows for the attention kernels, timed at the decode
-    path's shapes."""
+    path's shapes; ``decode_step`` by device time a launch behind a
+    sleep kernel on caches rotated past the L2 (each layer of the path
+    has its own), beside its device time a launch in phase 8's trace of
+    the path (``path_trace``: its ``by_name``)."""
     import torch.nn.functional as F
 
+    from icikit_torch.bench.stream_ab import (copies_past_l2, device_ms,
+                                              rotating)
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.utils.timing import cuda_time_ms
 
@@ -600,13 +627,17 @@ def attention_rows(torch, dev, bw, launches) -> list:
     cur = DEC_PROMPT + (DEC_NEW - 1) // 2       # the steps' mean column
     dq, dk, dv = (torch.randn((rows, dh), generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(3))
-    kc, vc = (torch.randn((rows, total, dh), generator=gen, device=dev)
-              .to(torch.bfloat16) for _ in range(2))
+    caches = [tuple(torch.randn((rows, total, dh), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+              for _ in range(copies_past_l2(4 * rows * total * dh))]
     cos2 = torch.ones((1, dh), device=dev)
     sin2 = torch.zeros((1, dh), device=dev)
-    d_ms = cuda_time_ms(lambda: ca.decode_step(
-        dq, dk, dv, kc, vc, cur, cos2, sin2, scale=scale, rope=True),
-        iters=100, warmup=5)
+    step = rotating(lambda c: ca.decode_step(
+        dq, dk, dv, *c, cur, cos2, sin2, scale=scale, rope=True), caches)
+    d_ms = device_ms(step, 100, 250.0)
+    d_events = cuda_time_ms(step, iters=100, warmup=5)
+    kc, vc = caches[0]
     d_plain = cuda_time_ms(lambda: ca.decode_step_plain(
         dq, dk, dv, kc, vc, cur, cos2, sin2, scale=scale, rope=True),
         iters=10)
@@ -621,13 +652,25 @@ def attention_rows(torch, dev, bw, launches) -> list:
     d_ops = 2 * 2 * rows * (cur + 1) * dh       # logits and PV, float32
     d_bound = max(d_bytes / bw, d_ops / VECTOR_OPS) * 1e3
     d_by = "bytes" if d_bytes / bw >= d_ops / VECTOR_OPS else "operations"
+    path = path_trace.get("decode_step_kernel", {"ms": 0.0, "count": 0})
     torch.cuda.synchronize()
     emit({"phase": "attention_timing",
           "flash_fwd": f"b={b} h={h} s={s} d={d} bf16 causal",
           "decode_step": f"rows={rows} total={total} dh={dh} cur={cur} "
-                         f"bf16 rope",
+                         f"bf16 rope, splits "
+                         f"{ca.decode_splits(rows, cur, _build.sm_count(dev))}",
+          "decode_step_ms": "device time a launch behind a sleep kernel, "
+                            f"the caches rotated through {len(caches)} "
+                            "copies (past the L2, as the path's 12 "
+                            "layers); by CUDA events around 100 "
+                            f"back-to-back calls (the host's rate): "
+                            f"{d_events}",
+          "path_trace_device_us_per_launch": {
+              "decode_step_kernel": 1e3 * path["ms"] / max(1, path["count"]),
+              "launches": path["count"]},
           "decode_step_library": "none: no one PyTorch call applies RoPE, "
                                  "writes the cache column and attends"})
+    del caches, kc, vc
     return [
         {"name": "flash_fwd (B3/B5)", "route": "cuda",
          "source": "icikit_torch/csrc/attention.cu",
@@ -1826,6 +1869,7 @@ def _q8_step_operands(torch, gen, dev, rows, total, dh, cur, qdtype):
 def int8_kernel_checks(torch, dev) -> None:
     """Phase 17: B15 at every (N, K) of the int8 path, rows 8 and 4096,
     and B14 at the path's step shape, against their plain versions."""
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_quant as cq
 
@@ -1866,7 +1910,7 @@ def int8_kernel_checks(torch, dev) -> None:
                 checks.append({"kernel": "decode_step_q8", "q_dtype": key,
                                "rows": rows, "total": total, "dh": dh,
                                "cur": cur, "splits": ca.decode_splits(
-                                   rows, cur, ca._sm_count(ops[0].device)),
+                                   rows, cur, _build.sm_count(ops[0].device)),
                                "out_err": e, "cache_bitwise": same,
                                "ok": e <= Q8_STEP_TOL and same})
     torch.cuda.synchronize()
@@ -2060,13 +2104,19 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
 
 
 def int8_rows(torch, dev, bw, launches, path_trace) -> list:
-    """Phase 19's rows for B15 and B14, timed at the int8 path's shapes
-    by CUDA events around back-to-back launches, as every row is; beside
+    """Phase 19's rows for B15 and B14 at the int8 path's shapes; beside
     them in the phase line, each kernel's device time a launch in phase
     18's trace of the main path (``path_trace``: its ``by_name``). At
     the step's 8 rows a launch takes less device time than the host
-    takes to issue it, so the events there time the host."""
-    from icikit_torch.bench.stream_ab import device_ms
+    takes to issue it, so B15 there (and its library call and cuBLAS's
+    bf16 product), like B14, is timed by device time a launch behind a
+    sleep kernel, each call on the next of enough copies of the weights
+    to pass the L2, as on the path; at the prefill's 4096 rows by CUDA
+    events around back-to-back launches."""
+    from icikit_torch.bench.quant_ab import PER_STEP
+    from icikit_torch.bench.stream_ab import (copies_past_l2, device_ms,
+                                              rotating)
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_quant as cq
     from icikit_torch.utils.timing import cuda_time_ms
@@ -2081,22 +2131,28 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     rows_out, shapes = [], {}
     for rows in Q8_ROWS:
         for name, (n, k) in Q8_SHAPES.items():
+            skinny = rows <= cq.SKINNY_ROWS
             x = torch.randn((rows, k), generator=gen, device=dev).to(bf)
-            w8 = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                               dtype=torch.int8)
+            w8s = [torch.randint(-127, 128, (n, k), generator=gen,
+                                 device=dev, dtype=torch.int8)
+                   for _ in range(copies_past_l2(n * k) if skinny else 1)]
+            w8 = w8s[0]
             sc = torch.rand((n,), generator=gen, device=dev) / 127
-            it = 100 if rows <= 16 else 10
-            k_ms = cuda_time_ms(lambda: cq.quant_matvec(x, w8, sc),
-                                iters=it, warmup=3)
+            s16 = sc.to(bf)
+            w16s = [w.to(bf) for w in w8s[:copies_past_l2(2 * n * k)]]
+
+            def timed(fn, ops):
+                if skinny:
+                    return device_ms(rotating(fn, ops), 100, 250.0)
+                return cuda_time_ms(lambda: fn(ops[0]), iters=10, warmup=3)
+
+            k_ms = timed(lambda w: cq.quant_matvec(x, w, sc), w8s)
             p_ms = cuda_time_ms(lambda: cq.quant_matvec_plain(x, w8, sc),
                                 iters=10, warmup=2)
-            w16 = w8.to(bf)
-            mm_ms = cuda_time_ms(lambda: torch.matmul(x, w16.t()), iters=it,
-                                 warmup=3)
+            mm_ms = timed(lambda w: torch.matmul(x, w.t()), w16s)
             try:
-                s16 = sc.to(bf)
-                lib_ms = cuda_time_ms(lambda: torch._weight_int8pack_mm(
-                    x, w8, s16), iters=it, warmup=3)
+                lib_ms = timed(lambda w: torch._weight_int8pack_mm(
+                    x, w, s16), w8s)
             except (RuntimeError, NotImplementedError) as exc:
                 lib_ms, lib_why = None, f"{type(exc).__name__}: {exc}"[:160]
             else:
@@ -2107,6 +2163,7 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
                                                                        sc))
             shapes[f"{name} rows {rows}"] = {
                 "n": n, "k": k, "ms": k_ms, "plain_ms": p_ms,
+                "splits": cq.skinny_splits(rows, k) if skinny else None,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 "library": lib_why, "cublas_bf16_ms": mm_ms, "rel_err": e}
             if (name, rows) in Q8_ROW_ENTRIES:
@@ -2118,14 +2175,17 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
                     "launches": launches["quant_matvec"], "max_abs_err": e,
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib_ms})
-            del x, w8, sc, w16
+            del x, w8, w8s, sc, w16s
     r_, total, dh = DEC_BATCH * 8, DEC_PROMPT + DEC_NEW, 128
     cur = DEC_PROMPT + (DEC_NEW - 1) // 2       # the steps' mean column
-    ops = _q8_step_operands(torch, gen, dev, r_, total, dh, cur, bf)
-    # device time a launch behind a sleep kernel: the host issues a call
-    # more slowly than the card runs it
-    s_ms = device_ms(lambda: ca.decode_step_q8(*ops, cur, scale=dh ** -0.5),
-                     100, 250.0)
+    # device time a launch behind a sleep kernel (the host issues a call
+    # more slowly than the card runs it), the caches rotated past the L2
+    # as the path's 12 layers' are
+    copies = [_q8_step_operands(torch, gen, dev, r_, total, dh, cur, bf)
+              for _ in range(copies_past_l2(2 * r_ * total * (dh + 4)))]
+    ops = copies[0]
+    s_ms = device_ms(rotating(lambda o: ca.decode_step_q8(
+        *o, cur, scale=dh ** -0.5), copies), 100, 250.0)
     s_events = cuda_time_ms(lambda: ca.decode_step_q8(*ops, cur,
                                                       scale=dh ** -0.5),
                             iters=100, warmup=5)
@@ -2151,20 +2211,27 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     path_us = {k: 1e3 * v["ms"] / v["count"] for k, v in path_trace.items()
                if k in ("qmv_bf16_skinny", "qmv_bf16_tile",
                         "decode_step_q8_kernel")}
+    step = {key: sum(PER_STEP[nm] * shapes[f"{nm} rows {DEC_BATCH}"][key]
+                     for nm in Q8_SHAPES) for key in ("ms", "bound_ms")}
     emit({"phase": "int8_timing_kernels", "quant_matvec": shapes,
-          "ms": "CUDA events around 100 (rows 8) or 10 back-to-back "
-                "calls; at rows 8 they time the host's launches",
+          "quant_matvec_step_rows8": {**step, "per_step": PER_STEP},
+          "ms": "rows 8: device time a launch behind a sleep kernel, "
+                "the weights rotated through copies past 256 MiB (from "
+                "device memory, as on the path), the library call and "
+                "cuBLAS bf16 the same; rows 4096: CUDA events around 10 "
+                "back-to-back calls",
           "path_trace_device_us_per_launch": path_us,
           "quant_matvec_bound": "int8 weights, bf16 x, float32 scales and "
                                 "out once; products at the bf16 tensor "
                                 "rate",
           "decode_step_q8": f"rows={r_} total={total} dh={dh} cur={cur} "
                             f"bf16 q, {s_bytes} bytes, splits "
-                            f"{ca.decode_splits(r_, cur, ca._sm_count(dev))}",
+                            f"{ca.decode_splits(r_, cur, _build.sm_count(dev))}",
           "decode_step_q8_ms": "device time a launch behind a sleep "
-                               "kernel; by CUDA events around 100 "
-                               "back-to-back calls (the host's rate): "
-                               f"{s_events}",
+                               "kernel, the caches rotated through "
+                               f"{len(copies)} copies; by CUDA events "
+                               "around 100 back-to-back calls on one "
+                               f"(the host's rate): {s_events}",
           "decode_step_q8_library": "none: no one PyTorch call writes the "
                                     "int8 column and attends over int8 "
                                     "caches with folded scales",
@@ -2531,10 +2598,12 @@ def main() -> int:
               "flash_bwd_bf16<32>", "flash_bwd_bf16<64>",
               "flash_bwd_dq_bf16<32>", "flash_bwd_dq_bf16<64>",
               "flash_bwd_dkv_bf16<32>", "flash_bwd_dkv_bf16<64>",
-              "flash_fwd_bf16<32>", "flash_fwd_bf16<64>")),
+              "flash_fwd_bf16<32>", "flash_fwd_bf16<64>",
+              "decode_step_kernel<float>")),
             ("quant", "icikit_quant_regs",
-             ("qmv_bf16_skinny", "qmv_bf16_tile", "qmv_f32<16, 32>",
-              "qmv_f32<64, 64>")),
+             tuple(f"qmv_bf16_skinny<{cpw}, 1>" for cpw in (1, 2, 4, 8))
+             + tuple(f"qmv_bf16_skinny<{cpw}, 2>" for cpw in (1, 2, 4))
+             + ("qmv_bf16_tile", "qmv_f32<16, 32>", "qmv_f32<64, 64>")),
             ("xent", "icikit_xent_regs",
              ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
@@ -2801,10 +2870,10 @@ def main() -> int:
     attention_checks(torch, dev)
 
     # -- 8. the decode path: base, b = 8, prompt 512, 64 new -----------
-    dec_launches = decode_path(torch, dev, bw, smi)
+    dec_launches, dec_trace = decode_path(torch, dev, bw, smi)
 
     # -- 9. per-kernel numbers at the decode path's shapes -------------
-    rows += attention_rows(torch, dev, bw, dec_launches)
+    rows += attention_rows(torch, dev, bw, dec_launches, dec_trace)
 
     # -- 10. train kernels against their plain versions ----------------
     train_kernel_checks(torch, dev)

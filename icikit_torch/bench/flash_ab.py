@@ -20,30 +20,34 @@ paths' own, bf16 and causal:
   (1, 4, 131072, 128) (B8); the library is SDPA's backward through
   autograd; ``flash_bwd``'s time includes zeroing its float32 dq buffer,
   as the wrapper does.
-- ``--kernels decode_q8``: ``decode_step_q8`` (B14) at the int8 path's
-  step, 64 rows, 576 columns, cur 543, bf16 q, at dh 128 and 256; device
-  time a launch behind a sleep kernel (the host issues a launch more
-  slowly than the card runs it); no library call computes the function.
-  A source that exports ``icikit_decode_step_q8_split`` takes the split
-  entry (its splits from ``ops.cuda_attention.decode_splits``), one that
-  does not (one CTA a row, before it) the parent's entry.
+- ``--kernels decode``: ``decode_step`` (B13) at the bf16 path's step,
+  64 rows, 576 columns, cur 543, bf16, RoPE, at dh 128 and 256;
+  ``--kernels decode_q8``: ``decode_step_q8`` (B14) at the int8 path's,
+  bf16 q. Device time a launch behind a sleep kernel (the host issues a
+  launch more slowly than the card runs it), each call on the next of
+  enough copies of the caches to pass 256 MiB (``stream_ab.
+  ROTATE_BYTES``), so that they come from device memory as on the path (12 layers' caches, 214 MB in bf16);
+  no library call computes the function. A source that exports
+  ``icikit_decode_step_split`` (``icikit_decode_step_q8_split``) takes
+  the split entry, its splits from ``ops.cuda_attention.decode_splits``;
+  one that does not (one CTA a row, before it) the parent's entry.
 
 B's outputs are held to A's: relative L2 in every 64-row block within
 1e-2, and the forward's lse within 1e-3 absolute (``chip_smoke.py``'s
-bf16 BLOCK_L2_TOL and FLASH_TOL); the int8 step's float32 output to A's
-and to ``decode_step_q8_plain``'s within 1e-5 absolute and its written
-cache column bit for bit (``chip_smoke.py``'s Q8_STEP_TOL). A record
-that departs carries
+bf16 BLOCK_L2_TOL and FLASH_TOL); the bf16 step's output to A's and to
+``decode_step_plain``'s within 2e-2 absolute, the int8 step's float32
+output within 1e-5 (``chip_smoke.py``'s Q8_STEP_TOL), and the written
+cache columns bit for bit. A record that departs carries
 ``"ok": false`` and the run exits 1, unless ``--timing-only``. Bounds:
 each input read and each output written once at 3.35 TB/s against the
 causal products (two in the forward, five in the backward) at 989
-TFLOP/s, the larger; the int8 step's products at the float32 rate, 67
+TFLOP/s, the larger; the decode steps' products at the float32 rate, 67
 TFLOP/s. Prints one
 JSON line a shape, then the kernels' registers and spills as ptxas
 reported them, and the card's name and power limit. Needs a CUDA card.
 
     python -m icikit_torch.bench.flash_ab --a OLD.cu \\
-        --b icikit_torch/csrc/attention.cu --kernels fwd,bwd,decode_q8
+        --b icikit_torch/csrc/attention.cu --kernels fwd,bwd,decode,decode_q8
 """
 
 from __future__ import annotations
@@ -70,16 +74,21 @@ FWD_SHAPES = {"B3": ((8, 8, 512, 128), None),
               "long": ((1, 4, 131072, 128), None)}
 BWD_SHAPES = {"B6": (8, 8, 1024, 128), "B7": (1, 8, 2048, 128),
               "B8": (1, 4, 131072, 128)}
-# the int8 step (B14): (rows, total, dh, cur) of the int8 path's
-# generate, b 8 x 8 heads, prompt 512 + 64 new, its steps' mean column
+# the decode steps (B13 bf16, B14 int8): (rows, total, dh, cur) of the
+# paths' generate, b 8 x 8 heads, prompt 512 + 64 new, its steps' mean
+# column
 Q8_SHAPES = {"dh128": (64, 576, 128, 543), "dh256": (64, 576, 256, 543)}
-KERNELS = ("fwd", "bwd", "decode_q8")
+KERNELS = ("fwd", "bwd", "decode", "decode_q8")
 VECTOR_OPS = 67e12         # float32 outside the tensor cores, the same
 Q8_TOL = 1e-5              # chip_smoke.py's Q8_STEP_TOL, absolute
-# the one-CTA-a-row int8 step's C entry, before the split one
+DECODE_TOL = 2e-2          # the bf16 step against decode_step_plain
+# the one-CTA-a-row steps' C entries, before the split ones
 _Q8_ROW_ENTRY = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
     ctypes.c_float, ctypes.c_void_p]
+_DECODE_ROW_ENTRY = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 # B against A, in bf16: relative L2 in each BLOCK_ROWS-row block of every
 # output, and the forward's lse absolute
 BLOCK_ROWS = 64
@@ -113,12 +122,25 @@ def q8_bound_ms(rows: int, total: int, dh: int, cur: int) -> tuple:
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def decode_bound_ms(rows: int, total: int, dh: int, cur: int,
+                    elem: int = 2) -> tuple:
+    """(ms, "bytes" or "operations") of the bf16 (``elem`` 2) or float32
+    (4) step: the ``cur`` past columns of K and V read, q, k, v read and
+    out written, the two cache columns written and the RoPE tables read
+    once, against its products at the float32 rate."""
+    nbytes = (2 * rows * cur * dh * elem + 4 * rows * dh * elem
+              + 2 * rows * dh * elem + 2 * dh * 4)
+    ops = 2 * 2 * rows * (cur + 1) * dh
+    t_b, t_o = nbytes / MEM_BPS, ops / VECTOR_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def _ptxas_regs(log: str, keep=None) -> dict:
     """{kernel: (registers, spill bytes)} of the kernels whose mangled
     name ``keep`` accepts (by default the bf16 flash kernels), from
     nvcc's ``-Xptxas -v`` output."""
     keep = keep or (lambda name: ("flash_" in name and "f32" not in name)
-                    or "decode_step_q8" in name)
+                    or "decode_step" in name)
     lines = log.splitlines()
     regs = {}
     for i, line in enumerate(lines):
@@ -328,14 +350,110 @@ def q8_call(lib, ops, cur: int, out, sms: int):
                                 "decode_step_q8")
 
 
+def decode_call(lib, ops, cur: int, out, sms: int):
+    """One source's bf16 step (RoPE on) into ``out``, a no-argument
+    call: the split entry where the library has it, else the
+    one-CTA-a-row one. ``ops``: q, k, v, cos2, sin2, kc, vc."""
+    from icikit_torch.ops.cuda_attention import decode_splits
+
+    q = ops[0]
+    rows, dh = q.shape
+    total = ops[5].shape[1]
+    st = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in ops] + [out.data_ptr()]
+    if hasattr(lib, "icikit_decode_step_split"):
+        splits = decode_splits(rows, cur, sms)
+        ws = torch.empty(rows * splits * (dh + 2), device="cuda")
+        counter = torch.zeros(rows, dtype=torch.int32, device="cuda")
+        args = [1, *ptrs, ws.data_ptr(), counter.data_ptr(), rows, total,
+                dh, cur, splits, 1, dh ** -0.5, st]
+
+        def fn(ws=ws, counter=counter):
+            _build.check(lib.icikit_decode_step_split(*args), "decode_step")
+        return fn
+    lib.icikit_decode_step.argtypes = _DECODE_ROW_ENTRY
+    lib.icikit_decode_step.restype = ctypes.c_int
+    args = [1, *ptrs, rows, total, dh, cur, 1, dh ** -0.5, st]
+    return lambda: _build.check(lib.icikit_decode_step(*args), "decode_step")
+
+
+def _step_turns(calls: dict) -> dict:
+    """{source: [ms, ms]}: each source's calls (one a cache copy) timed
+    A, B, B, A, device time a launch behind a sleep kernel."""
+    from icikit_torch.bench.stream_ab import device_ms, rotating
+
+    fns = {n: rotating(lambda call: call(), calls[n]) for n in "AB"}
+    ms = {n: [] for n in "AB"}
+    for n in "ABBA":
+        ms[n].append(device_ms(fns[n], 200))
+    return ms
+
+
+def run_decode(libs, shapes, gen) -> bool:
+    """The bf16 step (B13), one record a shape; whether both arms held
+    to the plain version and B to A at all."""
+    from icikit_torch.bench.stream_ab import copies_past_l2
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops.rope import rope_sincos
+
+    sms = _build.sm_count(torch.device("cuda"))
+    ok = True
+    for tag in shapes:
+        rows, total, dh, cur = Q8_SHAPES[tag]
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+        q, k, v = randn(rows, dh), randn(rows, dh), randn(rows, dh)
+        c, s_ = rope_sincos(torch.tensor([cur], device="cuda"), dh)
+        cos2 = torch.cat([c, c], -1).contiguous()
+        sin2 = torch.cat([s_, s_], -1).contiguous()
+        copies = [(randn(rows, total, dh), randn(rows, total, dh))
+                  for _ in range(copies_past_l2(4 * rows * total * dh))]
+        kc2, vc2 = (t.clone() for t in copies[0])
+        want = ca.decode_step_plain(q, k, v, kc2, vc2, cur, cos2, sin2,
+                                    scale=dh ** -0.5, rope=True)
+        outs = {n: torch.empty_like(q) for n in "AB"}
+        calls = {n: [decode_call(libs[n][0], (q, k, v, cos2, sin2, kc, vc),
+                                 cur, outs[n], sms) for kc, vc in copies]
+                 for n in "AB"}
+        ms = _step_turns(calls)
+        for n in "BA":  # both arms on copy 0, B last
+            calls[n][0]()
+        torch.cuda.synchronize()
+        errs = {"b_vs_a": float((outs["B"].float() - outs["A"].float())
+                                .abs().max()),
+                "b_vs_plain": float((outs["B"].float() - want.float())
+                                    .abs().max()),
+                "a_vs_plain": float((outs["A"].float() - want.float())
+                                    .abs().max())}
+        column = bool(torch.equal(copies[0][0], kc2)
+                      and torch.equal(copies[0][1], vc2))
+        bnd, by = decode_bound_ms(rows, total, dh, cur)
+        rec = {"kernels": "decode", "shape": tag,
+               "rows_total_dh_cur": [rows, total, dh, cur],
+               "splits_b": ca.decode_splits(rows, cur, sms),
+               "cache_copies": len(copies), "turns": "A B B A",
+               "ms": {n: {"decode_step": ms[n]} for n in "AB"},
+               "abs_err": errs, "column_bitwise": column,
+               "bound_ms": bnd, "bound_by": by, "library_ms": None,
+               "ok": (max(errs.values()) <= DECODE_TOL and column)}
+        print(json.dumps(rec), flush=True)
+        ok &= rec["ok"]
+        del copies, kc2, vc2, outs, calls
+        torch.cuda.empty_cache()
+    return ok
+
+
 def run_q8(libs, shapes, gen) -> bool:
-    """One record a shape; whether B's outputs held to A's and to the
-    plain version at all."""
-    from icikit_torch.bench.stream_ab import device_ms
+    """The int8 step (B14), one record a shape; whether B's outputs held
+    to A's and to the plain version at all."""
+    from icikit_torch.bench.stream_ab import copies_past_l2
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops.quant import dequantize_last, quantize_last
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = _build.sm_count(torch.device("cuda"))
     ok = True
     for tag in shapes:
         rows, total, dh, cur = Q8_SHAPES[tag]
@@ -346,39 +464,41 @@ def run_q8(libs, shapes, gen) -> bool:
         q = randn(rows, dh).to(torch.bfloat16)
         kq, ks = quantize_last(randn(rows, dh))
         vq, vs = quantize_last(randn(rows, dh))
-        kc, kcs = quantize_last(randn(rows, total, dh))
-        vc, vcs = quantize_last(randn(rows, total, dh))
-        kcs[:, cur], vcs[:, cur] = ks, vs
-        ops = (q, kq, vq, dequantize_last(kq, ks), dequantize_last(vq, vs),
-               kc, vc, kcs, vcs)
-        kc2, vc2 = kc.clone(), vc.clone()
-        want = ca.decode_step_q8_plain(*ops[:5], kc2, vc2, *ops[7:], cur,
+        copies = []
+        for _ in range(copies_past_l2(2 * rows * total * (dh + 4))):
+            kc, kcs = quantize_last(randn(rows, total, dh))
+            vc, vcs = quantize_last(randn(rows, total, dh))
+            kcs[:, cur], vcs[:, cur] = ks, vs
+            copies.append((kc, vc, kcs, vcs))
+        head = (q, kq, vq, dequantize_last(kq, ks), dequantize_last(vq, vs))
+        kc2, vc2 = copies[0][0].clone(), copies[0][1].clone()
+        want = ca.decode_step_q8_plain(*head, kc2, vc2, *copies[0][2:], cur,
                                        scale=dh ** -0.5)
         outs = {n: torch.empty((rows, dh), device="cuda") for n in "AB"}
-        fns = {n: q8_call(libs[n][0], ops, cur, outs[n], sms) for n in "AB"}
-        ms = {n: [] for n in "AB"}
-        for n in "ABBA":
-            ms[n].append(device_ms(fns[n], 200))
+        calls = {n: [q8_call(libs[n][0], head + c, cur, outs[n], sms)
+                     for c in copies] for n in "AB"}
+        ms = _step_turns(calls)
         for n in "BA":
-            fns[n]()
+            calls[n][0]()
         torch.cuda.synchronize()
         bnd, by = q8_bound_ms(rows, total, dh, cur)
         errs = {"b_vs_a": float((outs["B"] - outs["A"]).abs().max()),
                 "b_vs_plain": float((outs["B"] - want).abs().max()),
                 "a_vs_plain": float((outs["A"] - want).abs().max())}
-        column = bool(torch.equal(kc, kc2) and torch.equal(vc, vc2))
+        column = bool(torch.equal(copies[0][0], kc2)
+                      and torch.equal(copies[0][1], vc2))
         rec = {"kernels": "decode_q8", "shape": tag,
                "rows_total_dh_cur": [rows, total, dh, cur],
                "splits_b": ca.decode_splits(rows, cur, sms),
-               "turns": "A B B A", "ms": {n: {"decode_step_q8": ms[n]}
-                                          for n in "AB"},
+               "cache_copies": len(copies), "turns": "A B B A",
+               "ms": {n: {"decode_step_q8": ms[n]} for n in "AB"},
                "abs_err": errs, "column_bitwise": column,
                "bound_ms": bnd, "bound_by": by, "library_ms": None,
                "ok": (errs["b_vs_a"] <= Q8_TOL
                       and errs["b_vs_plain"] <= Q8_TOL and column)}
         print(json.dumps(rec), flush=True)
         ok &= rec["ok"]
-        del ops, kc, vc, kc2, vc2, outs, fns
+        del copies, kc2, vc2, outs, calls
         torch.cuda.empty_cache()
     return ok
 
@@ -394,6 +514,8 @@ def run(src_a: str, src_b: str, kernels=KERNELS, fwd_shapes=None,
         ok &= run_fwd(libs, fwd_shapes or tuple(FWD_SHAPES), gen)
     if "bwd" in kernels:
         ok &= run_bwd(libs, bwd_shapes or tuple(BWD_SHAPES), gen)
+    if "decode" in kernels:
+        ok &= run_decode(libs, tuple(Q8_SHAPES), gen)
     if "decode_q8" in kernels:
         ok &= run_q8(libs, tuple(Q8_SHAPES), gen)
     print(json.dumps({"registers_spill_bytes": {

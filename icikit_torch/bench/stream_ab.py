@@ -60,6 +60,8 @@ HOST_CALLS = 1000
 COPY_BYTES = 1 << 30
 LEAF_M = 211.0             # bench/adam.py's leaf, millions of elements
 SLEEP_CYCLES_PER_MS = 2_000_000   # the SM clock's order: a head start
+ROTATE_BYTES = 256 << 20   # operand copies a cold timing walks through,
+                           # five times the card's 50 MB L2
 # the per-leaf C entry of the design before the tree entry
 _LEAF_ENTRY = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
     ctypes.c_int64] + [ctypes.c_float] * 5 + [ctypes.c_void_p]
@@ -95,6 +97,19 @@ def build(a_dir: str, b_dir: str) -> dict:
             libs[n][name] = lib
             libs[n]["regs"].update(_ptxas_regs(log))
     return libs
+
+
+def copies_past_l2(nbytes: int) -> int:
+    """Copies of an operand of ``nbytes`` that pass ROTATE_BYTES, so
+    that a timing walking through them reads device memory."""
+    return max(2, -(-ROTATE_BYTES // nbytes))
+
+
+def rotating(call, operands):
+    """A no-argument call that runs ``call(op)`` on the next of
+    ``operands`` each time."""
+    it = itertools.cycle(operands)
+    return lambda: call(next(it))
 
 
 def device_ms(fn, iters: int, host_us: float = 30.0) -> float:

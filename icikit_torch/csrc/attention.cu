@@ -146,7 +146,7 @@
 //                  pallas_call :1120).
 //   decode_step_q8 <- _decode_step_q8_kernel (B14,
 //                  decode_step_attention_q8, pallas_call :1229).
-//      One token of decode attention for one (batch*head) row per CTA:
+//      One token of decode attention for each (batch*head) row:
 //      split-half RoPE of q and k in float32, rounded back to the input
 //      dtype (:1022-1023); the k/v column written at `cur` in place into
 //      the caller's caches (the TPU kernel's input_output_aliases); then
@@ -159,12 +159,16 @@
 //      the written column equals the reference's and the plain
 //      version's bit for bit.
 //      Bound (64 rows, ~544 columns, dh 128, bf16): 17.8 MB of K and V,
-//      5.3 us at 3.35 TB/s: bytes. Eight warps stream the columns; a
-//      lane holds four contiguous elements of each 128-wide chunk of a
-//      row, so a warp reads one coalesced segment a row a chunk and any
-//      head dim that is a multiple of 128 runs (JAX's gate). 64 CTAs leave
-//      half of the 132 SMs idle; a split-K (flash-decoding) form is a
-//      later design.
+//      5.3 us at 3.35 TB/s: bytes. A row's past columns are split across
+//      CTAs, (rows, splits) with rows x splits >= 2 x the SMs (the
+//      wrapper's decode_splits: 5 splits of ~109 columns, 320 CTAs at 64
+//      rows), the split's K and V columns sent to L2 as the CTA starts,
+//      16-byte loads (8 bf16) eight deep a lane, and the splits' (max,
+//      sum, value) partials merged by the row's last CTA in the same
+//      launch: one launch a layer a step. A split rounds its bf16
+//      weights against its own max (the merge rescales them), where the
+//      TPU kernel rounds against the row's: the two agree to a tolerance
+//      at bf16, not bit for bit; float32 rounds nothing.
 //      decode_step_q8 is the same step over int8 caches, as the TPU's:
 //      q arrives rotated and the fresh column quantized (written in place
 //      at cur) and dequantized (the t == cur term); K's per-column float32
@@ -172,14 +176,9 @@
 //      before the value product; float32 softmax and output. RoPE, the
 //      column's quantization and the scale-row write stay outside the
 //      launch, as in JAX. Bound (64 rows, cur 543, dh 128): 8.9 MB of
-//      int8 K and V and 0.28 MB of scales, 2.8 us: bytes. One CTA a row
-//      (the first design) left half the SMs idle and walked a row's
-//      columns with one 128-byte segment a warp in flight, 0.10-0.18
-//      TB/s. Now a row's columns are split across CTAs, (rows, splits)
-//      with rows x splits >= 2 x the SMs (the wrapper's decode_splits),
-//      16-byte loads four deep a lane, and the splits' (max, sum, value)
-//      partials merged by the row's last CTA in the same launch (one
-//      launch a layer a step, as before: the int8 path is host-bound).
+//      int8 K and V and 0.28 MB of scales, 2.8 us: bytes. It runs the
+//      same split form and helpers, 16-byte loads (16 int8) eight deep a
+//      lane.
 //
 // Every entry returns cudaGetLastError() after its launch.
 
@@ -200,10 +199,6 @@ constexpr int BM = 64;             // Q rows a CTA
 constexpr int BN = 64;             // keys a tile
 constexpr int BQB = 32;            // Q rows a float32 backward step
 constexpr int F32_THREADS = 256;   // f32: 4 threads a row
-constexpr int DEC_THREADS = 256;   // decode: 8 warps
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_EPL = 4;         // decode: elements a lane a chunk
-constexpr int DEC_CW = 32 * DEC_EPL;  // decode: a row chunk, 128 elements
 
 // Column groups of the bf16 flash kernels: at d = 256 one warp cannot
 // hold a 16 x d float32 accumulator (128 registers) beside its operand
@@ -1251,29 +1246,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// decode_step. Lane l of each warp holds elements [l*DEC_EPL,
-// (l+1)*DEC_EPL) of each DEC_CW-wide chunk of a row.
-
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float (&x)[N]) {
-  constexpr int BYTES = N * (int)sizeof(T);
-  static_assert(BYTES % 8 == 0, "row slice must be 8-byte sized");
-  if constexpr (BYTES % 16 == 0) {
-    uint4 buf[BYTES / 16];
-#pragma unroll
-    for (int i = 0; i < BYTES / 16; ++i) buf[i] = reinterpret_cast<const uint4*>(p)[i];
-    const T* e = reinterpret_cast<const T*>(buf);
-#pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = to_f(e[j]);
-  } else {
-    uint2 buf[BYTES / 8];
-#pragma unroll
-    for (int i = 0; i < BYTES / 8; ++i) buf[i] = reinterpret_cast<const uint2*>(p)[i];
-    const T* e = reinterpret_cast<const T*>(buf);
-#pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = to_f(e[j]);
-  }
-}
+// Warp reductions of the decode steps.
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -1287,174 +1260,354 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Block-wide reduction through red[DEC_WARPS]; every thread gets the result.
+// The decode steps, a row's past columns split across CTAs
+// (flash-decoding). CTA (row, split) of SPLIT_THREADS threads walks
+// columns [split * span, min((split + 1) * span, cur)), span = ceil(cur /
+// splits), whose K and V lines it sends to L2 as it starts: Cols<E>::LANES
+// lanes cover a 128-wide chunk of a column, 16 bytes a lane, so the CTA
+// reads GROUPS columns a load and each lane keeps UNROLL loads in
+// flight; a column's dot product reduces over its lanes.
+// The split's logits sit in shared memory, then its max m, its sum l of
+// exp(logit - m) and its value partial acc[dh] = sum_t w_t v_t (V read
+// in a second pass, its lines prefetched into L2 during the first) go to
+// a float32 workspace, (dh + 2) floats a split. The last CTA of the row
+// (an atomic count, reset to 0 after) adds the t == cur term from the
+// fresh column, merges the partials by log-sum-exp and writes the row.
+// Split 0 writes the fresh column at cur; no CTA reads column cur from
+// the cache.
+
+constexpr int SPLIT_THREADS = 128;                     // 4 warps
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
+
+static_assert(SPLIT_THREADS == 128, "a thread a dim of each 128-wide chunk");
+
+// A 16-byte load of cache elements E: EPL elements, LANES lanes a
+// 128-wide chunk of a column, GROUPS columns a CTA a load.
+template <typename E>
+struct Cols {
+  static constexpr int EPL = 16 / (int)sizeof(E);
+  static constexpr int LANES = 128 / EPL;
+  static constexpr int GROUPS = SPLIT_THREADS / LANES;
+};
+
+// The elements of a 16-byte load, as floats.
+template <typename E>
+__device__ __forceinline__ void unpack16(const int4 raw,
+                                         float (&x)[Cols<E>::EPL]) {
+  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (sizeof(E) == 1) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      x[j] = (float)((int)((unsigned)w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+  } else if constexpr (sizeof(E) == 2) {  // bf16: the top half of a float
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = __uint_as_float(j & 1 ? (unsigned)w[j >> 1] & 0xffff0000u
+                                   : (unsigned)w[j >> 1] << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = __int_as_float(w[j]);
+  }
+}
+
+// Reductions over the CTA's SPLIT_THREADS through red[SPLIT_WARPS];
+// every thread gets the result.
 template <bool MAX>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
+__device__ __forceinline__ float cta_reduce(float x, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   x = MAX ? warp_max(x) : warp_sum(x);
   if (lane == 0) red[warp] = x;
   __syncthreads();
   float y = red[0];
-  for (int w = 1; w < DEC_WARPS; ++w) y = MAX ? fmaxf(y, red[w]) : y + red[w];
+#pragma unroll
+  for (int w = 1; w < SPLIT_WARPS; ++w) y = MAX ? fmaxf(y, red[w]) : y + red[w];
   __syncthreads();
   return y;
 }
 
+// Shared memory a split CTA: q (dh), red, the value partials, and the
+// split's logits (at least two a split, for the merge's statistics).
+size_t split_smem(int dh, int64_t span, int splits) {
+  const int64_t wn = span > 2 * splits ? span : 2 * splits;
+  return sizeof(float) *
+         ((size_t)dh + SPLIT_WARPS + SPLIT_WARPS * 128 + (size_t)wn);
+}
+
+// The split's columns of K, then of V, contiguous in the caches, sent to
+// L2: the passes below then read L2, the bytes of every split are in
+// flight at once, and K's arrive first. The bf16 step sends them as it
+// starts, before its RoPE (0.6 us ahead of sending them after RoPE's
+// loads, on the card); the int8 step after its first loads. At most
+// SPLIT_PREFETCH bytes of each (a
+// long split's later V lines go to L2 during the K pass, its later K
+// lines are read from device memory).
+constexpr int64_t SPLIT_PREFETCH = 64 << 10;
+
+template <typename E>
+__device__ __forceinline__ void split_prefetch(const E* kcr, const E* vcr,
+                                               int64_t t0, int64_t n,
+                                               int dh) {
+  const int64_t bytes = n * dh * (int64_t)sizeof(E);
+  const int64_t lines =
+      ((bytes < SPLIT_PREFETCH ? bytes : SPLIT_PREFETCH) + 127) / 128;
+  const char* kb = reinterpret_cast<const char*>(kcr + t0 * dh);
+  const char* vb = reinterpret_cast<const char*>(vcr + t0 * dh);
+  for (int64_t i = threadIdx.x; i < lines; i += SPLIT_THREADS)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(kb + i * 128));
+  for (int64_t i = threadIdx.x; i < lines; i += SPLIT_THREADS)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vb + i * 128));
+}
+
+// w[i] = q . k_{t0 + i} for the split's n columns, a 128-wide chunk of
+// each column a pass; the same lane group keeps a column across the
+// passes. V's lines at the same offsets go to L2 for the second pass.
+template <typename E, int UNROLL>
+__device__ __forceinline__ void split_logits(const E* kcr, const E* vcr,
+                                             int64_t t0, int64_t n, int dh,
+                                             const float* qs, float* w) {
+  using C = Cols<E>;
+  const int grp = threadIdx.x / C::LANES, li = threadIdx.x % C::LANES;
+  for (int ch = 0; ch < dh / 128; ++ch) {
+    const int d0 = ch * 128 + li * C::EPL;
+    float qv[C::EPL];
+#pragma unroll
+    for (int j = 0; j < C::EPL; ++j) qv[j] = qs[d0 + j];
+    for (int64_t i0 = 0; i0 < n; i0 += C::GROUPS * UNROLL) {
+      int4 raw[UNROLL];  // warp-uniform trip count: the shuffles below
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * C::GROUPS + grp;
+        if (i < n) {
+          const int64_t off = (t0 + i) * dh + d0;
+          raw[u] = __ldg(reinterpret_cast<const int4*>(kcr + off));
+          // one lane a 128-byte line past split_prefetch's window
+          if (li % 8 == 0 &&
+              (i * dh + d0) * (int64_t)sizeof(E) >= SPLIT_PREFETCH)
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vcr + off));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * C::GROUPS + grp;
+        float kx[C::EPL];
+        unpack16<E>(i < n ? raw[u] : make_int4(0, 0, 0, 0), kx);
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < C::EPL; ++j) acc += qv[j] * kx[j];
+#pragma unroll
+        for (int off = 1; off < C::LANES; off <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (li == 0 && i < n) w[i] = ch ? w[i] + acc : acc;
+      }
+    }
+  }
+}
+
+// The split's value partial sum_i w[i] v_{t0 + i} into wsr[2 .. dh + 2),
+// a 128-wide chunk of dh a pass: over the lanes of a column's chunk, then
+// the warp's lane groups, then the warps (through part).
+template <typename E, int UNROLL>
+__device__ __forceinline__ void split_values(const E* vcr, int64_t t0,
+                                             int64_t n, int dh,
+                                             const float* w, float* part,
+                                             float* wsr) {
+  using C = Cols<E>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = tid / C::LANES, li = tid % C::LANES;
+  for (int ch = 0; ch < dh / 128; ++ch) {
+    const int d0 = ch * 128 + li * C::EPL;
+    float acc[C::EPL];
+#pragma unroll
+    for (int j = 0; j < C::EPL; ++j) acc[j] = 0.f;
+    for (int64_t i0 = 0; i0 < n; i0 += C::GROUPS * UNROLL) {
+      int4 raw[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * C::GROUPS + grp;
+        if (i < n)
+          raw[u] = __ldg(reinterpret_cast<const int4*>(vcr + (t0 + i) * dh +
+                                                      d0));
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int64_t i = i0 + u * C::GROUPS + grp;
+        if (i < n) {
+          const float wt = w[i];
+          float vx[C::EPL];
+          unpack16<E>(raw[u], vx);
+#pragma unroll
+          for (int j = 0; j < C::EPL; ++j) acc[j] += wt * vx[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::EPL; ++j)
+#pragma unroll
+      for (int off = C::LANES; off < 32; off <<= 1)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    if (lane < C::LANES)
+#pragma unroll
+      for (int j = 0; j < C::EPL; ++j) part[warp * 128 + li * C::EPL + j] = acc[j];
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < SPLIT_WARPS; ++ww) s += part[ww * 128 + tid];
+    wsr[2 + ch * 128 + tid] = s;
+    __syncthreads();
+  }
+}
+
+// After the CTA's partial is written: whether it is the last of `count`
+// CTAs to arrive at *ctr (which the last one resets after its merge).
+__device__ __forceinline__ bool arrive_last(unsigned* ctr, int count) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ctr, 1u) == (unsigned)count - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The last CTA's merge of a row: the splits' (m, l, acc) at wrow, (dh +
+// 2) floats each, and the t == cur term (logit lc, values vcur), by
+// log-sum-exp. The splits' maxima and sums come to w[0, 2 splits) in one
+// round trip, the maxima then replaced by the rescales; a thread's value
+// loads are issued four splits at a time. The sums run in split order.
+template <typename TV, typename TO>
+__device__ __forceinline__ void merge_splits(const float* wrow, int splits,
+                                             int dh, float lc,
+                                             const TV* vcur, TO* outr,
+                                             float* w) {
+  const int tid = threadIdx.x;
+  for (int s = tid; s < splits; s += SPLIT_THREADS) {
+    w[s] = __ldcg(wrow + s * (dh + 2));
+    w[splits + s] = __ldcg(wrow + s * (dh + 2) + 1);
+  }
+  __syncthreads();
+  float mx = lc;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, w[s]);
+  __syncthreads();  // every thread has read the maxima
+  for (int s = tid; s < splits; s += SPLIT_THREADS) w[s] = expf(w[s] - mx);
+  __syncthreads();
+  const float ec = expf(lc - mx);
+  float lt = ec;
+  for (int s = 0; s < splits; ++s) lt += w[splits + s] * w[s];
+  for (int d = tid; d < dh; d += SPLIT_THREADS) {
+    float sum = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < splits; ++s)
+      sum += __ldcg(wrow + s * (dh + 2) + 2 + d) * w[s];
+    sum += ec * to_f(vcur[d]);
+    outr[d] = from_f<TO>(sum / lt);
+  }
+}
+
+// Split-half RoPE of element d of a (dh,) row in float32: x * cos2 + rot
+// * sin2, rot = [-x2, x1], the first product fused into the add, as XLA
+// compiles the TPU kernel's form; the plain value without rope.
 template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
+__device__ __forceinline__ float rope_at(const T* x, const float* cos2,
+                                         const float* sin2, int d, int dh,
+                                         int rope) {
+  const float xd = to_f(x[d]);
+  if (!rope) return xd;
+  const int h = dh / 2;
+  const float rot = d < h ? -to_f(x[d + h]) : to_f(x[d - h]);
+  return __fmaf_rn(xd, cos2[d], __fmul_rn(rot, sin2[d]));
+}
+
+// decode_step (B13), bf16 or float32 caches. Every CTA rotates q; split 0
+// writes the rotated k and v at cur; the merging CTA rotates k again for
+// the t == cur term, rounded to T as the written column is. A split's
+// past weights exp(logit - m) are rounded to T against the split's own
+// max m before the value product, where the TPU kernel rounds them
+// against the row's max: at bf16 the two agree to a tolerance, not bit
+// for bit (float32 rounds nothing; only the sum order differs).
+constexpr int DS_UNROLL = 8;  // 16-byte loads in flight a lane
+
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
 decode_step_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ cos2,
                    const float* __restrict__ sin2, T* kc, T* vc,
-                   T* __restrict__ out, int64_t total, int dh, int64_t cur,
-                   int rope, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                  // rotated q (input-dtype values)
-  float* kn = qs + dh;              // rotated k
-  float* part = kn + dh;            // DEC_WARPS x dh partial sums
-  float* red = part + DEC_WARPS * dh;
-  float* w = red + DEC_WARPS;       // cur + 1 logits, then weights
-  const int64_t rowi = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nch = dh / DEC_CW;
-  const T* qr = q + rowi * dh;
-  const T* kr = k + rowi * dh;
-  const T* vr = v + rowi * dh;
-  T* kcr = kc + rowi * total * dh;
-  T* vcr = vc + rowi * total * dh;
+                   T* __restrict__ out, float* ws, unsigned* counter,
+                   int64_t total, int dh, int64_t cur, int rope,
+                   float scale) {
+  extern __shared__ __align__(16) float dsm[];
+  float* qs = dsm;                      // rotated q, T values
+  float* red = qs + dh;                 // SPLIT_WARPS
+  float* part = red + SPLIT_WARPS;      // SPLIT_WARPS x 128 value partials
+  float* w = part + SPLIT_WARPS * 128;  // the split's logits, then weights
+  const int64_t row = blockIdx.x;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int tid = threadIdx.x;
+  const T* qr = q + row * dh;
+  const T* kr = k + row * dh;
+  const T* vr = v + row * dh;
+  T* kcr = kc + row * total * dh;
+  T* vcr = vc + row * total * dh;
+  const int64_t span = (cur + splits - 1) / splits;
+  const int64_t t0 = split * span;
+  const int64_t t1 = t0 + span < cur ? t0 + span : cur;
+  const int64_t n = t1 > t0 ? t1 - t0 : 0;
+  split_prefetch(kcr, vcr, t0, n, dh);
 
-  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
-    float qd = to_f(qr[d]), kd = to_f(kr[d]);
-    if (rope) {
-      // x * cos2 + rot * sin2, rot = [-x2, x1], the first product fused
-      const int h = dh / 2;
-      const float c = cos2[d], s = sin2[d];
-      const float qr_ = d < h ? -to_f(qr[d + h]) : to_f(qr[d - h]);
-      const float kr_ = d < h ? -to_f(kr[d + h]) : to_f(kr[d - h]);
-      qd = __fmaf_rn(qd, c, __fmul_rn(qr_, s));
-      kd = __fmaf_rn(kd, c, __fmul_rn(kr_, s));
+  // q and k rotated and rounded to T; this thread's share of the t ==
+  // cur logit, which the merging CTA reduces
+  float dot = 0.f;
+  for (int d = tid; d < dh; d += SPLIT_THREADS) {
+    const float qd = to_f(from_f<T>(rope_at(qr, cos2, sin2, d, dh, rope)));
+    const T kt = from_f<T>(rope_at(kr, cos2, sin2, d, dh, rope));
+    qs[d] = qd;
+    dot += qd * to_f(kt);
+    if (split == 0) {  // the cache columns, in place
+      kcr[cur * dh + d] = kt;
+      vcr[cur * dh + d] = vr[d];
     }
-    const T kt = from_f<T>(kd);
-    qs[d] = to_f(from_f<T>(qd));
-    kn[d] = to_f(kt);
-    kcr[cur * dh + d] = kt;            // the cache column, in place
-    vcr[cur * dh + d] = vr[d];
   }
   __syncthreads();
-
-  for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-    float acc = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int d0 = ch * DEC_CW + lane * DEC_EPL;
-      float kx[DEC_EPL];
-      load_row<T, DEC_EPL>(kcr + t * dh + d0, kx);
-#pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kx[e];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) w[t] = acc * scale;
-  }
-  if (warp == 0) {
-    float acc = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int d0 = ch * DEC_CW + lane * DEC_EPL;
-#pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc += qs[d0 + e] * kn[d0 + e];
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) w[cur] = acc * scale;
-  }
+  split_logits<T, DS_UNROLL>(kcr, vcr, t0, n, dh, qs, w);
   __syncthreads();
 
-  float m = NEG_INF;
-  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) m = fmaxf(m, w[t]);
-  m = block_reduce<true>(m, red);
+  // the split's max and sum; its weights rounded to T
+  float m = -INFINITY;
+  for (int64_t i = tid; i < n; i += SPLIT_THREADS) {
+    const float lg = w[i] * scale;
+    w[i] = lg;
+    m = fmaxf(m, lg);
+  }
+  m = cta_reduce<true>(m, red);
   float l = 0.f;
-  for (int64_t t = threadIdx.x; t <= cur; t += DEC_THREADS) {
-    const float e = expf(w[t] - m);
-    w[t] = e;
+  for (int64_t i = tid; i < n; i += SPLIT_THREADS) {
+    const float e = expf(w[i] - m);
+    w[i] = to_f(from_f<T>(e));
     l += e;
   }
-  l = block_reduce<false>(l, red);  // its barrier publishes w[]
-
-  for (int ch = 0; ch < nch; ++ch) {
-    const int d0 = ch * DEC_CW + lane * DEC_EPL;
-    float acc[DEC_EPL];
-#pragma unroll
-    for (int e = 0; e < DEC_EPL; ++e) acc[e] = 0.f;
-    for (int64_t t = warp; t < cur; t += DEC_WARPS) {
-      const float wt = to_f(from_f<T>(w[t]));
-      float vx[DEC_EPL];
-      load_row<T, DEC_EPL>(vcr + t * dh + d0, vx);
-#pragma unroll
-      for (int e = 0; e < DEC_EPL; ++e) acc[e] += wt * vx[e];
-    }
-#pragma unroll
-    for (int e = 0; e < DEC_EPL; ++e) part[warp * dh + d0 + e] = acc[e];
+  l = cta_reduce<false>(l, red);  // its barrier publishes w[]
+  float* wsr = ws + (row * splits + split) * (int64_t)(dh + 2);
+  split_values<T, DS_UNROLL>(vcr, t0, n, dh, w, part, wsr);
+  if (tid == 0) {
+    wsr[0] = m;
+    wsr[1] = l;
   }
-  __syncthreads();
-  const float w_cur = w[cur];
-  for (int d = threadIdx.x; d < dh; d += DEC_THREADS) {
-    float sum = 0.f;
-    for (int ww = 0; ww < DEC_WARPS; ++ww) sum += part[ww * dh + d];
-    sum += w_cur * to_f(vr[d]);
-    out[rowi * dh + d] = from_f<T>(sum / l);
-  }
+
+  if (!arrive_last(counter + row, splits)) return;
+  const float lc = cta_reduce<false>(dot, red) * scale;
+  merge_splits(ws + row * splits * (int64_t)(dh + 2), splits, dh, lc, vr,
+               out + row * dh, w);
+  if (tid == 0) counter[row] = 0u;  // ready for the next call
 }
 
-// ---------------------------------------------------------------------------
-// decode_step_q8: decode_step over int8 caches, a row's past columns split
-// across CTAs (flash-decoding). CTA (row, split) of Q8_THREADS threads
-// walks columns [split * span, min((split + 1) * span, cur)), span =
-// ceil(cur / splits): eight lanes cover a 128-byte chunk of a column, 16
-// bytes a lane, so a warp reads four columns a load and each lane keeps
-// Q8_UNROLL loads in flight; a column's dot product reduces over its 8
-// lanes. The split's logits (q . k_t) * kscale_t * scale sit in shared
-// memory, then its max m, its sum l of exp(logit - m) and its value
-// partial acc[dh] = sum_t exp(logit_t - m) * vscale_t * v_t (V read in a
-// second pass, its lines prefetched into L2 during the first) go to a
-// float32 workspace. The last CTA of the row (an atomic count, as the
-// cross-entropy head's merge) adds the t == cur term from kdq and vdq,
-// merges the partials by log-sum-exp and writes the row. Split 0 writes
-// the fresh int8 column at cur; no CTA reads column cur from the cache.
-
-constexpr int Q8_THREADS = 128;                    // 4 warps
-constexpr int Q8_WARPS = Q8_THREADS / 32;
-constexpr int Q8_LANES = 8;                        // lanes a 128-byte chunk
-constexpr int Q8_GROUPS = Q8_THREADS / Q8_LANES;   // columns a CTA a load
-constexpr int Q8_UNROLL = 4;                       // loads in flight a lane
-static_assert(Q8_THREADS == 128, "a thread a dim of each 128-wide chunk");
-
-// The 16 int8 of a 16-byte load, as floats.
-__device__ __forceinline__ void i8x16(const int4 raw, float (&x)[16]) {
-  const int w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    x[j] = (float)((int)((unsigned)w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
-}
-
-// Reductions over the CTA's Q8_THREADS through red[Q8_WARPS]; every
-// thread gets the result.
-template <bool MAX>
-__device__ __forceinline__ float q8_reduce(float x, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  x = MAX ? warp_max(x) : warp_sum(x);
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float y = red[0];
-#pragma unroll
-  for (int w = 1; w < Q8_WARPS; ++w) y = MAX ? fmaxf(y, red[w]) : y + red[w];
-  __syncthreads();
-  return y;
-}
-
-size_t q8_smem(int dh, int64_t span, int splits) {
-  const int64_t wn = span > splits ? span : splits;
-  return sizeof(float) *
-         ((size_t)dh + Q8_WARPS + Q8_WARPS * 128 + (size_t)wn);
-}
+// decode_step_q8 (B14): the same step over int8 caches, as the TPU's: q
+// arrives rotated and the fresh column quantized (written in place at
+// cur by split 0) and dequantized (the t == cur term, kdq and vdq); K's
+// per-column float32 scale multiplies the int8 logit row, V's folds into
+// the weights before the value product; float32 softmax and output.
+constexpr int Q8_UNROLL = 8;
 
 template <typename T>
-__global__ void __launch_bounds__(Q8_THREADS)
+__global__ void __launch_bounds__(SPLIT_THREADS)
 decode_step_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                       const int8_t* __restrict__ vq,
                       const float* __restrict__ kdq,
@@ -1464,16 +1617,13 @@ decode_step_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                       float* ws, unsigned* counter, int64_t total, int dh,
                       int64_t cur, float scale) {
   extern __shared__ __align__(16) float q8sm[];
-  float* qs = q8sm;                  // q in float32
-  float* red = qs + dh;              // Q8_WARPS
-  float* part = red + Q8_WARPS;      // Q8_WARPS x 128 value partials
-  float* w = part + Q8_WARPS * 128;  // the split's logits, then weights
-  __shared__ bool last;
+  float* qs = q8sm;                     // q in float32
+  float* red = qs + dh;                 // SPLIT_WARPS
+  float* part = red + SPLIT_WARPS;      // SPLIT_WARPS x 128 value partials
+  float* w = part + SPLIT_WARPS * 128;  // the split's logits, then weights
   const int64_t row = blockIdx.x;
   const int split = blockIdx.y, splits = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = tid / Q8_LANES, l8 = tid % Q8_LANES;
-  const int nch = dh / 128;
+  const int tid = threadIdx.x;
   const int8_t* kcr = kc + row * total * dh;
   const int8_t* vcr = vc + row * total * dh;
   const float* kscr = ksc + row * total;
@@ -1484,142 +1634,49 @@ decode_step_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   const int64_t n = t1 > t0 ? t1 - t0 : 0;
 
   if (split == 0)  // the int8 column, in place
-    for (int d = tid * 16; d < dh; d += Q8_THREADS * 16) {
+    for (int d = tid * 16; d < dh; d += SPLIT_THREADS * 16) {
       *reinterpret_cast<int4*>(kc + (row * total + cur) * dh + d) =
           *reinterpret_cast<const int4*>(kq + row * dh + d);
       *reinterpret_cast<int4*>(vc + (row * total + cur) * dh + d) =
           *reinterpret_cast<const int4*>(vq + row * dh + d);
     }
-  for (int d = tid; d < dh; d += Q8_THREADS) qs[d] = to_f(q[row * dh + d]);
-  __syncthreads();
-
-  // the split's raw logits q . k_t, a 128-byte chunk of each column a
-  // pass; the same lane group keeps a column across the passes
-  for (int ch = 0; ch < nch; ++ch) {
-    const int d0 = ch * 128 + l8 * 16;
-    float qv[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) qv[j] = qs[d0 + j];
-    for (int64_t i0 = 0; i0 < n; i0 += Q8_GROUPS * Q8_UNROLL) {
-      int4 raw[Q8_UNROLL];  // warp-uniform trip count: the shuffles below
-#pragma unroll
-      for (int u = 0; u < Q8_UNROLL; ++u) {
-        const int64_t i = i0 + u * Q8_GROUPS + grp;
-        if (i < n) {
-          const int64_t off = (t0 + i) * dh + d0;
-          raw[u] = __ldg(reinterpret_cast<const int4*>(kcr + off));
-          if (l8 == 0)
-            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vcr + off));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < Q8_UNROLL; ++u) {
-        const int64_t i = i0 + u * Q8_GROUPS + grp;
-        float kx[16];
-        i8x16(i < n ? raw[u] : make_int4(0, 0, 0, 0), kx);
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) acc += qv[j] * kx[j];
-#pragma unroll
-        for (int off = 1; off < Q8_LANES; off <<= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (l8 == 0 && i < n) w[i] = ch ? w[i] + acc : acc;
-      }
-    }
+  // q; this thread's share of the t == cur logit
+  float dot = 0.f;
+  for (int d = tid; d < dh; d += SPLIT_THREADS) {
+    qs[d] = to_f(q[row * dh + d]);
+    dot += qs[d] * kdq[row * dh + d];
   }
+  split_prefetch(kcr, vcr, t0, n, dh);
+  __syncthreads();
+  split_logits<int8_t, Q8_UNROLL>(kcr, vcr, t0, n, dh, qs, w);
   __syncthreads();
 
   // the split's max and sum; V's column scale folds into the weights
   float m = -INFINITY;
-  for (int64_t i = tid; i < n; i += Q8_THREADS) {
+  for (int64_t i = tid; i < n; i += SPLIT_THREADS) {
     const float lg = w[i] * kscr[t0 + i] * scale;
     w[i] = lg;
     m = fmaxf(m, lg);
   }
-  m = q8_reduce<true>(m, red);
+  m = cta_reduce<true>(m, red);
   float l = 0.f;
-  for (int64_t i = tid; i < n; i += Q8_THREADS) {
+  for (int64_t i = tid; i < n; i += SPLIT_THREADS) {
     const float e = expf(w[i] - m);
     w[i] = e * vscr[t0 + i];
     l += e;
   }
-  l = q8_reduce<false>(l, red);  // its barrier publishes w[]
-
-  // the split's value partial, a 128-wide chunk of dh a pass
+  l = cta_reduce<false>(l, red);  // its barrier publishes w[]
   float* wsr = ws + (row * splits + split) * (int64_t)(dh + 2);
-  for (int ch = 0; ch < nch; ++ch) {
-    const int d0 = ch * 128 + l8 * 16;
-    float acc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] = 0.f;
-    for (int64_t i0 = 0; i0 < n; i0 += Q8_GROUPS * Q8_UNROLL) {
-      int4 raw[Q8_UNROLL];
-#pragma unroll
-      for (int u = 0; u < Q8_UNROLL; ++u) {
-        const int64_t i = i0 + u * Q8_GROUPS + grp;
-        if (i < n)
-          raw[u] = __ldg(reinterpret_cast<const int4*>(vcr + (t0 + i) * dh +
-                                                      d0));
-      }
-#pragma unroll
-      for (int u = 0; u < Q8_UNROLL; ++u) {
-        const int64_t i = i0 + u * Q8_GROUPS + grp;
-        if (i < n) {
-          const float wt = w[i];
-          float vx[16];
-          i8x16(raw[u], vx);
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[j] += wt * vx[j];
-        }
-      }
-    }
-    // over the warp's four lane groups, then over the warps
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 8);
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], 16);
-    }
-    if (lane < Q8_LANES)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) part[warp * 128 + l8 * 16 + j] = acc[j];
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < Q8_WARPS; ++ww) s += part[ww * 128 + tid];
-    wsr[2 + ch * 128 + tid] = s;
-    __syncthreads();
-  }
+  split_values<int8_t, Q8_UNROLL>(vcr, t0, n, dh, w, part, wsr);
   if (tid == 0) {
     wsr[0] = m;
     wsr[1] = l;
   }
 
-  // the row's last CTA merges the splits and the t == cur term
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(counter + row, 1u) == (unsigned)splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float dot = 0.f;
-  for (int d = tid; d < dh; d += Q8_THREADS) dot += qs[d] * kdq[row * dh + d];
-  const float lc = q8_reduce<false>(dot, red) * scale;
-  const float* wrow = ws + row * splits * (int64_t)(dh + 2);
-  float mx = lc;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, __ldcg(wrow + s * (dh + 2)));
-  for (int s = tid; s < splits; s += Q8_THREADS)  // each split's rescale
-    w[s] = expf(__ldcg(wrow + s * (dh + 2)) - mx);
-  __syncthreads();
-  const float ec = expf(lc - mx);
-  float lt = ec;
-  for (int s = 0; s < splits; ++s) lt += __ldcg(wrow + s * (dh + 2) + 1) * w[s];
-  for (int d = tid; d < dh; d += Q8_THREADS) {
-    float sum = 0.f;
-    for (int s = 0; s < splits; ++s)
-      sum += __ldcg(wrow + s * (dh + 2) + 2 + d) * w[s];
-    sum += ec * vdq[row * dh + d];
-    out[row * dh + d] = sum / lt;
-  }
+  if (!arrive_last(counter + row, splits)) return;
+  const float lc = cta_reduce<false>(dot, red) * scale;
+  merge_splits(ws + row * splits * (int64_t)(dh + 2), splits, dh, lc,
+               vdq + row * dh, out + row * dh, w);
   if (tid == 0) counter[row] = 0u;  // ready for the next call
 }
 
@@ -1767,23 +1824,21 @@ int occupancy(KernelT kernel, int threads, size_t smem, int* smem_bytes,
       ctas_per_sm, kernel, threads, smem);
 }
 
-size_t decode_smem(int dh, int64_t cur) {
-  return sizeof(float) *
-         (2 * (size_t)dh + DEC_WARPS * (size_t)dh + DEC_WARPS + cur + 1);
-}
-
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v,
                   const float* cos2, const float* sin2, void* kc, void* vc,
-                  void* out, int64_t rows, int64_t total, int dh, int64_t cur,
-                  int rope, float scale, cudaStream_t st) {
-  const size_t smem = decode_smem(dh, cur);
+                  void* out, float* ws, unsigned* counter, int64_t rows,
+                  int64_t total, int dh, int64_t cur, int splits, int rope,
+                  float scale, cudaStream_t st) {
+  const size_t smem = split_smem(dh, (cur + splits - 1) / splits, splits);
   int err = set_smem(decode_step_kernel<T>, smem);
   if (err) return err;
-  decode_step_kernel<T><<<(unsigned)rows, DEC_THREADS, smem, st>>>(
+  decode_step_kernel<T><<<dim3((unsigned)rows, (unsigned)splits),
+                          SPLIT_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cos2, sin2, static_cast<T*>(kc),
-      static_cast<T*>(vc), static_cast<T*>(out), total, dh, cur, rope, scale);
+      static_cast<T*>(vc), static_cast<T*>(out), ws, counter, total, dh, cur,
+      rope, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1794,11 +1849,11 @@ int launch_decode_q8(const void* q, const int8_t* kq, const int8_t* vq,
                      float* out, float* ws, unsigned* counter, int64_t rows,
                      int64_t total, int dh, int64_t cur, int splits,
                      float scale, cudaStream_t st) {
-  const size_t smem = q8_smem(dh, (cur + splits - 1) / splits, splits);
+  const size_t smem = split_smem(dh, (cur + splits - 1) / splits, splits);
   int err = set_smem(decode_step_q8_kernel<T>, smem);
   if (err) return err;
   decode_step_q8_kernel<T><<<dim3((unsigned)rows, (unsigned)splits),
-                             Q8_THREADS, smem, st>>>(
+                             SPLIT_THREADS, smem, st>>>(
       static_cast<const T*>(q), kq, vq, kdq, vdq, kc, vc, ksc, vsc, out, ws,
       counter, total, dh, cur, scale);
   return (int)cudaGetLastError();
@@ -1883,21 +1938,27 @@ int icikit_flash_bwd_dkv(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v, out (rows, dh); caches (rows, total, dh), written at column cur;
-// cos2, sin2 (dh,) float32. dh: a positive multiple of 128.
-int icikit_decode_step(int dtype, const void* q, const void* k, const void* v,
-                       const float* cos2, const float* sin2, void* kc,
-                       void* vc, void* out, int64_t rows, int64_t total,
-                       int dh, int64_t cur, int rope, float scale,
-                       void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, out (rows, dh); caches
+// (rows, total, dh), written at column cur; cos2, sin2 (dh,) float32; ws
+// (rows * splits * (dh + 2)) float32 scratch; counter (rows,) uint32,
+// zero, left zero. dh: a positive multiple of 128; splits: 1 .. 65535.
+int icikit_decode_step_split(int dtype, const void* q, const void* k,
+                             const void* v, const float* cos2,
+                             const float* sin2, void* kc, void* vc,
+                             void* out, float* ws, unsigned* counter,
+                             int64_t rows, int64_t total, int dh,
+                             int64_t cur, int splits, int rope, float scale,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh < DEC_CW || dh % DEC_CW) return (int)cudaErrorInvalidValue;
+  if (dh < 128 || dh % 128 || splits < 1 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch_decode<bf16>(q, k, v, cos2, sin2, kc, vc, out, rows, total,
-                               dh, cur, rope, scale, st);
+    return launch_decode<bf16>(q, k, v, cos2, sin2, kc, vc, out, ws, counter,
+                               rows, total, dh, cur, splits, rope, scale, st);
   if (dtype == 0)
-    return launch_decode<float>(q, k, v, cos2, sin2, kc, vc, out, rows, total,
-                                dh, cur, rope, scale, st);
+    return launch_decode<float>(q, k, v, cos2, sin2, kc, vc, out, ws,
+                                counter, rows, total, dh, cur, splits, rope,
+                                scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1958,6 +2019,7 @@ int icikit_attention_regs(int which, int* regs, int* local_bytes) {
       (const void*)flash_bwd_bf16<64, false>,   // 23
       (const void*)flash_fwd_bf16<32>,          // 24
       (const void*)flash_fwd_bf16<64>,          // 25
+      (const void*)decode_step_kernel<float>,   // 26
   };
   if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
     return (int)cudaErrorInvalidValue;

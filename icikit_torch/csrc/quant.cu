@@ -5,28 +5,33 @@
 //      out (rows, N) float32 = (x (rows, K) . w8 (N, K)^T) * scale (N,):
 //      int8 weights with the contraction last, one float32 scale per
 //      output channel applied to the float32 accumulator once. The TPU
-//      kernel keeps all of x in VMEM and tiles the output channels; a CTA
-//      cannot hold x, so the kernels here tile rows as well as channels,
-//      and each weight byte crosses device memory once per row tile.
-//      The int8 block is widened to the compute type in shared memory
-//      only: device memory streams it at one byte an element.
+//      kernel keeps all of x in VMEM and tiles the output channels; the
+//      prefill's kernel here tiles rows as well, so each weight byte
+//      crosses device memory once per row tile. The weights cross device
+//      memory at one byte an element and are widened on chip.
 //
 //      Two regimes on the int8 decode path of `base`:
 //      - the decode step, rows = b = 8: bytes. wqkv (3072 x 1024) is 3.1
 //        MB, 0.94 us at 3.35 TB/s; w_out (32768 x 1024) 33.6 MB, 10.0 us.
-//        qmv_bf16_skinny: one CTA per 16 channels, all rows (<= 16) in one
-//        m16 tile, the four warps splitting each 256-wide K chunk and
-//        summing their partials through shared memory at the end, so
-//        N/16 CTAs stream the weights (64 to 2048 on that path).
+//        qmv_bf16_skinny: the channels on mma's m16 side and the rows on
+//        its n8, a 16-channel tile a CTA, K in 64-wide chunks spread over
+//        the CTA's eight warps (and, past 64 chunks, over CTAs whose
+//        partials the tile's last CTA adds in the same launch); every
+//        load of a warp in flight before its first product, the int8
+//        widened in registers, x read once a CTA straight into its
+//        fragments (the design note above the kernel).
 //      - the prefill, rows = b*s = 4096: operations. About 103 GFLOP a
 //        layer (25.8 wqkv, 8.6 wo, 34.4 w1, 34.4 w2), 0.10 ms at 989
 //        TFLOP/s. qmv_bf16_tile: a 64 x 64 output tile a CTA, four warps
-//        of 16 rows, K in chunks of 64 staged through shared memory.
+//        of 16 rows, K in chunks of 64 staged through shared memory, the
+//        int8 block widened to bf16 there (device memory streams it at
+//        one byte an element); no pipelining, no TMA, no wgmma.
 //      bf16 x runs on the tensor cores (mma.sync m16n8k16, bf16 in, float32
 //      accumulate): every int8 value is a bf16 integer, so each product is
-//      exact and only the summation order differs from the plain version.
-//      float32 x (the card's float32 checks) runs qmv_f32 with plain FMA.
-//      No pipelining, no TMA, no wgmma: a simple kernel, right first.
+//      exact and only the summation order differs from the plain version;
+//      the skinny kernel's order is fixed, so its result repeats bit for
+//      bit. float32 x (the card's float32 checks) runs qmv_f32 with plain
+//      FMA.
 //
 // Every entry returns cudaGetLastError() after its launch.
 
@@ -38,11 +43,17 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MMA_THREADS = 128;   // bf16: 4 warps
+constexpr int MMA_THREADS = 128;   // bf16 tile kernel: 4 warps
 constexpr int F32_THREADS = 256;
-constexpr int SKINNY_ROWS = 16;    // rows one m16 tile holds
-constexpr int SK_BN = 16;          // skinny: channels a CTA
-constexpr int SK_BK = 256;         // skinny: K a chunk, 64 a warp
+constexpr int SKINNY_ROWS = 16;    // rows two n8 tiles hold
+constexpr int SK_THREADS = 256;    // skinny: 8 warps
+constexpr int SK_WARPS = SK_THREADS / 32;
+constexpr int SK_CH = 16;          // skinny: channels a CTA (mma's m16)
+constexpr int SK_KC = 64;          // skinny: K a chunk, 16 bytes a lane
+// skinny: chunks a warp at most, all in registers at once: 8 at rows <= 8
+// (64 a CTA, K 4096 in one CTA), 4 at rows 9-16 (two n-tiles of x)
+constexpr int SK_CPW_MAX = 8, SK_CPW_MAX_NT2 = 4;
+constexpr int SK_PART = SK_CH * SKINNY_ROWS;  // a split's floats
 constexpr int TL_BM = 64, TL_BN = 64, TL_BK = 64;  // tile kernel
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -59,6 +70,35 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 16 bytes read once: not cached in L1.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Four int8 (one word, bytes e0..e3) -> bf16 pairs lo = {e0, e1}, hi =
+// {e2, e3}, exactly, in registers: a byte biased to unsigned u is the
+// low byte of the float 2^23 + u; less 2^23 + 128 it is the integer,
+// whose top 16 bits are its bf16 (at most 8 significant bits).
+__device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo,
+                                       uint32_t& hi) {
+  constexpr float MAGIC = 8388736.f;  // 2^23 + 128
+  const uint32_t u = v ^ 0x80808080u;
+  const uint32_t f0 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - MAGIC);
+  const uint32_t f1 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - MAGIC);
+  const uint32_t f2 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - MAGIC);
+  const uint32_t f3 = __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - MAGIC);
+  lo = __byte_perm(f0, f1, 0x7632);
+  hi = __byte_perm(f2, f3, 0x7632);
+}
+
 // Sixteen int8 weights -> sixteen bf16 (exact) at dst (16-byte aligned).
 __device__ __forceinline__ void widen16(uint4 raw, bf16* dst) {
   const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
@@ -69,69 +109,138 @@ __device__ __forceinline__ void widen16(uint4 raw, bf16* dst) {
   reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(t)[1];
 }
 
-// rows <= 16, bf16 x. Lane (g = lane/4, c2 = (lane%4)*2) holds rows g and
-// g+8 of each mma fragment (PTX ISA m16n8k16 layouts).
-__global__ void __launch_bounds__(MMA_THREADS)
+// rows <= 16, bf16 x: the decode step. The weights are mma's A operand
+// (16 channels x k16, the m16 side) and x^T its B (k16 x 8 rows), so at
+// rows 8 every product of m16n8k16 is used (rows 9-16: a second n-tile,
+// NT = 2). K is cut into 64-wide chunks. Lane (g = lane/4, c = lane%4)
+// of a warp loads 16 bytes of channel g's and of channel g+8's chunk,
+// at byte 16c, with one 16-byte ld.global.nc each (L1 not allocated:
+// every weight byte is read once), and 32 bytes of x row g (and g+8) at
+// element 16c, through L1, which the CTAs of a K range on one SM share;
+// x lands straight in its B fragments, once a CTA, with no shared
+// memory. The contraction order inside a chunk is free, so step s of the
+// chunk's four k16 steps takes word s of the lane's weights (bytes
+// 16c+4s .. +3) and the same four elements of x: mma's k positions 2c,
+// 2c+1, 2c+8, 2c+9 of the lane are those bytes, and A and B agree.
+// Each int8 word widens to two bf16 pairs in registers (widen4), exactly.
+//
+// A CTA (8 warps) owns one 16-channel tile and a range of `per` chunks
+// of K; warp w takes chunks w, w+8, .. (CPW a warp at most: 8 at rows
+// <= 8, 4 at 9-16), all its loads issued before its first product, so a
+// lane has up to 2 x CPW weight loads in flight and a CTA takes K 4096
+// in one round trip. The eight warps' sums meet in shared memory, in
+// warp order. Past what a CTA holds, K is split across `splits` CTAs
+// (gridDim.y, from cuda_quant.skinny_splits): each CTA's sum goes to a
+// float32 workspace and the tile's last CTA (an atomic count, reset to
+// 0) adds the splits in split order, scales and writes, so the result
+// does not depend on which CTA finishes last. Splitting to fill the SMs
+// (two CTAs an SM at N 1024) was slower at every product of the int8
+// path: the merge's fence, atomic and read back cost more than the
+// extra CTAs won, a launch being one round trip either way.
+template <int CPW, int NT>
+__global__ void __launch_bounds__(SK_THREADS)
 qmv_bf16_skinny(const bf16* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ scale, float* __restrict__ out,
-                int64_t rows, int64_t n, int64_t k) {
-  constexpr int S = SK_BK + 8;  // row stride (bf16), 16-byte aligned
-  __shared__ __align__(16) bf16 xs[SKINNY_ROWS * S];
-  __shared__ __align__(16) bf16 ws[SK_BN * S];
-  __shared__ float red[4][SKINNY_ROWS][SK_BN];
-  const int64_t n0 = (int64_t)blockIdx.x * SK_BN;
+                float* ws, unsigned* counter, int64_t rows, int64_t n,
+                int64_t k) {
+  __shared__ float red[SK_WARPS][SK_CH][8 * NT];  // [warp][channel][row]
+  __shared__ bool last;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int kw = warp * (SK_BK / 4);
-  float acc[SK_BN / 8][4];
-#pragma unroll
-  for (int t = 0; t < SK_BN / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  const int g = lane >> 2, c = lane & 3;
+  const int64_t nck = k / SK_KC;
+  const int64_t per = (nck + splits - 1) / splits;
+  const int64_t c0 = split * per;
+  const int64_t c1 = c0 + per < nck ? c0 + per : nck;
+  const int64_t n0 = (int64_t)tile * SK_CH;
+  const int8_t* wr = w + (n0 + g) * k + 16 * c;  // channel g; g+8 at 8k
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  for (int64_t k0 = 0; k0 < k; k0 += SK_BK) {
-    __syncthreads();  // the previous chunk is consumed
-    // K is a multiple of 128: a chunk past its end is zero-filled
-    for (int i = threadIdx.x; i < SKINNY_ROWS * SK_BK / 8; i += MMA_THREADS) {
-      const int r = i / (SK_BK / 8), c8 = (i % (SK_BK / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < rows && k0 + c8 < k)
-        v = *reinterpret_cast<const uint4*>(x + r * k + k0 + c8);
-      *reinterpret_cast<uint4*>(xs + r * S + c8) = v;
-    }
-    for (int i = threadIdx.x; i < SK_BN * SK_BK / 16; i += MMA_THREADS) {
-      const int r = i / (SK_BK / 16), c16 = (i % (SK_BK / 16)) * 16;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k0 + c16 < k)
-        v = *reinterpret_cast<const uint4*>(w + (n0 + r) * k + k0 + c16);
-      widen16(v, ws + r * S + c16);
-    }
-    __syncthreads();
+  uint4 wa[CPW], wb[CPW], xv[CPW][NT][2];
 #pragma unroll
-    for (int kk = 0; kk < SK_BK / 4; kk += 16) {
-      const bf16* ap = xs + g * S + kw + kk + c2;
-      const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * S), ld32(ap + 8),
-                             ld32(ap + 8 * S + 8)};
+  for (int u = 0; u < CPW; ++u) {
+    const int64_t ci = c0 + warp + u * SK_WARPS;
+    wa[u] = wb[u] = zero;
+    if (ci < c1) {
+      wa[u] = ld_stream(wr + ci * SK_KC);
+      wb[u] = ld_stream(wr + 8 * k + ci * SK_KC);
+    }
+  }
 #pragma unroll
-      for (int t = 0; t < SK_BN / 8; ++t) {
-        const bf16* bp = ws + (t * 8 + g) * S + kw + kk + c2;
-        mma_bf16(acc[t], a, ld32(bp), ld32(bp + 8));
+  for (int u = 0; u < CPW; ++u) {
+    const int64_t ci = c0 + warp + u * SK_WARPS;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int64_t r = g + 8 * t;
+      xv[u][t][0] = xv[u][t][1] = zero;
+      if (ci < c1 && r < rows) {
+        const uint4* p =
+            reinterpret_cast<const uint4*>(x + r * k + ci * SK_KC + 16 * c);
+        xv[u][t][0] = __ldg(p);
+        xv[u][t][1] = __ldg(p + 1);
+      }
+    }
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+  for (int u = 0; u < CPW; ++u) {
+    if (c0 + warp + u * SK_WARPS >= c1) break;  // warp-uniform
+    const uint32_t ra[4] = {wa[u].x, wa[u].y, wa[u].z, wa[u].w};
+    const uint32_t rb[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t a[4];
+      widen4(ra[s], a[0], a[2]);  // channel g: k 2c, 2c+1 | 2c+8, 2c+9
+      widen4(rb[s], a[1], a[3]);  // channel g+8
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const uint4 lo = xv[u][t][0], hi = xv[u][t][1];
+        const uint32_t xw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        mma_bf16(acc[t], a, xw[2 * s], xw[2 * s + 1]);
       }
     }
   }
 #pragma unroll
-  for (int t = 0; t < SK_BN / 8; ++t) {
-    red[warp][g][t * 8 + c2] = acc[t][0];
-    red[warp][g][t * 8 + c2 + 1] = acc[t][1];
-    red[warp][g + 8][t * 8 + c2] = acc[t][2];
-    red[warp][g + 8][t * 8 + c2 + 1] = acc[t][3];
+  for (int t = 0; t < NT; ++t) {
+    red[warp][g][8 * t + 2 * c] = acc[t][0];
+    red[warp][g][8 * t + 2 * c + 1] = acc[t][1];
+    red[warp][g + 8][8 * t + 2 * c] = acc[t][2];
+    red[warp][g + 8][8 * t + 2 * c + 1] = acc[t][3];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < SKINNY_ROWS * SK_BN; i += MMA_THREADS) {
-    const int r = i / SK_BN, c = i % SK_BN;
-    if (r < rows) {
-      const float s = red[0][r][c] + red[1][r][c] + red[2][r][c] + red[3][r][c];
-      out[r * n + n0 + c] = s * scale[n0 + c];
-    }
+  const int nr = (int)rows;  // <= 8 * NT
+  float* part = ws + ((int64_t)tile * splits + split) * SK_PART;
+  for (int i = threadIdx.x; i < SK_CH * nr; i += SK_THREADS) {
+    const int r = i / SK_CH, ch = i % SK_CH;
+    float s = red[0][ch][r];
+#pragma unroll
+    for (int ww = 1; ww < SK_WARPS; ++ww) s += red[ww][ch][r];
+    if (splits == 1)
+      out[r * n + n0 + ch] = s * scale[n0 + ch];
+    else
+      part[i] = s;
   }
+  if (splits == 1) return;
+
+  // the tile's last CTA adds the splits in order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(counter + tile, 1u) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* tp = ws + (int64_t)tile * splits * SK_PART;
+  for (int i = threadIdx.x; i < SK_CH * nr; i += SK_THREADS) {
+    const int r = i / SK_CH, ch = i % SK_CH;
+    float s = __ldcg(tp + i);
+    for (int sp = 1; sp < splits; ++sp) s += __ldcg(tp + sp * SK_PART + i);
+    out[r * n + n0 + ch] = s * scale[n0 + ch];
+  }
+  if (threadIdx.x == 0) counter[tile] = 0u;  // ready for the next call
 }
 
 // Any rows, bf16 x: CTA (64-channel tile, 64-row tile); warp w owns rows
@@ -260,20 +369,52 @@ qmv_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+template <int CPW>
+void launch_skinny(const bf16* x, const int8_t* w, const float* scale,
+                   float* out, float* ws, unsigned* counter, int64_t rows,
+                   int64_t n, int64_t k, int splits, cudaStream_t st) {
+  const dim3 grid((unsigned)(n / SK_CH), (unsigned)splits);
+  if (rows <= 8)
+    qmv_bf16_skinny<CPW, 1><<<grid, SK_THREADS, 0, st>>>(
+        x, w, scale, out, ws, counter, rows, n, k);
+  else if constexpr (CPW <= SK_CPW_MAX_NT2)
+    qmv_bf16_skinny<CPW, 2><<<grid, SK_THREADS, 0, st>>>(
+        x, w, scale, out, ws, counter, rows, n, k);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32 x, 1 = bfloat16 x. x (rows, k), w8 (n, k) int8,
 // scale (n,) float32, out (rows, n) float32. k % 128 == 0, n % 64 == 0.
-int icikit_quant_matvec(int dtype, const void* x, const int8_t* w,
-                        const float* scale, float* out, int64_t rows,
-                        int64_t n, int64_t k, void* stream) {
+// bf16 at rows <= 16 (qmv_bf16_skinny) splits K across `splits` CTAs a
+// 16-channel tile (1 .. k/64, at most 16 chunks of 64 a CTA); with
+// splits > 1, ws holds (n/16) * splits * 256 float32 and counter (n/16)
+// uint32, zero and left zero. Elsewhere ws, counter and splits are unused.
+int icikit_quant_matvec_split(int dtype, const void* x, const int8_t* w,
+                              const float* scale, float* out, int64_t rows,
+                              int64_t n, int64_t k, float* ws,
+                              unsigned* counter, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k % 128 || n % 64 || rows < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && rows <= SKINNY_ROWS) {
-    qmv_bf16_skinny<<<(unsigned)(n / SK_BN), MMA_THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), w, scale, out, rows, n, k);
+    const int64_t nck = k / SK_KC;
+    const int64_t per = splits >= 1 ? (nck + splits - 1) / splits : 0;
+    const int cpw_max = rows <= 8 ? SK_CPW_MAX : SK_CPW_MAX_NT2;
+    if (splits < 1 || splits > nck || splits > 65535 ||
+        per > SK_WARPS * cpw_max || (splits > 1 && (!ws || !counter)))
+      return (int)cudaErrorInvalidValue;
+    const int cpw = (int)((per + SK_WARPS - 1) / SK_WARPS);
+    const bf16* xb = static_cast<const bf16*>(x);
+    if (cpw == 1)
+      launch_skinny<1>(xb, w, scale, out, ws, counter, rows, n, k, splits, st);
+    else if (cpw == 2)
+      launch_skinny<2>(xb, w, scale, out, ws, counter, rows, n, k, splits, st);
+    else if (cpw <= 4)
+      launch_skinny<4>(xb, w, scale, out, ws, counter, rows, n, k, splits, st);
+    else
+      launch_skinny<8>(xb, w, scale, out, ws, counter, rows, n, k, splits, st);
   } else if (dtype == 1) {
     const dim3 grid((unsigned)(n / TL_BN), (unsigned)((rows + TL_BM - 1) / TL_BM));
     qmv_bf16_tile<<<grid, MMA_THREADS, 0, st>>>(
@@ -293,18 +434,21 @@ int icikit_quant_matvec(int dtype, const void* x, const int8_t* w,
 }
 
 // Kernel attributes for the build log: registers and spills per thread.
-// which: 0 qmv_bf16_skinny, 1 qmv_bf16_tile, 2 qmv_f32 skinny, 3 qmv_f32.
+// which: 0-3 qmv_bf16_skinny<CPW, 1> at CPW 1, 2, 4, 8, 4-6
+// qmv_bf16_skinny<CPW, 2> at CPW 1, 2, 4; 7 qmv_bf16_tile, 8 qmv_f32
+// skinny, 9 qmv_f32.
 int icikit_quant_regs(int which, int* regs, int* local_bytes) {
+  const void* fns[] = {
+      (const void*)qmv_bf16_skinny<1, 1>, (const void*)qmv_bf16_skinny<2, 1>,
+      (const void*)qmv_bf16_skinny<4, 1>, (const void*)qmv_bf16_skinny<8, 1>,
+      (const void*)qmv_bf16_skinny<1, 2>, (const void*)qmv_bf16_skinny<2, 2>,
+      (const void*)qmv_bf16_skinny<4, 2>, (const void*)qmv_bf16_tile,
+      (const void*)qmv_f32<16, 32, 1, 2>, (const void*)qmv_f32<64, 64, 4, 4>,
+  };
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err;
-  if (which == 0)
-    err = cudaFuncGetAttributes(&attr, qmv_bf16_skinny);
-  else if (which == 1)
-    err = cudaFuncGetAttributes(&attr, qmv_bf16_tile);
-  else if (which == 2)
-    err = cudaFuncGetAttributes(&attr, qmv_f32<16, 32, 1, 2>);
-  else
-    err = cudaFuncGetAttributes(&attr, qmv_f32<64, 64, 4, 4>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -60,8 +60,9 @@ _SIGNATURES = {
         "icikit_flash_bwd_dkv": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I64, _I64, _I64, _I32, _I32, _F32, _F32,
                                  _P],
-        "icikit_decode_step": [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                               _I64, _I32, _I64, _I32, _F32, _P],
+        "icikit_decode_step_split": [_I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _I64, _I64, _I32, _I64, _I32,
+                                     _I32, _F32, _P],
         "icikit_decode_step_q8_split": [_I32, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _P, _P, _P, _I64, _I64,
                                         _I32, _I64, _I32, _F32, _P],
@@ -90,7 +91,8 @@ _SIGNATURES = {
         "icikit_adam_regs": [_I32, _IP, _IP],
     },
     "quant": {
-        "icikit_quant_matvec": [_I32, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+        "icikit_quant_matvec_split": [_I32, _P, _P, _P, _P, _I64, _I64,
+                                      _I64, _P, _P, _I32, _P],
         "icikit_quant_regs": [_I32, _IP, _IP],
     },
     "stack_write": {
@@ -239,6 +241,32 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def stream(x: torch.Tensor) -> int:
     """PyTorch's current stream on x's device, as the C entries take it."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+_SMS: dict = {}
+_SCRATCH: dict = {}
+
+
+def split_scratch(x: torch.Tensor, what: str, floats: int, counters: int):
+    """A split kernel's float32 partials (at least ``floats``) and its
+    uint32 counters (at least ``counters``; zero, and left zero by the
+    kernel), one pair a kernel (``what``), device and stream, grown to
+    the most a call has needed."""
+    key = (what, x.device, stream(x))
+    ws, counter = _SCRATCH.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=x.device)
+    if counter is None or counter.numel() < counters:
+        counter = torch.zeros(counters, dtype=torch.int32, device=x.device)
+    _SCRATCH[key] = ws, counter
+    return ws, counter
+
+
+def sm_count(dev) -> int:
+    """The streaming multiprocessors of CUDA device ``dev``."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def check_operands(what: str, tensors, dtype) -> None:

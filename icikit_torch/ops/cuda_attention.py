@@ -54,9 +54,9 @@ SHIFT_SUM_RANGE = (2.0 ** -64, 2.0 ** 64)
 DECODE_CHUNK = 128
 
 
-# The int8 step splits a row's past columns across CTAs: at least this
-# many columns a split (one a lane group of the kernel's CTA), and enough
-# splits for this many CTAs an SM where the columns allow.
+# The decode steps split a row's past columns across CTAs: at least this
+# many columns a split, and enough splits for this many CTAs an SM where
+# the columns allow.
 DECODE_SPLIT_MIN_COLS = 16
 DECODE_CTAS_PER_SM = 2
 
@@ -67,7 +67,7 @@ def decode_head_dim_ok(dh: int) -> bool:
 
 
 def decode_splits(rows: int, cur: int, sms: int) -> int:
-    """The splits of each row's ``cur`` past columns in the int8 step:
+    """The splits of each row's ``cur`` past columns in the decode steps:
     enough that ``rows * splits`` reaches ``DECODE_CTAS_PER_SM`` CTAs a
     streaming multiprocessor, but no split under
     ``DECODE_SPLIT_MIN_COLS`` columns; 1 when ``cur`` is below that (at
@@ -446,8 +446,11 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
 
     The kernel replaces ``icikit/ops/flash_attention.py``'s
     ``_decode_step_kernel`` (B13, pallas_call at :1120). Bound: reading
-    the ``cur`` past columns of K and V (bytes). CPU tensors take
-    :func:`decode_step_plain`."""
+    the ``cur`` past columns of K and V (bytes). It splits each row's
+    columns across the CTAs that :func:`decode_splits` picks and merges
+    them in the same launch; a split rounds its bf16 weights against its
+    own max, so at bf16 it agrees with the plain version to a tolerance.
+    CPU tensors take :func:`decode_step_plain`."""
     rows, dh = q.shape
     total = kcache.shape[1]
     if (k.shape != q.shape or v.shape != q.shape
@@ -466,41 +469,22 @@ def decode_step(q, k, v, kcache, vcache, cur: int, cos2, sin2, *,
             or sin2.numel() != dh:
         raise ValueError(f"decode_step: head dim {dh} is not a multiple "
                          f"of {DECODE_CHUNK}, or tables not ({dh},)")
+    splits = decode_splits(rows, cur, _build.sm_count(q.device))
+    ws, counter = _build.split_scratch(q, "decode", rows * splits * (dh + 2),
+                                       rows)
     out = torch.empty_like(q)
     lib = _build.load("attention")
-    rc = lib.icikit_decode_step(
+    rc = lib.icikit_decode_step_split(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         cos2.data_ptr(), sin2.data_ptr(), kcache.data_ptr(),
-        vcache.data_ptr(), out.data_ptr(), rows, total, dh, int(cur),
-        int(rope), float(scale), _build.stream(q))
+        vcache.data_ptr(), out.data_ptr(), ws.data_ptr(), counter.data_ptr(),
+        rows, total, dh, int(cur), splits, int(rope), float(scale),
+        _build.stream(q))
+    if rc:  # the row counters may be part-way: zero them for the next call
+        counter.zero_()
     _build.check(rc, "decode_step launch")
     LAUNCHES["decode_step"] += 1
     return out
-
-
-_SMS: dict = {}
-_Q8_WORK: dict = {}
-
-
-def _sm_count(dev) -> int:
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev]
-
-
-def _q8_workspace(q, rows: int, dh: int, splits: int):
-    """The int8 step's split partials (float32) and per-row counters
-    (zero, left zero by the kernel), one pair a device and stream, grown
-    to the most partials and rows a call has needed."""
-    key = (q.device, _build.stream(q))
-    ws, counter = _Q8_WORK.get(key, (None, None))
-    if ws is None or ws.numel() < rows * splits * (dh + 2):
-        ws = torch.empty(rows * splits * (dh + 2), dtype=torch.float32,
-                         device=q.device)
-    if counter is None or counter.numel() < rows:
-        counter = torch.zeros(rows, dtype=torch.int32, device=q.device)
-    _Q8_WORK[key] = ws, counter
-    return ws, counter
 
 
 def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
@@ -543,8 +527,9 @@ def decode_step_q8(q, kq, vq, kdq, vdq, kcache, vcache, kscale, vscale,
     if not decode_head_dim_ok(dh):
         raise ValueError(f"decode_step_q8: head dim {dh} is not a "
                          f"multiple of {DECODE_CHUNK}")
-    splits = decode_splits(rows, cur, _sm_count(q.device))
-    ws, counter = _q8_workspace(q, rows, dh, splits)
+    splits = decode_splits(rows, cur, _build.sm_count(q.device))
+    ws, counter = _build.split_scratch(q, "decode", rows * splits * (dh + 2),
+                                       rows)
     out = torch.empty((rows, dh), dtype=torch.float32, device=q.device)
     lib = _build.load("attention")
     rc = lib.icikit_decode_step_q8_split(

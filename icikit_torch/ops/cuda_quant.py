@@ -17,10 +17,40 @@ from icikit_torch.ops import _build
 
 LAUNCHES = {"quant_matvec": 0}
 
+# The bf16 kernel at rows <= SKINNY_ROWS (the decode step): a CTA a
+# tile of SKINNY_CHANNELS output channels and a range of K's
+# SKINNY_CHUNK-wide chunks, SKINNY_WARPS warps of at most SKINNY_CPW_MAX
+# chunks each (SKINNY_CPW_MAX_NT2 at rows 9-16), all of a warp's loads in
+# flight at once. K is split across CTAs only past that: on the card a
+# split's in-launch merge (a fence, an atomic count, the last CTA's read
+# back) cost more than the CTAs it added won, at every product of the
+# int8 path (``PERF.md`` §6).
+SKINNY_ROWS = 16
+SKINNY_CHANNELS = 16
+SKINNY_CHUNK = 64
+SKINNY_WARPS = 8
+SKINNY_CPW_MAX = 8
+SKINNY_CPW_MAX_NT2 = 4
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def skinny_chunks_max(rows: int) -> int:
+    """K's 64-wide chunks one CTA of the skinny kernel takes at most."""
+    return SKINNY_WARPS * (SKINNY_CPW_MAX if rows <= 8
+                           else SKINNY_CPW_MAX_NT2)
+
+
+def skinny_splits(rows: int, k: int) -> int:
+    """The splits of K for the skinny kernel at ``rows`` rows and
+    contraction ``k``: the fewest CTAs a channel tile that hold K's
+    64-wide chunks (1 up to K 4096 at rows <= 8, 2048 at 9-16), the
+    chunks shared out evenly, so no split is empty."""
+    chunks = k // SKINNY_CHUNK
+    return -(-chunks // skinny_chunks_max(rows))
 
 
 def quant_matvec_plain(x: torch.Tensor, w8: torch.Tensor,
@@ -38,10 +68,13 @@ def quant_matvec(x: torch.Tensor, w8: torch.Tensor,
 
     The kernel replaces ``icikit/ops/quant.py``'s ``_matvec_kernel``
     (B15, pallas_call at :167). Bound: the weight bytes at the decode
-    step's 8 rows, the products at the prefill's 4096. It sums in
-    another order than the plain version (bf16 products are exact on
-    the tensor cores, float32 ones are FMAs), so the two agree to a
-    tolerance, not bit for bit. CPU tensors take
+    step's 8 rows, the products at the prefill's 4096. At bf16 and
+    rows <= 16 K is split across CTAs only past what one holds
+    (:func:`skinny_splits`), the partials added in a fixed order in the
+    same launch. It
+    sums in another order than the plain version (bf16 products are
+    exact on the tensor cores, float32 ones are FMAs), so the two agree
+    to a tolerance, not bit for bit. CPU tensors take
     :func:`quant_matvec_plain`."""
     rows, k = x.shape
     n = w8.shape[0]
@@ -62,10 +95,24 @@ def quant_matvec(x: torch.Tensor, w8: torch.Tensor,
         raise ValueError(f"quant_matvec: k={k} must be a multiple of 128 "
                          f"and n={n} of 64")
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    ws = counter = None
+    splits = 1
+    if x.dtype == torch.bfloat16 and rows <= SKINNY_ROWS:
+        splits = skinny_splits(rows, k)
+        if splits > 1:
+            tiles = n // SKINNY_CHANNELS
+            ws, counter = _build.split_scratch(
+                x, "quant_matvec", tiles * splits * SKINNY_CHANNELS
+                * SKINNY_ROWS, tiles)
     lib = _build.load("quant")
-    rc = lib.icikit_quant_matvec(
+    rc = lib.icikit_quant_matvec_split(
         _build.DTYPE_CODE[x.dtype], x.data_ptr(), w8.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), rows, n, k, _build.stream(x))
+        scale.data_ptr(), out.data_ptr(), rows, n, k,
+        None if ws is None else ws.data_ptr(),
+        None if counter is None else counter.data_ptr(), splits,
+        _build.stream(x))
+    if rc and counter is not None:  # counters may be part-way: zero them
+        counter.zero_()
     _build.check(rc, "quant_matvec launch")
     LAUNCHES["quant_matvec"] += 1
     return out

@@ -452,3 +452,99 @@ def test_flash_ab_decode_q8_shapes_and_bounds():
     with pytest.raises(SystemExit):
         flash_ab.main(["--a", "a.cu", "--b", "b.cu", "--kernels",
                        "decode_q8,xyz"])
+
+
+def test_flash_ab_decode_shapes_and_bounds():
+    """``--kernels decode`` times the bf16 step (B13) at the bf16 path's
+    64 rows, 576 columns, cur 543, dh 128 and 256, against the bound of
+    its bytes (5.34 us at dh 128: 17.8 MB of bf16 K and V); its products
+    at the float32 rate take less. The caches rotate through enough
+    copies to pass 256 MiB, past the card's 50 MB L2."""
+    from icikit_torch.bench import flash_ab
+
+    assert "decode" in flash_ab.KERNELS and "decode_q8" in flash_ab.KERNELS
+    assert flash_ab.DECODE_TOL == 2e-2
+    for tag, want in (("dh128", 0.005341), ("dh256", 0.010682)):
+        ms, by = flash_ab.decode_bound_ms(*flash_ab.Q8_SHAPES[tag])
+        assert by == "bytes" and ms == pytest.approx(want, rel=1e-4), tag
+    # float32 caches read twice the bytes
+    assert flash_ab.decode_bound_ms(64, 576, 128, 543, 4)[0] == \
+        pytest.approx(2 * 0.005341, rel=1e-3)
+    from icikit_torch.bench.stream_ab import ROTATE_BYTES, copies_past_l2
+
+    nbytes = 4 * 64 * 576 * 128
+    assert ROTATE_BYTES == 256 << 20
+    assert copies_past_l2(nbytes) == 15
+    assert copies_past_l2(nbytes) * nbytes >= ROTATE_BYTES
+    assert copies_past_l2(1 << 30) == 2
+    with pytest.raises(SystemExit):
+        flash_ab.main(["--a", "a.cu", "--b", "b.cu", "--kernels",
+                       "decode,xyz"])
+
+
+def test_quant_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The skinny matvec's A/B bench times kernels on the card only:
+    without one it exits before building anything; a missing source or
+    an unknown shape is refused first."""
+    import torch
+
+    from icikit_torch.bench import quant_ab
+
+    src = os.path.join(ROOT, "icikit_torch", "csrc", "quant.cu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        quant_ab.main(["--a", src, "--b", src])
+    for argv in (["--a", src, "--b", src + ".missing"],
+                 ["--a", src, "--b", src, "--shapes", "wqkv,w3"]):
+        with pytest.raises(SystemExit):
+            quant_ab.main(argv)
+
+
+def test_quant_ab_shapes_bounds_and_verdict(monkeypatch):
+    """The A/B shapes are the int8 path's five products at rows 8 (12
+    layers of wqkv, wo, w1, w2 and one w_out a step), each bound by its
+    bytes (wqkv 0.98 us, w_out 10.4 us; 0.057 ms a step); the split
+    sweep takes only what the entry accepts (a CTA holds 64 chunks of K
+    at rows 8, 32 at rows 16); the weights rotate past
+    256 MiB; a run whose outputs departed exits 1 unless --timing-only."""
+    import torch
+
+    from icikit_torch.bench import quant_ab
+
+    assert quant_ab.SHAPES == {"wqkv": (3072, 1024), "wo": (1024, 1024),
+                               "w1": (4096, 1024), "w2": (1024, 4096),
+                               "w_out": (32768, 1024)}
+    assert quant_ab.ROWS == 8 and quant_ab.TOL == 1e-4
+    assert sum(quant_ab.PER_STEP.values()) == 4 * 12 + 1
+    want = {"wqkv": 0.000977, "wo": 0.000329, "w1": 0.001301,
+            "w2": 0.001283, "w_out": 0.010373}
+    for tag, ms in want.items():
+        got, by = quant_ab.bound_ms(*quant_ab.SHAPES[tag])
+        assert by == "bytes" and got == pytest.approx(ms, rel=1e-3), tag
+    assert quant_ab.step_ms({s: quant_ab.bound_ms(*quant_ab.SHAPES[s])[0]
+                             for s in quant_ab.SHAPES}) == \
+        pytest.approx(0.05705, rel=1e-3)
+    assert [s for s in quant_ab.SPLIT_SWEEP
+            if quant_ab.valid_splits(4096, s)] == [1, 2, 4, 8, 16]
+    assert [s for s in quant_ab.SPLIT_SWEEP
+            if quant_ab.valid_splits(4096, s, 16)] == [2, 4, 8, 16]
+    assert not quant_ab.valid_splits(128, 4)
+    from icikit_torch.bench.stream_ab import copies_past_l2, rotating
+
+    assert copies_past_l2(1024 * 1024) == 256
+    assert copies_past_l2(32768 * 1024) * 32768 * 1024 >= 256 << 20
+    seen = []
+    step = rotating(seen.append, "abc")
+    for _ in range(4):
+        step()
+    assert seen == ["a", "b", "c", "a"]
+    src = os.path.join(ROOT, "icikit_torch", "csrc", "quant.cu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        seen = []
+        monkeypatch.setattr(quant_ab, "run",
+                            lambda *a, ok=ok: seen.append(a) or ok)
+        argv = ["--a", src, "--b", src]
+        assert quant_ab.main(argv) == (0 if ok else 1)
+        assert quant_ab.main([*argv, "--timing-only"]) == 0
+        assert seen == [(src, src, tuple(quant_ab.SHAPES))] * 2

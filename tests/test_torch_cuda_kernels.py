@@ -16,6 +16,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from icikit_torch.ops import _build
 from icikit_torch.ops import cuda_sort as cs
 
 pytestmark = pytest.mark.cuda
@@ -195,6 +196,52 @@ def test_decode_step_matches_plain_and_writes_in_place(dtype, rope, cur, dh,
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [128, 256, 384])
+@pytest.mark.parametrize("cur", [0, 15, 16, 79, 80, 109, 543, 575])
+@pytest.mark.parametrize("ctas_per_sm", [None, 64])
+def test_decode_step_splits_match_plain(dtype, dh, cur, ctas_per_sm,
+                                        no_tf32, monkeypatch):
+    """The bf16 step (B13) split across CTAs at the bf16 path's 64 rows
+    and 576 columns, over decode_splits' range: one split below 16
+    columns (cur 0, 15), one at 16, 4 and then 5 splits on either side
+    of cur 80 (where the picker's count changes), a split about 109
+    columns wide, the path's cur 543 and the last column; with the
+    picker's splits and with its splits for 64 CTAs an SM (33 splits of
+    17 columns at cur 543, the last one empty). The output within the
+    dtype's tolerance of the plain version (bf16: each split rounds its
+    weights against its own max), the fresh columns written once, bit
+    for bit, the rest of the caches untouched, the row counters left at
+    zero, and a second call on the same workspace the same bits."""
+    if ctas_per_sm:
+        monkeypatch.setattr(ca, "DECODE_CTAS_PER_SM", ctas_per_sm)
+    gen = no_tf32
+    rows, total = 64, 576
+    q, k, v = (_randn((rows, dh), dtype, gen) for _ in range(3))
+    kc, vc = (_randn((rows, total, dh), dtype, gen) for _ in range(2))
+    c, s = rope_sincos(torch.tensor([cur], device="cuda"), dh)
+    cos2, sin2 = torch.cat([c, c], -1), torch.cat([s, s], -1)
+    kc0, vc0 = kc.clone(), vc.clone()
+    kc2, vc2 = kc.clone(), vc.clone()
+    want = ca.decode_step_plain(q, k, v, kc2, vc2, cur, cos2, sin2,
+                                scale=dh ** -0.5, rope=True)
+    ca.reset_launches()
+    got = ca.decode_step(q, k, v, kc, vc, cur, cos2, sin2,
+                         scale=dh ** -0.5, rope=True)
+    assert ca.LAUNCHES["decode_step"] == 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    keep = torch.arange(total, device="cuda") != cur
+    assert torch.equal(kc[:, keep], kc0[:, keep])
+    assert torch.equal(vc[:, keep], vc0[:, keep])
+    _, counter = _build.split_scratch(q, "decode", 0, 0)
+    assert int(counter.abs().sum()) == 0
+    again = ca.decode_step(q, k, v, kc, vc, cur, cos2, sin2,
+                           scale=dh ** -0.5, rope=True)
+    assert torch.equal(got, again)
 
 
 def test_attention_cuda_calls_launch_or_raise(gen):
@@ -790,6 +837,46 @@ def test_quant_matvec_matches_plain(dtype, rows, n, k, no_tf32):
     want = cq.quant_matvec_plain(x, w8, sc)
     torch.testing.assert_close(got, want, rtol=0, atol=QMV_TOL[dtype]
                                * float(want.abs().max()))
+
+
+# The int8 decode path's products (N, K) at base
+Q8_PATH_SHAPES = [(3072, 1024), (1024, 1024), (4096, 1024), (1024, 4096),
+                  (32768, 1024)]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 8, 16])
+@pytest.mark.parametrize("n,k", Q8_PATH_SHAPES)
+@pytest.mark.parametrize("cpw_max", [None, 1])
+def test_quant_matvec_skinny_at_the_path_shapes(rows, n, k, cpw_max,
+                                                no_tf32, monkeypatch):
+    """The skinny kernel (bf16, rows <= 16) at the int8 path's five
+    products: with the picker's splits (none up to K 4096 at rows 8, two
+    at K 4096 and rows 16) and with one chunk a warp at most, which
+    splits K 1024 in 2 and K 4096 in 8 across CTAs, each tile's splits
+    added by its last CTA in the same launch: within 1e-4 of the largest
+    plain entry, the same bits from call to call, the tile counters left
+    at zero."""
+    if cpw_max:
+        monkeypatch.setattr(cq, "SKINNY_CPW_MAX", cpw_max)
+        monkeypatch.setattr(cq, "SKINNY_CPW_MAX_NT2", cpw_max)
+    gen = no_tf32
+    x = _randn((rows, k), torch.bfloat16, gen)
+    w8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device="cuda") / 127
+    cq.reset_launches()
+    got = cq.quant_matvec(x, w8, sc)
+    assert cq.LAUNCHES["quant_matvec"] == 1
+    want = cq.quant_matvec_plain(x, w8, sc)
+    torch.testing.assert_close(got, want, rtol=0, atol=QMV_TOL[torch.bfloat16]
+                               * float(want.abs().max()))
+    for _ in range(3):
+        assert torch.equal(cq.quant_matvec(x, w8, sc), got)
+    if cpw_max:
+        assert cq.skinny_splits(rows, k) == k // 64 // 8
+    if cq.skinny_splits(rows, k) > 1:
+        _, counter = _build.split_scratch(x, "quant_matvec", 0, 0)
+        assert int(counter.abs().sum()) == 0
 
 
 def test_quant_matvec_gate_and_qmm_routes(gen):

@@ -464,3 +464,93 @@ def test_q8_split_merge_model_matches_plain_and_jax(cur):
                                    atol=1e-6, rtol=0)
         np.testing.assert_array_equal(kc.numpy(), np.asarray(want_kc))
         np.testing.assert_array_equal(vc.numpy(), np.asarray(want_vc))
+
+
+# ------------------------------------------- the bf16 step's splits
+# B13's kernel splits a row's past columns as the int8 step does; each
+# split rounds its weights exp(logit - m_j) to the cache dtype against
+# its own max m_j before the value product, where JAX rounds against the
+# row's max. Below: a plain model of that split-and-merge, at float32
+# held to the port's plain step and JAX's ``decode_step_attention``
+# (interpret mode) within 1e-5, at bf16 to the plain step within the
+# card's bf16 tolerance, 2e-2; the written columns bit for bit.
+
+
+def _split_model(q, k, v, kc, vc, cur, cos2, sin2, scale, rope, splits):
+    """The split step as whole-tensor ops: q and k rotated and rounded to
+    their dtype, the column written at cur; split j keeps its max m_j,
+    its sum l_j of exp(logit - m_j) and its values sum_t w_t v_t with w_t
+    = exp(logit_t - m_j) rounded to the cache dtype (an empty split:
+    -inf, 0, 0); the merge adds the cur term (weight not rounded) by
+    log-sum-exp and rounds the output to the dtype."""
+    dt = q.dtype
+    if rope:
+        q = cuda_attention._rotate(q, cos2, sin2).to(dt)
+        k = cuda_attention._rotate(k, cos2, sin2).to(dt)
+    kc[:, cur] = k
+    vc[:, cur] = v
+    qf = q.float()
+    span = -(-cur // splits)
+    parts = []
+    for j in range(splits):
+        t0, t1 = j * span, min((j + 1) * span, cur)
+        if t1 <= t0:
+            parts.append((torch.full((q.shape[0], 1), -torch.inf),
+                          torch.zeros(q.shape[0], 1), torch.zeros_like(qf)))
+            continue
+        lg = torch.einsum("rd,rtd->rt", qf, kc[:, t0:t1].float()) * scale
+        m = lg.amax(-1, keepdim=True)
+        e = torch.exp(lg - m)
+        parts.append((m, e.sum(-1, keepdim=True), torch.einsum(
+            "rt,rtd->rd", e.to(dt).float(), vc[:, t0:t1].float())))
+    lc = (qf * k.float()).sum(-1, keepdim=True) * scale
+    mx = torch.stack([lc] + [m for m, _, _ in parts]).amax(0)
+    ec = torch.exp(lc - mx)
+    lt = ec + sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mx) for m, _, a in parts)
+    return ((acc + ec * v.float()) / lt).to(dt)
+
+
+@pytest.mark.parametrize("cur", [0, 3, 40, 63])
+@pytest.mark.parametrize("rope", [True, False])
+def test_split_step_model_matches_plain_and_jax(cur, rope):
+    """At 1, 4 and 7 splits (empty splits where cur < splits, and at cur
+    0): float32 within 1e-5 of the plain step and of JAX's, the columns
+    bit for bit; bf16 within 2e-2 of the plain bf16 step, its columns bit
+    for bit."""
+    rows, total, dh = 4, 64, 128
+    rng = np.random.default_rng(cur + 100 * rope)
+    q, k, v = (rng.standard_normal((rows, dh)).astype(np.float32)
+               for _ in range(3))
+    kc, vc = (rng.standard_normal((rows, total, dh)).astype(np.float32)
+              for _ in range(2))
+    from icikit.ops.rope import rope_sincos as j_rope_sincos
+
+    c, s = j_rope_sincos(jnp.asarray([cur]), dh, 10000.0)
+    cos2 = np.asarray(jnp.concatenate([c, c], -1))
+    sin2 = np.asarray(jnp.concatenate([s, s], -1))
+    scale = dh ** -0.5
+    want_j, want_kc, want_vc = jfa.decode_step_attention(
+        *(jnp.asarray(a) for a in (q, k, v, kc, vc)), jnp.int32(cur),
+        jnp.asarray(cos2), jnp.asarray(sin2), scale=scale, rope=rope)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        t = [torch.from_numpy(np.array(a)).to(dt) for a in (q, k, v, kc, vc)]
+        tc, ts = torch.from_numpy(cos2.copy()), torch.from_numpy(sin2.copy())
+        kc_p, vc_p = t[3].clone(), t[4].clone()
+        plain = cuda_attention.decode_step_plain(
+            *t[:3], kc_p, vc_p, cur, tc, ts, scale=scale, rope=rope)
+        for splits in (1, 4, 7):
+            kc_m, vc_m = t[3].clone(), t[4].clone()
+            got = _split_model(*t[:3], kc_m, vc_m, cur, tc, ts, scale, rope,
+                               splits)
+            np.testing.assert_allclose(got.float().numpy(),
+                                       plain.float().numpy(), atol=tol,
+                                       rtol=0)
+            assert torch.equal(kc_m, kc_p) and torch.equal(vc_m, vc_p)
+            if dt == torch.float32:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want_j),
+                                           atol=tol, rtol=0)
+                np.testing.assert_array_equal(kc_m.numpy(),
+                                              np.asarray(want_kc))
+                np.testing.assert_array_equal(vc_m.numpy(),
+                                              np.asarray(want_vc))

@@ -182,3 +182,80 @@ def test_quantize_decode_params_matches_jax_bitwise(kv_heads, pos_encoding):
     assert tmq.quantize_decode_params(got, tcfg) is got
     with pytest.raises(ValueError, match="decode_quant='int8'"):
         tmq.quantize_decode_params(tparams, TransformerConfig(**CFG))
+
+
+# ------------------------------------- the skinny kernel's splits of K
+# At rows <= 16 the bf16 kernel gives each CTA a 16-channel tile and a
+# range of K's 64-wide chunks, eight warps taking every eighth chunk, and
+# splits K across CTAs only where one CTA cannot hold its chunks; the
+# tile's last CTA adds the splits in order. Below: the split picker, and
+# a plain model of that partition and summation order held to JAX's
+# ``quant_matvec`` (interpret mode) within MATVEC_TOL.
+
+
+def test_skinny_splits_picker():
+    """No split at the int8 path's products (K 1024 and 4096 at rows 8);
+    K 4096 in two at rows 9-16, where a warp holds half the chunks;
+    everywhere the entry's limits hold (1 .. K/64 splits, at most the
+    chunks a CTA holds) and no split is empty."""
+    ss = cuda_quant.skinny_splits
+    assert [ss(8, k) for k in (1024, 4096)] == [1, 1]
+    assert ss(16, 4096) == 2 and ss(16, 1024) == 1 and ss(8, 16384) == 4
+    for rows in (1, 8, 9, 16):
+        for k in (128, 256, 384, 1024, 4096, 16384, 65536):
+            s = ss(rows, k)
+            chunks = k // 64
+            per = -(-chunks // s)
+            assert 1 <= s <= chunks, (rows, k)
+            assert per <= cuda_quant.skinny_chunks_max(rows), (rows, k)
+            assert (s - 1) * per < chunks, (rows, k)  # none empty
+            assert s == 1 or -(-chunks // (s - 1)) > \
+                cuda_quant.skinny_chunks_max(rows)      # the fewest
+
+
+def _skinny_model(x, w8, sc, splits):
+    """The skinny kernel's partition and summation order as whole-tensor
+    ops: split j takes chunks [j*per, min((j+1)*per, K/64)), warp w of
+    it chunks w, w+8, ..; the warps' sums added in warp order, then the
+    splits' in split order, then the scale."""
+    k = x.shape[1]
+    chunks = k // 64
+    per = -(-chunks // splits)
+    warps = cuda_quant.SKINNY_WARPS
+    xf, wf = x.float(), w8.float()
+    total = None
+    for j in range(splits):
+        c0, c1 = j * per, min((j + 1) * per, chunks)
+        cta = None
+        for w in range(warps):
+            acc = torch.zeros(x.shape[0], w8.shape[0])
+            for ci in range(c0 + w, c1, warps):
+                sl = slice(ci * 64, ci * 64 + 64)
+                acc = acc + xf[:, sl] @ wf[:, sl].t()
+            cta = acc if cta is None else cta + acc
+        total = cta if total is None else total + cta
+    return total * sc.float()[None, :]
+
+
+@pytest.mark.parametrize("rows,n,k,splits", [(8, 128, 1024, 1),
+                                             (8, 128, 1024, 5),
+                                             (1, 128, 4096, 3),
+                                             (16, 256, 384, 2)])
+def test_skinny_split_model_matches_jax_kernel(rows, n, k, splits):
+    """The skinny kernel's split-and-merge, unsplit as on the path, with
+    an empty last split (K 1024 in 5), uneven splits of K 4096 and K off
+    a 512 multiple, on bf16 x (its exact products in float32), against
+    JAX's Pallas kernel on the same bf16 values and the port's plain
+    version."""
+    x, w8, sc = _matvec_inputs(rows * k + splits, rows, n, k)
+    xb = torch.from_numpy(x).bfloat16()
+    x32 = xb.float().numpy()
+    want = np.asarray(jq.quant_matvec(jnp.asarray(x32), jnp.asarray(w8),
+                                      jnp.asarray(sc), interpret=True))
+    got = _skinny_model(xb, torch.from_numpy(w8), torch.from_numpy(sc),
+                        splits)
+    plain = cuda_quant.quant_matvec_plain(xb, torch.from_numpy(w8),
+                                          torch.from_numpy(sc))
+    for ref in (want, plain.numpy()):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=MATVEC_TOL * np.abs(ref).max())
