@@ -9,8 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2. build: the kernels from ``icikit_torch/csrc`` with ``nvcc`` (sm_90a),
    with each listed kernel's registers and local (spill) bytes a thread
    and the recompute head's clusters the card holds at once; the sort,
-   Adam, save-stack, recompute head, decode step (bf16 and int8) and
-   skinny int8 matvec kernels must use no local memory.
+   Adam, save-stack, recompute head, saved head backward, decode step
+   (bf16 and int8) and int8 matvec (skinny and tile) kernels must use no
+   local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
    at G_MAX bits, 1 bit and a middle range, merge_only and in place,
@@ -78,7 +79,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    loss within 1% of that; the loss falling over 5 steps. Then step ms,
    tokens/s and mfu by median-of-windows, and a ``torch.profiler``
    trace of one step (idle share, device time by kernel).
-12. per-kernel numbers of the train path's kernels at its shapes.
+12. per-kernel numbers of the train path's kernels at its shapes; the
+   saved head's dx and dw beside cuBLAS's product of the same shape on a
+   materialized bf16 g (``g @ w``, ``g.T @ x``), the nearest yardstick.
 13. the train step's other kernels held against their plain versions on
    the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
    T 8192, D 1024, V 32768 (XENT_TOL), ``xent_dx`` and ``xent_dw`` also at
@@ -131,8 +134,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    to the plain arms; a float32 b 2 train step of that config against
    the plain arms (loss and gradients, flash launches asserted).
 17. the int8 kernels against their plain versions: ``quant_matvec``
-   (B15) at every (N, K) of the int8 path, rows 8 and 4096, x in bf16
-   and float32 (QMV_TOL, relative to the largest entry);
+   (B15) at every (N, K) of the int8 path, rows 8, 4096 and 4095 (the
+   tile kernel's last row tile cut short), x in bf16 and float32
+   (QMV_TOL, relative to the largest entry);
    ``decode_step_q8`` (B14) at 64 rows, dh 128 and 256, 576 columns, cur
    0, 1, 127, 128, 300, 543, 575, and at rows 8, cur 543 and rows 1, cur
    575, where the picker leaves the last split empty (Q8_STEP_TOL; the
@@ -154,7 +158,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    rows 8 B15 at each of the five products, ``torch._weight_int8pack_mm``
    and cuBLAS's bf16 product, and B14, by device time a launch behind a
    sleep kernel, weights or caches rotated past the L2, each beside its
-   bound, and B15's sum a step; rows 4096 by events.
+   bound, and B15's sum a step; rows 4096 the same on one copy of the
+   weights, each of the prefill's four products beside its own bound,
+   its library call and cuBLAS's bf16 product, and their sum a layer.
 20. B17's kernels against their plain versions: ``tile_mxu`` and the
    four ``tile_ablate`` variants at (1, 2, 512, d), d = 64 and 128, bq =
    bk = 64, within TILE_TOL of the largest |plain| entry (both round w
@@ -298,7 +304,8 @@ NO_LOCAL_MEMORY = SORT_KERNELS + (
     "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
     "xent_recompute_bf16_tiled<dx>", "xent_recompute_bf16_tiled<dw>",
     "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>",
-    "decode_step_kernel<bf16>", "decode_step_kernel<float>") + tuple(
+    "decode_step_kernel<bf16>", "decode_step_kernel<float>",
+    "qmv_bf16_tile", "xent_dx_bf16", "xent_dw_bf16") + tuple(
     f"qmv_bf16_skinny<{cpw}, 1>" for cpw in (1, 2, 4, 8)) + tuple(
     f"qmv_bf16_skinny<{cpw}, 2>" for cpw in (1, 2, 4))
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
@@ -332,8 +339,12 @@ TRAIN_SEQ_WIDE = 1024
 Q8_SHAPES = {"wqkv": (3072, 1024), "wo": (1024, 1024), "w1": (4096, 1024),
              "w2": (1024, 4096), "w_out": (32768, 1024)}
 Q8_ROWS = (DEC_BATCH, DEC_BATCH * DEC_PROMPT)
-Q8_ROW_ENTRIES = (("wqkv", DEC_BATCH), ("w_out", DEC_BATCH),
-                  ("w1", DEC_BATCH * DEC_PROMPT))
+# phase 17 also checks a ragged prefill row count (the tile kernel's
+# 256-row tile cut short)
+Q8_CHECK_ROWS = Q8_ROWS + (DEC_BATCH * DEC_PROMPT - 1,)
+Q8_PREFILL = ("wqkv", "wo", "w1", "w2")   # a layer's products
+Q8_ROW_ENTRIES = (("wqkv", DEC_BATCH), ("w_out", DEC_BATCH)) + tuple(
+    (nm, DEC_BATCH * DEC_PROMPT) for nm in Q8_PREFILL)
 QMV_TOL = {"bf16": 1e-4, "f32": 1e-5}
 Q8_STEP_TOL = 1e-5
 # int8 float32 tokens against the plain arms: a K/V element that sits
@@ -1126,6 +1137,14 @@ def train_rows(torch, dev, bw, launches) -> list:
                  "launches": launches["xent_fwd"], "max_abs_err": fx_err,
                  "ms": fx_ms, "plain_ms": fx_plain, "bound_ms": fx_bound,
                  "bound_by": fx_by, "library_ms": None})
+    # the nearest yardstick of dx and dw (not the same function): cuBLAS's
+    # product of the same shape on a materialized bf16 g
+    g = cx.xent_g_saved_plain(e, mrun, tg, lse, dn, chunk)
+    g_mm = {"dx (g @ w)": cuda_time_ms(lambda: torch.matmul(g, w),
+                                       iters=10),
+            "dw (g.T @ x)": cuda_time_ms(lambda: torch.matmul(g.t(), x),
+                                         iters=10)}
+    del g
     for which, fn, plain, other, out_rows in (
             ("dx", cx.xent_dx_saved, cx.xent_dx_saved_plain, w, t),
             ("dw", cx.xent_dw_saved, cx.xent_dw_saved_plain, x, v)):
@@ -1154,6 +1173,7 @@ def train_rows(torch, dev, bw, launches) -> list:
                           "exponentials; torch.matmul of x w^T alone "
                           "(cuBLAS) beside it",
           "matmul_x_wT_ms": mm_ms,
+          "cublas_g_product_ms": g_mm,
           "flash_bwd_library": "SDPA's backward through autograd on the "
                                "same tensors",
           "max_abs_err_of_bwd_and_dx_dw": "relative to the largest entry"})
@@ -1867,8 +1887,9 @@ def _q8_step_operands(torch, gen, dev, rows, total, dh, cur, qdtype):
 
 
 def int8_kernel_checks(torch, dev) -> None:
-    """Phase 17: B15 at every (N, K) of the int8 path, rows 8 and 4096,
-    and B14 at the path's step shape, against their plain versions."""
+    """Phase 17: B15 at every (N, K) of the int8 path, rows 8, 4095 and
+    4096, and B14 at the path's step shape, against their plain
+    versions."""
     from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_attention as ca
     from icikit_torch.ops import cuda_quant as cq
@@ -1876,7 +1897,7 @@ def int8_kernel_checks(torch, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(10)
     checks = []
     for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for rows in Q8_ROWS:
+        for rows in Q8_CHECK_ROWS:
             for n, k in Q8_SHAPES.values():
                 x = torch.randn((rows, k), generator=gen,
                                 device=dev).to(dtype)
@@ -2111,8 +2132,9 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
     takes to issue it, so B15 there (and its library call and cuBLAS's
     bf16 product), like B14, is timed by device time a launch behind a
     sleep kernel, each call on the next of enough copies of the weights
-    to pass the L2, as on the path; at the prefill's 4096 rows by CUDA
-    events around back-to-back launches."""
+    to pass the L2, as on the path; at the prefill's 4096 rows by device
+    time a launch behind a sleep kernel too (the wrapper's host time
+    exceeds wo's device time), on one copy: the products bound them."""
     from icikit_torch.bench.quant_ab import PER_STEP
     from icikit_torch.bench.stream_ab import (copies_past_l2, device_ms,
                                               rotating)
@@ -2144,7 +2166,7 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
             def timed(fn, ops):
                 if skinny:
                     return device_ms(rotating(fn, ops), 100, 250.0)
-                return cuda_time_ms(lambda: fn(ops[0]), iters=10, warmup=3)
+                return device_ms(lambda: fn(ops[0]), 10, 400.0)
 
             k_ms = timed(lambda w: cq.quant_matvec(x, w, sc), w8s)
             p_ms = cuda_time_ms(lambda: cq.quant_matvec_plain(x, w8, sc),
@@ -2213,13 +2235,20 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
                         "decode_step_q8_kernel")}
     step = {key: sum(PER_STEP[nm] * shapes[f"{nm} rows {DEC_BATCH}"][key]
                      for nm in Q8_SHAPES) for key in ("ms", "bound_ms")}
+    prefill = DEC_BATCH * DEC_PROMPT
+    layer = {key: sum(shapes[f"{nm} rows {prefill}"][key]
+                      for nm in Q8_PREFILL)
+             for key in ("ms", "bound_ms", "cublas_bf16_ms")}
     emit({"phase": "int8_timing_kernels", "quant_matvec": shapes,
           "quant_matvec_step_rows8": {**step, "per_step": PER_STEP},
+          "quant_matvec_layer_rows4096": {
+              **layer, "products": Q8_PREFILL,
+              "launches_a_generate": 12 * len(Q8_PREFILL)},
           "ms": "rows 8: device time a launch behind a sleep kernel, "
                 "the weights rotated through copies past 256 MiB (from "
                 "device memory, as on the path), the library call and "
-                "cuBLAS bf16 the same; rows 4096: CUDA events around 10 "
-                "back-to-back calls",
+                "cuBLAS bf16 the same; rows 4096: the same on one copy of "
+                "the weights, 10 calls",
           "path_trace_device_us_per_launch": path_us,
           "quant_matvec_bound": "int8 weights, bf16 x, float32 scales and "
                                 "out once; products at the bf16 tensor "

@@ -33,6 +33,15 @@ card.
 
     python -m icikit_torch.bench.quant_ab --a OLD.cu \\
         --b icikit_torch/csrc/quant.cu
+
+With ``--rows 4096`` it times the prefill's tile kernel instead
+(``qmv_bf16_tile``, rows b * s = 4096 at ``base``): the four products a
+layer (wqkv, wo, w1, w2; 12 layers, 48 launches a generate), A, B, B, A
+by CUDA events around back-to-back launches on the same tensors (the
+products bound them, not the weights' bytes), beside the same bound,
+``torch._weight_int8pack_mm`` and cuBLAS's bf16 ``x @ w.T``; each arm
+held to the plain version within TOL and B to its own bits from call to
+call; the layer's sum of each arm.
 """
 
 from __future__ import annotations
@@ -55,6 +64,12 @@ SHAPES = {"wqkv": (3072, 1024), "wo": (1024, 1024), "w1": (4096, 1024),
           "w2": (1024, 4096), "w_out": (32768, 1024)}
 PER_STEP = {"wqkv": 12, "wo": 12, "w1": 12, "w2": 12, "w_out": 1}
 ROWS = 8                   # the step's b
+PREFILL_ROWS = 4096        # the prefill's b * s
+# the prefill's products: each once a layer (w_out runs on the last
+# position only, at the step's rows)
+PREFILL_SHAPES = ("wqkv", "wo", "w1", "w2")
+LAYERS = 12
+PREFILL_ITERS = 20
 TOL = 1e-4                 # of the largest |plain| entry
 SPLIT_SWEEP = (1, 2, 4, 8, 16)
 ITERS = 200
@@ -84,6 +99,12 @@ def valid_splits(k: int, splits: int, rows: int = ROWS) -> bool:
 def step_ms(per_shape: dict) -> float:
     """The step's sum of ``{shape: ms}``: PER_STEP launches of each."""
     return sum(PER_STEP[s] * ms for s, ms in per_shape.items())
+
+
+def layer_ms(per_shape: dict) -> float:
+    """A layer's sum of ``{shape: ms}`` at the prefill: one launch of
+    each of PREFILL_SHAPES."""
+    return sum(per_shape[s] for s in PREFILL_SHAPES)
 
 
 def build(sources: dict) -> dict:
@@ -193,6 +214,102 @@ def run_shape(libs, tag, gen, rows: int = ROWS) -> dict:
     return rec
 
 
+def prefill_call(lib, x, w8, scale, out):
+    """One source's bf16 matvec at rows > 16 into ``out``, a no-argument
+    call (the tile kernel ignores the split arguments)."""
+    rows, k = x.shape
+    n = out.shape[1]
+    st = torch.cuda.current_stream().cuda_stream
+    return lambda: _build.check(lib.icikit_quant_matvec_split(
+        1, x.data_ptr(), w8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        rows, n, k, None, None, 1, st), "quant_matvec")
+
+
+def report(libs, src_a: str, src_b: str) -> None:
+    """The run's last lines: ptxas's registers and spills of both
+    sources, and the card's name and power limit."""
+    print(json.dumps({"registers_spill_bytes": {
+        n: libs[n][1] for n in "AB"}, "sources": {"A": src_a, "B": src_b}}))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip())
+
+
+def run_prefill_shape(libs, tag, gen, rows: int = PREFILL_ROWS) -> dict:
+    """One prefill shape's record."""
+    from icikit_torch.bench.flash_ab import event_ms
+    from icikit_torch.ops.cuda_quant import quant_matvec_plain
+
+    n, k = SHAPES[tag]
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") / 127
+    outs = {a: torch.empty((rows, n), device="cuda") for a in "AB"}
+    fns = {a: prefill_call(libs[a][0], x, w8, scale, outs[a]) for a in "AB"}
+    ms = {a: [] for a in "AB"}
+    for a in "ABBA":
+        ms[a].append(event_ms(fns[a], PREFILL_ITERS))
+    want = quant_matvec_plain(x, w8, scale)
+    top = float(want.abs().max())
+    errs = {}
+    for a in "AB":
+        fns[a]()
+        errs[a] = float((outs[a] - want).abs().max()) / top
+    first = outs["B"].clone()
+    fns["B"]()
+    again = bool(torch.equal(first, outs["B"]))
+    s16 = scale.to(torch.bfloat16)
+    try:
+        lib_ms = event_ms(lambda: torch._weight_int8pack_mm(x, w8, s16), 3)
+    except (RuntimeError, NotImplementedError) as exc:
+        lib_ms, lib_why = None, f"{type(exc).__name__}: {exc}"[:160]
+    else:
+        lib_why = "torch._weight_int8pack_mm (bf16 out)"
+    w16 = w8.to(torch.bfloat16)
+    mm_ms = event_ms(lambda: torch.matmul(x, w16.t()), PREFILL_ITERS)
+    del w16, want, first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bnd, by = bound_ms(n, k, rows)
+    rec = {"kernel": "qmv_bf16_tile", "shape": tag, "n": n, "k": k,
+           "rows": rows, "turns": "A B B A", "ms": ms, "bound_ms": bnd,
+           "bound_by": by, "library_ms": lib_ms, "library": lib_why,
+           "cublas_bf16_ms": mm_ms, "rel_err_vs_plain": errs,
+           "b_repeats_bitwise": again, "tolerance": TOL}
+    rec["ok"] = errs["A"] <= TOL and errs["B"] <= TOL and again
+    return rec
+
+
+def run_prefill(src_a: str, src_b: str, shapes=PREFILL_SHAPES,
+                seed: int = 13) -> bool:
+    """Time and check both sources' tile kernel at the prefill's rows;
+    whether every record held."""
+    libs = build({"A": src_a, "B": src_b})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ok, means, recs = True, {"A": {}, "B": {}}, {}
+    for tag in shapes:
+        rec = recs[tag] = run_prefill_shape(libs, tag, gen)
+        print(json.dumps(rec), flush=True)
+        ok &= rec["ok"]
+        for a in "AB":
+            means[a][tag] = sum(rec["ms"][a]) / len(rec["ms"][a])
+    if set(shapes) == set(PREFILL_SHAPES):
+        print(json.dumps({
+            "layer_ms": {a: layer_ms(means[a]) for a in "AB"},
+            "generate_ms": {a: LAYERS * layer_ms(means[a]) for a in "AB"},
+            "launches_a_generate": LAYERS * len(PREFILL_SHAPES),
+            "bound_layer_ms": layer_ms({s: recs[s]["bound_ms"]
+                                        for s in shapes}),
+            "cublas_bf16_layer_ms": layer_ms({s: recs[s]["cublas_bf16_ms"]
+                                              for s in shapes})}))
+    report(libs, src_a, src_b)
+    return ok
+
+
 def run(src_a: str, src_b: str, shapes=tuple(SHAPES), seed: int = 12) -> bool:
     """Time and check both sources; whether every record held."""
     libs = build({"A": src_a, "B": src_b})
@@ -210,12 +327,7 @@ def run(src_a: str, src_b: str, shapes=tuple(SHAPES), seed: int = 12) -> bool:
                           "per_step": PER_STEP,
                           "bound_step_ms": step_ms({
                               s: bound_ms(*SHAPES[s])[0] for s in SHAPES})}))
-    print(json.dumps({"registers_spill_bytes": {
-        n: libs[n][1] for n in "AB"}, "sources": {"A": src_a, "B": src_b}}))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip())
+    report(libs, src_a, src_b)
     return ok
 
 
@@ -223,21 +335,28 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--a", required=True, help="quant.cu of arm A")
     p.add_argument("--b", required=True, help="quant.cu of arm B")
-    p.add_argument("--shapes", default=",".join(SHAPES),
-                   help="of " + ", ".join(SHAPES))
+    p.add_argument("--shapes", default=None,
+                   help="of " + ", ".join(SHAPES) + " (at --rows 4096: of "
+                   + ", ".join(PREFILL_SHAPES) + "; the default: all)")
+    p.add_argument("--rows", type=int, default=ROWS,
+                   choices=(ROWS, PREFILL_ROWS),
+                   help="the step's rows (the skinny kernel) or the "
+                        "prefill's (the tile kernel)")
     p.add_argument("--timing-only", action="store_true",
                    help="exit 0 even where an output departs")
     args = p.parse_args(argv)
-    shapes = tuple(args.shapes.split(","))
-    bad = [s for s in shapes if s not in SHAPES]
+    known = PREFILL_SHAPES if args.rows == PREFILL_ROWS else tuple(SHAPES)
+    shapes = tuple(args.shapes.split(",")) if args.shapes else known
+    bad = [s for s in shapes if s not in known]
     if bad:
-        p.error(f"unknown shapes: {bad}")
+        p.error(f"unknown shapes at rows {args.rows}: {bad}")
     for src in (args.a, args.b):
         if not os.path.isfile(src):
             p.error(f"no such source: {src}")
     if not torch.cuda.is_available():
         raise SystemExit("quant_ab needs a CUDA card")
-    ok = run(args.a, args.b, shapes)
+    ok = (run_prefill if args.rows == PREFILL_ROWS else run)(
+        args.a, args.b, shapes)
     return 0 if ok or args.timing_only else 1
 
 

@@ -22,6 +22,16 @@ kernel, the kernels' registers and spills as ptxas reported them, and
 the card's name and power limit. Needs a CUDA card.
 
     python -m icikit_torch.bench.xent_ab --a OLD_DIR --b icikit_torch/csrc
+
+With ``--flavour saved`` it times the saved flavour's dx and dw instead
+(B10 saved, ``xent_dx_bf16``/``xent_dw_bf16``: g rebuilt from the saved
+exponentials e and mrun, here from the plain forward) at the same shape,
+A, B, B, A, held to the saved plain versions and B to A within TOL,
+beside the saved bound (2 T V D operations at 989 TFLOP/s against e,
+mrun, w or x, the token vectors and the output once at 3.35 TB/s: the
+larger, 0.556 ms) and, as the nearest yardstick (not the same
+function), cuBLAS's product of the same shape on a materialized bf16 g:
+``g @ w`` for dx, ``g.T @ x`` for dw.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ SHAPE = (8192, 1024, 32768)   # (T, D, V) of the base step's head
 KERNELS = ("dx", "dw")
 TOL = 2e-2                 # chip_smoke.py's XENT_TOL["bf16"]["grad"]
 ITERS = 5
+FLAVOURS = ("recompute", "saved")
+CHUNK = 128                # mrun's chunk in bf16 (cuda_xent.TILE)
 
 
 def bound_ms(which: str, t: int, d: int, v: int) -> tuple:
@@ -55,17 +67,43 @@ def bound_ms(which: str, t: int, d: int, v: int) -> tuple:
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def build(a_dir: str, b_dir: str) -> dict:
+def saved_bound_ms(which: str, t: int, d: int, v: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time for the saved
+    ``which`` at (T, D, V) in bf16: e (T, V) and mrun (V / 128, T) read,
+    w (dx) or x (dw) read, targets, lse and dnll read, the output written
+    once, against the contraction's 2 T V D operations."""
+    out_rows = t if which == "dx" else v
+    other_rows = v if which == "dx" else t
+    nbytes = (t * v + other_rows * d + out_rows * d) * 2 \
+        + -(-v // CHUNK) * t * 4 + 3 * t * 4
+    t_b, t_o = nbytes / MEM_BPS, 2 * t * v * d / BF16_TENSOR_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def build(a_dir: str, b_dir: str, kernels=("xent_recompute_bf16",)) -> dict:
     """{"A"/"B": (library, {kernel: (registers, spill bytes)})}, the two
-    sources compiled in parallel."""
+    sources compiled in parallel; ptxas's numbers of the kernels whose
+    name holds one of ``kernels``."""
     from icikit_torch.bench.flash_ab import _ptxas_regs
 
     built = _build.build_sources(
         "xent", {n: os.path.join(d, "xent.cu")
                  for n, d in (("A", a_dir), ("B", b_dir))},
         os.path.join(_build.BUILD_DIR, "ab"), ("-Xptxas", "-v"))
-    return {n: (lib, _ptxas_regs(log, lambda k: "xent_recompute_bf16" in k))
+    return {n: (lib, _ptxas_regs(log, lambda k: any(s in k
+                                                   for s in kernels)))
             for n, (lib, log) in built.items()}
+
+
+def report(libs, a_dir: str, b_dir: str) -> None:
+    """The run's last lines: ptxas's registers and spills of both
+    sources, and the card's name and power limit."""
+    print(json.dumps({"registers_spill_bytes": {n: libs[n][1] for n in "AB"},
+                      "sources": {"A": a_dir, "B": b_dir}}))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip())
 
 
 def recompute_call(lib, which: str, x, w, tg, lse, dn, out):
@@ -134,12 +172,80 @@ def run(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 12) -> bool:
         ok &= rec["ok"]
         del outs, fns, want
         torch.cuda.empty_cache()
-    print(json.dumps({"registers_spill_bytes": {n: libs[n][1] for n in "AB"},
-                      "sources": {"A": a_dir, "B": b_dir}}))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip())
+    report(libs, a_dir, b_dir)
+    return ok
+
+
+def saved_call(lib, which: str, e, mrun, other, tg, lse, dn, out):
+    """One library's saved ``which`` into ``out``, a no-argument call."""
+    t, v = e.shape
+    d = other.shape[1]
+    st = torch.cuda.current_stream().cuda_stream
+    fn = lib.icikit_xent_dx if which == "dx" else lib.icikit_xent_dw
+    args = [1, e.data_ptr(), mrun.data_ptr(), other.data_ptr(),
+            tg.data_ptr(), lse.data_ptr(), dn.data_ptr(), out.data_ptr(),
+            t, v, d, CHUNK, st]
+    return lambda: _build.check(fn(*args), f"xent_{which}_saved")
+
+
+def run_saved(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 14) -> bool:
+    """Time and compare the two sources' saved dx and dw; whether B's
+    outputs held to A's and to the plain versions for both kernels."""
+    from icikit_torch.bench.flash_ab import _turns, event_ms
+    from icikit_torch.ops import cuda_xent as cx
+
+    libs = build(a_dir, b_dir, ("xent_dx_bf16", "xent_dw_bf16"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, d, v = shape
+    bf = torch.bfloat16
+    x = torch.randn((t, d), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(bf)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.full((t,), 1.0 / t, device="cuda")
+    lse, _, e, mrun = cx.xent_fwd_plain(x, w, tg, True, CHUNK)
+    lse = lse.float().contiguous()
+    g = cx.xent_g_saved_plain(e, mrun, tg, lse, dn, CHUNK)   # bf16 (T, V)
+    ok = True
+    for which, other, mm in (("dx", w, lambda: torch.matmul(g, w)),
+                             ("dw", x, lambda: torch.matmul(g.t(), x))):
+        rows = t if which == "dx" else v
+        outs = {n: torch.empty((rows, d), dtype=bf, device="cuda")
+                for n in "AB"}
+        fns = {n: {which: saved_call(libs[n][0], which, e, mrun, other, tg,
+                                     lse, dn, outs[n])} for n in "AB"}
+        ms = _turns(fns, ITERS)
+        first = outs["B"].clone()
+        fns["B"][which]()
+        again = bool(torch.equal(first, outs["B"]))
+        plain = (cx.xent_dx_saved_plain if which == "dx"
+                 else cx.xent_dw_saved_plain)
+        want = plain(e, mrun, other, tg, lse, dn, CHUNK)
+        plain_ms = event_ms(lambda: plain(e, mrun, other, tg, lse, dn,
+                                          CHUNK), 2)
+        mm_ms = event_ms(mm, ITERS)
+        bnd, by = saved_bound_ms(which, t, d, v)
+        rec = {"kernel": f"xent_{which}_saved (B10 saved)",
+               "shape": {"T": t, "D": d, "V": v}, "dtype": "bfloat16",
+               "turns": "A B B A",
+               "ms": {n: ms[n][which] for n in "AB"},
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "cublas_g_product_ms": mm_ms,
+               "cublas_g_product": "g @ w" if which == "dx" else "g.T @ x",
+               "library_ms": None, "b_repeats_bitwise": again,
+               "rel_err": {"b_vs_a": _rel(outs["B"], outs["A"]),
+                           "b_vs_plain": _rel(outs["B"], want),
+                           "a_vs_plain": _rel(outs["A"], want)},
+               "tolerance": TOL}
+        rec["ok"] = (rec["rel_err"]["b_vs_a"] <= TOL
+                     and rec["rel_err"]["b_vs_plain"] <= TOL and again)
+        print(json.dumps(rec), flush=True)
+        ok &= rec["ok"]
+        del outs, fns, want, first
+        torch.cuda.empty_cache()
+    report(libs, a_dir, b_dir)
     return ok
 
 
@@ -147,6 +253,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--a", required=True, help="directory of arm A's xent.cu")
     p.add_argument("--b", required=True, help="the same for arm B")
+    p.add_argument("--flavour", default="recompute", choices=FLAVOURS,
+                   help="the recompute head's backward (the default) or the "
+                        "saved one's")
     p.add_argument("--timing-only", action="store_true",
                    help="exit 0 even where B's outputs depart from A's")
     args = p.parse_args(argv)
@@ -156,7 +265,7 @@ def main(argv=None) -> int:
         p.error(f"missing sources: {missing}")
     if not torch.cuda.is_available():
         raise SystemExit("xent_ab needs a CUDA card")
-    ok = run(args.a, args.b)
+    ok = (run_saved if args.flavour == "saved" else run)(args.a, args.b)
     return 0 if ok or args.timing_only else 1
 
 

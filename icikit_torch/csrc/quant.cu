@@ -22,16 +22,16 @@
 //        fragments (the design note above the kernel).
 //      - the prefill, rows = b*s = 4096: operations. About 103 GFLOP a
 //        layer (25.8 wqkv, 8.6 wo, 34.4 w1, 34.4 w2), 0.10 ms at 989
-//        TFLOP/s. qmv_bf16_tile: a 64 x 64 output tile a CTA, four warps
-//        of 16 rows, K in chunks of 64 staged through shared memory, the
-//        int8 block widened to bf16 there (device memory streams it at
-//        one byte an element); no pipelining, no TMA, no wgmma.
-//      bf16 x runs on the tensor cores (mma.sync m16n8k16, bf16 in, float32
-//      accumulate): every int8 value is a bf16 integer, so each product is
-//      exact and only the summation order differs from the plain version;
-//      the skinny kernel's order is fixed, so its result repeats bit for
-//      bit. float32 x (the card's float32 checks) runs qmv_f32 with plain
-//      FMA.
+//        TFLOP/s. qmv_bf16_tile: wgmma with the weights as its register
+//        operand, widened there, x by descriptor from a 4-stage TMA
+//        ring, a 128-channel x 256-row tile a CTA (the design note
+//        above the kernel).
+//      bf16 x runs on the tensor cores (bf16 in, float32 accumulate;
+//      mma.sync m16n8k16 at rows <= 16, wgmma past): every int8 value is
+//      a bf16 integer, so each product is exact and only the summation
+//      order differs from the plain version; each kernel's order is
+//      fixed, so its result repeats bit for bit. float32 x (the card's
+//      float32 checks) runs qmv_f32 with plain FMA.
 //
 // Every entry returns cudaGetLastError() after its launch.
 
@@ -39,11 +39,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MMA_THREADS = 128;   // bf16 tile kernel: 4 warps
 constexpr int F32_THREADS = 256;
 constexpr int SKINNY_ROWS = 16;    // rows two n8 tiles hold
 constexpr int SK_THREADS = 256;    // skinny: 8 warps
@@ -54,11 +55,6 @@ constexpr int SK_KC = 64;          // skinny: K a chunk, 16 bytes a lane
 // (64 a CTA, K 4096 in one CTA), 4 at rows 9-16 (two n-tiles of x)
 constexpr int SK_CPW_MAX = 8, SK_CPW_MAX_NT2 = 4;
 constexpr int SK_PART = SK_CH * SKINNY_ROWS;  // a split's floats
-constexpr int TL_BM = 64, TL_BN = 64, TL_BK = 64;  // tile kernel
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -97,16 +93,6 @@ __device__ __forceinline__ void widen4(uint32_t v, uint32_t& lo,
       __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - MAGIC);
   lo = __byte_perm(f0, f1, 0x7632);
   hi = __byte_perm(f2, f3, 0x7632);
-}
-
-// Sixteen int8 weights -> sixteen bf16 (exact) at dst (16-byte aligned).
-__device__ __forceinline__ void widen16(uint4 raw, bf16* dst) {
-  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) bf16 t[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) t[j] = __float2bfloat16_rn((float)e[j]);
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(t)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(t)[1];
 }
 
 // rows <= 16, bf16 x: the decode step. The weights are mma's A operand
@@ -243,61 +229,161 @@ qmv_bf16_skinny(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   if (threadIdx.x == 0) counter[tile] = 0u;  // ready for the next call
 }
 
-// Any rows, bf16 x: CTA (64-channel tile, 64-row tile); warp w owns rows
-// w*16 .. w*16+15 of the tile and all 64 channels.
-__global__ void __launch_bounds__(MMA_THREADS)
-qmv_bf16_tile(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+// rows > 16, bf16 x: the prefill. The product is taken transposed, out^T
+// (channels x rows) = w8 (channels x K) . x^T (K x rows), so that the
+// weights are wgmma's A operand from registers, widened there without a
+// per-element conversion, and x its B operand straight from the TMA tile.
+//
+// - A CTA owns a 128-channel x 256-row output tile: two consumer
+//   warpgroups of 64 channels, each running one m64n256k16 a k16 step
+//   (its A fragment against all 256 rows), and a producer
+//   warpgroup whose one thread keeps a 4-stage ring full by TMA (full and
+//   empty mbarriers a stage; setmaxnreg gives its registers to the
+//   consumers). A stage is K 64: x's 256 x 64 tile (32 KB, one box, the
+//   128-byte swizzle, rows past `rows` zero-filled) and w8's 128 x 64
+//   bytes (8 KB, one box of UINT8, the 64-byte swizzle).
+// - The A fragment of lane (g, c) holds k 2c, 2c+1, 2c+8, 2c+9 of each
+//   k16 step for channels g and g+8, and x's descriptor fixes k's order,
+//   so the lane reads the two words of the channel's 64-byte row that
+//   hold those bytes (bytes 16kc + 4(c/2) and 8 further, their chunk
+//   moved by the swizzle: the eight rows a warp reads land on 16 banks
+//   with no conflict), takes the two bytes of each it needs by one
+//   byte-perm and widens the word to two bf16 pairs (widen4: a
+//   byte-perm into a float's mantissa and one subtract an element).
+// - Each warpgroup holds two A fragment sets and runs one wgmma group a
+//   stage with one unconditional wait, for the group before it: the
+//   widening of stage i+1 runs under the products of stage i, and the
+//   ring's stage i-1 is released once its group is done.
+// - The scale sits on the accumulator's rows (channels). The float32 tile
+//   goes through shared memory (the ring, free by then; 132-float rows, no
+//   bank conflicts) and leaves as whole 512-byte rows of out in 16-byte
+//   stores, masked past `rows`.
+// - The grid runs the channel tiles of one row tile together: a wave
+//   shares x's row tiles and all of w8 through L2.
+// Bound: the products (2 rows n k at 989 TFLOP/s: 34.7 us at w1, rows
+// 4096); the float32 output (67 MB at w1, 20 us) is the largest stream.
+// N must be a multiple of 128 (JAX's gate: N tileable by 128), K of 64.
+constexpr int QT_CH = 128;        // channels a CTA, two warpgroups
+constexpr int QT_ROWS = 256;      // rows of x a CTA
+constexpr int QT_KT = 64;         // K a stage
+constexpr int QT_NS = 4;          // ring stages
+constexpr int QT_THREADS = 384;   // two consumer warpgroups, a producer
+constexpr int QT_XBYTES = QT_ROWS * QT_KT * 2;  // x's tile, 32 KB
+constexpr int QT_STAGE = QT_XBYTES + QT_CH * QT_KT;  // and w8's, 8 KB
+constexpr int QT_OST = QT_CH + 4;  // float stride of the output stage
+constexpr size_t QT_SMEM = 1024 + QT_NS * QT_STAGE + 2 * QT_NS * 8;
+static_assert(QT_ROWS * QT_OST * 4 <= QT_NS * QT_STAGE,
+              "the output stage lives in the ring");
+
+// The A fragment of one stage for the lane's channels ch and ch + 8 (of
+// the tile's 128; w8's 64-byte rows in the 64-byte swizzle: the 16-byte
+// chunk j of row r sits at chunk j ^ ((r >> 1) & 3)).
+__device__ __forceinline__ void qt_frags(uint32_t (&a)[QT_KT / 16][4],
+                                         const unsigned char* ws, int ch,
+                                         int c) {
+  const uint32_t sel = (c & 1) ? 0x7632u : 0x5410u;
+#pragma unroll
+  for (int kc = 0; kc < QT_KT / 16; ++kc)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = ch + 8 * hh;
+      const unsigned char* p =
+          ws + r * QT_KT + ((kc ^ ((r >> 1) & 3)) << 4) + 4 * (c >> 1);
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + 8);
+      widen4(__byte_perm(w0, w1, sel), a[kc][hh], a[kc][2 + hh]);
+    }
+}
+
+__global__ void __launch_bounds__(QT_THREADS, 1)
+qmv_bf16_tile(const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tw,
               const float* __restrict__ scale, float* __restrict__ out,
               int64_t rows, int64_t n, int64_t k) {
-  constexpr int S = TL_BK + 8;
-  __shared__ __align__(16) bf16 xs[TL_BM * S];
-  __shared__ __align__(16) bf16 ws[TL_BN * S];
-  const int64_t n0 = (int64_t)blockIdx.x * TL_BN;
-  const int64_t m0 = (int64_t)blockIdx.y * TL_BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  float acc[TL_BN / 8][4];
-#pragma unroll
-  for (int t = 0; t < TL_BN / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  extern __shared__ __align__(1024) unsigned char qt_smem[];
+  unsigned char* ring =
+      qt_smem + ((1024 - (smem_u32(qt_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + QT_NS * QT_STAGE);
+  uint64_t* empty = full + QT_NS;
+  const int n0 = blockIdx.x * QT_CH, m0 = blockIdx.y * QT_ROWS;
+  const int nk = (int)(k / QT_KT);  // even: k % 128 == 0
+  const int wgi = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QT_NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int64_t k0 = 0; k0 < k; k0 += TL_BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < TL_BM * TL_BK / 8; i += MMA_THREADS) {
-      const int r = i / (TL_BK / 8), c8 = (i % (TL_BK / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < rows)
-        v = *reinterpret_cast<const uint4*>(x + (m0 + r) * k + k0 + c8);
-      *reinterpret_cast<uint4*>(xs + r * S + c8) = v;
-    }
-    for (int i = threadIdx.x; i < TL_BN * TL_BK / 16; i += MMA_THREADS) {
-      const int r = i / (TL_BK / 16), c16 = (i % (TL_BK / 16)) * 16;
-      widen16(*reinterpret_cast<const uint4*>(w + (n0 + r) * k + k0 + c16),
-              ws + r * S + c16);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TL_BK; kk += 16) {
-      const bf16* ap = xs + (warp * 16 + g) * S + kk + c2;
-      const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * S), ld32(ap + 8),
-                             ld32(ap + 8 * S + 8)};
-#pragma unroll
-      for (int t = 0; t < TL_BN / 8; ++t) {
-        const bf16* bp = ws + (t * 8 + g) * S + kk + c2;
-        mma_bf16(acc[t], a, ld32(bp), ld32(bp + 8));
+  if (wgi == 2) {
+    // the producer: stage i % QT_NS takes K step i once the consumers
+    // have released step i - QT_NS
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % QT_NS;
+        if (i >= QT_NS) mbar_wait(empty + st, (i / QT_NS - 1) & 1);
+        unsigned char* xs = ring + st * QT_STAGE;
+        mbar_expect_tx(full + st, QT_STAGE);
+        tma_box2(xs, &tx, i * QT_KT, m0, full + st);
+        tma_box2(xs + QT_XBYTES, &tw, i * QT_KT, n0, full + st);
       }
     }
+    return;
   }
-  const int64_t r0 = m0 + warp * 16 + g, r1 = r0 + 8;
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int ch = wgi * 64 + warp * 16 + g;  // and ch + 8, of the tile
+  float o[128];
 #pragma unroll
-  for (int t = 0; t < TL_BN / 8; ++t) {
-    const int64_t col = n0 + t * 8 + c2;
-    const float s0 = scale[col], s1 = scale[col + 1];
-    if (r0 < rows)
-      *reinterpret_cast<float2*>(out + r0 * n + col) =
-          make_float2(acc[t][0] * s0, acc[t][1] * s1);
-    if (r1 < rows)
-      *reinterpret_cast<float2*>(out + r1 * n + col) =
-          make_float2(acc[t][2] * s0, acc[t][3] * s1);
+  for (int j = 0; j < 128; ++j) o[j] = 0.f;
+  uint32_t a0[QT_KT / 16][4], a1[QT_KT / 16][4];
+  // one stage: its fragments, its products (issued), then the wait for
+  // the group before, whose stage goes back to the producer
+  auto stage = [&](int i, uint32_t (&a)[QT_KT / 16][4]) {
+    const int st = i % QT_NS;
+    mbar_wait(full + st, (i / QT_NS) & 1);
+    const unsigned char* xs = ring + st * QT_STAGE;
+    qt_frags(a, xs + QT_XBYTES, ch, c);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < QT_KT / 16; ++kc)
+      wgmma_rs<256, 0>(o, a[kc], gmma_desc_sw(xs + kc * 32, 16, 8 * 128, 1),
+                       1);
+    wg_commit();
+    wg_wait<1>();
+    if (i > 0) mbar_arrive(empty + (i - 1) % QT_NS);
+  };
+  for (int i = 0; i < nk; i += 2) {
+    stage(i, a0);
+    stage(i + 1, a1);
+  }
+  wg_wait<0>();
+  fence_regs(o);
+
+  // the scaled tile, rows x channels, through the ring (both warpgroups'
+  // products are done with it)
+  bar_sync(1, 2 * 128);
+  float* os = reinterpret_cast<float*>(ring);
+  const float s0 = scale[n0 + ch], s1 = scale[n0 + ch + 8];
+#pragma unroll
+  for (int j = 0; j < QT_ROWS / 8; ++j) {
+    const int r = 8 * j + 2 * c;
+    os[r * QT_OST + ch] = o[4 * j] * s0;
+    os[(r + 1) * QT_OST + ch] = o[4 * j + 1] * s0;
+    os[r * QT_OST + ch + 8] = o[4 * j + 2] * s1;
+    os[(r + 1) * QT_OST + ch + 8] = o[4 * j + 3] * s1;
+  }
+  bar_sync(1, 2 * 128);
+  for (int i = threadIdx.x; i < QT_ROWS * QT_CH / 4; i += 2 * 128) {
+    const int r = i / (QT_CH / 4), c4 = i % (QT_CH / 4) * 4;
+    if (m0 + r < rows)
+      *reinterpret_cast<float4*>(out + (m0 + r) * n + n0 + c4) =
+          *reinterpret_cast<const float4*>(os + r * QT_OST + c4);
   }
 }
 
@@ -382,12 +468,39 @@ void launch_skinny(const bf16* x, const int8_t* w, const float* scale,
         x, w, scale, out, ws, counter, rows, n, k);
 }
 
+// qmv_bf16_tile's launch: its two TMA maps, a CTA a 128-channel x
+// 256-row tile, the channel tiles of a row tile side by side.
+int launch_tile(const bf16* x, const int8_t* w, const float* scale,
+                float* out, int64_t rows, int64_t n, int64_t k,
+                cudaStream_t st) {
+  if (n % QT_CH || (rows + QT_ROWS - 1) / QT_ROWS > 65535 ||
+      k > INT32_MAX || n > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  int err = tma_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, rows, k,
+                       QT_KT, QT_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = tma_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, n, k, QT_KT,
+                     QT_CH, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      qmv_bf16_tile, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)QT_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(n / QT_CH),
+                  (unsigned)((rows + QT_ROWS - 1) / QT_ROWS));
+  qmv_bf16_tile<<<grid, QT_THREADS, QT_SMEM, st>>>(tx, tw, scale, out, rows,
+                                                  n, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32 x, 1 = bfloat16 x. x (rows, k), w8 (n, k) int8,
-// scale (n,) float32, out (rows, n) float32. k % 128 == 0, n % 64 == 0.
+// scale (n,) float32, out (rows, n) float32. k % 128 == 0, n % 64 == 0;
+// bf16 at rows > 16 (qmv_bf16_tile) takes n % 128 == 0 only.
 // bf16 at rows <= 16 (qmv_bf16_skinny) splits K across `splits` CTAs a
 // 16-channel tile (1 .. k/64, at most 16 chunks of 64 a CTA); with
 // splits > 1, ws holds (n/16) * splits * 256 float32 and counter (n/16)
@@ -416,9 +529,8 @@ int icikit_quant_matvec_split(int dtype, const void* x, const int8_t* w,
     else
       launch_skinny<8>(xb, w, scale, out, ws, counter, rows, n, k, splits, st);
   } else if (dtype == 1) {
-    const dim3 grid((unsigned)(n / TL_BN), (unsigned)((rows + TL_BM - 1) / TL_BM));
-    qmv_bf16_tile<<<grid, MMA_THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), w, scale, out, rows, n, k);
+    return launch_tile(static_cast<const bf16*>(x), w, scale, out, rows, n,
+                       k, st);
   } else if (dtype == 0 && rows <= SKINNY_ROWS) {
     const dim3 grid((unsigned)(n / 32), 1);
     qmv_f32<16, 32, 1, 2><<<grid, F32_THREADS, 0, st>>>(

@@ -28,17 +28,18 @@
 //   xent_dx_saved <- _dx_kernel, saved flavour (_dx_saved_kernel, B10,
 //                    _dx_call, pallas_call :374).
 //      dx = sum_v g w with g = (e * exp2(m_i - lse*log2e) - onehot) *
-//      dnll rebuilt tile by tile in shared memory and never written out.
+//      dnll rebuilt in registers from e and never written out.
 //   xent_dw_saved <- _dw_kernel, saved flavour (_dw_saved_kernel, B10,
 //                    _dw_call, pallas_call :411).
 //      dw = sum_t g^T x, g rebuilt the same way.
 //      The TPU keeps (1024, 1024) and (2048, 1024) float32 accumulators
-//      in VMEM; a CTA here holds a 128 x 128 output tile in registers, so
-//      D is split across CTAs and the grid puts the CTAs that share a
+//      in VMEM; a CTA here holds a 128 x 256 output tile in registers,
+//      so D is split across CTAs and the grid puts the CTAs that share a
 //      token (dx) or vocab (dw) tile next to each other, so that they run
 //      together and L2 absorbs the re-read of e (512 MiB at the base
-//      preset) instead of device memory. Bound: 549.8 GFLOP each, 556 us:
-//      operations.
+//      preset) instead of device memory; wgmma with g as its register
+//      operand, a TMA ring (see xent_dx_bf16). Bound: 549.8 GFLOP each,
+//      556 us: operations.
 //
 //   xent_dx, xent_dw <- _dx_kernel / _dw_kernel with e_ref=None (B10,
 //                    recompute flavour, pallas_calls :374, :411 via
@@ -59,15 +60,16 @@
 //      ms, bytes); dx = g w and dw = g^T x are then plain matmuls outside
 //      any kernel, as JAX leaves them to XLA (xent.py:469-475).
 //
-// bf16 (all but the recompute flavour up to D 2048): 8 warps a CTA, each
-// a 32 x 64 piece of the 128 x 128 tile, on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate), the operands staged through
-// shared memory by cp.async, double-buffered.
-// Operands whose contraction dimension is not contiguous in memory (w in
-// dx, e and x in dw) are read with ldmatrix.trans. g is rounded to bf16
-// to enter the tensor cores, where the TPU contracts it in float32
-// against w.astype(f32) (:199-201, :235-237): the tolerance in the tests
-// states the cost. float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
+// bf16 xent_fwd, xent_g and the recompute flavour past D 2048: 8 warps a
+// CTA, each a 32 x 64 piece of the 128 x 128 tile, on the tensor cores
+// with mma.sync m16n8k16 (bf16 in, fp32 accumulate), the operands staged
+// through shared memory by cp.async, double-buffered; operands whose
+// contraction dimension is not contiguous in memory are read with
+// ldmatrix.trans. The saved flavour's backward and the recompute flavour
+// up to D 2048 run on wgmma and TMA. g is rounded to bf16 to enter the
+// tensor cores, where the TPU contracts it in float32 against
+// w.astype(f32) (:199-201, :235-237): the tolerance in the tests states
+// the cost. float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
 // Every entry returns cudaGetLastError() after its launch.
 
 #include <cooperative_groups.h>
@@ -401,146 +403,6 @@ __device__ __forceinline__ uint4 g8(uint4 raw, int64_t t, int64_t v,
     el[j] = __float2bfloat16_rn(gv);
   }
   return raw;
-}
-
-// The same, in place in shared memory.
-__device__ __forceinline__ void rebuild_g8(bf16* p, int64_t t, int64_t v,
-                                           const float* mrun,
-                                           const int* tgt, const float* lse,
-                                           const float* dnll, int64_t T,
-                                           int64_t V, int64_t chunk) {
-  *reinterpret_cast<uint4*>(p) = g8(*reinterpret_cast<uint4*>(p), t, v,
-                                    mrun, tgt, lse, dnll, T, V, chunk);
-}
-
-// ---------------------------------------------------------------------------
-// xent_dx_saved, bf16: dx (T, D) = g (T, V) w (V, D). Grid (D tiles,
-// token tiles): the D tiles of one token tile run together and share
-// their e stream through L2.
-
-__global__ void __launch_bounds__(X_THREADS)
-xent_dx_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
-             const bf16* __restrict__ w, const int* __restrict__ tgt,
-             const float* __restrict__ lse, const float* __restrict__ dnll,
-             bf16* __restrict__ dx, int64_t T, int64_t V, int64_t D,
-             int64_t chunk) {
-  __shared__ __align__(16) bf16 es[2][XT * AS];
-  __shared__ __align__(16) bf16 ws[2][XK * BS];
-  const int64_t d0 = (int64_t)blockIdx.x * XN, t0 = (int64_t)blockIdx.y * XT;
-  const int64_t rows = T - t0 < XT ? T - t0 : XT;
-  const int64_t dcols = D - d0 < XN ? D - d0 : XN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
-
-  float acc[2][8][4];
-  zero_acc(acc);
-  const bf16* eb = e + t0 * V;
-  const bf16* wb = w + d0;
-  const int nk = (int)((V + XK - 1) / XK);
-  stage_rows_k(es[0], eb, V, rows, V, 0);
-  stage_k_cols(ws[0], wb, D, 0, V, dcols);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    const int64_t k0 = (int64_t)kt * XK;
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < nk) {
-      stage_rows_k(es[s ^ 1], eb, V, rows, V, k0 + XK);
-      stage_k_cols(ws[s ^ 1], wb, D, k0 + XK, V, dcols);
-      cp_async_commit();
-    }
-    for (int i = threadIdx.x; i < XT * XK / 8; i += X_THREADS) {
-      const int r = i / (XK / 8), c8 = (i % (XK / 8)) * 8;
-      if (r < rows && k0 + c8 < V)
-        rebuild_g8(es[s] + r * AS + c8, t0 + r, k0 + c8, mrun, tgt, lse,
-                   dnll, T, V, chunk);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < XK / 16; ++kk) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* p = es[s] + (wm * 32 + mi * 16 + g) * AS + kk * 16 + c2;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * AS);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * AS + 8);
-      }
-      b_frags_kn(b, ws[s], kk, wn);
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        mma_bf16(acc[0][ni], a[0], b[ni][0], b[ni][1]);
-        mma_bf16(acc[1][ni], a[1], b[ni][0], b[ni][1]);
-      }
-    }
-  }
-  store_tile(dx + t0 * D + d0, D, rows, dcols, acc);
-}
-
-// ---------------------------------------------------------------------------
-// xent_dw_saved, bf16: dw (V, D) = g^T (V, T) x (T, D). Grid (D tiles,
-// vocab tiles): the D tiles of one vocab tile run together and share
-// their e stream through L2.
-
-__global__ void __launch_bounds__(X_THREADS)
-xent_dw_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
-             const bf16* __restrict__ x, const int* __restrict__ tgt,
-             const float* __restrict__ lse, const float* __restrict__ dnll,
-             bf16* __restrict__ dw, int64_t T, int64_t V, int64_t D,
-             int64_t chunk) {
-  __shared__ __align__(16) bf16 es[2][XK * BS];
-  __shared__ __align__(16) bf16 xs[2][XK * BS];
-  const int64_t d0 = (int64_t)blockIdx.x * XN, v0 = (int64_t)blockIdx.y * XT;
-  const int64_t vrows = V - v0 < XT ? V - v0 : XT;
-  const int64_t dcols = D - d0 < XN ? D - d0 : XN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int mat = lane >> 3, mr = lane & 7;
-
-  float acc[2][8][4];
-  zero_acc(acc);
-  const bf16* eb = e + v0;
-  const bf16* xb = x + d0;
-  const int nk = (int)((T + XK - 1) / XK);
-  stage_k_cols(es[0], eb, V, 0, T, vrows);
-  stage_k_cols(xs[0], xb, D, 0, T, dcols);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    const int64_t k0 = (int64_t)kt * XK;
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < nk) {
-      stage_k_cols(es[s ^ 1], eb, V, k0 + XK, T, vrows);
-      stage_k_cols(xs[s ^ 1], xb, D, k0 + XK, T, dcols);
-      cp_async_commit();
-    }
-    for (int i = threadIdx.x; i < XK * XT / 8; i += X_THREADS) {
-      const int r = i / (XT / 8), c8 = (i % (XT / 8)) * 8;
-      if (k0 + r < T && c8 < vrows)
-        rebuild_g8(es[s] + r * BS + c8, k0 + r, v0 + c8, mrun, tgt, lse,
-                   dnll, T, V, chunk);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < XK / 16; ++kk) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)  // g^T fragments: rows v, columns t
-        ldsm_x4_t(a[mi], es[s] + (kk * 16 + (mat >> 1) * 8 + mr) * BS +
-                             wm * 32 + mi * 16 + (mat & 1) * 8);
-      b_frags_kn(b, xs[s], kk, wn);
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        mma_bf16(acc[0][ni], a[0], b[ni][0], b[ni][1]);
-        mma_bf16(acc[1][ni], a[1], b[ni][0], b[ni][1]);
-      }
-    }
-  }
-  store_tile(dw + v0 * D + d0, D, vrows, dcols, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -1069,6 +931,339 @@ xent_recompute_bf16_tiled(const bf16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// The saved flavour of the fused backward (_dx_saved_kernel /
+// _dw_saved_kernel), bf16: out = g op with op = w (V, D) for dx (T, D)
+// and x (T, D) for dw (V, D), g = (e * exp2(m_i - lse*log2e) - onehot) *
+// dnll rebuilt from the saved exponentials e (T, V), 0 outside [0, T) x
+// [0, V), rounded to bf16 for the tensor cores; the contraction (the
+// vocabulary for dx, the tokens for dw) 64 a step. Bound: 2 T V D
+// operations each, 0.556 ms at the base shapes.
+//
+// - A CTA owns a 128 x 256 output tile (rows of out: tokens for dx,
+//   vocabulary for dw; a 256-column slice of D): two consumer warpgroups
+//   of 64 rows, each one m64n256k16 a k16 step; a producer warp keeps
+//   a 4-stage TMA ring full (e's 128 x 64 tile: one box of 128 tokens for
+//   dx, two boxes of 64 vocabulary columns for dw; op's 64 x 256 slice in
+//   four 64-column boxes; all in the 128-byte swizzle, zero past the
+//   tensors). g needs no logits, so no cluster and no exchange: the D
+//   slices of a row tile sit side by side in the grid and share e's
+//   stream through L2 (four at D 1024), e read from device memory once.
+// - g is formed in registers: each warp takes e's A fragments of a step
+//   by ldmatrix from the stage (plain for dx, whose A is g (t, v);
+//   .trans for dw, whose A is g^T (v, t)), rebuilds g pair by pair and
+//   feeds it to wgmma as its register operand (op by descriptor,
+//   MN-major through the transpose bit, as the recompute kernel's
+//   product). A stage's group runs under the next stage's rebuild: two
+//   fragment sets, one unconditional wait a group (for the group before),
+//   the stage before released then. An odd step count runs one step more
+//   past the contraction, zero-filled, with its factors 0.
+// - The per-token factors are hoisted: the producer warp writes each
+//   stage's A = exp2(m_i - lse*log2e) * dnll (dx: the tile's 128 tokens
+//   at the step's chunk of mrun; dw: the step's 64 tokens at the tile's
+//   chunk, whose 128 rows lie in one chunk) with the tokens' dnll and
+//   targets (dw) into the stage's slot, fetched a step ahead, and arrives
+//   on the stage's mbarrier after its writes. A consumer reads its
+//   factors from the slot (dx: its two rows', whose targets and dnll sit
+//   in registers): g = e * A - (v == target ? dnll : 0), a multiply an
+//   element, no global load and no exp2; the compares run only in the
+//   steps where a target falls (dx: a vote of the warp's rows; dw: the
+//   producer's flag for the tile's rows), a quarter of them at the base
+//   shapes, and the two paths give the same bits.
+constexpr int SV_ROWS = 128;     // output rows a CTA, two warpgroups
+constexpr int SV_DS = 256;       // columns of D a CTA
+constexpr int SV_KT = 64;        // the contraction a step
+constexpr int SV_NS = 4;         // ring stages
+constexpr int SV_THREADS = 384;  // two consumer warpgroups, a producer
+constexpr int SV_KBOX = SV_KT * 128;           // a 64-column box, 8 KB
+constexpr int SV_ETILE = SV_ROWS * SV_KT * 2;  // e's tile, 16 KB
+constexpr int SV_STAGE = SV_ETILE + SV_DS / 64 * SV_KBOX;  // and op's
+// a stage's slot: A, dnll, target (128 each; dw: target[SV_KT] flags a
+// step in which a token targets one of the tile's rows)
+constexpr int SV_TOK = 3 * SV_ROWS;
+constexpr size_t SV_SMEM = 1024 + SV_NS * SV_STAGE +
+                           SV_NS * SV_TOK * sizeof(float) +
+                           2 * SV_NS * sizeof(uint64_t);
+
+// One bf16 pair of g: e's pair u times a, less dn at the element whose
+// vocabulary index is the target's (hit0, hit1).
+__device__ __forceinline__ uint32_t g_pair(uint32_t u, float a0, float a1,
+                                           bool hit0, float dn0, bool hit1,
+                                           float dn1) {
+  float lo = __uint_as_float(u << 16) * a0;
+  float hi = __uint_as_float(u & 0xffff0000u) * a1;
+  if (hit0) lo -= dn0;
+  if (hit1) hi -= dn1;
+  return pack_bf16(lo, hi);
+}
+
+// dx: the A fragments of a step (g (t, v)) for the lane's rows ra and ra +
+// 8 of the tile; e's tile is 128 rows of 128 bytes. rel: target - v0 -
+// 2c of each row (negative when the row has none in the step).
+template <bool CHECK>
+__device__ __forceinline__ void sv_frags_dx(uint32_t (&a)[SV_KT / 16][4],
+                                            const unsigned char* es,
+                                            const float* tk, int rbase,
+                                            int ra, int rela, int relb,
+                                            float dna, float dnb) {
+  const int lane = threadIdx.x & 31;
+  const float aa = tk[ra], ab = tk[ra + 8];
+  const int row = rbase + (lane & 15);
+#pragma unroll
+  for (int cc = 0; cc < SV_KT / 16; ++cc) {
+    uint32_t r[4];
+    const int ch = 2 * cc + (lane >> 4);
+    ldsm_x4(r, reinterpret_cast<const bf16*>(es + row * 128 +
+                                             ((ch ^ (row & 7)) << 4)));
+    const int k0 = 16 * cc;
+    a[cc][0] = g_pair(r[0], aa, aa, CHECK && rela == k0, dna,
+                      CHECK && rela == k0 + 1, dna);
+    a[cc][1] = g_pair(r[1], ab, ab, CHECK && relb == k0, dnb,
+                      CHECK && relb == k0 + 1, dnb);
+    a[cc][2] = g_pair(r[2], aa, aa, CHECK && rela == k0 + 8, dna,
+                      CHECK && rela == k0 + 9, dna);
+    a[cc][3] = g_pair(r[3], ab, ab, CHECK && relb == k0 + 8, dnb,
+                      CHECK && relb == k0 + 9, dnb);
+  }
+}
+
+// dw: the A fragments of a step (g^T (v, t)) for the lane's rows ra and
+// ra + 8 of the tile; e's tile is two blocks (the warpgroups' 64
+// vocabulary columns) of 64 token rows of 128 bytes; the slot holds the
+// step's 64 tokens' A, dnll and target less the tile's first row.
+template <bool CHECK>
+__device__ __forceinline__ void sv_frags_dw(uint32_t (&a)[SV_KT / 16][4],
+                                            const unsigned char* es,
+                                            const float* tk, int wgi,
+                                            int warp, int ra) {
+  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int mat = lane >> 3, mr = lane & 7;
+  const unsigned char* blk = es + wgi * SV_KBOX;
+  const int* tt = reinterpret_cast<const int*>(tk + 2 * SV_ROWS);
+#pragma unroll
+  for (int cc = 0; cc < SV_KT / 16; ++cc) {
+    uint32_t r[4];
+    const int t = 16 * cc + (mat >> 1) * 8 + mr;
+    const int ch = 2 * warp + (mat & 1);
+    ldsm_x4_t(r, reinterpret_cast<const bf16*>(blk + t * 128 +
+                                               ((ch ^ (t & 7)) << 4)));
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int tl = 16 * cc + 8 * hf + 2 * c;
+      const float2 av = *reinterpret_cast<const float2*>(tk + tl);
+      float2 dv = make_float2(0.f, 0.f);
+      int2 tv = make_int2(-1, -1);
+      if (CHECK) {
+        dv = *reinterpret_cast<const float2*>(tk + SV_ROWS + tl);
+        tv = *reinterpret_cast<const int2*>(tt + tl);
+      }
+      a[cc][2 * hf] = g_pair(r[2 * hf], av.x, av.y, CHECK && tv.x == ra,
+                             dv.x, CHECK && tv.y == ra, dv.y);
+      a[cc][2 * hf + 1] = g_pair(r[2 * hf + 1], av.x, av.y,
+                                 CHECK && tv.x == ra + 8, dv.x,
+                                 CHECK && tv.y == ra + 8, dv.y);
+    }
+  }
+}
+
+template <bool DX>
+__device__ __forceinline__ void saved_body(
+    unsigned char* smem, const CUtensorMap* te, const CUtensorMap* top,
+    const float* __restrict__ mrun, const int* __restrict__ tgt,
+    const float* __restrict__ lse, const float* __restrict__ dnll,
+    bf16* __restrict__ out, int64_t T, int64_t V, int64_t D, int64_t chunk) {
+  unsigned char* ring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  float* tok = reinterpret_cast<float*>(ring + SV_NS * SV_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tok + SV_NS * SV_TOK);
+  uint64_t* empty = full + SV_NS;
+  const int64_t nrow_all = DX ? T : V, nk_all = DX ? V : T;
+  const int64_t r0 = (int64_t)blockIdx.y * SV_ROWS;
+  const int d0 = blockIdx.x * SV_DS;
+  const int nk = (int)((nk_all + SV_KT - 1) / SV_KT);
+  const int nk2 = (nk + 1) & ~1;  // even: the two fragment sets
+  const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SV_NS; ++i) {
+      mbar_init(full + i, 1 + 32);  // the TMA's expect_tx, the warp's 32
+      mbar_init(empty + i, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // the producer warp: stage i % SV_NS takes step i (its tiles by TMA,
+    // its factors by the warp) once the consumers released step i - SV_NS
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 2 * 128 + 32) return;
+    constexpr int Q = DX ? SV_ROWS / 32 : SV_KT / 32;  // tokens a lane
+    float pm[Q], pl[Q], pd[Q];
+    int pt[Q];
+    // dx: the tile's rows, fixed (their lse in base 2); dw: the step's
+    // tokens, fetched with m_i
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      pl[q] = pd[q] = 0.f;
+      pt[q] = -1;
+      if (DX && r0 + lane + 32 * q < T) {
+        pl[q] = lse[r0 + lane + 32 * q] * LOG2E;
+        pd[q] = dnll[r0 + lane + 32 * q];
+      }
+    }
+    auto fetch = [&](int i) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int64_t t = DX ? r0 + lane + 32 * q
+                             : (int64_t)i * SV_KT + lane + 32 * q;
+        const int64_t c = DX ? (int64_t)i * SV_KT / chunk : r0 / chunk;
+        const bool ok = t < T && i < nk;
+        pm[q] = ok ? mrun[c * T + t] : 0.f;
+        if (!DX) {
+          pl[q] = ok ? lse[t] * LOG2E : 0.f;
+          pd[q] = ok ? dnll[t] : 0.f;
+          pt[q] = ok ? (int)(tgt[t] - r0) : -1;
+        }
+      }
+    };
+    fetch(0);
+    for (int i = 0; i < nk2; ++i) {
+      const int st = i % SV_NS;
+      if (i >= SV_NS) mbar_wait(empty + st, (i / SV_NS - 1) & 1);
+      unsigned char* es = ring + st * SV_STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(full + st, SV_STAGE);
+        if (DX) {
+          tma_box2(es, te, i * SV_KT, (int)r0, full + st);
+        } else {
+          tma_box2(es, te, (int)r0, i * SV_KT, full + st);
+          tma_box2(es + SV_KBOX, te, (int)r0 + 64, i * SV_KT, full + st);
+        }
+        for (int j = 0; j < SV_DS / 64; ++j)
+          tma_box2(es + SV_ETILE + j * SV_KBOX, top, d0 + 64 * j,
+                   i * SV_KT, full + st);
+      }
+      float* tk = tok + st * SV_TOK;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int j = lane + 32 * q;
+        // 0 past T and at the step past the contraction
+        tk[j] = i < nk ? exp2f(pm[q] - pl[q]) * pd[q] : 0.f;
+        if (!DX) {
+          tk[SV_ROWS + j] = pd[q];
+          reinterpret_cast<int*>(tk + 2 * SV_ROWS)[j] = pt[q];
+        }
+      }
+      if (!DX) {
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          any |= (unsigned)pt[q] < (unsigned)SV_ROWS;
+        any = __any_sync(0xffffffffu, any);
+        if (lane == 0)
+          reinterpret_cast<int*>(tk + 2 * SV_ROWS)[SV_KT] = any;
+      }
+      if (i + 1 < nk2) fetch(i + 1);  // in flight through the next wait
+      mbar_arrive(full + st);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, c = lane & 3;
+  const int ra = wgi * 64 + warp * 16 + g;  // and ra + 8, of the tile
+  int tga = -1, tgb = -1;  // dx: the rows' targets and dnll
+  float dna = 0.f, dnb = 0.f;
+  if (DX) {
+    if (r0 + ra < T) {
+      tga = tgt[r0 + ra];
+      dna = dnll[r0 + ra];
+    }
+    if (r0 + ra + 8 < T) {
+      tgb = tgt[r0 + ra + 8];
+      dnb = dnll[r0 + ra + 8];
+    }
+  }
+  float o[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) o[j] = 0.f;
+  uint32_t a0[SV_KT / 16][4], a1[SV_KT / 16][4];
+  auto stage = [&](int i, uint32_t (&a)[SV_KT / 16][4]) {
+    const int st = i % SV_NS;
+    mbar_wait(full + st, (i / SV_NS) & 1);
+    const unsigned char* es = ring + st * SV_STAGE;
+    const float* tk = tok + st * SV_TOK;
+    if (DX) {
+      const int v0 = i * SV_KT;
+      const bool hit = __any_sync(
+          0xffffffffu, (unsigned)(tga - v0) < (unsigned)SV_KT ||
+                           (unsigned)(tgb - v0) < (unsigned)SV_KT);
+      if (hit)
+        sv_frags_dx<true>(a, es, tk, wgi * 64 + warp * 16, ra,
+                          tga - v0 - 2 * c, tgb - v0 - 2 * c, dna, dnb);
+      else
+        sv_frags_dx<false>(a, es, tk, wgi * 64 + warp * 16, ra, 0, 0, 0.f,
+                           0.f);
+    } else {
+      if (reinterpret_cast<const int*>(tk + 2 * SV_ROWS)[SV_KT])
+        sv_frags_dw<true>(a, es, tk, wgi, warp, ra);
+      else
+        sv_frags_dw<false>(a, es, tk, wgi, warp, ra);
+    }
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < SV_KT / 16; ++cc)
+      wgmma_rs<256, 1>(o, a[cc],
+                       gmma_desc_sw(es + SV_ETILE + cc * 16 * 128, SV_KBOX,
+                                    8 * 128, 1),
+                       1);
+    wg_commit();
+    wg_wait<1>();
+    if (i > 0) mbar_arrive(empty + (i - 1) % SV_NS);
+  };
+  for (int i = 0; i < nk2; i += 2) {
+    stage(i, a0);
+    stage(i + 1, a1);
+  }
+  wg_wait<0>();
+  fence_regs(o);
+
+  // rows r0 + ra (+8), columns d0 + 8j + 2c (+1)
+#pragma unroll
+  for (int j = 0; j < SV_DS / 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int64_t rr = r0 + ra + hf * 8;
+      const int64_t col = d0 + 8 * j + 2 * c;
+      if (rr < nrow_all && col < D)
+        *reinterpret_cast<uint32_t*>(out + rr * D + col) =
+            pack_bf16(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
+    }
+}
+
+__global__ void __launch_bounds__(SV_THREADS, 1)
+xent_dx_bf16(const __grid_constant__ CUtensorMap te,
+             const __grid_constant__ CUtensorMap tw,
+             const float* __restrict__ mrun, const int* __restrict__ tgt,
+             const float* __restrict__ lse, const float* __restrict__ dnll,
+             bf16* __restrict__ dx, int64_t T, int64_t V, int64_t D,
+             int64_t chunk) {
+  extern __shared__ __align__(1024) unsigned char sv_smem[];
+  saved_body<true>(sv_smem, &te, &tw, mrun, tgt, lse, dnll, dx, T, V, D,
+                   chunk);
+}
+
+__global__ void __launch_bounds__(SV_THREADS, 1)
+xent_dw_bf16(const __grid_constant__ CUtensorMap te,
+             const __grid_constant__ CUtensorMap tx,
+             const float* __restrict__ mrun, const int* __restrict__ tgt,
+             const float* __restrict__ lse, const float* __restrict__ dnll,
+             bf16* __restrict__ dw, int64_t T, int64_t V, int64_t D,
+             int64_t chunk) {
+  extern __shared__ __align__(1024) unsigned char sv_smem[];
+  saved_body<false>(sv_smem, &te, &tx, mrun, tgt, lse, dnll, dw, T, V, D,
+                    chunk);
+}
+
+// ---------------------------------------------------------------------------
 // float32 forms with plain FMA (the card's float32 checks). 64 x 64 tiles;
 // thread (ty = tid/16, tx = tid%16) owns rows ty + 16i and columns
 // tx + 16j, so a row's 16 threads are one half-warp.
@@ -1376,19 +1571,8 @@ inline unsigned tiles(int64_t n, int t) { return (unsigned)((n + t - 1) / t); }
 // rows and columns past the tensor's read as zeros.
 int rows_map(CUtensorMap* map, const void* p, int64_t rows, int64_t cols,
              int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)RC_SW / 2, (cuuint32_t)box_rows};
-  const cuuint32_t estride[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(p), dims, strides, box, estride,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, rows, cols,
+                    RC_SW / 2, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The cluster size of the recompute kernel at width D: D / 256 CTAs
@@ -1398,6 +1582,32 @@ int recompute_cluster(int64_t D) {
   int c = 1;
   while ((int64_t)c * RC_DS < D) c *= 2;
   return c <= RC_CMAX ? c : 0;
+}
+
+// The saved flavour's launch: e's map (boxes of 128 token rows for dx,
+// 64 for dw) and op's (64 rows), a CTA a 128-row tile and a 256-column
+// slice of D, the slices of a row tile side by side.
+int launch_saved_bf16(int dx_side, const void* e, const float* mrun,
+                      const void* op, const int* tgt, const float* lse,
+                      const float* dnll, void* out, int64_t T, int64_t V,
+                      int64_t D, int64_t chunk, cudaStream_t st) {
+  const int64_t rows = dx_side ? T : V;
+  if (T < 1 || V < 1 || D < 1 || chunk < 1 || chunk % SV_ROWS ||
+      tiles(rows, SV_ROWS) > 65535 || T > INT32_MAX || V > INT32_MAX ||
+      D > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap te, top;
+  int err = rows_map(&te, e, T, V, dx_side ? SV_ROWS : SV_KT);
+  if (!err) err = rows_map(&top, op, dx_side ? V : T, D, SV_KT);
+  if (err) return err;
+  auto kernel = dx_side ? xent_dx_bf16 : xent_dw_bf16;
+  const cudaError_t ce = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SV_SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  kernel<<<dim3(tiles(D, SV_DS), tiles(rows, SV_ROWS)), SV_THREADS, SV_SMEM,
+           st>>>(te, top, mrun, tgt, lse, dnll, static_cast<bf16*>(out), T,
+                 V, D, chunk);
+  return (int)cudaGetLastError();
 }
 
 int launch_recompute_bf16(int dx_side, const void* x, const void* w,
@@ -1478,17 +1688,17 @@ int icikit_xent_fwd(int dtype, const void* x, const void* w, const int* tgt,
 }
 
 // e (T, V) and w (V, D) in dtype, mrun (V / chunk, T), tgt, lse, dnll (T,)
-// -> dx (T, D) in dtype.
+// -> dx (T, D) in dtype. bf16: chunk a multiple of 128 (a 128-row tile of
+// dw lies in one chunk).
 int icikit_xent_dx(int dtype, const void* e, const float* mrun, const void* w,
                    const int* tgt, const float* lse, const float* dnll,
                    void* dx, int64_t T, int64_t V, int64_t D, int64_t chunk,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    xent_dx_bf16<<<dim3(tiles(D, XN), tiles(T, XT)), X_THREADS, 0, st>>>(
-        static_cast<const bf16*>(e), mrun, static_cast<const bf16*>(w), tgt,
-        lse, dnll, static_cast<bf16*>(dx), T, V, D, chunk);
-  } else if (dtype == 0) {
+  if (dtype == 1)
+    return launch_saved_bf16(1, e, mrun, w, tgt, lse, dnll, dx, T, V, D,
+                             chunk, st);
+  if (dtype == 0) {
     xent_dx_f32<<<dim3(tiles(D, FT), tiles(T, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(e), mrun, static_cast<const float*>(w), tgt,
         lse, dnll, static_cast<float*>(dx), T, V, D, chunk);
@@ -1505,11 +1715,10 @@ int icikit_xent_dw(int dtype, const void* e, const float* mrun, const void* x,
                    void* dw, int64_t T, int64_t V, int64_t D, int64_t chunk,
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    xent_dw_bf16<<<dim3(tiles(D, XN), tiles(V, XT)), X_THREADS, 0, st>>>(
-        static_cast<const bf16*>(e), mrun, static_cast<const bf16*>(x), tgt,
-        lse, dnll, static_cast<bf16*>(dw), T, V, D, chunk);
-  } else if (dtype == 0) {
+  if (dtype == 1)
+    return launch_saved_bf16(0, e, mrun, x, tgt, lse, dnll, dw, T, V, D,
+                             chunk, st);
+  if (dtype == 0) {
     xent_dw_f32<<<dim3(tiles(D, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(e), mrun, static_cast<const float*>(x), tgt,
         lse, dnll, static_cast<float*>(dw), T, V, D, chunk);

@@ -31,6 +31,11 @@ SKINNY_CHUNK = 64
 SKINNY_WARPS = 8
 SKINNY_CPW_MAX = 8
 SKINNY_CPW_MAX_NT2 = 4
+# The bf16 kernel past SKINNY_ROWS (the prefill): a CTA a tile of
+# TILE_CHANNELS output channels (two wgmma warpgroups of 64) by 256 rows
+# of x, K through a TMA ring. N must be a multiple of TILE_CHANNELS
+# there, as JAX's gate asks (N tileable by 128).
+TILE_CHANNELS = 128
 
 
 def reset_launches() -> None:
@@ -64,14 +69,16 @@ def quant_matvec(x: torch.Tensor, w8: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """``(x @ w8^T) * scale`` ``(rows, N)`` float32 from x ``(rows, K)``
     float32 or bf16, w8 ``(N, K)`` int8 and scale ``(N,)`` float32;
-    K a multiple of 128 and N of 64 on a CUDA tensor.
+    K a multiple of 128 and N of 64 on a CUDA tensor (of 128 at bf16 and
+    rows > 16).
 
     The kernel replaces ``icikit/ops/quant.py``'s ``_matvec_kernel``
     (B15, pallas_call at :167). Bound: the weight bytes at the decode
     step's 8 rows, the products at the prefill's 4096. At bf16 and
     rows <= 16 K is split across CTAs only past what one holds
     (:func:`skinny_splits`), the partials added in a fixed order in the
-    same launch. It
+    same launch; past 16 rows a CTA takes a TILE_CHANNELS x 256-row
+    tile on wgmma, the weights widened in registers. It
     sums in another order than the plain version (bf16 products are
     exact on the tensor cores, float32 ones are FMAs), so the two agree
     to a tolerance, not bit for bit. CPU tensors take
@@ -94,6 +101,11 @@ def quant_matvec(x: torch.Tensor, w8: torch.Tensor,
     if k % 128 or n % 64:
         raise ValueError(f"quant_matvec: k={k} must be a multiple of 128 "
                          f"and n={n} of 64")
+    if x.dtype == torch.bfloat16 and rows > SKINNY_ROWS \
+            and n % TILE_CHANNELS:
+        raise ValueError(f"quant_matvec: the bf16 tile kernel (rows > "
+                         f"{SKINNY_ROWS}) takes n a multiple of "
+                         f"{TILE_CHANNELS}, got n={n}")
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     ws = counter = None
     splits = 1

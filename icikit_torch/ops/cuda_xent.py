@@ -252,7 +252,9 @@ def xent_dx_saved(e, mrun, w, targets, lse, dnll) -> torch.Tensor:
     """dx ``(T, D)`` = g w, g = (e exp2(m_i - lse log2(e)) - onehot) dnll
     rebuilt from the forward's residual. The kernel replaces
     ``icikit/ops/xent.py``'s ``_dx_saved_kernel`` (B10, pallas_call at
-    :374). Bound: 2 T V D operations. CPU tensors take
+    :374). Bound: 2 T V D operations. In bf16 a CTA holds a 128 x 256
+    tile of dx on wgmma, g rebuilt in registers from e's tiles, which a
+    TMA ring brings with w's. CPU tensors take
     :func:`xent_dx_saved_plain`."""
     return _backward("dx", e, mrun, w, targets, lse, dnll)
 

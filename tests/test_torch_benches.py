@@ -548,3 +548,77 @@ def test_quant_ab_shapes_bounds_and_verdict(monkeypatch):
         assert quant_ab.main(argv) == (0 if ok else 1)
         assert quant_ab.main([*argv, "--timing-only"]) == 0
         assert seen == [(src, src, tuple(quant_ab.SHAPES))] * 2
+
+
+def test_quant_ab_prefill_shapes_and_bounds(monkeypatch):
+    """``--rows 4096`` times the prefill's tile kernel at the four
+    products a layer (wqkv, wo, w1, w2; 48 launches a generate), each
+    bound by its products at 4096 rows (wqkv 26.1 us, wo 8.7, w1 and w2
+    34.7; 0.104 ms a layer), not by its bytes; the rows and the shapes
+    are checked before a card is asked for, and the run goes to the
+    prefill's run with the prefill's shapes."""
+    import torch
+
+    from icikit_torch.bench import quant_ab
+
+    assert quant_ab.PREFILL_ROWS == 4096
+    assert quant_ab.PREFILL_SHAPES == ("wqkv", "wo", "w1", "w2")
+    assert quant_ab.LAYERS * len(quant_ab.PREFILL_SHAPES) == 48
+    want = {"wqkv": 0.026056, "wo": 0.0086855, "w1": 0.034742,
+            "w2": 0.034742}
+    for tag, ms in want.items():
+        got, by = quant_ab.bound_ms(*quant_ab.SHAPES[tag], 4096)
+        assert by == "operations" and got == pytest.approx(ms, rel=1e-3), tag
+    assert quant_ab.layer_ms(
+        {s: quant_ab.bound_ms(*quant_ab.SHAPES[s], 4096)[0]
+         for s in quant_ab.PREFILL_SHAPES}) == pytest.approx(0.10423,
+                                                            rel=1e-3)
+    src = os.path.join(ROOT, "icikit_torch", "csrc", "quant.cu")
+    for argv in (["--rows", "300"], ["--rows", "4096", "--shapes", "w_out"],
+                 ["--rows", "4096", "--shapes", "w1,w3"]):
+        with pytest.raises(SystemExit):
+            quant_ab.main(["--a", src, "--b", src, *argv])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        quant_ab.main(["--a", src, "--b", src, "--rows", "4096"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    monkeypatch.setattr(quant_ab, "run_prefill",
+                        lambda *a: seen.append(a) or False)
+    monkeypatch.setattr(quant_ab, "run", lambda *a: pytest.fail("skinny"))
+    argv = ["--a", src, "--b", src, "--rows", "4096"]
+    assert quant_ab.main(argv) == 1
+    assert quant_ab.main([*argv, "--shapes", "w1", "--timing-only"]) == 0
+    assert seen == [(src, src, quant_ab.PREFILL_SHAPES), (src, src, ("w1",))]
+
+
+def test_xent_ab_saved_bound_and_dispatch(monkeypatch):
+    """``--flavour saved`` times the saved head's dx and dw: their bound
+    is the contraction, 2 T V D operations, 0.556 ms at the base head at
+    989 TFLOP/s (e, mrun, the operand and the output, ~630 MB, take 0.19
+    ms); an unknown flavour is refused, no card exits before a build,
+    and the run goes to the saved flavour's function."""
+    import torch
+
+    from icikit_torch.bench import xent_ab
+
+    assert xent_ab.FLAVOURS == ("recompute", "saved")
+    for which in ("dx", "dw"):
+        ms, by = xent_ab.saved_bound_ms(which, 8192, 1024, 32768)
+        assert by == "operations" and ms == pytest.approx(0.55587, rel=1e-4)
+    ms, by = xent_ab.saved_bound_ms("dw", 8, 4096, 16)
+    assert by == "bytes"
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    with pytest.raises(SystemExit):
+        xent_ab.main(["--a", csrc, "--b", csrc, "--flavour", "both"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        xent_ab.main(["--a", csrc, "--b", csrc, "--flavour", "saved"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    monkeypatch.setattr(xent_ab, "run_saved",
+                        lambda *a: seen.append(a) or True)
+    monkeypatch.setattr(xent_ab, "run", lambda *a: pytest.fail("recompute"))
+    assert xent_ab.main(["--a", csrc, "--b", csrc, "--flavour",
+                         "saved"]) == 0
+    assert seen == [(csrc, csrc)]

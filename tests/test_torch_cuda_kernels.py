@@ -607,6 +607,38 @@ def test_xent_recompute_bf16_cluster_matches_plain(t, d, v, no_tf32):
                       cx.xent_dw_plain(x, w, tg, lse, dn)), 2e-2)
 
 
+# The saved flavour's bf16 kernels (B10 saved: a 128 x 256 tile a CTA on
+# wgmma, g rebuilt in registers from e, 64-wide steps of the contraction)
+# at shapes off every tile of theirs: T and V off the 128-row tile and the
+# 64-wide step (an odd step count included), D off the 256-column slices
+# (136, 520, 1032), D 2176 and 4096, and the base step's head; bf16 2e-2
+# of the largest entry (g is rounded to bf16 for the tensor cores, the
+# plain versions contract it in float32); the same bits from call to call.
+@pytest.mark.parametrize("t,d,v", [(300, 136, 1000), (200, 520, 264),
+                                   (1000, 1032, 4104), (130, 2176, 200),
+                                   (256, 4096, 520), (8192, 1024, 32768)])
+def test_xent_saved_bf16_matches_plain(t, d, v, no_tf32):
+    gen = no_tf32
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda") / t
+    lse, _, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+    chunk = cx.TILE[torch.bfloat16]
+    cx.reset_launches()
+    got = (cx.xent_dx_saved(e, mrun, w, tg, lse, dn),
+           cx.xent_dw_saved(e, mrun, x, tg, lse, dn))
+    assert cx.LAUNCHES["xent_dx_saved"] == cx.LAUNCHES["xent_dw_saved"] == 1
+    assert [g.shape for g in got] == [(t, d), (v, d)]
+    _grad_close(got, (cx.xent_dx_saved_plain(e, mrun, w, tg, lse, dn, chunk),
+                      cx.xent_dw_saved_plain(e, mrun, x, tg, lse, dn, chunk)),
+                2e-2)
+    assert torch.equal(cx.xent_dx_saved(e, mrun, w, tg, lse, dn), got[0])
+    assert torch.equal(cx.xent_dw_saved(e, mrun, x, tg, lse, dn), got[1])
+
+
 # Past D 2048 (one cluster of 8 CTAs, 256 columns each) the bf16
 # recompute kernels take 128 x 128 tiles that each form the logits, at
 # the same tolerance; the fused head's recompute flavour keeps its route
@@ -902,6 +934,56 @@ def test_quant_matvec_gate_and_qmm_routes(gen):
     assert cq.LAUNCHES["quant_matvec"] == 1
     torch.testing.assert_close(a, b, rtol=0,
                                atol=1e-4 * float(b.abs().max()))
+
+
+# The prefill's products (N, K) at base, and N 384 (three 128-channel
+# tiles, not a multiple of 256), at rows on and off the tile kernel's
+# 256-row tile: 17 (one short tile), 300, 4095 (the last tile cut short
+# by one) and 4096.
+Q8_PREFILL_SHAPES = [(3072, 1024), (1024, 1024), (4096, 1024), (1024, 4096),
+                     (384, 1024)]
+
+
+@pytest.mark.parametrize("rows", [17, 300, 4095, 4096])
+@pytest.mark.parametrize("n,k", Q8_PREFILL_SHAPES)
+def test_quant_matvec_tile_at_the_prefill_shapes(rows, n, k, no_tf32):
+    """The tile kernel (bf16, rows > 16: wgmma, the int8 widened in
+    registers, a TMA ring): within 1e-4 of the largest plain entry, the
+    same bits from call to call."""
+    gen = no_tf32
+    x = _randn((rows, k), torch.bfloat16, gen)
+    w8 = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((n,), generator=gen, device="cuda") / 127
+    cq.reset_launches()
+    got = cq.quant_matvec(x, w8, sc)
+    assert cq.LAUNCHES["quant_matvec"] == 1 and got.shape == (rows, n)
+    want = cq.quant_matvec_plain(x, w8, sc)
+    torch.testing.assert_close(got, want, rtol=0, atol=QMV_TOL[torch.bfloat16]
+                               * float(want.abs().max()))
+    for _ in range(2):
+        assert torch.equal(cq.quant_matvec(x, w8, sc), got)
+
+
+def test_quant_matvec_tile_refuses_n_off_its_channel_tile(gen):
+    """At bf16 and rows > 16 the wrapper refuses an N that is not a
+    multiple of the tile's 128 channels, by name and before any launch
+    (JAX's gate never sends one); the skinny kernel (rows <= 16) and the
+    float32 kernel still take N a multiple of 64."""
+    x = _randn((32, 128), torch.bfloat16, gen)
+    w8 = torch.randint(-127, 128, (192, 128), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((192,), generator=gen, device="cuda") / 127
+    cq.reset_launches()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cq.quant_matvec(x, w8, sc)
+    assert cq.LAUNCHES["quant_matvec"] == 0
+    for xi in (x[:16].contiguous(), x.float()):
+        want = cq.quant_matvec_plain(xi, w8, sc)
+        torch.testing.assert_close(cq.quant_matvec(xi, w8, sc), want,
+                                   rtol=0, atol=QMV_TOL[xi.dtype] * float(
+                                       want.abs().max()))
+    assert cq.LAUNCHES["quant_matvec"] == 2
 
 
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
