@@ -251,6 +251,10 @@ FLASH_TOL = {"bf16": {"out": 2e-2, "lse": 1e-3, "grad": 2e-2,
                      "grad_hot": 1e-3}}
 XENT_TOL = {"bf16": {"lse": 1e-3, "grad": 2e-2},
             "f32": {"lse": 1e-4, "grad": 1e-4}}
+# B9's and B11's nearest yardstick (phases 12 and 14): no PyTorch call
+# forms the logits' lse or g; cuBLAS forms the same product
+XW_YARDSTICK = ("cuBLAS x @ w.T, bf16 out: the same logits product (and "
+                "the (T, V) bytes of e and g), not the same function")
 # Phase 13: a config whose bf16 head the gate sends to the unfused path
 # (V not a multiple of 8) at d_model 128
 RAGGED_CFG = dict(vocab=61, d_model=128, n_heads=4, d_head=32, d_ff=512,
@@ -305,7 +309,8 @@ NO_LOCAL_MEMORY = SORT_KERNELS + (
     "xent_recompute_bf16_tiled<dx>", "xent_recompute_bf16_tiled<dw>",
     "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>",
     "decode_step_kernel<bf16>", "decode_step_kernel<float>",
-    "qmv_bf16_tile", "xent_dx_bf16", "xent_dw_bf16") + tuple(
+    "qmv_bf16_tile", "xent_dx_bf16", "xent_dw_bf16", "xent_fwd_bf16",
+    "xent_g_bf16", "xent_merge") + tuple(
     f"qmv_bf16_skinny<{cpw}, 1>" for cpw in (1, 2, 4, 8)) + tuple(
     f"qmv_bf16_skinny<{cpw}, 2>" for cpw in (1, 2, 4))
 # Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
@@ -896,10 +901,11 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
     and float32 held against the plain arms and the default arm (the Adam
     kernel's arm by its parameters after one step); the b = 8 bf16 step
     with its launches counted on the second step; step ms, tokens/s and
-    mfu by median-of-windows. With ``smi`` (the main paths of phases 11
-    and 23) also the bf16 first-step loss, the loss falling over 5 steps,
-    a profiler trace and the lines ``{phase}_check`` and
-    ``{phase}_timing``. Returns the arm's record, ``ok`` in it."""
+    mfu by median-of-windows; a profiler trace of one step (its kernels'
+    device time by name, the idle share). With ``smi`` (the main paths
+    of phases 11 and 23) also the bf16 first-step loss, the loss falling
+    over 5 steps and the lines ``{phase}_check`` and ``{phase}_timing``.
+    Returns the arm's record, ``ok`` in it."""
     import numpy as np
 
     from icikit_torch.models.transformer import (FusedAdam,
@@ -1021,8 +1027,8 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
            "windows": res.windows, "suspect": res.suspect,
            "tokens_per_s": TRAIN_BATCH * seq / step_s,
            "mfu": flops / step_s / peak if peak else None, "ok": ok}
+    rec["profile"] = device_activity(lambda: step(p, st, tok, tgt))
     if smi is not None:
-        rec["profile"] = device_activity(lambda: step(p, st, tok, tgt))
         emit({"phase": f"{phase}_timing", "card": smi, "arm": arm,
               **{k: rec[k] for k in ("step_ms", "step_ms_spread", "windows",
                                      "suspect", "tokens_per_s")},
@@ -1136,7 +1142,9 @@ def train_rows(torch, dev, bw, launches) -> list:
                  "replaces": "icikit/ops/xent.py:283 (B9)",
                  "launches": launches["xent_fwd"], "max_abs_err": fx_err,
                  "ms": fx_ms, "plain_ms": fx_plain, "bound_ms": fx_bound,
-                 "bound_by": fx_by, "library_ms": None})
+                 "bound_by": fx_by, "library_ms": None,
+                 "nearest_yardstick_ms": mm_ms,
+                 "nearest_yardstick": XW_YARDSTICK})
     # the nearest yardstick of dx and dw (not the same function): cuBLAS's
     # product of the same shape on a materialized bf16 g
     g = cx.xent_g_saved_plain(e, mrun, tg, lse, dn, chunk)
@@ -1440,6 +1448,7 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
          lambda: cx.xent_g_saved(e, mrun, tg, lse, dn),
          lambda: cx.xent_g_saved_plain(e, mrun, tg, lse, dn, chunk),
          bound(2 * t * v * 2 + nc * t * 4 + rows_io, 0)))
+    mm_ms = cuda_time_ms(lambda: torch.matmul(x, w.t()), iters=5)
     for key, name, replaces, arm, kern, plain, (b_ms, b_by) in specs:
         k_ms = cuda_time_ms(kern, iters=5, warmup=1)
         p_ms = cuda_time_ms(plain, iters=2, warmup=1)
@@ -1450,7 +1459,9 @@ def train_arms(torch, dev, bw, smi, cell) -> list:
             "max_abs_err": _rel(kern(), plain()), "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
-    mm_ms = cuda_time_ms(lambda: torch.matmul(x, w.t()), iters=5)
+        if key == "xent_g":
+            kernel_rows[-1].update(nearest_yardstick_ms=mm_ms,
+                                   nearest_yardstick=XW_YARDSTICK)
     del x, w, e, mrun
     torch.cuda.empty_cache()
 
@@ -2638,7 +2649,7 @@ def main() -> int:
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
               "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
               "xent_recompute_bf16_tiled<dx>",
-              "xent_recompute_bf16_tiled<dw>")),
+              "xent_recompute_bf16_tiled<dw>", "xent_merge")),
             ("adam", "icikit_adam_regs",
              ("adam_tree_kernel<f32 moments>",
               "adam_tree_kernel<bf16 moments>",

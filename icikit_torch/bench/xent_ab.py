@@ -32,6 +32,21 @@ mrun, w or x, the token vectors and the output once at 3.35 TB/s: the
 larger, 0.556 ms) and, as the nearest yardstick (not the same
 function), cuBLAS's product of the same shape on a materialized bf16 g:
 ``g @ w`` for dx, ``g.T @ x`` for dw.
+
+With ``--flavour fwd`` it times the head's forward (B9, ``xent_fwd_bf16``)
+with ``save`` on and off, and with ``--flavour g`` the matmul backward's
+recomputed g (B11, ``xent_g_bf16``, lse from the plain forward), each A,
+B, B, A at the same shape through the C entries ``icikit_xent_fwd`` and
+``icikit_xent_g``. B is held to A and to the plain versions: lse and the
+target logit within ``LSE_TOL`` (1e-3, phase 12's XENT_TOL), e, mrun and
+g within ``TOL`` of the largest entry; a second call of B must give the
+same bits. Beside each: the bound (2 T V D operations at 989 TFLOP/s
+against x, w, the token vectors and the outputs, e and mrun with save,
+once at 3.35 TB/s: the larger, 0.556 ms) and, as the nearest yardstick
+(not the same function), cuBLAS's ``x @ w.T`` with a bf16 output: the
+same product, writing the (T, V) bytes that g and e take.
+
+    python -m icikit_torch.bench.xent_ab --a OLD --b icikit_torch/csrc --flavour g
 """
 
 from __future__ import annotations
@@ -50,8 +65,9 @@ BF16_TENSOR_OPS = 989e12   # dense bf16, the same
 SHAPE = (8192, 1024, 32768)   # (T, D, V) of the base step's head
 KERNELS = ("dx", "dw")
 TOL = 2e-2                 # chip_smoke.py's XENT_TOL["bf16"]["grad"]
+LSE_TOL = 1e-3             # chip_smoke.py's XENT_TOL["bf16"]["lse"]
 ITERS = 5
-FLAVOURS = ("recompute", "saved")
+FLAVOURS = ("recompute", "saved", "fwd", "g")
 CHUNK = 128                # mrun's chunk in bf16 (cuda_xent.TILE)
 
 
@@ -76,6 +92,27 @@ def saved_bound_ms(which: str, t: int, d: int, v: int) -> tuple:
     other_rows = v if which == "dx" else t
     nbytes = (t * v + other_rows * d + out_rows * d) * 2 \
         + -(-v // CHUNK) * t * 4 + 3 * t * 4
+    t_b, t_o = nbytes / MEM_BPS, 2 * t * v * d / BF16_TENSOR_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def fwd_bound_ms(save: bool, t: int, d: int, v: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time for the forward at
+    (T, D, V) in bf16: x and w read, the targets read, lse and the target
+    logit written, with ``save`` also e (T, V) and mrun (V / 128, T)
+    written, against the logits' 2 T V D operations."""
+    nbytes = (t * d + v * d) * 2 + 3 * t * 4
+    if save:
+        nbytes += t * v * 2 + -(-v // CHUNK) * t * 4
+    t_b, t_o = nbytes / MEM_BPS, 2 * t * v * d / BF16_TENSOR_OPS
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def g_bound_ms(t: int, d: int, v: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time for the recomputed
+    g at (T, D, V) in bf16: x and w read, targets, lse and dnll read, g
+    (T, V) written, against the logits' 2 T V D operations."""
+    nbytes = (t * d + v * d + t * v) * 2 + 3 * t * 4
     t_b, t_o = nbytes / MEM_BPS, 2 * t * v * d / BF16_TENSOR_OPS
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -249,13 +286,164 @@ def run_saved(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 14) -> bool:
     return ok
 
 
+def _head_inputs(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t, d, v = shape
+    bf = torch.bfloat16
+    x = torch.randn((t, d), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(bf)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    return x, w, tg
+
+
+def fwd_call(lib, x, w, tg, save: bool, outs):
+    """One library's forward into ``outs`` (lse, tgt, e, mrun, lpart,
+    tpart, counter), a no-argument call; the kernel leaves its counter at
+    zero for the next call."""
+    t, d = x.shape
+    v = w.shape[0]
+    lse, tgt, e, mrun, lpart, tpart, counter = outs
+    st = torch.cuda.current_stream().cuda_stream
+    args = [1, x.data_ptr(), w.data_ptr(), tg.data_ptr(), e.data_ptr(),
+            mrun.data_ptr(), lpart.data_ptr(), tpart.data_ptr(),
+            counter.data_ptr(), lse.data_ptr(), tgt.data_ptr(), t, v, d,
+            int(save), st]
+    return lambda: _build.check(lib.icikit_xent_fwd(*args), "xent_fwd")
+
+
+def _fwd_outs(t, v):
+    nc = -(-v // CHUNK)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return [torch.empty((t,), **f32), torch.empty((t,), **f32),
+            torch.empty((t, v), dtype=torch.bfloat16, device="cuda"),
+            *(torch.empty((nc, t), **f32) for _ in range(3)),
+            torch.zeros((-(-t // CHUNK),), dtype=torch.int32, device="cuda")]
+
+
+def run_fwd(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 15) -> bool:
+    """Time and compare the two sources' forward with save on and off;
+    whether B's outputs held to A's and to the plain version."""
+    from icikit_torch.bench.flash_ab import _turns, event_ms
+    from icikit_torch.ops import cuda_xent as cx
+
+    libs = build(a_dir, b_dir, ("xent_fwd_bf16",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, d, v = shape
+    x, w, tg = _head_inputs(shape, seed)
+    mm_ms = event_ms(lambda: torch.matmul(x, w.t()), ITERS)
+    ok = True
+    for save in (True, False):
+        outs = {n: _fwd_outs(t, v) for n in "AB"}
+        fns = {n: {"fwd": fwd_call(libs[n][0], x, w, tg, save, outs[n])}
+               for n in "AB"}
+        ms = _turns(fns, ITERS)
+        first = [o.clone() for o in outs["B"][:4]]
+        fns["B"]["fwd"]()
+        again = all(bool(torch.equal(a, b))
+                    for a, b in zip(first, outs["B"][:4]))
+        want = cx.xent_fwd_plain(x, w, tg, True, CHUNK)
+        plain_ms = event_ms(lambda: cx.xent_fwd_plain(x, w, tg, save,
+                                                      CHUNK), 2)
+        err = {}
+        for n in "AB":
+            lse, tgt, e, mrun = outs[n][:4]
+            err[f"{n.lower()}_vs_plain"] = {
+                "lse": float((lse - want[0]).abs().max()),
+                "tgt": float((tgt - want[1]).abs().max())}
+            if save:
+                err[f"{n.lower()}_vs_plain"].update(
+                    e=_rel(e, want[2]),
+                    mrun=float((mrun - want[3]).abs().max()))
+        err["b_vs_a"] = {"lse": float((outs["B"][0] - outs["A"][0])
+                                      .abs().max())}
+        if save:
+            err["b_vs_a"]["e"] = _rel(outs["B"][2], outs["A"][2])
+        bnd, by = fwd_bound_ms(save, t, d, v)
+        rec = {"kernel": f"xent_fwd (B9), save={save}",
+               "shape": {"T": t, "D": d, "V": v}, "dtype": "bfloat16",
+               "turns": "A B B A", "ms": {n: ms[n]["fwd"] for n in "AB"},
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "cublas_x_wT_ms": mm_ms,
+               "cublas_x_wT": "x @ w.T, bf16 out: the same product, not "
+                              "the same function",
+               "library_ms": None, "b_repeats_bitwise": again,
+               "err": err, "tolerance": {"lse": LSE_TOL, "e": TOL,
+                                         "mrun": LSE_TOL}}
+        rec["ok"] = again and all(
+            val <= (TOL if key == "e" else LSE_TOL)
+            for side in ("b_vs_plain", "b_vs_a")
+            for key, val in err[side].items())
+        print(json.dumps(rec), flush=True)
+        ok &= rec["ok"]
+        del outs, fns, want, first
+        torch.cuda.empty_cache()
+    report(libs, a_dir, b_dir)
+    return ok
+
+
+def g_call(lib, x, w, tg, lse, dn, out):
+    """One library's recomputed g into ``out``, a no-argument call."""
+    t, d = x.shape
+    v = w.shape[0]
+    st = torch.cuda.current_stream().cuda_stream
+    args = [1, x.data_ptr(), w.data_ptr(), tg.data_ptr(), lse.data_ptr(),
+            dn.data_ptr(), out.data_ptr(), t, v, d, st]
+    return lambda: _build.check(lib.icikit_xent_g(*args), "xent_g")
+
+
+def run_g(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 16) -> bool:
+    """Time and compare the two sources' recomputed g; whether B's g held
+    to A's and to the plain version."""
+    from icikit_torch.bench.flash_ab import _turns, event_ms
+    from icikit_torch.ops import cuda_xent as cx
+
+    libs = build(a_dir, b_dir, ("xent_g_bf16",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, d, v = shape
+    x, w, tg = _head_inputs(shape, seed)
+    dn = torch.full((t,), 1.0 / t, device="cuda")
+    lse = cx.xent_fwd_plain(x, w, tg, False)[0].float().contiguous()
+    mm_ms = event_ms(lambda: torch.matmul(x, w.t()), ITERS)
+    outs = {n: torch.empty((t, v), dtype=torch.bfloat16, device="cuda")
+            for n in "AB"}
+    fns = {n: {"g": g_call(libs[n][0], x, w, tg, lse, dn, outs[n])}
+           for n in "AB"}
+    ms = _turns(fns, ITERS)
+    first = outs["B"].clone()
+    fns["B"]["g"]()
+    again = bool(torch.equal(first, outs["B"]))
+    want = cx.xent_g_plain(x, w, tg, lse, dn)
+    plain_ms = event_ms(lambda: cx.xent_g_plain(x, w, tg, lse, dn), 2)
+    bnd, by = g_bound_ms(t, d, v)
+    rec = {"kernel": "xent_g (B11 recompute)",
+           "shape": {"T": t, "D": d, "V": v}, "dtype": "bfloat16",
+           "turns": "A B B A", "ms": {n: ms[n]["g"] for n in "AB"},
+           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "cublas_x_wT_ms": mm_ms,
+           "cublas_x_wT": "x @ w.T, bf16 out: the same product and output "
+                          "bytes, not the same function",
+           "library_ms": None, "b_repeats_bitwise": again,
+           "rel_err": {"b_vs_a": _rel(outs["B"], outs["A"]),
+                       "b_vs_plain": _rel(outs["B"], want),
+                       "a_vs_plain": _rel(outs["A"], want)},
+           "tolerance": TOL}
+    rec["ok"] = (rec["rel_err"]["b_vs_a"] <= TOL
+                 and rec["rel_err"]["b_vs_plain"] <= TOL and again)
+    print(json.dumps(rec), flush=True)
+    report(libs, a_dir, b_dir)
+    return rec["ok"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--a", required=True, help="directory of arm A's xent.cu")
     p.add_argument("--b", required=True, help="the same for arm B")
     p.add_argument("--flavour", default="recompute", choices=FLAVOURS,
-                   help="the recompute head's backward (the default) or the "
-                        "saved one's")
+                   help="the recompute head's backward (the default), the "
+                        "saved one's, the forward (fwd) or the matmul "
+                        "backward's recomputed g (g)")
     p.add_argument("--timing-only", action="store_true",
                    help="exit 0 even where B's outputs depart from A's")
     args = p.parse_args(argv)
@@ -265,7 +453,9 @@ def main(argv=None) -> int:
         p.error(f"missing sources: {missing}")
     if not torch.cuda.is_available():
         raise SystemExit("xent_ab needs a CUDA card")
-    ok = (run_saved if args.flavour == "saved" else run)(args.a, args.b)
+    runner = {"recompute": run, "saved": run_saved, "fwd": run_fwd,
+              "g": run_g}[args.flavour]
+    ok = runner(args.a, args.b)
     return 0 if ok or args.timing_only else 1
 
 

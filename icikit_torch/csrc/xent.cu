@@ -12,16 +12,17 @@
 //      embedding orientation. The TPU keeps a (1024, D) x block resident
 //      and walks the vocabulary with an online base-2 max and sum; a CTA
 //      here cannot hold such a block, and one CTA per token tile would
-//      leave the card idle, so the vocabulary is split across CTAs: CTA
-//      (token tile, vocab tile) forms its 128 x 128 logits tile, takes
-//      each row's tile max m_i (base 2), sum of exp2(s*log2e - m_i) and
-//      target logit (natural units, before the base-2 scale, :98-101),
-//      and with `save` writes e = exp2(s*log2e - m_i) in the compute
-//      dtype plus m_i. The last CTA of a token tile to finish (an atomic
-//      count) merges its rows' partials: lse = (M + log2 sum l_i
-//      exp2(m_i - M)) * ln2. p = e * exp2(m_i - lse*log2e) holds whatever
-//      order the chunks are visited in, so the backward rebuilds the
-//      softmax from e and m_i as the TPU's does from its running max.
+//      leave the card idle, so the vocabulary is split across tiles: a
+//      tile (128 tokens x 256 vocabulary columns, see logits_body) takes,
+//      for each row and each 128-column chunk, the chunk max m_i (base
+//      2), sum of exp2(s*log2e - m_i) and target logit (natural units,
+//      before the base-2 scale, :98-101), and with `save` writes e =
+//      exp2(s*log2e - m_i) in the compute dtype plus m_i. The last of a
+//      token tile's epilogues to finish (an atomic count) merges its rows'
+//      partials: lse = (M + log2 sum l_i exp2(m_i - M)) * ln2. p = e *
+//      exp2(m_i - lse*log2e) holds whatever order the chunks are visited
+//      in, so the backward rebuilds the softmax from e and m_i as the
+//      TPU's does from its running max.
 //      Bound (T 8192, D 1024, V 32768, bf16): 2*T*V*D = 549.8 GFLOP,
 //      556 us at 989 TFLOP/s, against ~620 MB written and read: operations.
 //
@@ -60,16 +61,17 @@
 //      ms, bytes); dx = g w and dw = g^T x are then plain matmuls outside
 //      any kernel, as JAX leaves them to XLA (xent.py:469-475).
 //
-// bf16 xent_fwd, xent_g and the recompute flavour past D 2048: 8 warps a
-// CTA, each a 32 x 64 piece of the 128 x 128 tile, on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, fp32 accumulate), the operands staged
-// through shared memory by cp.async, double-buffered; operands whose
-// contraction dimension is not contiguous in memory are read with
-// ldmatrix.trans. The saved flavour's backward and the recompute flavour
-// up to D 2048 run on wgmma and TMA. g is rounded to bf16 to enter the
-// tensor cores, where the TPU contracts it in float32 against
-// w.astype(f32) (:199-201, :235-237): the tolerance in the tests states
-// the cost. float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
+// bf16 xent_fwd and xent_g share one body on wgmma and TMA
+// (logits_body: a persistent CTA an SM, 128 x 256 logits tiles, the bf16
+// output staged and stored by TMA), as do the saved flavour's dx and dw
+// (saved_body); the recompute flavour up to D 2048 runs on wgmma and TMA
+// in a cluster along D. Past D 2048 it runs the first design's 128 x 128
+// tiles: 8 warps a CTA, each a 32 x 64 piece, on mma.sync m16n8k16 (bf16
+// in, fp32 accumulate), the operands staged through shared memory by
+// cp.async, double-buffered. g is rounded to bf16 to enter the tensor
+// cores, where the TPU contracts it in float32 against w.astype(f32)
+// (:199-201, :235-237): the tolerance in the tests states the cost.
+// float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
 // Every entry returns cudaGetLastError() after its launch.
 
 #include <cooperative_groups.h>
@@ -294,95 +296,350 @@ __device__ void merge_partials(const float* mrun, const float* lpart,
 }
 
 // ---------------------------------------------------------------------------
-// xent_fwd, bf16. Grid (token tiles, vocab tiles): the token tiles of one
-// vocab tile are launched together, so w streams from device memory once
-// and x (16 MiB at the base preset) is re-read from L2.
+// xent_fwd (B9) and xent_g (B11), bf16: one body, logits_body<FWD>, forms
+// the logits s = x w^T of a 128-token x 256-vocabulary tile on wgmma and
+// hands them to one of two epilogues. Bound: the product's 2 T V D
+// operations (0.556 ms at T 8192, D 1024, V 32768).
+//
+// - The product: two consumer warpgroups of 64 token rows each issue one
+//   wgmma m64n256k16 a k16 step, x (A) and w (B) both K-major in the
+//   128-byte swizzle, the accumulator (128 floats a thread) in registers.
+//   A producer warp (setmaxnreg 40; the consumers 232) keeps a 3-stage
+//   ring of 64-wide contraction steps full by TMA, x's 128 x 64 box and
+//   w's 256 x 64 box a stage (48 KB), zero past T, V and D, paced by
+//   full/empty mbarriers. Three stages leave room for the 64 KB output
+//   tile. A CTA of 288 threads without setmaxnreg held 168 registers a
+//   thread all the same (nine warps put three on one of the SM's four
+//   register-file quarters) and spilled.
+// - Persistent: one CTA an SM walks the tiles CTA, CTA + grid, ...; the
+//   token tiles of a vocab tile are consecutive, so the CTAs at work
+//   share one or two vocab tiles: w streams from device memory about
+//   once and x (16 MiB at the base preset) is re-read from L2. The
+//   producer fills the ring for the next tile while the consumers run
+//   this tile's epilogue: 6-9% faster than one CTA a tile at the base
+//   shapes (H100, 700 W). A cluster of two CTAs along T, each bringing
+//   half of w's box and multicasting it to both (a third less L2
+//   traffic), measured 2-4% slower: L2 does not bound this kernel.
+// - xent_fwd's epilogue (_fwd_kernel / _fwd_kernel_save): for each row
+//   and each 128-column half (mrun's chunk, cuda_xent.TILE, kept from the
+//   first design) the max m_i of s*log2e over the valid columns, e =
+//   exp2(s*log2e - m_i), its sum and the target logit (natural units),
+//   reduced across the quad by shuffles; the two warpgroups hold separate
+//   rows and exchange nothing. The partials mrun, lpart, tpart (V/128, T)
+//   go out per chunk, and a second launch, xent_merge, folds each token's
+//   chunks into lse = (M + log2 sum l_i exp2(m_i - M)) ln2 and its target
+//   logit, reading 25 MB once: a merge inside the kernel, by the last
+//   epilogue of a token tile to finish (an atomic count a tile), held
+//   every tile on a fence and the atomic's round trip (1.08 ms against
+//   g's 0.84 on an H100 at 700 W).
+// - xent_g's epilogue (_bwd_kernel): g = (exp2(s*log2e - lse*log2e) -
+//   onehot) * dnll, each row's lse, dnll and target loaded as its tile
+//   starts, their latency under the products.
+// - Both epilogues mask columns only in the vocabulary's last tile and
+//   compare columns with a row's target only where it falls in the tile,
+//   and take exp2 from the MUFU unit alone (ex2).
+// - The bf16 tile (e with save; g) is staged in shared memory in the
+//   128-byte swizzle (a warp's 4-byte pairs fall in 32 distinct banks)
+//   and stored by TMA, each warpgroup its 64 rows as four 64 x 64 boxes
+//   clipped at T and V: entries outside [0, T) x [0, V) are not stored.
+//   The store drains under the next tile's products; a warpgroup waits
+//   for it only before it stages its next tile.
+constexpr int LT_ROWS = 128;       // tokens a tile: two consumer warpgroups
+constexpr int LT_COLS = 256;       // vocabulary columns a tile
+constexpr int LT_KT = 64;          // the contraction a step: 128-byte rows
+constexpr int LT_NS = 3;           // ring stages
+constexpr int LT_THREADS = 384;    // two consumer warpgroups, a producer
+constexpr int LT_XBOX = LT_ROWS * 128;              // x's box, 16 KB
+constexpr int LT_STAGE = LT_XBOX + LT_COLS * 128;   // and w's, 48 KB
+constexpr int LT_OBOX = 64 * 128;                   // a 64 x 64 output box
+constexpr int LT_OWG = LT_COLS / 64 * LT_OBOX;      // a warpgroup's rows
+constexpr size_t LT_SMEM = 1024 + LT_NS * LT_STAGE + 2 * LT_OWG +
+                           2 * LT_NS * sizeof(uint64_t);
 
-__global__ void __launch_bounds__(X_THREADS)
-xent_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-              const int* __restrict__ tgt, bf16* __restrict__ e,
-              float* __restrict__ mrun, float* __restrict__ lpart,
-              float* __restrict__ tpart, unsigned* counter,
-              float* __restrict__ lse, float* __restrict__ tgt_out,
-              int64_t T, int64_t V, int64_t D, int save) {
-  __shared__ __align__(16) bf16 as[2][XT * AS];
-  __shared__ __align__(16) bf16 bs[2][XN * AS];
-  __shared__ float rmax[2][XT], rsum[2][XT], rtgt[2][XT];
-  const int64_t t0 = (int64_t)blockIdx.x * XT, v0 = (int64_t)blockIdx.y * XN;
-  const int64_t rows = T - t0 < XT ? T - t0 : XT;
-  const int64_t cols = V - v0 < XN ? V - v0 : XN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
-  float acc[2][8][4];
-  logits_tile(acc, as, bs, x + t0 * D, w + v0 * D, rows, cols, D);
+// exp2 by the MUFU unit alone (ex2.approx, within 2 ulp, denormal
+// results flushed to zero): the epilogues' one transcendental.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // Per row of the tile: the target logit (natural units) and the max
-  // (base 2) over this warp's 64 columns, then over both column halves.
+template <bool FWD>
+__device__ __forceinline__ void logits_body(
+    unsigned char* smem, const CUtensorMap* tx, const CUtensorMap* tw,
+    const CUtensorMap* tout, const int* __restrict__ tgt,
+    const float* __restrict__ lse, const float* __restrict__ dnll,
+    float* __restrict__ mrun, float* __restrict__ lpart,
+    float* __restrict__ tpart, int64_t T, int64_t V, int64_t D, int store) {
+  unsigned char* ring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  unsigned char* ostage = ring + LT_NS * LT_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ostage + 2 * LT_OWG);
+  uint64_t* empty = full + LT_NS;
+  // the walk: tile = vt * ntt + tt, from blockIdx.x in steps of gridDim.x
+  const int ntt = (int)((T + LT_ROWS - 1) / LT_ROWS);
+  const int nvt = (int)((V + LT_COLS - 1) / LT_COLS);
+  const int dtt = (int)gridDim.x % ntt, dvt = (int)gridDim.x / ntt;
+  const int nk = (int)((D + LT_KT - 1) / LT_KT);
+  const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < LT_NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // the producer: step s of the CTA's walk into stage s % LT_NS once the
+    // consumers released step s - LT_NS
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 2 * 128) return;
+    unsigned s = 0;
+    for (int tt = (int)blockIdx.x % ntt, vt = (int)blockIdx.x / ntt;
+         vt < nvt; tt += dtt, vt += dvt) {
+      if (tt >= ntt) {
+        tt -= ntt;
+        ++vt;
+        if (vt >= nvt) break;
+      }
+      for (int k = 0; k < nk; ++k, ++s) {
+        const int st = (int)(s % LT_NS);
+        if (s >= LT_NS) mbar_wait(empty + st, (int)((s / LT_NS - 1) & 1));
+        unsigned char* p = ring + st * LT_STAGE;
+        mbar_expect_tx(full + st, LT_STAGE);
+        tma_box2(p, tx, k * LT_KT, tt * LT_ROWS, full + st);
+        tma_box2(p + LT_XBOX, tw, k * LT_KT, vt * LT_COLS, full + st);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, c = lane & 3;
+  const int rl = warp * 16 + g;  // the warpgroup's rows rl and rl + 8
+  const int ra = wgi * 64 + rl;  // of the tile
+  const int bar = 1 + wgi;       // the warpgroup's named barrier
+  const bool lead = (threadIdx.x & 127) == 0;
+  unsigned char* os = ostage + wgi * LT_OWG;
+  float acc[LT_COLS / 2];
+  unsigned s = 0;
+  for (int tt = (int)blockIdx.x % ntt, vt = (int)blockIdx.x / ntt;
+       vt < nvt; tt += dtt, vt += dvt) {
+    if (tt >= ntt) {
+      tt -= ntt;
+      ++vt;
+      if (vt >= nvt) break;
+    }
+    const int t0 = tt * LT_ROWS, v0 = vt * LT_COLS;
+    // the rows' token data, in flight under the products
+    int rel[2];  // the target's column in the tile (out of it: none)
+    float l2[2], dn[2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + ra + 8 * hr;
+      const bool ok = t < T;
+      rel[hr] = ok ? tgt[t] - v0 : -1;
+      l2[hr] = !FWD && ok ? lse[t] * LOG2E : 0.f;
+      dn[hr] = !FWD && ok ? dnll[t] : 0.f;
+    }
+    for (int k = 0; k < nk; ++k, ++s) {
+      const int st = (int)(s % LT_NS);
+      mbar_wait(full + st, (int)((s / LT_NS) & 1));
+      const unsigned char* p = ring + st * LT_STAGE;
+      wg_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wm * 32 + mi * 16 + g + h * 8;
-      const int64_t target = row < rows ? (int64_t)tgt[t0 + row] : -1;
-      float m = -INFINITY, tg = 0.f;
+      for (int kc = 0; kc < LT_KT / 16; ++kc)
+        wgmma_ss<LT_COLS, 0, 0>(
+            acc, gmma_desc_sw(p + wgi * 64 * 128 + kc * 32, 16, 8 * 128, 1),
+            gmma_desc_sw(p + LT_XBOX + kc * 32, 16, 8 * 128, 1),
+            k > 0 || kc > 0);
+      wg_commit();
+      wg_wait<1>();
+      if (k > 0) mbar_arrive(empty + (int)((s - 1) % LT_NS));
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    // the ring is the next tile's
+    mbar_arrive(empty + (int)((s - 1) % LT_NS));
+
+    // thread (warp, g, c) holds rows ra (acc[4j + q]) and ra + 8
+    // (acc[4j + 2 + q]), columns 8j + 2c + q; the column masks only in
+    // the vocabulary's last tile, the target compares only where a row's
+    // target falls in the tile
+    const int vl = V - v0 < LT_COLS ? (int)(V - v0) : LT_COLS;
+    const bool whole = vl == LT_COLS;
+    if (FWD) {
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + ra + 8 * hr;
+        const bool hit = (unsigned)rel[hr] < (unsigned)vl;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = wn * 64 + ni * 8 + c2 + j;
-          const float sv = acc[mi][ni][2 * h + j];
-          if (col < cols) {
-            if (v0 + col == target) tg += sv;
-            m = fmaxf(m, sv * LOG2E);
+        for (int h = 0; h < 2; ++h) {
+          float m = -INFINITY, tg = 0.f, l = 0.f;
+#pragma unroll
+          for (int j = 16 * h; j < 16 * h + 16; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              if (whole || 8 * j + 2 * c + q < vl)
+                m = fmaxf(m, acc[4 * j + 2 * hr + q]);
+          if (hit) {
+#pragma unroll
+            for (int j = 16 * h; j < 16 * h + 16; ++j)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                if (8 * j + 2 * c + q == rel[hr]) tg = acc[4 * j + 2 * hr + q];
+          }
+          // the max of s*log2e is the max of s, scaled: rounding keeps
+          // the order
+          m = quad_max(m) * LOG2E;
+          tg = quad_sum(tg);
+#pragma unroll
+          for (int j = 16 * h; j < 16 * h + 16; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              float& a = acc[4 * j + 2 * hr + q];
+              a = whole || 8 * j + 2 * c + q < vl ? ex2(fmaf(a, LOG2E, -m))
+                                                  : 0.f;
+              l += a;
+            }
+          l = quad_sum(l);
+          if (c == 0 && t < T && 128 * h < vl) {
+            const int64_t i = (int64_t)(2 * vt + h) * T + t;
+            mrun[i] = m;
+            lpart[i] = l;
+            tpart[i] = tg;
           }
         }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        tg += __shfl_xor_sync(0xffffffffu, tg, off);
       }
-      if ((lane & 3) == 0) {
-        rmax[wn][row] = m;
-        rtgt[wn][row] = tg;
+    } else {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+        for (int j = 0; j < LT_COLS / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float& a = acc[4 * j + 2 * hr + q];
+            a = ex2(fmaf(a, LOG2E, -l2[hr])) * dn[hr];
+          }
+        if ((unsigned)rel[hr] < (unsigned)LT_COLS) {
+#pragma unroll
+          for (int j = 0; j < LT_COLS / 8; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              if (8 * j + 2 * c + q == rel[hr])
+                acc[4 * j + 2 * hr + q] -= dn[hr];
+        }
       }
     }
-  __syncthreads();
-  // e = exp2(s*log2e - m_i), its row sums, and e written out with `save`
+
+    if (store) {
+      if (lead) bulk_wait_read<0>();  // the last tile's boxes are read
+      bar_sync(bar, 128);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < LT_COLS / 8; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wm * 32 + mi * 16 + g + h * 8;
-      const float m = fmaxf(rmax[0][row], rmax[1][row]);
-      float l = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = wn * 64 + ni * 8 + c2;
-        const float e0 =
-            col < cols ? exp2f(acc[mi][ni][2 * h] * LOG2E - m) : 0.f;
-        const float e1 =
-            col + 1 < cols ? exp2f(acc[mi][ni][2 * h + 1] * LOG2E - m) : 0.f;
-        l += e0 + e1;
-        if (save && row < rows && col < cols)
-          *reinterpret_cast<uint32_t*>(e + (t0 + row) * V + v0 + col) =
-              pack_bf16(e0, e1);
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = rl + 8 * hr;  // r & 7 == g
+          *reinterpret_cast<uint32_t*>(os + (j >> 3) * LT_OBOX + r * 128 +
+                                       (((j & 7) ^ g) << 4) + 4 * c) =
+              pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+        }
+      async_proxy_fence();
+      bar_sync(bar, 128);
+      if (lead && t0 + wgi * 64 < T) {
+        for (int j = 0; j < LT_COLS / 64 && 64 * j < vl; ++j)
+          tma_store2(tout, os + j * LT_OBOX, v0 + 64 * j, t0 + wgi * 64);
+        bulk_commit();
       }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1)
-        l += __shfl_xor_sync(0xffffffffu, l, off);
-      if ((lane & 3) == 0) rsum[wn][row] = l;
     }
-  __syncthreads();
-  const int64_t chunk = blockIdx.y;
-  for (int r = threadIdx.x; r < rows; r += X_THREADS) {
-    mrun[chunk * T + t0 + r] = fmaxf(rmax[0][r], rmax[1][r]);
-    lpart[chunk * T + t0 + r] = rsum[0][r] + rsum[1][r];
-    tpart[chunk * T + t0 + r] = rtgt[0][r] + rtgt[1][r];
   }
-  merge_partials(mrun, lpart, tpart, counter, lse, tgt_out, t0, (int)rows,
-                 T, gridDim.y, blockIdx.x);
+  if (lead && store) bulk_wait_all();
+}
+
+__global__ void __launch_bounds__(LT_THREADS, 1)
+xent_fwd_bf16(const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tw,
+              const __grid_constant__ CUtensorMap te,
+              const int* __restrict__ tgt, float* __restrict__ mrun,
+              float* __restrict__ lpart, float* __restrict__ tpart,
+              int64_t T, int64_t V, int64_t D, int save) {
+  extern __shared__ __align__(1024) unsigned char lt_smem[];
+  logits_body<true>(lt_smem, &tx, &tw, &te, tgt, nullptr, nullptr, mrun,
+                    lpart, tpart, T, V, D, save);
+}
+
+__global__ void __launch_bounds__(LT_THREADS, 1)
+xent_g_bf16(const __grid_constant__ CUtensorMap tx,
+            const __grid_constant__ CUtensorMap tw,
+            const __grid_constant__ CUtensorMap tg,
+            const int* __restrict__ tgt, const float* __restrict__ lse,
+            const float* __restrict__ dnll, int64_t T, int64_t V,
+            int64_t D) {
+  extern __shared__ __align__(1024) unsigned char lt_smem[];
+  logits_body<false>(lt_smem, &tx, &tw, &tg, tgt, lse, dnll, nullptr,
+                     nullptr, nullptr, T, V, D, 1);
+}
+
+// xent_fwd's merge (bf16): each token's lse and target logit from its nc
+// chunks' partials. MG_SPLIT threads a token, each an online pass over
+// its share of the chunks with MG_BATCH of them in flight, combined in
+// shared memory; a warp's 32 tokens are consecutive, so its loads are
+// whole 128-byte lines.
+constexpr int MG_ROWS = 64, MG_SPLIT = 4, MG_BATCH = 16;
+
+__global__ void __launch_bounds__(MG_ROWS * MG_SPLIT)
+xent_merge(const float* __restrict__ mrun, const float* __restrict__ lpart,
+           const float* __restrict__ tpart, float* __restrict__ lse,
+           float* __restrict__ tgt_out, int64_t T, int64_t nc) {
+  __shared__ float part[3][MG_SPLIT][MG_ROWS];
+  const int r = threadIdx.x % MG_ROWS, sp = threadIdx.x / MG_ROWS;
+  const int64_t t = (int64_t)blockIdx.x * MG_ROWS + r;
+  const int64_t per = (nc + MG_SPLIT - 1) / MG_SPLIT;
+  const int64_t c1 = (sp + 1) * per < nc ? (sp + 1) * per : nc;
+  float m = -INFINITY, l = 0.f, tg = 0.f;
+  for (int64_t c0 = sp * per; t < T && c0 < c1; c0 += MG_BATCH) {
+    float mv[MG_BATCH], lv[MG_BATCH];
+#pragma unroll
+    for (int q = 0; q < MG_BATCH; ++q) {
+      const bool ok = c0 + q < c1;
+      const int64_t i = (c0 + q) * T + t;
+      mv[q] = ok ? mrun[i] : -INFINITY;
+      lv[q] = ok ? lpart[i] : 0.f;
+      tg += ok ? tpart[i] : 0.f;
+    }
+    float bm = m;
+#pragma unroll
+    for (int q = 0; q < MG_BATCH; ++q) bm = fmaxf(bm, mv[q]);
+    l *= exp2f(m - bm);  // 0 at the first batch (m = -inf)
+#pragma unroll
+    for (int q = 0; q < MG_BATCH; ++q) l += lv[q] * exp2f(mv[q] - bm);
+    m = bm;
+  }
+  part[0][sp][r] = m;
+  part[1][sp][r] = l;
+  part[2][sp][r] = tg;
+  __syncthreads();
+  if (sp || t >= T) return;
+  float big = -INFINITY, sum = 0.f, tsum = 0.f;
+#pragma unroll
+  for (int q = 0; q < MG_SPLIT; ++q) big = fmaxf(big, part[0][q][r]);
+#pragma unroll
+  for (int q = 0; q < MG_SPLIT; ++q) {  // an empty share adds 0
+    sum += part[1][q][r] * exp2f(part[0][q][r] - big);
+    tsum += part[2][q][r];
+  }
+  lse[t] = (big + log2f(sum)) * LN2;
+  tgt_out[t] = tsum;
 }
 
 // g = (e * exp2(m_i - lse*log2e) - onehot(t)) * dnll(t) for the 8
@@ -437,46 +694,6 @@ __device__ __forceinline__ void load_tokens(float* tl2, int* ttg, float* tdn,
     ttg[r] = ok ? tgt[t0 + r] : -1;
     tdn[r] = ok ? dnll[t0 + r] : 0.f;
   }
-}
-
-// xent_g: g (T, V) = (softmax(x w^T) - onehot) * dnll in bf16, the logits
-// tile formed in the kernel's own body (_bwd_kernel). Grid (token tiles,
-// vocab tiles), as xent_fwd.
-__global__ void __launch_bounds__(X_THREADS)
-xent_g_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            const int* __restrict__ tgt, const float* __restrict__ lse,
-            const float* __restrict__ dnll, bf16* __restrict__ gout,
-            int64_t T, int64_t V, int64_t D) {
-  __shared__ __align__(16) bf16 as[2][XT * AS];
-  __shared__ __align__(16) bf16 bs[2][XN * AS];
-  __shared__ float tl2[XT], tdn[XT];
-  __shared__ int ttg[XT];
-  const int64_t t0 = (int64_t)blockIdx.x * XT, v0 = (int64_t)blockIdx.y * XN;
-  const int64_t rows = T - t0 < XT ? T - t0 : XT;
-  const int64_t cols = V - v0 < XN ? V - v0 : XN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
-  load_tokens(tl2, ttg, tdn, tgt, lse, dnll, t0, T);
-  float acc[2][8][4];
-  logits_tile(acc, as, bs, x + t0 * D, w + v0 * D, rows, cols, D);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mi * 16 + g + h * 8;
-        const int col = wn * 64 + ni * 8 + c2;
-        if (row < rows && col < cols) {
-          const float g0 = g_of<true>(acc[mi][ni][2 * h], row, col, t0, v0,
-                                      T, V, tl2, ttg, tdn);
-          const float g1 = g_of<true>(acc[mi][ni][2 * h + 1], row, col + 1,
-                                      t0, v0, T, V, tl2, ttg, tdn);
-          *reinterpret_cast<uint32_t*>(gout + (t0 + row) * V + v0 + col) =
-              pack_bf16(g0, g1);
-        }
-      }
 }
 
 // xent_g_saved: g (T, V) from the saved exponentials (_g_saved_kernel), 8
@@ -1657,6 +1874,54 @@ int launch_recompute_bf16(int dx_side, const void* x, const void* w,
   return (int)cudaGetLastError();
 }
 
+// The logits body's launch, xent_fwd (fwd, then xent_merge) or xent_g:
+// x's map (boxes of 128 token rows), w's (256 vocabulary rows) and the
+// output's (64 x 64 boxes: e with save, g); one CTA an SM, fewer when
+// there are fewer tiles. Refuses, before any launch, what the maps
+// cannot take: an empty tensor, D or V not a multiple of 8, a size past
+// INT32_MAX.
+int launch_logits_bf16(int fwd, const void* x, const void* w, const int* tgt,
+                       const float* lse, const float* dnll, void* out,
+                       float* mrun, float* lpart, float* tpart,
+                       float* lse_out, float* tgt_out, int64_t T, int64_t V,
+                       int64_t D, int save, cudaStream_t st) {
+  if (T < 1 || V < 1 || D < 1 || V % 8 || D % 8 || T > INT32_MAX ||
+      V > INT32_MAX || D > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw, to = {};
+  int err = rows_map(&tx, x, T, D, LT_ROWS);
+  if (!err) err = rows_map(&tw, w, V, D, LT_COLS);
+  if (!err && (!fwd || save)) err = rows_map(&to, out, T, V, 64);
+  if (err) return err;
+  int64_t grid = (int64_t)tiles(T, LT_ROWS) * tiles(V, LT_COLS);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (sms < grid) grid = sms;
+  if (fwd) {
+    e = cudaFuncSetAttribute(xent_fwd_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)LT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    xent_fwd_bf16<<<(unsigned)grid, LT_THREADS, LT_SMEM, st>>>(
+        tx, tw, to, tgt, mrun, lpart, tpart, T, V, D, save);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    xent_merge<<<tiles(T, MG_ROWS), MG_ROWS * MG_SPLIT, 0, st>>>(
+        mrun, lpart, tpart, lse_out, tgt_out, T, (V + 127) / 128);
+  } else {
+    e = cudaFuncSetAttribute(xent_g_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)LT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    xent_g_bf16<<<(unsigned)grid, LT_THREADS, LT_SMEM, st>>>(
+        tx, tw, to, tgt, lse, dnll, T, V, D);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1664,19 +1929,18 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x (T, D), w (V, D) in dtype; tgt (T,)
 // int32; e (T, V) in dtype, written when save; mrun, lpart, tpart
 // (V / chunk, T) float32 with chunk = 128 (bf16) or 64 (float32); counter
-// (token tiles,) uint32, zero; lse, tgt_out (T,) float32. bf16 needs D
-// and V multiples of 8.
+// (token tiles,) uint32, zero (float32: the merge's count, left at zero;
+// bf16 merges in a second launch and leaves it untouched); lse, tgt_out
+// (T,) float32. bf16 needs D and V multiples of 8.
 int icikit_xent_fwd(int dtype, const void* x, const void* w, const int* tgt,
                     void* e, float* mrun, float* lpart, float* tpart,
                     unsigned* counter, float* lse, float* tgt_out, int64_t T,
                     int64_t V, int64_t D, int save, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    xent_fwd_bf16<<<dim3(tiles(T, XT), tiles(V, XN)), X_THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), tgt,
-        static_cast<bf16*>(e), mrun, lpart, tpart, counter, lse, tgt_out, T,
-        V, D, save);
-  } else if (dtype == 0) {
+  if (dtype == 1)
+    return launch_logits_bf16(1, x, w, tgt, nullptr, nullptr, e, mrun, lpart,
+                              tpart, lse, tgt_out, T, V, D, save, st);
+  if (dtype == 0) {
     xent_fwd_f32<<<dim3(tiles(T, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), tgt,
         static_cast<float*>(e), mrun, lpart, tpart, counter, lse, tgt_out, T,
@@ -1734,11 +1998,10 @@ int icikit_xent_g(int dtype, const void* x, const void* w, const int* tgt,
                   const float* lse, const float* dnll, void* g, int64_t T,
                   int64_t V, int64_t D, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    xent_g_bf16<<<dim3(tiles(T, XT), tiles(V, XN)), X_THREADS, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), tgt, lse,
-        dnll, static_cast<bf16*>(g), T, V, D);
-  } else if (dtype == 0) {
+  if (dtype == 1)
+    return launch_logits_bf16(0, x, w, tgt, lse, dnll, g, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, T, V, D, 1, st);
+  if (dtype == 0) {
     xent_g_f32<<<dim3(tiles(T, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), tgt, lse,
         dnll, static_cast<float*>(g), T, V, D);
@@ -1828,7 +2091,7 @@ int icikit_xent_recompute_clusters(int dx_side, int64_t D, int* clusters,
 // Kernel attributes for the build log: which 0 xent_fwd bf16, 1 dx bf16,
 // 2 dw bf16, 3 xent_fwd f32, 4 xent_g bf16, 5 xent_g_saved bf16, 6 the
 // recompute dx bf16, 7 the recompute dw bf16, 8 and 9 their tiled forms
-// past D 2048.
+// past D 2048, 10 xent_fwd's merge (bf16).
 int icikit_xent_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -1850,8 +2113,10 @@ int icikit_xent_regs(int which, int* regs, int* local_bytes) {
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<false>);
   else if (which == 8)
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<true>);
-  else
+  else if (which == 9)
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<false>);
+  else
+    err = cudaFuncGetAttributes(&attr, xent_merge);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -20,8 +20,9 @@ Seven CUDA kernels (``csrc/xent.cu``) carry the head's four flavours
 
 The residual's layout is the port's own: e ``(T, V)`` in the compute
 dtype and ``mrun (V / chunk, T)`` float32, the max of each
-``chunk``-column piece of a row (the kernels' square CTA tile,
-``TILE``: 128 for bf16, 64 for float32). The softmax is
+``chunk``-column piece of a row (``TILE``: 128 for bf16, half of the
+forward's 256-column logits tile, 64 for float32, its square tile). The
+softmax is
 ``p = e * exp2(mrun - lse * log2(e))`` whatever the chunk width, which
 is all the backward needs.
 
@@ -41,8 +42,9 @@ from icikit_torch.ops.common import LN2, LOG2E
 LAUNCHES = {"xent_fwd": 0, "xent_dx_saved": 0, "xent_dw_saved": 0,
             "xent_dx": 0, "xent_dw": 0, "xent_g": 0, "xent_g_saved": 0}
 
-# The kernels' square CTA tile: its width on the vocabulary is the chunk
-# of mrun, its height the token tile whose CTAs merge their partials.
+# mrun's chunk on the vocabulary (bf16: half of the forward's 128 x 256
+# logits tile; float32: its square 64 x 64 tile, whose CTAs count on a
+# token tile's counter to merge their partials).
 TILE = {torch.bfloat16: 128, torch.float32: 64}
 # The plain versions' chunk width on the CPU (any width gives the same p).
 PLAIN_CHUNK = 128
@@ -179,8 +181,13 @@ def xent_fwd(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
 
     The kernel replaces ``icikit/ops/xent.py``'s ``_fwd_kernel`` /
     ``_fwd_kernel_save`` (B9, pallas_call at :283). Bound: the logits
-    product, 2 T V D operations over the card's bf16 rate. CPU tensors
-    take :func:`xent_fwd_plain`."""
+    product, 2 T V D operations over the card's bf16 rate. In bf16 a
+    persistent CTA an SM forms 128-token x 256-column logits tiles on
+    wgmma from a TMA ring; its epilogue takes each 128-column chunk's
+    max, sum and target logit from the registers, stages e in shared
+    memory and stores it by TMA under the next tile's products, and a
+    second launch in the same call merges the chunks into lse. CPU
+    tensors take :func:`xent_fwd_plain`."""
     t, d = x.shape
     v = w.shape[0]
     if w.shape != (v, d) or targets.shape != (t,):
@@ -318,8 +325,11 @@ def xent_g(x, w, targets, lse, dnll) -> torch.Tensor:
     """The matmul backward's g ``(T, V)`` in x's dtype, the logits
     recomputed tile by tile in the kernel. Replaces
     ``icikit/ops/xent.py``'s ``_bwd_kernel`` (B11, pallas_call at :312).
-    Bound: the logits product, 2 T V D operations. CPU tensors take
-    :func:`xent_g_plain`."""
+    Bound: the logits product, 2 T V D operations. In bf16 it is
+    ``xent_fwd``'s body (persistent, wgmma, a TMA ring) with another
+    epilogue: g from the logits in registers, each row's lse, dnll and
+    target loaded under its tile's products, the tile stored by TMA. CPU
+    tensors take :func:`xent_g_plain`."""
     if _recompute_operands("xent_g", x, w, targets, lse, dnll):
         return xent_g_plain(x, w, targets, lse, dnll)
     t, d = x.shape

@@ -602,7 +602,7 @@ def test_xent_ab_saved_bound_and_dispatch(monkeypatch):
 
     from icikit_torch.bench import xent_ab
 
-    assert xent_ab.FLAVOURS == ("recompute", "saved")
+    assert xent_ab.FLAVOURS == ("recompute", "saved", "fwd", "g")
     for which in ("dx", "dw"):
         ms, by = xent_ab.saved_bound_ms(which, 8192, 1024, 32768)
         assert by == "operations" and ms == pytest.approx(0.55587, rel=1e-4)
@@ -622,3 +622,53 @@ def test_xent_ab_saved_bound_and_dispatch(monkeypatch):
     assert xent_ab.main(["--a", csrc, "--b", csrc, "--flavour",
                          "saved"]) == 0
     assert seen == [(csrc, csrc)]
+
+
+def test_xent_ab_fwd_and_g_bounds():
+    """``--flavour fwd`` and ``--flavour g`` time B9 and B11: at the base
+    head both are bound by the logits' 2 T V D operations, 0.556 ms at
+    989 TFLOP/s (the forward with save moves ~630 MB, g ~570 MB, 0.19 and
+    0.17 ms); at a narrow vocabulary the bytes bound them, and save adds
+    e and mrun to the forward's bytes."""
+    from icikit_torch.bench import xent_ab
+
+    assert xent_ab.LSE_TOL == 1e-3 and xent_ab.CHUNK == 128
+    for save in (True, False):
+        ms, by = xent_ab.fwd_bound_ms(save, 8192, 1024, 32768)
+        assert by == "operations" and ms == pytest.approx(0.55587, rel=1e-4)
+    ms, by = xent_ab.g_bound_ms(8192, 1024, 32768)
+    assert by == "operations" and ms == pytest.approx(0.55587, rel=1e-4)
+    on, by_on = xent_ab.fwd_bound_ms(True, 8, 4096, 16)
+    off, by_off = xent_ab.fwd_bound_ms(False, 8, 4096, 16)
+    assert by_on == by_off == "bytes"
+    assert (on - off) * 1e-3 * xent_ab.MEM_BPS == pytest.approx(
+        8 * 16 * 2 + 8 * 4)
+    ms, by = xent_ab.g_bound_ms(8, 4096, 16)
+    assert by == "bytes" and ms * 1e-3 * xent_ab.MEM_BPS == pytest.approx(
+        (8 * 4096 + 16 * 4096 + 8 * 16) * 2 + 3 * 8 * 4)
+
+
+@pytest.mark.parametrize("flavour,fn", [("fwd", "run_fwd"), ("g", "run_g")])
+def test_xent_ab_fwd_and_g_dispatch(monkeypatch, flavour, fn):
+    """No card exits before a build; with one, ``--flavour fwd`` and
+    ``--flavour g`` go to their own functions, whose verdict sets the exit
+    code unless ``--timing-only``."""
+    import torch
+
+    from icikit_torch.bench import xent_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    argv = ["--a", csrc, "--b", csrc, "--flavour", flavour]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        xent_ab.main(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    for other in ("run", "run_saved", "run_fwd", "run_g"):
+        if other != fn:
+            monkeypatch.setattr(xent_ab, other,
+                                lambda *a, o=other: pytest.fail(o))
+    monkeypatch.setattr(xent_ab, fn, lambda *a: seen.append(a) or False)
+    assert xent_ab.main(argv) == 1
+    assert xent_ab.main([*argv, "--timing-only"]) == 0
+    assert seen == [(csrc, csrc)] * 2

@@ -639,6 +639,75 @@ def test_xent_saved_bf16_matches_plain(t, d, v, no_tf32):
     assert torch.equal(cx.xent_dw_saved(e, mrun, x, tg, lse, dn), got[1])
 
 
+# The bf16 forward and the matmul backward's g (B9, B11: one body, a
+# persistent CTA an SM, 128-token x 256-column logits tiles on wgmma, 64
+# wide contraction steps, the bf16 tile stored by TMA) at shapes off
+# every edge of that tile: T 300 and 1000 (off 128), V 1000 (off the 256
+# tile and the 128-column chunk) and 4104 (off both, one chunk of 8
+# columns), D 136, 520 and 2176 (off the 64-wide step), and the base
+# step's head. lse, the target logit and mrun within 1e-3 (bf16 products
+# summed in float32 in another order), e (with save) and g within 2e-2
+# of the largest entry (bf16 rounding); save on and off give the same
+# lse bit for bit, and a second call the same bits.
+@pytest.mark.parametrize("t,d,v", [(300, 136, 1000), (1000, 520, 4104),
+                                   (300, 2176, 4104), (1000, 136, 1000),
+                                   (300, 520, 1000), (8192, 1024, 32768)])
+def test_xent_fwd_and_g_bf16_match_plain(t, d, v, no_tf32):
+    gen = no_tf32
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda") / t
+    chunk = cx.TILE[torch.bfloat16]
+    cx.reset_launches()
+    lse, tgt, e, mrun = cx.xent_fwd(x, w, tg, save=True)
+    lse0, tgt0 = cx.xent_fwd(x, w, tg, save=False)
+    g = cx.xent_g(x, w, tg, lse, dn)
+    assert cx.LAUNCHES["xent_fwd"] == 2 and cx.LAUNCHES["xent_g"] == 1
+    plse, ptgt, pe, pm = cx.xent_fwd_plain(x, w, tg, True, chunk)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(tgt, ptgt, atol=1e-3, rtol=0)
+    assert torch.equal(lse0, lse) and torch.equal(tgt0, tgt)
+    assert e.shape == (t, v) and e.dtype == torch.bfloat16
+    assert mrun.shape == pm.shape
+    torch.testing.assert_close(mrun, pm, atol=1e-3, rtol=0)
+    _grad_close((e, g), (pe, cx.xent_g_plain(x, w, tg, lse, dn)), 2e-2)
+    assert torch.equal(cx.xent_g(x, w, tg, lse, dn), g)
+    again = cx.xent_fwd(x, w, tg, save=True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (lse, tgt, e, mrun)))
+
+
+# The fused head in the matmul backward's recompute flavour (B9's forward,
+# B11's g, then two products) at a shape off the logits tile that JAX's
+# gate takes: its loss and gradients against the plain versions (the
+# gradients within 2e-2 of the largest entry: g is rounded to bf16).
+def test_fused_head_matmul_recompute_bf16_matches_plain(no_tf32):
+    from icikit_torch.ops.xent import fused_xent, xent_supported
+
+    gen = no_tf32
+    t, d, v = 300, 640, 1000
+    assert xent_supported(t, d, v, torch.bfloat16)
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    cx.reset_launches()
+    loss = fused_xent(xg, wg, tg, save_exp=False, fused_bwd=False)
+    loss.sum().backward()
+    assert {k: n for k, n in cx.LAUNCHES.items() if n} == {"xent_fwd": 1,
+                                                          "xent_g": 1}
+    plse, ptgt = cx.xent_fwd_plain(x, w, tg, False)
+    torch.testing.assert_close(loss, plse - ptgt, atol=1e-3, rtol=0)
+    ones = torch.ones((t,), device="cuda")
+    _grad_close((xg.grad, wg.grad),
+                (cx.xent_dx_plain(x, w, tg, plse, ones),
+                 cx.xent_dw_plain(x, w, tg, plse, ones)), 2e-2)
+
+
 # Past D 2048 (one cluster of 8 CTAs, 256 columns each) the bf16
 # recompute kernels take 128 x 128 tiles that each form the logits, at
 # the same tolerance; the fused head's recompute flavour keeps its route
