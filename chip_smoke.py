@@ -10,8 +10,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    with each listed kernel's registers and local (spill) bytes a thread
    and the recompute head's clusters the card holds at once; the sort,
    Adam, save-stack, recompute head, saved head backward, decode step
-   (bf16 and int8) and int8 matvec (skinny and tile) kernels must use no
-   local memory.
+   (bf16 and int8), int8 matvec (skinny and tile) and tile-floor kernels
+   must use no local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
    at G_MAX bits, 1 bit and a middle range, merge_only and in place,
@@ -162,18 +162,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    weights, each of the prefill's four products beside its own bound,
    its library call and cuBLAS's bf16 product, and their sum a layer.
 20. B17's kernels against their plain versions: ``tile_mxu`` and the
-   four ``tile_ablate`` variants at (1, 2, 512, d), d = 64 and 128, bq =
-   bk = 64, within TILE_TOL of the largest |plain| entry (both round w
-   to bf16 at scores whose float32 sums differ in order).
+   four ``tile_ablate`` variants at (1, 2, s, d), s = 128, 384 and 512
+   (one, three and four 128-key tiles: the ring's first pass, then its
+   stages reused after an odd and an even count), d = 64
+   and 128, bq = bk = 128 (``cuda_tile_floor.TILE``), within TILE_TOL of
+   the largest |plain| entry (both round w to bf16 at scores whose
+   float32 sums differ in order).
 21. the tile-floor path: ``bench.tile_floor.measure`` at s = 32768, h 8,
-   d = 64 and 128, 3 windows: the six variants' per-tile us beside the
-   per-tile bound (4 bq bk d operations at 989 TFLOP/s) and the render's
-   decomposition (what exp2 and the running max cost inside
-   ``flash_fwd``'s loop); ``tile_mxu``, ``tile_ablate`` and
-   ``flash_fwd`` launched; then the five kernels against their plain
+   d = 64 and 128, 3 windows: the six variants' per-tile us in the
+   kernels' 128 x 128 tiles beside the per-tile bound (4 TILE^2 d
+   operations at 989 TFLOP/s) and the render's decomposition (what exp2
+   and the running max cost inside ``flash_fwd``'s wgmma loop, and what
+   ``flash_fwd`` itself loses against it); ``tile_mxu``, ``tile_ablate``
+   and ``flash_fwd`` launched; then the five kernels against their plain
    versions at (1, 8, 32768, d), d = 64 and 128, within TILE_TOL, and
-   at d = 64 timed, ``softmax_ks1`` beside non-causal
-   ``scaled_dot_product_attention`` (the same function).
+   at both d timed, ``softmax_ks1`` beside non-causal
+   ``scaled_dot_product_attention`` (the same function) at that d.
 22. B16's kernels against their plain versions, bit for bit: every slice
    shape and dtype of the save-stack path's stacks at slices 0, 5, 11,
    and a slice off JAX's gate, which takes the plain copy and launches
@@ -300,6 +304,12 @@ SAVE_STACK_LAUNCHES = {"stack_write": 12 * 7, "stack_read": 12,
 # 2^10..2^15 keys, K2 at 1..10 bits
 SORT_KERNELS = tuple(f"net_kernel<{L}>" for L in range(10, 16)) + tuple(
     f"cross_kernel<{g}>" for g in range(1, 11))
+# tile_floor.cu's kernels in icikit_tile_floor_regs' order (B17)
+TILE_KERNELS = tuple(
+    f"{k}<{d}{a}>" for d in (64, 128)
+    for k, a in (("tile_mxu", ""), ("tile_ablate", ", SOFTMAX"),
+                 ("tile_ablate", ", NO_EXP2"), ("tile_ablate", ", NO_MAX"),
+                 ("tile_ablate", ", NO_EXP2_NO_MAX")))
 # Phase 2: kernels that must use no local memory (registers only)
 NO_LOCAL_MEMORY = SORT_KERNELS + (
     "adam_tree_kernel<f32 moments>", "adam_tree_kernel<bf16 moments>",
@@ -310,13 +320,13 @@ NO_LOCAL_MEMORY = SORT_KERNELS + (
     "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>",
     "decode_step_kernel<bf16>", "decode_step_kernel<float>",
     "qmv_bf16_tile", "xent_dx_bf16", "xent_dw_bf16", "xent_fwd_bf16",
-    "xent_g_bf16", "xent_merge") + tuple(
+    "xent_g_bf16", "xent_merge") + TILE_KERNELS + tuple(
     f"qmv_bf16_skinny<{cpw}, 1>" for cpw in (1, 2, 4, 8)) + tuple(
     f"qmv_bf16_skinny<{cpw}, 2>" for cpw in (1, 2, 4))
-# Phases 20-21, B17: the check shapes (b, h, s) and the tile-floor path's
-# (h, seq) at head dims 64 and 128; the check tolerance, relative to the
-# largest |plain| entry
-TILE_CHECK = (1, 2, 512)
+# Phases 20-21, B17: the check shapes (b, h, s), one, three and four
+# 128-key tiles, and the tile-floor path's (h, seq) at head dims 64 and
+# 128; the check tolerance, relative to the largest |plain| entry
+TILE_CHECK = ((1, 2, 128), (1, 2, 384), (1, 2, 512))
 TILE_PATH = (8, 32768)
 TILE_DIMS = (64, 128)
 TILE_TOL = 2e-2
@@ -2281,15 +2291,14 @@ def int8_rows(torch, dev, bw, launches, path_trace) -> list:
 
 
 def tile_floor_kernel_checks(torch, dev) -> None:
-    """Phase 20: B17's five kernels against their plain versions at
-    TILE_CHECK, head dims 64 and 128, bq = bk = 64."""
+    """Phase 20: B17's five kernels against their plain versions at each
+    TILE_CHECK shape, head dims 64 and 128, bq = bk = ``ctf.TILE``."""
     from icikit_torch.bench.tile_floor import ABLATIONS, LOG2E_JAX
     from icikit_torch.ops import cuda_tile_floor as ctf
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    b, h, s = TILE_CHECK
     checks = []
-    for d in TILE_DIMS:
+    for (b, h, s), d in itertools.product(TILE_CHECK, TILE_DIMS):
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         scale_log2 = d ** -0.5 * LOG2E_JAX
@@ -2301,12 +2310,13 @@ def tile_floor_kernel_checks(torch, dev) -> None:
         for name, got, want in pairs:
             err = _rel(got, want)
             finite = bool(torch.isfinite(got.float()).all())
-            checks.append({"variant": name, "d": d, "rel_err": err,
+            checks.append({"variant": name, "s": s, "d": d, "rel_err": err,
                            "finite": finite,
                            "ok": finite and err <= TILE_TOL})
     torch.cuda.synchronize()
-    emit({"phase": "tile_floor_kernels", "shape": [b, h, s],
-          "dims": list(TILE_DIMS), "tolerance": TILE_TOL,
+    emit({"phase": "tile_floor_kernels", "shapes": [list(t) for t in
+                                                   TILE_CHECK],
+          "dims": list(TILE_DIMS), "tile": ctf.TILE, "tolerance": TILE_TOL,
           "why": "bf16: the kernel and the plain version round w to bf16 "
                  "at scores whose float32 sums differ in order, so a "
                  "score on a rounding boundary rounds apart; the error "
@@ -2323,7 +2333,7 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
     TILE_PATH for each head dim, its launches counted; then B17's five
     kernels against their plain versions at the path's shapes, both head
     dims, within TILE_TOL; returns the rows of B17's kernels timed at the
-    path's d = 64 shape."""
+    path's shapes, both head dims."""
     from icikit_torch.bench.tile_floor import (ABLATIONS, LOG2E_JAX,
                                                measure, render, tile_ops)
     from icikit_torch.ops import cuda_attention as ca
@@ -2332,6 +2342,7 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
 
     t0 = time.perf_counter()
     h, seq = TILE_PATH
+    tile = ctf.TILE
     results = {}
     ctf.reset_launches()
     ca.reset_launches()
@@ -2341,15 +2352,18 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
     torch.cuda.synchronize()
     launches = {**ctf.LAUNCHES, "flash_fwd": ca.LAUNCHES["flash_fwd"]}
     ok = all(n > 0 for n in launches.values()) and all(
-        r["per_tile_us"] > 0 and r["tiles"] > 0
-        for by in results.values() for r in by.values())
+        r["per_tile_us"] > 0 and r["tiles"] == (
+            h * (seq // tile) * (seq // tile + 1) // 2 if n == "full"
+            else h * (seq // tile) ** 2) and r["bq"] == r["bk"] == tile
+        for by in results.values() for n, r in by.items())
     for d, by in results.items():
-        bound_us = tile_ops(64, 64, d) / BF16_TENSOR_OPS * 1e6
+        bound_us = tile_ops(tile, tile, d) / BF16_TENSOR_OPS * 1e6
         emit({"phase": "tile_floor", "card": smi, "h": h, "seq": seq,
-              "d": d, "launches": launches,
+              "d": d, "tile": tile, "launches": launches,
               "per_tile_us": {n: r["per_tile_us"] for n, r in by.items()},
               "per_tile_bound_us": bound_us,
-              "bound_by": "operations (4 bq bk d at 989 TFLOP/s)",
+              "bound_by": f"operations (4 x {tile} x {tile} x d at 989 "
+                          "TFLOP/s)",
               "tiles": {n: r["tiles"] for n, r in by.items()},
               "median_s": {n: r["median_s"] for n, r in by.items()},
               "spread_s": {n: r["spread_s"] for n, r in by.items()},
@@ -2357,14 +2371,15 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
               "render": render(list(by.values())).splitlines(),
               "seconds": round(time.perf_counter() - t0, 1)})
     if not ok:
-        raise AssertionError(f"tile-floor path: a kernel was not launched "
-                             f"or a variant gave no time: {launches}")
+        raise AssertionError(f"tile-floor path: a kernel was not launched, "
+                             f"a variant gave no time or another tile "
+                             f"count: {launches}")
 
     # B17's five kernels against their plain versions at the path's
-    # shapes, both head dims (these launches come after the count); then
-    # at d = 64 each kernel timed beside its plain version, and
-    # softmax_ks1 beside the one PyTorch call that computes its function,
-    # non-causal scaled_dot_product_attention
+    # shapes, both head dims (these launches come after the count), each
+    # timed beside its plain version, and softmax_ks1 beside the one
+    # PyTorch call that computes its function, non-causal
+    # scaled_dot_product_attention, at that d
     gen = torch.Generator(device=dev).manual_seed(9)
     checks, rows, timing = [], [], {}
     for d in TILE_DIMS:
@@ -2388,11 +2403,8 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
                            "finite": finite,
                            "ok": finite and errs[name] <= TILE_TOL})
             del got, want
-        if d != TILE_DIMS[0]:
-            del q, k, v
-            continue
-        tiles = h * (seq // ctf.TILE) ** 2
-        t_ops = tiles * tile_ops(ctf.TILE, ctf.TILE, d) / BF16_TENSOR_OPS
+        tiles = h * (seq // tile) ** 2
+        t_ops = tiles * tile_ops(tile, tile, d) / BF16_TENSOR_OPS
         t_bytes = 4 * q.numel() * 2 / bw
         bound_ms = max(t_ops, t_bytes) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -2402,47 +2414,55 @@ def tile_floor_path(torch, dev, bw, smi) -> list:
                 q, k, v, scale=d ** -0.5)
 
         lib_ms = cuda_time_ms(sdpa, iters=3, warmup=1)
-        timing = {"library_rel_err_vs_softmax_ks1": _rel(
-            sdpa(), ctf.ablate_plain(q, k, v, scale_log2, True, True))}
-        for name, row_name in (("mxu", "tile_mxu (B17)"),
-                               ("softmax_ks1",
-                                "tile_ablate softmax_ks1 (B17)")):
-            key, kern, plain = variants[name]
+        timing[d] = {"sdpa_noncausal_ms": lib_ms,
+                     "library_rel_err_vs_softmax_ks1": _rel(
+                         sdpa(), ctf.ablate_plain(q, k, v, scale_log2,
+                                                  True, True)),
+                     "ms": {}, "plain_ms": {}}
+        for name, (key, kern, plain) in variants.items():
+            ms = cuda_time_ms(kern, iters=3, warmup=1)
+            p_ms = cuda_time_ms(plain, iters=1, warmup=1)
+            timing[d]["ms"][name], timing[d]["plain_ms"][name] = ms, p_ms
+            if name not in ("mxu", "softmax_ks1"):
+                continue
+            label = key if name == "mxu" else f"{key} {name}"
             rows.append({
-                "name": row_name, "route": "cuda",
+                "name": f"{label} (B17), d {d}", "route": "cuda",
                 "source": "icikit_torch/csrc/tile_floor.cu",
                 "replaces": (
                     "icikit/bench/tile_floor.py:174 (B17, _mxu_kernel)"
                     if key == "tile_mxu" else
                     "icikit/bench/tile_floor.py:199 (B17, _ablate_kernel)"),
                 "launches": launches[key], "max_abs_err": errs[name],
-                "ms": cuda_time_ms(kern, iters=3, warmup=1),
-                "plain_ms": cuda_time_ms(plain, iters=1, warmup=1),
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by,
                 "library_ms": lib_ms if name == "softmax_ks1" else None})
+        timing[d]["bound_ms"], timing[d]["bound_by"] = bound_ms, bound_by
         del q, k, v
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "tile_floor_path_checks", "h": h, "seq": seq,
           "dims": list(TILE_DIMS), "tolerance": TILE_TOL,
           "why": "as phase 20, at the path's shapes",
           "checks": checks})
     emit({"phase": "tile_floor_timing_kernels", "card": smi,
-          "shape": f"b=1 h={h} s={seq} d={TILE_DIMS[0]} bf16, the full "
-                   f"rectangle of {h * (seq // ctf.TILE) ** 2} 64 x 64 "
+          "shape": f"b=1 h={h} s={seq} d={list(TILE_DIMS)} bf16, the full "
+                   f"rectangle of {h * (seq // tile) ** 2} {tile} x {tile} "
                    "tiles",
           "launches": "the tile-floor path's, both head dims (tile_ablate "
                       "over its four variants)",
           "library": "softmax_ks1: non-causal scaled_dot_product_attention "
                      "at scale d**-0.5 (softmax attention, the function "
-                     "the online softmax computes); mxu: none, no PyTorch "
-                     "call computes its unnormalized sum",
+                     "the online softmax computes); mxu and the other "
+                     "ablations: none, no PyTorch call computes them",
+          "ms": "CUDA events over 3 back-to-back calls (the plain "
+                "versions 1), after a warm-up call",
           "max_abs_err": "relative to the largest |plain| entry",
-          **timing})
+          "by_dim": timing})
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"tile-floor kernel disagrees with its plain "
                              f"version at the path's shapes: {bad}")
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -2657,10 +2677,7 @@ def main() -> int:
               "adam_tree_kernel<bf16 m, f32 v>")),
             ("stack_write", "icikit_stack_regs",
              ("stack_write_kernel", "stack_read_kernel")),
-            ("tile_floor", "icikit_tile_floor_regs",
-             ("tile_mxu<64>", "tile_ablate<64, exp2, max>",
-              "tile_ablate<64, -, ->", "tile_mxu<128>",
-              "tile_ablate<128, exp2, max>"))):
+            ("tile_floor", "icikit_tile_floor_regs", TILE_KERNELS)):
         for which, name in enumerate(names):
             r, loc = ctypes.c_int(), ctypes.c_int()
             _build.check(getattr(libs[lib], fn)(

@@ -5,20 +5,21 @@ variants over identical tile grids, so that the differences between
 them decompose one tile's time into its pieces:
 
 - ``full``: the port's production forward (``flash_fwd``, causal,
-  online softmax; the wgmma design, 128 x 128 tiles at these head
-  dims), its time over the causal tiles at the study's 64 x 64
-  geometry, the diagonal included;
+  online softmax; 128 x 128 tiles at these head dims), its time over
+  the causal tiles, the diagonal included: ``flash_fwd``'s exact tile
+  count;
 - ``mxu``: both tile products and the least glue, no softmax
   statistics (``tile_mxu``, B17);
 - ``softmax_ks1``, ``no_exp2``, ``no_max``, ``no_exp2_no_max``: the
   online-softmax loop with exp2 and/or the running max taken out
   (``tile_ablate``, B17), each over the full rectangle of tiles.
 
-``tile_mxu`` and ``tile_ablate`` run the loop of ``flash_fwd``'s first
-design (64-row Q tiles, 64-key tiles, four warps, mma.sync;
-``csrc/tile_floor.cu``), kept as the study's fixed reference, so the
-differences say what exp2 and the running max cost inside that loop;
-``full`` is no longer their sum. The card has no counterpart of the TPU kernel's ks banking:
+``tile_mxu`` and ``tile_ablate`` run ``flash_fwd``'s wgmma/TMA tile
+loop at its geometry (``csrc/tile_floor.cu``), every variant counted in
+its 128 x 128 tiles, so the differences say what exp2 and the running
+max cost inside that loop, and ``full`` against ``softmax_ks1`` what
+``flash_fwd``'s own loop (causal, its mask, lse) loses against the
+study's. The card has no counterpart of the TPU kernel's ks banking:
 the shipped arm is one online softmax. Each variant is timed by the
 median-of-windows protocol over a chain (``out * 0.999`` fed back as
 q), windows faster than the tiles' products at the card's nameplate
@@ -57,9 +58,9 @@ def tile_ops(bq: int, bk: int, d: int) -> int:
 def measure(seq: int, d: int = 64, h: int = 8, windows: int = 3,
             device: str = "cuda") -> list[dict]:
     """The six variants' records at ``(1, h, seq, d)`` bf16 (q, k, v
-    from a seeded generator on ``device``), over 64 x 64 tiles (``seq`` a
-    multiple of 64). On the card the kernels take head dims 64 and 128,
-    and raise otherwise."""
+    from a seeded generator on ``device``), over the kernels' 128 x 128
+    tiles (``seq`` a multiple of 128). On the card the kernels take head
+    dims 64 and 128, and raise otherwise."""
     from icikit_torch.bench.headline import device_identity
     from icikit_torch.bench.train import detect_peak
     from icikit_torch.ops import cuda_attention, cuda_tile_floor
@@ -88,13 +89,13 @@ def measure(seq: int, d: int = 64, h: int = 8, windows: int = 3,
             "kind": "tile_floor", "variant": variant, "seq": seq, "d": d,
             "bq": tile, "bk": tile, "tiles": tiles,
             "median_s": res.median_s, "spread_s": [res.min_s, res.max_s],
-            # unrounded: a 64 x 64 tile takes nanoseconds on the card
+            # unrounded: a tile takes nanoseconds on the card
             "per_tile_us": res.median_s / tiles * 1e6,
             "session_quality": res.session_quality(),
             "device": name, "power_limit": power})
 
-    # the causal forward's work in the study's 64 x 64 tiles: the lower
-    # triangle, the diagonal included
+    # the causal forward's work in the study's tiles (flash_fwd's at
+    # these head dims): the lower triangle, the diagonal included
     add("full", lambda q, k, v: cuda_attention.flash_fwd(q, k, v, True,
                                                           scale)[0],
         b * h * sum(iq + 1 for iq in range(seq // tile)))
@@ -110,7 +111,7 @@ def measure(seq: int, d: int = 64, h: int = 8, windows: int = 3,
 
 def render(records) -> str:
     """JAX's decomposition, per tile in nanoseconds (the port's tiles are
-    64 x 64, JAX's 1024 x 1024)."""
+    128 x 128, JAX's 1024 x 1024)."""
     ns = {r["variant"]: r["per_tile_us"] * 1e3 for r in records}
     full = next(r for r in records if r["variant"] == "full")
     sm = ns["softmax_ks1"]

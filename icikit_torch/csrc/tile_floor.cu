@@ -8,361 +8,423 @@
 //      float32 accumulator, bf16 out (no division).
 //   tile_ablate <- _ablate_kernel (B17, :63, pallas_call :199).
 //      The online-softmax tile loop with one class of work taken out at a
-//      time: USE_EXP2 = false replaces exp2 by a subtraction (alpha =
-//      0.1 (m_prev - m_new) + 1, w = s - m), USE_MAX = false the running
-//      row max by the constant 8. Four instantiations, the variants
+//      time: without EXP2 a subtraction stands for exp2 (alpha = 0.1
+//      (m_prev - m_new) + 1, w = s - m_new), without MAX the constant 8
+//      for the running row max. Four instantiations, the variants
 //      softmax_ks1 (both on), no_exp2, no_max and no_exp2_no_max. The
 //      statistics start from JAX's m = -1e30, l = 0; l sums the float32
 //      w, P V takes w rounded to bf16, out = acc / l in bf16.
 //
-//   Both keep the tile loop that flash_fwd_bf16 ran until its wgmma
-//   redesign as the study's fixed reference, so that the differences
-//   between variants decompose that loop: one CTA of four warps
-//   (MMA_THREADS) per (batch*head, 64-row Q tile), each warp owning 16 Q
-//   rows with its Q fragments in registers; 64-key tiles of K and V^T
-//   staged through shared memory with strides KS = D + 8 and VS = BN + 8
-//   and a scalar transposed store of V; S = Q K^T and P V on mma.sync
-//   m16n8k16 (bf16 in, float32 accumulate), the S accumulators repacked
-//   as P's A fragments; row statistics reduced over the 4 lanes of a
-//   quad; base 2 with log2(e) folded into the scale. The study's `full`
-//   arm is flash_fwd itself, now the wgmma design: its time is no longer
-//   the sum of these variants' parts. Unlike flash, the grid is the
-//   full rectangle (no causal bound) and every length is a multiple of
-//   64 (the wrapper raises otherwise), so nothing is masked. Head dims
-//   64 and 128 only. The helpers below (mma_bf16, pack_bf16, ld32) are
-//   copies of that loop's helpers (pack_bf16 is still in attention.cu),
-//   kept here so that this file builds alone: the build names a library
-//   by a hash of its one source.
+//   All five run one tile loop, flash_fwd_bf16's (attention.cu) at its
+//   geometry for d <= 128, and differ only in what they do to S between
+//   the two products (tile_weights), so that the differences between
+//   variants split one tile of that loop's time:
+//   - a CTA a (batch*head, 128-row Q tile), 384 threads: two consumer
+//     warpgroups of 64 Q rows each and a producer warpgroup, one thread of
+//     which loads Q once and keeps a two-stage ring of 128-key K and V
+//     tiles full by TMA (2-d tensor maps over the (b*h*s, d) rows, boxes
+//     of 64 columns x 128 rows landing in wgmma's 128-byte swizzle);
+//     setmaxnreg gives the producer's registers to the consumers (24 and
+//     240). K and V each have a full and an empty mbarrier a stage, so a
+//     K slot is refilled once its S product is done and a V slot once its
+//     P V is;
+//   - S = Q K^T on wgmma m64n128k16 with Q and K read K-major by swizzled
+//     descriptors; O += P V on wgmma with P as the register A operand,
+//     taken from S's accumulator rounded to bf16, and V read MN-major
+//     through the transpose bit: no transposed copy of V;
+//   - the statistics in base 2 on ex2.approx.ftz, the scale folded into
+//     one FMA, the row max reduced over the quad of lanes that hold a row,
+//     each lane's share of l summed over the quad once at the end.
+//   The loop runs one tile at a time, as flash_fwd_bf16 does (the two
+//   consumer warpgroups interleave on their own). A form that issued tile
+//   j+1's S before tile j's weights (FlashAttention-3's overlap within a
+//   warpgroup) measured slower on the card and is not kept (PERF.md, B17).
+//   The grid is the full rectangle (no causal bound, no mask): every
+//   length is a multiple of 128 (the wrapper raises otherwise). Head dims
+//   64 (one 64-column block, O 32 registers a thread) and 128 (two
+//   blocks, O 64).
 //   Bound: operations. At b 1, h 8, s 32768, d 64 the rectangle is
-//   2,097,152 tiles of 4 * 64 * 64 * 64 FLOP, 2.20 TFLOP, 2.22 ms at
-//   989 TFLOP/s (4.45 ms at d 128), against 134 MB of q, k, v and out,
-//   0.04 ms at 3.35 TB/s. The design keeps S and P in registers and K/V
-//   in shared memory as that loop did; it makes no attempt at the bound
-//   (no wgmma, no TMA, no pipelining): it measures that loop as it was.
+//   524,288 tiles of 4 * 128 * 128 * 64 FLOP, 2.20 TFLOP, 2.22 ms at 989
+//   TFLOP/s (4.45 ms at d 128), against 134 MB of q, k, v and out, 0.04
+//   ms at 3.35 TB/s.
 //
 // Every entry returns cudaGetLastError() after its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-constexpr int BM = 64;            // Q rows a CTA (attention.cu BM)
-constexpr int BN = 64;            // keys a tile (attention.cu BN)
-constexpr int THREADS = 128;      // 4 warps x 16 rows (MMA_THREADS)
+namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
+// The variants: the products alone, then the online softmax whole and
+// with exp2, the running max or both taken out.
+enum Variant : int { MXU, SOFTMAX, NO_EXP2, NO_MAX, NO_EXP2_NO_MAX, VARIANTS };
+__host__ __device__ constexpr bool has_exp2(int v) {
+  return v == SOFTMAX || v == NO_MAX;
+}
+__host__ __device__ constexpr bool has_max(int v) {
+  return v == SOFTMAX || v == NO_EXP2;
 }
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int ROWS = 128;  // Q rows a CTA: two consumer warpgroups of 64
+constexpr int BK = 128;    // keys a tile
+constexpr int NS = 2;      // ring stages
+constexpr int CT = 256;    // consumer threads
+constexpr int NT = CT + 128;  // and the producer warpgroup
+constexpr int SW = 128;    // swizzle span in bytes: 64-column blocks
+constexpr int SR = BK / 2;  // S accumulator registers a thread
+constexpr int QB = ROWS * SW, KB = BK * SW;  // bytes of a column block
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The parts of flash_fwd_bf16's loop that every variant shares: Q
-// fragments, the staging of a K and a V^T tile, S = Q K^T and P V.
 template <int D>
-struct TileLoop {
-  static constexpr int KS = D + 8;   // K tile row stride (bf16)
-  static constexpr int VS = BN + 8;  // V^T tile row stride
-  static constexpr size_t SMEM = sizeof(bf16) * (BN * KS + D * VS);
-
-  bf16* ks;
-  bf16* vt;
-  const bf16* kb;
-  const bf16* vb;
-  int g, c2;
-  uint32_t qa[D / 16][4];
-
-  __device__ __forceinline__ TileLoop(unsigned char* smem, const bf16* q,
-                                      const bf16* k, const bf16* v,
-                                      int64_t s) {
-    ks = reinterpret_cast<bf16*>(smem);
-    vt = ks + BN * KS;
-    const int64_t bh = blockIdx.y;
-    const bf16* qb = q + bh * s * D;
-    kb = k + bh * s * D;
-    vb = v + bh * s * D;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    g = lane >> 2;
-    c2 = (lane & 3) * 2;
-    const int64_t r0 = (int64_t)blockIdx.x * BM + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const int col = c * 16 + c2;
-      qa[c][0] = ld32(qb + r0 * D + col);
-      qa[c][1] = ld32(qb + r1 * D + col);
-      qa[c][2] = ld32(qb + r0 * D + col + 8);
-      qa[c][3] = ld32(qb + r1 * D + col + 8);
-    }
-  }
-
-  // Stage the key tile at n0: K row-major, V transposed (flash's stores).
-  __device__ __forceinline__ void stage(int64_t n0) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BN * D / 8; i += THREADS) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      const uint4 kv = *reinterpret_cast<const uint4*>(kb + (n0 + r) * D + c8);
-      const uint4 vv = *reinterpret_cast<const uint4*>(vb + (n0 + r) * D + c8);
-      *reinterpret_cast<uint4*>(ks + r * KS + c8) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c8 + e) * VS + r] = ve[e];
-    }
-    __syncthreads();
-  }
-
-  // s = Q K^T for this warp's 16 rows and the tile's 64 keys.
-  __device__ __forceinline__ void scores(float (&s)[BN / 8][4]) const {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        const bf16* kp = ks + (j * 8 + g) * KS + c * 16 + c2;
-        mma_bf16(s[j], qa[c], ld32(kp), ld32(kp + 8));
-      }
-    }
-  }
-
-  // o += bf16(w) V.
-  __device__ __forceinline__ void pv(float (&o)[D / 8][4],
-                                     const float (&w)[BN / 8][4]) const {
-#pragma unroll
-    for (int c = 0; c < BN / 16; ++c) {
-      const uint32_t pa[4] = {pack_bf16(w[2 * c][0], w[2 * c][1]),
-                              pack_bf16(w[2 * c][2], w[2 * c][3]),
-                              pack_bf16(w[2 * c + 1][0], w[2 * c + 1][1]),
-                              pack_bf16(w[2 * c + 1][2], w[2 * c + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* vp = vt + (n * 8 + g) * VS + c * 16 + c2;
-        mma_bf16(o[n], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  // Rows r0 and r1 of this lane: out = bf16(o / l), the TPU kernel's
-  // acc / l (flash multiplies by 1 / l instead).
-  __device__ __forceinline__ void store(bf16* out, int64_t s,
-                                        const float (&o)[D / 8][4], float l0,
-                                        float l1) const {
-    const int64_t bh = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const int64_t r0 = (int64_t)blockIdx.x * BM + warp * 16 + g, r1 = r0 + 8;
-    bf16* ob = out + bh * s * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + c2;
-      *reinterpret_cast<uint32_t*>(ob + r0 * D + col) =
-          pack_bf16(o[n][0] / l0, o[n][1] / l0);
-      *reinterpret_cast<uint32_t*>(ob + r1 * D + col) =
-          pack_bf16(o[n][2] / l1, o[n][3] / l1);
-    }
-  }
+struct Geo {
+  static constexpr int CB = D * 2 / SW;        // column blocks
+  static constexpr int TILE_Q = ROWS * D * 2;  // bytes of the Q tile
+  static constexpr int TILE_K = BK * D * 2;    // of a K or a V tile
+  // Q, the ring (stage st: K, then V), then the mbarriers: K full, V
+  // full, K empty, V empty (a stage each) and Q's; and room to align the
+  // tiles to 1024 bytes (the swizzle's period)
+  static constexpr int BARS = TILE_Q + 2 * NS * TILE_K;
+  static constexpr size_t SMEM = 1024 + BARS + (4 * NS + 1) * 8;
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-tile_mxu(const bf16* __restrict__ q, const bf16* __restrict__ k,
-         const bf16* __restrict__ v, bf16* __restrict__ out, int64_t s,
-         float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileLoop<D> t(smem_raw, q, k, v, s);
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  for (int64_t n0 = 0; n0 < s; n0 += BN) {
-    t.stage(n0);
-    float w[BN / 8][4];
-    t.scores(w);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) w[j][e] *= scale_log2;
-    t.pv(o, w);
-  }
-  t.store(out, s, o, 1.f, 1.f);
+// exp2 on the special-function unit, subnormal results flushed to zero
+// (flash_fwd_bf16's ex2).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D, bool USE_EXP2, bool USE_MAX>
-__global__ void __launch_bounds__(THREADS)
-tile_ablate(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, bf16* __restrict__ out, int64_t s,
-            float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileLoop<D> t(smem_raw, q, k, v, s);
-  float o[D / 8][4];
+// What variant V does to S between the products, in place, for the
+// lane's rows r0 (accumulator elements i with i & 2 == 0) and r0 + 8.
+// MXU: w = s * scale_log2. The ablations, JAX's recurrence: m_new the
+// running row max (MAX; taken over the unscaled scores, the scale being
+// positive) or 8; alpha = exp2(m - m_new), w = exp2(s * scale_log2 -
+// m_new) (EXP2) or alpha = 0.1 (m - m_new) + 1, w = s * scale_log2 -
+// m_new; l0, l1 the lane's share of the row sums, l = l alpha + sum(w).
+// al0, al1 rescale O (1 for MXU).
+template <int V, int R>
+__device__ __forceinline__ void tile_weights(float (&s)[R], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1,
+                                             float scale_log2) {
+  al0 = al1 = 1.f;
+  if constexpr (V == MXU) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float mx0 = -1e30f, mx1 = -1e30f, l0 = 0.f, l1 = 0.f;
-  for (int64_t n0 = 0; n0 < s; n0 += BN) {
-    t.stage(n0);
-    float w[BN / 8][4];
-    t.scores(w);
-    float tm0 = -INFINITY, tm1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) w[j][e] *= scale_log2;
-      if (USE_MAX) {
-        tm0 = fmaxf(tm0, fmaxf(w[j][0], w[j][1]));
-        tm1 = fmaxf(tm1, fmaxf(w[j][2], w[j][3]));
-      }
-    }
+    for (int i = 0; i < R; ++i) s[i] *= scale_log2;
+  } else {
     float mn0 = 8.f, mn1 = 8.f;
-    if (USE_MAX) {
+    if constexpr (has_max(V)) {
+      float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (i & 2) tm1 = fmaxf(tm1, s[i]);
+        else tm0 = fmaxf(tm0, s[i]);
+      }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
         tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
       }
-      mn0 = fmaxf(mx0, tm0);
-      mn1 = fmaxf(mx1, tm1);
+      mn0 = fmaxf(m0, tm0 * scale_log2);
+      mn1 = fmaxf(m1, tm1 * scale_log2);
     }
-    float al0, al1;
-    if (USE_EXP2) {
-      al0 = exp2f(mx0 - mn0);
-      al1 = exp2f(mx1 - mn1);
+    if constexpr (has_exp2(V)) {
+      al0 = ex2(m0 - mn0);
+      al1 = ex2(m1 - mn1);
     } else {
-      al0 = (mx0 - mn0) * 0.1f + 1.f;
-      al1 = (mx1 - mn1) * 0.1f + 1.f;
+      al0 = (m0 - mn0) * 0.1f + 1.f;
+      al1 = (m1 - mn1) * 0.1f + 1.f;
     }
+    const float b0 = -mn0, b1 = -mn1;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      if (USE_EXP2) {
-        w[j][0] = exp2f(w[j][0] - mn0);
-        w[j][1] = exp2f(w[j][1] - mn0);
-        w[j][2] = exp2f(w[j][2] - mn1);
-        w[j][3] = exp2f(w[j][3] - mn1);
-      } else {
-        w[j][0] -= mn0;
-        w[j][1] -= mn0;
-        w[j][2] -= mn1;
-        w[j][3] -= mn1;
-      }
-      rs0 += w[j][0] + w[j][1];
-      rs1 += w[j][2] + w[j][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    for (int i = 0; i < R; ++i) {
+      float w = fmaf(s[i], scale_log2, i & 2 ? b1 : b0);
+      if constexpr (has_exp2(V)) w = ex2(w);
+      s[i] = w;
+      if (i & 2) rs1 += w;
+      else rs0 += w;
     }
     l0 = l0 * al0 + rs0;
     l1 = l1 * al1 + rs1;
-    mx0 = mn0;
-    mx1 = mn1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
-    }
-    t.pv(o, w);
+    m0 = mn0;
+    m1 = mn1;
   }
-  t.store(out, s, o, l0, l1);
 }
 
-template <typename KernelT>
-int launch(KernelT kernel, size_t smem, const void* q, const void* k,
-           const void* v, void* out, int64_t bh, int64_t s, float scale_log2,
-           cudaStream_t st) {
-  int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err) return err;
-  const dim3 grid((unsigned)(s / BM), (unsigned)bh);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), s, scale_log2);
-  return (int)cudaGetLastError();
+// One consumer warpgroup's share of a CTA: its 64 Q rows (qo bytes into
+// each Q block), the ring and its barriers, O and the row statistics.
+template <int D, int V>
+struct Consumer {
+  using G = Geo<D>;
+  const unsigned char* qs;
+  const unsigned char* ring;
+  uint64_t *kfull, *vfull, *kempty, *vempty;
+  int qo;
+  float scale_log2;
+  float o[D / 2];
+  float m0, m1, l0, l1;
+
+  __device__ __forceinline__ const unsigned char* ks(int j) const {
+    return ring + (j % NS) * 2 * G::TILE_K;
+  }
+
+  // S = Q K_j^T into s (one wgmma group, committed, not waited for)
+  __device__ __forceinline__ void issue_s(float (&s)[SR], int j) const {
+    const unsigned char* k = ks(j);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_ss<BK, 0, 0>(
+          s,
+          gmma_desc_sw(qs + kc * 32 / SW * QB + qo + kc * 32 % SW, 16,
+                       8 * SW, 1),
+          gmma_desc_sw(k + kc * 32 / SW * KB + kc * 32 % SW, 16, 8 * SW, 1),
+          kc > 0);
+    wg_commit();
+  }
+
+  // O += bf16(w) V_j (one wgmma group, committed, not waited for)
+  __device__ __forceinline__ void issue_pv(const float (&w)[SR], int j) {
+    const unsigned char* v = ks(j) + G::TILE_K;
+    wg_fence();
+#pragma unroll
+    for (int cc = 0; cc < BK / 16; ++cc) {
+      uint32_t a[4];
+      acc_to_a(a, w, cc);
+      wgmma_rs<D, 1>(o, a, gmma_desc_sw(v + cc * 16 * SW, KB, 8 * SW, 1), 1);
+    }
+    wg_commit();
+  }
+
+  // O rescaled by alpha (O's last product must be done)
+  __device__ __forceinline__ void rescale(float al0, float al1) {
+    if constexpr (V != MXU) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= i & 2 ? al1 : al0;
+    }
+  }
+
+  // flash_fwd_bf16's loop, one tile at a time
+  __device__ __forceinline__ void run(int tiles) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m0 = m1 = -1e30f;
+    l0 = l1 = 0.f;
+    for (int j = 0; j < tiles; ++j) {
+      const int st = j % NS, ph = (j / NS) & 1;
+      float s[SR];
+      mbar_wait(kfull + st, ph);
+      issue_s(s, j);
+      wg_wait<0>();
+      fence_regs(s);
+      mbar_arrive(kempty + st);  // K_j is read
+      float al0, al1;
+      tile_weights<V>(s, m0, m1, l0, l1, al0, al1, scale_log2);
+      rescale(al0, al1);
+      mbar_wait(vfull + st, ph);
+      issue_pv(s, j);
+      wg_wait<0>();
+      fence_regs(o);
+      mbar_arrive(vempty + st);  // V_j is read
+    }
+  }
+};
+
+template <int D, int V>
+__device__ __forceinline__ void tile_body(const CUtensorMap* tq,
+                                          const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          bf16* __restrict__ out, int s,
+                                          float scale_log2) {
+  using G = Geo<D>;
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  unsigned char* qs = tf_smem + ((1024 - (smem_u32(tf_smem) & 1023)) & 1023);
+  unsigned char* ring = qs + G::TILE_Q;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(qs + G::BARS);
+  uint64_t* vfull = kfull + NS;
+  uint64_t* kempty = vfull + NS;
+  uint64_t* vempty = kempty + NS;
+  uint64_t* qbar = vempty + NS;
+  const int q0 = blockIdx.x * ROWS;
+  const int row0 = blockIdx.y * s;  // the head's first row in the maps
+  const int tiles = s / BK;
+  const int wgi = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(kfull + i, 1);
+      mbar_init(vfull + i, 1);
+      mbar_init(kempty + i, CT);
+      mbar_init(vempty + i, CT);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // the producer: Q once, then tile t's K into stage t % NS once S of
+    // tile t - NS is done, its V once P V of tile t - NS is
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CT) {
+      mbar_expect_tx(qbar, G::TILE_Q);
+      for (int b = 0; b < G::CB; ++b)
+        tma_box2(qs + b * QB, tq, b * SW / 2, row0 + q0, qbar);
+      for (int t = 0; t < tiles; ++t) {
+        const int st = t % NS, ph = (t / NS - 1) & 1;
+        unsigned char* k = ring + st * 2 * G::TILE_K;
+        if (t >= NS) mbar_wait(kempty + st, ph);
+        mbar_expect_tx(kfull + st, G::TILE_K);
+        for (int b = 0; b < G::CB; ++b)
+          tma_box2(k + b * KB, tk, b * SW / 2, row0 + t * BK, kfull + st);
+        if (t >= NS) mbar_wait(vempty + st, ph);
+        mbar_expect_tx(vfull + st, G::TILE_K);
+        for (int b = 0; b < G::CB; ++b)
+          tma_box2(k + G::TILE_K + b * KB, tv, b * SW / 2, row0 + t * BK,
+                   vfull + st);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  Consumer<D, V> c;
+  c.qs = qs;
+  c.ring = ring;
+  c.kfull = kfull;
+  c.vfull = vfull;
+  c.kempty = kempty;
+  c.vempty = vempty;
+  c.qo = wgi * 64 * SW;
+  c.scale_log2 = scale_log2;
+  mbar_wait(qbar, 0);
+  c.run(tiles);
+
+  float l0 = c.l0, l1 = c.l1;
+  if constexpr (V != MXU) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+  }
+  // rows r0 and r0 + 8 of the lane: out = bf16(acc / l), the TPU kernel's
+  // division (flash multiplies by 1 / l); MXU stores acc
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int64_t r0 = (int64_t)row0 + q0 + wgi * 64 + warp * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  bf16* o0 = out + r0 * D + c2;
+  bf16* o1 = o0 + 8 * D;
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    const float* x = c.o + 4 * t;
+    if constexpr (V == MXU) {
+      *reinterpret_cast<uint32_t*>(o0 + t * 8) = pack_bf16(x[0], x[1]);
+      *reinterpret_cast<uint32_t*>(o1 + t * 8) = pack_bf16(x[2], x[3]);
+    } else {
+      *reinterpret_cast<uint32_t*>(o0 + t * 8) =
+          pack_bf16(x[0] / l0, x[1] / l0);
+      *reinterpret_cast<uint32_t*>(o1 + t * 8) =
+          pack_bf16(x[2] / l1, x[3] / l1);
+    }
+  }
 }
 
 template <int D>
-int launch_ablate(int use_exp2, int use_max, const void* q, const void* k,
-                  const void* v, void* out, int64_t bh, int64_t s,
-                  float scale_log2, cudaStream_t st) {
-  constexpr size_t smem = TileLoop<D>::SMEM;
-  if (use_exp2 && use_max)
-    return launch(tile_ablate<D, true, true>, smem, q, k, v, out, bh, s,
-                  scale_log2, st);
-  if (use_exp2)
-    return launch(tile_ablate<D, true, false>, smem, q, k, v, out, bh, s,
-                  scale_log2, st);
-  if (use_max)
-    return launch(tile_ablate<D, false, true>, smem, q, k, v, out, bh, s,
-                  scale_log2, st);
-  return launch(tile_ablate<D, false, false>, smem, q, k, v, out, bh, s,
-                scale_log2, st);
+__global__ void __launch_bounds__(NT, 1)
+tile_mxu(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+         int s, float scale_log2) {
+  tile_body<D, MXU>(&tq, &tk, &tv, out, s, scale_log2);
 }
 
-bool bad_shape(int64_t bh, int64_t s) { return bh < 1 || s < BM || s % BM; }
+// V: one of SOFTMAX, NO_EXP2, NO_MAX, NO_EXP2_NO_MAX
+template <int D, int V>
+__global__ void __launch_bounds__(NT, 1)
+tile_ablate(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+            int s, float scale_log2) {
+  tile_body<D, V>(&tq, &tk, &tv, out, s, scale_log2);
+}
+
+// The kernel of variant v at head dim D, for the launch and the
+// attribute query alike.
+template <int D>
+const void* kernel(int v) {
+  static const void* const table[VARIANTS] = {
+      (const void*)tile_mxu<D>, (const void*)tile_ablate<D, SOFTMAX>,
+      (const void*)tile_ablate<D, NO_EXP2>, (const void*)tile_ablate<D, NO_MAX>,
+      (const void*)tile_ablate<D, NO_EXP2_NO_MAX>};
+  return table[v];
+}
+
+// The maps of q, k and v as (b*h*s, d) rows, then variant v's launch.
+int launch(int v, const void* q, const void* k, const void* v_, void* out,
+           int64_t bh, int64_t s, int d, float scale_log2, cudaStream_t st) {
+  if (bh < 1 || bh > 65535 || s < ROWS || s % ROWS || bh * s > INT32_MAX ||
+      (d != 64 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int err = tma_map_2d(&tq, bf, 2, q, bh * s, d, SW / 2, ROWS, sw);
+  if (!err) err = tma_map_2d(&tk, bf, 2, k, bh * s, d, SW / 2, BK, sw);
+  if (!err) err = tma_map_2d(&tv, bf, 2, v_, bh * s, d, SW / 2, BK, sw);
+  if (err) return err;
+  const void* fn = d == 64 ? kernel<64>(v) : kernel<128>(v);
+  const int smem = (int)(d == 64 ? Geo<64>::SMEM : Geo<128>::SMEM);
+  err = (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  bf16* o = static_cast<bf16*>(out);
+  int si = (int)s;
+  void* args[] = {&tq, &tk, &tv, &o, &si, &scale_log2};
+  err = (int)cudaLaunchKernel(fn, dim3((unsigned)(s / ROWS), (unsigned)bh),
+                              dim3(NT), args, (size_t)smem, st);
+  return err ? err : (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (bh, s, d) bf16, s a multiple of 64, d 64 or 128.
+// q, k, v, out: (bh, s, d) bf16, s a multiple of 128, d 64 or 128.
 // scale_log2: the softmax scale with log2(e) folded in.
 int icikit_tile_mxu(const void* q, const void* k, const void* v, void* out,
                     int64_t bh, int64_t s, int d, float scale_log2,
                     void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(bh, s)) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch(tile_mxu<64>, TileLoop<64>::SMEM, q, k, v, out, bh, s,
-                  scale_log2, st);
-  if (d == 128)
-    return launch(tile_mxu<128>, TileLoop<128>::SMEM, q, k, v, out, bh, s,
-                  scale_log2, st);
-  return (int)cudaErrorInvalidValue;
+  return launch(MXU, q, k, v, out, bh, s, d, scale_log2,
+                static_cast<cudaStream_t>(stream));
 }
 
 // As icikit_tile_mxu; use_exp2, use_max select the variant.
 int icikit_tile_ablate(int use_exp2, int use_max, const void* q, const void* k,
                        const void* v, void* out, int64_t bh, int64_t s, int d,
                        float scale_log2, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(bh, s)) return (int)cudaErrorInvalidValue;
-  if (d == 64)
-    return launch_ablate<64>(use_exp2, use_max, q, k, v, out, bh, s,
-                             scale_log2, st);
-  if (d == 128)
-    return launch_ablate<128>(use_exp2, use_max, q, k, v, out, bh, s,
-                              scale_log2, st);
-  return (int)cudaErrorInvalidValue;
+  const int var = use_exp2 ? (use_max ? SOFTMAX : NO_MAX)
+                           : (use_max ? NO_EXP2 : NO_EXP2_NO_MAX);
+  return launch(var, q, k, v, out, bh, s, d, scale_log2,
+                static_cast<cudaStream_t>(stream));
 }
 
-// Kernel attributes for the build log, by index: 0 tile_mxu<64>, 1
-// tile_ablate<64, exp2, max>, 2 tile_ablate<64, -, ->, 3 tile_mxu<128>,
-// 4 tile_ablate<128, exp2, max>.
+// Kernel attributes for the build log, by index 0-9: at d 64 (0-4) and
+// 128 (5-9), tile_mxu, then tile_ablate softmax_ks1, no_exp2, no_max and
+// no_exp2_no_max.
 int icikit_tile_floor_regs(int which, int* regs, int* local_bytes) {
-  const void* fns[] = {(const void*)tile_mxu<64>,
-                       (const void*)tile_ablate<64, true, true>,
-                       (const void*)tile_ablate<64, false, false>,
-                       (const void*)tile_mxu<128>,
-                       (const void*)tile_ablate<128, true, true>};
-  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
-    return (int)cudaErrorInvalidValue;
+  if (which < 0 || which >= 2 * VARIANTS) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, which < VARIANTS ? kernel<64>(which)
+                              : kernel<128>(which - VARIANTS));
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -3,10 +3,11 @@ versions.
 
 ``tile_mxu`` and ``tile_ablate`` launch ``csrc/tile_floor.cu``'s
 kernels, which replace ``icikit/bench/tile_floor.py``'s ``_mxu_kernel``
-(B17, pallas_call at :174) and ``_ablate_kernel`` (B17, :199). Both run
-the tile loop of ``flash_fwd``'s first design, kept as the study's fixed
-reference (64-row Q tiles, 64-key K/V tiles, four warps, mma.sync), over
-the full rectangle of tiles:
+(B17, pallas_call at :174) and ``_ablate_kernel`` (B17, :199). All five
+run one tile loop, ``flash_fwd``'s at its geometry for d <= 128 (128-row
+Q tiles in two consumer warpgroups, 128-key K/V tiles through a TMA
+ring, both products on wgmma), over the full rectangle of tiles, and
+differ only in what they do to the scores between the two products:
 
 - ``tile_mxu``: o = sum over key tiles of bf16(q k^T * scale_log2) v, the
   two products with the least glue and no softmax statistics;
@@ -18,7 +19,7 @@ the full rectangle of tiles:
 caller passes it to JAX's kernels. These variants depend on the key
 tile: ``alpha`` and the constant max change the result with ``bk``. So
 the plain versions (``mxu_plain``, ``ablate_plain``) walk the key tiles
-of size ``bk`` (default the kernels' 64) in the kernel's order with
+of size ``bk`` (default the kernels' 128) in the kernel's order with
 float32 statistics and ``w`` rounded to bf16 before the value product,
 JAX's recurrence (``tile_floor.py:80-103``). A wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
@@ -34,8 +35,8 @@ from icikit_torch.ops import _build
 
 LAUNCHES = {"tile_mxu": 0, "tile_ablate": 0}
 
-# The kernels' geometry: 64-row Q and 64-key K/V tiles.
-TILE = 64
+# The kernels' geometry: 128-row Q and 128-key K/V tiles.
+TILE = 128
 HEAD_DIMS = (64, 128)
 
 
@@ -123,7 +124,7 @@ def _launch(fn: str, what: str, q, k, v, scale_log2: float,
 
 def tile_mxu(q, k, v, scale_log2: float) -> torch.Tensor:
     """The products-only tile loop on ``(b, h, s, d)`` bf16 tensors;
-    returns bf16 ``(b, h, s, d)``. Bound: 4 * 64 * 64 * d operations a
+    returns bf16 ``(b, h, s, d)``. Bound: 4 * 128 * 128 * d operations a
     tile of the rectangle at the card's bf16 rate. CPU tensors take
     :func:`mxu_plain`."""
     _check("tile_mxu", q, k, v)

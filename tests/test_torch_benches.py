@@ -435,6 +435,59 @@ def test_xent_ab_shape_bounds_and_verdict(monkeypatch):
         assert seen == [(csrc, csrc)] * 2
 
 
+def test_tile_floor_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The tile-floor A/B bench times kernels on the card only: without
+    one it exits before building anything, and a directory without
+    ``tile_floor.cu`` or a missing arm is refused first."""
+    import torch
+
+    from icikit_torch.bench import tile_floor_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        tile_floor_ab.main(["--a", csrc, "--b", csrc])
+    for argv in (["--a", csrc, "--b", os.path.join(ROOT, "tests")],
+                 ["--a", csrc]):
+        with pytest.raises(SystemExit):
+            tile_floor_ab.main(argv)
+
+
+def test_tile_floor_ab_shapes_bounds_and_verdict(monkeypatch):
+    """The A/B shapes are the tile-floor path's, (1, 8, 32768) at d 64
+    and 128; a variant's bound is its operations over the rectangle, 4 *
+    128 * 128 * d a tile, 2.22 ms at d 64 and 4.45 at d 128 (q, k, v and
+    out take 0.04 ms), counted in the kernels' 128 x 128 tiles; the two
+    arms are source directories, softmax_ks1 meets SDPA in ten pairs, and
+    a run whose outputs departed exits 1 unless --timing-only."""
+    import torch
+
+    from icikit_torch.bench import tile_floor_ab
+    from icikit_torch.bench.tile_floor import ABLATIONS
+    from icikit_torch.ops import cuda_tile_floor as ctf
+
+    assert tile_floor_ab.SHAPE == (1, 8, 32768)
+    assert tile_floor_ab.DIMS == ctf.HEAD_DIMS == (64, 128)
+    assert tile_floor_ab.TOL == 2e-2
+    assert tile_floor_ab.VARIANTS[1:] == ABLATIONS
+    assert tile_floor_ab.LOG2E_JAX == 1.442695
+    assert ctf.TILE == 128 and tile_floor_ab.PAIRS == 10
+    for d, want in ((64, 2.22348), (128, 4.44696)):
+        ms, by = tile_floor_ab.bound_ms(*tile_floor_ab.SHAPE, d)
+        assert by == "operations" and ms == pytest.approx(want, rel=1e-4)
+    assert tile_floor_ab.bound_ms(1, 1, 128, 64)[1] == "bytes"
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for ok in (True, False):
+        seen = []
+        monkeypatch.setattr(tile_floor_ab, "run",
+                            lambda *a, ok=ok: seen.append(a) or ok)
+        argv = ["--a", csrc, "--b", csrc]
+        assert tile_floor_ab.main(argv) == (0 if ok else 1)
+        assert tile_floor_ab.main([*argv, "--timing-only"]) == 0
+        assert seen == [({"A": csrc, "B": csrc},)] * 2
+
+
 def test_flash_ab_decode_q8_shapes_and_bounds():
     """``--kernels decode_q8`` times the int8 step at the int8 path's
     64 rows, 576 columns, cur 543, dh 128 and 256, against the bound of

@@ -1295,30 +1295,36 @@ def test_stack_off_the_gate_takes_the_plain_copy_and_raw_calls_check(gen):
                         _randn((5,), torch.float32, gen), 0)
 
 
+@pytest.mark.parametrize("s", [128, 256, 384])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("variant", ["mxu", "softmax_ks1", "no_exp2",
                                      "no_max", "no_exp2_no_max"])
-def test_tile_floor_kernels_match_plain(variant, d, no_tf32):
+def test_tile_floor_kernels_match_plain(variant, d, s, no_tf32):
+    """Each B17 kernel against its plain version at one, two and three
+    128-key tiles (the ring's first pass, and its stages reused after an
+    even and an odd count), and refusing a length off the tile."""
     from icikit_torch.bench.tile_floor import ABLATIONS
     from icikit_torch.ops import cuda_tile_floor as ctf
 
     gen = no_tf32
-    q, k, v = (_randn((1, 2, 256, d), torch.bfloat16, gen)
+    q, k, v = (_randn((1, 2, s, d), torch.bfloat16, gen)
                for _ in range(3))
-    s = d ** -0.5 * 1.442695
+    sl2 = d ** -0.5 * 1.442695
     ctf.reset_launches()
     if variant == "mxu":
-        got, want = ctf.tile_mxu(q, k, v, s), ctf.mxu_plain(q, k, v, s)
+        got, want = ctf.tile_mxu(q, k, v, sl2), ctf.mxu_plain(q, k, v, sl2)
         assert ctf.LAUNCHES == {"tile_mxu": 1, "tile_ablate": 0}
     else:
         flags = {n: (e, m) for n, e, m in ABLATIONS}[variant]
-        got = ctf.tile_ablate(q, k, v, s, *flags)
-        want = ctf.ablate_plain(q, k, v, s, *flags)
+        got = ctf.tile_ablate(q, k, v, sl2, *flags)
+        want = ctf.ablate_plain(q, k, v, sl2, *flags)
         assert ctf.LAUNCHES == {"tile_mxu": 0, "tile_ablate": 1}
     err = float((got.float() - want.float()).abs().max())
     assert err <= 2e-2 * float(want.float().abs().max())
     with pytest.raises(ValueError, match="head dims"):
-        ctf.tile_mxu(*(t[..., :32].contiguous() for t in (q, k, v)), s)
+        ctf.tile_mxu(*(t[..., :32].contiguous() for t in (q, k, v)), sl2)
+    with pytest.raises(ValueError, match="multiple of the tiles"):
+        ctf.tile_mxu(*(t[:, :, :64].contiguous() for t in (q, k, v)), sl2)
 
 
 def test_save_stack_step_launches_the_stack_kernels(gen):

@@ -4,11 +4,12 @@ The port's plain versions of its two kernels, ``mxu_plain`` and
 ``ablate_plain`` (four variants), against JAX's ``_mxu_kernel`` and
 ``_ablate_kernel`` run through a ``pl.pallas_call`` built here with
 ``measure``'s BlockSpecs, in interpret mode, on the same numpy-seeded
-bf16 inputs at the port's geometry (seq 256, h 1, d 64, bq = bk = 64).
-Tolerance 1e-2 of the largest entry, compared in float32: both round
-``w`` to bf16 before the value product, and a score that lands on a bf16
-rounding boundary in one framework's float32 sum rounds the other way in
-the other; the bf16 output is the last rounding. Then ``measure`` and
+bf16 inputs at the port's geometry (seq 256, h 1, d 64, bq 128) with key
+tiles of 64 and of the kernels' 128. Tolerance 1e-2 of the largest
+entry, compared in float32: both round ``w`` to bf16 before the value
+product, and a score that lands on a bf16 rounding boundary in one
+framework's float32 sum rounds the other way in the other; the bf16
+output is the last rounding. Then ``measure`` and
 ``render`` on the CPU, as JAX's ``tests/test_tile_floor.py`` runs its
 own.
 """
@@ -36,7 +37,7 @@ from icikit_torch.interop import from_jax
 from icikit_torch.ops import cuda_tile_floor as ctf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEQ, H, D, TILE = 256, 1, 64, 64
+SEQ, H, D, BQ = 256, 1, 64, 128
 
 
 def _inputs(seed: int):
@@ -45,13 +46,14 @@ def _inputs(seed: int):
             for _ in range(3)]
 
 
-def _jax_call(kernel, scratch, q, k, v):
+def _jax_call(kernel, scratch, q, k, v, bk):
     """``kernel`` through ``measure``'s grid and BlockSpecs
-    (``icikit/bench/tile_floor.py:174-187``), interpreted."""
-    nq = nk = SEQ // TILE
-    spec_q = pl.BlockSpec((1, 1, TILE, D),
+    (``icikit/bench/tile_floor.py:174-187``) at BQ-row and ``bk``-key
+    blocks, interpreted."""
+    nq, nk = SEQ // BQ, SEQ // bk
+    spec_q = pl.BlockSpec((1, 1, BQ, D),
                           lambda ib, ih, iq, ik: (ib, ih, iq, 0))
-    spec_k = pl.BlockSpec((1, 1, TILE, D),
+    spec_k = pl.BlockSpec((1, 1, bk, D),
                           lambda ib, ih, iq, ik: (ib, ih, ik, 0))
     return pl.pallas_call(
         partial(kernel, nk=nk),
@@ -67,49 +69,56 @@ def _jax_call(kernel, scratch, q, k, v):
 VARIANTS = [("mxu", None, None)] + list(ABLATIONS)
 
 
+@pytest.mark.parametrize("bk", [64, 128])
 @pytest.mark.parametrize("variant,use_exp2,use_max", VARIANTS)
-def test_plain_versions_match_jax_kernels(variant, use_exp2, use_max):
+def test_plain_versions_match_jax_kernels(variant, use_exp2, use_max, bk):
     q, k, v = _inputs(seed=len(variant))
     scale_log2 = D ** -0.5 * LOG2E_JAX
     if variant == "mxu":
         want = _jax_call(partial(_mxu_kernel, scale=scale_log2),
-                         [pltpu.VMEM((TILE, D), jnp.float32)], q, k, v)
+                         [pltpu.VMEM((BQ, D), jnp.float32)], q, k, v, bk)
     else:
         want = _jax_call(
             partial(_ablate_kernel, scale=scale_log2, use_exp2=use_exp2,
                     use_max=use_max),
-            [pltpu.VMEM((TILE, 128), jnp.float32),
-             pltpu.VMEM((TILE, 128), jnp.float32),
-             pltpu.VMEM((TILE, D), jnp.float32)], q, k, v)
+            [pltpu.VMEM((BQ, 128), jnp.float32),
+             pltpu.VMEM((BQ, 128), jnp.float32),
+             pltpu.VMEM((BQ, D), jnp.float32)], q, k, v, bk)
     tq, tk, tv = (from_jax(np.asarray(a)) for a in (q, k, v))
     ctf.reset_launches()
     if variant == "mxu":
         got = ctf.tile_mxu(tq, tk, tv, scale_log2)
-        plain = ctf.mxu_plain(tq, tk, tv, scale_log2, bk=TILE)
+        plain = ctf.mxu_plain(tq, tk, tv, scale_log2, bk=bk)
     else:
         got = ctf.tile_ablate(tq, tk, tv, scale_log2, use_exp2, use_max)
         plain = ctf.ablate_plain(tq, tk, tv, scale_log2, use_exp2, use_max,
-                                 bk=TILE)
+                                 bk=bk)
     assert set(ctf.LAUNCHES.values()) == {0}     # CPU: the plain version
-    assert got.dtype == torch.bfloat16 and torch.equal(got, plain)
+    assert got.dtype == torch.bfloat16 and plain.dtype == torch.bfloat16
+    if bk == ctf.TILE:                           # the kernels' key tile
+        assert torch.equal(got, plain)
     want = np.asarray(want, np.float32)
     assert np.isfinite(want).all()
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+    np.testing.assert_allclose(plain.float().numpy(), want, rtol=0,
                                atol=1e-2 * np.abs(want).max())
 
 
 def test_plain_versions_follow_the_key_tile():
     """The ablations depend on the key tile (alpha and the constant max
-    act per tile), so the plain version takes ``bk``; mxu does not."""
+    act per tile), so the plain version takes ``bk``, by default the
+    kernels' 128; mxu does not."""
+    assert ctf.TILE == 128
     q, k, v = (from_jax(np.asarray(a)) for a in _inputs(seed=3))
     s = D ** -0.5 * LOG2E_JAX
+    assert torch.equal(ctf.ablate_plain(q, k, v, s, False, True),
+                       ctf.ablate_plain(q, k, v, s, False, True, bk=128))
     assert not torch.equal(ctf.ablate_plain(q, k, v, s, False, True),
-                           ctf.ablate_plain(q, k, v, s, False, True, bk=128))
-    a, b = ctf.mxu_plain(q, k, v, s), ctf.mxu_plain(q, k, v, s, bk=128)
+                           ctf.ablate_plain(q, k, v, s, False, True, bk=64))
+    a, b = ctf.mxu_plain(q, k, v, s), ctf.mxu_plain(q, k, v, s, bk=64)
     assert float((a.float() - b.float()).abs().max()) \
         <= 1e-2 * float(b.float().abs().max())
     with pytest.raises(ValueError, match="multiple of the tiles"):
-        ctf.tile_mxu(q[:, :, :200], k[:, :, :200], v[:, :, :200], s)
+        ctf.tile_mxu(q[:, :, :192], k[:, :, :192], v[:, :, :192], s)
 
 
 def test_measure_and_render_on_cpu():
@@ -121,8 +130,10 @@ def test_measure_and_render_on_cpu():
         "no_exp2_no_max"}
     assert all(r["per_tile_us"] > 0 for r in recs)
     by = {r["variant"]: r for r in recs}
-    assert by["full"]["tiles"] == H * sum(range(1, SEQ // TILE + 1))
-    assert by["mxu"]["tiles"] == H * (SEQ // TILE) ** 2
+    n = SEQ // ctf.TILE
+    assert by["full"]["tiles"] == H * sum(range(1, n + 1))
+    assert all(by[v]["tiles"] == H * n ** 2 for v in by if v != "full")
+    assert all(r["bq"] == r["bk"] == ctf.TILE for r in recs)
     assert all(r["device"] == "cpu" and r["power_limit"] is None
                for r in recs)
     text = render(recs)
