@@ -85,7 +85,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. the train step's other kernels held against their plain versions on
    the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
    T 8192, D 1024, V 32768 (XENT_TOL), ``xent_dx`` and ``xent_dw`` also at
-   the ragged RECOMPUTE_RAGGED in bf16; the Adam kernel on the base
+   the ragged RECOMPUTE_RAGGED in bf16, and timed past one cluster's D
+   2048 at TILED_SHAPE (the 128 x 128 tiled kernels) beside their plain
+   versions and their bound (two products each); the Adam kernel on the base
    preset's leaves with each (m, v) pair of bf16 and float32 moments, ok
    absent, true and false, bit for bit; a bf16 step at V = 61, d_model
    128 (RAGGED_CFG), whose head the gate sends to the unfused path, its
@@ -197,7 +199,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    step's trace, the host's time a call (the full per-call path, the
    layer loop's checked-once copier and ``copy_``) and the card's copy
    rate at 1 GiB.
-24. kernels line: every ported kernel with its launches on its main path,
+24. the collectives (``icikit_torch.parallel``, ``bench.harness``): the
+   reference sweep in int32 (1 to 65536 elements a block, to 4096 for
+   alltoall) through every variant of the nine families at p = 8 and
+   through those that take any p at p = 6; BASELINE.json's two
+   configurations in float32 at p = 8, allreduce at 2^20 elements and
+   broadcast, scatter and gather at 1 KB to 64 MB a block (COLL_*):
+   each record with JAX's fields (per rank), the card's aggregate rate
+   (p x bus bytes / best time) and the least-bytes bound (every rank's
+   input read once and output written once); the allreduce's device
+   events a call by variant from a ``torch.profiler`` trace of
+   COLL_TRACE_CALLS calls, with its copies by direction (no
+   host-to-device copy in a repeated call).
+   Every record must verify, and every hand-rolled schedule (with
+   ``all_to_all_v``'s carriers, ``top_k_dist`` and ``allreduce_loc``)
+   must equal the same schedule on a CPU ``RankMesh`` bit for bit at
+   4096 elements a block.
+25. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound.
 
@@ -367,6 +385,32 @@ Q8_STEP_TOL = 1e-5
 # neighbouring int8 value in one arm, which moves the logits by far more
 # than float32 rounding does
 INT8_FP32_LOGIT_TOL = 5e-2
+# Phase 13: B10 recompute past one cluster's D 2048 (the 128 x 128 tiled
+# kernels) timed at (T, D, V), bf16
+TILED_SHAPE = (TRAIN_TOKENS, 4096, 32768)
+# Phase 24, the collectives: every variant at p = 8 and, where it takes
+# any p, at 6; BASELINE.json's two configurations in float32 at p = 8
+# (allreduce at 2^20 elements; broadcast, scatter and gather at 1 KB to
+# 64 MB a block in steps of x4); the card held bitwise to the CPU at
+# 4096 elements a block
+COLL_P, COLL_P_ODD = 8, 6
+COLL_BASELINE_ALLREDUCE = 1 << 20
+COLL_BASELINE_SWEEP = tuple(1 << l for l in range(8, 25, 2))
+COLL_CHECK_MSIZE = 4096
+# calls a launch-count trace spans, and traces taken at most to get one
+# that kept every device record
+COLL_TRACE_CALLS = 5
+COLL_TRACE_ATTEMPTS = 8
+# traces of a generate or a train step taken at most to get one that
+# kept every device record (utils/trace.summarize)
+TRACE_ATTEMPTS = 3
+COLL_ROOTS = (0, 3, 7)
+# the variants that refuse a p that is not a power of two, as JAX's do
+COLL_POW2_ONLY = {("allgather", "recursive_doubling"), ("alltoall", "ecube"),
+                  ("alltoall", "hypercube"),
+                  ("allreduce", "recursive_doubling"),
+                  ("reducescatter", "recursive_halving"),
+                  ("scatter", "binomial"), ("gather", "binomial")}
 
 
 def emit(obj) -> None:
@@ -594,7 +638,8 @@ def decode_path(torch, dev, bw, smi) -> dict:
     prefill_ms = cuda_time_ms(
         lambda: greedy_generate(params, prompt, mesh, cfg, 1), iters=5)
     activity = device_activity(
-        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW))
+        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW),
+        attempts=TRACE_ATTEMPTS)
     traced = activity["by_name"].get("decode_step_kernel",
                                      {}).get("count", 0)
     emit({"phase": "decode_timing", "card": smi, "arms": arms,
@@ -1037,7 +1082,8 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
            "windows": res.windows, "suspect": res.suspect,
            "tokens_per_s": TRAIN_BATCH * seq / step_s,
            "mfu": flops / step_s / peak if peak else None, "ok": ok}
-    rec["profile"] = device_activity(lambda: step(p, st, tok, tgt))
+    rec["profile"] = device_activity(lambda: step(p, st, tok, tgt),
+                                     attempts=TRACE_ATTEMPTS)
     if smi is not None:
         emit({"phase": f"{phase}_timing", "card": smi, "arm": arm,
               **{k: rec[k] for k in ("step_ms", "step_ms_spread", "windows",
@@ -1264,6 +1310,13 @@ def train_arm_kernel_checks(torch, dev) -> None:
                        "dtype": "torch.bfloat16", "shape": [t_, d_, v_],
                        "rel_err": errs,
                        "ok": max(errs.values()) <= XENT_TOL["bf16"]["grad"]})
+    del x, w, tg, dn, lse
+    tiled = recompute_tiled_times(torch, dev, randn)
+    checks.append({"kernel": "xent_dx, xent_dw (tiled, timed)",
+                   "dtype": "torch.bfloat16", "shape": list(TILED_SHAPE),
+                   "rel_err": {k: v["rel_err"] for k, v in tiled.items()},
+                   "ok": all(v["rel_err"] <= XENT_TOL["bf16"]["grad"]
+                             for v in tiled.values())})
 
     cfg = TransformerConfig(**PRESETS[TRAIN_PRESET])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1333,11 +1386,47 @@ def train_arm_kernel_checks(torch, dev) -> None:
                                "the same float32 operations, each "
                                "rounded once, in the same order; "
                                "rel_err relative to the largest entry"},
-          "checks": checks})
+          "checks": checks, "recompute_tiled": tiled})
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"train-arm kernel disagrees with its plain "
                              f"version: {bad}")
+
+
+def recompute_tiled_times(torch, dev, randn) -> dict:
+    """B10 recompute past one cluster's D 2048: ``xent_recompute_bf16_
+    tiled`` dx and dw at TILED_SHAPE, bf16, each timed by CUDA events
+    beside its plain version and its bound, the two products of 2 T V D
+    operations at 989 TFLOP/s."""
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t, d, v = TILED_SHAPE
+    x = randn((t, d), torch.bfloat16)
+    w = randn((v, d), torch.bfloat16, d ** -0.5)
+    tg = torch.randint(0, v, (t,), device=dev, dtype=torch.int32)
+    dn = randn((t,), torch.float32, 1.0 / t)
+    lse, _ = cx.xent_fwd(x, w, tg, save=False)
+    out = {}
+    for which, fn, plain in (("dx", cx.xent_dx, cx.xent_dx_plain),
+                             ("dw", cx.xent_dw, cx.xent_dw_plain)):
+        name = f"xent_{which}"
+        before = cx.LAUNCHES[name]
+        got = fn(x, w, tg, lse, dn)
+        if cx.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name} at {TILED_SHAPE} did not launch")
+        want = plain(x, w, tg, lse, dn)
+        out[which] = {
+            "kernel": f"xent_recompute_bf16_tiled<{which}>",
+            "ms": cuda_time_ms(lambda: fn(x, w, tg, lse, dn), iters=3,
+                               warmup=1),
+            "plain_ms": cuda_time_ms(lambda: plain(x, w, tg, lse, dn),
+                                     iters=1, warmup=1),
+            "bound_ms": 2 * 2 * t * v * d / BF16_TENSOR_OPS * 1e3,
+            "bound_by": "operations", "rel_err": _rel(got, want)}
+        del got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def ragged_vocab_check(torch, dev) -> dict:
@@ -2123,7 +2212,8 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
     prefill_ms = cuda_time_ms(
         lambda: greedy_generate(params, prompt, mesh, cfg, 1), iters=5)
     activity = device_activity(
-        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW))
+        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW),
+        attempts=TRACE_ATTEMPTS)
     traced_q8 = activity["by_name"].get("decode_step_q8_kernel",
                                         {}).get("count", 0)
     emit({"phase": "int8_decode_timing", "card": smi, "arms": arms,
@@ -2611,6 +2701,214 @@ def save_stack_path(torch, dev, bw, smi, default_ms) -> list:
     return rows
 
 
+def _least_bytes(family: str, p: int, b: int) -> int:
+    """Bytes a collective must move at the least: every rank's input
+    read once and its output written once (b bytes a block): root's
+    block alone is broadcast's input, root's buffer scatter's and root's
+    assembled row gather's output."""
+    ins = {"allgather": p * b, "alltoall": p * p * b, "allreduce": p * b,
+           "reducescatter": p * p * b, "broadcast": b, "scatter": p * b,
+           "gather": p * b, "scan": p * b, "reduce": p * b}[family]
+    outs = {"allgather": p * p * b, "alltoall": p * p * b,
+            "reducescatter": p * b, "gather": p * b}.get(family, p * b)
+    return ins + outs
+
+
+def _coll_row(rec, bw) -> dict:
+    """A harness record with JAX's fields (per rank), the card's
+    aggregate rate (p x bus bytes / best time) and the least-bytes
+    bound."""
+    from icikit_torch.bench.harness import _bus_bytes
+    row = json.loads(rec.to_json())
+    row["aggregate_GBps"] = (rec.p * _bus_bytes(rec.family, rec.p,
+                                                rec.bytes_per_block)
+                             / rec.best_s / 1e9)
+    row["bound_us"] = _least_bytes(rec.family, rec.p,
+                                   rec.bytes_per_block) / bw * 1e6
+    return row
+
+
+def _coll_cases(torch, gen, p):
+    """(family, variant, kwargs, operand) for every hand-rolled schedule
+    at p ranks, COLL_CHECK_MSIZE elements a block: int32 and float32,
+    sum, max and min, the roots COLL_ROOTS, inclusive and exclusive."""
+    from icikit_torch.utils.registry import list_algorithms
+    m = COLL_CHECK_MSIZE
+    shapes = {"allgather": (p, m), "alltoall": (p, p, m),
+              "allreduce": (p, m), "reducescatter": (p, p * m),
+              "scan": (p, m), "broadcast": (p, m), "scatter": (p, m),
+              "gather": (p, m), "reduce": (p, m)}
+    for family, shape in shapes.items():
+        for dtype in (torch.int32, torch.float32):
+            x = (torch.randn(shape, generator=gen).to(dtype)
+                 if dtype == torch.float32 else
+                 torch.randint(-2**20, 2**20, shape, generator=gen,
+                               dtype=dtype))
+            kws = [{}]
+            if family in ("allreduce", "reducescatter", "scan", "reduce"):
+                kws = [{"op": op} for op in ("sum", "max", "min")]
+            if family == "scan":
+                kws += [dict(k, inclusive=False) for k in kws]
+            if family in ("broadcast", "scatter", "gather", "reduce"):
+                kws = [dict(k, root=r) for k in kws for r in COLL_ROOTS]
+            for alg in list_algorithms(family):
+                if alg != "xla":
+                    for kw in kws:
+                        yield family, alg, kw, x
+
+
+def allreduce_launches(torch, mesh, x) -> dict:
+    """Each allreduce variant's device events a call on ``x``, from a
+    ``torch.profiler`` trace of COLL_TRACE_CALLS calls after a first
+    call (the first trace that kept every device record, of up to
+    COLL_TRACE_ATTEMPTS), with its copies by direction
+    (``host_to_device_copies`` must be 0: the transport's index tensors
+    are built in the first call)."""
+    from icikit_torch import parallel as tp
+    from icikit_torch.utils.registry import list_algorithms
+    from icikit_torch.utils.trace import device_activity
+
+    out = {}
+    for alg in list_algorithms("allreduce"):
+        tp.all_reduce(x, mesh, algorithm=alg)
+        torch.cuda.synchronize()
+        # a short trace late in a long process can lose device records
+        # (utils/trace.summarize): trace again until one is whole
+        act = device_activity(lambda: [tp.all_reduce(x, mesh, algorithm=alg)
+                                       for _ in range(COLL_TRACE_CALLS)],
+                              attempts=COLL_TRACE_ATTEMPTS)
+        if act["lost_device_events"]:
+            raise AssertionError(
+                f"allreduce {alg}: {COLL_TRACE_ATTEMPTS} traces all lost "
+                f"device records ({act['lost_device_events']} of "
+                f"{act['host_enqueue_calls']} in the last)")
+        out[alg] = {
+            "calls_traced": COLL_TRACE_CALLS,
+            "trace_attempts": act["attempts"],
+            "device_events_a_call": act["device_events"] / COLL_TRACE_CALLS,
+            "by_name": {k: v["count"] for k, v in act["by_name"].items()},
+            "copies": act["copies"],
+            "host_to_device_copies": act["copies"].get("HtoD", 0),
+            "busy_ms": act["busy_ms"], "host_wall_ms": act["host_wall_ms"]}
+    return out
+
+
+def collectives_phase(torch, dev, bw, smi) -> None:
+    """Phase 24: the collective library on the card (see the module
+    docstring)."""
+    from icikit_torch import parallel as tp
+    from icikit_torch.bench.harness import (COLLECTIVES, FAMILIES,
+                                            REFERENCE_SWEEP,
+                                            REFERENCE_SWEEP_PERSONALIZED,
+                                            sweep_family)
+    from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.registry import list_algorithms
+
+    t0 = time.perf_counter()
+    bad = []
+
+    def check(recs, want_algs, what):
+        got = {r.algorithm for r in recs}
+        if got != set(want_algs) or not all(r.verified for r in recs):
+            bad.append({"what": what, "variants": sorted(got),
+                        "unverified": [(r.algorithm, r.msize) for r in recs
+                                       if not r.verified]})
+
+    # the reference sweep in int32, every variant at p = 8; at p = 6 the
+    # variants that take any p
+    odd = {}
+    for p in (COLL_P, COLL_P_ODD):
+        mesh = make_mesh(p, device=dev)
+        for family in FAMILIES:
+            sizes = (REFERENCE_SWEEP_PERSONALIZED if family == "alltoall"
+                     else REFERENCE_SWEEP)
+            recs = sweep_family(mesh, family, sizes=sizes,
+                                dtype=torch.int32)
+            algs = [a for a in list_algorithms(family)
+                    if p == COLL_P or (family, a) not in COLL_POW2_ONLY]
+            if p == COLL_P_ODD:
+                odd[family] = algs
+            check(recs, algs, f"reference sweep {family} p={p}")
+            emit({"phase": "collectives", "part": "reference_sweep",
+                  "family": family, "p": p, "dtype": "int32",
+                  "records": [_coll_row(r, bw) for r in recs]})
+    # BASELINE.json's configurations, float32 at p = 8
+    mesh = make_mesh(COLL_P, device=dev)
+    recs = sweep_family(mesh, "allreduce", sizes=(COLL_BASELINE_ALLREDUCE,),
+                        dtype=torch.float32)
+    check(recs, list_algorithms("allreduce"), "baseline allreduce")
+    launches = allreduce_launches(
+        torch, mesh, torch.randn((COLL_P, COLL_BASELINE_ALLREDUCE),
+                                 device=dev))
+    for alg, n in launches.items():
+        if n["host_to_device_copies"]:
+            bad.append({"what": "host-to-device copy in a repeated call",
+                        "variant": alg, **n})
+    emit({"phase": "collectives", "part": "baseline_allreduce",
+          "config": "allreduce float32[2^20] a rank, p = 8",
+          "records": [_coll_row(r, bw) for r in recs],
+          "launches_a_call": launches, "card": smi})
+    for family in ("broadcast", "scatter", "gather"):
+        recs = sweep_family(mesh, family, sizes=COLL_BASELINE_SWEEP,
+                            dtype=torch.float32)
+        check(recs, list_algorithms(family), f"baseline {family}")
+        emit({"phase": "collectives", "part": "baseline_sweep",
+              "config": "broadcast + scatter/gather 1KB-64MB, float32",
+              "family": family, "records": [_coll_row(r, bw) for r in recs],
+              "card": smi})
+        torch.cuda.empty_cache()
+    # each hand-rolled schedule on the card against the same schedule
+    # on a CPU RankMesh, bit for bit
+    cpu = make_mesh(COLL_P, device="cpu")
+    gen = torch.Generator().manual_seed(24)
+    n_same = 0
+    for family, alg, kw, x in _coll_cases(torch, gen, COLL_P):
+        want = COLLECTIVES[family](x, cpu, algorithm=alg, **kw)
+        got = COLLECTIVES[family](x.to(dev), mesh, algorithm=alg,
+                                  **kw).cpu()
+        if got.shape == want.shape and torch.equal(
+                got.contiguous().view(torch.int32),
+                want.contiguous().view(torch.int32)):
+            n_same += 1
+        else:
+            bad.append({"what": "card vs cpu", "family": family,
+                        "variant": alg, **kw, "dtype": str(x.dtype)})
+    for alg in ("wraparound", "naive", "ecube", "hypercube"):
+        counts = torch.randint(0, 9, (COLL_P, COLL_P), generator=gen,
+                               dtype=torch.int32)
+        data = torch.randint(0, 1000, (COLL_P, 64), generator=gen,
+                             dtype=torch.int32)
+        outs = [tp.all_to_all_v(data.to(d), counts.to(d), m, capacity=8,
+                                algorithm=alg)
+                for d, m in (("cpu", cpu), (dev, mesh))]
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(*outs))
+        n_same += same
+        if not same:
+            bad.append({"what": "card vs cpu", "family": "alltoallv",
+                        "variant": alg})
+    for largest in (True, False):
+        data = torch.randint(0, 50, (COLL_P, 4096), generator=gen,
+                             dtype=torch.int32)
+        outs = [tp.top_k_dist(data.to(d), m, 16, largest=largest)
+                + tp.allreduce_loc(data.to(d), m,
+                                   op="maxloc" if largest else "minloc")
+                for d, m in (("cpu", cpu), (dev, mesh))]
+        same = all(torch.equal(a, b.cpu()) for a, b in zip(*outs))
+        n_same += same
+        if not same:
+            bad.append({"what": "card vs cpu", "family": "reduceloc",
+                        "largest": largest})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "collectives", "part": "summary",
+          "card_equals_cpu_bitwise": n_same,
+          "check_msize": COLL_CHECK_MSIZE, "p6_variants": odd,
+          "bound": "every rank's input read once and output written once "
+                   f"at {bw / 1e12:.2f} TB/s", "card": smi,
+          "seconds": round(seconds, 1), "failures": bad})
+    if bad:
+        raise AssertionError(f"collectives failed: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2980,7 +3278,10 @@ def main() -> int:
     # -- 23. the save-stack train path: base, b = 8, s = 1024 ----------
     rows += save_stack_path(torch, dev, bw, smi, main_arm["step_ms"])
 
-    # -- 24. the kernels line --------------------------------------------
+    # -- 24. the collectives: p = 8 and 6 ------------------------------
+    collectives_phase(torch, dev, bw, smi)
+
+    # -- 25. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

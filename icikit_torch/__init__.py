@@ -15,7 +15,10 @@ bench (``python -m icikit_torch.bench.decode``); the transformer's
 train step (``make_train_step``) with the flash backward
 (``ops.cuda_attention``), the fused cross-entropy head
 (``ops.cuda_xent``) and the train bench
-(``python -m icikit_torch.bench.train``).
+(``python -m icikit_torch.bench.train``); the collective library
+(``parallel``: nine families of hand-rolled schedules beside the vendor
+baseline, ``reduceloc``, ``alltoallv``) and its bench harness
+(``python -m icikit_torch.bench.run``).
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one

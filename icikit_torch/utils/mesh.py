@@ -76,3 +76,9 @@ def shard_along(x: torch.Tensor, mesh: RankMesh,
     elif x.shape[0] != p:
         raise ValueError(f"leading dim {x.shape[0]} != p={p}")
     return x.to(mesh.device)
+
+
+def replicate(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """Place ``x`` where every rank of the mesh sees it: one buffer on
+    the mesh's device (JAX's fully replicated placement)."""
+    return x.to(mesh.device)

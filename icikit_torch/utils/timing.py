@@ -275,6 +275,43 @@ def timeit_windows(fn, args: tuple, chain, windows: int = 5,
                          escalated=escalated, degraded=degraded)
 
 
+@dataclass
+class TimeitResult:
+    """Per-run times of :func:`timeit`."""
+    mean_s: float          # per-run mean, as the reference reports
+    total_s: float
+    runs: int
+    per_run_s: list        # individual run times
+
+    @property
+    def best_s(self) -> float:
+        return min(self.per_run_s)
+
+
+def _wait(out):
+    if any(t.is_cuda for t in _leaves(out)):
+        torch.cuda.synchronize()
+    return out
+
+
+def timeit(fn, *args, runs: int = 10, warmup: int = 2) -> TimeitResult:
+    """Time ``fn(*args)`` run by run, each run fenced by a device
+    synchronise (the host clock then spans the launches and the device
+    work): the reference's ``test_runs`` loop
+    (``Communication/src/main.cc:427-443``) after ``warmup`` runs."""
+    for _ in range(warmup):
+        _wait(fn(*args))
+    per_run = []
+    watch = Stopwatch()
+    for _ in range(runs):
+        watch()
+        _wait(fn(*args))
+        per_run.append(max(watch(), 1e-9))
+    total = sum(per_run)
+    return TimeitResult(mean_s=total / runs, total_s=total, runs=runs,
+                        per_run_s=per_run)
+
+
 def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events around
     ``iters`` back-to-back calls after ``warmup`` calls."""

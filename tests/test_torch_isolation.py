@@ -56,7 +56,9 @@ def _run(code_or_args, timeout=300):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, icikit_torch, icikit_torch.models.sort, "
-            "icikit_torch.bench.headline, icikit_torch.interop; "
+            "icikit_torch.bench.headline, icikit_torch.interop, "
+            "icikit_torch.parallel, icikit_torch.bench.run, "
+            "icikit_torch.bench.harness; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'icikit')])")
     r = _run(["-c", code])
