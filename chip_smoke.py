@@ -85,9 +85,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. the train step's other kernels held against their plain versions on
    the card: ``xent_g``, ``xent_g_saved``, ``xent_dx`` and ``xent_dw`` at
    T 8192, D 1024, V 32768 (XENT_TOL), ``xent_dx`` and ``xent_dw`` also at
-   the ragged RECOMPUTE_RAGGED in bf16, and timed past one cluster's D
-   2048 at TILED_SHAPE (the 128 x 128 tiled kernels) beside their plain
-   versions and their bound (two products each); the Adam kernel on the base
+   the ragged RECOMPUTE_RAGGED in bf16, and past one cluster's D 2048
+   (the chunk walk: ``xent_g_bf16`` then ``xent_dx_g_bf16`` /
+   ``xent_dw_g_bf16`` a chunk) at WIDE_EDGE and WIDE_SHAPE, each with the
+   true lse and with lse less log V (``_lse_cases``: there g's softmax
+   part outweighs the -dnll at a row's target, and a g without it must
+   miss the tolerance), timed at
+   WIDE_SHAPE beside their plain versions and their bound (two products
+   each), one call of each traced: its logits launches one a chunk (the
+   chunks partition the rows, so the logits are formed once), no kernel
+   but the walk's (no cuBLAS), its scratch within a quarter of (T, V)
+   in bf16; the Adam kernel on the base
    preset's leaves with each (m, v) pair of bf16 and float32 moments, ok
    absent, true and false, bit for bit; a bf16 step at V = 61, d_model
    128 (RAGGED_CFG), whose head the gate sends to the unfused path, its
@@ -208,9 +216,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    each record with JAX's fields (per rank), the card's aggregate rate
    (p x bus bytes / best time) and the least-bytes bound (every rank's
    input read once and output written once); the allreduce's device
-   events a call by variant from a ``torch.profiler`` trace of
-   COLL_TRACE_CALLS calls, with its copies by direction (no
-   host-to-device copy in a repeated call).
+   enqueues a call by variant from the host's side of a
+   ``torch.profiler`` trace of COLL_TRACE_CALLS calls, and its device
+   events where the trace kept them all, with its copies by direction
+   (no host-to-device copy in a repeated call; a trace that lost a
+   copy's or set's record counts as no trace).
    Every record must verify, and every hand-rolled schedule (with
    ``all_to_all_v``'s carriers, ``top_k_dist`` and ``allreduce_loc``)
    must equal the same schedule on a CPU ``RankMesh`` bit for bit at
@@ -228,7 +238,9 @@ from __future__ import annotations
 import ctypes
 import itertools
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -283,7 +295,7 @@ RAGGED_CFG = dict(vocab=61, d_model=128, n_heads=4, d_head=32, d_ff=512,
                   n_layers=2, max_seq=256)
 # Phase 13: the recompute head kernels (B10 recompute) at (T, D, V) off
 # every tile of theirs (128 rows, 256-column slices of D, 64-wide steps),
-# and past one cluster's D 2048 (the 128 x 128 tiled kernels)
+# and past one cluster's D 2048 (the chunk walk)
 RECOMPUTE_RAGGED = ((300, 136, 1000), (1000, 520, 4104), (300, 2176, 1000))
 # The two-pass backward's check shapes, and the long-context path's
 TWO_PASS_SHAPES = ((1, 8, 2048, 128), (1, 4, 8192, 128))
@@ -334,7 +346,7 @@ NO_LOCAL_MEMORY = SORT_KERNELS + (
     "adam_tree_kernel<f32 m, bf16 v>", "adam_tree_kernel<bf16 m, f32 v>",
     "stack_write_kernel", "stack_read_kernel",
     "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
-    "xent_recompute_bf16_tiled<dx>", "xent_recompute_bf16_tiled<dw>",
+    "xent_dx_g_bf16", "xent_dw_g_bf16",
     "decode_step_q8_kernel<bf16>", "decode_step_q8_kernel<float>",
     "decode_step_kernel<bf16>", "decode_step_kernel<float>",
     "qmv_bf16_tile", "xent_dx_bf16", "xent_dw_bf16", "xent_fwd_bf16",
@@ -385,9 +397,17 @@ Q8_STEP_TOL = 1e-5
 # neighbouring int8 value in one arm, which moves the logits by far more
 # than float32 rounding does
 INT8_FP32_LOGIT_TOL = 5e-2
-# Phase 13: B10 recompute past one cluster's D 2048 (the 128 x 128 tiled
-# kernels) timed at (T, D, V), bf16
-TILED_SHAPE = (TRAIN_TOKENS, 4096, 32768)
+# Phase 13: B10 recompute past one cluster's D 2048 (the chunk walk,
+# cuda_xent.recompute_walk) timed at (T, D, V), bf16, and held at a card
+# test's shape off the chunk edges (dx: four chunks of 272 tokens and one
+# of 12; dw: four of 1024 vocabulary rows and one of 8); the walk's
+# kernels (a chunk's logits and g, its product) and the traces taken at
+# most to get one that kept every device record
+WIDE_SHAPE = (TRAIN_TOKENS, 4096, 32768)
+WIDE_EDGE = (1100, 4096, 4104)
+WIDE_KERNELS = {"dx": ("xent_g_bf16", "xent_dx_g_bf16"),
+                 "dw": ("xent_g_bf16", "xent_dw_g_bf16")}
+WIDE_TRACE_ATTEMPTS = 8
 # Phase 24, the collectives: every variant at p = 8 and, where it takes
 # any p, at 6; BASELINE.json's two configurations in float32 at p = 8
 # (allreduce at 2^20 elements; broadcast, scatter and gather at 1 KB to
@@ -398,9 +418,11 @@ COLL_BASELINE_ALLREDUCE = 1 << 20
 COLL_BASELINE_SWEEP = tuple(1 << l for l in range(8, 25, 2))
 COLL_CHECK_MSIZE = 4096
 # calls a launch-count trace spans, and traces taken at most to get one
-# that kept every device record
+# that kept every device record (or, failing that, every copy's and
+# set's: a lost kernel's launch is still counted on the host)
 COLL_TRACE_CALLS = 5
 COLL_TRACE_ATTEMPTS = 8
+COLL_LAUNCH_CALL = re.compile(r"cu(da)?Launch")
 # traces of a generate or a train step taken at most to get one that
 # kept every device record (utils/trace.summarize)
 TRACE_ATTEMPTS = 3
@@ -756,6 +778,28 @@ def attention_rows(torch, dev, bw, launches, path_trace) -> list:
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
          "bound_by": d_by, "library_ms": None},
     ]
+
+
+def _lse_cases(lse, v: int) -> dict:
+    """The lse a recompute head kernel is held at: the true one, where the
+    -dnll at a row's target makes up nearly all of g's largest entries
+    (the softmax part, p ~ 1/V, adds ~1e-4 of them), and lse less log V,
+    where p ~ 1 and the softmax part outweighs it, so a wrong exp2 or lse
+    shows."""
+    return {"lse": lse, "lse less log V": lse - math.log(v)}
+
+
+def _softmax_dropped(torch, cx, which: str, x, w, targets, dnll):
+    """dx or dw from g = -onehot(target) dnll alone, g's softmax part
+    dropped, through the plain product (``g_product_plain``): what a check
+    of the recompute head must tell apart from the right answer."""
+    t, v = x.shape[0], w.shape[0]
+    g = torch.zeros((t, v), device=x.device)
+    g[torch.arange(t, device=x.device), targets.long()] = -dnll.float()
+    out = torch.empty((t if which == "dx" else v, x.shape[1]),
+                      device=x.device)
+    cx.g_product_plain(which, g, w if which == "dx" else x, out)
+    return out
 
 
 def _rel(a, b) -> float:
@@ -1253,9 +1297,10 @@ def _base_tree_grads(torch, params, gen, cdt):
             for k, p in params.items()}
 
 
-def train_arm_kernel_checks(torch, dev) -> None:
+def train_arm_kernel_checks(torch, dev, bw) -> list:
     """Phase 13: the recompute and matmul head kernels, the Adam kernel
-    and the two-pass backward against their plain versions on the card."""
+    and the two-pass backward against their plain versions on the card;
+    returns the kernels line's rows of the recompute head past D 2048."""
     from icikit_torch.bench.train import PRESETS
     from icikit_torch.models.transformer import (TransformerConfig,
                                                  init_params)
@@ -1279,16 +1324,20 @@ def train_arm_kernel_checks(torch, dev) -> None:
                            dtype=torch.int32)
         dn = randn((t,), torch.float32, 1.0 / t)
         lse, _, e, mrun = cx.xent_fwd(x, w, tg, save=True)
-        errs = {"xent_g": _rel(cx.xent_g(x, w, tg, lse, dn),
-                               cx.xent_g_plain(x, w, tg, lse, dn)),
-                "xent_g_saved": _rel(
-                    cx.xent_g_saved(e, mrun, tg, lse, dn),
-                    cx.xent_g_saved_plain(e, mrun, tg, lse, dn,
+        errs = {}
+        for case, ls in _lse_cases(lse, v).items():
+            tag = "" if case == "lse" else f" ({case})"
+            errs.update({
+                "xent_g" + tag: _rel(cx.xent_g(x, w, tg, ls, dn),
+                                     cx.xent_g_plain(x, w, tg, ls, dn)),
+                "xent_g_saved" + tag: _rel(
+                    cx.xent_g_saved(e, mrun, tg, ls, dn),
+                    cx.xent_g_saved_plain(e, mrun, tg, ls, dn,
                                           cx.TILE[dtype])),
-                "xent_dx": _rel(cx.xent_dx(x, w, tg, lse, dn),
-                                cx.xent_dx_plain(x, w, tg, lse, dn)),
-                "xent_dw": _rel(cx.xent_dw(x, w, tg, lse, dn),
-                                cx.xent_dw_plain(x, w, tg, lse, dn))}
+                "xent_dx" + tag: _rel(cx.xent_dx(x, w, tg, ls, dn),
+                                      cx.xent_dx_plain(x, w, tg, ls, dn)),
+                "xent_dw" + tag: _rel(cx.xent_dw(x, w, tg, ls, dn),
+                                      cx.xent_dw_plain(x, w, tg, ls, dn))})
         checks.append({"kernel": "xent_g, xent_g_saved, xent_dx, xent_dw",
                        "dtype": str(dtype), "shape": [t, d, v],
                        "rel_err": errs,
@@ -1302,21 +1351,27 @@ def train_arm_kernel_checks(torch, dev) -> None:
                            dtype=torch.int32)
         dn = randn((t_,), torch.float32, 1.0 / t_)
         lse, _ = cx.xent_fwd(x, w, tg, save=False)
-        errs = {"xent_dx": _rel(cx.xent_dx(x, w, tg, lse, dn),
-                                cx.xent_dx_plain(x, w, tg, lse, dn)),
-                "xent_dw": _rel(cx.xent_dw(x, w, tg, lse, dn),
-                                cx.xent_dw_plain(x, w, tg, lse, dn))}
+        errs = {}
+        for case, ls in _lse_cases(lse, v_).items():
+            tag = "" if case == "lse" else f" ({case})"
+            errs.update({
+                "xent_dx" + tag: _rel(cx.xent_dx(x, w, tg, ls, dn),
+                                      cx.xent_dx_plain(x, w, tg, ls, dn)),
+                "xent_dw" + tag: _rel(cx.xent_dw(x, w, tg, ls, dn),
+                                      cx.xent_dw_plain(x, w, tg, ls, dn))})
         checks.append({"kernel": "xent_dx, xent_dw (ragged)",
                        "dtype": "torch.bfloat16", "shape": [t_, d_, v_],
                        "rel_err": errs,
                        "ok": max(errs.values()) <= XENT_TOL["bf16"]["grad"]})
     del x, w, tg, dn, lse
-    tiled = recompute_tiled_times(torch, dev, randn)
-    checks.append({"kernel": "xent_dx, xent_dw (tiled, timed)",
-                   "dtype": "torch.bfloat16", "shape": list(TILED_SHAPE),
-                   "rel_err": {k: v["rel_err"] for k, v in tiled.items()},
-                   "ok": all(v["rel_err"] <= XENT_TOL["bf16"]["grad"]
-                             for v in tiled.values())})
+    wide = recompute_wide_times(torch, dev, randn, bw)
+    for key, rec in wide.items():
+        checks.append({"kernel": f"xent_{key} (past D 2048, the chunk walk)",
+                       "dtype": "torch.bfloat16", "shape": rec["shape"],
+                       "rel_err": rec["rel_err_by_lse"],
+                       "softmax_dropped_rel_err":
+                           rec["softmax_dropped_rel_err"],
+                       "ok": rec["ok"]})
 
     cfg = TransformerConfig(**PRESETS[TRAIN_PRESET])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1386,46 +1441,128 @@ def train_arm_kernel_checks(torch, dev) -> None:
                                "the same float32 operations, each "
                                "rounded once, in the same order; "
                                "rel_err relative to the largest entry"},
-          "checks": checks, "recompute_tiled": tiled})
+          "checks": checks, "recompute_wide": wide})
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"train-arm kernel disagrees with its plain "
                              f"version: {bad}")
+    t, d, v = WIDE_SHAPE
+    return [{"name": f"xent_{which} (B10 recompute past D 2048: the chunk "
+                     f"walk, {' + '.join(WIDE_KERNELS[which])} a chunk)",
+             "route": "cuda", "source": "icikit_torch/csrc/xent.cu",
+             "replaces": "icikit/ops/xent.py:" + (
+                 "374 (B10, _dx_kernel, e_ref=None)" if which == "dx"
+                 else "411 (B10, _dw_kernel, e_ref=None)"),
+             "launches": rec["launches"], "max_abs_err": rec["rel_err"],
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+             "library_ms": None, "shape": rec["shape"]}
+            for which in ("dx", "dw")
+            for rec in [wide[f"{which}@{t}x{d}x{v}"]]]
 
 
-def recompute_tiled_times(torch, dev, randn) -> dict:
-    """B10 recompute past one cluster's D 2048: ``xent_recompute_bf16_
-    tiled`` dx and dw at TILED_SHAPE, bf16, each timed by CUDA events
-    beside its plain version and its bound, the two products of 2 T V D
-    operations at 989 TFLOP/s."""
+def recompute_wide_times(torch, dev, randn, bw=MEM_BPS_SXM) -> dict:
+    """B10 recompute past one cluster's D 2048, the chunk walk
+    (``cuda_xent.recompute_walk``: ``xent_g_bf16`` forms a chunk's logits
+    and g, then ``xent_dx_g_bf16`` / ``xent_dw_g_bf16`` its product): dx
+    and dw in bf16 held to their plain versions at WIDE_EDGE and
+    WIDE_SHAPE at both of ``_lse_cases`` (the worse is ``rel_err``), and
+    a g without its softmax part (``_softmax_dropped``) shown to miss the
+    tolerance at lse less log V, one launch counted a call; g's scratch (a chunk of g in
+    bf16) held within a quarter of (T, V) in bf16, and at WIDE_SHAPE
+    also what the call takes beyond its output by the allocator's peak
+    (at WIDE_EDGE a cached block a little larger than the request could
+    count whole). At WIDE_SHAPE each is timed by CUDA events beside its
+    plain version and its bound (the rebuild and the contraction, 2 x 2 T
+    V D operations at 989 TFLOP/s, against x, w, the output and the token
+    vectors once at ``bw``: the larger), and one call is traced: only the
+    walk's two kernels may run (no cuBLAS), each once a chunk, and the
+    chunks partition the rows (T for dx, V for dw), so its logits
+    launches form each logits tile once. The host's launches (two a
+    chunk) are counted in every trace; the device's by name where the
+    trace kept every device record (``utils/trace``: a trace late in a
+    long process can lose some). Records keyed "dx@TxDxV"."""
+    from icikit_torch.ops import _build
     from icikit_torch.ops import cuda_xent as cx
     from icikit_torch.utils.timing import cuda_time_ms
+    from icikit_torch.utils.trace import device_activity
 
-    t, d, v = TILED_SHAPE
-    x = randn((t, d), torch.bfloat16)
-    w = randn((v, d), torch.bfloat16, d ** -0.5)
-    tg = torch.randint(0, v, (t,), device=dev, dtype=torch.int32)
-    dn = randn((t,), torch.float32, 1.0 / t)
-    lse, _ = cx.xent_fwd(x, w, tg, save=False)
     out = {}
-    for which, fn, plain in (("dx", cx.xent_dx, cx.xent_dx_plain),
-                             ("dw", cx.xent_dw, cx.xent_dw_plain)):
-        name = f"xent_{which}"
-        before = cx.LAUNCHES[name]
-        got = fn(x, w, tg, lse, dn)
-        if cx.LAUNCHES[name] != before + 1:
-            raise AssertionError(f"{name} at {TILED_SHAPE} did not launch")
-        want = plain(x, w, tg, lse, dn)
-        out[which] = {
-            "kernel": f"xent_recompute_bf16_tiled<{which}>",
-            "ms": cuda_time_ms(lambda: fn(x, w, tg, lse, dn), iters=3,
-                               warmup=1),
-            "plain_ms": cuda_time_ms(lambda: plain(x, w, tg, lse, dn),
-                                     iters=1, warmup=1),
-            "bound_ms": 2 * 2 * t * v * d / BF16_TENSOR_OPS * 1e3,
-            "bound_by": "operations", "rel_err": _rel(got, want)}
-        del got, want
-    torch.cuda.empty_cache()
+    for t, d, v in (WIDE_EDGE, WIDE_SHAPE):
+        x = randn((t, d), torch.bfloat16)
+        w = randn((v, d), torch.bfloat16, d ** -0.5)
+        tg = torch.randint(0, v, (t,), device=dev, dtype=torch.int32)
+        dn = randn((t,), torch.float32, 1.0 / t)
+        lse, _ = cx.xent_fwd(x, w, tg, save=False)
+        for which, fn, plain in (("dx", cx.xent_dx, cx.xent_dx_plain),
+                                 ("dw", cx.xent_dw, cx.xent_dw_plain)):
+            name = f"xent_{which}"
+            n = t if which == "dx" else v
+            chunk = cx.recompute_chunk(n, d, _build.sm_count(x.device))
+            chunks = -(-n // chunk)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = cx.LAUNCHES[name]
+            got = fn(x, w, tg, lse, dn)
+            torch.cuda.synchronize()
+            launches = cx.LAUNCHES[name] - before
+            peak = (torch.cuda.max_memory_allocated() - base
+                    - got.numel() * got.element_size())
+            dropped = _softmax_dropped(torch, cx, which, x, w, tg, dn)
+            rel, blind = {}, {}
+            for case, ls in _lse_cases(lse, v).items():
+                out_c = got if case == "lse" else fn(x, w, tg, ls, dn)
+                want = plain(x, w, tg, ls, dn)
+                rel[case] = _rel(out_c, want)
+                blind[case] = _rel(dropped, want)
+                del out_c, want
+            tol = XENT_TOL["bf16"]["grad"]
+            rec = {"kernels": list(WIDE_KERNELS[which]),
+                   "shape": [t, d, v], "chunk": chunk,
+                   "chunks": chunks,
+                   "launches": launches,
+                   "scratch_bytes": chunk * (v if which == "dx" else t) * 2,
+                   "peak_beyond_output_bytes": peak,
+                   "scratch_cap_bytes": t * v * 2 // 4,
+                   "rel_err": max(rel.values()), "rel_err_by_lse": rel,
+                   "softmax_dropped_rel_err": blind}
+            del got, dropped
+            ok = (launches == 1
+                  and rec["scratch_bytes"] <= rec["scratch_cap_bytes"]
+                  and rec["rel_err"] <= tol
+                  and blind["lse less log V"] > tol)
+            if (t, d, v) == WIDE_SHAPE:
+                nbytes = (t * d + v * d + n * d) * 2 + 3 * t * 4
+                t_b = nbytes / bw
+                t_o = 2 * 2 * t * v * d / BF16_TENSOR_OPS
+                act = device_activity(lambda: fn(x, w, tg, lse, dn),
+                                      attempts=WIDE_TRACE_ATTEMPTS)
+                counts = {k: c["count"] for k, c in act["by_name"].items()}
+                whole = not act["lost_device_events"]
+                rec.update(
+                    ms=cuda_time_ms(lambda: fn(x, w, tg, lse, dn), iters=5,
+                                    warmup=1),
+                    plain_ms=cuda_time_ms(lambda: plain(x, w, tg, lse, dn),
+                                          iters=1, warmup=1),
+                    bound_ms=max(t_b, t_o) * 1e3,
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    trace=act["by_name"],
+                    host_launches=act["host_enqueue_calls"],
+                    trace_lost_device_events=act["lost_device_events"],
+                    trace_attempts=act["attempts"],
+                    logits_passes=counts.get("xent_g_bf16", 0)
+                    / chunks if whole else None)
+                ok &= peak <= rec["scratch_cap_bytes"]
+                ok &= act["host_enqueue_calls"] == 2 * chunks
+                ok &= set(counts) <= set(WIDE_KERNELS[which]) and (
+                    not whole or all(counts.get(k) == chunks
+                                     for k in WIDE_KERNELS[which]))
+            rec["ok"] = bool(ok)
+            out[f"{which}@{t}x{d}x{v}"] = rec
+        del x, w, tg, dn, lse
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2758,12 +2895,15 @@ def _coll_cases(torch, gen, p):
 
 
 def allreduce_launches(torch, mesh, x) -> dict:
-    """Each allreduce variant's device events a call on ``x``, from a
+    """Each allreduce variant's work a call on ``x``, from a
     ``torch.profiler`` trace of COLL_TRACE_CALLS calls after a first
     call (the first trace that kept every device record, of up to
-    COLL_TRACE_ATTEMPTS), with its copies by direction
+    COLL_TRACE_ATTEMPTS, else the last): the host's enqueue calls (a
+    launch, copy or set each; the trace keeps every one), the device
+    events where the trace kept them all, and its copies by direction
     (``host_to_device_copies`` must be 0: the transport's index tensors
-    are built in the first call)."""
+    are built in the first call). Only a lost kernel record is borne: a
+    lost copy's could hide a host-to-device copy, so it fails."""
     from icikit_torch import parallel as tp
     from icikit_torch.utils.registry import list_algorithms
     from icikit_torch.utils.trace import device_activity
@@ -2777,15 +2917,23 @@ def allreduce_launches(torch, mesh, x) -> dict:
         act = device_activity(lambda: [tp.all_reduce(x, mesh, algorithm=alg)
                                        for _ in range(COLL_TRACE_CALLS)],
                               attempts=COLL_TRACE_ATTEMPTS)
-        if act["lost_device_events"]:
+        lost_copies = {k: n for k, n in act["lost_by_call"].items()
+                       if not COLL_LAUNCH_CALL.match(k)}
+        if lost_copies:
             raise AssertionError(
                 f"allreduce {alg}: {COLL_TRACE_ATTEMPTS} traces all lost "
-                f"device records ({act['lost_device_events']} of "
-                f"{act['host_enqueue_calls']} in the last)")
+                f"device records, copies or sets among them "
+                f"({act['lost_by_call']} of {act['host_enqueue_calls']} "
+                f"host calls in the last)")
+        whole = not act["lost_device_events"]
         out[alg] = {
             "calls_traced": COLL_TRACE_CALLS,
             "trace_attempts": act["attempts"],
-            "device_events_a_call": act["device_events"] / COLL_TRACE_CALLS,
+            "host_enqueues_a_call":
+                act["host_enqueue_calls"] / COLL_TRACE_CALLS,
+            "device_events_a_call": act["device_events"] / COLL_TRACE_CALLS
+            if whole else None,
+            "trace_lost_device_events": act["lost_by_call"],
             "by_name": {k: v["count"] for k, v in act["by_name"].items()},
             "copies": act["copies"],
             "host_to_device_copies": act["copies"].get("HtoD", 0),
@@ -2966,8 +3114,7 @@ def main() -> int:
              ("xent_fwd_bf16", "xent_dx_bf16", "xent_dw_bf16",
               "xent_fwd_f32", "xent_g_bf16", "xent_g_saved_bf16",
               "xent_recompute_bf16<dx>", "xent_recompute_bf16<dw>",
-              "xent_recompute_bf16_tiled<dx>",
-              "xent_recompute_bf16_tiled<dw>", "xent_merge")),
+              "xent_dx_g_bf16", "xent_dw_g_bf16", "xent_merge")),
             ("adam", "icikit_adam_regs",
              ("adam_tree_kernel<f32 moments>",
               "adam_tree_kernel<bf16 moments>",
@@ -3245,7 +3392,7 @@ def main() -> int:
     rows += train_rows(torch, dev, bw, train_launches)
 
     # -- 13. the train step's other kernels against their plain versions
-    train_arm_kernel_checks(torch, dev)
+    rows += train_arm_kernel_checks(torch, dev, bw)
 
     # -- 14. the train arms: base, b = 8, s = 1024 -----------------------
     rows += train_arms(torch, dev, bw, smi, cell)

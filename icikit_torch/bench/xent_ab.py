@@ -33,6 +33,20 @@ larger, 0.556 ms) and, as the nearest yardstick (not the same
 function), cuBLAS's product of the same shape on a materialized bf16 g:
 ``g @ w`` for dx, ``g.T @ x`` for dw.
 
+With ``--flavour wide`` it times the recompute flavour past one
+cluster's D 2048 at ``WIDE_SHAPE`` (T 8192, D 4096, V 32768, bf16):
+dx and dw of A, B, B, A, each beside its bound (as above), its plain
+version and its logits and product kernels' device time in one traced
+call of B. A source with the chunk walk's entries (``icikit_xent_g_cols``,
+``icikit_xent_g_product``) runs ``cuda_xent.recompute_walk`` over its
+own library; an older one (the 128 x 128 tiled kernel) its
+``icikit_xent_recompute``. B is held to A and to the plain versions
+within TOL, and A and B to the plain versions also at lse less log V,
+where g's softmax part outweighs the -dnll at a row's target. The same
+run times B's walk at the base shape (D 1024) beside B's cluster
+kernel, the route D <= 2048 takes, in turns cluster, walk, walk,
+cluster, both held to the plain versions.
+
 With ``--flavour fwd`` it times the head's forward (B9, ``xent_fwd_bf16``)
 with ``save`` on and off, and with ``--flavour g`` the matmul backward's
 recomputed g (B11, ``xent_g_bf16``, lse from the plain forward), each A,
@@ -53,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 
@@ -67,7 +82,9 @@ KERNELS = ("dx", "dw")
 TOL = 2e-2                 # chip_smoke.py's XENT_TOL["bf16"]["grad"]
 LSE_TOL = 1e-3             # chip_smoke.py's XENT_TOL["bf16"]["lse"]
 ITERS = 5
-FLAVOURS = ("recompute", "saved", "fwd", "g")
+FLAVOURS = ("recompute", "saved", "fwd", "g", "wide")
+WIDE_SHAPE = (8192, 4096, 32768)   # (T, D, V) past one cluster's D 2048
+WIDE_ITERS = 3
 CHUNK = 128                # mrun's chunk in bf16 (cuda_xent.TILE)
 
 
@@ -154,6 +171,18 @@ def recompute_call(lib, which: str, x, w, tg, lse, dn, out):
             t, v, d, st]
     return lambda: _build.check(lib.icikit_xent_recompute(*args),
                                 f"xent_{which}")
+
+
+def walk_call(lib, which: str, x, w, tg, lse, dn, out):
+    """One library's recompute ``which`` past D 2048 into ``out``, a
+    no-argument call: ``cuda_xent.walk_on_card`` over the library's own
+    pieces where it exports them (at any D), else (a source before the
+    walk) its ``icikit_xent_recompute``."""
+    from icikit_torch.ops import cuda_xent as cx
+
+    if not hasattr(lib, "icikit_xent_g_cols"):
+        return recompute_call(lib, which, x, w, tg, lse, dn, out)
+    return lambda: cx.walk_on_card(lib, which, x, w, tg, lse, dn, out)
 
 
 def _rel(x, y) -> float:
@@ -436,14 +465,86 @@ def run_g(a_dir: str, b_dir: str, shape=SHAPE, seed: int = 16) -> bool:
     return rec["ok"]
 
 
+def run_wide(a_dir: str, b_dir: str, seed: int = 18) -> bool:
+    """Time and compare the two sources' recompute dx and dw at
+    WIDE_SHAPE, then B's walk against B's cluster kernel at the base
+    shape; whether every output held to the plain versions and B to A."""
+    from icikit_torch.bench.flash_ab import _turns, event_ms
+    from icikit_torch.ops import cuda_xent as cx
+    from icikit_torch.utils.trace import device_activity
+
+    libs = build(a_dir, b_dir, ("xent_recompute_bf16", "xent_g_bf16",
+                                "xent_dx_g_bf16", "xent_dw_g_bf16"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ok = True
+    for shape, arms in ((WIDE_SHAPE, ("A", "B")), (SHAPE, ("cluster",
+                                                            "walk"))):
+        t, d, v = shape
+        x, w, tg = _head_inputs(shape, seed)
+        dn = torch.full((t,), 1.0 / t, device="cuda")
+        lse = cx.xent_fwd_plain(x, w, tg, False)[0].float().contiguous()
+        for which in KERNELS:
+            rows = t if which == "dx" else v
+            outs = {n: torch.empty((rows, d), dtype=torch.bfloat16,
+                                   device="cuda") for n in "AB"}
+            def call(n, ls, out):
+                if arms[0] == "A":
+                    return walk_call(libs[n][0], which, x, w, tg, ls, dn, out)
+                # B's cluster kernel as A, B's walk as B
+                make = recompute_call if n == "A" else walk_call
+                return make(libs["B"][0], which, x, w, tg, ls, dn, out)
+
+            fns = {n: {which: call(n, lse, outs[n])} for n in "AB"}
+            ms = _turns(fns, WIDE_ITERS)
+            act = device_activity(fns["B"][which], attempts=4)
+            plain = cx.xent_dx_plain if which == "dx" else cx.xent_dw_plain
+            want = plain(x, w, tg, lse, dn)
+            plain_ms = event_ms(lambda: plain(x, w, tg, lse, dn), 1)
+            # lse less log V: g's softmax part outweighs the -dnll at a
+            # row's target, which hides it at the true lse
+            ls = lse - math.log(v)
+            want_s = plain(x, w, tg, ls, dn)
+            shifted = {}
+            for n in "AB":
+                o = torch.empty_like(outs[n])
+                call(n, ls, o)()
+                shifted[f"{n.lower()}_vs_plain_lse_less_log_v"] = _rel(
+                    o, want_s)
+            del o, want_s
+            bnd, by = bound_ms(which, t, d, v)
+            rec = {"kernel": f"xent_{which} (B10 recompute)",
+                   "shape": {"T": t, "D": d, "V": v}, "dtype": "bfloat16",
+                   "arms": {"A": arms[0], "B": arms[1]},
+                   "turns": "A B B A",
+                   "ms": {n: ms[n][which] for n in "AB"},
+                   "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                   "library_ms": None,
+                   "b_trace": act["by_name"],
+                   "b_trace_lost_device_events": act["lost_device_events"],
+                   "rel_err": {"b_vs_a": _rel(outs["B"], outs["A"]),
+                               "b_vs_plain": _rel(outs["B"], want),
+                               "a_vs_plain": _rel(outs["A"], want),
+                               **shifted},
+                   "tolerance": TOL}
+            rec["ok"] = all(rec["rel_err"][k] <= TOL for k in rec["rel_err"])
+            print(json.dumps(rec), flush=True)
+            ok &= rec["ok"]
+            del outs, fns, want
+            torch.cuda.empty_cache()
+        del x, w, tg, dn, lse
+    report(libs, a_dir, b_dir)
+    return ok
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--a", required=True, help="directory of arm A's xent.cu")
     p.add_argument("--b", required=True, help="the same for arm B")
     p.add_argument("--flavour", default="recompute", choices=FLAVOURS,
                    help="the recompute head's backward (the default), the "
-                        "saved one's, the forward (fwd) or the matmul "
-                        "backward's recomputed g (g)")
+                        "saved one's, the forward (fwd), the matmul "
+                        "backward's recomputed g (g) or the recompute "
+                        "head's backward past D 2048 (wide)")
     p.add_argument("--timing-only", action="store_true",
                    help="exit 0 even where B's outputs depart from A's")
     args = p.parse_args(argv)
@@ -454,7 +555,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("xent_ab needs a CUDA card")
     runner = {"recompute": run, "saved": run_saved, "fwd": run_fwd,
-              "g": run_g}[args.flavour]
+              "g": run_g, "wide": run_wide}[args.flavour]
     ok = runner(args.a, args.b)
     return 0 if ok or args.timing_only else 1
 

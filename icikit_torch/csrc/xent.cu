@@ -49,8 +49,14 @@
 //      (_g_chunk_recompute) instead of from e: one more 2*T*V*D product
 //      (bound 1.11 ms each at the base shapes, operations). bf16 up to D
 //      2048: a thread-block cluster along D on wgmma and TMA forms each
-//      logits tile once (see xent_recompute_bf16); past D 2048, 128 x 128
-//      tiles that each form the logits over D (xent_recompute_bf16_tiled).
+//      logits tile once (see xent_recompute_bf16). Past D 2048 a walk
+//      over chunks (cuda_xent.recompute_walk; dx: 128-row token tiles
+//      enough to fill a wave of the card, dw: as many vocabulary rows)
+//      forms each logits tile once too: a chunk's g in bf16 by xent_g's
+//      body (icikit_xent_g_cols, its targets in absolute vocabulary
+//      units), then its product by the saved flavour's body with g given
+//      (xent_dx_g_bf16, xent_dw_g_bf16); the contraction is whole in a
+//      chunk, and g's scratch is at most a quarter of (T, V) in bf16.
 //
 //   xent_g        <- _bwd_kernel (B11, _g_call, pallas_call :312).
 //   xent_g_saved  <- _g_saved_kernel (B11, _g_saved_call, :335).
@@ -65,10 +71,8 @@
 // (logits_body: a persistent CTA an SM, 128 x 256 logits tiles, the bf16
 // output staged and stored by TMA), as do the saved flavour's dx and dw
 // (saved_body); the recompute flavour up to D 2048 runs on wgmma and TMA
-// in a cluster along D. Past D 2048 it runs the first design's 128 x 128
-// tiles: 8 warps a CTA, each a 32 x 64 piece, on mma.sync m16n8k16 (bf16
-// in, fp32 accumulate), the operands staged through shared memory by
-// cp.async, double-buffered. g is rounded to bf16 to enter the tensor
+// in a cluster along D, and past D 2048 on those two bodies, a launch of
+// each a chunk. g is rounded to bf16 to enter the tensor
 // cores, where the TPU contracts it in float32 against w.astype(f32)
 // (:199-201, :235-237): the tolerance in the tests states the cost.
 // float32: 64 x 64 tiles of plain FMA, 4 x 4 a thread.
@@ -91,32 +95,13 @@ constexpr float LN2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
-// bf16 tiles
-constexpr int XT = 128;          // rows of a CTA tile
-constexpr int XN = 128;          // columns of a CTA tile
-constexpr int XK = 32;           // contraction step
-constexpr int X_THREADS = 256;   // 8 warps: 4 (rows) x 2 (columns)
-constexpr int AS = XK + 8;       // stride of a [rows][XK] stage
-constexpr int BS = XN + 8;       // stride of a [XK][cols] stage
+// the elementwise g pass (bf16)
+constexpr int X_THREADS = 256;
 // float32 tiles
 constexpr int FT = 64;
 constexpr int FK = 16;
 constexpr int F_THREADS = 256;   // 16 x 16, a 4 x 4 micro tile each
 constexpr int FS = FT + 4;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Four 8x8 bf16 matrices, each delivered transposed (the mma B or A
 // fragment of an operand stored with the contraction dimension across
@@ -126,144 +111,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// 16 bytes global -> shared, zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Stage a [rows][XK] piece (row r at src + r * ld, columns k0..k0+XK)
-// into shared memory with stride AS; rows >= nrows and columns >= ncols
-// are zero-filled.
-__device__ __forceinline__ void stage_rows_k(bf16* dst, const bf16* src,
-                                             int64_t ld, int64_t nrows,
-                                             int64_t ncols, int64_t k0) {
-  for (int i = threadIdx.x; i < XT * XK / 8; i += X_THREADS) {
-    const int r = i / (XK / 8), c8 = (i % (XK / 8)) * 8;
-    const bool ok = r < nrows && k0 + c8 < ncols;
-    cp_async16(dst + r * AS + c8, ok ? src + r * ld + k0 + c8 : src, ok);
-  }
-}
-
-// Stage a [XK][XN] piece (contraction row k at src + (k0 + k) * ld,
-// columns 0..XN) with stride BS; rows >= nk and columns >= ncols are
-// zero-filled.
-__device__ __forceinline__ void stage_k_cols(bf16* dst, const bf16* src,
-                                             int64_t ld, int64_t k0,
-                                             int64_t nk, int64_t ncols) {
-  for (int i = threadIdx.x; i < XK * XN / 8; i += X_THREADS) {
-    const int r = i / (XN / 8), c8 = (i % (XN / 8)) * 8;
-    const bool ok = k0 + r < nk && c8 < ncols;
-    cp_async16(dst + r * BS + c8, ok ? src + (k0 + r) * ld + c8 : src, ok);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[2][8][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-}
-
-// B fragments of eight n-tiles (this warp's 64 columns) from a [XK][XN]
-// stage, k rows kk*16 .. kk*16+15.
-__device__ __forceinline__ void b_frags_kn(uint32_t (&b)[8][2],
-                                           const bf16* stage, int kk,
-                                           int wn) {
-  const int lane = threadIdx.x & 31, mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    uint32_t x[4];
-    ldsm_x4_t(x, stage + (kk * 16 + (mat & 1) * 8 + r) * BS + wn * 64 +
-                     np * 16 + (mat >> 1) * 8);
-    b[2 * np][0] = x[0];
-    b[2 * np][1] = x[1];
-    b[2 * np + 1][0] = x[2];
-    b[2 * np + 1][1] = x[3];
-  }
-}
-
-// The logits tile: acc (a 128 x 128 tile, this warp's 32 x 64 piece) =
-// A B^T over the contraction D, where row r of A is at a + r * D and row c
-// of B at b + c * D; rows >= nrows of A and >= ncols of B read as zeros.
-// Two-stage cp.async ring in as/bs. The leading barrier lets a caller run
-// it in a loop: no warp still reads the ring from the previous call.
-__device__ __forceinline__ void logits_tile(float (&acc)[2][8][4],
-                                            bf16 (*as)[XT * AS],
-                                            bf16 (*bs)[XN * AS],
-                                            const bf16* a, const bf16* b,
-                                            int64_t nrows, int64_t ncols,
-                                            int64_t D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
-  zero_acc(acc);
-  const int nk = (int)((D + XK - 1) / XK);
-  __syncthreads();
-  stage_rows_k(as[0], a, D, nrows, D, 0);
-  stage_rows_k(bs[0], b, D, ncols, D, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    cp_async_wait_all();
-    __syncthreads();  // stage s landed; every warp is done with stage s^1
-    if (kt + 1 < nk) {
-      stage_rows_k(as[s ^ 1], a, D, nrows, D, (int64_t)(kt + 1) * XK);
-      stage_rows_k(bs[s ^ 1], b, D, ncols, D, (int64_t)(kt + 1) * XK);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int kk = 0; kk < XK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* p = as[s] + (wm * 32 + mi * 16 + g) * AS + kk * 16 + c2;
-        af[mi][0] = ld32(p);
-        af[mi][1] = ld32(p + 8 * AS);
-        af[mi][2] = ld32(p + 8);
-        af[mi][3] = ld32(p + 8 * AS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const bf16* p = bs[s] + (wn * 64 + ni * 8 + g) * AS + kk * 16 + c2;
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-        mma_bf16(acc[0][ni], af[0], b0, b1);
-        mma_bf16(acc[1][ni], af[1], b0, b1);
-      }
-    }
-  }
-}
-
-// Store a 128 x 128 bf16 accumulator tile at out + row * ld + col.
-__device__ __forceinline__ void store_tile(bf16* out, int64_t ld,
-                                           int64_t nrows, int64_t ncols,
-                                           const float (&acc)[2][8][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mi * 16 + g + h * 8;
-        const int col = wn * 64 + ni * 8 + c2;
-        if (row < nrows && col < ncols)
-          *reinterpret_cast<uint32_t*>(out + row * ld + col) =
-              pack_bf16(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
 }
 
 // The last CTA of token tile `tile` merges its rows' partials (written by
@@ -337,7 +184,10 @@ __device__ void merge_partials(const float* mrun, const float* lpart,
 //   starts, their latency under the products.
 // - Both epilogues mask columns only in the vocabulary's last tile and
 //   compare columns with a row's target only where it falls in the tile,
-//   and take exp2 from the MUFU unit alone (ex2).
+//   and take exp2 from the MUFU unit alone (ex2). xent_g's targets count
+//   from vbase, the vocabulary row that w's first row holds (the
+//   recompute walk's vocabulary chunks; 0 otherwise): a target outside
+//   the chunk matches no stored column.
 // - The bf16 tile (e with save; g) is staged in shared memory in the
 //   128-byte swizzle (a warp's 4-byte pairs fall in 32 distinct banks)
 //   and stored by TMA, each warpgroup its 64 rows as four 64 x 64 boxes
@@ -379,7 +229,8 @@ __device__ __forceinline__ void logits_body(
     const CUtensorMap* tout, const int* __restrict__ tgt,
     const float* __restrict__ lse, const float* __restrict__ dnll,
     float* __restrict__ mrun, float* __restrict__ lpart,
-    float* __restrict__ tpart, int64_t T, int64_t V, int64_t D, int store) {
+    float* __restrict__ tpart, int64_t T, int64_t V, int64_t D, int store,
+    int vbase) {
   unsigned char* ring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
   unsigned char* ostage = ring + LT_NS * LT_STAGE;
   uint64_t* full = reinterpret_cast<uint64_t*>(ostage + 2 * LT_OWG);
@@ -448,7 +299,7 @@ __device__ __forceinline__ void logits_body(
     for (int hr = 0; hr < 2; ++hr) {
       const int t = t0 + ra + 8 * hr;
       const bool ok = t < T;
-      rel[hr] = ok ? tgt[t] - v0 : -1;
+      rel[hr] = ok ? tgt[t] - vbase - v0 : -1;
       l2[hr] = !FWD && ok ? lse[t] * LOG2E : 0.f;
       dn[hr] = !FWD && ok ? dnll[t] : 0.f;
     }
@@ -575,7 +426,7 @@ xent_fwd_bf16(const __grid_constant__ CUtensorMap tx,
               int64_t T, int64_t V, int64_t D, int save) {
   extern __shared__ __align__(1024) unsigned char lt_smem[];
   logits_body<true>(lt_smem, &tx, &tw, &te, tgt, nullptr, nullptr, mrun,
-                    lpart, tpart, T, V, D, save);
+                    lpart, tpart, T, V, D, save, 0);
 }
 
 __global__ void __launch_bounds__(LT_THREADS, 1)
@@ -584,10 +435,10 @@ xent_g_bf16(const __grid_constant__ CUtensorMap tx,
             const __grid_constant__ CUtensorMap tg,
             const int* __restrict__ tgt, const float* __restrict__ lse,
             const float* __restrict__ dnll, int64_t T, int64_t V,
-            int64_t D) {
+            int64_t D, int vbase) {
   extern __shared__ __align__(1024) unsigned char lt_smem[];
   logits_body<false>(lt_smem, &tx, &tw, &tg, tgt, lse, dnll, nullptr,
-                     nullptr, nullptr, T, V, D, 1);
+                     nullptr, nullptr, T, V, D, 1, vbase);
 }
 
 // xent_fwd's merge (bf16): each token's lse and target logit from its nc
@@ -663,39 +514,6 @@ __device__ __forceinline__ uint4 g8(uint4 raw, int64_t t, int64_t v,
 }
 
 // ---------------------------------------------------------------------------
-// The recompute flavour and the matmul backward's g (bf16).
-//
-// g_at_tile: g = (exp2(s*log2e - lse*log2e) - onehot) * dnll for this
-// thread's entries of a logits tile `acc` (_g_chunk_recompute), with the
-// token of an entry on its row (TOK_ROWS) or on its column; tl2, ttg and
-// tdn hold the tile's 128 tokens' lse*log2e, target and dnll. Entries
-// outside [0, T) x [0, V) are 0.
-
-template <bool TOK_ROWS>
-__device__ __forceinline__ float g_of(float sv, int row, int col,
-                                      int64_t t0, int64_t v0, int64_t T,
-                                      int64_t V, const float* tl2,
-                                      const int* ttg, const float* tdn) {
-  const int tr = TOK_ROWS ? row : col;
-  const int64_t t = t0 + tr, v = v0 + (TOK_ROWS ? col : row);
-  if (t >= T || v >= V) return 0.f;
-  const float p = exp2f(sv * LOG2E - tl2[tr]);
-  return (p - (v == (int64_t)ttg[tr] ? 1.f : 0.f)) * tdn[tr];
-}
-
-// The 128 tokens t0 .. t0+127 of a tile into shared memory.
-__device__ __forceinline__ void load_tokens(float* tl2, int* ttg, float* tdn,
-                                            const int* tgt, const float* lse,
-                                            const float* dnll, int64_t t0,
-                                            int64_t T) {
-  for (int r = threadIdx.x; r < XT; r += X_THREADS) {
-    const bool ok = t0 + r < T;
-    tl2[r] = ok ? lse[t0 + r] * LOG2E : 0.f;
-    ttg[r] = ok ? tgt[t0 + r] : -1;
-    tdn[r] = ok ? dnll[t0 + r] : 0.f;
-  }
-}
-
 // xent_g_saved: g (T, V) from the saved exponentials (_g_saved_kernel), 8
 // columns a thread: an elementwise pass, bound by its bytes.
 __global__ void __launch_bounds__(X_THREADS)
@@ -753,7 +571,7 @@ xent_g_saved_bf16(const bf16* __restrict__ e, const float* __restrict__ mrun,
 // with a separate exchanger warpgroup, paced by mbarriers that each CTA
 // arrives on in every CTA, were slower: their remote arrivals cost more
 // than the cluster barriers. D up to RC_CMAX * 256; wider heads take
-// xent_recompute_bf16_tiled.
+// the chunk walk (icikit_xent_g_cols, icikit_xent_g_product).
 
 constexpr int RC_ROWS = 128;    // output rows a CTA, two warpgroups
 constexpr int RC_DS = 256;      // columns of D a CTA
@@ -1044,109 +862,6 @@ xent_recompute_bf16(const __grid_constant__ CUtensorMap tr,
       }
 }
 
-// The recompute flavour in bf16 past D = RC_CMAX * 256, where one
-// cluster cannot hold a row tile's output: CTA (D tile, token tile) for
-// dx, (D tile, vocab tile) for dw, a 128 x 128 output tile in registers
-// (mma.sync m16n8k16, cp.async double-buffered, as the saved flavour).
-// For each 128-wide piece of the other dimension: the logits tile (x w^T
-// for dx, w x^T for dw) through logits_tile; g from it, rounded to bf16,
-// into shared memory; then the product's operand (w rows for dx, x rows
-// for dw) staged into the logits ring, which is free by then, and the
-// output tile += g op. Every D tile of a row of CTAs recomputes the same
-// logits: D/128 times the 2 T V D of the rebuild (17 at D 2176, 32 at
-// 4096), the price of holding only a 128 x 128 accumulator a CTA.
-
-constexpr int GS = XN + 8;  // stride of the g tile
-constexpr size_t TILED_SMEM =
-    sizeof(bf16) * (4 * XT * AS + XT * GS) + sizeof(float) * 2 * XT +
-    sizeof(int) * XT;
-
-template <bool DX>
-__global__ void __launch_bounds__(X_THREADS)
-xent_recompute_bf16_tiled(const bf16* __restrict__ x,
-                          const bf16* __restrict__ w,
-                          const int* __restrict__ tgt,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dnll,
-                          bf16* __restrict__ out, int64_t T, int64_t V,
-                          int64_t D) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16 (*as)[XT * AS] = reinterpret_cast<bf16 (*)[XT * AS]>(smem_raw);
-  bf16 (*bs)[XN * AS] = reinterpret_cast<bf16 (*)[XN * AS]>(
-      smem_raw + sizeof(bf16) * 2 * XT * AS);
-  bf16* ostage = reinterpret_cast<bf16*>(smem_raw);  // [128][BS] over as/bs
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw + sizeof(bf16) * 4 * XT * AS);
-  float* tl2 = reinterpret_cast<float*>(gs + XT * GS);
-  float* tdn = tl2 + XT;
-  int* ttg = reinterpret_cast<int*>(tdn + XT);
-  const int64_t d0 = (int64_t)blockIdx.x * XN;
-  const int64_t r0 = (int64_t)blockIdx.y * XT;  // token (dx) or vocab (dw)
-  const int64_t nrow_all = DX ? T : V, nk_all = DX ? V : T;
-  const int64_t rows = nrow_all - r0 < XT ? nrow_all - r0 : XT;
-  const int64_t dcols = D - d0 < XN ? D - d0 : XN;
-  const bf16* rsrc = (DX ? x : w) + r0 * D;   // the tile's own rows
-  const bf16* ksrc = DX ? w : x;              // rows along the contraction
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int wm = warp & 3, wn = warp >> 2;
-
-  if (DX) load_tokens(tl2, ttg, tdn, tgt, lse, dnll, r0, T);
-  float oacc[2][8][4];
-  zero_acc(oacc);
-  for (int64_t k0 = 0; k0 < nk_all; k0 += XN) {
-    const int64_t kn = nk_all - k0 < XN ? nk_all - k0 : XN;
-    if (!DX) {
-      __syncthreads();  // the previous piece's tokens are consumed
-      load_tokens(tl2, ttg, tdn, tgt, lse, dnll, k0, T);
-    }
-    float sacc[2][8][4];
-    logits_tile(sacc, as, bs, rsrc, ksrc + k0 * D, rows, kn, D);
-    __syncthreads();  // every warp is done with the ring
-#pragma unroll
-    for (int q4 = 0; q4 < XN / XK; ++q4)
-      stage_k_cols(ostage + q4 * XK * BS, ksrc + d0, D, k0 + q4 * XK,
-                   nk_all, dcols);
-    cp_async_commit();
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm * 32 + mi * 16 + g + h * 8;
-          const int col = wn * 64 + ni * 8 + c2;
-          const int64_t t0 = DX ? r0 : k0, v0 = DX ? k0 : r0;
-          const float g0 = g_of<DX>(sacc[mi][ni][2 * h], row, col, t0, v0,
-                                    T, V, tl2, ttg, tdn);
-          const float g1 = g_of<DX>(sacc[mi][ni][2 * h + 1], row, col + 1,
-                                    t0, v0, T, V, tl2, ttg, tdn);
-          *reinterpret_cast<uint32_t*>(gs + row * GS + col) =
-              pack_bf16(g0, g1);
-        }
-    cp_async_wait_all();
-    __syncthreads();  // g and the operand tile are in place
-#pragma unroll
-    for (int kk = 0; kk < XN / 16; ++kk) {
-      uint32_t a[2][4], b[8][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* p = gs + (wm * 32 + mi * 16 + g) * GS + kk * 16 + c2;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * GS);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * GS + 8);
-      }
-      b_frags_kn(b, ostage, kk, wn);
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        mma_bf16(oacc[0][ni], a[0], b[ni][0], b[ni][1]);
-        mma_bf16(oacc[1][ni], a[1], b[ni][0], b[ni][1]);
-      }
-    }
-  }
-  store_tile(out + r0 * D + d0, D, rows, dcols, oacc);
-}
-
 // ---------------------------------------------------------------------------
 // The saved flavour of the fused backward (_dx_saved_kernel /
 // _dw_saved_kernel), bf16: out = g op with op = w (V, D) for dx (T, D)
@@ -1186,6 +901,12 @@ xent_recompute_bf16_tiled(const bf16* __restrict__ x,
 //   steps where a target falls (dx: a vote of the warp's rows; dw: the
 //   producer's flag for the tile's rows), a quarter of them at the base
 //   shapes, and the two paths give the same bits.
+// - GIVEN (xent_dx_g_bf16, xent_dw_g_bf16: the recompute walk's products
+//   past D 2048): the stage's tile is g itself, in bf16 (T, V), written
+//   by xent_g_bf16. Its ldmatrix fragments go to wgmma as they are: no
+//   factors, no compares, and the producer is one thread that only
+//   starts the copies (a full barrier counts its expect_tx alone). The
+//   step past an odd count reads zeros from both boxes.
 constexpr int SV_ROWS = 128;     // output rows a CTA, two warpgroups
 constexpr int SV_DS = 256;       // columns of D a CTA
 constexpr int SV_KT = 64;        // the contraction a step
@@ -1282,7 +1003,33 @@ __device__ __forceinline__ void sv_frags_dw(uint32_t (&a)[SV_KT / 16][4],
   }
 }
 
+// GIVEN: the A fragments of a step straight from g's tile in the stage
+// (dx: g (t, v), 128 rows of 128 bytes; dw: g^T (v, t) from two blocks
+// of 64 token rows), as sv_frags_dx / sv_frags_dw load e's.
 template <bool DX>
+__device__ __forceinline__ void sv_frags_given(uint32_t (&a)[SV_KT / 16][4],
+                                               const unsigned char* es,
+                                               int wgi, int warp) {
+  const int lane = threadIdx.x & 31;
+  const int mat = lane >> 3, mr = lane & 7;
+  const int row = wgi * 64 + warp * 16 + (lane & 15);
+  const unsigned char* blk = es + wgi * SV_KBOX;
+#pragma unroll
+  for (int cc = 0; cc < SV_KT / 16; ++cc) {
+    if (DX) {
+      const int ch = 2 * cc + (lane >> 4);
+      ldsm_x4(a[cc], reinterpret_cast<const bf16*>(es + row * 128 +
+                                                   ((ch ^ (row & 7)) << 4)));
+    } else {
+      const int t = 16 * cc + (mat >> 1) * 8 + mr;
+      const int ch = 2 * warp + (mat & 1);
+      ldsm_x4_t(a[cc], reinterpret_cast<const bf16*>(blk + t * 128 +
+                                                     ((ch ^ (t & 7)) << 4)));
+    }
+  }
+}
+
+template <bool DX, bool GIVEN>
 __device__ __forceinline__ void saved_body(
     unsigned char* smem, const CUtensorMap* te, const CUtensorMap* top,
     const float* __restrict__ mrun, const int* __restrict__ tgt,
@@ -1300,7 +1047,8 @@ __device__ __forceinline__ void saved_body(
   const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     for (int i = 0; i < SV_NS; ++i) {
-      mbar_init(full + i, 1 + 32);  // the TMA's expect_tx, the warp's 32
+      // the TMA's expect_tx, and the warp's 32 unless g is given
+      mbar_init(full + i, GIVEN ? 1 : 1 + 32);
       mbar_init(empty + i, 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1311,6 +1059,28 @@ __device__ __forceinline__ void saved_body(
     // the producer warp: stage i % SV_NS takes step i (its tiles by TMA,
     // its factors by the warp) once the consumers released step i - SV_NS
     setmaxnreg_dec<40>();
+    auto load = [&](int i) {  // step i's boxes into stage i % SV_NS
+      const int st = i % SV_NS;
+      unsigned char* es = ring + st * SV_STAGE;
+      mbar_expect_tx(full + st, SV_STAGE);
+      if (DX) {
+        tma_box2(es, te, i * SV_KT, (int)r0, full + st);
+      } else {
+        tma_box2(es, te, (int)r0, i * SV_KT, full + st);
+        tma_box2(es + SV_KBOX, te, (int)r0 + 64, i * SV_KT, full + st);
+      }
+      for (int j = 0; j < SV_DS / 64; ++j)
+        tma_box2(es + SV_ETILE + j * SV_KBOX, top, d0 + 64 * j, i * SV_KT,
+                 full + st);
+    };
+    if (GIVEN) {
+      if (threadIdx.x != 2 * 128) return;
+      for (int i = 0; i < nk2; ++i) {
+        if (i >= SV_NS) mbar_wait(empty + i % SV_NS, (i / SV_NS - 1) & 1);
+        load(i);
+      }
+      return;
+    }
     if (threadIdx.x >= 2 * 128 + 32) return;
     constexpr int Q = DX ? SV_ROWS / 32 : SV_KT / 32;  // tokens a lane
     float pm[Q], pl[Q], pd[Q];
@@ -1345,19 +1115,7 @@ __device__ __forceinline__ void saved_body(
     for (int i = 0; i < nk2; ++i) {
       const int st = i % SV_NS;
       if (i >= SV_NS) mbar_wait(empty + st, (i / SV_NS - 1) & 1);
-      unsigned char* es = ring + st * SV_STAGE;
-      if (lane == 0) {
-        mbar_expect_tx(full + st, SV_STAGE);
-        if (DX) {
-          tma_box2(es, te, i * SV_KT, (int)r0, full + st);
-        } else {
-          tma_box2(es, te, (int)r0, i * SV_KT, full + st);
-          tma_box2(es + SV_KBOX, te, (int)r0 + 64, i * SV_KT, full + st);
-        }
-        for (int j = 0; j < SV_DS / 64; ++j)
-          tma_box2(es + SV_ETILE + j * SV_KBOX, top, d0 + 64 * j,
-                   i * SV_KT, full + st);
-      }
+      if (lane == 0) load(i);
       float* tk = tok + st * SV_TOK;
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
@@ -1389,7 +1147,7 @@ __device__ __forceinline__ void saved_body(
   const int ra = wgi * 64 + warp * 16 + g;  // and ra + 8, of the tile
   int tga = -1, tgb = -1;  // dx: the rows' targets and dnll
   float dna = 0.f, dnb = 0.f;
-  if (DX) {
+  if (DX && !GIVEN) {
     if (r0 + ra < T) {
       tga = tgt[r0 + ra];
       dna = dnll[r0 + ra];
@@ -1408,7 +1166,9 @@ __device__ __forceinline__ void saved_body(
     mbar_wait(full + st, (i / SV_NS) & 1);
     const unsigned char* es = ring + st * SV_STAGE;
     const float* tk = tok + st * SV_TOK;
-    if (DX) {
+    if (GIVEN) {
+      sv_frags_given<DX>(a, es, wgi, warp);
+    } else if (DX) {
       const int v0 = i * SV_KT;
       const bool hit = __any_sync(
           0xffffffffu, (unsigned)(tga - v0) < (unsigned)SV_KT ||
@@ -1464,8 +1224,8 @@ xent_dx_bf16(const __grid_constant__ CUtensorMap te,
              bf16* __restrict__ dx, int64_t T, int64_t V, int64_t D,
              int64_t chunk) {
   extern __shared__ __align__(1024) unsigned char sv_smem[];
-  saved_body<true>(sv_smem, &te, &tw, mrun, tgt, lse, dnll, dx, T, V, D,
-                   chunk);
+  saved_body<true, false>(sv_smem, &te, &tw, mrun, tgt, lse, dnll, dx, T,
+                          V, D, chunk);
 }
 
 __global__ void __launch_bounds__(SV_THREADS, 1)
@@ -1476,8 +1236,28 @@ xent_dw_bf16(const __grid_constant__ CUtensorMap te,
              bf16* __restrict__ dw, int64_t T, int64_t V, int64_t D,
              int64_t chunk) {
   extern __shared__ __align__(1024) unsigned char sv_smem[];
-  saved_body<false>(sv_smem, &te, &tx, mrun, tgt, lse, dnll, dw, T, V, D,
-                    chunk);
+  saved_body<false, false>(sv_smem, &te, &tx, mrun, tgt, lse, dnll, dw, T,
+                           V, D, chunk);
+}
+
+// The recompute walk's products past D 2048: dx (T, D) = g w from g (T, V)
+// and w (V, D); dw (V, D) = g^T x from g (T, V) and x (T, D).
+__global__ void __launch_bounds__(SV_THREADS, 1)
+xent_dx_g_bf16(const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap tw,
+               bf16* __restrict__ dx, int64_t T, int64_t V, int64_t D) {
+  extern __shared__ __align__(1024) unsigned char sv_smem[];
+  saved_body<true, true>(sv_smem, &tg, &tw, nullptr, nullptr, nullptr,
+                         nullptr, dx, T, V, D, SV_ROWS);
+}
+
+__global__ void __launch_bounds__(SV_THREADS, 1)
+xent_dw_g_bf16(const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap tx,
+               bf16* __restrict__ dw, int64_t T, int64_t V, int64_t D) {
+  extern __shared__ __align__(1024) unsigned char sv_smem[];
+  saved_body<false, true>(sv_smem, &tg, &tx, nullptr, nullptr, nullptr,
+                          nullptr, dw, T, V, D, SV_ROWS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1793,7 +1573,7 @@ int rows_map(CUtensorMap* map, const void* p, int64_t rows, int64_t cols,
 }
 
 // The cluster size of the recompute kernel at width D: D / 256 CTAs
-// rounded up to a power of two, 0 past RC_CMAX (the tiled kernel's
+// rounded up to a power of two, 0 past RC_CMAX (the chunk walk's
 // widths).
 int recompute_cluster(int64_t D) {
   int c = 1;
@@ -1827,23 +1607,40 @@ int launch_saved_bf16(int dx_side, const void* e, const float* mrun,
   return (int)cudaGetLastError();
 }
 
+// The recompute walk's product past D 2048 (xent_dx_g_bf16 /
+// xent_dw_g_bf16): g's map (boxes of 128 token rows for dx, 64 for dw)
+// and op's (64 rows), a CTA a 128-row tile and a 256-column slice of D,
+// the slices of a row tile side by side, as launch_saved_bf16.
+int launch_g_product_bf16(int dx_side, const void* g, const void* op,
+                          void* out, int64_t T, int64_t V, int64_t D,
+                          cudaStream_t st) {
+  const int64_t rows = dx_side ? T : V;
+  if (T < 1 || V < 1 || D < 1 || V % 8 || D % 8 ||
+      tiles(rows, SV_ROWS) > 65535 || T > INT32_MAX || V > INT32_MAX ||
+      D > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tg, top;
+  int err = rows_map(&tg, g, T, V, dx_side ? SV_ROWS : SV_KT);
+  if (!err) err = rows_map(&top, op, dx_side ? V : T, D, SV_KT);
+  if (err) return err;
+  auto kernel = dx_side ? xent_dx_g_bf16 : xent_dw_g_bf16;
+  const cudaError_t ce = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SV_SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  kernel<<<dim3(tiles(D, SV_DS), tiles(rows, SV_ROWS)), SV_THREADS, SV_SMEM,
+           st>>>(tg, top, static_cast<bf16*>(out), T, V, D);
+  return (int)cudaGetLastError();
+}
+
 int launch_recompute_bf16(int dx_side, const void* x, const void* w,
                           const int* tgt, const float* lse,
                           const float* dnll, void* out, int64_t T,
                           int64_t V, int64_t D, cudaStream_t st) {
   const int C = recompute_cluster(D);
   const int64_t rows = dx_side ? T : V, krows = dx_side ? V : T;
-  if (!C) {  // past one cluster: the 128 x 128 tiles
-    auto kernel = dx_side ? xent_recompute_bf16_tiled<true>
-                          : xent_recompute_bf16_tiled<false>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILED_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3(tiles(D, XN), tiles(rows, XT)), X_THREADS, TILED_SMEM,
-             st>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                   tgt, lse, dnll, static_cast<bf16*>(out), T, V, D);
-    return (int)cudaGetLastError();
-  }
+  // past one cluster: the chunk walk, cuda_xent.recompute_walk, over
+  // icikit_xent_g_cols and icikit_xent_g_product
+  if (!C) return (int)cudaErrorInvalidValue;
   if (rows < 1 || tiles(rows, RC_ROWS) > 65535 || krows > INT32_MAX ||
       rows > INT32_MAX)
     return (int)cudaErrorInvalidValue;
@@ -1877,16 +1674,17 @@ int launch_recompute_bf16(int dx_side, const void* x, const void* w,
 // The logits body's launch, xent_fwd (fwd, then xent_merge) or xent_g:
 // x's map (boxes of 128 token rows), w's (256 vocabulary rows) and the
 // output's (64 x 64 boxes: e with save, g); one CTA an SM, fewer when
-// there are fewer tiles. Refuses, before any launch, what the maps
-// cannot take: an empty tensor, D or V not a multiple of 8, a size past
-// INT32_MAX.
+// there are fewer tiles; xent_g's targets count from vbase, the
+// vocabulary row that w's first row holds. Refuses, before any launch,
+// what the maps cannot take: an empty tensor, D or V not a multiple of 8,
+// a size past INT32_MAX.
 int launch_logits_bf16(int fwd, const void* x, const void* w, const int* tgt,
                        const float* lse, const float* dnll, void* out,
                        float* mrun, float* lpart, float* tpart,
                        float* lse_out, float* tgt_out, int64_t T, int64_t V,
-                       int64_t D, int save, cudaStream_t st) {
+                       int64_t D, int save, int64_t vbase, cudaStream_t st) {
   if (T < 1 || V < 1 || D < 1 || V % 8 || D % 8 || T > INT32_MAX ||
-      V > INT32_MAX || D > INT32_MAX)
+      V > INT32_MAX || D > INT32_MAX || vbase < 0 || vbase > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw, to = {};
   int err = rows_map(&tx, x, T, D, LT_ROWS);
@@ -1917,7 +1715,7 @@ int launch_logits_bf16(int fwd, const void* x, const void* w, const int* tgt,
                              (int)LT_SMEM);
     if (e != cudaSuccess) return (int)e;
     xent_g_bf16<<<(unsigned)grid, LT_THREADS, LT_SMEM, st>>>(
-        tx, tw, to, tgt, lse, dnll, T, V, D);
+        tx, tw, to, tgt, lse, dnll, T, V, D, (int)vbase);
   }
   return (int)cudaGetLastError();
 }
@@ -1939,7 +1737,7 @@ int icikit_xent_fwd(int dtype, const void* x, const void* w, const int* tgt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_logits_bf16(1, x, w, tgt, nullptr, nullptr, e, mrun, lpart,
-                              tpart, lse, tgt_out, T, V, D, save, st);
+                              tpart, lse, tgt_out, T, V, D, save, 0, st);
   if (dtype == 0) {
     xent_fwd_f32<<<dim3(tiles(T, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), tgt,
@@ -2000,7 +1798,7 @@ int icikit_xent_g(int dtype, const void* x, const void* w, const int* tgt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch_logits_bf16(0, x, w, tgt, lse, dnll, g, nullptr, nullptr,
-                              nullptr, nullptr, nullptr, T, V, D, 1, st);
+                              nullptr, nullptr, nullptr, T, V, D, 1, 0, st);
   if (dtype == 0) {
     xent_g_f32<<<dim3(tiles(T, FT), tiles(V, FT)), F_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), tgt, lse,
@@ -2040,6 +1838,7 @@ int icikit_xent_g_saved(int dtype, const void* e, const float* mrun,
 
 // The recompute flavour of the fused backward: x (T, D), w (V, D) in dtype,
 // tgt, lse, dnll (T,) -> dx (T, D) when dx_side, else dw (V, D), in dtype.
+// bf16 up to D 2048 (one cluster); wider bf16 heads take the chunk walk.
 int icikit_xent_recompute(int dtype, int dx_side, const void* x,
                           const void* w, const int* tgt, const float* lse,
                           const float* dnll, void* out, int64_t T, int64_t V,
@@ -2060,6 +1859,31 @@ int icikit_xent_recompute(int dtype, int dx_side, const void* x,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 recompute flavour past D 2048 (RC_CMAX * 256), where
+// icikit_xent_recompute refuses bf16: its two pieces, which
+// cuda_xent.recompute_walk runs chunk by chunk. g (T, V) in bf16 from x
+// (T, D) and the head's vocabulary rows v0 .. v0+V (w, (V, D), points at
+// row v0; the targets are absolute vocabulary ids), lse and dnll (T,), as
+// icikit_xent_g (xent_g_bf16).
+int icikit_xent_g_cols(const void* x, const void* w, const int* tgt,
+                       const float* lse, const float* dnll, void* g,
+                       int64_t T, int64_t V, int64_t D, int64_t v0,
+                       void* stream) {
+  return launch_logits_bf16(0, x, w, tgt, lse, dnll, g, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, T, V, D, 1, v0,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// dx (T, D) = g w from g (T, V) and op = w (V, D) when dx_side, else dw
+// (V, D) = g^T x from op = x (T, D), all bf16 (xent_dx_g_bf16,
+// xent_dw_g_bf16).
+int icikit_xent_g_product(int dx_side, const void* g, const void* op,
+                          void* out, int64_t T, int64_t V, int64_t D,
+                          void* stream) {
+  return launch_g_product_bf16(dx_side, g, op, out, T, V, D,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The recompute kernel's clusters that the card holds at once at width
@@ -2090,8 +1914,8 @@ int icikit_xent_recompute_clusters(int dx_side, int64_t D, int* clusters,
 
 // Kernel attributes for the build log: which 0 xent_fwd bf16, 1 dx bf16,
 // 2 dw bf16, 3 xent_fwd f32, 4 xent_g bf16, 5 xent_g_saved bf16, 6 the
-// recompute dx bf16, 7 the recompute dw bf16, 8 and 9 their tiled forms
-// past D 2048, 10 xent_fwd's merge (bf16).
+// recompute dx bf16, 7 the recompute dw bf16, 8 and 9 the recompute
+// walk's products past D 2048 (dx, dw), 10 xent_fwd's merge (bf16).
 int icikit_xent_regs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
@@ -2112,9 +1936,9 @@ int icikit_xent_regs(int which, int* regs, int* local_bytes) {
   else if (which == 7)
     err = cudaFuncGetAttributes(&attr, xent_recompute_bf16<false>);
   else if (which == 8)
-    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<true>);
+    err = cudaFuncGetAttributes(&attr, xent_dx_g_bf16);
   else if (which == 9)
-    err = cudaFuncGetAttributes(&attr, xent_recompute_bf16_tiled<false>);
+    err = cudaFuncGetAttributes(&attr, xent_dw_g_bf16);
   else
     err = cudaFuncGetAttributes(&attr, xent_merge);
   if (err != cudaSuccess) return (int)err;

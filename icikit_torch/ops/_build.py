@@ -84,6 +84,9 @@ _SIGNATURES = {
                                   _I64, _I64, _P],
         "icikit_xent_regs": [_I32, _IP, _IP],
         "icikit_xent_recompute_clusters": [_I32, _I64, _IP, _IP],
+        "icikit_xent_g_cols": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                               _I64, _P],
+        "icikit_xent_g_product": [_I32, _P, _P, _P, _I64, _I64, _I64, _P],
     },
     "adam": {
         "icikit_adam_tree": [_I32, ctypes.POINTER(_I64), _I32, _I64, _P, _P,

@@ -13,7 +13,9 @@ Seven CUDA kernels (``csrc/xent.cu``) carry the head's four flavours
   from g rebuilt out of e, never written out.
 - ``xent_dx`` and ``xent_dw`` replace ``_dx_kernel`` and ``_dw_kernel``
   with ``e_ref=None`` (B10, recompute flavour): g rebuilt from a
-  recomputed logits tile.
+  recomputed logits tile. In bf16 past D 2048 (one cluster) they walk
+  chunks (:func:`recompute_walk`): each chunk's g by ``xent_g``'s body,
+  then its product by the saved flavour's body with g given.
 - ``xent_g`` and ``xent_g_saved`` replace ``_bwd_kernel`` (B11,
   ``_g_call``) and ``_g_saved_kernel`` (B11, ``_g_saved_call``): the
   matmul backward's g written out as a ``(T, V)`` tensor.
@@ -48,6 +50,9 @@ LAUNCHES = {"xent_fwd": 0, "xent_dx_saved": 0, "xent_dw_saved": 0,
 TILE = {torch.bfloat16: 128, torch.float32: 64}
 # The plain versions' chunk width on the CPU (any width gives the same p).
 PLAIN_CHUNK = 128
+# The widest D one cluster of the bf16 recompute kernel covers (8 CTAs of
+# 256 columns); wider bf16 heads take recompute_walk.
+CLUSTER_D_MAX = 2048
 
 
 def reset_launches() -> None:
@@ -125,31 +130,44 @@ def xent_g_saved_plain(e, mrun, targets, lse, dnll,
     return _g_plain(e, mrun, targets, lse, dnll, chunk).to(e.dtype)
 
 
-def _g_recompute_plain(x, w, targets, lse, dnll) -> torch.Tensor:
+def g_cols_plain(x, w, targets, lse, dnll, v0: int = 0) -> torch.Tensor:
     """g = (exp2(s log2(e) - lse log2(e)) - onehot) * dnll in float32 from
-    the float32 logits s = x w^T (``_g_chunk_recompute``)."""
+    the float32 logits s = x w^T (``_g_chunk_recompute``), w holding the
+    head's vocabulary rows v0, v0 + 1, ...: a row's target matches the
+    column ``target - v0``, if it lies in w. With v0 a chunk's first row
+    it is the plain version of :func:`recompute_walk`'s first piece (the
+    card's ``icikit_xent_g_cols``)."""
     s = torch.matmul(x.float(), w.float().t())
     p = torch.exp2(s * LOG2E - (lse * LOG2E)[:, None])
-    onehot = torch.nn.functional.one_hot(targets.long(), w.shape[0]).float()
+    cols = torch.arange(v0, v0 + w.shape[0], device=x.device)
+    onehot = (targets.long()[:, None] == cols).float()
     return (p - onehot) * dnll.float()[:, None]
 
 
 def xent_g_plain(x, w, targets, lse, dnll) -> torch.Tensor:
     """Plain version of ``xent_g``: the recomputed g in x's dtype."""
-    return _g_recompute_plain(x, w, targets, lse, dnll).to(x.dtype)
+    return g_cols_plain(x, w, targets, lse, dnll).to(x.dtype)
+
+
+def g_product_plain(which: str, g, op, out) -> None:
+    """Plain version of :func:`recompute_walk`'s second piece (the card's
+    ``icikit_xent_g_product``): ``out = g op`` (dx) or ``g^T op`` (dw) in
+    float32, cast to out's dtype."""
+    g = g.float() if which == "dx" else g.float().t()
+    out.copy_(torch.matmul(g, op.float()))
 
 
 def xent_dx_plain(x, w, targets, lse, dnll) -> torch.Tensor:
     """Plain version of ``xent_dx``: dx = g w in float32 from the
     recomputed g, cast to x's dtype."""
-    g = _g_recompute_plain(x, w, targets, lse, dnll)
+    g = g_cols_plain(x, w, targets, lse, dnll)
     return torch.matmul(g, w.float()).to(x.dtype)
 
 
 def xent_dw_plain(x, w, targets, lse, dnll) -> torch.Tensor:
     """Plain version of ``xent_dw``: dw = g^T x in float32 from the
     recomputed g, cast to x's dtype."""
-    g = _g_recompute_plain(x, w, targets, lse, dnll)
+    g = g_cols_plain(x, w, targets, lse, dnll)
     return torch.matmul(g.t(), x.float()).to(x.dtype)
 
 
@@ -345,6 +363,97 @@ def xent_g(x, w, targets, lse, dnll) -> torch.Tensor:
     return g
 
 
+def recompute_chunk(n: int, d: int, sms: int) -> int:
+    """Rows of one chunk of :func:`recompute_walk` (tokens for dx,
+    vocabulary rows for dw) out of ``n``, at width ``d`` on a card of
+    ``sms`` SMs: the 128-row tiles whose ``ceil(d / 256)`` slices of D
+    fill one wave of the product kernel (one CTA an SM), and at most a
+    quarter of ``n`` rounded down to a multiple of 8 (dw's g rows must
+    start on 16 bytes), so that g's scratch (chunk x V for dx, T x chunk
+    for dw, bf16) stays within a quarter of the (T, V) residual the saved
+    flavour keeps. At T 8192, D 4096, V 32768 on 132 SMs: 1024 rows both
+    ways, scratch 64 MiB (dx) and 16 MiB (dw) against the residual's 512
+    MiB. Below 32 rows a quarter holds no multiple of 8: the chunk is then
+    8 rows, or all ``n`` when fewer, and the scratch at most 8 rows of
+    the other side."""
+    wave = 128 * max(1, sms // -(-d // 256))
+    return min(wave, max(8, n // 4 // 8 * 8), n)
+
+
+def recompute_walk(which: str, x, w, targets, lse, dnll, out, chunk: int,
+                   g_piece, product):
+    """The recompute flavour's dx (``which`` "dx", into ``out`` (T, D)) or
+    dw ("dw", into ``out`` (V, D)) walked in chunks of ``chunk`` rows, so
+    that each logits tile is formed once (``_dx_kernel`` / ``_dw_kernel``
+    with ``e_ref=None`` keep a (bt, D) accumulator the card's registers
+    cannot hold past D 2048):
+
+    - dx, a chunk of tokens ``t0:t1``: ``g = g_piece(x[t0:t1], w,
+      targets[t0:t1], lse[t0:t1], dnll[t0:t1], 0)`` (t1 - t0, V), then
+      ``product("dx", g, w, out[t0:t1])``;
+    - dw, a chunk of vocabulary rows ``v0:v1``: ``g = g_piece(x,
+      w[v0:v1], targets, lse, dnll, v0)`` (T, v1 - v0), its targets in
+      absolute vocabulary units, then ``product("dw", g, x, out[v0:v1])``.
+
+    The contraction (V for dx, T for dw) is whole inside a chunk, so no
+    sum crosses chunks. On the card the pieces are ``icikit_xent_g_cols``
+    (``xent_g_bf16``) into one bf16 scratch buffer and
+    ``icikit_xent_g_product`` (``xent_dx_g_bf16`` / ``xent_dw_g_bf16``),
+    on one stream, so a chunk's product has read the scratch before the
+    next chunk's g overwrites it; :func:`g_cols_plain` and
+    :func:`g_product_plain` are their plain versions."""
+    n = x.shape[0] if which == "dx" else w.shape[0]
+    for a in range(0, n, chunk):
+        b = min(n, a + chunk)
+        if which == "dx":
+            g = g_piece(x[a:b], w, targets[a:b], lse[a:b], dnll[a:b], 0)
+            product("dx", g, w, out[a:b])
+        else:
+            g = g_piece(x, w[a:b], targets, lse, dnll, a)
+            product("dw", g, x, out[a:b])
+    return out
+
+
+def card_pieces(lib, x, scratch):
+    """:func:`recompute_walk`'s two pieces on the card, through library
+    ``lib``'s C entries on x's stream, g written into ``scratch`` (bf16,
+    at least a chunk's g)."""
+    st = _build.stream(x)
+
+    def g_piece(xc, wc, tg, ls, dn, v0):
+        t, d = xc.shape
+        v = wc.shape[0]
+        g = scratch[:t * v].view(t, v)
+        _build.check(lib.icikit_xent_g_cols(
+            xc.data_ptr(), wc.data_ptr(), tg.data_ptr(), ls.data_ptr(),
+            dn.data_ptr(), g.data_ptr(), t, v, d, v0, st),
+            "xent recompute g launch")
+        return g
+
+    def product(which, g, op, out):
+        t, v = g.shape
+        _build.check(lib.icikit_xent_g_product(
+            int(which == "dx"), g.data_ptr(), op.data_ptr(), out.data_ptr(),
+            t, v, op.shape[1], st), f"xent recompute {which} product launch")
+
+    return g_piece, product
+
+
+def walk_on_card(lib, which: str, x, w, targets, lse, dnll, out):
+    """:func:`recompute_walk` on the card through library ``lib`` (the
+    operands as the kernels take them), its chunk by
+    :func:`recompute_chunk` and g's scratch taken from the allocator on
+    x's stream for the call."""
+    t, d = x.shape
+    v = w.shape[0]
+    chunk = recompute_chunk(t if which == "dx" else v, d,
+                            _build.sm_count(x.device))
+    scratch = torch.empty(chunk * (v if which == "dx" else t),
+                          dtype=x.dtype, device=x.device)
+    return recompute_walk(which, x, w, targets, lse, dnll, out, chunk,
+                          *card_pieces(lib, x, scratch))
+
+
 def _recompute(which: str, x, w, targets, lse, dnll) -> torch.Tensor:
     what = f"xent_{which}"
     if _recompute_operands(what, x, w, targets, lse, dnll):
@@ -355,30 +464,39 @@ def _recompute(which: str, x, w, targets, lse, dnll) -> torch.Tensor:
     tg, ls, dn = _rows(targets, lse, dnll)
     out = torch.empty((t, d) if which == "dx" else (v, d), dtype=x.dtype,
                       device=x.device)
-    rc = _build.load("xent").icikit_xent_recompute(
-        _build.DTYPE_CODE[x.dtype], int(which == "dx"), x.data_ptr(),
-        w.data_ptr(), tg.data_ptr(), ls.data_ptr(), dn.data_ptr(),
-        out.data_ptr(), t, v, d, _build.stream(x))
-    _build.check(rc, f"{what} launch")
+    lib = _build.load("xent")
+    if x.dtype == torch.bfloat16 and d > CLUSTER_D_MAX:
+        walk_on_card(lib, which, x, w, tg, ls, dn, out)
+    else:
+        rc = lib.icikit_xent_recompute(
+            _build.DTYPE_CODE[x.dtype], int(which == "dx"), x.data_ptr(),
+            w.data_ptr(), tg.data_ptr(), ls.data_ptr(), dn.data_ptr(),
+            out.data_ptr(), t, v, d, _build.stream(x))
+        _build.check(rc, f"{what} launch")
     LAUNCHES[what] += 1
     return out
 
 
 def xent_dx(x, w, targets, lse, dnll) -> torch.Tensor:
     """dx ``(T, D)`` = g w with g rebuilt from recomputed logits tiles.
-    The kernel replaces ``icikit/ops/xent.py``'s ``_dx_kernel`` with
+    The kernels replace ``icikit/ops/xent.py``'s ``_dx_kernel`` with
     ``e_ref=None`` (B10 recompute flavour, pallas_call at :374). Bound:
     the rebuild and the contraction, 2 x 2 T V D operations. In bf16 up
     to D 2048 the CTAs that share a row tile form a thread-block cluster
-    along D, so each logits tile is formed once; wider heads take 128 x
-    128 tiles that each form the logits (D/128 times). CPU tensors take
-    :func:`xent_dx_plain`."""
+    along D, so each logits tile is formed once; wider heads walk chunks
+    of tokens (:func:`recompute_walk`, sizes by :func:`recompute_chunk`),
+    a chunk's g (chunk, V) in bf16 by ``xent_g``'s persistent wgmma body
+    and then its product with w on the saved flavour's body, g given:
+    each logits tile is formed once there too. ``LAUNCHES`` counts one a
+    call. CPU tensors take :func:`xent_dx_plain`."""
     return _recompute("dx", x, w, targets, lse, dnll)
 
 
 def xent_dw(x, w, targets, lse, dnll) -> torch.Tensor:
-    """dw ``(V, D)`` = g^T x with g rebuilt as for dx. The kernel
-    replaces ``_dw_kernel`` with ``e_ref=None`` (B10 recompute flavour,
-    pallas_call at :411). Bound: 2 x 2 T V D operations. CPU tensors
-    take :func:`xent_dw_plain`."""
+    """dw ``(V, D)`` = g^T x with g rebuilt as for dx. The kernels
+    replace ``_dw_kernel`` with ``e_ref=None`` (B10 recompute flavour,
+    pallas_call at :411). Bound: 2 x 2 T V D operations. Past D 2048 in
+    bf16 the walk takes chunks of vocabulary rows, a chunk's g (T, chunk)
+    with its targets in absolute vocabulary units, then g^T x. CPU
+    tensors take :func:`xent_dw_plain`."""
     return _recompute("dw", x, w, targets, lse, dnll)

@@ -53,10 +53,11 @@ def summarize(events, wall_us: float) -> dict:
     (first device event to last) and of ``wall_us``.
 
     ``lost_device_events`` counts the host's enqueue calls (a launch,
-    copy or set) whose correlation id no device event carries: on an
-    H100 a short trace can lose some or all of its device records while
-    keeping every host call. Raises when it lost all of them, since
-    every number here would then read as an idle device."""
+    copy or set) whose correlation id no device event carries, and
+    ``lost_by_call`` names them (host call name to count): on an H100 a
+    short trace can lose some or all of its device records while keeping
+    every host call. Raises when it lost all of them, since every number
+    here would then read as an idle device."""
     dev = [e for e in events
            if e.get("cat") in _DEVICE_CATS and "dur" in e]
     calls = [e for e in events
@@ -64,8 +65,11 @@ def summarize(events, wall_us: float) -> dict:
              and _ENQUEUE.match(e.get("name", ""))]
     enqueued = len(calls)
     seen = {_correlation(e) for e in dev}
-    lost = sum(1 for e in calls
-               if _correlation(e) is not None and _correlation(e) not in seen)
+    lost_by_call: dict = {}
+    for e in calls:
+        if _correlation(e) is not None and _correlation(e) not in seen:
+            lost_by_call[e["name"]] = lost_by_call.get(e["name"], 0) + 1
+    lost = sum(lost_by_call.values())
     if enqueued and not dev:
         raise RuntimeError(
             f"the trace holds {enqueued} host calls that enqueue device "
@@ -85,6 +89,7 @@ def summarize(events, wall_us: float) -> dict:
             if spans else 0.0)
     return {"device_events": len(dev), "host_enqueue_calls": enqueued,
             "lost_device_events": lost,
+            "lost_by_call": dict(sorted(lost_by_call.items())),
             "by_name": {k: {"count": c, "ms": t / 1e3}
                         for k, (c, t) in sorted(by_name.items())},
             "copies": dict(sorted(copies.items())),

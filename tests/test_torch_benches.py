@@ -655,7 +655,7 @@ def test_xent_ab_saved_bound_and_dispatch(monkeypatch):
 
     from icikit_torch.bench import xent_ab
 
-    assert xent_ab.FLAVOURS == ("recompute", "saved", "fwd", "g")
+    assert xent_ab.FLAVOURS == ("recompute", "saved", "fwd", "g", "wide")
     for which in ("dx", "dw"):
         ms, by = xent_ab.saved_bound_ms(which, 8192, 1024, 32768)
         assert by == "operations" and ms == pytest.approx(0.55587, rel=1e-4)
@@ -701,11 +701,12 @@ def test_xent_ab_fwd_and_g_bounds():
         (8 * 4096 + 16 * 4096 + 8 * 16) * 2 + 3 * 8 * 4)
 
 
-@pytest.mark.parametrize("flavour,fn", [("fwd", "run_fwd"), ("g", "run_g")])
+@pytest.mark.parametrize("flavour,fn", [("fwd", "run_fwd"), ("g", "run_g"),
+                                        ("wide", "run_wide")])
 def test_xent_ab_fwd_and_g_dispatch(monkeypatch, flavour, fn):
-    """No card exits before a build; with one, ``--flavour fwd`` and
-    ``--flavour g`` go to their own functions, whose verdict sets the exit
-    code unless ``--timing-only``."""
+    """No card exits before a build; with one, ``--flavour fwd``,
+    ``--flavour g`` and ``--flavour wide`` go to their own functions,
+    whose verdict sets the exit code unless ``--timing-only``."""
     import torch
 
     from icikit_torch.bench import xent_ab
@@ -717,7 +718,7 @@ def test_xent_ab_fwd_and_g_dispatch(monkeypatch, flavour, fn):
         xent_ab.main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     seen = []
-    for other in ("run", "run_saved", "run_fwd", "run_g"):
+    for other in ("run", "run_saved", "run_fwd", "run_g", "run_wide"):
         if other != fn:
             monkeypatch.setattr(xent_ab, other,
                                 lambda *a, o=other: pytest.fail(o))
@@ -725,3 +726,37 @@ def test_xent_ab_fwd_and_g_dispatch(monkeypatch, flavour, fn):
     assert xent_ab.main(argv) == 1
     assert xent_ab.main([*argv, "--timing-only"]) == 0
     assert seen == [(csrc, csrc)] * 2
+
+
+def test_xent_ab_wide_shape_bound_and_fallback(monkeypatch):
+    """``--flavour wide`` times the recompute head past one cluster's D
+    2048 at T 8192, D 4096, V 32768: dx's and dw's bound is the rebuild
+    and the contraction, 2 x 2 T V D operations, 4.447 ms at 989 TFLOP/s
+    (x, w and the output, ~400 MB, take 0.12 ms). A library without the
+    chunk walk's entries (a source before the walk) is timed through its
+    own ``icikit_xent_recompute``, once a call."""
+    import torch
+
+    from icikit_torch.bench import xent_ab
+
+    assert xent_ab.WIDE_SHAPE == (8192, 4096, 32768)
+    for which in ("dx", "dw"):
+        ms, by = xent_ab.bound_ms(which, *xent_ab.WIDE_SHAPE)
+        assert by == "operations" and ms == pytest.approx(4.44696, rel=1e-4)
+    calls = []
+
+    class OldLib:
+        def icikit_xent_recompute(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+    x, w, out = torch.zeros((16, 8)), torch.zeros((24, 8)), torch.zeros(
+        (16, 8))
+    tg, lse, dn = torch.zeros(16).int(), torch.zeros(16), torch.zeros(16)
+    fn = xent_ab.walk_call(OldLib(), "dx", x, w, tg, lse, dn, out)
+    assert not calls
+    fn()
+    assert len(calls) == 1 and calls[0][:2] == (1, 1)
+    assert calls[0][-4:] == (16, 24, 8, 7)

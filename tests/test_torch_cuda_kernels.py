@@ -709,12 +709,23 @@ def test_fused_head_matmul_recompute_bf16_matches_plain(no_tf32):
 
 
 # Past D 2048 (one cluster of 8 CTAs, 256 columns each) the bf16
-# recompute kernels take 128 x 128 tiles that each form the logits, at
-# the same tolerance; the fused head's recompute flavour keeps its route
-# there, as JAX's gate decides.
-@pytest.mark.parametrize("t,d,v", [(300, 2176, 1000), (256, 4096, 512)])
+# recompute flavour walks chunks (cuda_xent.recompute_walk: a chunk's g by
+# xent_g_bf16, then its product by xent_dx_g_bf16 / xent_dw_g_bf16), at
+# the same tolerance, at shapes off every chunk edge: dx in 4 x 72 + 12
+# tokens and dw in 4 x 248 + 8 vocabulary rows at (300, 2176, 1000); 4 x
+# 64 tokens and 4 x 128 rows at (256, 4096, 512); 4 x 272 + 12 and 4 x
+# 1024 + 8 at (1100, 4096, 4104); 4 x 64 and 4 x 128 + 8 at (256, 8192,
+# 520) (T, V off the 128-row tiles and 64-wide steps, an odd step count,
+# D 2176 off the 256-column slices), with the true lse and with lse less
+# log V (where g's softmax part outweighs the -dnll at a row's target);
+# the fused head's recompute flavour keeps its route there, as JAX's gate
+# decides.
+@pytest.mark.parametrize("t,d,v", [(300, 2176, 1000), (256, 4096, 512),
+                                   (1100, 4096, 4104), (256, 8192, 520)])
 def test_xent_recompute_bf16_past_one_cluster_matches_plain(t, d, v,
                                                             no_tf32):
+    import math
+
     from icikit_torch.ops.xent import fused_xent, xent_supported
 
     gen = no_tf32
@@ -725,11 +736,12 @@ def test_xent_recompute_bf16_past_one_cluster_matches_plain(t, d, v,
                        dtype=torch.int32)
     dn = torch.randn((t,), generator=gen, device="cuda") / t
     lse, _ = cx.xent_fwd(x, w, tg, save=False)
-    cx.reset_launches()
-    got = (cx.xent_dx(x, w, tg, lse, dn), cx.xent_dw(x, w, tg, lse, dn))
-    assert cx.LAUNCHES["xent_dx"] == cx.LAUNCHES["xent_dw"] == 1
-    _grad_close(got, (cx.xent_dx_plain(x, w, tg, lse, dn),
-                      cx.xent_dw_plain(x, w, tg, lse, dn)), 2e-2)
+    for ls in (lse, lse - math.log(v)):
+        cx.reset_launches()
+        got = (cx.xent_dx(x, w, tg, ls, dn), cx.xent_dw(x, w, tg, ls, dn))
+        assert cx.LAUNCHES["xent_dx"] == cx.LAUNCHES["xent_dw"] == 1
+        _grad_close(got, (cx.xent_dx_plain(x, w, tg, ls, dn),
+                          cx.xent_dw_plain(x, w, tg, ls, dn)), 2e-2)
     if t % 128 == 0:
         assert xent_supported(t, d, v, torch.bfloat16)
         xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -742,6 +754,50 @@ def test_xent_recompute_bf16_past_one_cluster_matches_plain(t, d, v,
         _grad_close((xg.grad, wg.grad),
                     (cx.xent_dx_plain(x, w, tg, lse, ones),
                      cx.xent_dw_plain(x, w, tg, lse, ones)), 2e-2)
+
+
+# The walk's two pieces alone, bf16: a vocabulary chunk's g (targets in
+# absolute units, some inside the chunk and some outside it, the chunk's
+# last 256-column tile ragged) against g_cols_plain within 2e-2 of its
+# largest entry, once with the true lse (the -dnll at a row's target
+# dominates g) and once with lse less log V (the softmax part, V times
+# larger, dominates); then the products with that dense g given (an odd
+# and an even step count, rows off the 128-row tile) against
+# g_product_plain on the same bf16 g within 2e-2; the same bits from call
+# to call.
+@pytest.mark.parametrize("t,d,v0,vc", [(300, 2176, 264, 520),
+                                       (1000, 4096, 1024, 1000)])
+def test_xent_recompute_walk_pieces_match_plain(t, d, v0, vc, no_tf32):
+    import math
+
+    gen = no_tf32
+    v = v0 + vc + 64
+    x = _randn((t, d), torch.bfloat16, gen)
+    w = (torch.randn((v, d), generator=gen, device="cuda")
+         * d ** -0.5).to(torch.bfloat16)
+    tg = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    dn = torch.randn((t,), generator=gen, device="cuda") / t
+    lse, _ = cx.xent_fwd(x, w, tg, save=False)
+    lib = _build.load("xent")
+    wc = w[v0:v0 + vc]
+    scratch = torch.empty(t * vc, dtype=torch.bfloat16, device="cuda")
+    g_piece, product = cx.card_pieces(lib, x, scratch)
+    for shift in (0.0, math.log(v)):
+        ls = lse - shift
+        g = g_piece(x, wc, tg, ls, dn, v0).clone()
+        want = cx.g_cols_plain(x, wc, tg, ls, dn, v0)
+        _grad_close((g,), (want,), 2e-2)
+        assert torch.equal(g_piece(x, wc, tg, ls, dn, v0), g)
+    for which, op, rows in (("dx", wc, t), ("dw", x, vc)):
+        out, ref = (torch.empty((rows, d), dtype=torch.bfloat16,
+                                device="cuda") for _ in range(2))
+        product(which, g, op, out)
+        cx.g_product_plain(which, g, op, ref)
+        _grad_close((out,), (ref,), 2e-2)
+        again = torch.empty_like(out)
+        product(which, g, op, again)
+        assert torch.equal(again, out)
 
 
 from icikit_torch.ops import cuda_adam  # noqa: E402

@@ -77,3 +77,26 @@ def test_summarize_counts_launches_whose_device_record_was_lost():
     events.append(_ev("gpu_memcpy", "Memcpy DtoD (Device -> Device)", 16, 1,
                       corr=3))
     assert summarize(events, wall_us=20.0)["lost_device_events"] == 0
+
+
+def test_summarize_names_the_host_calls_whose_record_was_lost():
+    """``lost_by_call`` counts the lost records by the host call that
+    enqueued them, so a caller can tell a lost kernel (its launch still
+    counted on the host) from a lost copy (whose direction is then
+    unknown)."""
+    events = [_ev("cuda_runtime", "cudaLaunchKernel", 0, 1, corr=1),
+              _ev("cuda_runtime", "cudaLaunchKernel", 2, 1, corr=2),
+              _ev("cuda_runtime", "cudaLaunchKernelExC", 3, 1, corr=3),
+              _ev("cuda_runtime", "cudaMemcpyAsync", 4, 1, corr=4),
+              _ev("cuda_runtime", "cudaMemsetAsync", 5, 1, corr=5),
+              _ev("kernel", "void k(int)", 10, 2, corr=2),
+              _ev("gpu_memset", "Memset (Device)", 13, 1, corr=5)]
+    got = summarize(events, wall_us=20.0)
+    assert got["lost_by_call"] == {"cudaLaunchKernel": 1,
+                                   "cudaLaunchKernelExC": 1,
+                                   "cudaMemcpyAsync": 1}
+    assert got["lost_device_events"] == 3
+    events.append(_ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 16,
+                      1, corr=4))
+    assert summarize(events, wall_us=20.0)["lost_by_call"] == {
+        "cudaLaunchKernel": 1, "cudaLaunchKernelExC": 1}

@@ -252,3 +252,96 @@ def test_bf16_ragged_vocab_head_matches_jax():
     want = np.asarray(jg["w_out"]).astype(np.float32)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recompute_flavour_past_one_cluster_matches_jax(dtype):
+    """The recompute flavour (save_exp=False, fused_bwd=True) at D 2176,
+    past the 2048 that one cluster of the bf16 recompute kernel covers
+    (the card walks chunks there): loss, dx and dw against JAX's
+    ``fused_xent`` at ``block_t=256, block_v=512`` with the file's
+    tolerances (float32 1e-5, bf16 2e-2)."""
+    x, w, tg, g = _inputs(29, 256, 2176, 512, dtype)
+    assert 2176 > cuda_xent.CLUSTER_D_MAX
+    cuda_xent.reset_launches()
+    got = _flavour(x, w, tg, g, False, True, port=True)
+    assert set(cuda_xent.LAUNCHES.values()) == {0}  # CPU: plain
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _close(got, _flavour(x, w, tg, g, False, True, port=False), tol, tol)
+
+
+# (T, D, V, chunk): several chunks each way, the last one ragged
+WALK_CASES = [(300, 136, 1000, 72), (256, 2176, 512, 72),
+              (130, 64, 264, 16), (257, 128, 520, 128), (96, 64, 1000, 56)]
+
+
+@pytest.mark.parametrize("t,d,v,chunk", WALK_CASES)
+def test_recompute_walk_with_plain_pieces_matches_plain(t, d, v, chunk):
+    """The walk past D 2048 (``recompute_walk``) with its pieces' plain
+    versions (``g_cols_plain``, ``g_product_plain``) at chunk sizes that
+    split T and V into several ragged chunks: dx and dw against
+    ``xent_dx_plain`` / ``xent_dw_plain`` at float32 within 1e-5 of the
+    largest entry (the same float32 sums, V or T cut into chunks)."""
+    x, w, tg, _ = _inputs(t + v + chunk, t, d, v, "float32")
+    xt, wt, tt = from_jax(x), from_jax(w), from_jax(tg)
+    dn = torch.from_numpy(np.random.default_rng(chunk).standard_normal(t)
+                          .astype(np.float32))
+    lse, _ = cuda_xent.xent_fwd_plain(xt, wt, tt, False)
+    for which, plain, rows in (("dx", cuda_xent.xent_dx_plain, t),
+                               ("dw", cuda_xent.xent_dw_plain, v)):
+        out = torch.full((rows, d), float("nan"))
+        pieces = []  # the rows of each chunk's g
+        cuda_xent.recompute_walk(
+            which, xt, wt, tt, lse, dn, out, chunk,
+            lambda *a: pieces.append(a[1].shape[0] if which == "dw"
+                                     else a[0].shape[0])
+            or cuda_xent.g_cols_plain(*a),
+            cuda_xent.g_product_plain)
+        assert sum(pieces) == rows and len(pieces) == -(-rows // chunk)
+        assert len(pieces) > 1 and pieces[-1] != chunk
+        want = plain(xt, wt, tt, lse, dn).numpy()
+        np.testing.assert_allclose(out.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_g_cols_plain_is_a_slice_of_the_whole_g():
+    """The walk's first piece on a vocabulary chunk v0:v1 is columns
+    v0:v1 of g over the whole vocabulary: a target outside the chunk
+    matches none of its columns, one inside matches at target - v0."""
+    x, w, tg, _ = _inputs(31, 64, 128, 300, "float32")
+    xt, wt, tt = from_jax(x), from_jax(w), from_jax(tg)
+    tt[:8] = 5           # targets in the first chunk only
+    dn = torch.ones(64)
+    lse, _ = cuda_xent.xent_fwd_plain(xt, wt, tt, False)
+    whole = cuda_xent.g_cols_plain(xt, wt, tt, lse, dn)
+    assert (whole < 0).any()
+    for v0, v1 in ((0, 96), (96, 192), (192, 300)):
+        got = cuda_xent.g_cols_plain(xt, wt[v0:v1], tt, lse, dn, v0)
+        torch.testing.assert_close(got, whole[:, v0:v1], atol=0, rtol=0)
+        hit = (tt.long() >= v0) & (tt.long() < v1)
+        assert bool((got.min(1).values < 0).eq(hit).all())
+
+
+@pytest.mark.parametrize("n,d,sms,want", [
+    (8192, 4096, 132, 1024), (32768, 4096, 132, 1024),
+    (8192, 2176, 132, 1792), (1100, 4096, 132, 272), (4104, 4096, 132, 1024),
+    (256, 8192, 132, 64), (520, 8192, 132, 128), (20, 8192, 132, 8),
+    (8192, 40960, 132, 128), (32, 4096, 132, 8), (31, 4096, 132, 8),
+    (8, 2176, 132, 8), (5, 2176, 132, 5)])
+def test_recompute_chunk_fills_a_wave_within_a_quarter(n, d, sms, want):
+    """A chunk of the walk is the 128-row tiles whose ceil(D / 256)
+    slices fill one wave of the product kernel, at most a quarter of the
+    rows (a multiple of 8), so that g's scratch (chunk rows of the other
+    side, as ``walk_on_card`` takes it) stays within a quarter of the
+    (T, V) bf16 residual: 64 MiB (dx) and 16 MiB (dw) at T 8192, D 4096,
+    V 32768 on an H100's 132 SMs. Below 32 rows the chunk is 8 rows, or
+    all of them when fewer: the scratch never outgrows 8 rows or n."""
+    chunk = cuda_xent.recompute_chunk(n, d, sms)
+    assert chunk == want and (chunk % 8 == 0 or chunk == n)
+    other = 32768
+    scratch, residual = chunk * other * 2, n * other * 2
+    if n >= 32:
+        assert 4 * scratch <= residual
+    else:
+        assert scratch <= min(8, n) * other * 2
+    assert chunk * -(-d // 256) <= max(sms, -(-d // 256)) * 128
