@@ -225,9 +225,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``all_to_all_v``'s carriers, ``top_k_dist`` and ``allreduce_loc``)
    must equal the same schedule on a CPU ``RankMesh`` bit for bit at
    4096 elements a block.
-25. kernels line: every ported kernel with its launches on its main path,
+25. the four-sort study (``bench.sort.sweep_sorts``): BASELINE.json's
+   2^24 int32 keys at p = 8, uniform and odd_dist, all four algorithms,
+   each with 0 inversions, equal to ``torch.sort`` (an oracle only),
+   ``net_kernel`` and ``cross_kernel`` launched, keys/s by the
+   median-of-windows protocol beside ``torch.sort``'s time and the sort
+   floor; the same at p = 1, checked; the reference's float study at
+   50,000,000 keys (odd_dist float32, all four, and one bfloat16 row),
+   checked; the forced retries (sample at cap_factor 0.5, quicksort at
+   1.0, odd_dist keys) taken and still sorted; ``sort_kv`` and
+   ``argsort_dist`` at 2^24 int32 keys with int32 values, values
+   following keys as ``torch.argsort(stable=True)``; and the stages of
+   the sample sort and quicksort at 2^24 timed apart (the post-exchange
+   sort of p x cap keys a rank, quicksort's re-sorts of its 2 n_loc
+   buffers).
+26. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
-   call's time where one computes the same function, and its bound.
+   call's time where one computes the same function, and its bound; the
+   sort kernels also with their launches on each algorithm's 2^24 path.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``.
@@ -433,6 +448,16 @@ COLL_POW2_ONLY = {("allgather", "recursive_doubling"), ("alltoall", "ecube"),
                   ("allreduce", "recursive_doubling"),
                   ("reducescatter", "recursive_halving"),
                   ("scatter", "binomial"), ("gather", "binomial")}
+
+
+# Phase 25, the four-sort study: BASELINE.json's configuration (2^24
+# int32 keys at p = 8), the reference's float study (50,000,000 keys),
+# the bfloat16 row's algorithm, and the capacity factors that force each
+# retry path
+STUDY_N, STUDY_P = 1 << 24, 8
+STUDY_FLOAT_N = 50_000_000
+STUDY_BF16_ALG = "quicksort"
+STUDY_RETRY = (("sample", 0.5), ("quicksort", 1.0))
 
 
 def emit(obj) -> None:
@@ -3057,6 +3082,177 @@ def collectives_phase(torch, dev, bw, smi) -> None:
         raise AssertionError(f"collectives failed: {bad}")
 
 
+def _study_row(r) -> dict:
+    return {"algorithm": r.algorithm, "p": r.p, "n": r.n, "dtype": r.dtype,
+            "dist": r.distribution, "errors": r.errors,
+            "equal_to_torch_sort": r.matches_torch_sort,
+            "launches": r.launches, "retries": r.retries,
+            "timed_runs": r.timed_runs, "timed_retries": r.timed_retries,
+            "protocol": r.protocol, "median_ms": r.mean_s * 1e3,
+            "spread_ms": [r.min_s * 1e3, r.max_s * 1e3],
+            "windows": r.windows, "discarded": r.discarded,
+            "keys_per_s": r.keys_per_s,
+            "torch_sort_ms": (None if r.torch_sort_s is None
+                              else r.torch_sort_s * 1e3),
+            "floor_ms": None if r.floor_s is None else r.floor_s * 1e3}
+
+
+def sort_stages(torch, mesh, keys) -> dict:
+    """The sample sort's and quicksort's stages at the study's shapes,
+    each timed apart by events (the stages of ``sample_sort_shard`` and
+    ``hypercube_quicksort_shard`` called one by one), beside each whole
+    sort."""
+    from icikit_torch.models.sort.common import (ragged_all_to_all,
+                                                 rebalance_sorted,
+                                                 unpack_rows)
+    from icikit_torch.models.sort.quicksort import (
+        DEFAULT_CAP_FACTOR as Q_CAP, hypercube_quicksort_blocks)
+    from icikit_torch.models.sort.sample import (DEFAULT_CAP_FACTOR,
+                                                 bucket_route,
+                                                 sample_sort_blocks)
+    from icikit_torch.ops import cuda_sort as cs
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    p = mesh.p
+    x2d = keys.view(p, -1)
+    n_loc = x2d.shape[1]
+    cap = int(DEFAULT_CAP_FACTOR * n_loc / p)
+    a = cs.local_sort(x2d)
+    st, ct = bucket_route(a, p, "allgather")
+    rows, rc, _ = ragged_all_to_all(a, st, ct, cap, p)
+    flat, valid = unpack_rows(rows, rc)
+    fs = cs.local_sort(flat)
+    qcap = int(Q_CAP * n_loc)
+    qbuf = torch.cat([x2d, x2d[:, : qcap - n_loc]], 1)
+    out = {
+        "sample": {
+            "first local sort": cuda_time_ms(lambda: cs.local_sort(x2d),
+                                             iters=5),
+            "bucket route (allgather splitters)": cuda_time_ms(
+                lambda: bucket_route(a, p, "allgather"), iters=5),
+            "exchange (pack, alltoall, counts)": cuda_time_ms(
+                lambda: ragged_all_to_all(a, st, ct, cap, p), iters=5),
+            "unpack": cuda_time_ms(lambda: unpack_rows(rows, rc), iters=5),
+            f"post-exchange sort ({p} x {flat.shape[1]} keys)":
+                cuda_time_ms(lambda: cs.local_sort(flat), iters=5),
+            "rebalance": cuda_time_ms(
+                lambda: rebalance_sorted(fs, valid, n_loc, p), iters=5),
+            "whole sort": cuda_time_ms(
+                lambda: sample_sort_blocks(x2d, mesh), iters=5)},
+        "quicksort": {
+            f"one local sort of the {p} x {qcap} buffers (x "
+            f"{cs.ilog2(p) + 1} a sort)": cuda_time_ms(
+                lambda: cs.local_sort(qbuf), iters=5),
+            "whole sort": cuda_time_ms(
+                lambda: hypercube_quicksort_blocks(x2d, mesh), iters=5)},
+        "first local sort, a loop over the rows": cuda_time_ms(
+            lambda: [cs.local_sort(r) for r in x2d], iters=5)}
+    out["sample"]["sum of stages"] = sum(
+        v for k, v in out["sample"].items() if k != "whole sort")
+    return out
+
+
+def sort_study_phase(torch, dev, smi) -> dict:
+    """Phase 25: the four-sort study (see the module docstring). Returns
+    each algorithm's kernel launches in one sort of the uniform 2^24
+    int32 keys at p = 8."""
+    from icikit_torch.bench.sort import failed, study_keys, sweep_sorts
+    from icikit_torch.models.sort import (SORT_ALGORITHMS, argsort_dist,
+                                          sort, sort_kv)
+    from icikit_torch.models.sort.common import RETRIES, reset_retries
+    from icikit_torch.ops import cuda_sort as cs
+    from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    bad = []
+    mesh = make_mesh(STUDY_P, device=dev)
+
+    def check(recs, what, algs=SORT_ALGORITHMS):
+        if [r.algorithm for r in recs] != list(algs):
+            bad.append({"what": what, "algorithms": [r.algorithm
+                                                     for r in recs]})
+        for r in recs:
+            if failed(r) or not (r.launches["net"] and r.launches["cross"]):
+                bad.append({"what": what, **_study_row(r)})
+
+    timed = []
+    for odd in (False, True):
+        recs = sweep_sorts(mesh, (STUDY_N,), dtype="int32", odd_dist=odd,
+                           runs=2, warmup=1, windows=3)
+        check(recs, f"2^24 int32 p=8 odd_dist={odd}")
+        timed += recs
+    emit({"phase": "sort_study", "part": "timed",
+          "config": "2^24 int32 keys, p = 8 (BASELINE.json)", "card": smi,
+          "records": [_study_row(r) for r in timed]})
+    checked = []
+    for odd in (False, True):
+        recs = sweep_sorts(make_mesh(1, device=dev), (STUDY_N,),
+                           dtype="int32", odd_dist=odd, windows=0)
+        check(recs, f"2^24 int32 p=1 odd_dist={odd}")
+        checked += recs
+    recs = sweep_sorts(mesh, (STUDY_FLOAT_N,), dtype="float32",
+                       odd_dist=True, windows=0)
+    check(recs, "50M float32 odd_dist p=8")
+    checked += recs
+    recs = sweep_sorts(mesh, (STUDY_FLOAT_N,), dtype="bfloat16",
+                       odd_dist=True, windows=0,
+                       algorithms=[STUDY_BF16_ALG])
+    check(recs, "50M bfloat16 odd_dist p=8", [STUDY_BF16_ALG])
+    checked += recs
+    emit({"phase": "sort_study", "part": "checked",
+          "records": [_study_row(r) for r in checked]})
+    # the forced retries, on odd_dist keys
+    keys = study_keys(STUDY_N, torch.int32, True, device=dev)
+    oracle = torch.sort(keys).values
+    forced = []
+    for alg, factor in STUDY_RETRY:
+        reset_retries()
+        cs.reset_launches()
+        out = sort(keys, mesh, algorithm=alg, cap_factor=factor)
+        torch.cuda.synchronize()
+        rec = {"algorithm": alg, "cap_factor": factor,
+               "retries": dict(RETRIES), "launches": dict(cs.LAUNCHES),
+               "equal_to_torch_sort": bool(torch.equal(out, oracle)),
+               "ms": cuda_time_ms(lambda: sort(keys, mesh, algorithm=alg,
+                                               cap_factor=factor),
+                                  iters=3, warmup=1)}
+        forced.append(rec)
+        kind = "quicksort" if alg == "quicksort" else "sample"
+        if not rec["retries"][kind] or not rec["equal_to_torch_sort"]:
+            bad.append({"what": "forced retry", **rec})
+    del out, oracle
+    # the KV sort and argsort on uniform keys with int32 values
+    keys = study_keys(STUDY_N, torch.int32, False, device=dev)
+    vals = torch.arange(STUDY_N, dtype=torch.int32, device=dev)
+    order = torch.argsort(keys, stable=True)
+    sk, sv = sort_kv(keys, vals, mesh)
+    perm = argsort_dist(keys, mesh)
+    kv = {"n": STUDY_N, "p": STUDY_P,
+          "keys_sorted": bool(torch.equal(sk, keys[order])),
+          "values_follow_keys": bool(torch.equal(sv.long(), order)),
+          "argsort_equals_torch": bool(torch.equal(perm.long(), order)),
+          "sort_kv_ms": cuda_time_ms(lambda: sort_kv(keys, vals, mesh),
+                                     iters=3, warmup=1),
+          "torch_sort_stable_ms": cuda_time_ms(
+              lambda: torch.sort(keys, stable=True), iters=3, warmup=1)}
+    del sk, sv, perm, order, vals
+    if not (kv["keys_sorted"] and kv["values_follow_keys"]
+            and kv["argsort_equals_torch"]):
+        bad.append({"what": "sort_kv", **kv})
+    stages = sort_stages(torch, mesh, keys)
+    del keys
+    emit({"phase": "sort_study", "part": "summary", "forced_retries": forced,
+          "sort_kv": kv, "stages_ms": stages, "card": smi,
+          "seconds": round(time.perf_counter() - t0, 1), "failures": bad})
+    if bad:
+        raise AssertionError(f"sort study failed: {bad}")
+    torch.cuda.empty_cache()
+    return {r.algorithm: r.launches for r in timed
+            if r.distribution == "uniform"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3428,7 +3624,15 @@ def main() -> int:
     # -- 24. the collectives: p = 8 and 6 ------------------------------
     collectives_phase(torch, dev, bw, smi)
 
-    # -- 25. the kernels line --------------------------------------------
+    # -- 25. the four-sort study: 2^24 int32 at p = 8, 50M float32 --------
+    study = sort_study_phase(torch, dev, smi)
+    for row, counter in ((rows[0], "net"), (rows[1], "cross")):
+        row["launches_on_sort_paths"] = {
+            "bitonic 2^28 int32 p=1 (main)": main_launches[counter],
+            **{f"{alg} 2^24 int32 p={STUDY_P}": n[counter]
+               for alg, n in study.items()}}
+
+    # -- 26. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

@@ -6,9 +6,10 @@ package replaced by a hand-written CUDA kernel (sources in ``csrc/``,
 built with ``nvcc`` at first use into ``build/``). It imports ``torch``,
 never ``jax`` and nothing of ``icikit``.
 
-Ported so far: the distributed bitonic sort (``models.sort``), its two
-network kernels (``ops.cuda_sort``) and the headline bench
-(``python -m icikit_torch.bench.headline``); greedy decoding of the
+Ported so far: the four distributed sorts and the key-value sort
+(``models.sort``), their two network kernels (``ops.cuda_sort``), the
+headline bench (``python -m icikit_torch.bench.headline``) and the
+four-sort study (``python -m icikit_torch.bench.sort``); greedy decoding of the
 transformer (``models.transformer``) with its flash-attention forward
 and fused decode-step kernels (``ops.cuda_attention``) and the decode
 bench (``python -m icikit_torch.bench.decode``); the transformer's

@@ -6,7 +6,7 @@ d-dimensional hypercube: direction bit ``ibit = myid & 2^(i+1)``,
 partner ``myid ^ 2^j``, keep-max iff ibit != jbit (``:184-195``). Here
 the p ranks are the leading axis of one (p, n_loc) tensor, so each round
 is one gather (``transport.ppermute``), one elementwise min/max and one
-merge-network launch over all p rows at once.
+merge network over all p rows at once, as the first local sort is.
 
 Power-of-2 rank count required, as in the reference (``:168-172``).
 """
@@ -40,8 +40,7 @@ def bitonic_sort_shard(a: torch.Tensor, p: int) -> torch.Tensor:
     usgn = a.dtype == torch.uint32
     if usgn:  # min/max and flips run on the order-preserving int32 image
         a = _u32_as_i32(a)
-    rows = [local_sort(row) for row in a]
-    a = rows[0][None] if p == 1 else torch.stack(rows)
+    a = local_sort(a)
     if p > 1:
         r = torch.arange(p, device=a.device)
         for i in range(ilog2(p)):

@@ -1,12 +1,40 @@
-"""Shared plumbing for the distributed sorts: padding and blocking."""
+"""Shared plumbing for the distributed sorts: padding and blocking, the
+capacity-padded ragged exchange, and the rebalance to equal blocks.
+
+The reference's ragged exchanges (``MPI_Alltoallv`` in sample sort,
+``psort.cc:277``; variable ``MPI_Send/Recv`` + ``MPI_Get_count`` in
+quicksort, ``:440-482``) become fixed-capacity rows plus explicit count
+vectors, with overflow detected and surfaced rather than silently
+truncated (``icikit_torch.parallel.alltoallv``). Every function here
+takes all p ranks at once on a leading rank axis.
+"""
 
 from __future__ import annotations
 
 import torch
 
+# The ragged-exchange primitives live in the collective layer; the sorts
+# use them through these names, on the "xla" carrier they default to.
+from icikit_torch.parallel.alltoallv import (  # noqa: F401
+    exchange_counts,
+    pack_segments,
+    ragged_all_to_all,
+    ragged_payload,
+    unpack_rows,
+)
 from icikit_torch.utils.dtypes import sentinel_for
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, RankMesh, mesh_axis_size,
                                      shard_along)
+
+# Capacity retries taken since the last reset: "sample" counts the
+# sample family's (and the KV sort's) rerun at the safe capacity,
+# "quicksort" each doubling of quicksort's capacity.
+RETRIES = {"sample": 0, "quicksort": 0}
+
+
+def reset_retries() -> None:
+    for k in RETRIES:
+        RETRIES[k] = 0
 
 
 def ceil_to(n: int, mult: int) -> int:
@@ -45,3 +73,55 @@ def prepare_blocks(x: torch.Tensor, mesh: RankMesh,
 def take_sorted(out2d: torch.Tensor, n: int) -> torch.Tensor:
     """Strip sentinel padding from the sorted (p, n_loc) result."""
     return out2d.reshape(-1)[:n]
+
+
+def rebalance_sorted(flat: torch.Tensor, count: torch.Tensor, n_loc: int,
+                     p: int, values: torch.Tensor | None = None):
+    """Redistribute globally-sorted-but-ragged data to exactly ``n_loc``
+    a rank, preserving order.
+
+    ``flat`` (p, L): row r sorted ascending with ``count[r]`` valid
+    elements (sentinel tail); the valid runs concatenated in rank order
+    are sorted. Returns (p, n_loc): rank k ends with global positions
+    [k*n_loc, (k+1)*n_loc), padded with sentinels past the global total.
+    With ``values`` (same shape as ``flat``, payload lanes paired with
+    the keys) the same routing applies to it and ``(keys, values)`` is
+    returned, values zero past the total: the KV form.
+
+    The regular-shape answer to the reference's "local sizes change"
+    (``psort.cc:274``): one more capacity-padded all-to-all instead of
+    leaving ragged results in place. JAX's all_gather of the counts is
+    the rank axis itself here.
+    """
+    count = count.to(torch.int64)
+    offsets = torch.cumsum(count, 0) - count          # each run's start
+    d_idx = torch.arange(p, device=flat.device)
+    # piece for dest d: my elements whose global position lands in
+    # [d*n_loc, (d+1)*n_loc), contiguous because my run is
+    seg_lo = torch.minimum((d_idx * n_loc)[None] - offsets[:, None],
+                           count[:, None]).clamp_min(0)
+    seg_hi = torch.minimum(((d_idx + 1) * n_loc)[None] - offsets[:, None],
+                           count[:, None]).clamp_min(0)
+    starts, counts = seg_lo, seg_hi - seg_lo
+    # a piece inside [k*n_loc, (k+1)*n_loc) cannot exceed n_loc
+    rows, recv_counts, _ = ragged_all_to_all(flat, starts, counts, n_loc, p)
+    # piece from source s starts at global position max(offsets[s],
+    # k*n_loc); its local offset is that less k*n_loc
+    base = d_idx * n_loc
+    piece_off = (offsets[None] - base[:, None]).clamp(0, n_loc)
+    piece_end = (piece_off + recv_counts).contiguous()
+    t = torch.arange(n_loc, device=flat.device)
+    # the source covering t: pieces tile [0, n_loc) in source order
+    s_of_t = torch.searchsorted(piece_end, t.expand(p, n_loc).contiguous(),
+                                right=True).clamp_max(p - 1)
+    col = (t - piece_off.gather(1, s_of_t)).clamp(0, n_loc - 1)
+    src = s_of_t * n_loc + col
+    in_range = t[None] < piece_end[:, -1:]
+    keys_out = torch.where(in_range, rows.reshape(p, -1).gather(1, src),
+                           sentinel_for(flat.dtype))
+    if values is None:
+        return keys_out
+    # data leg only: the keys leg exchanged the counts for these pieces
+    vrows = ragged_payload(values, starts, counts, n_loc, p)
+    v = vrows.reshape(p, -1).gather(1, src)
+    return keys_out, torch.where(in_range, v, torch.zeros_like(v))

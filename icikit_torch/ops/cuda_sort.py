@@ -380,26 +380,51 @@ def _resolve_backend(backend: str, dtype, n: int) -> str:
     return backend
 
 
+def _ascending_top(plan, log2n: int):
+    """``plan`` with its top round ascending everywhere. In one row of
+    2^log2n keys that round's flip bit, bit log2n of the index, is 0;
+    in rows laid side by side it is the row's parity, and would leave
+    every odd row descending. The lower rounds' flip bits lie inside a
+    row."""
+    out = []
+    for step in plan:
+        if step[0] == "net":
+            out.append(("net", step[1],
+                        [(None if db == log2n else db, s)
+                         for db, s in step[2]]))
+        elif step[1] == 1 << log2n:
+            out.append(step[:5] + (True,))
+        else:
+            out.append(step)
+    return out
+
+
 def local_sort(x: torch.Tensor, backend: str = "auto", *,
                t_grid: int = T_GRID, t_big: int = T_BIG,
                g_max: int | None = None, plain: bool = False
                ) -> torch.Tensor:
-    """Sort flat ``x`` ascending on its device; returns a new tensor.
+    """Sort flat ``x`` ascending on its device; returns a new tensor. A
+    2-D ``(rows, n)`` input sorts each row, in the same launches: the
+    passes treat the rows as spans of n (padded to a power of two) and
+    the top round runs ascending (:func:`_ascending_top`).
 
     backend: 'auto' (the network for supported dtypes and sizes, else
     ``torch.sort``), 'kernel' (the network: CUDA kernels on a CUDA
     tensor, their plain versions on a CPU tensor), or 'torch'.
     ``plain`` runs the network's plain versions on any device.
     """
-    n = x.shape[0]
+    if x.dim() not in (1, 2):
+        raise ValueError(f"local_sort takes (n,) or (rows, n), got "
+                         f"{tuple(x.shape)}")
+    n = x.shape[-1]
     in_dtype = x.dtype
     half = in_dtype in (torch.bfloat16, torch.float16)
     usgn = in_dtype == torch.uint32
     kernel_dtype = (torch.float32 if half
                     else torch.int32 if usgn else in_dtype)
     backend = _resolve_backend(backend, kernel_dtype, n)
-    if backend == "torch" or n < 2:
-        return torch.sort(x).values
+    if backend == "torch" or n < 2 or x.numel() == 0:
+        return torch.sort(x, dim=-1).values
     if not kernel_supported(kernel_dtype, n):
         raise ValueError(
             f"kernel sort supports int32/uint32/float32 (bf16/f16 via "
@@ -412,11 +437,14 @@ def local_sort(x: torch.Tensor, backend: str = "auto", *,
     x = x.contiguous()
     np2 = n if is_pow2(n) else 1 << n.bit_length()
     if np2 != n:
-        x = torch.cat([x, torch.full((np2 - n,), sentinel_for(x.dtype),
-                                     dtype=x.dtype, device=x.device)])
-    out = run_schedule(x, sort_schedule(np2, t_grid, t_big,
-                                        g_max or G_MAX), plain)
-    out = out[:n] if np2 != n else out
+        x = torch.cat([x, torch.full((*x.shape[:-1], np2 - n),
+                                     sentinel_for(x.dtype), dtype=x.dtype,
+                                     device=x.device)], dim=-1)
+    plan = sort_schedule(np2, t_grid, t_big, g_max or G_MAX)
+    if x.dim() == 2:
+        plan = _ascending_top(plan, ilog2(np2))
+    out = run_schedule(x.reshape(-1), plan, plain).view(x.shape)
+    out = out[..., :n].contiguous() if np2 != n else out
     if usgn:
         return _i32_as_u32(out)
     return out.to(in_dtype) if half else out

@@ -288,6 +288,27 @@ class TimeitResult:
         return min(self.per_run_s)
 
 
+def timeit_chained(fn, args: tuple, chain, runs: int = 10,
+                   warmup: int = 2,
+                   target_window_s: float | None = None) -> TimeitResult:
+    """One two-point measurement over a chain: each run's input derives
+    from the previous run's output (``chain(args, out) -> args``), the
+    chain is fenced once at the end of a window, and constant costs
+    cancel: per-run = (t(2n) - t(n)) / n, n grown until t(n) reaches
+    the target window. The cheaper protocol of the sort study's
+    ``windows=1``; ``timeit_windows`` repeats it for a spread."""
+    state, measure = _make_chain_measure(fn, args, chain)
+    for _ in range(max(warmup, 1)):
+        state["cur"] = chain(state["cur"], fn(*state["cur"]))
+    fence(state["cur"])
+    if target_window_s is None:
+        target_window_s = _resolve_target_window(state)
+    per, window, total, _ = _two_point_window(measure, runs,
+                                              target_window_s)
+    return TimeitResult(mean_s=per, total_s=total, runs=window,
+                        per_run_s=[per] * window)
+
+
 def _wait(out):
     if any(t.is_cuda for t in _leaves(out)):
         torch.cuda.synchronize()

@@ -110,6 +110,94 @@ def test_local_sort_through_the_bijection_and_widening(dtype, gen):
         assert torch.equal(got.float(), want.float())
 
 
+@pytest.mark.parametrize("rows,n", [(8, 1 << 13), (8, 1 << 17),
+                                    (3, 100003), (2, 1 << 20)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.uint32,
+                                   torch.bfloat16])
+def test_rows_local_sort_equals_the_per_row_loop(rows, n, dtype, gen):
+    """``local_sort`` of (rows, n) sorts every row in the same launches,
+    the top round ascending in each: bit for bit the loop over its
+    rows, and torch.sort's values."""
+    x = _rand(rows * n, torch.float32 if dtype == torch.bfloat16
+              else torch.int32 if dtype == torch.uint32 else dtype, gen)
+    x = (x.to(dtype) if dtype == torch.bfloat16
+         else x.view(dtype)).view(rows, n)
+    cs.reset_launches()
+    got = cs.local_sort(x)
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    want = torch.stack([cs.local_sort(r) for r in x])
+    if dtype == torch.uint32:   # torch.sort takes no uint32 on the card
+        got, want, x = (cs._u32_as_i32(t) for t in (got, want, x))
+    if dtype == torch.bfloat16:
+        got, want, x = got.float(), want.float(), x.float()
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.sort(x, dim=1).values)
+    np2 = n if n & (n - 1) == 0 else 1 << n.bit_length()
+    assert launches["net"] + launches["cross"] == cs.sort_passes(np2)
+
+
+@pytest.mark.parametrize("algorithm", ["sample", "sample_bitonic",
+                                       "quicksort", "bitonic"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_distributed_sorts_on_the_card_equal_the_cpu_mesh(algorithm, dtype,
+                                                           gen):
+    """Each sort at 2^20 keys and p = 8 on the card launches both
+    kernels and equals the same call on a CPU mesh (the plain versions),
+    integers bit for bit and floats by value."""
+    from icikit_torch.models.sort import sort
+    from icikit_torch.utils.mesh import make_mesh
+    x = _rand(1 << 20, dtype, gen)
+    cs.reset_launches()
+    got = sort(x, make_mesh(8), algorithm=algorithm)
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    want = sort(x.cpu(), make_mesh(8, device="cpu"), algorithm=algorithm)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, torch.sort(x).values)
+    assert launches["net"] > 0 and launches["cross"] > 0, launches
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_sort_kv_on_the_card_equals_the_cpu_mesh(dtype, gen):
+    """``sort_kv`` and ``argsort_dist`` at 2^20 keys, p = 8: the values
+    follow the keys, as on a CPU mesh and as torch's stable argsort."""
+    from icikit_torch.models.sort import argsort_dist, sort_kv
+    from icikit_torch.utils.mesh import make_mesh
+    x = _rand(1 << 20, dtype, gen)
+    if dtype == torch.int32:
+        x = x % 1000                      # duplicates: stability decides
+    v = torch.arange(x.numel(), dtype=torch.int32, device="cuda")
+    k, vals = sort_kv(x, v, make_mesh(8))
+    ck, cv = sort_kv(x.cpu(), v.cpu(), make_mesh(8, device="cpu"))
+    assert torch.equal(k.cpu(), ck) and torch.equal(vals.cpu(), cv)
+    order = torch.argsort(x, stable=True)
+    assert torch.equal(vals.long(), order)
+    assert torch.equal(argsort_dist(x, make_mesh(8)).long(), order)
+
+
+def test_uniform_block_on_the_card_equals_the_cpu():
+    """The counter-hash draws are integer arithmetic: bit for bit on
+    both devices; the odd_dist warp follows each device's float32 pow,
+    within 4 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from icikit_torch.utils.prandom import uniform_block, uniform_global
+    n = 1 << 20
+    for start, block in ((0, n), (12345, 4096)):
+        a = uniform_block(3, n, start, block, device="cuda").cpu()
+        b = uniform_block(3, n, start, block, device="cpu")
+        assert torch.equal(a, b)
+        a = uniform_block(3, n, start, block, odd_dist=True,
+                          device="cuda").cpu()
+        b = uniform_block(3, n, start, block, odd_dist=True, device="cpu")
+        ulps = (a.view(torch.int32).long() - b.view(torch.int32).long())
+        assert int(ulps.abs().max()) <= 4
+    assert torch.equal(uniform_global(3, n, odd_dist=True,
+                                      device="cuda").cpu(),
+                       uniform_global(3, n, odd_dist=True, device="cpu"))
+
+
 def test_merge_bitonic_rows(gen):
     a = torch.sort(_rand(1 << 15, torch.int32, gen).view(4, -1)).values
     b = torch.sort(_rand(1 << 15, torch.int32, gen).view(4, -1),

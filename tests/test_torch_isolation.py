@@ -98,6 +98,21 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     assert r.returncode != 0 and '"ok"' not in r.stdout
 
 
+def test_chip_smoke_last_line_names_the_card():
+    """The last line's ``kind`` is ``torch.cuda.get_device_name(0)``:
+    ``main`` binds that name once and nothing rebinds it (a loop target
+    of that name once sent a counter's name there)."""
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    bound = [n for n in ast.walk(main) if isinstance(n, ast.Name)
+             and n.id == "kind" and isinstance(n.ctx, ast.Store)]
+    assert len(bound) == 1
+    assign = next(a for a in ast.walk(main) if isinstance(a, ast.Assign)
+                  and bound[0] in a.targets)
+    assert ast.unparse(assign.value) == "torch.cuda.get_device_name(0)"
+
+
 def _torch_has_cuda():
     import torch
     return torch.cuda.is_available()

@@ -114,14 +114,6 @@ def test_non_pow2_ranks_raise():
              make_mesh(3, device="cpu"))
 
 
-@pytest.mark.parametrize("algorithm", ["sample", "sample_bitonic",
-                                       "quicksort"])
-def test_unported_algorithms_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        sort(torch.arange(64, dtype=torch.int32),
-             make_mesh(2, device="cpu"), algorithm=algorithm)
-
-
 def test_checked_sort_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         sort(torch.arange(64, dtype=torch.int32),
