@@ -10,8 +10,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    with each listed kernel's registers and local (spill) bytes a thread
    and the recompute head's clusters the card holds at once; the sort,
    Adam, save-stack, recompute head, saved head backward, decode step
-   (bf16 and int8), int8 matvec (skinny and tile) and tile-floor kernels
-   must use no local memory.
+   (bf16 and int8), int8 matvec (skinny and tile), tile-floor and
+   checksum kernels must use no local memory.
 3. kernels: each kernel held against its plain PyTorch version on the
    card: K1 at T_GRID (the in-tile sort; a round pass in place) and K2
    at G_MAX bits, 1 bit and a middle range, merge_only and in place,
@@ -239,7 +239,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the sample sort and quicksort at 2^24 timed apart (the post-exchange
    sort of p x cap keys a rank, quicksort's re-sorts of its 2 n_loc
    buffers).
-26. kernels line: every ported kernel with its launches on its main path,
+26. the checked transport (``parallel.integrity``): the checksum kernel
+   against its plain version bit for bit at every element width (8, 16,
+   32, 64 bits; bool and bf16 views), rows of CHECKSUM_NS elements and
+   the checked sort's 8 x 2^21 int32, on aligned and misaligned bases;
+   every checked family x hand-rolled variant at p = 8 (the any-p ones
+   also at 6), COLL_CHECK_MSIZE a block: clean output bitwise equal to
+   the unchecked one, and one scheduled drill each, detected once,
+   recovered, output equal; ``sort(checked=True)`` of 2^24 int32 keys at
+   p = 8 equal to ``sort()``, 0 inversions, and one drill recovered, its
+   checksum launches counted; the kernel timed at 8 x 2^21 int32 beside
+   its bound and its plain version; checked against unchecked ms for
+   allreduce float32[2^20] a rank at p = 8 (ring, recursive_doubling)
+   and the 2^24 sort, in turns; a ``torch.profiler`` trace of clean
+   checked ring allreduces, taken in a fresh process: no host-to-device
+   copy, one device-to-host copy a call (the verdict).
+27. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
    sort kernels also with their launches on each algorithm's 2^24 path.
@@ -355,8 +370,13 @@ TILE_KERNELS = tuple(
     for k, a in (("tile_mxu", ""), ("tile_ablate", ", SOFTMAX"),
                  ("tile_ablate", ", NO_EXP2"), ("tile_ablate", ", NO_MAX"),
                  ("tile_ablate", ", NO_EXP2_NO_MAX")))
+# integrity.cu's kernels in icikit_integrity_regs' order: 8-, 16-, 32-
+# and 64-bit elements, each by 16-byte words and by elements
+INTEGRITY_KERNELS = tuple(
+    f"segment_checksum_kernel<u{b}, {how}>" for b in (8, 16, 32, 64)
+    for how in ("vec", "scalar"))
 # Phase 2: kernels that must use no local memory (registers only)
-NO_LOCAL_MEMORY = SORT_KERNELS + (
+NO_LOCAL_MEMORY = SORT_KERNELS + INTEGRITY_KERNELS + (
     "adam_tree_kernel<f32 moments>", "adam_tree_kernel<bf16 moments>",
     "adam_tree_kernel<f32 m, bf16 v>", "adam_tree_kernel<bf16 m, f32 v>",
     "stack_write_kernel", "stack_read_kernel",
@@ -458,6 +478,17 @@ STUDY_N, STUDY_P = 1 << 24, 8
 STUDY_FLOAT_N = 50_000_000
 STUDY_BF16_ALG = "quicksort"
 STUDY_RETRY = (("sample", 0.5), ("quicksort", 1.0))
+# Phase 26, the checked transport: the checksum kernel's check lengths
+# (rows of CHECKSUM_P) and its timed shape (the checked sort's exchange
+# block at 2^24 keys, p = 8); the checked collectives at COLL_P (the
+# any-p variants also at COLL_P_ODD), COLL_CHECK_MSIZE a block; the
+# checked/unchecked timings (allreduce float32[2^20] a rank, the
+# 2^24-key sort), in CHECKED_WINDOWS windows of CHECKED_CALLS calls
+# taken in turns (unchecked, checked, checked, unchecked)
+CHECKSUM_P, CHECKSUM_NS = 3, (0, 1, (1 << 20) + 3)
+CHECKSUM_SHAPE = (8, 1 << 21)
+CHECKED_ALGS = ("ring", "recursive_doubling")
+CHECKED_WINDOWS, CHECKED_CALLS = 4, 8
 
 
 def emit(obj) -> None:
@@ -3253,6 +3284,257 @@ def sort_study_phase(torch, dev, smi) -> dict:
             if r.distribution == "uniform"}
 
 
+def _turns_ms(torch, fa, fb) -> tuple:
+    """Median host ms a call of ``fa`` and of ``fb``, each call ending
+    in a synchronise, over CHECKED_WINDOWS windows of CHECKED_CALLS
+    calls taken in turns (a, b, b, a, ...)."""
+    ms = {0: [], 1: []}
+    for fn in (fa, fb):
+        fn()
+        torch.cuda.synchronize()
+    for w in range(CHECKED_WINDOWS):
+        for k in ((0, 1) if w % 2 == 0 else (1, 0)):
+            fn = (fa, fb)[k]
+            t0 = time.perf_counter()
+            for _ in range(CHECKED_CALLS):
+                fn()
+                torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3 / CHECKED_CALLS)
+    med = [sorted(v)[len(v) // 2] for v in (ms[0], ms[1])]
+    return med[0], med[1], ms[0], ms[1]
+
+
+def checked_trace(torch, dev) -> dict:
+    """``torch.profiler``'s view of COLL_TRACE_CALLS clean checked ring
+    allreduces of float32[2^20] at p = 8 after a first call: copies by
+    direction, copies or sets whose device record the trace lost, host
+    enqueues and checksum launches a call."""
+    from icikit_torch import parallel as tp
+    from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.trace import device_activity
+
+    mesh = make_mesh(COLL_P, device=dev)
+    x = torch.randn((COLL_P, COLL_BASELINE_ALLREDUCE), device=dev)
+    tp.all_reduce(x, mesh, algorithm="ring", checked=True)
+    torch.cuda.synchronize()
+    act = device_activity(
+        lambda: [tp.all_reduce(x, mesh, algorithm="ring", checked=True)
+                 for _ in range(COLL_TRACE_CALLS)],
+        attempts=COLL_TRACE_ATTEMPTS)
+    return {"calls": COLL_TRACE_CALLS, "attempts": act["attempts"],
+            "copies": act["copies"],
+            "lost_copies": {k: n for k, n in act["lost_by_call"].items()
+                            if not COLL_LAUNCH_CALL.match(k)},
+            "host_enqueues_a_call":
+                act["host_enqueue_calls"] / COLL_TRACE_CALLS,
+            "checksum_launches_a_call":
+                act["by_name"].get("segment_checksum_kernel",
+                                   {}).get("count", 0) / COLL_TRACE_CALLS,
+            "busy_ms": act["busy_ms"], "host_wall_ms": act["host_wall_ms"]}
+
+
+def checked_trace_in_child() -> dict:
+    """:func:`checked_trace` in a new Python process (the kernels are
+    already built), its record read from its last line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.checked_trace(torch, 'cuda')))")
+    r = subprocess.run([sys.executable, "-c", code, here], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"checked trace failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def integrity_phase(torch, dev, bw, smi) -> dict:
+    """Phase 26: the checked transport on the card (see the module
+    docstring). Returns the checksum kernel's row of the kernels line."""
+    from icikit_torch import chaos
+    from icikit_torch import parallel as tp
+    from icikit_torch.bench.harness import COLLECTIVES
+    from icikit_torch.models.sort import check_sort, sort
+    from icikit_torch.models.sort.bitonic import exchange_steps
+    from icikit_torch.ops import cuda_integrity as ci
+    from icikit_torch.ops import cuda_sort as cs
+    from icikit_torch.parallel import integrity
+    from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.registry import list_algorithms
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    bad = []
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def rand_rows(p, n, dtype, width, offset=0):
+        """(p, n) random bits of ``dtype``, starting ``offset`` bytes into
+        a fresh buffer (0/1 bytes for bool)."""
+        buf = torch.randint(0, 2 if dtype == torch.bool else 256,
+                            (p * n * width + offset,), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        return buf[offset:].view(dtype).view(p, n)
+
+    # the kernel against its plain version, bit for bit
+    checks = []
+    views = ((torch.uint8, 1), (torch.bool, 1), (torch.int16, 2),
+             (torch.bfloat16, 2), (torch.int32, 4), (torch.float32, 4),
+             (torch.int64, 8))
+    for dtype, width in views:
+        for p, n in ([(CHECKSUM_P, n) for n in CHECKSUM_NS]
+                     + [CHECKSUM_SHAPE]):
+            for offset in (0, width):   # a 16-byte base, and one off it
+                x = rand_rows(p, n, dtype, width, offset)
+                got = ci.segment_checksum(x)
+                want = ci.segment_checksum(x, plain=True)
+                checks.append({"dtype": str(dtype), "p": p, "n": n,
+                               "aligned": x.data_ptr() % 16 == 0,
+                               "ok": bool(torch.equal(got, want))})
+    torch.cuda.synchronize()
+    if not all(c["ok"] for c in checks):
+        bad.append({"what": "checksum kernel vs plain",
+                    "failed": [c for c in checks if not c["ok"]]})
+    emit({"phase": "integrity", "part": "checksum_kernel",
+          "tolerance": "exact (bitwise)", "checks": checks})
+
+    # every checked family and hand-rolled variant: clean equal to the
+    # unchecked output, one scheduled drill detected and recovered
+    m = COLL_CHECK_MSIZE
+    shapes = {"allgather": lambda p: (p, m), "alltoall": lambda p: (p, p, m),
+              "allreduce": lambda p: (p, m),
+              "reducescatter": lambda p: (p, p * m),
+              "scan": lambda p: (p, m)}
+    fams = []
+    for p in (COLL_P, COLL_P_ODD):
+        mesh = make_mesh(p, device=dev)
+        for family in integrity.CHECKED_FAMILIES:
+            x = torch.randn(shapes[family](p), generator=gen, device=dev)
+            for alg in list_algorithms(family):
+                if alg == "xla" or (p == COLL_P_ODD
+                                    and (family, alg) in COLL_POW2_ONLY):
+                    continue
+                fn = COLLECTIVES[family]
+                base = fn(x, mesh, algorithm=alg)
+                clean = fn(x, mesh, algorithm=alg, checked=True)
+                integrity.reset_stats()
+                plan = chaos.FaultPlan(
+                    seed=p + len(alg),
+                    schedule={f"corrupt:collective.{family}": (0,)})
+                with chaos.inject(plan):
+                    healed = fn(x, mesh, algorithm=alg, checked=True)
+                st = integrity.stats()
+                rec = {"family": family, "variant": alg, "p": p,
+                       "clean_equal": bool(torch.equal(
+                           clean.view(torch.int32), base.view(torch.int32))),
+                       "drill_equal": bool(torch.equal(
+                           healed.view(torch.int32),
+                           base.view(torch.int32))),
+                       "detected": st["detected"],
+                       "recoveries": st["recoveries"],
+                       "rank_step": [st["last"].get("devices"),
+                                     st["last"].get("steps")]}
+                fams.append(rec)
+                if not (rec["clean_equal"] and rec["drill_equal"]
+                        and rec["detected"] == 1 and rec["recoveries"] == 1
+                        and plan.fired("corrupt") == 1):
+                    bad.append({"what": "checked collective", **rec})
+    emit({"phase": "integrity", "part": "checked_collectives",
+          "msize": m, "records": fams})
+
+    # the checked sort: 2^24 int32 keys at p = 8, clean and under a drill
+    mesh = make_mesh(STUDY_P, device=dev)
+    keys = torch.randint(-2**31, 2**31 - 1, (STUDY_N,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    base = sort(keys, mesh)
+    torch.cuda.synchronize()
+    ci.reset_launches()
+    cs.reset_launches()
+    integrity.reset_stats()
+    out = sort(keys, mesh, checked=True)
+    torch.cuda.synchronize()
+    launches = {**ci.LAUNCHES, **cs.LAUNCHES}
+    inversions = check_sort(out.reshape(STUDY_P, -1), mesh)
+    plan = chaos.FaultPlan(
+        seed=26, schedule={"corrupt:sort.bitonic.exchange": (0,)})
+    with chaos.inject(plan):
+        healed = sort(keys, mesh, checked=True)
+    st = integrity.stats()
+    srt = {"n": STUDY_N, "p": STUDY_P, "launches_a_checked_sort": launches,
+           "exchanges": exchange_steps(STUDY_P),
+           "equal_to_unchecked": bool(torch.equal(out, base)),
+           "inversions": inversions,
+           "drill_equal": bool(torch.equal(healed, base)),
+           "drill": {k: st[k] for k in ("detected", "retries",
+                                        "recoveries")},
+           "drill_rank_step": [st["last"].get("devices"),
+                               st["last"].get("steps")]}
+    if not (srt["equal_to_unchecked"] and inversions == 0
+            and srt["drill_equal"] and st["detected"] == 1
+            and st["recoveries"] == 1
+            and launches["segment_checksum"] == 2 * srt["exchanges"]
+            and launches["net"] and launches["cross"]):
+        bad.append({"what": "checked sort", **srt})
+    del out, healed
+
+    # the kernel at the checked sort's block, beside its bound and plain
+    x = torch.randint(-2**31, 2**31 - 1, CHECKSUM_SHAPE, generator=gen,
+                      dtype=torch.int32, device=dev)
+    k_ms = cuda_time_ms(lambda: ci.segment_checksum(x), iters=20)
+    plain_ms = cuda_time_ms(lambda: ci.segment_checksum(x, plain=True),
+                            iters=3, warmup=1)
+    err = int((ci.segment_checksum(x).long()
+               - ci.segment_checksum(x, plain=True).long()).abs().max())
+    k_bound = x.numel() * x.element_size() / bw * 1e3
+    del x
+
+    # checked against unchecked, in turns
+    overhead = []
+    xr = torch.randn((COLL_P, COLL_BASELINE_ALLREDUCE), generator=gen,
+                     device=dev)
+    cmesh = make_mesh(COLL_P, device=dev)
+    for alg in CHECKED_ALGS:
+        u, c, us, cs_ = _turns_ms(
+            torch, lambda: tp.all_reduce(xr, cmesh, algorithm=alg),
+            lambda: tp.all_reduce(xr, cmesh, algorithm=alg, checked=True))
+        overhead.append({"what": f"allreduce {alg} float32[2^20] p=8",
+                         "unchecked_ms": u, "checked_ms": c,
+                         "ratio": c / u, "windows_ms": [us, cs_]})
+    u, c, us, cs_ = _turns_ms(torch, lambda: sort(keys, mesh),
+                              lambda: sort(keys, mesh, checked=True))
+    overhead.append({"what": "sort bitonic 2^24 int32 p=8 uniform",
+                     "unchecked_ms": u, "checked_ms": c, "ratio": c / u,
+                     "added_ms": c - u, "windows_ms": [us, cs_]})
+    del keys, base
+
+    # a trace of clean checked ring allreduces: no host-to-device copy,
+    # one device-to-host copy (the verdict) a call; taken in a fresh
+    # process, since a trace late in a long one loses device records
+    trace = checked_trace_in_child()
+    if (trace["lost_copies"] or trace["copies"].get("HtoD", 0)
+            or trace["copies"].get("DtoH", 0) != COLL_TRACE_CALLS):
+        bad.append({"what": "checked allreduce trace", **trace})
+    del xr
+    emit({"phase": "integrity", "part": "summary", "checked_sort": srt,
+          "checksum_kernel": {"shape": list(CHECKSUM_SHAPE),
+                              "dtype": "int32", "ms": k_ms,
+                              "plain_ms": plain_ms, "bound_ms": k_bound,
+                              "max_abs_err": err},
+          "checked_vs_unchecked": overhead, "trace": trace, "card": smi,
+          "seconds": round(time.perf_counter() - t0, 1), "failures": bad})
+    if bad:
+        raise AssertionError(f"checked transport failed: {bad}")
+    torch.cuda.empty_cache()
+    return {"name": "segment_checksum_kernel", "route": "cuda",
+            "source": "icikit_torch/csrc/integrity.cu",
+            "replaces": "icikit/parallel/transport.py:124 (no pallas_call: "
+                        "XLA fuses the fold into the exchange)",
+            "launches": launches["segment_checksum"], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": k_bound,
+            "bound_by": "bytes", "library_ms": None,
+            "library": "none (torch has no XOR reduction)",
+            "launches_on": "sort(checked=True) of 2^24 int32 keys, p = 8"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3318,7 +3600,8 @@ def main() -> int:
               "adam_tree_kernel<bf16 m, f32 v>")),
             ("stack_write", "icikit_stack_regs",
              ("stack_write_kernel", "stack_read_kernel")),
-            ("tile_floor", "icikit_tile_floor_regs", TILE_KERNELS)):
+            ("tile_floor", "icikit_tile_floor_regs", TILE_KERNELS),
+            ("integrity", "icikit_integrity_regs", INTEGRITY_KERNELS)):
         for which, name in enumerate(names):
             r, loc = ctypes.c_int(), ctypes.c_int()
             _build.check(getattr(libs[lib], fn)(
@@ -3632,7 +3915,10 @@ def main() -> int:
             **{f"{alg} 2^24 int32 p={STUDY_P}": n[counter]
                for alg, n in study.items()}}
 
-    # -- 26. the kernels line --------------------------------------------
+    # -- 26. the checked transport: checksum kernel, drills, overhead ----
+    rows.append(integrity_phase(torch, dev, bw, smi))
+
+    # -- 27. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

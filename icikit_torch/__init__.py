@@ -19,7 +19,11 @@ train step (``make_train_step``) with the flash backward
 (``python -m icikit_torch.bench.train``); the collective library
 (``parallel``: nine families of hand-rolled schedules beside the vendor
 baseline, ``reduceloc``, ``alltoallv``) and its bench harness
-(``python -m icikit_torch.bench.run``).
+(``python -m icikit_torch.bench.run``); the checked transport
+(``checked=True``: checksum-carrying exchanges with quarantine and
+retry, ``parallel.integrity``, its checksum kernel in
+``ops.cuda_integrity``) with the fault harness ``chaos`` and the obs bus,
+metrics and spans (``obs``) it needs.
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one

@@ -8,10 +8,14 @@ rank axis here). Payloads carry the reference's rank-derived pattern
 and every rank's result is verified against the closed-form
 expectation each run (``main.cc:431-441``), on the result's device.
 
+``checked=True`` times the checksum-carrying schedules
+(``parallel.integrity``) of the five checked families: the integrity
+overhead's A/B rows. The ``xla`` variant is dropped from a checked
+sweep and refused when named, as in JAX.
+
 Left out until ROADMAP A11 ports the host planes: JAX's chaos sites
 (sweep-boundary delays and deaths, the verify-payload bit flip) and obs
-spans and counters, so ``BenchRecord.trace_id`` stays empty. Left out
-until the checked transport (ROADMAP A5): ``checked=True`` raises.
+spans and counters, so ``BenchRecord.trace_id`` stays empty.
 """
 
 from __future__ import annotations
@@ -28,10 +32,10 @@ from icikit_torch.parallel.allreduce import all_reduce
 from icikit_torch.parallel.alltoall import all_to_all_blocks
 from icikit_torch.parallel.collops import (broadcast, gather_blocks,
                                            scatter_blocks)
+from icikit_torch.parallel.integrity import CHECKED_FAMILIES
 from icikit_torch.parallel.reduce import reduce_to_root
 from icikit_torch.parallel.reducescatter import reduce_scatter
 from icikit_torch.parallel.scan import scan_reduce
-from icikit_torch.parallel.shmap import refuse_checked
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, UnsupportedMeshError,
                                      mesh_axis_size, replicate, shard_along)
 from icikit_torch.utils.registry import list_algorithms
@@ -73,8 +77,7 @@ class BenchRecord:
     # JAX's obs-trace id of the measurement; empty until the obs plane
     # is ported (ROADMAP A11)
     trace_id: str = ""
-    # True when the row timed the checksum-carrying schedule (not
-    # ported yet: always False)
+    # True when the row timed the checksum-carrying schedule
     checked: bool = False
 
     def to_json(self) -> str:
@@ -128,8 +131,9 @@ def _setup(family: str, mesh, axis: str, msize: int, dtype: torch.dtype,
            checked: bool = False):
     """Build (run_fn, verify_fn) for one family; the payload is made on
     the mesh's device."""
-    if checked:
-        refuse_checked(family)
+    if checked and family not in CHECKED_FAMILIES:
+        raise ValueError(
+            f"checked mode covers {CHECKED_FAMILIES}, not {family}")
     p = mesh_axis_size(mesh, axis)
     dev = mesh.device
     if family in ("allgather", "broadcast", "gather", "allreduce", "scan",
@@ -149,8 +153,10 @@ def _setup(family: str, mesh, axis: str, msize: int, dtype: torch.dtype,
     else:
         raise ValueError(family)
 
+    mode = {"checked": True} if checked else {}
+
     def run(alg):
-        return COLLECTIVES[family](x, mesh, axis, algorithm=alg)
+        return COLLECTIVES[family](x, mesh, axis, algorithm=alg, **mode)
 
     def verify(out) -> bool:
         o = out
@@ -216,10 +222,19 @@ def sweep_family(mesh, family: str, algorithms: Sequence[str] | None = None,
     """The reference's comparison study: every variant of a family side
     by side (report.pdf Figs. 2-6), skipping variants whose constraints
     (e.g. power-of-2) the mesh does not meet."""
-    if kw.get("checked"):
-        refuse_checked(family)
     records = []
-    for alg in list(algorithms or list_algorithms(family)):
+    algs = list(algorithms or list_algorithms(family))
+    if kw.get("checked"):
+        # the vendor variant is one opaque op, with no receive step to
+        # fold checksums into: dropped from the default sweep, refused
+        # when asked for by name
+        if algorithms and "xla" in algs:
+            raise ValueError(
+                "checked mode cannot time the 'xla' vendor variant "
+                "(no receive step to verify inside) — drop it from "
+                "--algorithms")
+        algs = [a for a in algs if a != "xla"]
+    for alg in algs:
         try:
             records.extend(sweep_collective(mesh, family, alg, **kw))
         except UnsupportedMeshError:

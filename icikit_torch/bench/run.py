@@ -37,8 +37,11 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--dtype", default="int32")
     ap.add_argument("--checked", action="store_true",
-                    help="time the checksum-carrying schedules (not "
-                         "ported yet: refused)")
+                    help="time the checksum-carrying schedules "
+                         "(icikit_torch.parallel.integrity): every "
+                         "exchange verified on the device, the integrity "
+                         "overhead's A/B rows (hand-rolled variants "
+                         "only; 'xla' is skipped)")
     ap.add_argument("--json", dest="json_path", default=None,
                     help="append records as JSON lines to this path")
     ap.add_argument("--profile", dest="profile_dir", default=None,
@@ -46,13 +49,10 @@ def main(argv=None):
                          "this directory")
     args = ap.parse_args(argv)
 
-    if args.checked:
-        ap.error("--checked needs the checksum-carrying transport, which "
-                 "is not ported to icikit_torch yet (ROADMAP A5)")
-
     import torch
 
     from icikit_torch.bench.harness import (
+        CHECKED_FAMILIES,
         REFERENCE_SWEEP,
         REFERENCE_SWEEP_PERSONALIZED,
         format_table,
@@ -60,6 +60,9 @@ def main(argv=None):
     )
     from icikit_torch.utils.mesh import make_mesh
 
+    if args.checked and args.family not in CHECKED_FAMILIES:
+        ap.error(f"--checked covers {CHECKED_FAMILIES}, "
+                 f"not --family {args.family}")
     if not args.simulate and not torch.cuda.is_available():
         print("no CUDA device: pass --simulate to run the ranks on the CPU",
               file=sys.stderr)
@@ -82,7 +85,8 @@ def main(argv=None):
     with profiled:
         records = sweep_family(mesh, args.family, algorithms, sizes=sizes,
                                dtype=getattr(torch, args.dtype),
-                               runs=args.runs, warmup=args.warmup)
+                               runs=args.runs, warmup=args.warmup,
+                               checked=args.checked)
     print(format_table(records))
     if args.json_path:
         # append: record files accumulate across invocations

@@ -23,6 +23,13 @@ from icikit_torch.utils.mesh import (DEFAULT_AXIS, RankMesh,
                                      UnsupportedMeshError, ilog2, is_pow2)
 
 
+def _require_pow2(p: int) -> None:
+    if not is_pow2(p):
+        raise UnsupportedMeshError(
+            f"bitonic sort requires a power-of-2 rank count (got {p}), "
+            "as in the reference (psort.cc:168-172)")
+
+
 def bitonic_sort_shard(a: torch.Tensor, p: int) -> torch.Tensor:
     """Rank-vectorised bitonic sort; ``a``: (p, n_loc), row r is rank
     r's unsorted block.
@@ -31,10 +38,7 @@ def bitonic_sort_shard(a: torch.Tensor, p: int) -> torch.Tensor:
     so the Batcher min/max-reverse identity applies at each round.
     Returns (p, n_loc) with row k the k-th block of the sorted sequence.
     """
-    if not is_pow2(p):
-        raise UnsupportedMeshError(
-            f"bitonic sort requires a power-of-2 rank count (got {p}), "
-            "as in the reference (psort.cc:168-172)")
+    _require_pow2(p)
     if a.shape[0] != p:
         raise ValueError(f"leading dim {a.shape[0]} != p={p}")
     usgn = a.dtype == torch.uint32
@@ -55,6 +59,29 @@ def bitonic_sort_shard(a: torch.Tensor, p: int) -> torch.Tensor:
                                 torch.minimum(a, rb))
                 a = bitonic_merge(c)
     return _i32_as_u32(a) if usgn else a
+
+
+def exchange_steps(p: int) -> int:
+    """The network's exchanges at p = 2^d ranks, d(d+1)/2: the step
+    count of a checked sort, known without running it (its local sorts
+    launch kernels, so it cannot run on ``meta`` tensors as the
+    collectives' count does)."""
+    _require_pow2(p)
+    d = ilog2(p)
+    return d * (d + 1) // 2
+
+
+def build_checked(mesh: RankMesh, axis: str = DEFAULT_AXIS):
+    """The checked twin of :func:`bitonic_sort_blocks`: the same
+    compare-split network run under the checksum transport, ``prog(x2d,
+    taint) -> (sorted, ok)`` with ``ok`` the (p, d(d+1)/2) per-rank x
+    per-exchange verdict. The dispatch and retry boundary lives in
+    ``models.sort.sort(checked=True)``. Returns ``(prog, n_steps)``."""
+    from icikit_torch.parallel.integrity import tracked_shard
+
+    p = mesh.shape[axis]
+    n_steps = exchange_steps(p)
+    return tracked_shard(lambda b: bitonic_sort_shard(b, p), axis), n_steps
 
 
 def bitonic_sort_blocks(x2d: torch.Tensor, mesh: RankMesh,

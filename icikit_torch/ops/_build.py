@@ -109,6 +109,10 @@ _SIGNATURES = {
                                _F32, _P],
         "icikit_tile_floor_regs": [_I32, _IP, _IP],
     },
+    "integrity": {
+        "icikit_segment_checksum": [_P, _P, _I64, _I64, _I32, _I32, _P],
+        "icikit_integrity_regs": [_I32, _IP, _IP],
+    },
 }
 
 

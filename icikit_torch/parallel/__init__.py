@@ -5,9 +5,11 @@ Every hand-rolled MPI collective of the reference is a
 ranks as dim 0, ``utils.mesh.RankMesh``), each the schedule of the
 matching ``icikit.parallel`` module; the ``"xla"`` variants keep JAX's
 name for the vendor baseline, which here is PyTorch's own op over the
-rank axis. Ported so far: the nine families, ``reduceloc`` and
-``alltoallv``; the checked transport (``integrity``), ``pt2pt`` and
-``multihost`` are later parts of ROADMAP A5.
+rank axis. Ported so far: the nine families, ``reduceloc``,
+``alltoallv`` and the checked transport (``integrity``: ``checked=True``
+on allgather, allreduce, alltoall, reducescatter and scan, and the
+``checked_*`` twins); ``pt2pt`` and ``multihost`` are later parts of
+ROADMAP A5.
 
 Terminology note: the reference calls its *broadcast-semantics*
 collective "AllToAll" (an allgather, ``Communication/src/main.cc:38-223``)
@@ -31,6 +33,16 @@ from icikit_torch.parallel.alltoallv import (  # noqa: F401
 from icikit_torch.parallel.allreduce import (  # noqa: F401
     ALLREDUCE_ALGORITHMS,
     all_reduce,
+)
+from icikit_torch.parallel.integrity import (  # noqa: F401
+    CHECKED_FAMILIES,
+    IntegrityError,
+    checked_all_gather,
+    checked_all_reduce,
+    checked_all_to_all,
+    checked_reduce_scatter,
+    checked_scan,
+    quarantine_counts,
 )
 from icikit_torch.parallel.collops import (  # noqa: F401
     broadcast,

@@ -32,7 +32,6 @@ from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     rank_put_,
     rank_take,
-    refuse_checked,
     run_collective,
     shift_perm,
     xor_perm,
@@ -168,15 +167,18 @@ def all_gather_blocks(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
     Args:
       x: ``(p, ...)``; row d is rank d's block.
       algorithm: one of ``ALLGATHER_ALGORITHMS``.
-      checked, retries: JAX's checksum-carrying mode; raises
-        ``NotImplementedError`` until the checked transport is ported.
+      checked: run the checksum-carrying schedule: every exchanged
+        block verified at its receive step on the device, a detected
+        corruption quarantined and retried at the dispatch boundary, at
+        most ``retries`` times (``parallel.integrity``; hand-rolled
+        schedules only, ``"xla"`` raises ``ValueError``).
 
     Returns:
       ``(p, p, ...)``: ``out[d]`` is rank d's assembled copy of all p
       blocks (the reference's per-rank recv buffer,
       ``Communication/src/main.cc:405-407``).
     """
-    del retries
     if checked:
-        refuse_checked("allgather")
+        from icikit_torch.parallel import integrity
+        return integrity.checked_all_gather(x, mesh, axis, algorithm, retries=retries)
     return run_collective("allgather", algorithm, mesh, axis, x)

@@ -17,7 +17,6 @@ from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     COMBINE,
     reduce_ranks,
-    refuse_checked,
     run_collective,
     xor_perm,
 )
@@ -75,13 +74,17 @@ def all_reduce(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
     Args:
       x: ``(p, ...)``; rank d contributes ``x[d]``.
       op: "sum", "max" or "min".
-      checked, retries: JAX's checksum-carrying mode; raises
-        ``NotImplementedError`` until the checked transport is ported.
+      checked: run the checksum-carrying schedule: every exchanged
+        block verified at its receive step on the device, a detected
+        corruption quarantined and retried at the dispatch boundary, at
+        most ``retries`` times (``parallel.integrity``; hand-rolled
+        schedules only, ``"xla"`` raises ``ValueError``).
 
     Returns:
       The same shape, ``out[d]`` the full reduction on every rank.
     """
-    del retries
     if checked:
-        refuse_checked("allreduce")
+        from icikit_torch.parallel import integrity
+        return integrity.checked_all_reduce(x, mesh, axis, algorithm, op=op,
+                                            retries=retries)
     return run_collective("allreduce", algorithm, mesh, axis, x, op)

@@ -27,7 +27,6 @@ from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     rank_put_,
     rank_take,
-    refuse_checked,
     run_collective,
     shift_perm,
     xor_perm,
@@ -129,15 +128,18 @@ def all_to_all_blocks(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
     Args:
       x: ``(p, p, ...)``; rank s owns row ``x[s]``, whose slot d is the
         block destined for rank d.
-      checked, retries: JAX's checksum-carrying mode; raises
-        ``NotImplementedError`` until the checked transport is ported.
+      checked: run the checksum-carrying schedule: every exchanged
+        block verified at its receive step on the device, a detected
+        corruption quarantined and retried at the dispatch boundary, at
+        most ``retries`` times (``parallel.integrity``; hand-rolled
+        schedules only, ``"xla"`` raises ``ValueError``).
 
     Returns:
       ``swapaxes(x, 0, 1)``: rank d ends with ``out[d, s] = x[s, d]``,
       the reference's verification condition
       (``Communication/src/main.cc:478-486``).
     """
-    del retries
     if checked:
-        refuse_checked("alltoall")
+        from icikit_torch.parallel import integrity
+        return integrity.checked_all_to_all(x, mesh, axis, algorithm, retries=retries)
     return run_collective("alltoall", algorithm, mesh, axis, x)

@@ -20,7 +20,6 @@ from icikit_torch.parallel.shmap import (
     rank_put_,
     rank_take,
     reduce_ranks,
-    refuse_checked,
     run_collective,
     shift_perm,
     xor_perm,
@@ -113,19 +112,23 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
       x: ``(p, m, ...)``; rank d contributes the full vector ``x[d]``.
         ``m`` must be divisible by p.
       op: "sum", "max" or "min".
-      checked, retries: JAX's checksum-carrying mode; raises
-        ``NotImplementedError`` until the checked transport is ported.
+      checked: run the checksum-carrying schedule: every exchanged
+        block verified at its receive step on the device, a detected
+        corruption quarantined and retried at the dispatch boundary, at
+        most ``retries`` times (``parallel.integrity``; hand-rolled
+        schedules only, ``"xla"`` raises ``ValueError``).
 
     Returns:
       ``(p, m/p, ...)``: ``out[d]`` is chunk d of the elementwise
       reduction over all contributions.
     """
-    del retries
     p = mesh.shape[axis]
     if x.dim() < 2 or x.shape[1] % p:
         raise ValueError(
             f"reduce_scatter needs m divisible by p "
             f"(shape {tuple(x.shape)}, p={p})")
     if checked:
-        refuse_checked("reducescatter")
+        from icikit_torch.parallel import integrity
+        return integrity.checked_reduce_scatter(x, mesh, axis, algorithm, op=op,
+                                                retries=retries)
     return run_collective("reducescatter", algorithm, mesh, axis, x, op)

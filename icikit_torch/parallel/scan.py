@@ -27,7 +27,7 @@ from icikit_torch.parallel.shmap import (
     COMBINE,
     partial_shift_perm,
     rank_where,
-    refuse_checked,
+    register_family,
     run_collective,
 )
 from icikit_torch.utils.mesh import DEFAULT_AXIS
@@ -83,6 +83,24 @@ def _xla(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
 SCAN_ALGORITHMS = ("hillis_steele", "linear", "xla")
 
 
+def _adapter(impl, p: int, op: str, inclusive: bool):
+    """The scan's program: the schedule, then for an exclusive scan
+    (``MPI_Exscan``) a shift right by one rank, rank 0 taking the op's
+    identity (JAX's adapter, whose shift a checked run verifies too)."""
+    def body(x: torch.Tensor) -> torch.Tensor:
+        out = impl(x, p, op)
+        if inclusive:
+            return out
+        shifted = transport.ppermute(out, partial_shift_perm(p, 1))
+        return rank_where([r == 0 for r in range(p)],
+                          torch.full_like(out, _identity(out.dtype, op)),
+                          shifted)
+    return body
+
+
+register_family("scan", _adapter)
+
+
 def scan_reduce(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
                 algorithm: str = "hillis_steele", op: str = "sum",
                 inclusive: bool = True, checked: bool = False,
@@ -94,21 +112,19 @@ def scan_reduce(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
       inclusive: ``True`` gives ``out[d] = op(x[0..d])`` (``MPI_Scan``);
         ``False`` gives ``out[d] = op(x[0..d-1])``, the identity at d = 0
         (``MPI_Exscan``).
-      checked, retries: JAX's checksum-carrying mode; raises
-        ``NotImplementedError`` until the checked transport is ported.
+      checked: run the checksum-carrying schedule: every exchanged
+        block verified at its receive step on the device, a detected
+        corruption quarantined and retried at the dispatch boundary, at
+        most ``retries`` times (``parallel.integrity``; hand-rolled
+        schedules only, ``"xla"`` raises ``ValueError``).
 
     Returns:
       ``(p, ...)`` with the per-rank prefix reductions.
     """
-    del retries
     if checked:
-        refuse_checked("scan")
-    out = run_collective("scan", algorithm, mesh, axis, x, op)
-    if inclusive:
-        return out
-    # MPI_Exscan: shift right by one rank; rank 0 = identity
-    p = out.shape[0]
-    shifted = transport.ppermute(out, partial_shift_perm(p, 1))
-    return rank_where([r == 0 for r in range(p)],
-                      torch.full_like(out, _identity(out.dtype, op)),
-                      shifted)
+        from icikit_torch.parallel import integrity
+        return integrity.checked_scan(x, mesh, axis, algorithm, op=op,
+                                      inclusive=inclusive,
+                                      retries=retries)
+    return run_collective("scan", algorithm, mesh, axis, x, op,
+                          bool(inclusive))

@@ -22,26 +22,45 @@ from icikit_torch.utils.registry import get_algorithm
 COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 
+_ADAPTERS: dict = {}
+
+
+def register_family(family: str, adapter) -> None:
+    """A family whose program is more than its schedule (``scan``'s
+    exclusive shift): ``adapter(impl, p, *extra)`` returns the body
+    ``x -> out``. Other families run ``impl(x, p, *extra)``, as JAX's
+    ``register_family`` adapters do."""
+    _ADAPTERS[family] = adapter
+
+
+def family_body(family: str, algorithm: str, p: int, *extra):
+    """The program of ``family``'s registered ``algorithm`` at p ranks:
+    a function of the ``(p, ...)`` operand, what JAX traces inside
+    ``shard_map`` (checked runs trace it under a transport Tracker)."""
+    impl = get_algorithm(family, algorithm)
+    adapter = _ADAPTERS.get(family)
+    if adapter is not None:
+        return adapter(impl, p, *extra)
+    return lambda x: impl(x, p, *extra)
+
+
+def rank_operand(family: str, mesh, axis: str,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the mesh's device, after checking it is ``(p, ...)``."""
+    p = mesh.shape[axis]
+    if x.dim() < 1 or x.shape[0] != p:
+        raise ValueError(f"{family} needs a (p={p}, ...) operand; got "
+                         f"{tuple(x.shape)}")
+    return x.to(mesh.device)
+
+
 def run_collective(family: str, algorithm: str, mesh, axis: str,
                    x: torch.Tensor, *extra):
     """Run ``family``'s registered ``algorithm`` on ``x``, a ``(p, ...)``
     operand with p the size of ``mesh``'s ``axis``, on the mesh's
     device."""
-    impl = get_algorithm(family, algorithm)
-    p = mesh.shape[axis]
-    if x.dim() < 1 or x.shape[0] != p:
-        raise ValueError(f"{family} needs a (p={p}, ...) operand; got "
-                         f"{tuple(x.shape)}")
-    return impl(x.to(mesh.device), p, *extra)
-
-
-def refuse_checked(family: str):
-    """``checked=True``: the checksum-carrying transport is a later
-    part of the port."""
-    raise NotImplementedError(
-        f"checked {family} (checksum-carrying exchanges, "
-        "icikit.parallel.integrity) is not ported to icikit_torch yet "
-        "(ROADMAP A5, the checked transport)")
+    body = family_body(family, algorithm, mesh.shape[axis], *extra)
+    return body(rank_operand(family, mesh, axis, x))
 
 
 def reduce_ranks(x: torch.Tensor, op: str) -> torch.Tensor:

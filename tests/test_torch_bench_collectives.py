@@ -7,7 +7,7 @@ payload is JAX's ``_pattern`` value for value; every record of a CPU
 sweep verifies, and the port's outputs pass JAX's own closed-form
 ``verify`` (a numpy oracle, so no JAX program runs); a flipped bit in
 an output fails the port's ``verify``. The CLI exits 0 on a verified
-sweep and refuses ``--checked``.
+sweep, checked or not; the checked rows are JAX's.
 """
 
 from __future__ import annotations
@@ -114,9 +114,25 @@ def test_fuzz_port_outputs_pass_jax_oracle(seed):
 
 
 def test_checked_sweep_is_refused():
-    with pytest.raises(NotImplementedError, match="A5"):
-        th.sweep_family(make_mesh(4, device="cpu"), "allreduce",
-                        sizes=(4,), checked=True)
+    """The checked sweep (ported since this test's name was given) times
+    every hand-rolled variant, its rows marked ``checked`` and verified,
+    as JAX's checked rows are; what it refuses is JAX's: the ``xla``
+    variant named, and a family outside ``CHECKED_FAMILIES``."""
+    mesh = make_mesh(4, device="cpu")
+    recs = th.sweep_family(mesh, "allreduce", sizes=(4, 16), checked=True,
+                           runs=1, warmup=0)
+    j_recs = jh.sweep_family(j_make_mesh(4), "allreduce", sizes=(4, 16),
+                             checked=True, runs=1, warmup=0)
+    key = (lambda r: (r.family, r.algorithm, r.p, r.msize, r.dtype,
+                      r.bytes_per_block, r.verified, r.checked))
+    assert [key(r) for r in recs] == [key(r) for r in j_recs]
+    assert all(r.checked and r.verified for r in recs)
+    assert "xla" not in {r.algorithm for r in recs}
+    with pytest.raises(ValueError, match="xla"):
+        th.sweep_family(mesh, "allreduce", ["ring", "xla"], sizes=(4,),
+                        checked=True)
+    with pytest.raises(ValueError, match="checked mode covers"):
+        th._setup("broadcast", mesh, "p", 4, torch.int32, checked=True)
 
 
 def _cli(*args):
@@ -137,9 +153,18 @@ def test_cli_simulated_sweep_exits_zero(tmp_path):
     assert all(x["verified"] and x["p"] == 8 for x in recs)
 
 
-def test_cli_refuses_checked(capsys):
+def test_cli_refuses_checked(capsys, tmp_path):
+    """``--checked`` (ported since this test's name was given) writes
+    checked, verified rows of the hand-rolled variants and exits 0; the
+    CLI refuses it only for a family outside ``CHECKED_FAMILIES``."""
     from icikit_torch.bench import run
+    out = tmp_path / "recs.jsonl"
+    assert run.main(["--simulate", "--family", "scan", "--sizes", "16",
+                     "--runs", "2", "--checked", "--json", str(out)]) == 0
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert {x["algorithm"] for x in recs} == {"hillis_steele", "linear"}
+    assert all(x["checked"] and x["verified"] for x in recs)
     with pytest.raises(SystemExit) as e:
-        run.main(["--simulate", "--family", "allreduce", "--sizes", "16",
+        run.main(["--simulate", "--family", "broadcast", "--sizes", "16",
                   "--checked"])
-    assert e.value.code != 0 and "A5" in capsys.readouterr().err
+    assert e.value.code != 0 and "--checked covers" in capsys.readouterr().err

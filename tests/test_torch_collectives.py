@@ -222,10 +222,21 @@ def test_multi_dim_and_pad(family, variant, shape):
 @pytest.mark.parametrize("family", ["allgather", "alltoall", "allreduce",
                                     "reducescatter", "scan"])
 def test_checked_is_refused_until_ported(family):
-    fn = FAMILIES[family][1]
-    x = torch.zeros((4, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        fn(x, make_mesh(4, device="cpu"), checked=True)
+    """``checked=True`` (ported since this test's name was given):
+    every hand-rolled variant at p = 4 returns its unchecked output bit
+    for bit; only the ``xla`` vendor variant is refused, with JAX's
+    ``ValueError``."""
+    fn, shape_of = FAMILIES[family][1], FAMILIES[family][3]
+    mesh = make_mesh(4, device="cpu")
+    x = torch.from_numpy(_data((4,) + shape_of(4), "float32", seed=4))
+    for alg in FAMILIES[family][2]:
+        if alg == "xla":
+            with pytest.raises(ValueError, match="vendor"):
+                fn(x, mesh, algorithm=alg, checked=True)
+            continue
+        got = fn(x, mesh, algorithm=alg, checked=True)
+        assert torch.equal(got.view(torch.int32),
+                           fn(x, mesh, algorithm=alg).view(torch.int32))
 
 
 def test_registry_names_match_jax():

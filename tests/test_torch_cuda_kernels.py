@@ -1507,3 +1507,89 @@ def test_save_stack_step_launches_the_stack_kernels(gen):
             assert ca.LAUNCHES["flash_fwd"] == 4
             assert ca.LAUNCHES["flash_bwd"] == 2
     assert abs(losses["pallas"] - losses["xla"]) < 1e-5
+
+
+# -- the checked transport's checksum (integrity.cu) --------------------
+
+from icikit_torch.ops import cuda_integrity as ci  # noqa: E402
+
+CHECKSUM_DTYPES = (torch.uint8, torch.int8, torch.bool, torch.int16,
+                   torch.bfloat16, torch.float16, torch.int32,
+                   torch.float32, torch.int64, torch.float64)
+
+
+def _rows_at(gen, p, n, dtype, offset):
+    """(p, n) random bits of ``dtype`` starting ``offset`` bytes into a
+    fresh buffer (0/1 bytes for bool)."""
+    width = torch.empty((), dtype=dtype).element_size()
+    buf = torch.randint(0, 2 if dtype == torch.bool else 256,
+                        (p * n * width + offset,), generator=gen,
+                        dtype=torch.uint8, device="cuda")
+    return buf[offset:].view(dtype).view(p, n)
+
+
+@pytest.mark.parametrize("dtype", CHECKSUM_DTYPES)
+@pytest.mark.parametrize("p,n", [(1, 0), (1, 1), (3, 33), (2, 4096),
+                                 (8, (1 << 16) + 3), (1, 1 << 20)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_segment_checksum_matches_plain_bitwise(dtype, p, n, misaligned,
+                                                gen):
+    """Both load paths (16-byte words on an aligned base whose rows are
+    multiples of 16 bytes, elements otherwise), odd n, n = 0 (a zero
+    fold and no launch) and p = 1, bit for bit against the plain fold."""
+    width = torch.empty((), dtype=dtype).element_size()
+    x = _rows_at(gen, p, n, dtype, width if misaligned else 0)
+    ci.reset_launches()
+    got = ci.segment_checksum(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (p,)
+    assert torch.equal(got, ci.segment_checksum(x, plain=True))
+    assert ci.LAUNCHES["segment_checksum"] == (1 if n else 0)
+    if n == 0:
+        assert not bool(got.any())
+
+
+def test_segment_checksum_catches_every_flip_of_a_row(gen):
+    """One flipped bit in any of a row's 4096 int32 lanes changes only
+    that row's fold."""
+    x = _rows_at(gen, 4, 4096, torch.int32, 0)
+    clean = ci.segment_checksum(x)
+    for i in (0, 1, 31, 32, 4095):
+        for bit in (0, 17, 31):
+            y = x.clone()
+            y[2, i] ^= (1 << bit) if bit < 31 else -(1 << 31)
+            f = ci.segment_checksum(y)
+            assert not torch.equal(f[2], clean[2])
+            assert torch.equal(f[[0, 1, 3]], clean[[0, 1, 3]])
+
+
+def test_checked_collectives_and_sort_on_the_card(gen):
+    """The checked transport on CUDA tensors: outputs equal the
+    unchecked ones, a scheduled drill is detected and recovered, and the
+    folds go through the kernel (two an exchange)."""
+    from icikit_torch import chaos
+    from icikit_torch import parallel as tp
+    from icikit_torch.models.sort import sort
+    from icikit_torch.parallel import integrity
+    from icikit_torch.utils.mesh import make_mesh
+
+    mesh = make_mesh(8, device="cuda")
+    x = torch.randn((8, 1000), generator=gen, device="cuda")
+    ci.reset_launches()
+    got = tp.all_reduce(x, mesh, algorithm="ring", checked=True)
+    assert torch.equal(got, tp.all_reduce(x, mesh, algorithm="ring"))
+    assert ci.LAUNCHES["segment_checksum"] == 2 * 14
+    integrity.reset_stats()
+    plan = chaos.FaultPlan(seed=1,
+                           schedule={"corrupt:collective.allgather": (0,)})
+    with chaos.inject(plan):
+        healed = tp.all_gather_blocks(x, mesh, algorithm="ring",
+                                      checked=True)
+    assert torch.equal(healed, tp.all_gather_blocks(x, mesh))
+    assert integrity.stats()["recoveries"] == 1
+    keys = torch.randint(-2**31, 2**31 - 1, (1 << 18,), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    ci.reset_launches()
+    assert torch.equal(sort(keys, mesh, checked=True),
+                       torch.sort(keys).values)
+    assert ci.LAUNCHES["segment_checksum"] == 12

@@ -58,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, icikit_torch, icikit_torch.models.sort, "
             "icikit_torch.bench.headline, icikit_torch.interop, "
             "icikit_torch.parallel, icikit_torch.bench.run, "
-            "icikit_torch.bench.harness; "
+            "icikit_torch.bench.harness, icikit_torch.chaos, "
+            "icikit_torch.obs, icikit_torch.parallel.integrity, "
+            "icikit_torch.ops.cuda_integrity; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'icikit')])")
     r = _run(["-c", code])

@@ -115,9 +115,14 @@ def test_non_pow2_ranks_raise():
 
 
 def test_checked_sort_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        sort(torch.arange(64, dtype=torch.int32),
-             make_mesh(2, device="cpu"), checked=True)
+    """``sort(checked=True)`` (ported since this test's name was given)
+    equals ``sort()``; it raises, as JAX's does, only for an algorithm
+    other than the bitonic network."""
+    x = from_jax(_keys("int32", 1 << 14, seed=6))
+    mesh = make_mesh(2, device="cpu")
+    assert torch.equal(sort(x, mesh, checked=True), sort(x, mesh))
+    with pytest.raises(ValueError, match="bitonic"):
+        sort(x, mesh, algorithm="quicksort", checked=True)
 
 
 def test_unknown_algorithm_lists_known():
