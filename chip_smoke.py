@@ -217,7 +217,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (p x bus bytes / best time) and the least-bytes bound (every rank's
    input read once and output written once); the allreduce's device
    enqueues a call by variant from the host's side of a
-   ``torch.profiler`` trace of COLL_TRACE_CALLS calls, and its device
+   ``torch.profiler`` trace of COLL_TRACE_CALLS calls (in a fresh
+   process, as phase 26's), and its device
    events where the trace kept them all, with its copies by direction
    (no host-to-device copy in a repeated call; a trace that lost a
    copy's or set's record counts as no trace).
@@ -254,7 +255,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and the 2^24 sort, in turns; a ``torch.profiler`` trace of clean
    checked ring allreduces, taken in a fresh process: no host-to-device
    copy, one device-to-host copy a call (the verdict).
-27. kernels line: every ported kernel with its launches on its main path,
+27. the load-balancing study (``models.solitaire``): the port's native
+   runtime built from ``icikit_torch/native/src`` and active; the DFS
+   kernel (I2) against its plain version bit for bit on all five outputs
+   at DFS_CHECK_STEPS (DFS_CHECK_SETS, seed 0) and on the edge boards at
+   DFS_EDGE_STEPS; at full size (DFS_FULL, seed 0, DFS_MAX_STEPS)
+   against the native host solver, bit for bit on solved, n_moves, moves
+   and steps; the main path: ``solve_static`` and ``solve_dynamic`` with
+   DFS_WORKERS workers (streams of the card) on each full-size grade and
+   on northstar's skewed set (DFS_SKEW), agreeing with each other and
+   the host on the solutions and steps, I2 launched, per-worker steps
+   and the imbalance printed; one ``solve_dynamic`` drill (a scheduled
+   death of worker 1) healed, its output equal to the clean run's; I2
+   timed by events, median of windows, at each full-size batch beside
+   its two bounds (the critical path: max steps x DFS_STEP_CHAIN
+   dependent ops of DEP_CYCLES at SM_CLOCK_HZ; the throughput: the
+   steps x DFS_STEP_OPS at VECTOR_OPS), the native host solver's wall
+   time, and the plain version's time at DFS_CHECK_STEPS; and
+   ``python -m icikit_torch.bench.northstar --quick`` in a child
+   process, every check it prints passed.
+28. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
    sort kernels also with their launches on each algorithm's 2^24 path.
@@ -489,6 +509,27 @@ CHECKSUM_P, CHECKSUM_NS = 3, (0, 1, (1 << 20) + 3)
 CHECKSUM_SHAPE = (8, 1 << 21)
 CHECKED_ALGS = ("ring", "recursive_doubling")
 CHECKED_WINDOWS, CHECKED_CALLS = 4, 8
+# Phase 27, the load-balancing study: I2's check sets (grade, boards) and
+# budget, the edge boards of tests/test_solitaire.py (one peg, empty,
+# full, three in a row, domino, square, NA cells) and their budgets; the
+# full-size batches (seed 0) at northstar's budget; the workers (streams
+# of the card); northstar's skewed set (boards, hard fraction, chunk,
+# seed); the bounds: 32-bit ops a DFS step, the dependent ones among
+# them, cycles a dependent integer op and the SM clock (H100 SXM boost);
+# the timing windows and launches a window
+DFS_CHECK_SETS = (("easy", 512), ("medium", 256), ("hard", 64))
+DFS_CHECK_STEPS = 2000
+DFS_EDGE_BOARDS = ("1" + "0" * 24, "0" * 25, "1" * 25, "111" + "0" * 22,
+                   "110" + "0" * 22, "11000" * 2 + "0" * 15,
+                   "112" + "0" * 22)
+DFS_EDGE_STEPS = (1, 3, DFS_CHECK_STEPS)
+DFS_FULL = (("easy", 20_000), ("medium", 20_000), ("hard", 1_000))
+DFS_MAX_STEPS = 500_000
+DFS_WORKERS = 8
+DFS_SKEW = (256, 0.25, 4, 3)
+DFS_STEP_OPS, DFS_STEP_CHAIN = 80, 16
+DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
+DFS_WINDOWS, DFS_ITERS = 3, 2
 
 
 def emit(obj) -> None:
@@ -2997,6 +3038,26 @@ def allreduce_launches(torch, mesh, x) -> dict:
     return out
 
 
+def allreduce_launches_in_child() -> dict:
+    """:func:`allreduce_launches` on float32[COLL_P, 2^20] in a new
+    Python process on the card, its record read from its last line: a
+    trace late in the long script lost the copies' device records in
+    all COLL_TRACE_ATTEMPTS attempts (as phase 26's did)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; "
+            "from icikit_torch.utils.mesh import make_mesh; "
+            "x = torch.randn((cs.COLL_P, cs.COLL_BASELINE_ALLREDUCE), "
+            "device='cuda'); "
+            "print(json.dumps(cs.allreduce_launches(torch, "
+            "make_mesh(cs.COLL_P, device='cuda'), x)))")
+    r = subprocess.run([sys.executable, "-c", code, here], cwd=here,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        raise AssertionError(f"allreduce trace failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def collectives_phase(torch, dev, bw, smi) -> None:
     """Phase 24: the collective library on the card (see the module
     docstring)."""
@@ -3041,9 +3102,7 @@ def collectives_phase(torch, dev, bw, smi) -> None:
     recs = sweep_family(mesh, "allreduce", sizes=(COLL_BASELINE_ALLREDUCE,),
                         dtype=torch.float32)
     check(recs, list_algorithms("allreduce"), "baseline allreduce")
-    launches = allreduce_launches(
-        torch, mesh, torch.randn((COLL_P, COLL_BASELINE_ALLREDUCE),
-                                 device=dev))
+    launches = allreduce_launches_in_child()
     for alg, n in launches.items():
         if n["host_to_device_copies"]:
             bad.append({"what": "host-to-device copy in a repeated call",
@@ -3535,6 +3594,262 @@ def integrity_phase(torch, dev, bw, smi) -> dict:
             "launches_on": "sort(checked=True) of 2^24 int32 keys, p = 8"}
 
 
+def _same_outputs(torch, a, b) -> bool:
+    """Five solve outputs equal, dtypes included."""
+    return all(x.dtype == y.dtype and bool(torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def _host_arrays(out) -> tuple:
+    return tuple(o.cpu().numpy() for o in out)
+
+
+def _dfs_bounds(steps) -> dict:
+    """I2's two bounds in ms for one batch's step counts (numpy)."""
+    thr = float(steps.astype("int64").sum()) * DFS_STEP_OPS / VECTOR_OPS
+    crit = float(steps.max()) * DFS_STEP_CHAIN * DEP_CYCLES / SM_CLOCK_HZ
+    return {"throughput_ms": thr * 1e3, "critical_path_ms": crit * 1e3,
+            "bound_ms": max(thr, crit) * 1e3,
+            "bound_kind": "critical path" if crit >= thr else "throughput"}
+
+
+def northstar_quick_in_child() -> dict:
+    """``python -m icikit_torch.bench.northstar --quick`` in a new
+    process on the card: its exit code and the checks it printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "icikit_torch.bench.northstar",
+                        "--quick"], cwd=here, env=env, capture_output=True,
+                       text=True, timeout=900)
+    checks = {}
+    dlb = []
+    for line in r.stdout.splitlines():
+        word, _, name = line.partition(" ")
+        if word in ("PASS", "FAIL") and name and " " not in name:
+            checks[name] = word == "PASS"
+        elif line.startswith("| ") and line.count("|") == 6 \
+                and line.split("|")[1].strip() in ("easy", "hard",
+                                                   "skewed"):
+            dlb.append([c.strip() for c in line.split("|")[1:-1]])
+    return {"rc": r.returncode, "checks": checks, "dlb_rows": dlb,
+            "seconds": round(time.perf_counter() - t0, 1),
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
+
+
+def solitaire_phase(torch, dev, smi) -> dict:
+    """Phase 27: the load-balancing study on the card (see the module
+    docstring). Returns I2's row of the kernels line."""
+    import warnings
+
+    import numpy as np
+
+    from icikit_torch import chaos, native
+    from icikit_torch.models.solitaire.dataset import (
+        generate_dataset, generate_skewed_dataset)
+    from icikit_torch.models.solitaire.game import (BoardBatch, solve_batch,
+                                                    solve_batch_plain)
+    from icikit_torch.models.solitaire.scheduler import (solve_dynamic,
+                                                         solve_host,
+                                                         solve_static)
+    from icikit_torch.ops import _build
+    from icikit_torch.ops import cuda_solitaire as cso
+    from icikit_torch.utils.timing import cuda_time_ms
+
+    t0 = time.perf_counter()
+    bad = []
+
+    # the native runtime, from the checkout's sources
+    if not native.available():
+        raise AssertionError(f"native runtime: {native.build_error()}")
+    r, loc = ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.load("solitaire").icikit_solitaire_regs(
+        0, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
+    emit({"phase": "solitaire", "part": "build",
+          "native_library": native._LIB_PATH.split("icikit_torch/")[-1],
+          "solve_dfs_kernel": {"registers": r.value,
+                               "local_bytes": loc.value}})
+
+    def on_card(batch):
+        return (cso.as_u32(torch.from_numpy(batch.pegs.view(np.int32))
+                           .to(dev)),
+                cso.as_u32(torch.from_numpy(batch.playable.view(np.int32))
+                           .to(dev)))
+
+    # I2 against its plain version, bit for bit, at a small budget
+    checks = []
+    cases = [(f"{g} {n}", generate_dataset(n, g, seed=0), DFS_CHECK_STEPS)
+             for g, n in DFS_CHECK_SETS]
+    edge = BoardBatch.from_strings(list(DFS_EDGE_BOARDS))
+    cases += [("edge boards", edge, ms) for ms in DFS_EDGE_STEPS]
+    plain_ms = kernel_small_ms = None
+    for what, batch, ms in cases:
+        pg, pl = on_card(batch)
+        got = solve_batch(pg, pl, ms)
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        want = solve_batch_plain(pg, pl, ms)
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - tp) * 1e3
+            kernel_small_ms = cuda_time_ms(lambda: solve_batch(pg, pl, ms),
+                                           iters=5, warmup=1)
+            plain_at = f"{what} boards, max_steps {ms}"
+        ok = _same_outputs(torch, got, want)
+        checks.append({"what": what, "max_steps": ms, "ok": ok,
+                       "status_counts": np.bincount(
+                           got[4].cpu().numpy(), minlength=4).tolist()})
+    if not all(c["ok"] for c in checks):
+        bad.append({"what": "solve_dfs vs plain",
+                    "failed": [c for c in checks if not c["ok"]]})
+    emit({"phase": "solitaire", "part": "kernel_vs_plain",
+          "tolerance": "exact (bitwise, all five outputs)",
+          "checks": checks})
+
+    # full size: I2 against the native host solver
+    full = {}
+    for grade, n in DFS_FULL:
+        batch = generate_dataset(n, grade, seed=0)
+        host = solve_host(batch, max_steps=DFS_MAX_STEPS)
+        pg, pl = on_card(batch)
+        card = _host_arrays(solve_batch(pg, pl, DFS_MAX_STEPS))
+        same = {k: bool(np.array_equal(card[i], host_v))
+                for k, i, host_v in (("solved", 0, host.solved),
+                                     ("n_moves", 1, host.n_moves),
+                                     ("moves", 2, host.moves),
+                                     ("steps", 3, host.steps))}
+        err = int(np.abs(card[3].astype(np.int64) - host.steps).max())
+        full[grade] = {"batch": batch, "pg": pg, "pl": pl, "card": card,
+                       "host": host, "same": same, "err": err}
+        if not all(same.values()):
+            bad.append({"what": f"solve_dfs vs host, {grade}", **same})
+
+    # the main path: both schedulers, DFS_WORKERS streams of the card
+    workers = [dev] * DFS_WORKERS
+    n_sk, frac, sk_chunk, sk_seed = DFS_SKEW
+    skewed = generate_skewed_dataset(n_sk, seed=sk_seed, hard_fraction=frac)
+    sk_host = solve_host(skewed, max_steps=DFS_MAX_STEPS)
+    runs = []
+    torch.cuda.synchronize()
+    cso.reset_launches()
+    t_main = time.perf_counter()
+    reports = {}
+    for name, batch, host, chunk in (
+            [(g, full[g]["batch"], full[g]["host"], 8) for g, _ in DFS_FULL]
+            + [("skewed", skewed, sk_host, sk_chunk)]):
+        st = solve_static(batch, devices=workers, max_steps=DFS_MAX_STEPS)
+        dy = solve_dynamic(batch, devices=workers, chunk_size=chunk,
+                           max_steps=DFS_MAX_STEPS)
+        reports[name] = (st, dy)
+        for rep in (st, dy):
+            rec = {"set": name, "strategy": rep.strategy,
+                   "boards": len(batch), "chunk": rep.chunk_size,
+                   "n_solutions": rep.n_solutions,
+                   "host_solutions": host.n_solutions,
+                   "equal_to_host": bool(
+                       np.array_equal(rep.solved, host.solved)
+                       and np.array_equal(rep.steps, host.steps)
+                       and np.array_equal(rep.moves, host.moves)),
+                   "wall_s": rep.wall_s, "pulls": rep.n_pulls,
+                   "per_worker_games": rep.per_worker_games,
+                   "per_worker_steps": rep.per_worker_steps,
+                   "imbalance": rep.imbalance}
+            runs.append(rec)
+            if not rec["equal_to_host"]:
+                bad.append({"what": "scheduler vs host",
+                            **{k: rec[k] for k in ("set", "strategy")}})
+    main_s = time.perf_counter() - t_main
+    launches = cso.LAUNCHES["solve_dfs"]
+    if launches == 0:
+        bad.append({"what": "the study launched no solve_dfs"})
+    emit({"phase": "solitaire", "part": "schedulers", "workers": DFS_WORKERS,
+          "max_steps": DFS_MAX_STEPS, "runs": runs,
+          "solve_dfs_launches": launches, "seconds": main_s})
+
+    # a healed drill: worker 1 dies at its first pull
+    clean = reports["skewed"][1]
+    plan = chaos.FaultPlan(schedule={"die:solitaire.worker.1": (0,)})
+    with warnings.catch_warnings(record=True) as caught, chaos.inject(plan):
+        warnings.simplefilter("always")
+        healed = solve_dynamic(skewed, devices=workers, chunk_size=sk_chunk,
+                               max_steps=DFS_MAX_STEPS)
+    drill = {"n_deaths": healed.n_deaths,
+             "worker_deaths": healed.worker_deaths,
+             "n_reissues": healed.n_reissues,
+             "warned": any("worker 1" in str(w.message) for w in caught),
+             "equal_to_clean": all(
+                 np.array_equal(getattr(healed, k), getattr(clean, k))
+                 for k in ("solved", "n_moves", "moves", "steps",
+                           "status")),
+             "per_worker_games": healed.per_worker_games}
+    if not (drill["n_deaths"] == 1 and drill["worker_deaths"] == [1]
+            and drill["warned"] and drill["equal_to_clean"]):
+        bad.append({"what": "dynamic drill", **drill})
+    emit({"phase": "solitaire", "part": "drill", **drill})
+
+    # I2 timed at each full-size batch, beside its bounds and the host
+    timed = {}
+    for grade, n in DFS_FULL:
+        f = full[grade]
+        pg, pl = f["pg"], f["pl"]
+
+        def call(pg=pg, pl=pl):
+            return solve_batch(pg, pl, DFS_MAX_STEPS)
+
+        call()
+        ms = sorted(cuda_time_ms(call, iters=DFS_ITERS, warmup=0)
+                    for _ in range(DFS_WINDOWS))
+        steps = f["card"][3]
+        timed[grade] = {"boards": n, "ms": ms[len(ms) // 2],
+                        "windows_ms": ms, **_dfs_bounds(steps),
+                        "sum_steps": int(steps.astype(np.int64).sum()),
+                        "max_steps_taken": int(steps.max()),
+                        "at_the_cap": int((steps >= DFS_MAX_STEPS).sum()),
+                        "solved": int(f["card"][0].sum()),
+                        "host_s": f["host"].wall_s,
+                        "host_threads": len(f["host"].per_worker_steps)}
+    emit({"phase": "solitaire", "part": "timing", "max_steps": DFS_MAX_STEPS,
+          "batches": timed, "plain_ms": plain_ms,
+          "kernel_ms_at_plain_budget": kernel_small_ms, "plain_at": plain_at,
+          "card": smi})
+
+    # northstar, every target, in a fresh process
+    ns = northstar_quick_in_child()
+    if ns["rc"] != 0 or not ns["checks"] or not all(ns["checks"].values()):
+        bad.append({"what": "northstar --quick", **ns})
+    emit({"phase": "solitaire", "part": "northstar_quick", **ns})
+    emit({"phase": "solitaire", "part": "summary",
+          "seconds": round(time.perf_counter() - t0, 1), "failures": bad})
+    if bad:
+        raise AssertionError(f"load-balancing study failed: {bad}")
+    for f in full.values():
+        del f["pg"], f["pl"]
+    torch.cuda.empty_cache()
+    med = timed["medium"]
+    return {"name": "solve_dfs_kernel (I2)", "route": "cuda",
+            "source": "icikit_torch/csrc/solitaire.cu",
+            "replaces": "icikit/models/solitaire/game.py:242 (no "
+                        "pallas_call: lax.while_loop under vmap)",
+            "launches": launches,
+            "max_abs_err": max(f["err"] for f in full.values()),
+            "ms": med["ms"], "plain_ms": plain_ms,
+            "bound_ms": med["bound_ms"], "bound_by": "operations",
+            "bound_kind": med["bound_kind"], "library_ms": None,
+            "library": "none (native host solver: "
+                       f"{med['host_s']:.3f} s on {med['host_threads']} "
+                       "threads)",
+            "ms_by_batch": {g: t["ms"] for g, t in timed.items()},
+            "bounds_by_batch": {g: {k: t[k] for k in (
+                "throughput_ms", "critical_path_ms")}
+                for g, t in timed.items()},
+            "host_s_by_batch": {g: t["host_s"] for g, t in timed.items()},
+            "plain_at": plain_at,
+            "kernel_ms_at_plain_budget": kernel_small_ms,
+            "ms_at": "medium, 20,000 boards, max_steps 500,000",
+            "launches_on": "solve_static and solve_dynamic, 8 workers, on "
+                           "the three full-size grades and the skewed set"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3918,7 +4233,10 @@ def main() -> int:
     # -- 26. the checked transport: checksum kernel, drills, overhead ----
     rows.append(integrity_phase(torch, dev, bw, smi))
 
-    # -- 27. the kernels line --------------------------------------------
+    # -- 27. the load-balancing study: I2, the schedulers, northstar -----
+    rows.append(solitaire_phase(torch, dev, smi))
+
+    # -- 28. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

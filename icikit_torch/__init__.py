@@ -23,7 +23,12 @@ baseline, ``reduceloc``, ``alltoallv``) and its bench harness
 (``checked=True``: checksum-carrying exchanges with quarantine and
 retry, ``parallel.integrity``, its checksum kernel in
 ``ops.cuda_integrity``) with the fault harness ``chaos`` and the obs bus,
-metrics and spans (``obs``) it needs.
+metrics and spans (``obs``) it needs; the load-balancing study
+(``models.solitaire``: the peg-solitaire DFS kernel in
+``ops.cuda_solitaire``, static and dynamic schedulers whose workers are
+CUDA streams, the native host solver of the port's own runtime
+``native``, the guard ``utils.guard``) and the north-star runner
+(``python -m icikit_torch.bench.northstar``).
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one

@@ -113,6 +113,10 @@ _SIGNATURES = {
         "icikit_segment_checksum": [_P, _P, _I64, _I64, _I32, _I32, _P],
         "icikit_integrity_regs": [_I32, _IP, _IP],
     },
+    "solitaire": {
+        "icikit_solve_dfs": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],
+        "icikit_solitaire_regs": [_I32, _IP, _IP],
+    },
 }
 
 

@@ -1593,3 +1593,93 @@ def test_checked_collectives_and_sort_on_the_card(gen):
     assert torch.equal(sort(keys, mesh, checked=True),
                        torch.sort(keys).values)
     assert ci.LAUNCHES["segment_checksum"] == 12
+
+
+# -- the peg-solitaire DFS (solitaire.cu) ---------------------------------
+
+from icikit_torch.ops import cuda_solitaire as cso  # noqa: E402
+
+# tests/test_solitaire.py's edge boards: one peg, empty, full, three in a
+# row, domino, 2x2 square, the domino's escape hole NA
+SOLITAIRE_EDGES = ("1" + "0" * 24, "0" * 25, "1" * 25, "111" + "0" * 22,
+                   "110" + "0" * 22, "11000" * 2 + "0" * 15,
+                   "112" + "0" * 22)
+
+
+def _boards_on_card(batch, dtype=torch.uint32):
+    import numpy as np
+    out = []
+    for a in (batch.pegs, batch.playable):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).cuda()
+        out.append(t.view(torch.uint32) if dtype == torch.uint32
+                   else t.to(torch.int64) & 0xFFFFFFFF)
+    return out
+
+
+def _same(a, b):
+    return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("max_steps", [0, 1, 3, 2000, 2_000_000_000])
+def test_solve_dfs_edge_boards_match_plain(max_steps, gen):
+    from icikit_torch.models.solitaire.game import (BoardBatch,
+                                                    solve_batch_plain)
+    pg, pl = _boards_on_card(BoardBatch.from_strings(list(SOLITAIRE_EDGES)))
+    cso.reset_launches()
+    got = cso.solve_dfs(pg, pl, max_steps)
+    assert cso.LAUNCHES["solve_dfs"] == 1
+    assert _same(got, solve_batch_plain(pg, pl, max_steps))
+
+
+@pytest.mark.parametrize("grade,n,max_steps", [
+    ("easy", 512, 2000), ("medium", 256, 2000), ("hard", 64, 1500),
+    ("easy", 300, 1), ("medium", 100, 3)])
+def test_solve_dfs_graded_boards_match_plain(grade, n, max_steps, gen):
+    from icikit_torch.models.solitaire.dataset import generate_dataset
+    from icikit_torch.models.solitaire.game import (solve_batch,
+                                                    solve_batch_plain)
+    pg, pl = _boards_on_card(generate_dataset(n, grade, seed=1))
+    got = solve_batch(pg, pl, max_steps)
+    assert _same(got, solve_batch_plain(pg, pl, max_steps))
+    # int64 masks take the same launch
+    p64, q64 = _boards_on_card(generate_dataset(n, grade, seed=1),
+                               torch.int64)
+    assert _same(solve_batch(p64, q64, max_steps), got)
+
+
+def test_solve_dfs_any_bits_match_plain(gen):
+    """Masks with bits past the 25 cells and pegs off the playable cells
+    follow JAX's rules too."""
+    pg = torch.randint(-2**31, 2**31 - 1, (777,), generator=gen,
+                       dtype=torch.int32, device="cuda")
+    pl = torch.randint(-2**31, 2**31 - 1, (777,), generator=gen,
+                       dtype=torch.int32, device="cuda")
+    from icikit_torch.models.solitaire.game import solve_batch_plain
+    for a, b in ((pg, pl), (pg & pl & 0x1FFFFFF, pl)):
+        got = cso.solve_dfs(a, b, 3000)
+        assert _same(got, solve_batch_plain(a, b, 3000))
+
+
+def test_solve_dfs_empty_batch_launches_nothing(gen):
+    e = torch.zeros(0, dtype=torch.uint32, device="cuda")
+    cso.reset_launches()
+    out = cso.solve_dfs(e, e, 10)
+    assert cso.LAUNCHES["solve_dfs"] == 0
+    assert out[2].shape == (0, 25) and out[0].dtype == torch.bool
+
+
+def test_solve_dfs_schedulers_on_streams(gen):
+    """Eight workers on the card (eight streams) agree with the native
+    host solver board for board."""
+    from icikit_torch.models.solitaire.dataset import generate_skewed_dataset
+    from icikit_torch.models.solitaire.scheduler import (solve_dynamic,
+                                                         solve_host,
+                                                         solve_static)
+    ds = generate_skewed_dataset(128, seed=3, hard_fraction=0.25)
+    host = solve_host(ds, max_steps=200_000)
+    for rep in (solve_static(ds, devices=["cuda"] * 8, max_steps=200_000),
+                solve_dynamic(ds, devices=["cuda"] * 8, chunk_size=4,
+                              max_steps=200_000)):
+        assert (rep.solved == host.solved).all()
+        assert (rep.steps == host.steps).all()
+        assert (rep.moves == host.moves).all()
