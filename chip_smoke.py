@@ -269,9 +269,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    death of worker 1) healed, its output equal to the clean run's; I2
    timed by events, median of windows, at each full-size batch beside
    its two bounds (the critical path: max steps x DFS_STEP_CHAIN
-   dependent ops of DEP_CYCLES at SM_CLOCK_HZ; the throughput: the
+   dependent ops of DEP_CYCLES at SM_CLOCK_HZ, and beside it the same
+   at the compiled step's DFS_SASS_CHAIN; the throughput: the
    steps x DFS_STEP_OPS at VECTOR_OPS), the native host solver's wall
-   time, and the plain version's time at DFS_CHECK_STEPS; and
+   time, and the plain version's time at DFS_CHECK_STEPS; two probes of
+   a step's cost at DFS_MAX_STEPS, the lone lane (the first capped hard
+   board alone in a launch) and the full warp (the first 32 capped hard
+   boards), each in ns and cycles a step at the SM clock ``nvidia-smi``
+   reads while it runs, their outputs equal to the host's; I2's
+   registers, spill and shared bytes on the ``build`` line; and
    ``python -m icikit_torch.bench.northstar --quick`` in a child
    process, every check it prints passed.
 28. kernels line: every ported kernel with its launches on its main path,
@@ -528,6 +534,10 @@ DFS_MAX_STEPS = 500_000
 DFS_WORKERS = 8
 DFS_SKEW = (256, 0.25, 4, 3)
 DFS_STEP_OPS, DFS_STEP_CHAIN = 80, 16
+# the dependent chain of one step as the kernel compiles it (cuobjdump
+# -sass of solve_dfs_kernel: 7 LOP3, 3 IMAD, LEA.HI, 2 SHF), a tighter
+# critical path given beside DFS_STEP_CHAIN's
+DFS_SASS_CHAIN = 13
 DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 DFS_WINDOWS, DFS_ITERS = 3, 2
 
@@ -3608,7 +3618,9 @@ def _dfs_bounds(steps) -> dict:
     """I2's two bounds in ms for one batch's step counts (numpy)."""
     thr = float(steps.astype("int64").sum()) * DFS_STEP_OPS / VECTOR_OPS
     crit = float(steps.max()) * DFS_STEP_CHAIN * DEP_CYCLES / SM_CLOCK_HZ
+    sass = float(steps.max()) * DFS_SASS_CHAIN * DEP_CYCLES / SM_CLOCK_HZ
     return {"throughput_ms": thr * 1e3, "critical_path_ms": crit * 1e3,
+            "critical_path_sass_ms": sass * 1e3,
             "bound_ms": max(thr, crit) * 1e3,
             "bound_kind": "critical path" if crit >= thr else "throughput"}
 
@@ -3645,6 +3657,7 @@ def solitaire_phase(torch, dev, smi) -> dict:
     import numpy as np
 
     from icikit_torch import chaos, native
+    from icikit_torch.bench.solitaire_ab import sm_clock
     from icikit_torch.models.solitaire.dataset import (
         generate_dataset, generate_skewed_dataset)
     from icikit_torch.models.solitaire.game import (BoardBatch, solve_batch,
@@ -3662,13 +3675,15 @@ def solitaire_phase(torch, dev, smi) -> dict:
     # the native runtime, from the checkout's sources
     if not native.available():
         raise AssertionError(f"native runtime: {native.build_error()}")
-    r, loc = ctypes.c_int(), ctypes.c_int()
+    r, loc, shm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _build.check(_build.load("solitaire").icikit_solitaire_regs(
-        0, ctypes.byref(r), ctypes.byref(loc)), "kernel attributes")
+        0, ctypes.byref(r), ctypes.byref(loc), ctypes.byref(shm)),
+        "kernel attributes")
     emit({"phase": "solitaire", "part": "build",
           "native_library": native._LIB_PATH.split("icikit_torch/")[-1],
           "solve_dfs_kernel": {"registers": r.value,
-                               "local_bytes": loc.value}})
+                               "local_bytes": loc.value,
+                               "shared_bytes": shm.value}})
 
     def on_card(batch):
         return (cso.as_u32(torch.from_numpy(batch.pegs.view(np.int32))
@@ -3717,7 +3732,8 @@ def solitaire_phase(torch, dev, smi) -> dict:
                 for k, i, host_v in (("solved", 0, host.solved),
                                      ("n_moves", 1, host.n_moves),
                                      ("moves", 2, host.moves),
-                                     ("steps", 3, host.steps))}
+                                     ("steps", 3, host.steps),
+                                     ("status", 4, host.status))}
         err = int(np.abs(card[3].astype(np.int64) - host.steps).max())
         full[grade] = {"batch": batch, "pg": pg, "pl": pl, "card": card,
                        "host": host, "same": same, "err": err}
@@ -3813,6 +3829,41 @@ def solitaire_phase(torch, dev, smi) -> dict:
           "kernel_ms_at_plain_budget": kernel_small_ms, "plain_at": plain_at,
           "card": smi})
 
+    # a step's cost: one capped lane alone, then a warp of capped lanes
+    hard = full["hard"]
+    capped = np.flatnonzero(hard["host"].steps >= DFS_MAX_STEPS)
+    probes = {}
+    for name, idx in (("lone lane", capped[:1]), ("full warp",
+                                                  capped[:32])):
+        pg, pl = on_card(hard["batch"][idx])
+
+        def call(pg=pg, pl=pl):
+            return solve_batch(pg, pl, DFS_MAX_STEPS)
+
+        got = _host_arrays(call())
+        h = hard["host"]
+        want = [x[idx] for x in (h.solved, h.n_moves, h.moves, h.steps,
+                                 h.status)]
+        ok = len(idx) == (1 if name == "lone lane" else 32) and len(
+            got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want))
+        ms = sorted(cuda_time_ms(call, iters=DFS_ITERS, warmup=0)
+                    for _ in range(DFS_WINDOWS))
+        clock = sm_clock(call, ms[0])
+        mhz = float(clock.split()[0]) if clock[:1].isdigit() else None
+        med = ms[len(ms) // 2]
+        probes[name] = {"boards": len(idx), "ms": med, "windows_ms": ms,
+                        "ns_a_step": med * 1e6 / DFS_MAX_STEPS,
+                        "sm_clock": clock,
+                        "cycles_a_step": (med * 1e-3 * mhz * 1e6
+                                          / DFS_MAX_STEPS if mhz else None),
+                        "equal_to_host": ok}
+        if not ok:
+            bad.append({"what": f"probe {name} vs host"})
+    emit({"phase": "solitaire", "part": "probes", "max_steps": DFS_MAX_STEPS,
+          "chain_ops": DFS_STEP_CHAIN, "sass_chain_ops": DFS_SASS_CHAIN,
+          "dep_cycles": DEP_CYCLES, "probes": probes, "card": smi})
+
     # northstar, every target, in a fresh process
     ns = northstar_quick_in_child()
     if ns["rc"] != 0 or not ns["checks"] or not all(ns["checks"].values()):
@@ -3834,17 +3885,23 @@ def solitaire_phase(torch, dev, smi) -> dict:
             "max_abs_err": max(f["err"] for f in full.values()),
             "ms": med["ms"], "plain_ms": plain_ms,
             "bound_ms": med["bound_ms"], "bound_by": "operations",
-            "bound_kind": med["bound_kind"], "library_ms": None,
+            "bound_kind": med["bound_kind"],
+            "bound_sass_ms": med["critical_path_sass_ms"],
+            "library_ms": None,
             "library": "none (native host solver: "
                        f"{med['host_s']:.3f} s on {med['host_threads']} "
                        "threads)",
             "ms_by_batch": {g: t["ms"] for g, t in timed.items()},
             "bounds_by_batch": {g: {k: t[k] for k in (
-                "throughput_ms", "critical_path_ms")}
+                "throughput_ms", "critical_path_ms",
+                "critical_path_sass_ms")}
                 for g, t in timed.items()},
             "host_s_by_batch": {g: t["host_s"] for g, t in timed.items()},
             "plain_at": plain_at,
             "kernel_ms_at_plain_budget": kernel_small_ms,
+            "probes": {k: {x: v[x] for x in ("ms", "ns_a_step",
+                                             "cycles_a_step", "sm_clock")}
+                       for k, v in probes.items()},
             "ms_at": "medium, 20,000 boards, max_steps 500,000",
             "launches_on": "solve_static and solve_dynamic, 8 workers, on "
                            "the three full-size grades and the skewed set"}

@@ -135,10 +135,11 @@ def decode_bound_ms(rows: int, total: int, dh: int, cur: int,
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def _ptxas_regs(log: str, keep=None) -> dict:
+def _ptxas_regs(log: str, keep=None, shared: bool = False) -> dict:
     """{kernel: (registers, spill bytes)} of the kernels whose mangled
     name ``keep`` accepts (by default the bf16 flash kernels), from
-    nvcc's ``-Xptxas -v`` output."""
+    nvcc's ``-Xptxas -v`` output; with ``shared``, (registers, spill
+    bytes, static shared bytes)."""
     keep = keep or (lambda name: ("flash_" in name and "f32" not in name)
                     or "decode_step" in name)
     lines = log.splitlines()
@@ -152,9 +153,11 @@ def _ptxas_regs(log: str, keep=None) -> dict:
         info = " ".join(lines[i + 1:i + 4])
         r = re.search(r"Used (\d+) registers", info)
         sp = re.search(r"(\d+) bytes spill stores", info)
+        sm = re.search(r"(\d+) bytes smem", info)
         name = fn.replace("(anonymous namespace)::", "").replace("void ", "")
         regs[name.split("(")[0]] = (int(r.group(1)) if r else None,
-                                    int(sp.group(1)) if sp else None)
+                                    int(sp.group(1)) if sp else None) + (
+            (int(sm.group(1)) if sm else None,) if shared else ())
     return regs
 
 

@@ -115,7 +115,7 @@ _SIGNATURES = {
     },
     "solitaire": {
         "icikit_solve_dfs": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],
-        "icikit_solitaire_regs": [_I32, _IP, _IP],
+        "icikit_solitaire_regs": [_I32, _IP, _IP, _IP],
     },
 }
 

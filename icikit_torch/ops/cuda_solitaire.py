@@ -1,8 +1,10 @@
 """The peg-solitaire DFS on Hopper: wrapper, launch count.
 
 ``solve_dfs`` launches ``csrc/solitaire.cu``'s ``solve_dfs_kernel``
-(I2), one thread a board, once for the whole batch. It replaces no
-Pallas kernel: in JAX the DFS is a ``lax.while_loop`` under ``vmap``
+(I2) once for the whole batch: one thread a board at a time, at most
+two blocks of 64 threads an SM, the lanes of a block taking its range
+of boards in turn (the board's DFS is ``csrc/solitaire_dfs.cuh``). It
+replaces no Pallas kernel: in JAX the DFS is a ``lax.while_loop`` under ``vmap``
 that XLA compiles into one device program a batch
 (``icikit/models/solitaire/game.py:242-313``). Its plain version is
 ``models.solitaire.game.solve_batch_plain``, which steps the batch from

@@ -760,3 +760,49 @@ def test_xent_ab_wide_shape_bound_and_fallback(monkeypatch):
     fn()
     assert len(calls) == 1 and calls[0][:2] == (1, 1)
     assert calls[0][-4:] == (16, 24, 8, 7)
+
+
+def test_solitaire_ab_refuses_without_a_card_or_sources(monkeypatch):
+    """The DFS kernel's A/B bench runs on the card only: without one it
+    exits before building anything; a directory without
+    ``solitaire.cu`` is refused first."""
+    import torch
+
+    from icikit_torch.bench import solitaire_ab
+
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        solitaire_ab.main(["--a", csrc, "--b", csrc])
+    with pytest.raises(SystemExit):
+        solitaire_ab.main(["--a", csrc, "--b", os.path.join(ROOT, "tests")])
+
+
+def test_solitaire_ab_reads_ptxas_and_holds_b_to_a(monkeypatch):
+    """ptxas's registers, spills and shared bytes are read a kernel by
+    the benches' shared parser; the exit code follows B's outputs
+    against A's unless ``--timing-only``."""
+    from icikit_torch.bench import solitaire_ab
+    from icikit_torch.bench.flash_ab import _ptxas_regs
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z16solve_dfs_kernel' for 'sm_90a'
+ptxas info    : Function properties for _Z16solve_dfs_kernel
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 87 registers, used 1 barriers, 32004 bytes smem
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Used 12 registers, 0 bytes smem"""
+    assert _ptxas_regs(log, lambda k: True, shared=True) == {
+        "solve_dfs_kernel": (87, 8, 32004), "other": (12, None, 0)}
+    assert _ptxas_regs(log, lambda k: "solve_dfs" in k) == {
+        "solve_dfs_kernel": (87, 8)}
+    assert [n for n, _ in solitaire_ab.FULL] == ["easy", "medium", "hard"]
+    assert solitaire_ab.MAX_STEPS == 500_000
+    csrc = os.path.join(ROOT, "icikit_torch", "csrc")
+    argv = ["--a", csrc, "--b", csrc]
+    monkeypatch.setattr(solitaire_ab.torch.cuda, "is_available",
+                        lambda: True)
+    for ok in (True, False):
+        monkeypatch.setattr(solitaire_ab, "run", lambda *args, ok=ok: ok)
+        assert solitaire_ab.main(argv) == (0 if ok else 1)
+        assert solitaire_ab.main([*argv, "--timing-only"]) == 0

@@ -1683,3 +1683,71 @@ def test_solve_dfs_schedulers_on_streams(gen):
         assert (rep.solved == host.solved).all()
         assert (rep.steps == host.steps).all()
         assert (rep.moves == host.moves).all()
+
+
+@pytest.fixture(scope="module")
+def capped_hard():
+    """256 hard boards (seed 0), the native solver's outputs at 500,000
+    steps, and the indices of the boards that hit the cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+    from icikit_torch.models.solitaire.dataset import generate_dataset
+    from icikit_torch.models.solitaire.scheduler import solve_host
+    ds = generate_dataset(256, "hard", seed=0)
+    host = solve_host(ds, max_steps=500_000)
+    return ds, host, np.flatnonzero(host.steps >= 500_000)
+
+
+def _host_rows(host, idx):
+    import numpy as np
+    return [np.asarray(x)[idx] for x in (host.solved, host.n_moves,
+                                         host.moves, host.steps,
+                                         host.status)]
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_solve_dfs_capped_lanes_match_host(lanes, capped_hard, gen):
+    """A lone capped board (a one-board launch) and a warp of 32 capped
+    hard boards, at the study's budget, bit for bit the host's."""
+    ds, host, capped = capped_hard
+    assert len(capped) >= lanes
+    idx = capped[:lanes]
+    pg, pl = _boards_on_card(ds[idx])
+    got = [x.cpu().numpy() for x in cso.solve_dfs(pg, pl, 500_000)]
+    want = _host_rows(host, idx)
+    for g, w in zip(got, want):
+        assert (g == w).all()
+    assert (got[3] == 500_000).all() and (got[4] == 3).all()
+
+
+@pytest.mark.parametrize("n", [77, 100, 129])
+def test_solve_dfs_tail_lanes_match(n, capped_hard, gen):
+    """A batch that fills no whole warp or block: the lanes past n stay
+    in the loop stopped, the warps leave by their vote. Held to the host
+    at the study's budget and to the plain version at a small one."""
+    from icikit_torch.models.solitaire.game import solve_batch_plain
+    ds, host, _ = capped_hard
+    idx = list(range(n))
+    pg, pl = _boards_on_card(ds[idx])
+    got = [x.cpu().numpy() for x in cso.solve_dfs(pg, pl, 500_000)]
+    for g, w in zip(got, _host_rows(host, idx)):
+        assert (g == w).all()
+    assert _same(cso.solve_dfs(pg, pl, 1500), solve_batch_plain(pg, pl, 1500))
+
+
+@pytest.mark.parametrize("max_steps", [0, 3000])
+def test_solve_dfs_refills_lanes_past_one_wave(max_steps, gen):
+    """More boards than two blocks an SM hold: each lane takes its
+    block's next board when one stops (none steps at a zero budget).
+    Held to the host solver board for board."""
+    import numpy as np
+    from icikit_torch.models.solitaire.dataset import generate_dataset
+    from icikit_torch.models.solitaire.scheduler import solve_host
+    n = 2 * 64 * _build.sm_count(torch.device("cuda")) + 1234
+    ds = generate_dataset(n, "easy", seed=5)
+    host = solve_host(ds, max_steps=max_steps)
+    pg, pl = _boards_on_card(ds)
+    got = [x.cpu().numpy() for x in cso.solve_dfs(pg, pl, max_steps)]
+    for g, w in zip(got, _host_rows(host, np.arange(n))):
+        assert (g == w).all()
