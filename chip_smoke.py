@@ -280,10 +280,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    registers, spill and shared bytes on the ``build`` line; and
    ``python -m icikit_torch.bench.northstar --quick`` in a child
    process, every check it prints passed.
-28. kernels line: every ported kernel with its launches on its main path,
+28. the multi-process layer (``parallel.multihost``, ``parallel.pt2pt``,
+   the transport's process backend): in this process on the card, the
+   four hierarchical collectives at each (dcn, ici) of HIER_MESHES,
+   HIER_M elements a rank, int32 and float32, every tier algorithm and
+   op the JAX tests name (``_hier_cases``): int32 bitwise equal to the
+   flat ``xla`` collective (the reduce-scatter's rows reordered by
+   ``hier_chunk_index``), float32 bitwise equal to the port's CPU run of
+   the same call, except a float sum through an ``xla`` tier (torch's
+   own reduction adds in the device's order), held within 2 (p - 1)
+   2^-24 sum|x| of it; the hierarchical ring/ring allreduce timed beside
+   the flat ring and ``xla`` at float32 HIER_M a rank, (2, 4), by the
+   median-of-windows protocol. Then two child processes on the one card
+   (``examples.multihost``: gloo on a ``utils.net.free_port`` port,
+   retried on a port race, each child with its own deadline
+   MH_TIMEOUT), four ranks each: the flat families' variants at p = 8,
+   the hierarchical four at (2, 4) and the pt2pt primitives at MH_M a
+   rank, each child's rows stacked equal to this process's run of the
+   same cases on the card bit for bit; the bitonic sort of 2^MH_LOG2N
+   int32 keys at p = 8, each child's sorted rows (by sha256) equal to
+   this process's sort, 0 inversions counted across the processes,
+   both sort kernels launched in each child; its wall time, the bytes
+   that crossed the process boundary and the launches a child printed,
+   labelled as the host's wire.
+29. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
-   sort kernels also with their launches on each algorithm's 2^24 path.
+   sort kernels also with their launches on each algorithm's 2^24 path
+   and in each child of the two-process 2^28 sort.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``.
@@ -299,6 +323,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory, and the
@@ -538,6 +563,18 @@ DFS_STEP_OPS, DFS_STEP_CHAIN = 80, 16
 # -sass of solve_dfs_kernel: 7 LOP3, 3 IMAD, LEA.HI, 2 SHF), a tighter
 # critical path given beside DFS_STEP_CHAIN's
 DFS_SASS_CHAIN = 13
+
+# Phase 28: the hierarchical collectives at each (dcn, ici) of
+# HIER_MESHES with HIER_M elements a rank, one process on the card; the
+# two-process run (``examples.multihost``) at MH_M a rank for the
+# collectives and 2^MH_LOG2N int32 keys for the sort, MH_SORT_RUNS sorts
+# timed, each child's deadline MH_TIMEOUT seconds.
+HIER_MESHES = ((2, 4), (4, 2))
+HIER_M = 1 << 20
+MH_M = 1 << 16
+MH_LOG2N = 28
+MH_SORT_RUNS = 3
+MH_TIMEOUT = 240
 DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 DFS_WINDOWS, DFS_ITERS = 3, 2
 
@@ -757,7 +794,8 @@ def decode_path(torch, dev, bw, smi) -> dict:
                                        decode_step="unfused"))):
         res = timeit_windows(
             lambda p, c=c: greedy_generate(params, p, mesh, c, DEC_NEW),
-            (prompt,), chain, windows=3, runs=2, warmup=1, floor_s=floor_s)
+            (prompt,), chain, windows=3, runs=2, warmup=1, floor_s=floor_s,
+            max_windows=5)
         arms[name] = {"per_token_ms": res.median_s / DEC_NEW * 1e3,
                       "spread_ms": [res.min_s / DEC_NEW * 1e3,
                                     res.max_s / DEC_NEW * 1e3],
@@ -2445,7 +2483,7 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
         res = timeit_windows(
             lambda x, c=c, p=p: greedy_generate(p, x, mesh, c, DEC_NEW),
             (prompt,), chain, windows=3, runs=2, warmup=1,
-            floor_s=DEC_NEW * nbytes / bw)
+            floor_s=DEC_NEW * nbytes / bw, max_windows=5)
         arms[name] = {"per_token_ms": res.median_s / DEC_NEW * 1e3,
                       "spread_ms": [res.min_s / DEC_NEW * 1e3,
                                     res.max_s / DEC_NEW * 1e3],
@@ -3907,6 +3945,196 @@ def solitaire_phase(torch, dev, smi) -> dict:
                            "the three full-size grades and the skewed set"}
 
 
+def _hier_cases():
+    """(collective, keyword arguments): every tier algorithm and op the
+    JAX tests of the hierarchical collectives name."""
+    return ([("allreduce", {"ici_algorithm": a})
+             for a in ("ring", "recursive_doubling", "xla")]
+            + [("allreduce", {"dcn_algorithm": a})
+               for a in ("recursive_doubling", "xla")]
+            + [("allreduce", {"op": o}) for o in ("max", "min")]
+            + [("allgather", {"ici_algorithm": a, "dcn_algorithm": a})
+               for a in ("ring", "xla")]
+            + [("reducescatter", {"op": o}) for o in ("sum", "max")]
+            + [("alltoall", {}),
+               ("alltoall", {"ici_algorithm": "hypercube",
+                             "dcn_algorithm": "wraparound"})])
+
+
+def _vendor_sum(coll: str, kw: dict) -> bool:
+    """Whether a hierarchical case sums through an ``xla`` tier (the
+    vendor reduction, whose float order is the device's own)."""
+    return (coll == "allreduce" and kw.get("op", "sum") == "sum"
+            and "xla" in (kw.get("ici_algorithm"), kw.get("dcn_algorithm")))
+
+
+def multihost_phase(torch, dev, smi) -> dict:
+    """Phase 28: the multi-process layer (see the module docstring).
+    Returns each child's sort-kernel launches, ``{"net": [..], "cross":
+    [..]}``."""
+    import hashlib
+
+    import numpy as np
+
+    from icikit_torch import parallel as tp
+    from icikit_torch.examples import multihost as mh
+    from icikit_torch.models.sort import sort
+    from icikit_torch.utils.mesh import make_mesh
+    from icikit_torch.utils.timing import timeit_windows
+
+    t0 = time.perf_counter()
+    hier = {"allreduce": tp.hierarchical_all_reduce,
+            "allgather": tp.hierarchical_all_gather,
+            "reducescatter": tp.hierarchical_reduce_scatter,
+            "alltoall": tp.hierarchical_all_to_all}
+
+    def flat(coll, x, mesh, chunk_of, op="sum", **_):
+        if coll == "allreduce":
+            return tp.all_reduce(x, mesh, algorithm="xla", op=op)
+        if coll == "allgather":
+            return tp.all_gather_blocks(x, mesh, algorithm="xla")
+        if coll == "alltoall":
+            return tp.all_to_all_blocks(x, mesh, algorithm="xla")
+        return tp.reduce_scatter(x, mesh, algorithm="xla", op=op)[chunk_of]
+
+    def bits(t):  # float32 as its int32 image: equality is bitwise
+        return t.contiguous().view(torch.int32) if t.is_floating_point() \
+            else t
+
+    # -- one process on the card: int32 against the flat collective,
+    # float32 against the port's CPU run of the same call, bitwise
+    rng = np.random.default_rng(11)
+    checks = []
+    for dcn, ici in HIER_MESHES:
+        p = dcn * ici
+        mesh = tp.make_hybrid_mesh(dcn, ici, device=dev)
+        cpu_mesh = tp.make_hybrid_mesh(dcn, ici, device="cpu")
+        fmesh = make_mesh(p, device=dev)
+        chunk_of = tp.hier_chunk_index(mesh).to(dev)
+        for dt in ("int32", "float32"):
+            a = (rng.integers(-1000, 1000, (p, HIER_M)).astype(np.int32)
+                 if dt == "int32"
+                 else rng.standard_normal((p, HIER_M)).astype(np.float32))
+            for coll, kw in _hier_cases():
+                src = torch.from_numpy(
+                    a.reshape(p, p, HIER_M // p) if coll == "alltoall"
+                    else a)
+                x = src.to(dev)
+                got = hier[coll](x, mesh, **kw)
+                if dt == "int32":
+                    want = flat(coll, x, fmesh, chunk_of, **kw)
+                else:
+                    want = hier[coll](src, cpu_mesh, **kw).to(dev)
+                bitwise = bool(torch.equal(bits(got), bits(want)))
+                check = {"mesh": [dcn, ici], "collective": coll, **kw,
+                         "dtype": dt, "against": ("flat" if dt == "int32"
+                                                  else "cpu"),
+                         "bitwise": bitwise, "ok": bitwise}
+                if dt == "float32" and _vendor_sum(coll, kw):
+                    # torch.sum adds p terms in the device's own order:
+                    # two orders differ by at most 2 (p - 1) u sum|x|
+                    bound = 2 * (p - 1) * 2.0**-24 * x.abs().sum(0)
+                    check["against"] = "cpu, within 2(p-1) u sum|x|"
+                    check["ok"] = bool(((got - want).abs() <= bound).all())
+                checks.append(check)
+        del a, src, x, got, want
+    # the hierarchical against the flat allreduce, float32 HIER_M a rank
+    # at (2, 4), by the median-of-windows protocol
+    mesh = tp.make_hybrid_mesh(2, 4, device=dev)
+    fmesh = make_mesh(8, device=dev)
+    x = torch.from_numpy(rng.standard_normal((8, HIER_M)).astype(
+        np.float32)).to(dev)
+    timed = {}
+    for name, fn in (
+            ("hierarchical ring/ring",
+             lambda v: tp.hierarchical_all_reduce(v, mesh)),
+            ("flat ring", lambda v: tp.all_reduce(v, fmesh, "p", "ring")),
+            ("flat xla", lambda v: tp.all_reduce(v, fmesh, "p", "xla"))):
+        res = timeit_windows(fn, (x,), lambda a, o: (o * 0.125,),
+                             windows=5, runs=4, warmup=1, max_windows=7)
+        timed[name] = {"median_ms": res.median_s * 1e3,
+                       "spread_ms": [res.min_s * 1e3, res.max_s * 1e3],
+                       "windows": res.windows}
+    del x
+    one_s = time.perf_counter() - t0
+    emit({"phase": "multihost", "part": "one_process", "device": dev,
+          "nvidia_smi": smi, "m_per_rank": HIER_M, "checks": checks,
+          "allreduce_float32_ms": timed, "seconds": round(one_s, 1)})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"hierarchical collectives disagree: {bad}")
+
+    # -- two processes on the one card (gloo, staged through host)
+    t1 = time.perf_counter()
+    data = mh.inputs(MH_M, MH_LOG2N)
+    one = {k: v.cpu().numpy() for k, v in mh.run_cases(
+        make_mesh(mh.RANKS, device=dev),
+        tp.make_hybrid_mesh(*mh.HYBRID, device=dev), data).items()}
+    keys = torch.from_numpy(data["keys"]).to(dev)
+    out = sort(keys, make_mesh(mh.RANKS, device=dev)).view(mh.RANKS, -1)
+    half = mh.RANKS // mh.PROCESSES
+    digests = [hashlib.sha256(out[i * half:(i + 1) * half].cpu().numpy()
+                              .tobytes()).hexdigest()
+               for i in range(mh.PROCESSES)]
+    del keys, out, data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if q])
+    t2 = time.perf_counter()
+    # the children's rows (~130 MB) and logs go to a temporary directory
+    with tempfile.TemporaryDirectory(prefix="icikit_multihost_") as out_dir:
+        res = mh.launch(mh.worker_argv(dev, out_dir, MH_M, MH_LOG2N,
+                                       sort_runs=MH_SORT_RUNS,
+                                       keep_sorted=False,
+                                       timeout=MH_TIMEOUT),
+                        out_dir, timeout=MH_TIMEOUT + 60, env=env, cwd=repo)
+        children_s = time.perf_counter() - t2
+        for i, (code, text) in enumerate(res):
+            if code != 0 or "WORKER_OK" not in text:
+                raise AssertionError(f"two-process worker {i} exit "
+                                     f"{code}:\n{text[-3000:]}")
+        recs = [mh.worker_result(text) for _, text in res]
+        rows = [np.load(os.path.join(out_dir, f"rank{i}.npz"))
+                for i in range(mh.PROCESSES)]
+        mismatched = [
+            k for k, v in one.items()
+            if not np.array_equal(
+                np.ascontiguousarray(np.concatenate([r[k] for r in rows]))
+                .view(np.uint8), np.ascontiguousarray(v).view(np.uint8))]
+    launches = {c: [r["launches"][c] for r in recs] for c in ("net",
+                                                              "cross")}
+    record = {
+        "phase": "multihost", "part": "two_processes",
+        "note": (mh.BACKEND_NOTE + "; the times and bytes are the host's "
+                 "wire (gloo over the loopback, pinned host staging), "
+                 "not the card's"),
+        "processes": mh.PROCESSES, "ranks": mh.RANKS,
+        "cases": len(one), "mismatched": mismatched,
+        "sort": {"n": 1 << MH_LOG2N, "dtype": "int32", "p": mh.RANKS,
+                 "wall_s_each_process": [r["sort_s"] for r in recs],
+                 "wall_s_slowest": [max(t) for t in
+                                    zip(*(r["sort_s"] for r in recs))],
+                 "inversions": [r["inversions"] for r in recs],
+                 "equal_to_one_process": [r["sha256"] == d for r, d in
+                                          zip(recs, digests)],
+                 "launches_each_process": launches,
+                 "wire_each_process": [r["wire"] for r in recs]},
+        "children_s": round(children_s, 1),
+        "seconds": round(time.perf_counter() - t1, 1),
+        "nvidia_smi": smi}
+    emit(record)
+    sort_rec = record["sort"]
+    if (mismatched or any(sort_rec["inversions"])
+            or not all(sort_rec["equal_to_one_process"])
+            or 0 in launches["net"] or 0 in launches["cross"]):
+        raise AssertionError(f"two-process run: {record}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4293,7 +4521,14 @@ def main() -> int:
     # -- 27. the load-balancing study: I2, the schedulers, northstar -----
     rows.append(solitaire_phase(torch, dev, smi))
 
-    # -- 28. the kernels line --------------------------------------------
+    # -- 28. the multi-process layer: hierarchical, two processes --------
+    mh_launches = multihost_phase(torch, dev, smi)
+    for row, counter in ((rows[0], "net"), (rows[1], "cross")):
+        row["launches_on_sort_paths"][
+            f"bitonic 2^{MH_LOG2N} int32 p=8, two processes (each)"] = \
+            mh_launches[counter]
+
+    # -- 29. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

@@ -28,12 +28,18 @@ metrics and spans (``obs``) it needs; the load-balancing study
 ``ops.cuda_solitaire``, static and dynamic schedulers whose workers are
 CUDA streams, the native host solver of the port's own runtime
 ``native``, the guard ``utils.guard``) and the north-star runner
-(``python -m icikit_torch.bench.northstar``).
+(``python -m icikit_torch.bench.northstar``); the point-to-point
+primitives (``parallel.pt2pt``) and the multi-process layer
+(``parallel.multihost``: ``init_distributed``, hybrid meshes, the
+hierarchical collectives; ``python -m icikit_torch.examples.multihost``).
 
 Ranks: where ``icikit`` spreads p ranks over p devices of a
 ``jax.sharding.Mesh``, the port keeps them as the leading axis of one
 tensor on one device (``utils.mesh.RankMesh``), so a rank-parallel body
-is written once, vectorised over that axis.
+is written once, vectorised over that axis. Across OS processes each
+process holds a contiguous range of the ranks as its rows, and an
+exchange with another process's rank crosses the transport's process
+backend (``torch.distributed``).
 """
 
 from icikit_torch.utils.mesh import RankMesh, make_mesh  # noqa: F401

@@ -1,0 +1,359 @@
+"""The two-process bring-up, the ``mpirun`` analog
+(``Communication/Data/sub.sh:9-15``, ``MPI_Init`` at
+``Communication/src/main.cc:396``): a worker that runs the port's
+collectives, point-to-point primitives and bitonic sort with its ranks
+split across OS processes, and the launcher that starts the workers.
+
+Each worker joins the ``torch.distributed`` group (``init_distributed``,
+gloo), builds the flat mesh of 8 ranks and the (dcn 2, ici 4) hybrid
+mesh (four ranks a process), runs every case of :func:`run_cases` on
+its rows of the seeded inputs of :func:`inputs`, sorts ``2^log2n`` int32
+keys with ``sort(algorithm="bitonic")`` (on the card through the sort
+kernels, each process its own rows), counts the inversions across the
+processes, writes its rows to ``OUT/rank<i>.npz`` and prints one
+``WORKER_RESULT`` JSON line and ``WORKER_OK``. The rows of the two
+processes, stacked, are the one-process result of the same cases:
+``run_cases`` on single-process meshes computes that.
+
+Two processes on the CPU::
+
+    python -m icikit_torch.examples.multihost --port 29511 \\
+        --process-id 0 --device cpu --out /tmp/mh &
+    python -m icikit_torch.examples.multihost --port 29511 \\
+        --process-id 1 --device cpu --out /tmp/mh
+
+or both at once, a fresh port and a retry on a port race::
+
+    python -m icikit_torch.examples.multihost --launch --device cpu \\
+        --out /tmp/mh
+
+On one card both processes share it (NCCL refuses two ranks on one
+GPU, so the backend is gloo: the tensors and every kernel stay on the
+card, and only a block bound for the other process crosses, through
+pinned host memory).
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+RANKS = 8
+PROCESSES = 2
+HYBRID = (2, 4)
+ROOT = 5
+SEED = 7
+LAUNCH_ATTEMPTS = 3
+BACKEND_NOTE = "backend: gloo, staged through host"
+
+
+def inputs(m: int, log2n: int) -> dict:
+    """The global inputs, every rank's row, from SEED: int32 and float32
+    (RANKS, m) operands, (RANKS, RANKS, m / RANKS) alltoall operands,
+    and the sort's 2^log2n int32 keys."""
+    rng = np.random.default_rng(SEED)
+    return {
+        "int32": rng.integers(-100, 100, (RANKS, m)).astype(np.int32),
+        "float32": rng.standard_normal((RANKS, m)).astype(np.float32),
+        "blocks": rng.integers(-100, 100, (RANKS, RANKS, m // RANKS)
+                               ).astype(np.int32),
+        "keys": rng.integers(-2**31, 2**31 - 1, 1 << log2n,
+                             dtype=np.int32),
+    }
+
+
+# (family, algorithm, dtype, op or None, extra keyword arguments)
+FLAT = (
+    [("allgather", a, "int32", None, {}) for a in
+     ("naive", "ring", "recursive_doubling", "recursive_doubling_twins",
+      "xla")]
+    + [("allgather", "ring", "float32", None, {})]
+    + [("allreduce", a, "int32", op, {}) for a in
+       ("recursive_doubling", "ring", "xla") for op in ("sum", "max")]
+    + [("allreduce", a, "float32", "sum", {}) for a in
+       ("recursive_doubling", "ring")]
+    + [("reducescatter", a, "int32", "sum", {}) for a in
+       ("ring", "recursive_halving", "pairwise", "xla")]
+    + [("reducescatter", a, "float32", "sum", {}) for a in
+       ("ring", "recursive_halving", "pairwise")]
+    + [("reducescatter", "ring", "int32", "min", {})]
+    + [("alltoall", a, "int32", None, {}) for a in
+       ("wraparound", "naive", "ecube", "hypercube", "xla")]
+    + [("scan", a, "int32", "sum", {}) for a in
+       ("hillis_steele", "linear", "xla")]
+    + [("scan", a, "float32", "sum", {}) for a in
+       ("hillis_steele", "linear")]
+    + [("scan", "hillis_steele", "int32", "max", {"inclusive": False})]
+    + [("reduce", a, "int32", "sum", {"root": ROOT}) for a in
+       ("binomial", "xla")]
+    + [("reduce", "binomial", "float32", "sum", {"root": ROOT})]
+)
+
+# (collective, ici algorithm, dcn algorithm, dtype, op or None)
+HIER = (
+    [("allreduce", i, d, "int32", "sum") for i, d in
+     (("ring", "ring"), ("recursive_doubling", "ring"), ("xla", "xla"),
+      ("ring", "recursive_doubling"), ("ring", "xla"))]
+    + [("allreduce", i, i, "float32", "sum") for i in
+       ("ring", "recursive_doubling")]
+    + [("allreduce", "ring", "ring", "int32", "max")]
+    + [("allgather", a, a, "int32", None) for a in ("ring", "xla")]
+    + [("reducescatter", a, a, dt, op) for a, dt, op in
+       (("ring", "int32", "sum"), ("ring", "float32", "sum"),
+        ("ring", "int32", "max"),
+        ("recursive_halving", "int32", "sum"))]
+    + [("alltoall", i, d, "int32", None) for i, d in
+       (("xla", "xla"), ("hypercube", "wraparound"))]
+)
+
+
+def _name(*parts) -> str:
+    return "/".join(str(x) for x in parts if x not in (None, {}))
+
+
+def run_cases(flat, hybrid, data: dict) -> dict:
+    """Every case on this process's rows (all rows in one process):
+    ``{name: (rows, ...) tensor}``. ``flat`` is a ``RankMesh`` of RANKS,
+    ``hybrid`` a ``HybridMesh`` (2, 4) of the same ranks and device."""
+    from icikit_torch import parallel as tp
+    from icikit_torch.parallel import pt2pt
+    from icikit_torch.parallel.shmap import on_mesh
+
+    lo, hi = flat.local
+    dev = flat.device
+
+    def rows(name):
+        return torch.from_numpy(data[name][lo:hi]).to(dev)
+
+    entry = {"allgather": tp.all_gather_blocks, "allreduce": tp.all_reduce,
+             "reducescatter": tp.reduce_scatter, "scan": tp.scan_reduce,
+             "reduce": tp.reduce_to_root}
+    out = {}
+    for fam, alg, dt, op, kw in FLAT:
+        x = rows("blocks" if fam == "alltoall" else dt)
+        if fam == "alltoall":
+            got = tp.all_to_all_blocks(x, flat, algorithm=alg)
+        elif op is None:
+            got = entry[fam](x, flat, algorithm=alg)
+        else:
+            got = entry[fam](x, flat, algorithm=alg, op=op, **kw)
+        out[_name(fam, alg, dt, op, *sorted(kw.items()))] = got
+    hier = {"allreduce": tp.hierarchical_all_reduce,
+            "allgather": tp.hierarchical_all_gather,
+            "reducescatter": tp.hierarchical_reduce_scatter,
+            "alltoall": tp.hierarchical_all_to_all}
+    for coll, ici, dcn, dt, op in HIER:
+        x = rows("blocks" if coll == "alltoall" else dt)
+        kw = {} if op is None else {"op": op}
+        out[_name("hier", coll, ici, dcn, dt, op)] = hier[coll](
+            x, hybrid, ici_algorithm=ici, dcn_algorithm=dcn, **kw)
+    x = rows("int32")
+    with on_mesh(flat):
+        out["pt2pt/shift2"] = pt2pt.sendrecv_shift(x, RANKS, 2)
+        out["pt2pt/xor3"] = pt2pt.sendrecv_xor(x, RANKS, 3)
+        out["pt2pt/xor4"] = pt2pt.sendrecv_xor(x, RANKS, 4)
+        out["pt2pt/send0to5"] = pt2pt.send_to(x, [(0, 5)])
+        out["pt2pt/send6to1"] = pt2pt.send_to(x, [(6, 1)])
+        for periodic in (True, False):
+            left, right = pt2pt.halo_exchange(x, RANKS, 2, periodic)
+            out[f"pt2pt/halo_left/{periodic}"] = left
+            out[f"pt2pt/halo_right/{periodic}"] = right
+        out["pt2pt/barrier"] = x + pt2pt.barrier(RANKS, dev)[:, None]
+    return out
+
+
+def sort_case(flat, keys: np.ndarray, runs: int) -> tuple:
+    """Sort this process's part of ``keys`` with the bitonic sort
+    ``runs`` times (the launches and the wire counted on the first),
+    count the inversions across the processes. Returns (sorted rows,
+    record)."""
+    from icikit_torch.models.sort import check_sort, sort
+    from icikit_torch.ops import cuda_sort
+    from icikit_torch.parallel import transport
+
+    lo, hi = flat.local
+    part = keys.reshape(RANKS, -1)[lo:hi].reshape(-1)
+    x = torch.from_numpy(part).to(flat.device)
+    cuda = x.is_cuda
+    seconds, launches, wire = [], None, None
+    for i in range(runs):
+        _sync(cuda)
+        cuda_sort.reset_launches()
+        transport.reset_wire()
+        t0 = time.perf_counter()
+        out = sort(x, flat, algorithm="bitonic")
+        _sync(cuda)
+        seconds.append(time.perf_counter() - t0)
+        if i == 0:
+            launches, wire = dict(cuda_sort.LAUNCHES), dict(transport.WIRE)
+    out2d = out.reshape(hi - lo, -1)
+    inversions = check_sort(out2d, flat)
+    host = out.cpu().numpy()
+    return out2d, {"n": int(keys.size), "n_local": int(part.size),
+                   "sort_s": seconds, "launches": launches, "wire": wire,
+                   "inversions": inversions,
+                   "sha256": hashlib.sha256(host.tobytes()).hexdigest()}
+
+
+def _sync(cuda: bool) -> None:
+    """Wait for the card, then for every process (the backend's
+    barrier), so a timed window starts with all processes ready."""
+    if cuda:
+        torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def worker(args) -> int:
+    from icikit_torch.parallel.multihost import (init_distributed,
+                                                 make_hybrid_mesh,
+                                                 process_info)
+    from icikit_torch.utils.mesh import make_mesh
+
+    timeout = datetime.timedelta(seconds=args.timeout)
+    live = init_distributed(coordinator_address=f"localhost:{args.port}",
+                            num_processes=PROCESSES,
+                            process_id=args.process_id, timeout=timeout)
+    if not (live and init_distributed() is True):  # idempotent 2nd call
+        raise RuntimeError("the process group is not live")
+    proc, nproc, _ = process_info()
+    if (proc, nproc) != (args.process_id, PROCESSES):
+        raise RuntimeError(f"process_info {(proc, nproc)}")
+    flat = make_mesh(RANKS, device=args.device)
+    hybrid = make_hybrid_mesh(device=args.device)
+    if hybrid.shape != {"dcn": HYBRID[0], "p": HYBRID[1]}:
+        raise RuntimeError(f"hybrid mesh {hybrid.shape}")
+    if flat.local != hybrid.local:
+        raise RuntimeError(f"flat ranks {flat.local}, hybrid "
+                           f"{hybrid.local}")
+    data = inputs(args.m, args.log2n)
+    t0 = time.perf_counter()
+    rows = {k: v.cpu().numpy() for k, v in
+            run_cases(flat, hybrid, data).items()}
+    cases_s = time.perf_counter() - t0
+    sorted_rows, record = sort_case(flat, data["keys"], args.sort_runs)
+    if args.keep_sorted:
+        rows["sort/bitonic"] = sorted_rows.cpu().numpy()
+    os.makedirs(args.out, exist_ok=True)
+    np.savez(os.path.join(args.out, f"rank{proc}.npz"), **rows)
+    record.update({"process": proc, "processes": nproc,
+                   "ranks": list(flat.local), "device": args.device,
+                   "note": BACKEND_NOTE, "cases": len(rows),
+                   "cases_s": cases_s})
+    print("WORKER_RESULT " + json.dumps(record), flush=True)
+    dist.destroy_process_group()
+    print("WORKER_OK", flush=True)
+    return 0 if record["inversions"] == 0 else 1
+
+
+def launch(argv: list, out: str, timeout: float, env=None,
+           cwd=None) -> list:
+    """Start PROCESSES workers with ``argv`` (:func:`worker_argv`) on a
+    fresh coordinator port and wait for all of them, ``timeout``
+    seconds at most; once one fails, the others get five seconds before
+    they are killed. A failure whose output shows a lost port race
+    (``utils.net.PORT_RACE_SIGS``) retries on a fresh port,
+    LAUNCH_ATTEMPTS times in all. Returns ``[(returncode, output)]`` (a
+    negative code for a worker killed at the deadline); ``free_port``'s
+    ``OSError`` (no local port can be bound) propagates."""
+    from icikit_torch.utils.net import PORT_RACE_SIGS, free_port
+
+    os.makedirs(out, exist_ok=True)
+    results = []
+    for _ in range(LAUNCH_ATTEMPTS):
+        port = free_port()
+        logs = [os.path.join(out, f"worker{i}.log") for i in
+                range(PROCESSES)]
+        procs = []
+        for i, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "icikit_torch.examples.multihost",
+                     *argv, "--port", str(port), "--process-id", str(i)],
+                    stdout=f, stderr=subprocess.STDOUT, env=env, cwd=cwd))
+        deadline = time.monotonic() + timeout
+        failed_at = None
+        while any(p.poll() is None for p in procs):
+            now = time.monotonic()
+            if failed_at is None and any(p.poll() not in (None, 0)
+                                         for p in procs):
+                failed_at = now
+            if now > deadline or (failed_at and now > failed_at + 5):
+                break
+            time.sleep(0.1)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        results = []
+        for code, log in zip(codes, logs):
+            with open(log) as f:
+                results.append((code, f.read()))
+        if all(c == 0 for c in codes):
+            return results
+        if not any(sig in o for _, o in results for sig in PORT_RACE_SIGS):
+            return results
+    return results
+
+
+def worker_result(output: str) -> dict:
+    """The ``WORKER_RESULT`` record in a worker's output."""
+    line = next(l for l in output.splitlines()
+                if l.startswith("WORKER_RESULT "))
+    return json.loads(line[len("WORKER_RESULT "):])
+
+
+def worker_argv(device: str, out: str, m: int, log2n: int,
+                sort_runs: int = 1, keep_sorted: bool = True,
+                timeout: float = 120) -> list:
+    """The worker's options, as :func:`launch` takes them."""
+    return (["--device", device, "--out", out, "--m", str(m),
+             "--log2n", str(log2n), "--sort-runs", str(sort_runs),
+             "--timeout", str(timeout)]
+            + (["--keep-sorted"] if keep_sorted else []))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--port", type=int)
+    ap.add_argument("--process-id", type=int)
+    ap.add_argument("--launch", action="store_true",
+                    help="start both workers on a fresh port and wait")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--m", type=int, default=64,
+                    help="elements a rank of the collectives' operands")
+    ap.add_argument("--log2n", type=int, default=16)
+    ap.add_argument("--sort-runs", type=int, default=1)
+    ap.add_argument("--keep-sorted", action="store_true",
+                    help="write the sorted rows to the .npz too")
+    ap.add_argument("--timeout", type=float, default=120)
+    args = ap.parse_args(argv)
+    if args.m % RANKS:
+        ap.error(f"--m must be a multiple of {RANKS}")
+    if args.launch:
+        res = launch(worker_argv(args.device, args.out, args.m, args.log2n,
+                                 args.sort_runs, args.keep_sorted,
+                                 args.timeout),
+                     args.out, args.timeout + 60)
+        for i, (code, out) in enumerate(res):
+            print(f"-- worker {i}: exit {code}\n{out[-4000:]}")
+        return 0 if all(c == 0 for c, _ in res) else 1
+    if args.port is None or args.process_id is None:
+        ap.error("--port and --process-id (or --launch)")
+    return worker(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

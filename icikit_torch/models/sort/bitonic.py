@@ -7,6 +7,9 @@ partner ``myid ^ 2^j``, keep-max iff ibit != jbit (``:184-195``). Here
 the p ranks are the leading axis of one (p, n_loc) tensor, so each round
 is one gather (``transport.ppermute``), one elementwise min/max and one
 merge network over all p rows at once, as the first local sort is.
+Across processes each process holds its ranks' rows and sorts them in
+the same launches; a round whose partner lives in another process
+exchanges through the transport's process backend.
 
 Power-of-2 rank count required, as in the reference (``:168-172``).
 """
@@ -18,7 +21,7 @@ import torch
 from icikit_torch.ops.cuda_sort import _i32_as_u32, _u32_as_i32, local_sort
 from icikit_torch.ops.merge import bitonic_merge
 from icikit_torch.parallel import transport
-from icikit_torch.parallel.shmap import xor_perm
+from icikit_torch.parallel.shmap import my_ranks, on_mesh, xor_perm
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, RankMesh,
                                      UnsupportedMeshError, ilog2, is_pow2)
 
@@ -32,21 +35,22 @@ def _require_pow2(p: int) -> None:
 
 def bitonic_sort_shard(a: torch.Tensor, p: int) -> torch.Tensor:
     """Rank-vectorised bitonic sort; ``a``: (p, n_loc), row r is rank
-    r's unsorted block.
+    r's unsorted block (under a process view: this process's ranks).
 
     Invariant: every row is sorted ascending after every compare-split,
     so the Batcher min/max-reverse identity applies at each round.
     Returns (p, n_loc) with row k the k-th block of the sorted sequence.
     """
     _require_pow2(p)
-    if a.shape[0] != p:
-        raise ValueError(f"leading dim {a.shape[0]} != p={p}")
+    mine = my_ranks(p)
+    if a.shape[0] != len(mine):
+        raise ValueError(f"leading dim {a.shape[0]} != p={len(mine)}")
     usgn = a.dtype == torch.uint32
     if usgn:  # min/max and flips run on the order-preserving int32 image
         a = _u32_as_i32(a)
     a = local_sort(a)
     if p > 1:
-        r = torch.arange(p, device=a.device)
+        r = transport.index(tuple(mine), a.device)
         for i in range(ilog2(p)):
             for j in range(i, -1, -1):
                 bit = 1 << j
@@ -87,6 +91,8 @@ def build_checked(mesh: RankMesh, axis: str = DEFAULT_AXIS):
 def bitonic_sort_blocks(x2d: torch.Tensor, mesh: RankMesh,
                         axis: str = DEFAULT_AXIS) -> torch.Tensor:
     """Sort (p, n_loc) data globally ascending; row k ends with block k
-    of the sorted sequence. n_loc must be a power of 2 (use
+    of the sorted sequence (across processes, ``x2d`` and the result
+    hold this process's ranks). n_loc must be a power of 2 (use
     ``models.sort.sort`` for arbitrary flat inputs)."""
-    return bitonic_sort_shard(x2d, mesh.shape[axis])
+    with on_mesh(mesh, axis):
+        return bitonic_sort_shard(x2d, mesh.shape[axis])

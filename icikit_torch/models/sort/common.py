@@ -54,9 +54,25 @@ def prepare_blocks(x: torch.Tensor, mesh: RankMesh,
     (``psort.cc:556-562``); equal blocks keep shapes regular. ``fill``
     defaults to the dtype sentinel, which sorts to the global tail.
     Returns ((p, n_loc) tensor, n_loc).
+
+    Across processes ``x`` is this process's part, which must fill its
+    k ranks with equal blocks (a power of two with ``pow2_local``): no
+    padding, which would sort to the global tail, is added in the middle
+    of the global sequence. Returns ((k, n_loc), n_loc).
     """
     p = mesh_axis_size(mesh, axis)
     n = x.shape[0]
+    procs = getattr(mesh, "procs", 1)
+    if procs > 1:
+        k = p // procs
+        n_loc = n // k if n % k == 0 else 0
+        if n_loc == 0 or (pow2_local and n_loc != next_pow2(n_loc)):
+            raise ValueError(
+                f"across processes each process's part must fill its {k} "
+                f"ranks with equal blocks"
+                f"{' of a power-of-two length' if pow2_local else ''}; "
+                f"got {n} elements")
+        return x.to(mesh.device).reshape(k, n_loc), n_loc
     n_loc = max(1, -(-n // p))
     if pow2_local:
         n_loc = next_pow2(n_loc)

@@ -37,7 +37,7 @@ from icikit_torch.models.sort.sample import (bucket_route,
                                              run_with_capacity_retry)
 from icikit_torch.ops.cuda_sort import _i32_as_u32, _u32_as_i32
 from icikit_torch.utils.dtypes import sentinel_for
-from icikit_torch.utils.mesh import DEFAULT_AXIS
+from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
 
 
 def _sort_kv_local(k: torch.Tensor, v: torch.Tensor, valid=None):
@@ -95,6 +95,7 @@ def sort_kv(keys: torch.Tensor, values: torch.Tensor, mesh,
     usgn = keys.dtype == torch.uint32
     if usgn:
         keys = _u32_as_i32(keys)
+    require_single_process(mesh, "sort_kv")
     k2d, n_loc = prepare_blocks(keys, mesh, axis)
     v2d, _ = prepare_blocks(values, mesh, axis, fill=0)
     p = k2d.shape[0]

@@ -8,8 +8,16 @@ name for the vendor baseline, which here is PyTorch's own op over the
 rank axis. Ported so far: the nine families, ``reduceloc``,
 ``alltoallv`` and the checked transport (``integrity``: ``checked=True``
 on allgather, allreduce, alltoall, reducescatter and scan, and the
-``checked_*`` twins); ``pt2pt`` and ``multihost`` are later parts of
-ROADMAP A5.
+``checked_*`` twins), the point-to-point primitives (``pt2pt``) and the
+multi-process layer (``multihost``: ``init_distributed``, the hybrid
+(dcn, ici) mesh and the four hierarchical collectives). Across OS
+processes a mesh's ranks split into contiguous ranges, one a process,
+and an exchange with another process's rank crosses the process backend
+of ``transport`` (``torch.distributed``, gloo by default): the bitonic
+sort, pt2pt and the allgather, allreduce, reducescatter, alltoall, scan
+and reduce families run there; checked mode, the other families and
+the other three sorts raise ``NotImplementedError`` across processes
+(ROADMAP A5).
 
 Terminology note: the reference calls its *broadcast-semantics*
 collective "AllToAll" (an allgather, ``Communication/src/main.cc:38-223``)
@@ -48,6 +56,23 @@ from icikit_torch.parallel.collops import (  # noqa: F401
     broadcast,
     gather_blocks,
     scatter_blocks,
+)
+from icikit_torch.parallel.multihost import (  # noqa: F401
+    hier_chunk_index,
+    hierarchical_all_gather,
+    hierarchical_all_reduce,
+    hierarchical_all_to_all,
+    hierarchical_reduce_scatter,
+    init_distributed,
+    make_hybrid_mesh,
+    process_info,
+)
+from icikit_torch.parallel.pt2pt import (  # noqa: F401
+    barrier,
+    halo_exchange,
+    send_to,
+    sendrecv_shift,
+    sendrecv_xor,
 )
 from icikit_torch.parallel.reduce import (  # noqa: F401
     REDUCE_ALGORITHMS,

@@ -44,7 +44,7 @@ from icikit_torch.utils.registry import register_algorithm
 def _own_block_first(x: torch.Tensor, p: int, slots: int) -> torch.Tensor:
     """Step (1) of the shared skeleton: each rank's own block into its
     result slot, in a (p, slots, ...) buffer."""
-    out = x.new_zeros((p, slots) + x.shape[1:])
+    out = x.new_zeros((x.shape[0], slots) + x.shape[1:])
     return rank_put_(out, range(p), x[:, None])
 
 
@@ -126,7 +126,7 @@ def _recursive_doubling_twins(x: torch.Tensor, p: int) -> torch.Tensor:
     p2 = 1 << p.bit_length()
     n_twins = p2 - p
     out_own = _own_block_first(x, p, p2)
-    out_twin = x.new_zeros((p, p2) + x.shape[1:])
+    out_twin = x.new_zeros((x.shape[0], p2) + x.shape[1:])
     for i in range(ilog2(p2)):
         step = 1 << i
         perms = _twin_perms(p, step)
@@ -151,8 +151,11 @@ def _recursive_doubling_twins(x: torch.Tensor, p: int) -> torch.Tensor:
 @register_algorithm("allgather", "xla")
 def _xla(x: torch.Tensor, p: int) -> torch.Tensor:
     """Vendor baseline (JAX: ``lax.all_gather`` over ICI): every rank's
-    copy of the (p, ...) operand, written once by ``expand``."""
-    return x.unsqueeze(0).expand((p,) + x.shape).contiguous()
+    copy of the (p, ...) operand, written once by ``expand`` (across
+    processes, the operand gathered by the backend's all-gather)."""
+    view = transport.process_view()
+    full = x if view is None else view.all_gather(x)
+    return full.unsqueeze(0).expand((x.shape[0],) + full.shape).contiguous()
 
 
 ALLGATHER_ALGORITHMS = ("naive", "ring", "recursive_doubling",

@@ -46,13 +46,13 @@ def _ring(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
     with padded lanes and are sliced off."""
     from icikit_torch.parallel.allgather import _ring as _allgather_ring
     from icikit_torch.parallel.reducescatter import _ring as _rs_ring
-    m = x.shape[1]
+    rows, m = x.shape[0], x.shape[1]
     pad = (-m) % p
     if pad:
-        x = torch.cat([x, x.new_zeros((p, pad) + x.shape[2:])], 1)
+        x = torch.cat([x, x.new_zeros((rows, pad) + x.shape[2:])], 1)
     chunk = _rs_ring(x, p, op)              # rank r owns chunk r
     gathered = _allgather_ring(chunk, p)    # (p, p, m'/p, ...) in order
-    out = gathered.reshape((p, m + pad) + x.shape[2:])
+    out = gathered.reshape((rows, m + pad) + x.shape[2:])
     return out[:, :m] if pad else out
 
 
@@ -60,7 +60,7 @@ def _ring(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
 def _xla(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
     """Vendor baseline: the reduction over the rank axis, every rank's
     copy written once."""
-    return reduce_ranks(x, op).expand((p,) + x.shape[1:]).contiguous()
+    return reduce_ranks(x, op).expand(x.shape).contiguous()
 
 
 ALLREDUCE_ALGORITHMS = ("recursive_doubling", "ring", "xla")

@@ -25,6 +25,7 @@ import torch
 
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
+    mine,
     rank_put_,
     rank_take,
     run_collective,
@@ -98,12 +99,12 @@ def _hypercube(buf: torch.Tensor, p: int) -> torch.Tensor:
     """
     _require_pow2("hypercube", p)
     out = buf.clone(memory_format=torch.contiguous_format)
-    tail = buf.shape[2:]
-    ranks = index(tuple(range(p)), buf.device)
+    rows, tail = buf.shape[0], buf.shape[2:]
+    ranks = index(tuple(range(rows)), buf.device)
     for i in range(ilog2(p)):
         bit = 1 << i
-        view = out.view((p, p // (2 * bit), 2, bit) + tail)
-        other = index(tuple(1 - ((r >> i) & 1) for r in range(p)),
+        view = out.view((rows, p // (2 * bit), 2, bit) + tail)
+        other = index(mine(1 - ((r >> i) & 1) for r in range(p)),
                       buf.device)
         recv = transport.ppermute(view[ranks, :, other], xor_perm(p, bit))
         view[ranks, :, other] = recv
@@ -112,9 +113,19 @@ def _hypercube(buf: torch.Tensor, p: int) -> torch.Tensor:
 
 @register_algorithm("alltoall", "xla")
 def _xla(buf: torch.Tensor, p: int) -> torch.Tensor:
-    """Vendor baseline: the transpose of the rank and slot axes."""
-    del p
-    return buf.transpose(0, 1).contiguous()
+    """Vendor baseline: the transpose of the rank and slot axes (across
+    processes, the backend's all-to-all moves each process's slots for
+    another process's ranks, then the local transpose)."""
+    view = transport.process_view()
+    if view is None:
+        return buf.transpose(0, 1).contiguous()
+    k, tail = buf.shape[0], buf.shape[2:]
+    # [q, r, d]: what my rank r sends to rank d of process q
+    got = view.all_to_all(
+        buf.reshape((k, view.procs, k) + tail).transpose(0, 1))
+    # [q, r, d]: what rank r of process q sends to my rank d
+    return got.permute(2, 0, 1, *range(3, got.dim())).reshape(
+        (k, p) + tail)
 
 
 ALLTOALL_ALGORITHMS = ("wraparound", "naive", "ecube", "hypercube", "xla")

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from icikit_torch.utils.dtypes import sentinel_for
-from icikit_torch.utils.mesh import DEFAULT_AXIS
+from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
 from icikit_torch.utils.registry import get_algorithm
 
 
@@ -105,6 +105,7 @@ def all_gather_v(x: torch.Tensor, counts: torch.Tensor, mesh,
       stack of all p blocks in rank order with their padding;
       ``all_counts`` ``(p, p)``, every rank's copy of the count vector.
     """
+    require_single_process(mesh, "all_gather_v")
     p = mesh.shape[axis]
     if x.dim() != 2 or x.shape[0] != p:
         raise ValueError(f"expected one (cap,) block per device: "
@@ -138,6 +139,7 @@ def all_to_all_v(x: torch.Tensor, send_counts: torch.Tensor, mesh,
       sentinel-padded past ``recv_counts[d, s]``; ``overflow`` ``(p,)``,
       nonzero when some segment exceeded ``capacity`` and was truncated.
     """
+    require_single_process(mesh, "all_to_all_v")
     p = mesh.shape[axis]
     cap = int(capacity if capacity is not None else x.shape[1])
     x, counts = x.to(mesh.device), send_counts.to(mesh.device)

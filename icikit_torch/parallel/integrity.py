@@ -38,7 +38,7 @@ import torch
 from icikit_torch import chaos, obs
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import family_body, rank_operand
-from icikit_torch.utils.mesh import DEFAULT_AXIS
+from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
 
 CHECKED_FAMILIES = ("allgather", "allreduce", "alltoall",
                     "reducescatter", "scan")
@@ -191,6 +191,7 @@ def run_checked(family: str, x: torch.Tensor, mesh,
     output of the ``algorithm`` schedule over the (p, ...) ``x``, with
     detection and bounded retry at this boundary."""
     _require_checkable(family, algorithm)
+    require_single_process(mesh, "checked mode")
     extra = tuple(extra)
     p = mesh.shape[axis]
     inner = family_body(family, algorithm, p, *extra)

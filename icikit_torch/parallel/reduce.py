@@ -22,6 +22,7 @@ import torch
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     COMBINE,
+    my_ranks,
     rank_where,
     reduce_ranks,
     run_collective,
@@ -55,10 +56,13 @@ def _binomial(x: torch.Tensor, p: int, op: str, root: int) -> torch.Tensor:
 @register_algorithm("reduce", "xla")
 def _xla(x: torch.Tensor, p: int, op: str, root: int) -> torch.Tensor:
     """Vendor baseline: the reduction over the rank axis into root's
-    row, zeros elsewhere."""
-    del p
+    row, zeros elsewhere (across processes every process takes part in
+    the backend's all-reduce; root's process keeps it)."""
     out = torch.zeros_like(x, memory_format=torch.contiguous_format)
-    out[root] = reduce_ranks(x, op)
+    red = reduce_ranks(x, op)
+    mine = my_ranks(p)
+    if root in mine:
+        out[root - mine.start] = red
     return out
 
 

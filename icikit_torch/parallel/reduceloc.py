@@ -15,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from icikit_torch.parallel.transport import index
-from icikit_torch.utils.mesh import DEFAULT_AXIS
+from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
 
 
 def _check_blocks(x: torch.Tensor, mesh, axis: str) -> None:
+    require_single_process(mesh, "reduceloc")
     p = mesh.shape[axis]
     if x.dim() != 2 or x.shape[0] != p:
         raise ValueError(

@@ -16,6 +16,7 @@ import torch
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     COMBINE,
+    my_ranks,
     rank_half,
     rank_put_,
     rank_take,
@@ -66,15 +67,15 @@ def _recursive_halving(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
             "recursive_halving reduce-scatter requires power-of-2 p")
     combine = COMBINE[op]
     acc = _chunked(x, p)
-    tail = acc.shape[2:]
+    rows, tail = acc.shape[0], acc.shape[2:]
     for i in range(ilog2(p) - 1, -1, -1):
         mask = 1 << i
         bit = [(r >> i) & 1 for r in range(p)]
-        g = acc.reshape((p, -1, 2, mask) + tail)
+        g = acc.reshape((rows, -1, 2, mask) + tail)
         keep = rank_half(g, bit)
         send = rank_half(g, [1 - b for b in bit])
         recv = transport.ppermute(send, xor_perm(p, mask))
-        acc = combine(keep, recv).reshape((p, -1) + tail)
+        acc = combine(keep, recv).reshape((rows, -1) + tail)
     return acc[:, 0]
 
 
@@ -96,8 +97,12 @@ def _pairwise(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
 @register_algorithm("reducescatter", "xla")
 def _xla(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
     """Vendor baseline (JAX: ``psum_scatter``, or pmax/pmin and a
-    slice): the reduction over the rank axis, rank r keeping chunk r."""
-    return reduce_ranks(x, op).reshape((p, x.shape[1] // p) + x.shape[2:])
+    slice): the reduction over the rank axis, rank r keeping chunk r
+    (across processes the backend's all-reduce, then this process's
+    chunks)."""
+    mine = my_ranks(p)
+    out = reduce_ranks(x, op).reshape((p, x.shape[1] // p) + x.shape[2:])
+    return out[mine.start:mine.stop]
 
 
 REDUCESCATTER_ALGORITHMS = ("ring", "recursive_halving", "pairwise", "xla")

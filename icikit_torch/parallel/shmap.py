@@ -8,6 +8,13 @@ list here, and each indexed read or write over all ranks is one gather
 or one indexed copy with a cached index tensor (``transport.index``),
 never a loop over ranks. With no jit or shard_map to wrap, a family's
 entry point calls :func:`run_collective` directly.
+
+Across processes (a mesh whose ranks split over ``torch.distributed``
+processes) :func:`run_collective` runs the body under the mesh's
+``transport.ProcessView``: the operand holds this process's ranks, each
+per-rank list is cut to them (:func:`mine`), and :func:`reduce_ranks`
+reduces over the processes by the backend's own collective. The
+families written for that are :data:`PROCESS_FAMILIES`.
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ from functools import lru_cache
 
 import torch
 
+from icikit_torch.parallel import transport
 from icikit_torch.parallel.transport import index
+from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
 from icikit_torch.utils.registry import get_algorithm
 
 COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
@@ -46,29 +55,67 @@ def family_body(family: str, algorithm: str, p: int, *extra):
 
 def rank_operand(family: str, mesh, axis: str,
                  x: torch.Tensor) -> torch.Tensor:
-    """``x`` on the mesh's device, after checking it is ``(p, ...)``."""
-    p = mesh.shape[axis]
+    """``x`` on the mesh's device, after checking it is ``(p, ...)``
+    (across processes: this process's ``(p / procs, ...)`` rows)."""
+    p = mesh.shape[axis] // getattr(mesh, "procs", 1)
     if x.dim() < 1 or x.shape[0] != p:
         raise ValueError(f"{family} needs a (p={p}, ...) operand; got "
                          f"{tuple(x.shape)}")
     return x.to(mesh.device)
 
 
+# the families whose every variant runs under a process view
+PROCESS_FAMILIES = ("allgather", "allreduce", "reducescatter", "alltoall",
+                    "scan", "reduce")
+
+
 def run_collective(family: str, algorithm: str, mesh, axis: str,
                    x: torch.Tensor, *extra):
     """Run ``family``'s registered ``algorithm`` on ``x``, a ``(p, ...)``
     operand with p the size of ``mesh``'s ``axis``, on the mesh's
-    device."""
+    device; across processes ``x`` holds this process's ranks."""
+    if family not in PROCESS_FAMILIES:
+        require_single_process(mesh, family)
     body = family_body(family, algorithm, mesh.shape[axis], *extra)
-    return body(rank_operand(family, mesh, axis, x))
+    x = rank_operand(family, mesh, axis, x)
+    with on_mesh(mesh, axis):
+        return body(x)
+
+
+def on_mesh(mesh, axis: str = DEFAULT_AXIS):
+    """The context a rank-vectorised body runs in over ``mesh``'s
+    ``axis`` (what ``shard_map`` over the axis is in JAX): across
+    processes, the axis's ``transport.ProcessView`` installed; in one
+    process, nothing. The pt2pt primitives run inside it."""
+    return transport.processes(transport.mesh_view(mesh, axis))
+
+
+def my_ranks(p: int) -> range:
+    """The ranks of an axis of p this process holds as rows: all of
+    them in one process, ``[lo, hi)`` under a process view."""
+    view = transport.process_view()
+    return range(p) if view is None else range(view.lo, view.hi)
+
+
+def mine(seq) -> tuple:
+    """A per-rank list over an axis's p ranks, as this process holds
+    them: all of it in one process, ``[lo, hi)`` under a process view."""
+    view = transport.process_view()
+    return tuple(seq) if view is None else view.mine(seq)
 
 
 def reduce_ranks(x: torch.Tensor, op: str) -> torch.Tensor:
     """PyTorch's own reduction over the rank axis: the vendor baseline
-    that XLA's psum/pmax/pmin are in JAX."""
+    that XLA's psum/pmax/pmin are in JAX. Under a process view, this
+    process's rows are reduced, then the processes' partials by the
+    backend's all-reduce (a float sum then adds in another order than
+    in one process)."""
     if op == "sum":
-        return x.sum(0, dtype=x.dtype)
-    return x.amax(0) if op == "max" else x.amin(0)
+        red = x.sum(0, dtype=x.dtype)
+    else:
+        red = x.amax(0) if op == "max" else x.amin(0)
+    view = transport.process_view()
+    return red if view is None else view.all_reduce(red, op)
 
 
 # -- partner permutations --------------------------------------------
@@ -118,7 +165,7 @@ def rank_take(t: torch.Tensor, starts, size: int) -> torch.Tensor:
     """Per rank r, ``t[r, s_r : s_r + size]`` (``dynamic_slice_in_dim``
     along the rank's dim 0): a new (p, size, ...) tensor."""
     p, n, tail = t.shape[0], t.shape[1], t.shape[2:]
-    idx = index(_rows(n, tuple(starts), size), t.device)
+    idx = index(_rows(n, mine(starts), size), t.device)
     return t.reshape(p * n, *tail).index_select(0, idx).reshape(
         p, size, *tail)
 
@@ -128,7 +175,7 @@ def rank_put_(t: torch.Tensor, starts, upd: torch.Tensor) -> torch.Tensor:
     (``dynamic_update_slice_in_dim``); ``t`` must be contiguous."""
     p, n, tail = t.shape[0], t.shape[1], t.shape[2:]
     size = upd.shape[1]
-    idx = index(_rows(n, tuple(starts), size), t.device)
+    idx = index(_rows(n, mine(starts), size), t.device)
     t.view(p * n, *tail).index_copy_(0, idx, upd.reshape(p * size, *tail))
     return t
 
@@ -136,7 +183,7 @@ def rank_put_(t: torch.Tensor, starts, upd: torch.Tensor) -> torch.Tensor:
 def rank_where(mask, a: torch.Tensor, b) -> torch.Tensor:
     """Per rank r, ``a[r] if mask[r] else b[r]`` (``jnp.where`` on a
     predicate of ``lax.axis_index``); ``b`` may be a scalar."""
-    m = index(tuple(bool(v) for v in mask), a.device, torch.bool)
+    m = index(tuple(bool(v) for v in mine(mask)), a.device, torch.bool)
     return torch.where(m.view(-1, *([1] * (a.dim() - 1))), a, b)
 
 
@@ -144,4 +191,4 @@ def rank_half(t: torch.Tensor, sel) -> torch.Tensor:
     """Per rank r, ``t[r, :, sel[r]]``: one half of a (p, g, 2, ...)
     split (``jnp.take(g, bit, axis=1)`` in the per-rank view)."""
     ranks = index(tuple(range(t.shape[0])), t.device)
-    return t[ranks, :, index(tuple(sel), t.device)]
+    return t[ranks, :, index(mine(sel), t.device)]

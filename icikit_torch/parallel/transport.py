@@ -26,6 +26,23 @@ between the receive and the receiver's fold. Contracts:
 - **Bit-identical when armed but cold.** The taint is decided on the
   host (``chaos.traced_corrupt_spec``), so a cold one touches nothing:
   the checked schedule's output is the unchecked schedule's.
+
+The process backend: across OS processes (``utils.mesh.RankMesh.procs``
+> 1) a schedule runs under a :class:`ProcessView`, installed by
+:class:`processes` as :class:`checked` installs a tracker. The view's
+process holds ranks ``[lo, hi)`` of the axis's p as its rows, so a
+schedule body sees ``(hi - lo, ...)`` operands and every per-rank list
+of ``parallel.shmap`` is cut to ``[lo, hi)``. :func:`ppermute` then
+splits a permutation into its local pairs (one gather, as in one
+process) and its remote ones, which cross as one batched
+``torch.distributed`` send and one receive per peer process
+(``batch_isend_irecv``). The backend is the one the group was started
+with (gloo by default, which carries host tensors: a block of a CUDA
+tensor crosses through pinned host memory, and every kernel and every
+other tensor stays on the card). :data:`WIRE` counts what crossed. With
+no view installed, :func:`ppermute` reads one thread-local more.
+Checked mode has no process backend yet (ROADMAP A5): a tracked
+exchange under a view raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,11 +51,26 @@ import threading
 from functools import lru_cache
 
 import torch
+import torch.distributed as dist
 
 from icikit_torch.ops.cuda_integrity import INT_OF_WIDTH
 from icikit_torch.ops.cuda_integrity import segment_checksum  # noqa: F401
+from icikit_torch.utils.mesh import split_ranks
 
 _local = threading.local()
+
+# What crossed the process boundary in this process since the last
+# reset_wire(): messages and bytes sent and received by the process
+# backend (payload only; the gloo wire's own framing is not counted).
+# ``collective_*`` counts the backend's own collectives (the ``xla``
+# variants' and the sort verifier's sums) by the bytes handed to them.
+WIRE = {"messages": 0, "bytes_sent": 0, "bytes_received": 0,
+        "collectives": 0, "collective_bytes": 0}
+
+
+def reset_wire() -> None:
+    for k in WIRE:
+        WIRE[k] = 0
 
 
 @lru_cache(maxsize=None)
@@ -137,11 +169,198 @@ class checked:
 def ppermute(a: torch.Tensor, perm) -> torch.Tensor:
     """:func:`plain_ppermute`, with checked-mode interposition: under an
     installed :class:`Tracker` the block travels with its checksums,
-    verified on the receiving ranks at this step."""
+    verified on the receiving ranks at this step; under an installed
+    :class:`ProcessView`, ``a`` holds this process's ranks and pairs
+    with a rank of another process cross the process backend."""
     t = _tracker()
+    v = process_view()
+    if v is not None:
+        if t is not None:
+            raise NotImplementedError(
+                "checked mode across processes is not ported yet "
+                "(ROADMAP A5)")
+        return v.ppermute(a, perm)
     if t is None:
         return plain_ppermute(a, perm)
     return t.checked_ppermute(a, perm)
+
+
+# -- the process backend ----------------------------------------------
+
+
+def process_view():
+    """The installed :class:`ProcessView`, or None (one process)."""
+    return getattr(_local, "view", None)
+
+
+@lru_cache(maxsize=None)
+def _proc_plan(perm: tuple, p: int, k: int, proc: int):
+    """A permutation as this process sees it (process i holds ranks
+    [i k, (i + 1) k)): (local sources, local destinations) of its
+    pairs inside the process, per peer process the local rows it sends
+    and the local rows it receives into (each in the order of
+    ``perm``, the order both sides agree on), and whether every local
+    rank receives."""
+    lo = proc * k
+    ls, ld, sends, recvs = [], [], {}, {}
+    for s, d in perm:
+        if not (0 <= s < p and 0 <= d < p):
+            raise ValueError(f"pair {(s, d)} outside the {p} ranks")
+        src_mine, dst_mine = s // k == proc, d // k == proc
+        if src_mine and dst_mine:
+            ls.append(s - lo)
+            ld.append(d - lo)
+        elif src_mine:
+            sends.setdefault(d // k, []).append(s - lo)
+        elif dst_mine:
+            recvs.setdefault(s // k, []).append(d - lo)
+    full = len(ld) + sum(map(len, recvs.values())) == k
+    return (tuple(ls), tuple(ld),
+            tuple((q, tuple(v)) for q, v in sorted(sends.items())),
+            tuple((q, tuple(v)) for q, v in sorted(recvs.items())), full)
+
+
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous host bytes: staged through pinned memory
+    when ``t`` lies on the card."""
+    t = t.contiguous()
+    if t.is_cuda:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t)
+        t = h
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _wire_buffer(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    """A host receive buffer of ``shape`` and ``dtype``, as bytes
+    (pinned when it is bound for the card)."""
+    h = torch.empty(shape, dtype=dtype, pin_memory=like.is_cuda)
+    return h.reshape(-1).view(torch.uint8)
+
+
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+
+class ProcessView:
+    """The p ranks of one mesh axis split across the processes of the
+    default ``torch.distributed`` group: process i holds ranks
+    ``[i k, (i + 1) k)``, k = p / procs, this one ``proc``."""
+
+    def __init__(self, p: int, procs: int, proc: int):
+        self.p, self.procs, self.proc = p, procs, proc
+        self.lo, self.hi = split_ranks(p, procs, proc)
+        if not dist.is_initialized() or dist.get_world_size() != procs:
+            raise RuntimeError(
+                f"a {procs}-process view needs a live torch.distributed "
+                f"group of {procs} processes "
+                "(parallel.multihost.init_distributed)")
+
+    def mine(self, seq) -> tuple:
+        """A per-rank list over the p ranks, cut to this process's."""
+        seq = tuple(seq)
+        if len(seq) != self.p:
+            raise ValueError(f"a per-rank list of {len(seq)} under a "
+                             f"view of {self.p} ranks")
+        return seq[self.lo:self.hi]
+
+    def ppermute(self, a: torch.Tensor, perm) -> torch.Tensor:
+        """``lax.ppermute`` on this process's rows: local pairs by one
+        gather, remote ones as one send and one receive per peer
+        process, ranks that receive nothing zero-filled."""
+        k = self.hi - self.lo
+        if a.shape[0] != k:
+            raise ValueError(f"a (k={k}, ...) operand holds this process's "
+                             f"ranks; got {tuple(a.shape)}")
+        ls, ld, sends, recvs, full = _proc_plan(
+            tuple(map(tuple, perm)), self.p, k, self.proc)
+        out = a.new_empty(a.shape) if full else a.new_zeros(a.shape)
+        if ls:
+            out.index_copy_(0, index(ld, a.device),
+                            a.index_select(0, index(ls, a.device)))
+        if not (sends or recvs):
+            return out
+        ops, inbox = [], []
+        for q, rows in sends:
+            buf = _to_wire(a.index_select(0, index(rows, a.device)))
+            ops.append(dist.P2POp(dist.isend, buf, q))
+            WIRE["bytes_sent"] += buf.numel()
+        for q, rows in recvs:
+            buf = _wire_buffer((len(rows),) + a.shape[1:], a.dtype, a)
+            ops.append(dist.P2POp(dist.irecv, buf, q))
+            inbox.append((rows, buf))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        WIRE["messages"] += len(sends)
+        for rows, buf in inbox:
+            WIRE["bytes_received"] += buf.numel()
+            got = buf.view(a.dtype).view((len(rows),) + a.shape[1:])
+            out.index_copy_(0, index(rows, a.device), got.to(a.device))
+        return out
+
+    @staticmethod
+    def _count(h: torch.Tensor) -> None:
+        WIRE["collectives"] += 1
+        WIRE["collective_bytes"] += h.numel() * h.element_size()
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced elementwise over the processes by the backend's
+        own collective (the vendor baseline across processes)."""
+        h = t.contiguous()
+        h = h.cpu() if h.is_cuda else h.clone()
+        self._count(h)
+        dist.all_reduce(h, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]))
+        return h.to(t.device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` (this process's rows), concatenated in
+        process order: the (p, ...) rows of the whole axis."""
+        h = t.contiguous().cpu()
+        self._count(h)
+        parts = [torch.empty_like(h) for _ in range(self.procs)]
+        dist.all_gather(parts, h)
+        return torch.cat(parts).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The backend's all-to-all over processes: ``t`` is (procs,
+        ...), slice q bound for process q; returns (procs, ...), slice
+        q from process q."""
+        h = t.contiguous().cpu()
+        self._count(h)
+        out = torch.empty_like(h)
+        dist.all_to_all_single(out, h)
+        return out.to(t.device)
+
+
+class processes:
+    """Install ``view`` for the duration of a run (re-entrant, as
+    :class:`checked`); ``None`` installs nothing."""
+
+    def __init__(self, view):
+        self.view = view
+
+    def __enter__(self):
+        self._prev = process_view()
+        if self.view is not None:
+            _local.view = self.view
+        return self.view
+
+    def __exit__(self, *exc):
+        _local.view = self._prev
+        return False
+
+
+def mesh_view(mesh, axis: str):
+    """The :class:`ProcessView` of ``mesh``'s ``axis`` (a flat
+    ``RankMesh``), None when its ranks live in one process."""
+    procs = getattr(mesh, "procs", 1)
+    if procs == 1:
+        return None
+    if len(mesh.shape) != 1:
+        raise NotImplementedError(
+            "a flat schedule over one axis of a multi-process hybrid mesh "
+            "is not ported yet (ROADMAP A5); its hierarchical collectives "
+            "are")
+    return ProcessView(mesh.shape[axis], procs, mesh.proc)
 
 
 # -- the corruption site ----------------------------------------------

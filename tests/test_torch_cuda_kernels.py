@@ -1751,3 +1751,90 @@ def test_solve_dfs_refills_lanes_past_one_wave(max_steps, gen):
     got = [x.cpu().numpy() for x in cso.solve_dfs(pg, pl, max_steps)]
     for g, w in zip(got, _host_rows(host, np.arange(n))):
         assert (g == w).all()
+
+
+# -- the multi-process layer (hierarchical collectives, two processes) -
+
+
+_HIER_CASES = (
+    [("allreduce", {"ici_algorithm": a})
+     for a in ("ring", "recursive_doubling", "xla")]
+    + [("allreduce", {"dcn_algorithm": "recursive_doubling"}),
+       ("allreduce", {"op": "max"}),
+       ("allgather", {}), ("allgather", {"ici_algorithm": "xla",
+                                         "dcn_algorithm": "xla"}),
+       ("reducescatter", {}), ("reducescatter", {"op": "min"}),
+       ("alltoall", {}), ("alltoall", {"ici_algorithm": "hypercube",
+                                       "dcn_algorithm": "wraparound"})])
+
+
+@pytest.mark.parametrize("dcn,ici", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("coll,kw", _HIER_CASES)
+def test_hierarchical_collectives_on_the_card_equal_the_cpu_run(
+        coll, kw, dtype, dcn, ici, gen):
+    """Each hierarchical collective on CUDA tensors equals the same call
+    on the CPU bit for bit (its tiers' schedules combine in one order on
+    either device); a float32 sum through an ``xla`` tier (torch's own
+    reduction, which adds p terms in the device's order) within the
+    bound of two orders, 2 (p - 1) 2^-24 sum|x|."""
+    from icikit_torch import parallel as tp
+    p, m = dcn * ici, 1 << 14
+    shape = (p, p, m // p) if coll == "alltoall" else (p, m)
+    x = (torch.randn(shape, generator=gen, device="cuda")
+         if dtype == torch.float32 else
+         torch.randint(-1000, 1000, shape, generator=gen, dtype=dtype,
+                       device="cuda"))
+    fn = getattr(tp, {"allreduce": "hierarchical_all_reduce",
+                      "allgather": "hierarchical_all_gather",
+                      "reducescatter": "hierarchical_reduce_scatter",
+                      "alltoall": "hierarchical_all_to_all"}[coll])
+    got = fn(x, tp.make_hybrid_mesh(dcn, ici, device="cuda"), **kw)
+    want = fn(x.cpu(), tp.make_hybrid_mesh(dcn, ici, device="cpu"), **kw)
+    assert got.is_cuda
+    got = got.cpu()
+    if (dtype == torch.float32 and coll == "allreduce" and "op" not in kw
+            and "xla" in kw.values()):
+        bound = 2 * (p - 1) * 2.0**-24 * x.cpu().abs().sum(0)
+        assert ((got - want).abs() <= bound).all()
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_two_process_bitonic_sort_on_the_card(gen, tmp_path):
+    """Two processes share the card (gloo, staged through host), four
+    ranks each, and sort 2^20 int32 keys through the sort kernels: each
+    process's rows equal the one-process sort's, bit for bit, with 0
+    inversions and both kernels launched in each process."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from icikit_torch.examples import multihost as mh
+    from icikit_torch.models.sort import sort
+    from icikit_torch.utils.mesh import make_mesh
+
+    log2n, m = 20, 64
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    keys = torch.from_numpy(mh.inputs(m, log2n)["keys"]).cuda()
+    out = sort(keys, make_mesh(mh.RANKS, device="cuda")).view(mh.RANKS, -1)
+    half = mh.RANKS // mh.PROCESSES
+    digests = [hashlib.sha256(out[i * half:(i + 1) * half].cpu().numpy()
+                              .tobytes()).hexdigest()
+               for i in range(mh.PROCESSES)]
+    env = dict(os.environ, PYTHONPATH=root)
+    res = mh.launch(mh.worker_argv("cuda", str(tmp_path), m, log2n,
+                                   keep_sorted=False),
+                    str(tmp_path), timeout=180, env=env, cwd=root)
+    for code, text in res:
+        assert code == 0 and "WORKER_OK" in text, text[-3000:]
+    recs = [mh.worker_result(text) for _, text in res]
+    assert [r["sha256"] for r in recs] == digests
+    assert all(r["inversions"] == 0 for r in recs)
+    assert all(r["launches"]["net"] > 0 and r["launches"]["cross"] > 0
+               for r in recs)
+    assert all(r["wire"]["bytes_sent"] == half * (1 << log2n) // mh.RANKS
+               * 4 for r in recs)
+    rows = [np.load(tmp_path / f"rank{i}.npz") for i in range(2)]
+    assert set(rows[0]) == set(rows[1])
