@@ -303,7 +303,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    both sort kernels launched in each child; its wall time, the bytes
    that crossed the process boundary and the launches a child printed,
    labelled as the host's wire.
-29. kernels line: every ported kernel with its launches on its main path,
+29. the model mesh (``models/transformer`` at dp, tp, sp > 1, its ranks
+   rows of the card): at the base width, float32, b 2, s 1024,
+   MESH_CHECK_LAYERS layers, each mesh of MESH_CHECKS (dp, tp and sp
+   alone, sp under ring, zigzag and ulysses, (2, 2, 2) ring, tp with the
+   vocab-parallel head, dp with the matmul head backward) held against
+   the (1, 1, 1) step's loss (TRAIN_LOSS_TOL) and every gradient leaf
+   (TRAIN_GRAD_TOL relative L2), each with the flash and head kernels
+   it runs launched; at phase 11's bf16 config (b 8, s 1024, 12
+   layers) the MESH_TIMED ring step and the (1, 1, 1) step, each's
+   launches a step by kernel asserted (the ring's flash calls: sp a
+   layer and dp rank; the fused head: one call a rank), timed by the
+   median-of-windows protocol, the gradient sync (every pvary's psum)
+   and its dp part timed by events, and a ``torch.profiler`` trace of
+   the MESH_TIMED step in a fresh process (device time by kernel, the
+   idle share); ``grad_check="ring"`` at (2, 2, 2) on the checks'
+   config, a clean step committed (its loss bitwise the unchecked
+   step's, its parameters within MESH_RING_TOL relative L2 of them, the
+   fold I1 launched) and a drilled one
+   (``corrupt:collective.train.grad_sync``) committing nothing; and two
+   child processes (``examples.multihost --mode train``, gloo on the
+   one card) taking two dp = 2 steps, one dp rank each, their loss,
+   first gradients and parameters bit for bit this process's dp = 2
+   steps, the flash and head kernels launched in each.
+30. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
    sort kernels also with their launches on each algorithm's 2^24 path
@@ -575,6 +598,28 @@ MH_M = 1 << 16
 MH_LOG2N = 28
 MH_SORT_RUNS = 3
 MH_TIMEOUT = 240
+# Phase 29: the model mesh. Checks at the base width, float32, b 2, s
+# 1024 and MESH_CHECK_LAYERS layers (cut from 12: the mesh's math is a
+# layer's, repeated), each mesh's loss and gradients against the (1, 1,
+# 1) step's with phase 11's tolerances; the (2, 2, 2) ring step timed
+# beside the (1, 1, 1) step at phase 11's bf16 config.
+MESH_CHECK_LAYERS = 2
+MESH_CHECKS = (
+    ((2, 1, 1), {}), ((1, 2, 1), {}),
+    ((1, 1, 2), dict(sequence_schedule="ring")),
+    ((1, 1, 2), dict(sequence_schedule="zigzag")),
+    ((1, 1, 2), dict(sequence_schedule="ulysses")),
+    ((2, 2, 2), dict(sequence_schedule="ring")),
+    ((1, 2, 1), dict(vocab_parallel=True)),
+    ((2, 1, 1), dict(xent_fused_bwd=False)))
+MESH_TIMED = (2, 2, 2)
+# A clean checked step's parameters against the unchecked step's: the
+# same update but for flash_bwd's dq, whose atomic sums differ in their
+# last bits from run to run; Adam's first step moves every element by
+# about its learning rate whatever its gradient's size, so a tiny
+# gradient's flipped sign shows (1.1e-6 on an H100 at 700 W).
+MESH_RING_TOL = 1e-5
+MESH_STEPS_A_RUN = 2
 DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 DFS_WINDOWS, DFS_ITERS = 3, 2
 
@@ -4135,6 +4180,316 @@ def multihost_phase(torch, dev, smi) -> dict:
     return launches
 
 
+def _mesh_launches(torch, run) -> dict:
+    """``run()``'s launches of the train path's kernels (non-zero ones),
+    synchronised."""
+    from icikit_torch.ops import cuda_adam, cuda_integrity, cuda_stack
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_xent as cx
+
+    mods = (ca, cx, cuda_adam, cuda_stack, cuda_integrity)
+    for mod in mods:
+        mod.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: n for mod in mods for k, n in mod.LAUNCHES.items()
+                 if n}
+
+
+def _mesh_timed_cell(torch, dev):
+    """Phase 11's bf16 train cell: config, float32 masters from seed 0,
+    the b 8 tokens from ``default_rng(0)``."""
+    import numpy as np
+
+    from icikit_torch.models.transformer import init_params
+    cfg = _train_config("bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(0, cfg.vocab,
+                                              (TRAIN_BATCH, cfg.max_seq))
+                                 .astype(np.int32)).to(dev)
+                for _ in range(2))
+    return cfg, params, tok, tgt
+
+
+def _mesh_step(torch, mesh, cfg, params):
+    from icikit_torch.models.transformer import FusedAdam, make_train_step
+    p = {k: x.clone() for k, x in params.items()}
+    opt, step = make_train_step(mesh, cfg, FusedAdam(
+        TRAIN_LR, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16))
+    return p, opt.init(p), step
+
+
+def mesh_trace(torch, dev) -> dict:
+    """``torch.profiler``'s view of one MESH_TIMED ring step of phase
+    11's bf16 cell after two steps: device time and launches by kernel,
+    busy ms, the idle share."""
+    from icikit_torch.models.transformer import make_model_mesh
+    from icikit_torch.utils.trace import device_activity
+
+    cfg, params, tok, tgt = _mesh_timed_cell(torch, dev)
+    p, st, step = _mesh_step(torch, make_model_mesh(*MESH_TIMED,
+                                                    device=dev), cfg, params)
+    del params
+    for _ in range(2):
+        p, st, _ = step(p, st, tok, tgt)
+    torch.cuda.synchronize()
+    act = device_activity(lambda: step(p, st, tok, tgt),
+                          attempts=TRACE_ATTEMPTS)
+    top = sorted(act["by_name"].items(), key=lambda kv: -kv[1]["ms"])
+    return {"mesh": list(MESH_TIMED), "attempts": act["attempts"],
+            "device_events": act["device_events"],
+            "lost_device_events": act["lost_device_events"],
+            "busy_ms": act["busy_ms"], "host_wall_ms": act["host_wall_ms"],
+            "idle_share_of_wall": act["idle_share_of_wall"],
+            "idle_share_of_span": act["idle_share_of_span"],
+            "by_name_top": dict(top[:16])}
+
+
+def mesh_trace_in_child() -> dict:
+    """:func:`mesh_trace` in a new Python process (the kernels are
+    already built), its record read from its last line: a trace late in
+    this script loses device records (phases 24, 26)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.mesh_trace(torch, 'cuda')))")
+    r = subprocess.run([sys.executable, "-c", code, here], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"mesh trace failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def model_mesh_phase(torch, dev, smi) -> dict:
+    """Phase 29: the model mesh (see the module docstring). Returns the
+    MESH_TIMED step's launches by kernel and the clean checked step's
+    checksum launches."""
+    import numpy as np
+
+    from icikit_torch import chaos
+    from icikit_torch.examples import multihost as mh
+    from icikit_torch.models.transformer import (init_params,
+                                                 loss_and_metrics,
+                                                 make_model_mesh,
+                                                 make_train_step)
+    from icikit_torch.models.transformer import model as tmodel
+    from icikit_torch.parallel.model_axes import psum
+    from icikit_torch.utils.timing import cuda_time_ms, timeit_windows
+
+    t0 = time.perf_counter()
+    # -- the checks: base width, float32, b 2
+    cfg = _train_config("float32", n_layers=MESH_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rng = np.random.default_rng(0)
+    tok, tgt = (torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_CHECK_BATCH, cfg.max_seq)).astype(np.int32))
+        .to(dev) for _ in range(2))
+    loss1, g1, _ = loss_and_metrics(params, tok, tgt,
+                                    make_model_mesh(device=dev), cfg)
+    loss1 = float(loss1)
+    checks = []
+    for mesh, over in MESH_CHECKS:
+        c = _train_config("float32", n_layers=MESH_CHECK_LAYERS, **over)
+        (loss, g, _), launches = _mesh_launches(torch, lambda: (
+            loss_and_metrics(params, tok, tgt,
+                             make_model_mesh(*mesh, device=dev), c)))
+        rel = {k: _rel_l2(g[k], g1[k]) for k in g1}
+        want = {"flash_fwd", "flash_bwd"}
+        if not c.vocab_parallel:
+            want |= {"xent_fwd"} | ({"xent_dx_saved", "xent_dw_saved"}
+                                    if c.xent_fused_bwd else
+                                    {"xent_g_saved"})
+        checks.append({
+            "mesh": list(mesh), "over": over, "loss": float(loss),
+            "loss_diff": abs(float(loss) - loss1),
+            "rel_l2_max": max(rel.values()),
+            "worst_leaf": max(rel, key=rel.get), "launches": launches,
+            "ok": (abs(float(loss) - loss1) <= TRAIN_LOSS_TOL
+                   and max(rel.values()) <= TRAIN_GRAD_TOL
+                   and want <= set(launches))})
+        del g
+    del g1
+    # the checked gradient ring at (2, 2, 2): a clean step, a drilled one
+    ring_mesh = make_model_mesh(2, 2, 2, device=dev)
+
+    def ring_step(grad_check, taint=None):
+        p = {k: x.clone() for k, x in params.items()}
+        opt, step = make_train_step(ring_mesh, cfg, guard="device",
+                                    grad_check=grad_check)
+        st = opt.init(p)
+        before = ({k: x.clone() for k, x in p.items()},
+                  {k: x.clone() for k, x in st[0].items()})
+        return before, step(p, st, tok, tgt, taint)
+
+    _, plain = ring_step("none")
+    (_, clean), ring_launches = _mesh_launches(torch,
+                                               lambda: ring_step("ring"))
+    plan = chaos.FaultPlan(
+        seed=2, schedule={f"corrupt:{tmodel.GRAD_SYNC_SITE}": (0,)})
+    with chaos.inject(plan):
+        taint = chaos.traced_corrupt_spec(
+            tmodel.GRAD_SYNC_SITE, tmodel.grad_sync_n_steps(ring_mesh),
+            ring_mesh.dp)
+    before, drilled = ring_step("ring", taint)
+    grad_ring = {
+        "mesh": [2, 2, 2], "clean_ok": bool(clean[3]),
+        "clean_committed": int(clean[1][2]) == 1,
+        "clean_loss_bitwise_unchecked": bool(torch.equal(clean[2],
+                                                         plain[2])),
+        "clean_params_rel_l2_to_unchecked": max(
+            _rel_l2(clean[0][k], plain[0][k]) for k in params),
+        "checksum_launches": ring_launches.get("segment_checksum", 0),
+        "drill_fired": plan.fired("corrupt", tmodel.GRAD_SYNC_SITE),
+        "drilled_ok": bool(drilled[3]),
+        "drilled_params_untouched": all(
+            torch.equal(drilled[0][k], before[0][k]) for k in params),
+        "drilled_moments_untouched": all(
+            torch.equal(drilled[1][0][k], before[1][k]) for k in params),
+        "drilled_step_count": int(drilled[1][2])}
+    grad_ring["ok"] = (
+        grad_ring["clean_ok"] and grad_ring["clean_committed"]
+        and grad_ring["clean_loss_bitwise_unchecked"]
+        and grad_ring["clean_params_rel_l2_to_unchecked"] <= MESH_RING_TOL
+        and grad_ring["checksum_launches"] > 0
+        and grad_ring["drill_fired"] == 1 and not grad_ring["drilled_ok"]
+        and grad_ring["drilled_params_untouched"]
+        and grad_ring["drilled_moments_untouched"]
+        and grad_ring["drilled_step_count"] == 0)
+    del params, plain, clean, drilled, before
+    torch.cuda.empty_cache()
+    emit({"phase": "model_mesh", "part": "checks", "nvidia_smi": smi,
+          "config": {"preset": TRAIN_PRESET, "dtype": "float32",
+                     "batch": TRAIN_CHECK_BATCH, "seq": cfg.max_seq,
+                     "layers": MESH_CHECK_LAYERS},
+          "reference": "the (1, 1, 1) step's loss and gradients",
+          "loss_tolerance": TRAIN_LOSS_TOL,
+          "grad_tolerance": TRAIN_GRAD_TOL, "checks": checks,
+          "grad_ring": grad_ring,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    bad = [c for c in checks if not c["ok"]]
+    if bad or not grad_ring["ok"]:
+        raise AssertionError(f"model mesh checks: {bad} {grad_ring}")
+
+    # -- the timed cell: phase 11's bf16 config at MESH_TIMED and (1,1,1)
+    t1 = time.perf_counter()
+    cfg, params, tok, tgt = _mesh_timed_cell(torch, dev)
+    timed = {}
+    for shape in ((1, 1, 1), MESH_TIMED):
+        mesh = make_model_mesh(*shape, device=dev)
+        p, st, step = _mesh_step(torch, mesh, cfg, params)
+        p, st, _ = step(p, st, tok, tgt)              # first-call set-up
+        (p, st, loss), launches = _mesh_launches(
+            torch, lambda: step(p, st, tok, tgt))
+        dp, tp, sp = shape
+        want = {"flash_fwd": dp * sp * cfg.n_layers,
+                "flash_bwd": dp * sp * cfg.n_layers,
+                "xent_fwd": dp * tp * sp, "xent_dx_saved": dp * tp * sp,
+                "xent_dw_saved": dp * tp * sp}
+
+        def multi(p, s):
+            out = (p, s, None)
+            for _ in range(MESH_STEPS_A_RUN):
+                out = step(out[0], out[1], tok, tgt)
+            return out
+
+        res = timeit_windows(multi, (p, st), lambda a, o: (o[0], o[1]),
+                             windows=3, runs=1, warmup=1,
+                             target_window_s=1.0, max_windows=3)
+        timed[shape] = {
+            "mesh": list(shape), "launches_per_step": launches,
+            "launches_want": want, "launches_ok": launches == want,
+            "loss": float(loss),
+            "step_ms": res.median_s / MESH_STEPS_A_RUN * 1e3,
+            "step_ms_spread": [res.min_s / MESH_STEPS_A_RUN * 1e3,
+                               res.max_s / MESH_STEPS_A_RUN * 1e3],
+            "windows": res.windows}
+        del p, st, step
+        torch.cuda.empty_cache()
+    # the gradient sync of MESH_TIMED: every leaf's pvary backward (its
+    # psums over sp, tp, dp), and the dp psums alone, by events
+    mesh = make_model_mesh(*MESH_TIMED, device=dev)
+    specs = tmodel.param_specs(cfg)
+    layered = set(tmodel._layer_keys(cfg))
+    leaves, entered, cots = [], [], []
+    for k, v in params.items():
+        leaf = (v if k in tmodel.KEEP_FP32 else v.to(torch.bfloat16)
+                ).detach().requires_grad_(True)
+        x = tmodel._enter(leaf, specs[k], k in layered, mesh)
+        leaves.append(leaf)
+        entered.append(x)
+        cots.append(torch.randn_like(x))
+    sync_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        entered, leaves, cots, retain_graph=True), iters=5, warmup=1)
+    dp_ms = cuda_time_ms(lambda: [psum(c, mesh, "dp", 0) for c in cots],
+                         iters=5, warmup=1)
+    del leaves, entered, cots, params
+    torch.cuda.empty_cache()
+    t_trace = time.perf_counter()
+    trace = mesh_trace_in_child()
+    trace["seconds"] = round(time.perf_counter() - t_trace, 1)
+    step_ms = timed[MESH_TIMED]["step_ms"]
+    emit({"phase": "model_mesh", "part": "timing", "card": smi,
+          "config": {"preset": TRAIN_PRESET, "dtype": "bfloat16",
+                     "batch": TRAIN_BATCH, "seq": cfg.max_seq,
+                     "layers": cfg.n_layers},
+          "steps": {"x".join(map(str, k)): v for k, v in timed.items()},
+          "ratio_to_1_1_1": step_ms / timed[(1, 1, 1)]["step_ms"],
+          "grad_sync_ms": sync_ms, "dp_psum_ms": dp_ms,
+          "grad_sync_share": sync_ms / step_ms,
+          "dp_psum_share": dp_ms / step_ms, "trace": trace,
+          "seconds": round(time.perf_counter() - t1, 1)})
+    if not all(v["launches_ok"] for v in timed.values()):
+        raise AssertionError(f"model mesh launches: {timed}")
+
+    # -- dp across two OS processes (gloo on the one card)
+    t2 = time.perf_counter()
+    one, one_launches = mh.train_case(
+        make_model_mesh(*mh.TRAIN_MESH, device=dev))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if q])
+    with tempfile.TemporaryDirectory(prefix="icikit_mesh_") as out_dir:
+        res = mh.launch(mh.train_argv(dev, out_dir, timeout=MH_TIMEOUT),
+                        out_dir, timeout=MH_TIMEOUT + 60, env=env, cwd=repo)
+        for i, (code, text) in enumerate(res):
+            if code != 0 or "WORKER_OK" not in text:
+                raise AssertionError(f"two-process train worker {i} exit "
+                                     f"{code}:\n{text[-3000:]}")
+        recs = [mh.worker_result(text) for _, text in res]
+        rows = [np.load(os.path.join(out_dir, f"rank{i}.npz"))
+                for i in range(mh.PROCESSES)]
+        mismatched = [[k for k, v in one.items() if not np.array_equal(
+            np.ascontiguousarray(r[k]).view(np.uint8),
+            np.ascontiguousarray(v).view(np.uint8))] for r in rows]
+    kernels = {"flash_fwd", "flash_bwd", "xent_fwd", "xent_dx_saved",
+               "xent_dw_saved"}
+    two = {"mesh": list(mh.TRAIN_MESH), "config": mh.TRAIN_CFG,
+           "batch": mh.TRAIN_BATCH, "steps": mh.TRAIN_STEPS,
+           "note": mh.BACKEND_NOTE + "; the dp psums cross the host",
+           "loss_one_process": one["loss"].tolist(),
+           "loss_each_process": [r["loss"] for r in recs],
+           "mismatched_each_process": mismatched,
+           "launches_last_step_each_process": [r["launches_last_step"]
+                                               for r in recs],
+           "launches_last_step_one_process": one_launches,
+           "wire_each_process": [r["wire"] for r in recs],
+           "train_s_each_process": [r["train_s"] for r in recs],
+           "seconds": round(time.perf_counter() - t2, 1)}
+    two["ok"] = (not any(mismatched) and all(
+        kernels <= set(r["launches_last_step"]) for r in recs))
+    emit({"phase": "model_mesh", "part": "two_processes", **two,
+          "seconds_phase": round(time.perf_counter() - t0, 1)})
+    if not two["ok"]:
+        raise AssertionError(f"two-process dp = 2 step: {two}")
+    return {"step": timed[MESH_TIMED]["launches_per_step"],
+            "grad_ring": grad_ring["checksum_launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4528,7 +4883,17 @@ def main() -> int:
             f"bitonic 2^{MH_LOG2N} int32 p=8, two processes (each)"] = \
             mh_launches[counter]
 
-    # -- 29. the kernels line --------------------------------------------
+    # -- 29. the model mesh: dp, tp, sp > 1 on the card ------------------
+    mesh_launches = model_mesh_phase(torch, dev, smi)
+    for row in rows:
+        first = row["name"].split()[0]
+        if first in mesh_launches["step"]:
+            row["launches_on_model_mesh_step"] = {
+                "x".join(map(str, MESH_TIMED)): mesh_launches["step"][first]}
+        if first == "segment_checksum_kernel":
+            row["launches_on_grad_ring_step"] = mesh_launches["grad_ring"]
+
+    # -- 30. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

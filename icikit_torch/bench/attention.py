@@ -8,13 +8,18 @@ formulation ``ops/attention.py``), ``flash`` and ``flash_shift`` (the
 constant-shift forward). The backward of ``flash`` runs ``flash_bwd``
 (B6/B7) while s * d * 4 bytes of dq fit the TPU's 48 MiB scratch budget
 and the two-pass ``flash_bwd_dq``/``flash_bwd_dkv`` (B8) past it, as
-JAX's ``_bwd_call`` routes. The sequence-parallel schedules (ring,
-ulysses, zigzag) need more than one device and are not ported.
+JAX's ``_bwd_call`` routes. With ``--devices N`` (N > 1) the
+sequence-parallel schedules join on a rank mesh of N
+(``models/attention``: ``ring``, ``ulysses``, ``zigzag``), its ranks rows
+of the one card, so their times are the schedules' own work on one
+device, with no wire: each rank's blocks fold into the kernels' batch.
 
     python -m icikit_torch.bench.attention --seqs 32768,131072 \\
         --impls flash --batch 1 --heads 4 --dhead 128 --mode fwdbwd
     python -m icikit_torch.bench.attention --device cpu --seqs 64,128 \\
         --batch 1 --heads 2 --dhead 32 --runs 1 --warmup 1
+    python -m icikit_torch.bench.attention --devices 8 \\
+        --impls ring,zigzag,ulysses
 
 The oracle: dense while b * h * s^2 <= 2^29 scores. Beyond that, JAX
 checks the flash kernel against itself under another tiling; the port's
@@ -80,12 +85,14 @@ def attention_flops(batch, seq, heads, d_head, causal, mode) -> float:
     return fwd * (3.5 if mode == "fwdbwd" else 1.0)
 
 
-def _impl_fns():
-    """name -> callable(q, k, v, causal) for the one-device subjects."""
+def _impl_fns(mesh=None):
+    """name -> callable(q, k, v, causal) for the one-device subjects,
+    and with a rank ``mesh`` of more than one rank the sequence-parallel
+    schedules over it."""
     from icikit_torch.ops.attention import dense_attention
     from icikit_torch.ops.flash_attention import flash_attention
 
-    return {
+    fns = {
         "dense": lambda q, k, v, causal: dense_attention(q, k, v,
                                                          causal=causal),
         "flash": lambda q, k, v, causal: flash_attention(q, k, v,
@@ -93,6 +100,17 @@ def _impl_fns():
         "flash_shift": lambda q, k, v, causal: flash_attention(
             q, k, v, causal=causal, softmax_shift=16.0),
     }
+    if mesh is not None and mesh.p > 1:
+        from icikit_torch.models.attention import (ring_attention,
+                                                   ulysses_attention,
+                                                   zigzag_attention)
+        fns["ring"] = lambda q, k, v, causal: ring_attention(
+            q, k, v, mesh, causal=causal)
+        fns["ulysses"] = lambda q, k, v, causal: ulysses_attention(
+            q, k, v, mesh, causal=causal)
+        fns["zigzag"] = lambda q, k, v, causal: zigzag_attention(
+            q, k, v, mesh, causal=causal)
+    return fns
 
 
 # Above this many score-matrix elements the dense oracle's float32
@@ -169,15 +187,13 @@ def sweep_attention(seqs, impls=None, batch=4, heads=8, d_head=64,
     from icikit_torch.bench.train import detect_peak
     from icikit_torch.utils.timing import timeit_windows
 
-    if devices and devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: the ring, ulysses and zigzag schedules "
-            "need the collectives and the sequence-parallel models, which "
-            "are not ported yet (ROADMAP A5, A8)")
+    from icikit_torch.utils.mesh import make_mesh
+
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on "
                            "the CPU")
-    fns = _impl_fns()
+    p = devices or 1
+    fns = _impl_fns(make_mesh(p, device=device) if p > 1 else None)
     impls = list(impls or fns)
     unknown = [n for n in impls if n not in fns]
     if unknown:
@@ -234,7 +250,7 @@ def sweep_attention(seqs, impls=None, batch=4, heads=8, d_head=64,
             records.append(AttnRecord(
                 impl=impl, mode=mode, batch=batch, seq=seq, heads=heads,
                 d_head=d_head, dtype=str(dt).replace("torch.", ""),
-                causal=causal, p=1, runs=res.total_runs,
+                causal=causal, p=p, runs=res.total_runs,
                 mean_s=res.median_s, best_s=res.min_s,
                 tflops=fl / res.median_s / 1e12, max_err=err,
                 verified=err <= tol, min_s=res.min_s, max_s=res.max_s,
@@ -279,8 +295,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--devices", type=int, default=None,
-                    help="more than one device: the SP schedules (not "
-                         "ported)")
+                    help="ranks of a rank mesh on the one device: "
+                         "adds ring/ulysses/zigzag")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", dest="json_path", default=None)
     args = ap.parse_args(argv)

@@ -1,6 +1,8 @@
 """Transformer training throughput: tokens/s and model-FLOPs utilization.
 
-The port of ``python -m icikit.bench.train`` (its one-device rows).
+The port of ``python -m icikit.bench.train``. ``--dp/--tp/--sp`` run
+the step on that model mesh, its ranks rows of the one device (the
+global batch is ``--batch``, the MFU against the one card's peak).
 FLOPs are counted as 6 x (matmul params) x tokens + attention's
 12 x b x s^2 x H x Dh per layer, the PaLM-style accounting the JAX
 bench uses. The step is ``make_train_step`` with ``FusedAdam``; steps
@@ -16,13 +18,14 @@ plus ``device`` and ``power_limit``.
     python -m icikit_torch.bench.train --preset base --batch 8
     python -m icikit_torch.bench.train --device cpu --preset tiny \\
         --batch 2 --steps 2 --warmup 1 --windows 1
+    python -m icikit_torch.bench.train --dp 2 --tp 2 --sp 2
 
 ``--head recompute``, ``--head-bwd matmul`` and ``--optimizer
 fused-pallas`` run the head's other flavours (B10 recompute, B11) and the
 one-pass Adam kernel (B12); ``--save-stack pallas`` the layer stack
 through the explicit save stack and its kernels (B16), JAX's A/B arm.
-Flags the port has not reached (more than one device, MoE, optax, the
-remat policies other than nothing and except_attn) raise.
+Flags the port has not reached (MoE, optax, the remat policies other
+than nothing and except_attn) raise.
 """
 
 from __future__ import annotations
@@ -205,8 +208,8 @@ def run_bench(preset: str, dp: int, tp: int, sp: int, batch: int,
     fence(last[2])
     loss_value = float(last[2])
     flops = step_flops(cfg, batch, seq)
-    n_dev = dp * tp * sp
-    nameplate = detect_peak(device) * n_dev
+    # the mesh's ranks share the one device: one card's peak
+    nameplate = detect_peak(device)
     floor_s = steps * flops / nameplate if nameplate else None
     wres = timeit_windows(multi, (params, opt_state),
                           lambda a, out: (out[0], out[1]),
@@ -258,7 +261,7 @@ def run_bench(preset: str, dp: int, tp: int, sp: int, batch: int,
         "power_limit": power,
     }
     if calibrate_peak:
-        measured = measure_peak(device=device) * n_dev
+        measured = measure_peak(device=device)
         rec["measured_peak_tflops"] = round(measured / 1e12, 2)
         rec["mfu_vs_measured"] = round(flops / dt / measured, 4)
     return rec

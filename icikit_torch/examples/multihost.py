@@ -15,6 +15,17 @@ processes, writes its rows to ``OUT/rank<i>.npz`` and prints one
 processes, stacked, are the one-process result of the same cases:
 ``run_cases`` on single-process meshes computes that.
 
+With ``--mode train`` a worker instead takes TRAIN_STEPS train steps of the
+transformer on a (dp, tp, sp) model mesh whose dp ranks split across the
+processes (:func:`train_case`: ``TRAIN_CFG``, parameters and tokens from
+SEED, this process's batch rows): each process runs its dp ranks' tp x
+sp programs, and only the gradient psum and the loss psum over dp cross
+the process backend. It writes the loss, the first step's gradients and
+the parameters after the steps (global leaves, the same in every
+process) to ``OUT/rank<i>.npz``. At dp = 2 every gradient element is a
+two-term sum, exact in either order, so both processes hold bitwise the
+one-process dp = 2 step's result (``train_case`` on a one-process mesh).
+
 Two processes on the CPU::
 
     python -m icikit_torch.examples.multihost --port 29511 \\
@@ -26,6 +37,8 @@ or both at once, a fresh port and a retry on a port race::
 
     python -m icikit_torch.examples.multihost --launch --device cpu \\
         --out /tmp/mh
+    python -m icikit_torch.examples.multihost --launch --mode train \\
+        --device cpu --out /tmp/mh_train
 
 On one card both processes share it (NCCL refuses two ranks on one
 GPU, so the backend is gloo: the tensors and every kernel stay on the
@@ -55,6 +68,18 @@ ROOT = 5
 SEED = 7
 LAUNCH_ATTEMPTS = 3
 BACKEND_NOTE = "backend: gloo, staged through host"
+
+# The train mode's model: float32, d_model 128 (the fused head's width),
+# 32 tokens a row (one float32 backward key tile, so the flash
+# backward's dq takes one atomic add an element on the card and the
+# step is deterministic), and its default mesh and global batch.
+TRAIN_CFG = dict(vocab=256, d_model=128, n_heads=4, d_head=32, d_ff=256,
+                 n_layers=2, max_seq=32, compute_dtype="float32",
+                 remat_policy="except_attn")
+TRAIN_MESH = (2, 1, 1)
+TRAIN_BATCH = 4
+TRAIN_LR = 1e-2
+TRAIN_STEPS = 2
 
 
 def inputs(m: int, log2n: int) -> dict:
@@ -205,6 +230,72 @@ def sort_case(flat, keys: np.ndarray, runs: int) -> tuple:
                    "sha256": hashlib.sha256(host.tobytes()).hexdigest()}
 
 
+def train_case(mesh) -> dict:
+    """TRAIN_STEPS train steps of ``TRAIN_CFG`` on the model ``mesh``
+    (``FusedAdam(TRAIN_LR)``), this process's rows of the
+    global TRAIN_BATCH x max_seq tokens from SEED, the parameters drawn
+    from SEED on the CPU: ``{"loss": (steps,), "grad/<leaf>": the first
+    step's gradient, "param/<leaf>": the parameters after the steps}``
+    as numpy arrays, and the kernels' launches of the last step."""
+    from icikit_torch.models.transformer import (FusedAdam,
+                                                 TransformerConfig,
+                                                 init_params,
+                                                 loss_and_metrics,
+                                                 make_train_step)
+    from icikit_torch.ops import cuda_adam, cuda_attention, cuda_xent
+
+    cfg = TransformerConfig(**TRAIN_CFG)
+    params = {k: v.to(mesh.device) for k, v in init_params(
+        cfg, torch.Generator().manual_seed(SEED), "cpu").items()}
+    rng = np.random.default_rng(SEED)
+    tok, tgt = (rng.integers(0, cfg.vocab, (TRAIN_BATCH, cfg.max_seq))
+                .astype(np.int32) for _ in range(2))
+    lo, hi = mesh.local
+    rows = slice(lo * TRAIN_BATCH // mesh.dp, hi * TRAIN_BATCH // mesh.dp)
+    tok, tgt = (torch.from_numpy(x[rows]).to(mesh.device)
+                for x in (tok, tgt))
+    _, grads, _ = loss_and_metrics(params, tok, tgt, mesh, cfg)
+    out = {f"grad/{k}": g.cpu().numpy() for k, g in grads.items()}
+    opt, step = make_train_step(mesh, cfg, FusedAdam(TRAIN_LR))
+    st = opt.init(params)
+    losses = []
+    mods = (cuda_attention, cuda_xent, cuda_adam)
+    for _ in range(TRAIN_STEPS):
+        for mod in mods:
+            mod.reset_launches()
+        params, st, loss = step(params, st, tok, tgt)
+        losses.append(float(loss))
+    out["loss"] = np.asarray(losses, np.float32)
+    out.update({f"param/{k}": v.cpu().numpy() for k, v in params.items()})
+    launches = {k: n for mod in mods for k, n in mod.LAUNCHES.items() if n}
+    return out, launches
+
+
+def train_worker(args, proc: int, nproc: int) -> dict:
+    """The train mode's work in this process: :func:`train_case` on the
+    model mesh split across the processes; its arrays to
+    ``OUT/rank<proc>.npz``; returns the worker's record."""
+    from icikit_torch.models.transformer import make_model_mesh
+    from icikit_torch.parallel import transport
+
+    mesh = make_model_mesh(*TRAIN_MESH, device=args.device)
+    transport.reset_wire()
+    _sync(mesh.device != "cpu")
+    t0 = time.perf_counter()
+    out, launches = train_case(mesh)
+    _sync(mesh.device != "cpu")
+    seconds = time.perf_counter() - t0
+    os.makedirs(args.out, exist_ok=True)
+    np.savez(os.path.join(args.out, f"rank{proc}.npz"), **out)
+    return {"process": proc, "processes": nproc, "mode": "train",
+            "mesh": list(TRAIN_MESH), "dp_ranks": list(mesh.local),
+            "device": args.device, "note": BACKEND_NOTE,
+            "loss": out["loss"].tolist(), "train_s": seconds,
+            "launches_last_step": launches, "wire": dict(transport.WIRE),
+            "sha256": hashlib.sha256(b"".join(
+                out[k].tobytes() for k in sorted(out))).hexdigest()}
+
+
 def _sync(cuda: bool) -> None:
     """Wait for the card, then for every process (the backend's
     barrier), so a timed window starts with all processes ready."""
@@ -229,6 +320,12 @@ def worker(args) -> int:
     proc, nproc, _ = process_info()
     if (proc, nproc) != (args.process_id, PROCESSES):
         raise RuntimeError(f"process_info {(proc, nproc)}")
+    if args.mode == "train":
+        record = train_worker(args, proc, nproc)
+        print("WORKER_RESULT " + json.dumps(record), flush=True)
+        dist.destroy_process_group()
+        print("WORKER_OK", flush=True)
+        return 0
     flat = make_mesh(RANKS, device=args.device)
     hybrid = make_hybrid_mesh(device=args.device)
     if hybrid.shape != {"dcn": HYBRID[0], "p": HYBRID[1]}:
@@ -324,6 +421,12 @@ def worker_argv(device: str, out: str, m: int, log2n: int,
             + (["--keep-sorted"] if keep_sorted else []))
 
 
+def train_argv(device: str, out: str, timeout: float = 120) -> list:
+    """The train mode's worker options, as :func:`launch` takes them."""
+    return ["--mode", "train", "--device", device, "--out", out,
+            "--timeout", str(timeout)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--port", type=int)
@@ -339,14 +442,17 @@ def main(argv=None) -> int:
     ap.add_argument("--keep-sorted", action="store_true",
                     help="write the sorted rows to the .npz too")
     ap.add_argument("--timeout", type=float, default=120)
+    ap.add_argument("--mode", default="collectives",
+                    choices=("collectives", "train"))
     args = ap.parse_args(argv)
     if args.m % RANKS:
         ap.error(f"--m must be a multiple of {RANKS}")
     if args.launch:
-        res = launch(worker_argv(args.device, args.out, args.m, args.log2n,
-                                 args.sort_runs, args.keep_sorted,
-                                 args.timeout),
-                     args.out, args.timeout + 60)
+        argv = (train_argv(args.device, args.out, args.timeout)
+                if args.mode == "train" else
+                worker_argv(args.device, args.out, args.m, args.log2n,
+                            args.sort_runs, args.keep_sorted, args.timeout))
+        res = launch(argv, args.out, args.timeout + 60)
         for i, (code, out) in enumerate(res):
             print(f"-- worker {i}: exit {code}\n{out[-4000:]}")
         return 0 if all(c == 0 for c, _ in res) else 1

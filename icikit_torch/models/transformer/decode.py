@@ -365,6 +365,11 @@ def greedy_generate(params: dict, prompt: torch.Tensor, mesh: ModelMesh,
         raise ValueError(f"n_new must be >= 1, got {n_new}")
     if mesh.sp != 1:
         raise ValueError("decoding requires sp=1")
+    if mesh.dp > 1 or mesh.tp > 1:
+        raise NotImplementedError(
+            f"decode on a mesh of dp={mesh.dp} tp={mesh.tp} is not ported "
+            "yet (ROADMAP A5: the sharded generate, _vp_argmax and the "
+            "int8 mesh specs); decode on the (1, 1, 1) mesh")
     s_prompt = prompt.shape[1]
     total = s_prompt + n_new
     if total > cfg.max_seq:

@@ -6,18 +6,35 @@ train paths. ``TransformerConfig`` carries every field and default of
 the JAX config, so a JAX config maps over field by field; the port
 refuses loudly what it has not ported yet (``check_ported``).
 
-The model mesh is (dp, tp, sp) = (1, 1, 1) on one device: the tensor-
-parallel ``psum``s that close the column/row matmul pairs in JAX are
-the identity at tp = 1, and the (dp, sp) psums of the loss too. Matmuls
-run in ``compute_dtype`` from copies of the float32 master parameters;
-norm statistics are float32. In the train forward the residual stream
-is in ``compute_dtype``, as in JAX's ``_forward_local``; a Python loop
-over layers takes the place of ``lax.scan``.
+The model mesh (dp, tp, sp) is JAX's, rank-vectorised on one device as
+the collectives are (``utils/mesh.py``): the R = dp tp sp ranks are
+rows, in JAX's order (dp outermost, then tp, then sp). A parameter
+leaf's value is JAX's global array; each rank sees its shard by
+:func:`param_specs` (heads, kv heads and d_ff split over tp; the head's
+vocabulary too under ``vocab_parallel``), entering the per-rank program
+through ``parallel.model_axes.pvary`` over the axes it is replicated
+on, so its gradient's sum over those axes (the gradient sync over dp
+and sp, and over tp for a tp-replicated leaf) is that pvary's backward,
+a psum. Tokens shard as JAX's ``P(dp, sp)``. The column/row matmul
+pairs close with a psum over tp; the loss is psummed over (dp, sp).
+Each dp rank runs the per-rank program of its tp sp ranks, vectorised
+over them: their weights batch the matmuls, their rows fold into the
+kernels' batch. Across OS processes (``parallel.multihost``) a process
+holds a contiguous range of the dp ranks and all of their tp and sp
+ranks, so only the dp psums cross the process backend. At (1, 1, 1)
+every psum and pvary is the identity and the program is the
+single-device one.
+
+Matmuls run in ``compute_dtype`` from copies of the float32 master
+parameters; norm statistics are float32. In the train forward the
+residual stream is in ``compute_dtype``, as in JAX's ``_forward_local``;
+a Python loop over layers takes the place of ``lax.scan``.
 
 The train step (``make_train_step``) differentiates the loss with
 autograd through the flash-attention and fused-head kernels and
 applies ``FusedAdam`` in place, with no host sync: ``guard="device"``
-selects each update against a finiteness flag on the device.
+selects each update against a finiteness flag on the device, and
+``grad_check="ring"`` adds the checked digest ring over dp to that flag.
 """
 
 from __future__ import annotations
@@ -29,6 +46,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from icikit_torch import chaos
+from icikit_torch.parallel.model_axes import pmax, psum, pvary
+from icikit_torch.utils.mesh import (RankMesh, process_layout,
+                                     require_single_process, split_ranks)
 
 DP_AXIS, TP_AXIS, SP_AXIS = "dp", "tp", "sp"
 
@@ -83,27 +105,61 @@ class TransformerConfig:
 
 @dataclass(frozen=True)
 class ModelMesh:
-    """The (dp, tp, sp) mesh of the port: one device."""
+    """The (dp, tp, sp) mesh of the port: dp tp sp ranks on ``device``,
+    split across ``procs`` processes along dp (process i holds dp ranks
+    ``[i dp/procs, (i + 1) dp/procs)`` and all their tp and sp ranks)."""
     dp: int = 1
     tp: int = 1
     sp: int = 1
     device: str = "cuda"
+    procs: int = 1
+    proc: int = 0
+
+    def __post_init__(self):
+        for name in ("dp", "tp", "sp"):
+            n = getattr(self, name)
+            if not isinstance(n, int) or n < 1:
+                raise ValueError(f"{name} must be a positive int, got {n!r}")
+        split_ranks(self.dp, self.procs, self.proc)
 
     @property
     def shape(self) -> dict:
         return {DP_AXIS: self.dp, TP_AXIS: self.tp, SP_AXIS: self.sp}
 
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp * self.sp
+
+    @property
+    def local(self) -> tuple[int, int]:
+        """[lo, hi): the dp ranks this process holds."""
+        return split_ranks(self.dp, self.procs, self.proc)
+
+    def local_size(self, axis: str) -> int:
+        """The ranks of ``axis`` this process holds."""
+        return self.dp // self.procs if axis == DP_AXIS else self.shape[axis]
+
+    def axis_mesh(self, axis: str) -> RankMesh:
+        """``axis`` as a flat ``RankMesh``, the mesh a collective over it
+        runs on (across processes only dp's ranks are split)."""
+        procs = self.procs if axis == DP_AXIS else 1
+        return RankMesh(self.shape[axis], self.device, axis, procs,
+                        self.proc if procs > 1 else 0)
+
 
 def make_model_mesh(dp: int = 1, tp: int = 1, sp: int = 1,
                     device: str = "cuda") -> ModelMesh:
-    """The model mesh on ``device`` (the card unless the caller asks for
-    the CPU). Only dp = tp = sp = 1 so far: sharding the batch, heads or
-    sequence needs the collectives, which the port has not reached."""
-    if (dp, tp, sp) != (1, 1, 1):
-        raise NotImplementedError(
-            f"mesh dp={dp} tp={tp} sp={sp}: the port runs the model on "
-            "one device until the collectives are ported (ROADMAP A5)")
-    return ModelMesh(dp, tp, sp, device)
+    """The (dp, tp, sp) model mesh on ``device`` (the card unless the
+    caller asks for the CPU), its ranks rows of one device. With a live
+    ``torch.distributed`` group (``parallel.multihost.
+    init_distributed``) its dp ranks split across the processes, as
+    JAX's mesh spans every process's devices: dp must divide by the
+    process count."""
+    proc, procs = process_layout()
+    if procs > 1 and dp % procs:
+        raise ValueError(f"dp={dp} does not divide over {procs} processes "
+                         "(a process holds whole dp ranks)")
+    return ModelMesh(dp, tp, sp, device, procs, proc)
 
 
 def _check_cfg(cfg: TransformerConfig) -> None:
@@ -192,14 +248,68 @@ def _layer_keys(cfg: TransformerConfig) -> tuple:
 MATMUL_KEYS = ("wq", "wkv", "wqkv", "wo", "w1", "w2", "w_out")
 
 
+def _check_mesh_cfg(cfg: TransformerConfig, mesh) -> None:
+    """JAX's mesh-dependent validation, copied: whole heads, kv heads
+    (and the vocabulary under ``vocab_parallel``) a tp rank; ulysses'
+    heads over sp; zigzag's two chunks a rank."""
+    tp = mesh.shape.get(TP_AXIS, 1)
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} must divide over tp={tp}")
+    kv = cfg.n_kv_heads or cfg.n_heads
+    if kv % tp:
+        raise ValueError(f"n_kv_heads={kv} must divide over tp={tp} "
+                         "(each tp shard needs whole K/V head groups)")
+    if cfg.vocab_parallel and cfg.vocab % tp:
+        raise ValueError(f"vocab_parallel requires vocab={cfg.vocab} "
+                         f"divisible by tp={tp}")
+    sp = mesh.shape.get(SP_AXIS, 1)
+    if (cfg.sequence_schedule == "ulysses" and sp > 1
+            and (cfg.n_heads // tp) % sp):
+        raise ValueError(
+            f"ulysses needs per-tp-shard heads ({cfg.n_heads}/{tp}) "
+            f"divisible by sp={sp}")
+    if (cfg.sequence_schedule == "zigzag" and sp > 1
+            and cfg.max_seq % (2 * sp)):
+        raise ValueError(
+            f"zigzag needs max_seq={cfg.max_seq} divisible by "
+            f"2*sp={2 * sp} (two chunks per device)")
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The port's form of JAX's ``param_specs``: for each leaf, the dim
+    that shards over tp (a rank holds a contiguous block of it), or
+    None for a leaf replicated over the mesh. Layer leaves are stacked
+    on dim 0; every leaf is replicated over dp and sp (MoE's dp-sharded
+    experts are not ported)."""
+    _check_cfg(cfg)
+    specs = {"emb": None, "ln1": None, "ln2": None, "ln_f": None,
+             "wo": 1,                                  # (L, H, Dh, D)
+             "w_out": 0 if cfg.vocab_parallel else None,  # (V, D)
+             "w1": 2,                                  # (L, D, F)
+             "w2": 1}                                  # (L, F, D)
+    if _is_gqa(cfg):
+        specs["wq"] = 2                                # (L, D, H, Dh)
+        specs["wkv"] = 3                               # (L, D, 2, Hkv, Dh)
+    else:
+        specs["wqkv"] = 3                              # (L, D, 3, H, Dh)
+    if cfg.pos_encoding == "learned":
+        specs["pos"] = None
+    return specs
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device: str = "cuda") -> dict:
+                device: str = "cuda", mesh: ModelMesh | None = None) -> dict:
     """float32 master parameters with the JAX package's leaf names,
     shapes and ``1/sqrt(fan_in)`` scales, drawn from ``generator``
-    (which must live on ``device``). The values differ from JAX's for
-    the same seed; tests carry JAX's through ``interop.params_from_jax``.
-    """
+    (which must live on ``device``, or on ``mesh``'s device when a mesh
+    is given). The values differ from JAX's for the same seed; tests
+    carry JAX's through ``interop.params_from_jax``. A leaf is its
+    global array on any mesh, so every mesh gets the (1, 1, 1) values;
+    ``mesh`` only validates the config against it."""
     check_ported(cfg)
+    if mesh is not None:
+        _check_mesh_cfg(cfg, mesh)
+        device = mesh.device
     L, D, H, Dh, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head,
                        cfg.d_ff)
 
@@ -227,21 +337,53 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def _rms_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+# The layer math below takes ``ranks``: 1 is the single-device form
+# (decode, and the train step at tp = sp = 1); with ranks > 1, dim 0 of
+# an activation holds ranks x batch rows and a weight leads with the
+# ranks, one shard each.
+
+
+def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor,
+            ranks: int) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` on each rank, batched over the ranks."""
+    if ranks == 1:
+        return torch.einsum(eq, x, w)
+    a, rest = eq.split(",")
+    b, out = rest.split("->")
+    y = torch.einsum(f"r{a},r{b}->r{out}",
+                     x.view(ranks, -1, *x.shape[1:]), w)
+    return y.flatten(0, 1)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, ranks: int) -> torch.Tensor:
+    """``x @ w`` on each rank: one batched product of the ranks."""
+    if ranks == 1:
+        return torch.matmul(x, w)
+    y = torch.matmul(x.view(ranks, -1, x.shape[-1]), w)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+
+def _rms_norm(x: torch.Tensor, g: torch.Tensor,
+              ranks: int = 1) -> torch.Tensor:
     """float32 RMS norm: ``x * rsqrt(mean(x^2) + 1e-6) * g``."""
+    if ranks > 1:
+        return _rms_norm(x.view(ranks, -1, x.shape[-1]),
+                         g[:, None, :]).view(x.shape)
     x32 = x.float()
     r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
     return (x32 * r) * g
 
 
-def _project_qkv(h: torch.Tensor, lp: dict, cdt: torch.dtype):
-    """(b, s, D) -> q (b, s, H, Dh), k/v (b, s, Hkv, Dh) in ``cdt``.
-    GQA K/V heads are repeated at attention time, not here."""
+def _project_qkv(h: torch.Tensor, lp: dict, cdt: torch.dtype,
+                 ranks: int = 1):
+    """(b, s, D) -> q (b, s, H, Dh), k/v (b, s, Hkv, Dh) in ``cdt``
+    (per-shard head counts when tp-sharded). GQA K/V heads are repeated
+    at attention time, not here."""
     if "wq" in lp:
-        q = torch.einsum("bsd,dhe->bshe", h, lp["wq"].to(cdt))
-        kv = torch.einsum("bsd,dthe->bsthe", h, lp["wkv"].to(cdt))
+        q = _einsum("bsd,dhe->bshe", h, lp["wq"].to(cdt), ranks)
+        kv = _einsum("bsd,dthe->bsthe", h, lp["wkv"].to(cdt), ranks)
         return q, kv[:, :, 0], kv[:, :, 1]
-    qkv = torch.einsum("bsd,dthe->bsthe", h, lp["wqkv"].to(cdt))
+    qkv = _einsum("bsd,dthe->bsthe", h, lp["wqkv"].to(cdt), ranks)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -251,29 +393,30 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _dense_ffn_block(x: torch.Tensor, lp: dict, cdt: torch.dtype,
-                     reduce_out) -> torch.Tensor:
-    """Pre-norm dense-MLP sublayer. GELU is the tanh approximation, the
-    default of ``jax.nn.gelu`` (torch's default is the erf form)."""
-    h2 = _rms_norm(x, lp["ln2"]).to(cdt)
-    u = F.gelu(torch.matmul(h2, lp["w1"].to(cdt)), approximate="tanh")
-    m = torch.matmul(u, lp["w2"].to(cdt))
+                     reduce_out, ranks: int = 1) -> torch.Tensor:
+    """Pre-norm dense-MLP sublayer; ``reduce_out`` closes the column/row
+    tensor-parallel pair. GELU is the tanh approximation, the default of
+    ``jax.nn.gelu`` (torch's default is the erf form)."""
+    h2 = _rms_norm(x, lp["ln2"], ranks).to(cdt)
+    u = F.gelu(_matmul(h2, lp["w1"].to(cdt), ranks), approximate="tanh")
+    m = _matmul(u, lp["w2"].to(cdt), ranks)
     return x + reduce_out(m.to(x.dtype))
 
 
 # ------------------------------------------------------------- train path
 
 
-def _attn_pre(x, lp, cdt):
+def _attn_pre(x, lp, cdt, ranks):
     """First half of the attention sublayer: pre-norm + QKV projection."""
-    h = _rms_norm(x, lp["ln1"]).to(cdt)
-    return _project_qkv(h, lp, cdt)
+    h = _rms_norm(x, lp["ln1"], ranks).to(cdt)
+    return _project_qkv(h, lp, cdt, ranks)
 
 
-def _attn_post(x, attn, lp, cdt):
-    """Second half: output projection and residual add, in the residual
-    dtype."""
-    o = torch.einsum("bshe,hed->bsd", attn.to(cdt), lp["wo"].to(cdt))
-    return x + o.to(x.dtype)
+def _attn_post(x, attn, lp, cdt, reduce_out, ranks):
+    """Second half: output projection, tp reduction and residual add, in
+    the residual dtype."""
+    o = _einsum("bshe,hed->bsd", attn.to(cdt), lp["wo"].to(cdt), ranks)
+    return x + reduce_out(o.to(x.dtype))
 
 
 REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "dots_attn",
@@ -313,20 +456,23 @@ def check_train_ported(cfg: TransformerConfig) -> None:
             f"remat_policy={cfg.remat_policy!r} is not ported yet (ported: "
             f"{', '.join(PORTED_REMAT_POLICIES)}); it waits with "
             "optim.py/train.py (ROADMAP A8)")
-    if cfg.vocab_parallel:
-        raise NotImplementedError(
-            "vocab_parallel (the Megatron head over tp) is not ported: it "
-            "needs the model mesh's tp > 1 (ROADMAP A5)")
     if cfg.grad_dtype not in ("compute", "float32"):
         raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r} "
                          "(known: compute, float32)")
 
 
-def _forward_local(params, tokens, cfg: TransformerConfig,
+def _forward_local(params, tokens, cfg: TransformerConfig, mesh: ModelMesh,
                    head: str = "logits"):
-    """The forward on one device: int tokens (b, s) -> float32 logits
-    (b, s, V), or with ``head="hidden"`` the final normed hidden state
-    (b, s, D) in the compute dtype, which the fused head consumes.
+    """The forward of one dp rank's tp x sp ranks (R of them), vectorised
+    over them: int tokens ``(R b, s)`` (rank (t, r) holds rows ``[(t sp
+    + r) b, ...)``, the batch rows of this dp rank and sequence block r)
+    -> float32 logits ``(R b, s, V)`` (``V/tp`` under
+    ``vocab_parallel``), or with ``head="hidden"`` the final normed
+    hidden state ``(R b, s, D)`` in the compute dtype, which the fused
+    head consumes. ``params`` are the ranks' shards (:func:`_enter`):
+    with R > 1 each leaf's rank dim follows its layer dim. Activations
+    are replicated over tp (each tp psum closes a column/row pair).
+
     ``save_stack="pallas"`` runs the whole layer stack through
     ``ops.stack_write.remat_scan_stacked`` (each layer's input saved in
     an explicit stack by the save-stack kernel, the layer rebuilt in the
@@ -335,17 +481,52 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
     layer under checkpoint) or ``"except_attn"`` (the projection and the
     FFN checkpointed under the dots policy, attention outside, so the
     backward never re-runs the flash forward)."""
+    from icikit_torch.models.attention.ring import ring_attention_shard
+    from icikit_torch.models.attention.ulysses import \
+        ulysses_attention_shard
+    from icikit_torch.models.attention.zigzag import zigzag_attention_shard
     from icikit_torch.ops.flash_attention import resolve_attention_impl
     from icikit_torch.ops.rope import apply_rope
 
     cdt = DTYPES[cfg.compute_dtype]
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)
-    x = params["emb"][tokens.long()]
+    tp, sp = mesh.tp, mesh.sp
+    ranks = tp * sp
+    rb, s = tokens.shape
+    b = rb // ranks
+    dev = tokens.device
+    tok = tokens.long()
+    if ranks == 1:
+        positions = torch.arange(s, device=dev)
+        x = params["emb"][tok]
+    else:
+        # rank (t, r) holds this shard's global positions r s + [0, s)
+        start = torch.arange(sp, device=dev).repeat(tp) * s
+        pos_r = start[:, None] + torch.arange(s, device=dev)   # (R, s)
+        positions = pos_r.repeat_interleave(b, dim=0)         # (R b, s)
+        emb = params["emb"]
+        offs = (torch.arange(ranks, device=dev)
+                * emb.shape[1]).repeat_interleave(b)[:, None]
+        x = emb.reshape(-1, emb.shape[-1])[tok + offs]
     if cfg.pos_encoding == "learned":
-        x = x + params["pos"][:s]
+        pos = params["pos"]
+        if ranks == 1:
+            x = x + pos[:s]
+        else:
+            rows = pos.gather(1, pos_r[..., None].expand(-1, -1,
+                                                         pos.shape[-1]))
+            x = (x.view(ranks, b, s, -1) + rows[:, None]).view(rb, s, -1)
     x = x.to(cdt)
     n_rep = _n_rep(cfg)
+
+    def psum_tp(v):
+        if tp == 1:
+            return v
+        return psum(v.view(tp, -1, *v.shape[1:]), mesh, TP_AXIS).view(
+            v.shape)
+
+    def sp_blocks(v):      # (R b, s, ...) -> (sp, tp b, s, ...)
+        return v.view(tp, sp, b, *v.shape[1:]).movedim(1, 0).reshape(
+            sp, tp * b, *v.shape[1:])
 
     # positions rides as an argument, as in JAX, where the save stack's
     # custom-vjp boundary needs it so
@@ -353,26 +534,42 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
         if cfg.pos_encoding == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
-        if cfg.attention_impl == "flash" and cfg.softmax_shift is not None:
-            return resolve_attention_impl("flash")(
-                q, k, v, causal=True, softmax_shift=cfg.softmax_shift)
-        return resolve_attention_impl(cfg.attention_impl)(q, k, v,
-                                                          causal=True)
+        if sp == 1:   # the full sequence is local: the fused kernel
+            k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+            if (cfg.attention_impl == "flash"
+                    and cfg.softmax_shift is not None):
+                return resolve_attention_impl("flash")(
+                    q, k, v, causal=True, softmax_shift=cfg.softmax_shift)
+            return resolve_attention_impl(cfg.attention_impl)(
+                q, k, v, causal=True)
+        qb, kb, vb = sp_blocks(q), sp_blocks(k), sp_blocks(v)
+        if cfg.sequence_schedule == "ulysses":
+            out = ulysses_attention_shard(
+                qb, kb, vb, mesh.axis_mesh(SP_AXIS), SP_AXIS, causal=True,
+                scale=None, algorithm=cfg.sp_algorithm,
+                local=cfg.attention_impl)
+        elif cfg.sequence_schedule == "zigzag":
+            # ring and zigzag rotate the un-repeated K/V blocks (GQA
+            # shrinks each ring message by n_rep)
+            out = zigzag_attention_shard(qb, kb, vb, sp, True, None)
+        else:
+            out = ring_attention_shard(qb, kb, vb, sp, True, None)
+        return out.view(sp, tp, b, *out.shape[2:]).movedim(0, 1).reshape(
+            rb, *out.shape[2:])
 
     def ffn(x, lp):
-        return _dense_ffn_block(x, lp, cdt, lambda m: m)
+        return _dense_ffn_block(x, lp, cdt, psum_tp, ranks)
 
     def layer(x, lp, positions):
-        q, k, v = _attn_pre(x, lp, cdt)
-        return ffn(_attn_post(x, attention(q, k, v, positions), lp, cdt),
-                   lp)
+        q, k, v = _attn_pre(x, lp, cdt, ranks)
+        return ffn(_attn_post(x, attention(q, k, v, positions), lp, cdt,
+                              psum_tp, ranks), lp)
 
     def pre(x, lp):
-        return _attn_pre(x, lp, cdt)
+        return _attn_pre(x, lp, cdt, ranks)
 
     def post(x, attn, lp):
-        return ffn(_attn_post(x, attn, lp, cdt), lp)
+        return ffn(_attn_post(x, attn, lp, cdt, psum_tp, ranks), lp)
 
     keys = _layer_keys(cfg)
     if cfg.save_stack == "pallas":
@@ -397,14 +594,39 @@ def _forward_local(params, tokens, cfg: TransformerConfig,
                                   lp, dots=True)
             else:  # "nothing"
                 x = _checkpointed(layer, x, lp, positions, dots=False)
-    x = _rms_norm(x, params["ln_f"]).to(cdt)
+    x = _rms_norm(x, params["ln_f"], ranks).to(cdt)
     if head == "hidden":
         return x
-    return torch.einsum("bsd,vd->bsv", x,
-                        params["w_out"].to(cdt)).float()
+    return _einsum("bsd,vd->bsv", x, params["w_out"].to(cdt), ranks).float()
+
+
+def _vocab_parallel_nll(logits, targets, mesh: ModelMesh):
+    """Token NLL from vocab-sharded logits ``(R b, s, V/tp)`` (rows as
+    in :func:`_forward_local`): the Megatron head. The max (a stability
+    shift outside autograd, whose gradient cancels) and the log-sum-exp
+    reduce over tp; the rank owning each target id contributes its logit
+    through a masked psum."""
+    tp, sp = mesh.tp, mesh.sp
+    rb, s, v_loc = logits.shape
+
+    def over_tp(f, v):      # (R b, s) -> (tp, sp b, s), f, back
+        return f(v.view(tp, -1, s), mesh, TP_AXIS).view(rb, s)
+
+    m = over_tp(pmax, logits.max(dim=-1).values)
+    z = over_tp(psum, torch.exp(logits - m[..., None]).sum(-1))
+    r_tp = torch.arange(tp, device=logits.device).repeat_interleave(
+        rb // tp)[:, None]
+    loc = targets.long() - r_tp * v_loc
+    own = (loc >= 0) & (loc < v_loc)
+    tl = logits.gather(-1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    tgt_logit = over_tp(psum, torch.where(own, tl, torch.zeros_like(tl)))
+    return m + torch.log(z) - tgt_logit
 
 
 def _use_fused_head(cfg: TransformerConfig, b: int, s: int) -> bool:
+    """Does the fused head take a rank's ``(b, s)`` tokens? JAX's gate on
+    the local T = b s (never under ``vocab_parallel``, whose
+    distributed head runs the unfused logits)."""
     if not cfg.fused_head or cfg.vocab_parallel:
         return False
     from icikit_torch.ops.xent import xent_supported
@@ -412,47 +634,139 @@ def _use_fused_head(cfg: TransformerConfig, b: int, s: int) -> bool:
                           DTYPES[cfg.compute_dtype])
 
 
-def _local_loss(params, tokens, targets, cfg: TransformerConfig):
-    """Mean token cross-entropy over the batch: the fused head
-    (``fused_xent``) where its gate takes the shape, else float32 logits
-    and ``log_softmax``. MoE is not ported, so its aux term is 0."""
-    b, s = tokens.shape
+def _local_loss(params, tokens, targets, cfg: TransformerConfig,
+                mesh: ModelMesh, denom: int) -> torch.Tensor:
+    """The per-rank losses ``(R,)`` of one dp rank's tp x sp ranks: each
+    rank's token cross-entropy summed over the global token count
+    ``denom``. The fused head (``fused_xent``, one call a rank with that
+    rank's copy of ``w_out``) where its gate takes a rank's tokens, else
+    float32 logits and ``log_softmax`` (or the vocab-parallel head).
+    MoE is not ported, so its aux term is 0."""
+    ranks = mesh.tp * mesh.sp
+    rb, s = tokens.shape
+    b = rb // ranks
     if _use_fused_head(cfg, b, s):
         from icikit_torch.ops.xent import fused_xent
-        h = _forward_local(params, tokens, cfg, head="hidden")
+
+        def head(h, w, t):
+            return fused_xent(h.reshape(b * s, cfg.d_model), w,
+                              t.reshape(b * s), save_exp=cfg.xent_save_exp,
+                              fused_bwd=cfg.xent_fused_bwd)
+
+        h = _forward_local(params, tokens, cfg, mesh, head="hidden")
         w = params["w_out"].to(h.dtype)
-        nll = fused_xent(h.reshape(b * s, cfg.d_model), w,
-                         targets.reshape(b * s),
-                         save_exp=cfg.xent_save_exp,
-                         fused_bwd=cfg.xent_fused_bwd).reshape(b, s)
+        if ranks == 1:
+            nll = head(h, w, targets)
+        else:
+            nll = torch.stack([head(*a) for a in zip(
+                h.view(ranks, b, s, -1).unbind(0), w.unbind(0),
+                targets.view(ranks, b, s).unbind(0))])
     else:
-        logits = _forward_local(params, tokens, cfg)
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    return nll.sum() / (b * s)
+        logits = _forward_local(params, tokens, cfg, mesh)
+        if cfg.vocab_parallel:
+            nll = _vocab_parallel_nll(logits, targets, mesh)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if ranks == 1:
+        loss = (nll.sum() / denom).reshape(1)
+    else:
+        loss = nll.reshape(ranks, -1).sum(1) / denom
+    if cfg.vocab_parallel and mesh.tp > 1:
+        # every tp rank holds the same value; the psum mirrors JAX's,
+        # which makes the replication explicit
+        loss = psum(loss.view(mesh.tp, -1), mesh, TP_AXIS).view(-1) / mesh.tp
+    return loss
+
+
+def _enter(leaf: torch.Tensor, tp_dim, layered: bool,
+           mesh: ModelMesh) -> torch.Tensor:
+    """A global leaf as its ranks see it: ``(dp_l, [L,] [R,] *shard)``
+    with dp_l this process's dp ranks and R = tp sp (no R dim when R is
+    1). A leaf sharded over tp (``tp_dim``) splits into contiguous
+    blocks, one a tp rank; ``pvary`` copies it to the ranks of every
+    axis it is replicated on, and its backward is their psum."""
+    at = 1 if layered else 0
+    tp, sp = mesh.tp, mesh.sp
+    if tp_dim is not None and tp > 1:
+        x = leaf.unflatten(tp_dim, (tp, -1)).movedim(tp_dim, at)
+        axes = {DP_AXIS: 0, SP_AXIS: at + 2}
+    else:
+        x = leaf.unsqueeze(at)
+        axes = {DP_AXIS: 0, TP_AXIS: at + 1, SP_AXIS: at + 2}
+    x = pvary(x.unsqueeze(at + 1).unsqueeze(0), mesh, axes)
+    if tp * sp == 1:
+        return x.squeeze(at + 2).squeeze(at + 1)
+    return x.flatten(at + 1, at + 2)
+
+
+def _rank_rows(x: torch.Tensor, mesh: ModelMesh) -> tuple:
+    """This process's ``(B, S)`` rows of tokens, sharded ``P(dp, sp)``:
+    one ``(R b, s)`` tensor a local dp rank, its tp x sp ranks' rows as
+    :func:`_forward_local` reads them."""
+    dp_l, tp, sp = mesh.local_size(DP_AXIS), mesh.tp, mesh.sp
+    big_b, big_s = x.shape
+    if big_b % dp_l or big_s % sp:
+        raise ValueError(f"tokens {tuple(x.shape)} do not shard over "
+                         f"{dp_l} dp ranks here and sp={sp}")
+    b, s = big_b // dp_l, big_s // sp
+    x = x.reshape(dp_l, b, sp, s).permute(0, 2, 1, 3).unsqueeze(1)
+    return x.expand(dp_l, tp, sp, b, s).reshape(dp_l, -1, s).unbind(0)
+
+
+def _global_loss(losses: list, mesh: ModelMesh) -> torch.Tensor:
+    """The loss every rank holds: the per-rank losses psummed over sp,
+    then dp (the dp sum crossing processes last)."""
+    x = torch.stack([l.detach() for l in losses]).view(
+        len(losses), mesh.tp, mesh.sp)
+    x = psum(psum(x, mesh, SP_AXIS, 2), mesh, DP_AXIS, 0)
+    return x[0, 0, 0]
 
 
 def loss_and_metrics(params: dict, tokens, targets, mesh: ModelMesh,
                      cfg: TransformerConfig, draft_tokens=None,
                      draft_p0: int = 0):
-    """Mean token cross-entropy, its gradient dict (one leaf per
-    floating parameter, in the leaf's dtype) and the metric dict (empty:
-    the draft head is not ported). ``tokens``/``targets``: integer
-    ``(B, S)`` on the mesh's device."""
+    """Mean token cross-entropy over the global batch, its gradient dict
+    (one leaf per floating parameter, in the leaf's dtype) and the
+    metric dict (empty: the draft head is not ported). ``tokens`` /
+    ``targets``: integer ``(B, S)`` on the mesh's device, sharded as
+    JAX's ``P(dp, sp)``; across processes, this process's rows of the
+    batch (its dp ranks').
+
+    Each dp rank's program runs on its copies of the leaves; the
+    objective differentiated is the sum of every rank's loss over tp
+    (the tp replicas hold the same value), so each leaf's gradient is
+    its pvary's psum of the ranks' cotangents."""
     check_train_ported(cfg)
+    _check_mesh_cfg(cfg, mesh)
     if draft_tokens is not None:
         raise NotImplementedError(
             "draft_tokens (on-policy draft distillation) needs the draft "
             "head, which is not ported yet (it comes with speculative "
             "decode)")
     dev = torch.device(mesh.device)
+    specs = param_specs(cfg)
+    layered = set(_layer_keys(cfg))
     leaves = {k: v.detach().requires_grad_(torch.is_floating_point(v))
               for k, v in params.items()}
     with torch.enable_grad():
-        loss = _local_loss(leaves, tokens.to(dev), targets.to(dev), cfg)
+        entered = {k: _enter(v, specs[k], k in layered, mesh).unbind(0)
+                   for k, v in leaves.items()}
+        rows = zip(_rank_rows(tokens.to(dev), mesh),
+                   _rank_rows(targets.to(dev), mesh))
+        b = tokens.shape[0] // mesh.local_size(DP_AXIS)
+        denom = b * tokens.shape[1] * mesh.dp
+        losses = [_local_loss({k: v[d] for k, v in entered.items()}, tok,
+                              tgt, cfg, mesh, denom)
+                  for d, (tok, tgt) in enumerate(rows)]
+        objective = losses[0].sum()
+        for l in losses[1:]:
+            objective = objective + l.sum()
+        if mesh.tp > 1:
+            objective = objective / mesh.tp
         names = [k for k, v in leaves.items() if v.requires_grad]
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-    return loss.detach(), dict(zip(names, grads)), {}
+        grads = torch.autograd.grad(objective, [leaves[k] for k in names])
+    return _global_loss(losses, mesh), dict(zip(names, grads)), {}
 
 
 def loss_fn(params, tokens, targets, mesh, cfg: TransformerConfig):
@@ -511,6 +825,75 @@ NARROW_OK = {"wo", "w_out", "wq", "wkv", "wqkv", "wr", "we1", "we2", "w1",
              "w2", "draft_a", "draft_b", "draft_out"}
 
 
+# the corruption site of the checked gradient sync, JAX's name
+GRAD_SYNC_SITE = "collective.train.grad_sync"
+chaos.register_site(GRAD_SYNC_SITE)
+
+
+def grad_sync_n_steps(mesh) -> int:
+    """Exchange steps of the ``grad_check="ring"`` digest ring: the
+    ``n_steps`` a ``chaos.traced_corrupt_spec(GRAD_SYNC_SITE, ...)``
+    drill targets (its ``p`` is dp)."""
+    return mesh.shape[DP_AXIS] - 1
+
+
+def _rank_shards(g: torch.Tensor, tp_dim, mesh: ModelMesh) -> torch.Tensor:
+    """Each local rank's shard of a global gradient leaf, ``(dp_l, tp,
+    sp, *shard)`` (a view: the ranks of a replicated axis share it)."""
+    tp, sp = mesh.tp, mesh.sp
+    if tp_dim is not None and tp > 1:
+        x = g.unflatten(tp_dim, (tp, -1)).movedim(tp_dim, 0)
+    else:
+        x = g.unsqueeze(0).expand(tp, *g.shape)
+    return x.unsqueeze(1).unsqueeze(0).expand(
+        mesh.local_size(DP_AXIS), tp, sp, *x.shape[1:])
+
+
+def _make_grad_sync_check(mesh: ModelMesh, cfg: TransformerConfig):
+    """JAX's checked-collective verdict over the step's gradient sync
+    (``icikit/models/transformer/model.py:1084-1165``), rank-vectorised.
+
+    Each rank folds its shards of the dp-reduced gradient leaves (one
+    explicit psum over dp, the bytes every replica commits) into one
+    digest (``transport.segment_checksum``, the fold I1 on the card) and
+    the digests circulate over dp on the checked transport: every hop is
+    checksummed, so an in-flight flip (the
+    ``corrupt:collective.train.grad_sync`` drill) fails the verdict, and
+    so does a replica whose digest differs from what reaches it. What it
+    cannot see is JAX's too: a corruption inside the sync that every
+    replica receives alike. Returns ``(check(grads, taint) -> ok bool
+    scalar, n_exchange_steps)``."""
+    from icikit_torch.ops.cuda_integrity import segment_checksum
+    from icikit_torch.parallel import transport
+    from icikit_torch.parallel.shmap import shift_perm
+
+    require_single_process(mesh, "grad_check='ring' (checked mode)")
+    specs = param_specs(cfg)
+    keys = tuple(sorted(specs))   # every ported leaf is dp-replicated
+    dp = mesh.dp
+    n_steps = grad_sync_n_steps(mesh)
+
+    def check(grads: dict, taint) -> torch.Tensor:
+        dig = None
+        for k in keys:
+            if not torch.is_floating_point(grads[k]):
+                continue
+            x = psum(_rank_shards(grads[k], specs[k], mesh), mesh, DP_AXIS)
+            cs = segment_checksum(x.reshape(mesh.size, -1))
+            dig = cs if dig is None else dig ^ cs
+        dig = dig.view(dp, -1)
+        tracker = transport.Tracker(DP_AXIS, taint)
+        equal = torch.ones((), dtype=torch.bool, device=dig.device)
+        with transport.checked(tracker):
+            cur = dig
+            for _ in range(n_steps):
+                cur = transport.ppermute(cur, shift_perm(dp, 1))
+                equal = equal & (cur == dig).all()
+        return tracker.verdict(dp, dig.device).all() & equal
+
+    return check, n_steps
+
+
 def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
                     optimizer=None, guard: str = "none",
                     grad_check: str = "none", draft_p0: int = 0):
@@ -526,7 +909,14 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
     ``guard="device"`` commits each leaf's update through ``where(ok,
     new, old)``, so a step with a non-finite loss or gradient is skipped
     on the device with no host sync; the step count advances only with
-    the update."""
+    the update.
+
+    ``grad_check="ring"`` (with ``guard="device"``) absorbs the checked
+    gradient-sync verdict (:func:`_make_grad_sync_check`) into ``ok``:
+    the step takes a trailing ``sync_taint``, ``chaos.
+    traced_corrupt_spec(GRAD_SYNC_SITE, grad_sync_n_steps(mesh), dp)``
+    for a drill, ``chaos.TAINT_OFF`` (or None) for none. Without the
+    ring the taint is ignored, as in JAX."""
     if guard not in ("none", "device"):
         raise ValueError(f"unknown guard {guard!r} (known: none, device)")
     if grad_check not in ("none", "ring"):
@@ -536,11 +926,10 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
         raise ValueError(
             "grad_check needs guard='device': the verdict is absorbed "
             "through the on-device where(ok, new, old) select")
-    if grad_check == "ring":
-        raise NotImplementedError(
-            "grad_check='ring' (the checked gradient sync over dp) needs "
-            "the checked transport and dp > 1 (ROADMAP A5)")
     check_train_ported(cfg)
+    _check_mesh_cfg(cfg, mesh)
+    sync_check = (_make_grad_sync_check(mesh, cfg)[0]
+                  if grad_check == "ring" else None)
     if optimizer is None:
         optimizer = FusedAdam(3e-4)
     if not isinstance(optimizer, FusedAdam):
@@ -567,9 +956,6 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
 
     def step(params, opt_state, tokens, targets, sync_taint=None,
              draft_tokens=None):
-        if sync_taint is not None:
-            raise NotImplementedError(
-                "sync_taint belongs to grad_check='ring' (ROADMAP A5)")
         loss, grads, _ = loss_and_metrics(narrow(params), tokens, targets,
                                           mesh, cfg, draft_tokens,
                                           draft_p0)
@@ -577,6 +963,9 @@ def make_train_step(mesh: ModelMesh, cfg: TransformerConfig,
         t_next = t + 1
         lr = opt.lr(t_next) if callable(opt.lr) else opt.lr
         ok = _grads_finite(loss, grads) if guard == "device" else None
+        if sync_check is not None:
+            ok = ok & sync_check(grads, chaos.TAINT_OFF if sync_taint is None
+                                 else sync_taint)
         adam_apply(params, m, v, grads, lr, t_next, opt.b1, opt.b2,
                    opt.eps, use_pallas=opt.use_pallas, ok=ok)
         t.copy_(t_next if ok is None else torch.where(ok, t_next, t))

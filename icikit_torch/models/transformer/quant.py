@@ -73,8 +73,14 @@ def is_quantized_params(params) -> bool:
 def quantize_decode_params(params: dict, cfg: TransformerConfig,
                            mesh=None) -> dict:
     """fp params -> the int8 decode dict (int8 leaves and ``_s`` scales,
-    the other leaves passed through), on the leaves' device. ``mesh`` is
-    accepted and ignored: the port runs on one device."""
+    the other leaves passed through), on the leaves' device. ``mesh``
+    (optional) must be dp = tp = 1: the int8 leaves' mesh specs
+    (``quant_param_specs``) are not ported yet (ROADMAP A5)."""
+    if mesh is not None and (mesh.dp > 1 or mesh.tp > 1):
+        raise NotImplementedError(
+            f"quantize_decode_params on a mesh of dp={mesh.dp} "
+            f"tp={mesh.tp}: decode on the mesh is not ported yet "
+            "(ROADMAP A5)")
     if cfg.decode_quant != "int8":
         raise ValueError("quantize_decode_params needs a config with "
                          f"decode_quant='int8', got {cfg.decode_quant!r}")

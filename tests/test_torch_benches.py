@@ -77,8 +77,14 @@ def test_attention_bench_cli_and_refusals():
     assert r.returncode == 0, r.stderr
     rec = json.loads(r.stdout.strip().splitlines()[-1])
     assert rec["verified"] and rec["impl"] == "flash"
-    with pytest.raises(NotImplementedError, match="A5"):
-        tatt.sweep_attention((64,), devices=2, device="cpu")
+    # the sequence-parallel rows: JAX's impls on a rank mesh, each held
+    # to the dense oracle
+    recs = tatt.sweep_attention((64,), impls=["ring", "zigzag", "ulysses"],
+                                batch=1, heads=2, d_head=32, runs=1,
+                                warmup=1, devices=2, device="cpu",
+                                windows=1)
+    assert [r.impl for r in recs] == ["ring", "zigzag", "ulysses"]
+    assert all(r.verified and r.p == 2 for r in recs)
     with pytest.raises(ValueError, match="unknown impls"):
         tatt.sweep_attention((64,), impls=["ring"], device="cpu")
 

@@ -62,7 +62,10 @@ def test_importing_the_port_loads_no_jax():
             "icikit_torch.obs, icikit_torch.parallel.integrity, "
             "icikit_torch.ops.cuda_integrity, icikit_torch.parallel.pt2pt, "
             "icikit_torch.parallel.multihost, icikit_torch.utils.net, "
-            "icikit_torch.examples.multihost; "
+            "icikit_torch.examples.multihost, "
+            "icikit_torch.parallel.model_axes, "
+            "icikit_torch.models.attention, "
+            "icikit_torch.models.transformer; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'icikit')])")
     r = _run(["-c", code])

@@ -26,7 +26,8 @@ from icikit.models.transformer import quant as jmq
 from icikit.models.transformer.model import make_model_mesh as j_mesh
 from icikit.ops import quant as jq
 from icikit_torch.interop import from_jax, params_from_jax, to_jax
-from icikit_torch.models.transformer import TransformerConfig
+from icikit_torch.models.transformer import (TransformerConfig,
+                                             make_model_mesh)
 from icikit_torch.models.transformer import quant as tmq
 from icikit_torch.ops import cuda_quant
 from icikit_torch.ops import quant as tq
@@ -165,7 +166,11 @@ def test_quantize_decode_params_matches_jax_bitwise(kv_heads, pos_encoding):
     want = jmq.quantize_decode_params(jparams, jcfg)
     tparams = params_from_jax({k: np.asarray(v) for k, v in jparams.items()},
                               "cpu")
-    got = tmq.quantize_decode_params(tparams, tcfg, mesh="ignored")
+    got = tmq.quantize_decode_params(tparams, tcfg,
+                                     mesh=make_model_mesh(device="cpu"))
+    with pytest.raises(NotImplementedError, match="A5"):
+        tmq.quantize_decode_params(tparams, tcfg,
+                                   mesh=make_model_mesh(tp=2, device="cpu"))
     assert set(got) == set(want)
     for k, w in want.items():
         w = np.asarray(w)

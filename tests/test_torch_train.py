@@ -285,10 +285,19 @@ def test_bfloat16_first_step_loss_near_jax():
 
 def test_train_refusals_name_their_items():
     mesh = make_model_mesh(device="cpu")
-    for over, what in ((dict(vocab_parallel=True), "A5"),
-                       (dict(remat_policy="dots_attn"), "A8")):
-        with pytest.raises(NotImplementedError, match=what):
-            make_train_step(mesh, TransformerConfig(**dict(CFG, **over)))
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_train_step(mesh, TransformerConfig(
+            **dict(CFG, remat_policy="dots_attn")))
+    # the vocab-parallel head is ported: at tp = 1 it is the unfused
+    # head's loss and gradients
+    _, _, tok, tgt, tparams = _both(CFG, seed=1)
+    want = _port_loss(tparams, tok, tgt, dict(CFG, fused_head=False))
+    got = _port_loss(tparams, tok, tgt, dict(CFG, vocab_parallel=True))
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+    for k, g in want[1].items():
+        np.testing.assert_allclose(got[1][k].numpy(), g.numpy(), rtol=0,
+                                   atol=1e-6 * float(g.abs().max()),
+                                   err_msg=k)
     # the save stack (B16) is ported: its step builds and runs
     _, _, tok, tgt, tparams = _both(CFG, seed=1)
     opt, step = make_train_step(
@@ -306,9 +315,18 @@ def test_train_refusals_name_their_items():
         opt, step = make_train_step(
             mesh, TransformerConfig(**dict(CFG, **cfg_over)), adam)
         assert opt.use_pallas == (adam is not None)
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_train_step(mesh, TransformerConfig(**CFG), guard="device",
-                        grad_check="ring")
+    # the checked gradient ring is ported: at dp = 1 it verifies
+    # vacuously, and its step commits as the unchecked one
+    outs = []
+    for check in ("ring", "none"):
+        p = {k: v.clone() for k, v in tparams.items()}
+        opt, step = make_train_step(mesh, TransformerConfig(**CFG),
+                                    guard="device", grad_check=check)
+        outs.append(step(p, opt.init(p), torch.from_numpy(tok),
+                         torch.from_numpy(tgt)))
+    assert bool(outs[0][3]) and torch.equal(outs[0][2], outs[1][2])
+    for k in tparams:
+        assert torch.equal(outs[0][0][k], outs[1][0][k]), k
     with pytest.raises(ValueError, match="grad_check needs"):
         make_train_step(mesh, TransformerConfig(**CFG), grad_check="ring")
     opt, _ = make_train_step(mesh, TransformerConfig(**CFG))
@@ -365,8 +383,14 @@ def test_train_bench_runs_on_cpu_with_jax_record_keys():
         assert r.returncode == 0, r.stderr
         rec = json.loads(r.stdout.strip().splitlines()[-1])
         assert rec["metric"].endswith(tag) and np.isfinite(rec["loss"])
+    # the model mesh: dp, tp and sp ranks on the one device
     r = subprocess.run([sys.executable, "-m", "icikit_torch.bench.train",
-                        "--device", "cpu", "--preset", "tiny", "--dp", "2"],
+                        "--device", "cpu", "--preset", "tiny", "--batch",
+                        "2", "--steps", "1", "--warmup", "1", "--windows",
+                        "1", "--dp", "2", "--tp", "2", "--sp", "2"],
                        cwd=ROOT, env=env, capture_output=True, text=True,
                        timeout=300)
-    assert r.returncode != 0 and "A5" in r.stderr
+    assert r.returncode == 0, r.stderr
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["metric"] == "train_tiny_dp2tp2sp2_b2_rp-except_attn"
+    assert np.isfinite(rec["loss"])
