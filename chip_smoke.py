@@ -145,8 +145,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the plain arms (loss and gradients, flash launches asserted).
 17. the int8 kernels against their plain versions: ``quant_matvec``
    (B15) at every (N, K) of the int8 path, rows 8, 4096 and 4095 (the
-   tile kernel's last row tile cut short), x in bf16 and float32
-   (QMV_TOL, relative to the largest entry);
+   tile kernel's last row tile cut short), and at a tp = 2 rank's (N, K)
+   (Q8_TP_SHAPES, phase 30's int8 mesh), rows 8 and 4096, x in bf16 and
+   float32 (QMV_TOL, relative to the largest entry);
    ``decode_step_q8`` (B14) at 64 rows, dh 128 and 256, 576 columns, cur
    0, 1, 127, 128, 300, 543, 575, and at rows 8, cur 543 and rows 1, cur
    575, where the picker leaves the last split empty (Q8_STEP_TOL; the
@@ -326,11 +327,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    one card) taking two dp = 2 steps, one dp rank each, their loss,
    first gradients and parameters bit for bit this process's dp = 2
    steps, the flash and head kernels launched in each.
-30. kernels line: every ported kernel with its launches on its main path,
+30. decode on the mesh and sampled decode (``greedy_generate`` and
+   ``sample_generate`` at dp, tp > 1, the ranks rows of the card) at
+   phase 8's cell (base, b 8, prompt 512, 64 new, decode_step="fused",
+   attention "flash"), each generate's launches asserted by kernel (one
+   ``flash_fwd`` and one ``decode_step`` or ``decode_step_q8`` a layer
+   at every mesh; under int8 one ``quant_matvec`` a tp rank a product
+   and one for the head): float32 greedy at each mesh of MESH_DECODE
+   ((1, 4, 1) with the vocab-parallel head) against the (1, 1, 1)
+   generate, the tokens equal except after a near-tie (phase 8's rule,
+   FP32_LOGIT_TOL); bf16 at MESH_DECODE_TIMED, the first step's logits
+   within BF16_LOGIT_TOL of (1, 1, 1)'s; int8 at float32 there against
+   int8 at (1, 1, 1) (INT8_FP32_LOGIT_TOL, phase 18's reason), and the
+   int8 bf16 generate there (B15's ``qmv_bf16_*``) its first step's
+   logits within BF16_LOGIT_TOL of int8 bf16 at (1, 1, 1)'s; the sampled
+   arm at float32 (``bench/decode.py``'s SAMPLE_KNOBS with top_p
+   SAMPLE_TOP_P, key data of its SAMPLE_SEED) at
+   MESH_DECODE_TIMED against (1, 1, 1): equal except after a draw whose
+   top-2 gap of Gumbel plus filtered logits is below DRAW_TIE_TOL;
+   temperature 0 bitwise the greedy tokens; every draw's key data and
+   the first draws' bits on the card bitwise the CPU's; CHI2_DRAWS draws
+   from one filtered row against its softmax by chi-square (p above
+   CHI2_P, none outside the support); then bf16 tokens/s by the chained
+   median-of-windows protocol at (1, 1, 1) and MESH_DECODE_TIMED and of
+   the sampled arm at (1, 1, 1), one window an arm in each of
+   TIMING_TURNS alternating turns (a draw's cost a token: the median of
+   each turn's sampled less greedy), and a ``torch.profiler`` trace, in
+   a fresh process, of the MESH_DECODE_TIMED generate (device time by
+   kernel, the idle share), of one step's draw and of a generate's
+   Gumbel noise (their launches).
+31. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
    sort kernels also with their launches on each algorithm's 2^24 path
-   and in each child of the two-process 2^28 sort.
+   and in each child of the two-process 2^28 sort, the train path's
+   kernels with their launches on phase 29's mesh step, and the decode
+   path's with their launches a phase-30 generate at each mesh.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``.
@@ -344,6 +376,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -499,6 +532,10 @@ Q8_CHECK_ROWS = Q8_ROWS + (DEC_BATCH * DEC_PROMPT - 1,)
 Q8_PREFILL = ("wqkv", "wo", "w1", "w2")   # a layer's products
 Q8_ROW_ENTRIES = (("wqkv", DEC_BATCH), ("w_out", DEC_BATCH)) + tuple(
     (nm, DEC_BATCH * DEC_PROMPT) for nm in Q8_PREFILL)
+# B15's (N, K) on a tp = 2 rank: wqkv's and w1's columns split in two,
+# wo's and w2's contraction
+Q8_TP_SHAPES = {"wqkv": (1536, 1024), "wo": (1024, 512), "w1": (2048, 1024),
+                "w2": (1024, 2048)}
 QMV_TOL = {"bf16": 1e-4, "f32": 1e-5}
 Q8_STEP_TOL = 1e-5
 # int8 float32 tokens against the plain arms: a K/V element that sits
@@ -620,6 +657,21 @@ MESH_TIMED = (2, 2, 2)
 # gradient's flipped sign shows (1.1e-6 on an H100 at 700 W).
 MESH_RING_TOL = 1e-5
 MESH_STEPS_A_RUN = 2
+# Phase 30: decode on the mesh, at phase 8's cell (base, b 8, prompt 512,
+# 64 new, fused, flash): float32 greedy at each (dp, tp, 1) of
+# MESH_DECODE (with its config overrides) against the (1, 1, 1) generate;
+# bf16, int8 and the sampled arm at MESH_DECODE_TIMED against (1, 1, 1);
+# JAX's sampled arm (bench/decode.py's key seed and knobs) with a
+# nucleus, held by the draw's top-2 gap (Gumbel plus filtered logits);
+# the frequency check's draws, their chunk and its chi-square level; the
+# timing's alternating turns.
+MESH_DECODE = (((2, 1), {}), ((1, 2), {}), ((2, 2), {}),
+               ((1, 4), dict(vocab_parallel=True)))
+MESH_DECODE_TIMED = (2, 2)
+SAMPLE_TOP_P = 0.9
+DRAW_TIE_TOL = 1e-5
+CHI2_DRAWS, CHI2_CHUNK, CHI2_P, CHI2_MIN_EXPECTED = 1 << 17, 8192, 1e-3, 5
+TIMING_TURNS = 3
 DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 DFS_WINDOWS, DFS_ITERS = 3, 2
 
@@ -2334,20 +2386,24 @@ def int8_kernel_checks(torch, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(10)
     checks = []
     for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for rows in Q8_CHECK_ROWS:
-            for n, k in Q8_SHAPES.values():
-                x = torch.randn((rows, k), generator=gen,
-                                device=dev).to(dtype)
-                w8 = torch.randint(-127, 128, (n, k), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                sc = torch.rand((n,), generator=gen, device=dev) / 127
-                got, want = cq.quant_matvec(x, w8, sc), \
-                    cq.quant_matvec_plain(x, w8, sc)
-                e = _rel(got, want)
-                checks.append({"kernel": "quant_matvec", "dtype": key,
-                               "rows": rows, "n": n, "k": k, "rel_err": e,
-                               "ok": e <= QMV_TOL[key]})
-                del x, w8, sc, got, want
+        for rows, n, k, tp in [
+                (r, n, k, 1) for r in Q8_CHECK_ROWS
+                for n, k in Q8_SHAPES.values()] + [
+                (r, n, k, 2) for r in Q8_ROWS
+                for n, k in Q8_TP_SHAPES.values()]:
+            x = torch.randn((rows, k), generator=gen,
+                            device=dev).to(dtype)
+            w8 = torch.randint(-127, 128, (n, k), generator=gen,
+                               device=dev, dtype=torch.int8)
+            sc = torch.rand((n,), generator=gen, device=dev) / 127
+            got, want = cq.quant_matvec(x, w8, sc), \
+                cq.quant_matvec_plain(x, w8, sc)
+            e = _rel(got, want)
+            checks.append({"kernel": "quant_matvec", "dtype": key,
+                           "rows": rows, "n": n, "k": k, "tp": tp,
+                           "rel_err": e,
+                           "ok": e <= QMV_TOL[key]})
+            del x, w8, sc, got, want
         total = DEC_PROMPT + DEC_NEW
         for dh in (128, 256):
             # the path's rows; then rows 8 at cur 543 (33 splits of 17
@@ -4490,6 +4546,400 @@ def model_mesh_phase(torch, dev, smi) -> dict:
             "grad_ring": grad_ring["checksum_launches"]}
 
 
+def _decode_launches(torch, run):
+    """``run()``'s launches of the decode path's kernels (non-zero ones),
+    synchronised."""
+    from icikit_torch.ops import cuda_attention as ca
+    from icikit_torch.ops import cuda_quant as cq
+
+    ca.reset_launches()
+    cq.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in {**ca.LAUNCHES, **cq.LAUNCHES}.items()
+                 if n}
+
+
+def _mesh_decode_want(cfg, tp: int) -> dict:
+    """A generate's launches at phase 8's cell on a (dp, tp, 1) mesh: one
+    ``flash_fwd`` and one step a layer (every rank's rows in the one
+    launch); under int8 one B15 launch a tp rank a product and one for
+    the head (tp under ``vocab_parallel``), at the prefill and each step."""
+    L = cfg.n_layers
+    if cfg.decode_quant != "int8":
+        return {"flash_fwd": L, "decode_step": L * (DEC_NEW - 1)}
+    head = tp if cfg.vocab_parallel else 1
+    return {"flash_fwd": L, "decode_step_q8": L * (DEC_NEW - 1),
+            "quant_matvec": (4 * L * tp + head) * DEC_NEW}
+
+
+def _sample_arm() -> tuple:
+    """JAX's sampled arm as ``bench/decode.py`` runs it (its key seed and
+    knobs) with the nucleus SAMPLE_TOP_P: (seed, knobs dict, knobs as
+    ``select_tokens`` takes them)."""
+    from icikit_torch.bench.decode import SAMPLE_KNOBS, SAMPLE_SEED
+
+    kn = dict(SAMPLE_KNOBS, top_p=SAMPLE_TOP_P)
+    return SAMPLE_SEED, kn, [kn["temperature"], kn["top_p"], kn["top_k"]]
+
+
+def _draw_gap(torch, lg, key, seed: int, pos: int) -> float:
+    """The top-2 gap of the draw of the token at ``pos`` from float32
+    logits ``lg (V,)`` under :func:`_sample_arm`'s knobs."""
+    from icikit_torch.models.transformer import decode as td
+
+    d = lg.device
+    draw = td.fold_positions(td.fold_streams(key.to(d), torch.tensor(
+        [seed], device=d)), torch.tensor([pos], device=d))
+    return float(td.draw_gap(lg[None].float(), draw, _sample_arm()[2])[0])
+
+
+def _draw_divergence(torch, tok_a, tok_b, lg_a, lg_b, key, seeds) -> list:
+    """:func:`_first_divergence` for sampled generates: a row that
+    differs must do so first at a draw whose top-2 gap (either arm's
+    logits) is below DRAW_TIE_TOL."""
+    rows = _first_divergence(tok_a, tok_b, lg_a, lg_b, DEC_PROMPT, 0.0)
+    for row in rows:
+        row.pop("top2_gap", None)
+        row.pop("near_tie", None)
+        j = row["first_diff"]
+        if j is not None:
+            gaps = [_draw_gap(torch, lg[j, row["row"]], key,
+                              int(seeds[row["row"]]), DEC_PROMPT + j)
+                    for lg in (lg_a, lg_b)]
+            row["draw_top2_gap"] = gaps
+            row["near_tie"] = max(gaps) < DRAW_TIE_TOL
+    return rows
+
+
+def _bad_rows(rows, tol) -> list:
+    return [r for r in rows if r["max_logit_diff"] > tol
+            or (r["first_diff"] is not None and not r["near_tie"])]
+
+
+def _chi_square(torch, dev, lg) -> dict:
+    """CHI2_DRAWS draws through ``select_tokens`` from the one raw row
+    ``lg (V,)`` under :func:`_sample_arm`'s knobs, each keyed
+    ``fold_in(key(7), i)``,
+    against the softmax of the row's filtered logits: Pearson's
+    chi-square over the support's tokens (those expected fewer than
+    CHI2_MIN_EXPECTED times pooled), and no draw outside the support."""
+    from scipy.stats import chi2
+
+    from icikit_torch.models.transformer import decode as td
+    from icikit_torch.utils import threefry
+
+    knobs = torch.tensor(_sample_arm()[2], device=dev)
+    x = td._sample_filter(lg[None].float(), knobs[0:1], knobs[2:3],
+                          knobs[1:2])[0]
+    support = torch.isfinite(x)
+    p = torch.softmax(x.double(), dim=-1)
+    counts = torch.zeros(lg.shape[-1], dtype=torch.int64, device=dev)
+    base = threefry.key_data(7, dev)
+    for i in range(0, CHI2_DRAWS, CHI2_CHUNK):
+        keys = threefry.fold_in(base, torch.arange(i, i + CHI2_CHUNK,
+                                                   device=dev))
+        tok = td.select_tokens(lg.float().expand(CHI2_CHUNK, -1), keys,
+                               knobs)
+        counts += torch.bincount(tok.long(), minlength=lg.shape[-1])
+    want = (p * CHI2_DRAWS)[support].cpu().numpy()
+    got = counts[support].cpu().numpy().astype(float)
+    big = want >= CHI2_MIN_EXPECTED
+    obs = list(got[big]) + ([got[~big].sum()] if (~big).any() else [])
+    exp = list(want[big]) + ([want[~big].sum()] if (~big).any() else [])
+    stat = float(sum((o - e) ** 2 / e for o, e in zip(obs, exp)))
+    df = len(obs) - 1
+    p_value = float(chi2.sf(stat, df))
+    outside = int(counts[~support].sum())
+    return {"draws": CHI2_DRAWS, "support": int(support.sum()),
+            "bins": len(obs), "chi2": stat, "df": df, "p_value": p_value,
+            "level": CHI2_P, "outside_support": outside,
+            "ok": p_value > CHI2_P and outside == 0}
+
+
+def mesh_decode_trace(torch, dev) -> dict:
+    """``torch.profiler``'s view of one bf16 MESH_DECODE_TIMED generate at
+    phase 8's cell (after a first call), of one step's draw at its width
+    (the filter and argmax over (b, V) float32 logits and their Gumbel
+    noise under :func:`_sample_arm`'s knobs) and of the Gumbel noise a
+    sampled generate makes for its draws: device time and launches by
+    kernel, busy ms, the idle share."""
+    from icikit_torch.bench.decode import make_config
+    from icikit_torch.models.transformer import (greedy_generate,
+                                                 init_params,
+                                                 make_model_mesh)
+    from icikit_torch.models.transformer import decode as td
+    from icikit_torch.utils import threefry
+    from icikit_torch.utils.trace import device_activity
+
+    cfg = make_config(DEC_PRESET, DEC_PROMPT, DEC_NEW, decode_step="fused",
+                      attention_impl="flash", compute_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab, (DEC_BATCH, DEC_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    mesh = make_model_mesh(*MESH_DECODE_TIMED, device=dev)
+    greedy_generate(params, prompt, mesh, cfg, DEC_NEW)
+    torch.cuda.synchronize()
+    act = device_activity(
+        lambda: greedy_generate(params, prompt, mesh, cfg, DEC_NEW),
+        attempts=TRACE_ATTEMPTS)
+    seed, _, kn = _sample_arm()
+    lg = torch.randn((DEC_BATCH, cfg.vocab), generator=gen, device=dev)
+    streams = td.fold_streams(threefry.key_data(seed, dev),
+                              torch.arange(DEC_BATCH, device=dev))
+    keys = td.fold_positions(streams, (DEC_PROMPT + torch.arange(
+        DEC_NEW, device=dev)).expand(DEC_BATCH, -1))
+    knobs = torch.tensor(kn, device=dev)
+
+    def noise():
+        return list(td._step_noise(keys, cfg.vocab))
+
+    g = noise()[0]
+    out = {}
+    for name, fn in (("draw_step", lambda: td._select_token(lg, g, knobs)),
+                     ("draw_noise_a_generate", noise)):
+        fn()
+        torch.cuda.synchronize()
+        out[name] = device_activity(fn, attempts=TRACE_ATTEMPTS)
+    top = sorted(act["by_name"].items(), key=lambda kv: -kv[1]["ms"])
+    pick = ("attempts", "device_events", "lost_device_events", "busy_ms",
+            "host_wall_ms", "idle_share_of_wall", "idle_share_of_span")
+    return {"mesh": list(MESH_DECODE_TIMED) + [1],
+            **{k: act[k] for k in pick}, "by_name_top": dict(top[:12]),
+            **{name: {k: a[k] for k in pick} for name, a in out.items()}}
+
+
+def mesh_decode_trace_in_child() -> dict:
+    """:func:`mesh_decode_trace` in a new Python process (the kernels are
+    already built), its record read from its last line: a trace late in
+    this script loses device records (phases 24, 26, 29)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.mesh_decode_trace(torch, "
+            "'cuda')))")
+    r = subprocess.run([sys.executable, "-c", code, here], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"mesh decode trace failed: "
+                             f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def mesh_decode_phase(torch, dev, smi) -> dict:
+    """Phase 30: decode on the mesh and sampled decode (see the module
+    docstring). Returns each kernel's launches a generate by mesh."""
+    from icikit_torch.bench.decode import make_config
+    from icikit_torch.models.transformer import (greedy_generate,
+                                                 init_params,
+                                                 make_model_mesh,
+                                                 maybe_quantize_params,
+                                                 sample_generate)
+    from icikit_torch.models.transformer import decode as td
+    from icikit_torch.utils import threefry
+    from icikit_torch.utils.timing import timeit_windows
+
+    t0 = time.perf_counter()
+
+    def config(dtype, **over):
+        return make_config(DEC_PRESET, DEC_PROMPT, DEC_NEW,
+                           **{"decode_step": "fused",
+                              "attention_impl": "flash",
+                              "compute_dtype": dtype, **over})
+
+    def mesh(dp=1, tp=1):
+        return make_model_mesh(dp, tp, device=dev)
+
+    def tag(dp, tp):
+        return f"{dp}x{tp}x1"
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fp = init_params(config("float32"), gen, dev)   # phase 8's masters
+    prompt = torch.randint(0, fp["emb"].shape[0], (DEC_BATCH, DEC_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    launches, checks = {}, []
+
+    def counted(name, dp, tp, cfg, run):
+        out, got = _decode_launches(torch, run)
+        want = _mesh_decode_want(cfg, tp)
+        launches.setdefault(name, {})[tag(dp, tp)] = got
+        if got != want:
+            raise AssertionError(f"{name} at {tag(dp, tp)}: launches {got}, "
+                                 f"want {want}")
+        return out
+
+    # -- float32 greedy at each mesh against (1, 1, 1)
+    c32 = config("float32")
+    ref = counted("float32 greedy", 1, 1, c32, lambda: greedy_generate(
+        fp, prompt, mesh(), c32, DEC_NEW, return_logits=True))
+    greedy_221 = None
+    for (dp, tp), over in MESH_DECODE:
+        c = config("float32", **over)
+        tok, lg = counted("float32 greedy", dp, tp, c,
+                          lambda: greedy_generate(fp, prompt, mesh(dp, tp),
+                                                  c, DEC_NEW,
+                                                  return_logits=True))
+        rows = _first_divergence(tok, ref[0], lg, ref[1], DEC_PROMPT,
+                                 FP32_LOGIT_TOL)
+        if (dp, tp) == MESH_DECODE_TIMED:
+            greedy_221 = tok
+        checks.append({"what": "float32 greedy", "mesh": tag(dp, tp),
+                       "over": over, "tolerance": FP32_LOGIT_TOL,
+                       "tokens_identical": bool(torch.equal(tok, ref[0])),
+                       "rows": rows, "ok": not _bad_rows(rows,
+                                                         FP32_LOGIT_TOL)})
+        del lg
+    dp, tp = MESH_DECODE_TIMED
+
+    # -- bf16: the first step's logits
+    c16 = config("bfloat16")
+    _, l16 = greedy_generate(fp, prompt, mesh(), c16, DEC_NEW,
+                             return_logits=True)
+    t16, m16 = counted("bf16 greedy", dp, tp, c16, lambda: greedy_generate(
+        fp, prompt, mesh(dp, tp), c16, DEC_NEW, return_logits=True))
+    d16 = float((m16[0] - l16[0]).abs().max())
+    checks.append({"what": "bf16 first-step logits", "mesh": tag(dp, tp),
+                   "max_diff": d16, "tolerance": BF16_LOGIT_TOL,
+                   "ok": d16 <= BF16_LOGIT_TOL})
+    del l16, m16
+
+    # -- int8 at float32 against int8 at (1, 1, 1); B14 and B15 launched
+    q32 = config("float32", decode_quant="int8")
+    qp = maybe_quantize_params(fp, mesh(), q32)
+    qref = counted("int8 float32 greedy", 1, 1, q32, lambda: greedy_generate(
+        qp, prompt, mesh(), q32, DEC_NEW, return_logits=True))
+    qt, ql = counted("int8 float32 greedy", dp, tp, q32,
+                     lambda: greedy_generate(qp, prompt, mesh(dp, tp), q32,
+                                             DEC_NEW, return_logits=True))
+    rows = _first_divergence(qt, qref[0], ql, qref[1], DEC_PROMPT,
+                             INT8_FP32_LOGIT_TOL)
+    checks.append({"what": "int8 float32 greedy", "mesh": tag(dp, tp),
+                   "tolerance": INT8_FP32_LOGIT_TOL,
+                   "tokens_identical": bool(torch.equal(qt, qref[0])),
+                   "rows": rows,
+                   "ok": not _bad_rows(rows, INT8_FP32_LOGIT_TOL)})
+    del qref, ql
+    q16 = config("bfloat16", decode_quant="int8")
+    _, ql1 = counted("int8 bf16 greedy (qmv_bf16_*)", 1, 1, q16,
+                     lambda: greedy_generate(qp, prompt, mesh(), q16,
+                                             DEC_NEW, return_logits=True))
+    _, qlm = counted("int8 bf16 greedy (qmv_bf16_*)", dp, tp, q16,
+                     lambda: greedy_generate(qp, prompt, mesh(dp, tp), q16,
+                                             DEC_NEW, return_logits=True))
+    dq16 = float((qlm[0] - ql1[0]).abs().max())
+    checks.append({"what": "int8 bf16 first-step logits", "mesh": tag(dp, tp),
+                   "max_diff": dq16, "tolerance": BF16_LOGIT_TOL,
+                   "ok": dq16 <= BF16_LOGIT_TOL})
+    del ql1, qlm
+
+    # -- sampled at float32: (2, 2, 1) against (1, 1, 1), temperature 0,
+    # the draw keys on the card against the CPU's, the frequencies
+    sample_seed, sample_knobs, _ = _sample_arm()
+    key = threefry.key_data(sample_seed)
+    seeds = torch.arange(DEC_BATCH, dtype=torch.int32)
+    s1, sl1 = counted("float32 sampled", 1, 1, c32, lambda: sample_generate(
+        fp, prompt, mesh(), c32, DEC_NEW, key, **sample_knobs,
+        return_logits=True))
+    sm, slm = counted("float32 sampled", dp, tp, c32,
+                      lambda: sample_generate(fp, prompt, mesh(dp, tp), c32,
+                                              DEC_NEW, key, **sample_knobs,
+                                              return_logits=True))
+    rows = _draw_divergence(torch, sm, s1, slm, sl1, key, seeds)
+    checks.append({"what": "float32 sampled", "mesh": tag(dp, tp),
+                   "knobs": sample_knobs, "key_seed": sample_seed,
+                   "draw_tie_tolerance": DRAW_TIE_TOL,
+                   "logit_tolerance": FP32_LOGIT_TOL,
+                   "tokens_identical": bool(torch.equal(sm, s1)),
+                   "tokens_equal_greedy_share": float(
+                       (sm[:, DEC_PROMPT:] == greedy_221[:, DEC_PROMPT:])
+                       .float().mean()),
+                   "rows": rows, "ok": not _bad_rows(rows, FP32_LOGIT_TOL)})
+    t0_tok = sample_generate(fp, prompt, mesh(dp, tp), c32, DEC_NEW, key,
+                             temperature=0.0)
+    checks.append({"what": "temperature 0 is greedy", "mesh": tag(dp, tp),
+                   "ok": bool(torch.equal(t0_tok, greedy_221))})
+    pos = DEC_PROMPT + torch.arange(DEC_NEW).expand(DEC_BATCH, -1)
+    keys = {d: td.fold_positions(td.fold_streams(key.to(d), seeds.to(d)),
+                                 pos.to(d)) for d in ("cpu", dev)}
+    bits = {d: threefry.random_bits(keys[d][:, :2], (sl1.shape[-1],))
+            for d in keys}
+    gum = {d: threefry.gumbel(keys[d][:, :2], (sl1.shape[-1],))
+           for d in keys}
+    checks.append({
+        "what": "draw keys on the card against the CPU",
+        "keys": int(keys["cpu"].numel() // 2),
+        "key_data_bitwise": bool(torch.equal(keys[dev].cpu(), keys["cpu"])),
+        "bits_bitwise": bool(torch.equal(bits[dev].cpu(), bits["cpu"])),
+        "gumbel_max_abs_diff": float((gum[dev].cpu() - gum["cpu"]).abs()
+                                     .max()),
+        "ok": bool(torch.equal(keys[dev].cpu(), keys["cpu"])
+                   and torch.equal(bits[dev].cpu(), bits["cpu"]))})
+    chi = _chi_square(torch, dev, sl1[0, 0])
+    checks.append({"what": "chi-square of the draws", "row": "the (1, 1, 1) "
+                   "sampled arm's first-step logits of row 0", **chi})
+    del sl1, slm, keys, bits, gum
+    emit({"phase": "mesh_decode", "part": "checks", "nvidia_smi": smi,
+          "config": {"preset": DEC_PRESET, "batch": DEC_BATCH,
+                     "prompt": DEC_PROMPT, "n_new": DEC_NEW,
+                     "decode_step": "fused", "attention_impl": "flash"},
+          "reference": "the same generate at (1, 1, 1)",
+          "checks": checks, "launches": launches,
+          "seconds": round(time.perf_counter() - t0, 1)})
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"decode on the mesh: {bad}")
+
+    # -- timing: bf16 greedy at (1, 1, 1) and MESH_DECODE_TIMED, and the
+    # sampled arm at (1, 1, 1), by the chained median-of-windows protocol,
+    # one window an arm in each of TIMING_TURNS alternating turns, so a
+    # draw's cost is read within each turn
+    t1 = time.perf_counter()
+    del qp
+    ctr = [0]
+
+    def chain(args, o):
+        ctr[0] += 1
+        nxt = o[:, -DEC_PROMPT:].clone()
+        nxt[0, 0] = ctr[0] % c16.vocab
+        return (nxt,)
+
+    runs = {"greedy 1x1x1": (mesh(), greedy_generate),
+            f"greedy {tag(dp, tp)}": (mesh(dp, tp), greedy_generate),
+            "sampled 1x1x1": (mesh(), lambda p, pr, m, c, n: sample_generate(
+                p, pr, m, c, n, key, **sample_knobs))}
+    per = {name: [] for name in runs}
+    for _ in range(TIMING_TURNS):
+        for name, (m, run) in runs.items():
+            res = timeit_windows(
+                lambda pr, m=m, run=run: run(fp, pr, m, c16, DEC_NEW),
+                (prompt,), chain, windows=1, runs=1, warmup=1,
+                max_windows=1)
+            per[name].append(res.median_s / DEC_NEW * 1e3)
+    arms = {name: {"per_token_ms": statistics.median(v),
+                   "spread_ms": [min(v), max(v)],
+                   "tokens_per_s": DEC_BATCH * 1e3 / statistics.median(v),
+                   "per_turn_ms": v} for name, v in per.items()}
+    draw = [a - b for a, b in zip(per["sampled 1x1x1"],
+                                  per["greedy 1x1x1"])]
+    del fp
+    torch.cuda.empty_cache()
+    t_trace = time.perf_counter()
+    trace = mesh_decode_trace_in_child()
+    trace["seconds"] = round(time.perf_counter() - t_trace, 1)
+    g1 = arms["greedy 1x1x1"]["per_token_ms"]
+    emit({"phase": "mesh_decode", "part": "timing", "card": smi,
+          "dtype": "bfloat16", "arms": arms,
+          "mesh_ratio_to_1x1x1": arms[f"greedy {tag(dp, tp)}"]
+          ["per_token_ms"] / g1,
+          "draw_ms_a_token": statistics.median(draw),
+          "draw_ms_a_token_per_turn": draw,
+          "draw_knobs": sample_knobs, "trace": trace,
+          "seconds": round(time.perf_counter() - t1, 1),
+          "seconds_phase": round(time.perf_counter() - t0, 1)})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4893,7 +5343,19 @@ def main() -> int:
         if first == "segment_checksum_kernel":
             row["launches_on_grad_ring_step"] = mesh_launches["grad_ring"]
 
-    # -- 30. the kernels line --------------------------------------------
+    # -- 30. decode on the mesh and sampled decode ------------------------
+    dec_mesh = mesh_decode_phase(torch, dev, smi)
+    for row in rows:
+        first = row["name"].split()[0]
+        if row["name"] != "flash_fwd (B3/B5)" and first not in (
+                "decode_step", "decode_step_q8", "quant_matvec"):
+            continue
+        by_mesh = {f"{arm} {m}": n[first] for arm, ms in dec_mesh.items()
+                   for m, n in ms.items() if first in n}
+        if by_mesh:
+            row["launches_on_mesh_generate"] = by_mesh
+
+    # -- 31. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

@@ -1,9 +1,12 @@
 """Decode throughput: tokens/s of greedy generation with a KV cache.
 
-The port of ``python -m icikit.bench.decode`` for its greedy,
-non-speculative rows, bf16 or int8 (``--decode-quant int8``: weights
-quantized once, outside the timing, and int8 KV caches; the metric
-carries ``_q8``). Prefill a prompt, generate
+The port of ``python -m icikit.bench.decode`` for its
+non-speculative rows: greedy or sampled (``--sampling sample``: JAX's
+draw, key data of seed 1, temperature 0.8, top_k 40), at any (dp, tp)
+mesh of the card (``--dp``, ``--tp``), MHA or GQA (``--kv-heads``),
+bf16 or int8 (``--decode-quant int8``: weights quantized once, outside
+the timing, and int8 KV caches; the metric carries ``_q8``). The metric
+names the mesh and the sampling as JAX's does. Prefill a prompt, generate
 ``n_new`` tokens, report tokens/s and per-token milliseconds by the
 chained median-of-windows protocol (each run's prompt is the previous
 run's generated tail, with one counter token so no two runs see the
@@ -15,6 +18,9 @@ with the JAX record's keys plus ``device`` and ``power_limit``.
         --prompt 512 --new 64 --decode-step fused
     python -m icikit_torch.bench.decode --preset base --batch 8 \\
         --prompt 512 --new 64 --decode-step fused --decode-quant int8
+    python -m icikit_torch.bench.decode --preset base --batch 8 \\
+        --prompt 512 --new 64 --decode-step fused --dp 2 --tp 2 \\
+        --sampling sample
     python -m icikit_torch.bench.decode --device cpu --preset tiny \\
         --batch 2 --prompt 8 --new 4
 """
@@ -82,16 +88,23 @@ def make_config(preset: str, prompt_len: int, n_new: int, **over):
     return TransformerConfig(**base, **over)
 
 
+# JAX's sampled arm (``icikit/bench/decode.py``): key 1, temperature
+# 0.8, top_k 40
+SAMPLE_SEED, SAMPLE_KNOBS = 1, dict(temperature=0.8, top_k=40)
+
+
 def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
               runs: int = 3, windows: int = 3,
               decode_step: str = "unfused", device: str = "cuda",
-              decode_quant: str = "none") -> dict:
+              decode_quant: str = "none", dp: int = 1, tp: int = 1,
+              sampling: str = "greedy", kv_heads: int = 0) -> dict:
     from icikit_torch.bench.headline import device_identity
     from icikit_torch.bench.sort import hbm_nameplate_bytes
     from icikit_torch.models.transformer import (
-        greedy_generate, init_params, make_model_mesh)
+        greedy_generate, init_params, make_model_mesh, sample_generate)
     from icikit_torch.models.transformer.decode import (
         _resolve_decode_step, maybe_quantize_params)
+    from icikit_torch.utils.threefry import key_data
     from icikit_torch.utils.timing import timeit_windows
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -99,10 +112,13 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
                            "the CPU")
     if n_new < 2:
         raise ValueError("n_new must be >= 2")
+    if sampling not in ("greedy", "sample"):
+        raise ValueError(f"unknown sampling {sampling!r} "
+                         "(known: greedy, sample)")
     cfg = make_config(preset, prompt_len, n_new, decode_step=decode_step,
-                      decode_quant=decode_quant)
+                      decode_quant=decode_quant, n_kv_heads=kv_heads)
     bytes_dtype = "int8" if decode_quant == "int8" else "bf16"
-    mesh = make_model_mesh(device=device)
+    mesh = make_model_mesh(dp=dp, tp=tp, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     # int8: quantized once, outside the timing loop, so the rows price
     # the int8 stream and not the one-time conversion
@@ -110,8 +126,13 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
     p0 = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                        device=device, dtype=torch.int32)
 
+    key = key_data(SAMPLE_SEED)
+
     def run(prompt):
-        return greedy_generate(params, prompt, mesh, cfg, n_new)
+        if sampling == "greedy":
+            return greedy_generate(params, prompt, mesh, cfg, n_new)
+        return sample_generate(params, prompt, mesh, cfg, n_new, key,
+                               **SAMPLE_KNOBS)
 
     ctr = [0]
 
@@ -131,11 +152,13 @@ def run_bench(preset: str, batch: int, prompt_len: int, n_new: int,
                          warmup=1, floor_s=floor_s)
     per_token_s = res.median_s / n_new
     step_tag = "" if decode_step == "unfused" else f"_{decode_step}"
-    q_tag = "_q8" if decode_quant == "int8" else ""
+    kv_tag = f"_kv{kv_heads}" if kv_heads else ""
+    if decode_quant == "int8":
+        kv_tag += "_q8"
     name, power = device_identity(device)
     return {
-        "metric": f"decode_{preset}_dp1tp1_b{batch}{q_tag}_p{prompt_len}"
-                  f"_n{n_new}_greedy{step_tag}",
+        "metric": f"decode_{preset}_dp{dp}tp{tp}_b{batch}{kv_tag}"
+                  f"_p{prompt_len}_n{n_new}_{sampling}{step_tag}",
         "decode_step": decode_step,
         "decode_step_resolved": ("fused" if _resolve_decode_step(cfg, device)
                                  else "unfused"),
@@ -168,10 +191,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="small", choices=sorted(PRESETS))
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=64)
     ap.add_argument("--new", dest="n_new", type=int, default=64)
+    ap.add_argument("--sampling", default="greedy",
+                    choices=["greedy", "sample"])
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--kv-heads", type=int, default=0)
     ap.add_argument("--decode-step", default="unfused",
                     choices=["auto", "fused", "unfused"])
     ap.add_argument("--decode-quant", default="none",
@@ -182,7 +210,10 @@ def main(argv=None) -> int:
                                args.n_new, args.runs,
                                decode_step=args.decode_step,
                                device=args.device,
-                               decode_quant=args.decode_quant)))
+                               decode_quant=args.decode_quant,
+                               dp=args.dp, tp=args.tp,
+                               sampling=args.sampling,
+                               kv_heads=args.kv_heads)))
     return 0
 
 

@@ -28,17 +28,27 @@ w2     (L, F, D)               (L, D, F)               (L, D)
 w_out  (V, D)                  (V, D)  (unchanged)     (V,)
 ====== ======================= ======================= ==============
 
-The port has one device, so there are no shardings: JAX's
-``quant_param_specs`` and ``decode_param_specs`` wait for the mesh
-(ROADMAP A5), and the teacher-forced parity metric
-(``measure_top1_agreement``, ``_build_forced``) for speculative
-decode's window pass (ROADMAP A9).
+On the model mesh every int8 leaf shards over tp as its fp leaf does
+(``quant_param_specs``, in ``model.param_specs``' form: the dim of each
+leaf that shards over tp, or None): the fp leaf's tp dim moved with the
+layout's transpose, and each scale with its channel dim. The scales of
+``wo`` and ``w2`` are replicated: tp splits their contraction, and the
+tp psum after the product closes the partial sums, each already scaled
+per full output channel. ``w_out`` and its scale shard over tp only
+under ``vocab_parallel``. The leaves are quantized whole, before they
+are sharded, so a shard's scales are the (1, 1, 1) scales.
+
+The teacher-forced parity metric (``measure_top1_agreement``,
+``_build_forced``) waits for speculative decode's window pass (ROADMAP
+A9).
 """
 
 from __future__ import annotations
 
 from icikit_torch.models.transformer.model import (TransformerConfig,
-                                                   _layer_keys)
+                                                   _check_mesh_cfg,
+                                                   _layer_keys,
+                                                   param_specs)
 from icikit_torch.ops.quant import quantize_last
 
 SCALE_SUFFIX = "_s"
@@ -73,14 +83,11 @@ def is_quantized_params(params) -> bool:
 def quantize_decode_params(params: dict, cfg: TransformerConfig,
                            mesh=None) -> dict:
     """fp params -> the int8 decode dict (int8 leaves and ``_s`` scales,
-    the other leaves passed through), on the leaves' device. ``mesh``
-    (optional) must be dp = tp = 1: the int8 leaves' mesh specs
-    (``quant_param_specs``) are not ported yet (ROADMAP A5)."""
-    if mesh is not None and (mesh.dp > 1 or mesh.tp > 1):
-        raise NotImplementedError(
-            f"quantize_decode_params on a mesh of dp={mesh.dp} "
-            f"tp={mesh.tp}: decode on the mesh is not ported yet "
-            "(ROADMAP A5)")
+    the other leaves passed through), on the leaves' device. Each leaf
+    is quantized whole; with ``mesh``, the config is checked against it
+    and each rank later sees its shard by :func:`quant_param_specs`."""
+    if mesh is not None:
+        _check_mesh_cfg(cfg, mesh)
     if cfg.decode_quant != "int8":
         raise ValueError("quantize_decode_params needs a config with "
                          f"decode_quant='int8', got {cfg.decode_quant!r}")
@@ -102,6 +109,32 @@ def quantize_decode_params(params: dict, cfg: TransformerConfig,
         out[k] = q.contiguous()
         out[k + SCALE_SUFFIX] = s.contiguous()
     return out
+
+
+def quant_param_specs(cfg: TransformerConfig) -> dict:
+    """The tp dim of every leaf of the int8 dict (None: replicated), in
+    ``model.param_specs``' form: an int8 leaf's is its fp leaf's dim
+    moved with the layout's transpose; a scale shards on that dim when
+    it is an output channel dim and is replicated when it lies in the
+    contraction."""
+    specs = dict(param_specs(cfg))
+    for k in quant_weight_keys(cfg):
+        perm, k_ndim = _LAYOUTS[k]
+        fp_dim = specs[k] if k != "draft_out" else specs["w_out"]
+        dim = (fp_dim if fp_dim is None or perm is None
+               else perm.index(fp_dim))
+        ndim = len(perm) if perm is not None else 2
+        specs[k] = dim
+        specs[k + SCALE_SUFFIX] = (dim if dim is not None
+                                   and dim < ndim - k_ndim else None)
+    return specs
+
+
+def decode_param_specs(cfg: TransformerConfig) -> dict:
+    """The specs the decode path shards its leaves by: the int8 dict's
+    when ``decode_quant="int8"``, the fp leaves' otherwise."""
+    return (quant_param_specs(cfg) if cfg.decode_quant == "int8"
+            else param_specs(cfg))
 
 
 def quant_layer_keys(cfg: TransformerConfig) -> tuple:

@@ -3,8 +3,10 @@
 The reference guarantees the same global random sequence whatever p is
 by chaining an ``erand48`` seed through the ranks in turn
 (``Parallel-Sorting/src/psort.cc:575-614``). The JAX package gets the
-same property from threefry's counter-based bits; torch has no cheap
-threefry, so the port keeps its own generator (its bits are not JAX's):
+same property from threefry's counter-based bits. The port's threefry
+(``utils/threefry.py``, JAX's bits, for sampled decode) costs some 170
+elementwise launches a call, so the sort's inputs keep a generator of
+their own (its bits are not JAX's):
 
 - ``uniform_global`` makes the whole sequence from one explicit CPU
   ``torch.Generator`` seeded with ``seed`` and moves it to the device:

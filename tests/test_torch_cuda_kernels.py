@@ -1838,3 +1838,49 @@ def test_two_process_bitonic_sort_on_the_card(gen, tmp_path):
                * 4 for r in recs)
     rows = [np.load(tmp_path / f"rank{i}.npz") for i in range(2)]
     assert set(rows[0]) == set(rows[1])
+
+
+# ------------------------------------------- threefry on the card (A9)
+# utils/threefry.py's integer arithmetic must give the CPU's words on the
+# card bit for bit: key data, folds and bits, hence the uniforms; the
+# sampled generate's draws depend on nothing else but the Gumbel log.
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1000), (32768,)])
+def test_threefry_on_the_card_equals_the_cpu(shape, gen):
+    from icikit_torch.models.transformer import decode as td
+    from icikit_torch.utils import threefry as tf
+
+    key = tf.key_data(5)
+    seeds = torch.tensor([0, 1, -1, 2**31 - 1, -2**31], dtype=torch.int32)
+    pos = 512 + torch.arange(5 * 4).reshape(5, 4)
+    keys = {d: td.fold_positions(td.fold_streams(key.to(d), seeds.to(d)),
+                                 pos.to(d)) for d in ("cpu", "cuda")}
+    assert torch.equal(keys["cuda"].cpu(), keys["cpu"])
+    for fn in (tf.random_bits, tf.uniform):
+        assert torch.equal(fn(keys["cuda"], shape).cpu(),
+                           fn(keys["cpu"], shape))
+    g = {d: tf.gumbel(keys[d], shape) for d in keys}
+    assert float((g["cuda"].cpu() - g["cpu"]).abs().max()) <= 1e-6
+
+
+def test_select_tokens_on_the_card_equals_the_cpu_up_to_near_ties(gen):
+    """A sampled draw (the filter, the keys, the Gumbel argmax) on the
+    card gives the CPU's token except where the CPU's top-2 gap of
+    Gumbel plus filtered logits is below 1e-5 (the two devices' log
+    round apart)."""
+    from icikit_torch.models.transformer import decode as td
+    from icikit_torch.utils import threefry as tf
+
+    lg = torch.randn((64, 32768), generator=gen, device="cuda")
+    keys = tf.fold_in(tf.key_data(1, "cuda"), torch.arange(64,
+                                                           device="cuda"))
+    knobs = torch.tensor([0.8, 0.9, 40.0], device="cuda")
+    got = td.select_tokens(lg, keys, knobs).cpu()
+    want = td.select_tokens(lg.cpu(), keys.cpu(), knobs.cpu())
+    x = td._sample_filter(lg.cpu(), knobs[0].cpu().expand(64),
+                          knobs[2].cpu().expand(64),
+                          knobs[1].cpu().expand(64))
+    top = (tf.gumbel(keys.cpu(), (32768,)) + x).topk(2, dim=-1).values
+    gap = top[:, 0] - top[:, 1]
+    assert bool(((got == want) | (gap < 1e-5)).all())

@@ -207,18 +207,19 @@ def test_unported_paths_refuse_loudly():
                        (dict(draft_head=True), "draft_head")):
         with pytest.raises(NotImplementedError, match=what):
             init_params(TransformerConfig(**CFG, **over), gen, "cpu")
-    with pytest.raises(NotImplementedError, match="sampled decode"):
-        sample_generate()
     # int8 decode is ported: its config initializes
     init_params(TransformerConfig(**CFG, decode_quant="int8"), gen, "cpu")
     cfg = TransformerConfig(**CFG)
     params = init_params(cfg, gen, "cpu")
-    # the mesh takes dp and tp > 1 (the train step); decode on it waits
+    # decode on the mesh and sampled decode are ported: they run at dp
+    # and tp > 1 (tests/test_torch_decode_mesh.py, test_torch_sampled.py
+    # hold them to JAX)
+    zeros = torch.zeros((2, 4), dtype=torch.int32)
     for dp, tp in ((2, 1), (1, 2)):
-        with pytest.raises(NotImplementedError, match="decode on a mesh"):
-            greedy_generate(params, torch.zeros((2, 4), dtype=torch.int32),
-                            make_model_mesh(dp=dp, tp=tp, device="cpu"),
-                            cfg, n_new=2)
+        m = make_model_mesh(dp=dp, tp=tp, device="cpu")
+        assert greedy_generate(params, zeros, m, cfg, n_new=2).shape == (2, 6)
+        assert sample_generate(params, zeros, m, cfg, 2,
+                               np.zeros(2, np.uint32)).shape == (2, 6)
     with pytest.raises(ValueError, match="max_seq"):
         greedy_generate(params, torch.zeros((1, 20), dtype=torch.int32),
                         mesh, cfg, n_new=8)

@@ -65,7 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "icikit_torch.examples.multihost, "
             "icikit_torch.parallel.model_axes, "
             "icikit_torch.models.attention, "
-            "icikit_torch.models.transformer; "
+            "icikit_torch.models.transformer, "
+            "icikit_torch.models.transformer.quant, "
+            "icikit_torch.utils.threefry, icikit_torch.bench.decode; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'icikit')])")
     r = _run(["-c", code])

@@ -10,8 +10,9 @@ configs are JAX's tests' (``test_transformer.py``'s tiny ``CFG``,
 relative, every gradient leaf 2e-4 relative and 2e-5 absolute. Then the
 train step on the mesh against JAX's, the checked gradient ring (a clean
 step commits as the unchecked one, a drilled one commits nothing), two
-real OS processes splitting dp (bitwise the one-process step), and the
-refusals of decode on a dp/tp mesh.
+real OS processes splitting dp (bitwise the one-process step), and
+decode on a dp/tp mesh (it runs in one process, refuses across
+processes).
 """
 
 from __future__ import annotations
@@ -304,7 +305,8 @@ def test_two_process_dp2_step_is_bitwise_the_one_process_step(tmp_path):
                                   np.ascontiguousarray(v).view(np.uint8)), k
 
 
-# -- decode waits for its own slice ---------------------------------------
+# -- decode on the mesh: runs in one process, refuses across processes ----
+# (tests/test_torch_decode_mesh.py holds it to JAX's generate)
 
 
 @pytest.mark.parametrize("mesh", [(2, 1, 1), (1, 2, 1)])
@@ -312,8 +314,15 @@ def test_decode_on_a_dp_or_tp_mesh_refuses(mesh):
     cfg = TransformerConfig(**dict(CFG, decode_quant="int8"))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     m = make_model_mesh(*mesh, device="cpu")
+    prompt = torch.zeros((2, 4), dtype=torch.int32)
+    want = greedy_generate(params, prompt, make_model_mesh(device="cpu"),
+                           cfg, n_new=2)
+    assert torch.equal(greedy_generate(params, prompt, m, cfg, n_new=2),
+                       want)
+    q = quantize_decode_params(params, cfg, m)
+    assert all(torch.equal(v, w) for v, w in zip(
+        q.values(), quantize_decode_params(params, cfg).values()))
+    # what still refuses: dp ranks spread over processes (ROADMAP A5)
+    two = tmodel.ModelMesh(2, mesh[1], 1, device="cpu", procs=2, proc=1)
     with pytest.raises(NotImplementedError, match="A5"):
-        greedy_generate(params, torch.zeros((2, 4), dtype=torch.int32), m,
-                        cfg, n_new=2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        quantize_decode_params(params, cfg, m)
+        greedy_generate(params, prompt, two, cfg, n_new=2)

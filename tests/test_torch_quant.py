@@ -168,9 +168,14 @@ def test_quantize_decode_params_matches_jax_bitwise(kv_heads, pos_encoding):
                               "cpu")
     got = tmq.quantize_decode_params(tparams, tcfg,
                                      mesh=make_model_mesh(device="cpu"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tmq.quantize_decode_params(tparams, tcfg,
-                                   mesh=make_model_mesh(tp=2, device="cpu"))
+    # on a tp = 2 mesh: the same global leaves, each sharded over tp as
+    # JAX's quant_param_specs shards it
+    on_mesh = tmq.quantize_decode_params(
+        tparams, tcfg, mesh=make_model_mesh(tp=2, device="cpu"))
+    assert all(torch.equal(on_mesh[k], got[k]) for k in got)
+    assert tmq.quant_param_specs(tcfg) == {
+        k: next((i for i, a in enumerate(v) if a == "tp"), None)
+        for k, v in jmq.quant_param_specs(jcfg).items()}
     assert set(got) == set(want)
     for k, w in want.items():
         w = np.asarray(w)
