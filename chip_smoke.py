@@ -297,8 +297,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    retried on a port race, each child with its own deadline
    MH_TIMEOUT), four ranks each: the flat families' variants at p = 8,
    the hierarchical four at (2, 4) and the pt2pt primitives at MH_M a
-   rank, each child's rows stacked equal to this process's run of the
-   same cases on the card bit for bit; the bitonic sort of 2^MH_LOG2N
+   rank, and the cases the process backend gained (broadcast, scatter
+   and gather in every variant, ``allreduce_loc``, ``all_gather_v``,
+   ``all_to_all_v``, a checked ring allreduce clean and with one drilled
+   bit flip, the sample, sample-bitonic, quicksort and checked bitonic
+   sorts and ``sort_kv`` of 2^SORT_LOG2N keys), each child's rows stacked
+   equal to this process's run of the same cases on the card bit for
+   bit, each child seeing the drill once, retrying once and recovering,
+   each sort case launching the sort kernels and each checked case the
+   fold I1 in each child; the bitonic sort of 2^MH_LOG2N
    int32 keys at p = 8, each child's sorted rows (by sha256) equal to
    this process's sort, 0 inversions counted across the processes,
    both sort kernels launched in each child; its wall time, the bytes
@@ -356,11 +363,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    a fresh process, of the MESH_DECODE_TIMED generate (device time by
    kernel, the idle share), of one step's draw and of a generate's
    Gumbel noise (their launches).
-31. kernels line: every ported kernel with its launches on its main path,
+31. the collectives study (``bench.scaling``, ``bench.crossover``, the
+   examples): ``run_scaling_sweep`` of allgather and alltoall, every
+   variant, at p in STUDY_PS ranks on the card, STUDY_SIZES, STUDY_RUNS
+   runs (each scale point a subprocess of ``bench.run``), every record
+   verified; one sort point (``bench.sort`` in a subprocess) of
+   2^STUDY_SORT_LOG2N int32 keys at p = STUDY_SORT_P, the four sorts, 0
+   inversions and equal to ``torch.sort``; one broadcast point with its
+   ranks split across two processes (``--processes 2``, gloo), verified;
+   the crossover model's merge rate (``measure_merge_rate``, 2^22 int32
+   on the card) and the comparator rate phase 4's sort implies;
+   ``dryrun_multichip(8)`` on the card; ``collectives_study`` on the
+   card, every record verified. Records, rates and ``nvidia-smi``'s line
+   on the phase's lines.
+32. kernels line: every ported kernel with its launches on its main path,
    its time at that path's shapes, its plain version's time, a library
    call's time where one computes the same function, and its bound; the
    sort kernels also with their launches on each algorithm's 2^24 path
-   and in each child of the two-process 2^28 sort, the train path's
+   and in each child of the two-process 2^28 sort and sort cases, the
+   fold I1 in each child's checked cases, the train path's
    kernels with their launches on phase 29's mesh step, and the decode
    path's with their launches a phase-30 generate at each mesh.
 
@@ -633,7 +654,7 @@ HIER_MESHES = ((2, 4), (4, 2))
 HIER_M = 1 << 20
 MH_M = 1 << 16
 MH_LOG2N = 28
-MH_SORT_RUNS = 3
+MH_SORT_RUNS = 2
 MH_TIMEOUT = 240
 # Phase 29: the model mesh. Checks at the base width, float32, b 2, s
 # 1024 and MESH_CHECK_LAYERS layers (cut from 12: the mesh's math is a
@@ -671,12 +692,28 @@ MESH_DECODE_TIMED = (2, 2)
 SAMPLE_TOP_P = 0.9
 DRAW_TIE_TOL = 1e-5
 CHI2_DRAWS, CHI2_CHUNK, CHI2_P, CHI2_MIN_EXPECTED = 1 << 17, 8192, 1e-3, 5
-TIMING_TURNS = 3
+TIMING_TURNS = 2
+# Phase 31, the collectives study: the scaling sweep's rank counts,
+# sizes, runs a point and a point's deadline; the sort point's ranks
+# and keys (each point a subprocess of the bench CLI, as JAX's study)
+STUDY_PS = (2, 4, 8)
+STUDY_SIZES = (256, 65536)
+STUDY_RUNS = 3
+STUDY_TIMEOUT = 300
+STUDY_SORT_P, STUDY_SORT_LOG2N = 8, 20
+SORT_ALGS = ("bitonic", "sample", "sample_bitonic", "quicksort")
 DEP_CYCLES, SM_CLOCK_HZ = 4, 1.98e9
 DFS_WINDOWS, DFS_ITERS = 3, 2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says how long the script had
+    run when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -892,7 +929,7 @@ def decode_path(torch, dev, bw, smi) -> dict:
         res = timeit_windows(
             lambda p, c=c: greedy_generate(params, p, mesh, c, DEC_NEW),
             (prompt,), chain, windows=3, runs=2, warmup=1, floor_s=floor_s,
-            max_windows=5)
+            max_windows=3)
         arms[name] = {"per_token_ms": res.median_s / DEC_NEW * 1e3,
                       "spread_ms": [res.min_s / DEC_NEW * 1e3,
                                     res.max_s / DEC_NEW * 1e3],
@@ -1346,8 +1383,8 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
     ok = ok and bool(np.isfinite(losses).all())
 
     # timing: chained steps carried in place, median of windows of at
-    # least 1.5 s (a step is ~0.1 s, and host noise spreads short
-    # windows); at most 5 windows, so the five arms fit the time limit
+    # least 1 s (a step is ~0.1 s, and host noise spreads short
+    # windows); at most 3 windows, so the five arms fit the time limit
     n_steps = 5
 
     def multi(p, s):
@@ -1357,8 +1394,8 @@ def train_arm(torch, cell, arm, spec, smi=None, phase="train") -> dict:
         return out
 
     res = timeit_windows(multi, (p, st), lambda a, o: (o[0], o[1]),
-                         windows=3, runs=1, warmup=1, target_window_s=1.5,
-                         max_windows=5,
+                         windows=3, runs=1, warmup=1, target_window_s=1.0,
+                         max_windows=3,
                          floor_s=n_steps * flops / peak if peak else None)
     step_s = res.median_s / n_steps
     rec = {"fp32_b2": fp32, "launches_per_step": launches, "want": want,
@@ -2584,7 +2621,7 @@ def int8_decode_path(torch, dev, bw, smi) -> dict:
         res = timeit_windows(
             lambda x, c=c, p=p: greedy_generate(p, x, mesh, c, DEC_NEW),
             (prompt,), chain, windows=3, runs=2, warmup=1,
-            floor_s=DEC_NEW * nbytes / bw, max_windows=5)
+            floor_s=DEC_NEW * nbytes / bw, max_windows=3)
         arms[name] = {"per_token_ms": res.median_s / DEC_NEW * 1e3,
                       "spread_ms": [res.min_s / DEC_NEW * 1e3,
                                     res.max_s / DEC_NEW * 1e3],
@@ -4069,10 +4106,12 @@ def _vendor_sum(coll: str, kw: dict) -> bool:
             and "xla" in (kw.get("ici_algorithm"), kw.get("dcn_algorithm")))
 
 
-def multihost_phase(torch, dev, smi) -> dict:
+def multihost_phase(torch, dev, smi) -> tuple:
     """Phase 28: the multi-process layer (see the module docstring).
-    Returns each child's sort-kernel launches, ``{"net": [..], "cross":
-    [..]}``."""
+    Returns each child's sort-kernel launches of the bitonic 2^MH_LOG2N
+    sort, ``{"net": [..], "cross": [..]}``, and of each sort and checked
+    case, ``{case: {"net": [..], "cross": [..], "segment_checksum":
+    [..]}}``."""
     import hashlib
 
     import numpy as np
@@ -4152,7 +4191,7 @@ def multihost_phase(torch, dev, smi) -> dict:
             ("flat ring", lambda v: tp.all_reduce(v, fmesh, "p", "ring")),
             ("flat xla", lambda v: tp.all_reduce(v, fmesh, "p", "xla"))):
         res = timeit_windows(fn, (x,), lambda a, o: (o * 0.125,),
-                             windows=5, runs=4, warmup=1, max_windows=7)
+                             windows=3, runs=4, warmup=1, max_windows=5)
         timed[name] = {"median_ms": res.median_s * 1e3,
                        "spread_ms": [res.min_s * 1e3, res.max_s * 1e3],
                        "windows": res.windows}
@@ -4208,6 +4247,11 @@ def multihost_phase(torch, dev, smi) -> dict:
                 .view(np.uint8), np.ascontiguousarray(v).view(np.uint8))]
     launches = {c: [r["launches"][c] for r in recs] for c in ("net",
                                                               "cross")}
+    cases = {case: {c: [r["case_launches"][case][c] for r in recs]
+                    for c in recs[0]["case_launches"][case]}
+             for case in recs[0]["case_launches"]}
+    # every child saw the drilled flip once, retried once and recovered
+    drills = [r["drill"] for r in recs]
     record = {
         "phase": "multihost", "part": "two_processes",
         "note": (mh.BACKEND_NOTE + "; the times and bytes are the host's "
@@ -4224,16 +4268,24 @@ def multihost_phase(torch, dev, smi) -> dict:
                                           zip(recs, digests)],
                  "launches_each_process": launches,
                  "wire_each_process": [r["wire"] for r in recs]},
+        "launches_each_process_by_case": cases, "drill": drills,
         "children_s": round(children_s, 1),
         "seconds": round(time.perf_counter() - t1, 1),
         "nvidia_smi": smi}
     emit(record)
     sort_rec = record["sort"]
+    sorts_ran = all(0 not in n["net"] for case, n in cases.items()
+                    if "sort" in case)
+    folds_ran = all(0 not in n["segment_checksum"]
+                    for case, n in cases.items() if "checked" in case)
     if (mismatched or any(sort_rec["inversions"])
             or not all(sort_rec["equal_to_one_process"])
-            or 0 in launches["net"] or 0 in launches["cross"]):
+            or 0 in launches["net"] or 0 in launches["cross"]
+            or not (sorts_ran and folds_ran)
+            or any(d != {"detected": 1, "retries": 1, "recoveries": 1,
+                         "fired": 1} for d in drills)):
         raise AssertionError(f"two-process run: {record}")
-    return launches
+    return launches, cases
 
 
 def _mesh_launches(torch, run) -> dict:
@@ -4940,6 +4992,97 @@ def mesh_decode_phase(torch, dev, smi) -> dict:
     return launches
 
 
+def collectives_study_phase(torch, dev, smi, sort_s: float) -> dict:
+    """Phase 31: the collectives study end to end (see the module
+    docstring). ``sort_s`` is phase 4's median seconds for 2^28 keys.
+    Returns the measured rates."""
+    from icikit_torch import parallel  # noqa: F401 (the registry)
+    from icikit_torch.bench import crossover, scaling
+    from icikit_torch.examples import collectives_study
+    from icikit_torch.examples.dryrun_multichip import dryrun_multichip
+    from icikit_torch.utils.registry import list_algorithms
+
+    t0 = time.perf_counter()
+    bad = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the strong-scaling sweep: a scale point a subprocess, p ranks as
+    # rows of the card
+    for family in ("allgather", "alltoall"):
+        recs = scaling.run_scaling_sweep(
+            family, STUDY_PS, sizes=STUDY_SIZES, runs=STUDY_RUNS,
+            device=dev, timeout_s=STUDY_TIMEOUT)
+        want = {(a, p, m) for p in STUDY_PS for m in STUDY_SIZES
+                for a in list_algorithms(family)
+                if p & (p - 1) == 0 or (family, a) not in COLL_POW2_ONLY}
+        got = {(r["algorithm"], r["p"], r["msize"]) for r in recs}
+        if got != want or not all(r["verified"] for r in recs):
+            bad.append({"what": f"scaling {family}", "missing":
+                        sorted(want - got), "unverified": [
+                            (r["algorithm"], r["p"], r["msize"])
+                            for r in recs if not r["verified"]]})
+        emit({"phase": "collectives_study", "part": "scaling",
+              "family": family, "ps": list(STUDY_PS), "card": smi,
+              "records": [{k: r[k] for k in (
+                  "algorithm", "p", "msize", "processes", "best_s",
+                  "mean_s", "busbw_gbps", "verified")} for r in recs]})
+    # one sort scale point: the four sorts at p = 8
+    recs = scaling.run_scale_point(
+        None, STUDY_SORT_P, sizes=(1 << STUDY_SORT_LOG2N,), runs=1,
+        device=dev, timeout_s=STUDY_TIMEOUT, bench="sort")
+    if (sorted(r["algorithm"] for r in recs) != sorted(SORT_ALGS)
+            or any(r["errors"] or not r["matches_torch_sort"]
+                   for r in recs)):
+        bad.append({"what": "sort scale point", "records": recs})
+    emit({"phase": "collectives_study", "part": "sort_point",
+          "p": STUDY_SORT_P, "n": 1 << STUDY_SORT_LOG2N, "dtype": "int32",
+          "card": smi,
+          "records": [{k: r[k] for k in (
+              "algorithm", "p", "n", "processes", "best_s", "keys_per_s",
+              "errors", "matches_torch_sort", "launches", "retries")}
+              for r in recs]})
+    # one point with the ranks split across two processes (gloo)
+    recs = scaling.run_scale_point(
+        "broadcast", STUDY_SORT_P, sizes=STUDY_SIZES, runs=STUDY_RUNS,
+        device=dev, processes=2, timeout_s=STUDY_TIMEOUT)
+    if (len(recs) != 3 * len(STUDY_SIZES)
+            or not all(r["verified"] and r["processes"] == 2
+                       for r in recs)):
+        bad.append({"what": "two-process point", "records": recs})
+    emit({"phase": "collectives_study", "part": "two_process_point",
+          "family": "broadcast", "p": STUDY_SORT_P, "processes": 2,
+          "note": "the times are the host's wire (gloo, pinned host "
+                  "staging), not the card's", "card": smi,
+          "records": [{k: r[k] for k in (
+              "algorithm", "p", "msize", "processes", "best_s", "mean_s",
+              "verified")} for r in recs]})
+    # the crossover model's two compute rates, measured on this card
+    merge = crossover.measure_merge_rate(device=dev)
+    r_cmp = crossover.comparator_rate(1 << 28, sort_s)
+    rates = {"r_cmp": r_cmp, "r_cmp_from": "phase 4: 2^28 int32 keys, p = "
+             f"1, median {sort_s * 1e3:.3f} ms",
+             "r_merge": merge["r_merge_measured_keys_per_s"],
+             "r_merge_bench": merge, "b_link_spec": crossover.B_LINK,
+             "module_constants": {"R_CMP": crossover.R_CMP,
+                                  "R_MERGE": crossover.R_MERGE}}
+    emit({"phase": "collectives_study", "part": "rates", "card": smi,
+          **rates})
+    # the dry run of every distributed part, and the collectives study
+    dryrun_multichip(STUDY_SORT_P, device=dev)
+    recs = collectives_study.study(dev)
+    emit({"phase": "collectives_study", "part": "examples",
+          "dryrun_multichip": f"{STUDY_SORT_P} ranks passed",
+          "collectives_study": [
+              {"family": r.family, "algorithm": r.algorithm,
+               "msize": r.msize, "best_us": r.best_s * 1e6,
+               "verified": r.verified} for r in recs],
+          "seconds": round(time.perf_counter() - t0, 1),
+          "failures": bad})
+    if bad:
+        raise AssertionError(f"collectives study failed: {bad}")
+    return rates
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5158,6 +5301,7 @@ def main() -> int:
           "windows": res.windows, "keys_per_s": n / res.median_s,
           "library_ms": lib_ms, "bound_ms": bound_ms,
           "bound_by": "bytes", "nameplate_Bps": bw})
+    main_sort_s = res.median_s
 
     # -- 5. rank-vectorised sort, p = 2, 4, 8 --------------------------
     ranks = []
@@ -5327,11 +5471,22 @@ def main() -> int:
     rows.append(solitaire_phase(torch, dev, smi))
 
     # -- 28. the multi-process layer: hierarchical, two processes --------
-    mh_launches = multihost_phase(torch, dev, smi)
+    from icikit_torch.examples.multihost import SORT_LOG2N as mh_sort_log2n
+    mh_launches, mh_cases = multihost_phase(torch, dev, smi)
     for row, counter in ((rows[0], "net"), (rows[1], "cross")):
         row["launches_on_sort_paths"][
             f"bitonic 2^{MH_LOG2N} int32 p=8, two processes (each)"] = \
             mh_launches[counter]
+        for case, n in mh_cases.items():
+            if "sort" in case:
+                row["launches_on_sort_paths"][
+                    f"{case} 2^{mh_sort_log2n} int32 p=8, two processes "
+                    "(each)"] = n[counter]
+    for row in rows:
+        if row["name"].startswith("segment_checksum_kernel"):
+            row["launches_on_two_processes"] = {
+                f"{case}, p=8 (each)": n["segment_checksum"]
+                for case, n in mh_cases.items() if "checked" in case}
 
     # -- 29. the model mesh: dp, tp, sp > 1 on the card ------------------
     mesh_launches = model_mesh_phase(torch, dev, smi)
@@ -5355,7 +5510,10 @@ def main() -> int:
         if by_mesh:
             row["launches_on_mesh_generate"] = by_mesh
 
-    # -- 31. the kernels line --------------------------------------------
+    # -- 31. the collectives study: scaling, crossover rates, dry run -----
+    collectives_study_phase(torch, dev, smi, main_sort_s)
+
+    # -- 32. the kernels line --------------------------------------------
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                             1)})
     emit({"kernels": rows})

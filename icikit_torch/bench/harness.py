@@ -13,6 +13,11 @@ expectation each run (``main.cc:431-441``), on the result's device.
 overhead's A/B rows. The ``xla`` variant is dropped from a checked
 sweep and refused when named, as in JAX.
 
+Across processes (a mesh split over ``torch.distributed`` processes,
+``bench/procs.py``) every process makes the whole payload and runs its
+ranks' rows, each timed window starts after a barrier, and the
+verification gathers every process's rows before it compares.
+
 Left out until ROADMAP A11 ports the host planes: JAX's chaos sites
 (sweep-boundary delays and deaths, the verify-payload bit flip) and obs
 spans and counters, so ``BenchRecord.trace_id`` stays empty.
@@ -27,6 +32,7 @@ from typing import Sequence
 
 import torch
 
+from icikit_torch.bench.procs import all_true, gather_rows, sync
 from icikit_torch.parallel.allgather import all_gather_blocks
 from icikit_torch.parallel.allreduce import all_reduce
 from icikit_torch.parallel.alltoall import all_to_all_blocks
@@ -37,7 +43,7 @@ from icikit_torch.parallel.reduce import reduce_to_root
 from icikit_torch.parallel.reducescatter import reduce_scatter
 from icikit_torch.parallel.scan import scan_reduce
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, UnsupportedMeshError,
-                                     mesh_axis_size, replicate, shard_along)
+                                     mesh_axis_size, replicate)
 from icikit_torch.utils.registry import list_algorithms
 from icikit_torch.utils.timing import timeit
 
@@ -130,28 +136,27 @@ def _equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 def _setup(family: str, mesh, axis: str, msize: int, dtype: torch.dtype,
            checked: bool = False):
     """Build (run_fn, verify_fn) for one family; the payload is made on
-    the mesh's device."""
+    the mesh's device (across processes, each process's ranks' rows of
+    it, and verify_fn gathers every process's rows)."""
     if checked and family not in CHECKED_FAMILIES:
         raise ValueError(
             f"checked mode covers {CHECKED_FAMILIES}, not {family}")
     p = mesh_axis_size(mesh, axis)
     dev = mesh.device
+    lo, hi = getattr(mesh, "local", (0, p))
     if family in ("allgather", "broadcast", "gather", "allreduce", "scan",
                   "reduce"):
         data = _pattern(p, msize, dtype, dev)
-        x = shard_along(data, mesh, axis)
     elif family == "alltoall":
         data = _pattern(p * p, msize, dtype, dev).reshape(p, p, msize)
-        x = shard_along(data, mesh, axis)
     elif family == "scatter":
         data = _pattern(p, msize, dtype, dev)
-        x = replicate(data, mesh)
     elif family == "reducescatter":
         # each rank contributes p chunks of msize; receives one chunk
         data = _pattern(p, p * msize, dtype, dev)
-        x = shard_along(data, mesh, axis)
     else:
         raise ValueError(family)
+    x = replicate(data, mesh) if family == "scatter" else data[lo:hi]
 
     mode = {"checked": True} if checked else {}
 
@@ -159,7 +164,9 @@ def _setup(family: str, mesh, axis: str, msize: int, dtype: torch.dtype,
         return COLLECTIVES[family](x, mesh, axis, algorithm=alg, **mode)
 
     def verify(out) -> bool:
-        o = out
+        return all_true(_verified(gather_rows(out, mesh)), mesh)
+
+    def _verified(o) -> bool:
         if family == "allgather":
             return _equal(o, data.expand((p,) + data.shape))
         if family == "alltoall":
@@ -203,6 +210,7 @@ def sweep_collective(mesh, family: str, algorithm: str,
         verified = verify(run(algorithm))
         block_bytes = msize * dtype.itemsize
         bus_bytes = _bus_bytes(family, p, block_bytes)
+        sync(mesh.device)
         # a named range around the timing loop, so a profiler trace
         # attributes device work per collective and size
         with torch.profiler.record_function(

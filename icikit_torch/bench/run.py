@@ -7,18 +7,22 @@ Usage (the p ranks of the mesh on the card):
 
 ``--simulate`` runs the same ranks on the CPU instead. One process sweeps
 every variant of a family and prints the table, with the records as
-JSON lines where ``--json`` asks. The exit code is 1 when any record
-fails its verification.
+JSON lines where ``--json`` asks (each JAX's record and ``processes``).
+``--processes k`` splits the ranks across k OS processes
+(``bench/procs.py``; process 0 prints and writes).
+The exit code is 1 when any record fails its verification.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 
 
 def main(argv=None):
+    from icikit_torch.bench import procs
     from icikit_torch.bench.harness import FAMILIES
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -47,7 +51,14 @@ def main(argv=None):
     ap.add_argument("--profile", dest="profile_dir", default=None,
                     help="write a torch.profiler trace of the sweep into "
                          "this directory")
+    procs.add_process_args(ap)
     args = ap.parse_args(argv)
+    if args.json_path:
+        from icikit_torch.bench.outputs import check_output
+        check_output(args.json_path)
+    rc = procs.relaunch(args, "icikit_torch.bench.run", procs.argv_of(argv))
+    if rc is not None:
+        return rc
 
     import torch
 
@@ -67,6 +78,7 @@ def main(argv=None):
         print("no CUDA device: pass --simulate to run the ranks on the CPU",
               file=sys.stderr)
         return 2
+    proc, _ = procs.join(args)
     mesh = make_mesh(args.devices, device="cpu" if args.simulate else "cuda")
     sizes = (tuple(int(s) for s in args.sizes.split(","))
              if args.sizes else
@@ -87,12 +99,16 @@ def main(argv=None):
                                dtype=getattr(torch, args.dtype),
                                runs=args.runs, warmup=args.warmup,
                                checked=args.checked)
-    print(format_table(records))
-    if args.json_path:
-        # append: record files accumulate across invocations
+    procs.leave()
+    if proc == 0:
+        print(format_table(records))
+    if args.json_path and proc == 0:
+        # append: record files accumulate across invocations; a line is
+        # JAX's record and the process count
         with open(args.json_path, "a") as f:
             for r in records:
-                f.write(r.to_json() + "\n")
+                f.write(json.dumps({**json.loads(r.to_json()),
+                                    "processes": args.processes}) + "\n")
     if not all(r.verified for r in records):
         print("VERIFICATION FAILURES present", file=sys.stderr)
         return 1

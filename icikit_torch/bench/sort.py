@@ -18,6 +18,16 @@ CLI::
     python -m icikit_torch.bench.sort --sizes 16777216 --device cuda
     python -m icikit_torch.bench.sort --reference-float
     python -m icikit_torch.bench.sort --device cpu --sizes 65536 --windows 1
+    python -m icikit_torch.bench.sort --device cpu --sizes 65536 \
+        --windows 1 --processes 2
+
+``--processes k`` splits the ranks across k OS processes
+(``bench/procs.py``): every process makes the whole key set and sorts
+its ranks' part, the verification runs across the processes
+(``check_sort``, and the output against its part of ``torch.sort``'s on
+every process), the timing is a fixed count of fenced sorts (protocol
+"fixed-runs": an adaptive window would size itself on each process's
+own clock), and process 0 prints and writes the records.
 
 Exit code 1 when a sort fails its verification, 2 without a card (unless
 ``--device cpu``).
@@ -104,6 +114,7 @@ class SortRecord:
     floor_s: float | None = None       # sort_floor_s
     device: str = "cpu"
     power_limit: str | None = None
+    processes: int = 1                 # OS processes the ranks split over
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))
@@ -153,20 +164,22 @@ def study_chain(dtype: torch.dtype, odd_dist: bool):
 
 def _errors(out: torch.Tensor, p: int, mesh) -> int:
     """Inversions of a flat sorted output, by ``check_sort`` over p
-    blocks (padded with its last key)."""
+    blocks (padded with its last key); across processes ``out`` is this
+    process's part, whole blocks of its ranks."""
     from icikit_torch.models.sort import check_sort
     n = out.shape[0]
     if n < 2:
         return 0
-    pad = (-n) % p
+    rows = p // mesh.procs
+    pad = (-n) % rows
     full = torch.cat([out, out[-1:].expand(pad)])
-    return check_sort(full.reshape(p, -1), mesh)
+    return check_sort(full.reshape(rows, -1), mesh)
 
 
 def sweep_sorts(mesh, sizes, algorithms=None, dtype="int32",
                 odd_dist=False, runs=4, warmup=1, seed=0, windows=3):
     """Benchmark and verify each sort over a size sweep on ``mesh``'s
-    device.
+    device (across processes, each process sorting its ranks' part).
 
     ``windows >= 2`` uses the median-of-windows protocol
     (``timeit_windows``: median and [min, max], windows below
@@ -174,6 +187,7 @@ def sweep_sorts(mesh, sizes, algorithms=None, dtype="int32",
     measurement (``timeit_chained``); ``windows=0`` verifies without
     timing."""
     from icikit_torch.bench.headline import device_identity
+    from icikit_torch.bench.procs import all_true, sync
     from icikit_torch.models.sort import SORT_ALGORITHMS, sort
     from icikit_torch.models.sort.common import RETRIES, reset_retries
     from icikit_torch.ops import cuda_sort as cs
@@ -182,6 +196,7 @@ def sweep_sorts(mesh, sizes, algorithms=None, dtype="int32",
                                            timeit_windows)
 
     p = mesh_axis_size(mesh)
+    lo, hi = mesh.local
     device = mesh.device
     on_card = torch.device(device).type == "cuda"
     name, power = device_identity(device)
@@ -190,10 +205,13 @@ def sweep_sorts(mesh, sizes, algorithms=None, dtype="int32",
     dist = "odd_dist" if odd_dist else "uniform"
     records = []
     for n in sizes:
-        keys = study_keys(n, dt, odd_dist, seed, device)
-        oracle = torch.sort(keys).values
-        lib = (timeit(lambda: torch.sort(keys), runs=max(runs, 1),
+        whole = study_keys(n, dt, odd_dist, seed, device)
+        lib = (timeit(lambda: torch.sort(whole), runs=max(runs, 1),
                       warmup=1).mean_s if windows else None)
+        part = slice(lo * n // p, hi * n // p)  # this process's ranks'
+        keys = whole[part]
+        oracle = torch.sort(whole).values[part]
+        del whole
         floor = sort_floor_s(n, p, keys.element_size(), name) \
             if on_card else None
         for alg in algorithms:
@@ -214,15 +232,25 @@ def sweep_sorts(mesh, sizes, algorithms=None, dtype="int32",
             launches, retries = dict(cs.LAUNCHES), dict(RETRIES)
             rec = dict(algorithm=alg, p=p, n=n, dtype=str(dt)[6:],
                        distribution=dist, errors=_errors(out, p, mesh),
-                       matches_torch_sort=bool(torch.equal(out, oracle)),
+                       matches_torch_sort=all_true(
+                           bool(torch.equal(out, oracle)), mesh),
                        launches=launches, retries=retries,
                        torch_sort_s=lib, floor_s=floor, device=name,
-                       power_limit=power)
+                       power_limit=power, processes=mesh.procs)
             del out
             chain = study_chain(dt, odd_dist)
             calls[0] = 0
             reset_retries()
-            if windows >= 2:
+            sync(device)
+            if windows and mesh.procs > 1:
+                # a fixed count of sorts, each fenced: the adaptive
+                # windows below size themselves on this process's
+                # clock, and processes that ran different counts of a
+                # collective sort would wait on each other forever
+                r = timeit(run, keys, runs=runs, warmup=warmup)
+                rec.update(runs=r.runs, mean_s=r.mean_s, best_s=r.best_s,
+                           keys_per_s=n / r.best_s, protocol="fixed-runs")
+            elif windows >= 2:
                 w = timeit_windows(run, (keys,), chain, windows=windows,
                                    runs=runs, warmup=warmup, floor_s=floor)
                 rec.update(runs=runs, mean_s=w.median_s, best_s=w.min_s,
@@ -307,15 +335,26 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", dest="json_path", default=None,
                     help="append the records as JSON lines")
+    from icikit_torch.bench import procs
+    procs.add_process_args(ap)
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
         print("no CUDA device: pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
+    if args.json_path:
+        from icikit_torch.bench.outputs import check_output
+        check_output(args.json_path)
+    rc = procs.relaunch(args, "icikit_torch.bench.sort",
+                        procs.argv_of(argv))
+    if rc is not None:
+        return rc
 
     from icikit_torch.bench.headline import device_identity
     from icikit_torch.utils.mesh import make_mesh
+
+    proc, _ = procs.join(args)
 
     mesh = make_mesh(args.devices, device=args.device)
     if args.reference_float:
@@ -326,7 +365,6 @@ def main(argv=None) -> int:
         configs = [(tuple(int(s) for s in args.sizes.split(",")),
                     args.dtype, args.odd_dist)]
     name, power = device_identity(args.device)
-    print(f"device: {name}, power limit: {power}")
     records = []
     for sizes, dtype, odd in configs:
         records += sweep_sorts(
@@ -334,8 +372,11 @@ def main(argv=None) -> int:
             args.algorithms.split(",") if args.algorithms else None,
             dtype=dtype, odd_dist=odd, runs=args.runs,
             warmup=args.warmup, windows=args.windows)
-    print(format_table(records))
-    if args.json_path:
+    procs.leave()
+    if proc == 0:
+        print(f"device: {name}, power limit: {power}")
+        print(format_table(records))
+    if args.json_path and proc == 0:
         with open(args.json_path, "a") as f:
             for r in records:
                 f.write(r.to_json() + "\n")

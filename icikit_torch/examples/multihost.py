@@ -1,19 +1,25 @@
 """The two-process bring-up, the ``mpirun`` analog
 (``Communication/Data/sub.sh:9-15``, ``MPI_Init`` at
 ``Communication/src/main.cc:396``): a worker that runs the port's
-collectives, point-to-point primitives and bitonic sort with its ranks
-split across OS processes, and the launcher that starts the workers.
+collectives, point-to-point primitives and sorts with its ranks split
+across OS processes, and the launcher that starts the workers.
 
 Each worker joins the ``torch.distributed`` group (``init_distributed``,
 gloo), builds the flat mesh of 8 ranks and the (dcn 2, ici 4) hybrid
 mesh (four ranks a process), runs every case of :func:`run_cases` on
-its rows of the seeded inputs of :func:`inputs`, sorts ``2^log2n`` int32
-keys with ``sort(algorithm="bitonic")`` (on the card through the sort
-kernels, each process its own rows), counts the inversions across the
+its rows of the seeded inputs of :func:`inputs` (every family and
+variant, ``reduceloc``, ``alltoallv``, a checked ring allreduce clean
+and with one drilled bit flip, the hierarchical collectives, pt2pt, the
+sample, sample-bitonic, quicksort and checked bitonic sorts and
+``sort_kv`` of 2^SORT_LOG2N keys), sorts ``2^log2n`` int32 keys with
+``sort(algorithm="bitonic")`` (on the card through the sort kernels,
+each process its own rows), counts the inversions across the
 processes, writes its rows to ``OUT/rank<i>.npz`` and prints one
-``WORKER_RESULT`` JSON line and ``WORKER_OK``. The rows of the two
-processes, stacked, are the one-process result of the same cases:
-``run_cases`` on single-process meshes computes that.
+``WORKER_RESULT`` JSON line (with the sort and checksum kernels'
+launches of each sort case and the drill's integrity counters) and
+``WORKER_OK``. The rows of the two processes, stacked, are the
+one-process result of the same cases: ``run_cases`` on single-process
+meshes computes that.
 
 With ``--mode train`` a worker instead takes TRAIN_STEPS train steps of the
 transformer on a (dp, tp, sp) model mesh whose dp ranks split across the
@@ -53,7 +59,6 @@ import datetime
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -66,7 +71,9 @@ PROCESSES = 2
 HYBRID = (2, 4)
 ROOT = 5
 SEED = 7
-LAUNCH_ATTEMPTS = 3
+# the keys of the sort cases of run_cases: 2^13 a rank, the sort
+# kernels' smallest row
+SORT_LOG2N = 16
 BACKEND_NOTE = "backend: gloo, staged through host"
 
 # The train mode's model: float32, d_model 128 (the fused head's width),
@@ -85,8 +92,12 @@ TRAIN_STEPS = 2
 def inputs(m: int, log2n: int) -> dict:
     """The global inputs, every rank's row, from SEED: int32 and float32
     (RANKS, m) operands, (RANKS, RANKS, m / RANKS) alltoall operands,
-    and the sort's 2^log2n int32 keys."""
+    the sort's 2^log2n int32 keys, the ragged cases' counts (each
+    rank's (RANKS,) send counts, summing to at most m, and its own
+    count for ``all_gather_v``), and the sort cases' 2^SORT_LOG2N int32
+    keys, spread and with duplicates, with int32 values."""
     rng = np.random.default_rng(SEED)
+    n = 1 << SORT_LOG2N
     return {
         "int32": rng.integers(-100, 100, (RANKS, m)).astype(np.int32),
         "float32": rng.standard_normal((RANKS, m)).astype(np.float32),
@@ -94,6 +105,12 @@ def inputs(m: int, log2n: int) -> dict:
                                ).astype(np.int32),
         "keys": rng.integers(-2**31, 2**31 - 1, 1 << log2n,
                              dtype=np.int32),
+        "send_counts": rng.integers(0, m // RANKS + 1, (RANKS, RANKS)
+                                    ).astype(np.int32),
+        "own_counts": rng.integers(0, m + 1, RANKS).astype(np.int32),
+        "skeys": rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32),
+        "kv_keys": rng.integers(-1000, 1000, n).astype(np.int32),
+        "kv_values": np.arange(n, dtype=np.int32),
     }
 
 
@@ -122,7 +139,26 @@ FLAT = (
     + [("reduce", a, "int32", "sum", {"root": ROOT}) for a in
        ("binomial", "xla")]
     + [("reduce", "binomial", "float32", "sum", {"root": ROOT})]
+    + [(fam, a, "int32", None, {"root": ROOT})
+       for fam, algs in (("broadcast", ("ring", "binomial", "xla")),
+                         ("scatter", ("linear", "binomial", "xla")),
+                         ("gather", ("linear", "binomial", "xla")))
+       for a in algs]
+    + [("broadcast", "binomial", "float32", None, {"root": ROOT})]
 )
+
+# the sorts of the sort cases beside the bitonic one, and the keys of
+# run_cases' result that the cases beyond the families make
+SORTS = ("sample", "sample_bitonic", "quicksort")
+EXTRA = (("reduceloc/maxloc", "reduceloc/minloc", "all_gather_v/rows",
+          "all_gather_v/counts", "all_to_all_v/rows", "all_to_all_v/counts",
+          "all_to_all_v/overflow", "checked/allreduce/ring",
+          "checked/allreduce/ring/drilled", "checked/sort/bitonic",
+          "sort_kv/keys", "sort_kv/values")
+         + tuple(f"sort/{a}" for a in SORTS))
+# the drill of checked/allreduce/ring/drilled: a bit flip at the first
+# exchange of the first attempt
+DRILL_SITE = "collective.allreduce"
 
 # (collective, ici algorithm, dcn algorithm, dtype, op or None)
 HIER = (
@@ -146,10 +182,13 @@ def _name(*parts) -> str:
     return "/".join(str(x) for x in parts if x not in (None, {}))
 
 
-def run_cases(flat, hybrid, data: dict) -> dict:
+def run_cases(flat, hybrid, data: dict, record: dict | None = None) -> dict:
     """Every case on this process's rows (all rows in one process):
     ``{name: (rows, ...) tensor}``. ``flat`` is a ``RankMesh`` of RANKS,
-    ``hybrid`` a ``HybridMesh`` (2, 4) of the same ranks and device."""
+    ``hybrid`` a ``HybridMesh`` (2, 4) of the same ranks and device.
+    ``record``, when given, gets each sort and checked case's kernel
+    launches (``case_launches``) and the drill's integrity counters
+    (``drill``)."""
     from icikit_torch import parallel as tp
     from icikit_torch.parallel import pt2pt
     from icikit_torch.parallel.shmap import on_mesh
@@ -162,14 +201,18 @@ def run_cases(flat, hybrid, data: dict) -> dict:
 
     entry = {"allgather": tp.all_gather_blocks, "allreduce": tp.all_reduce,
              "reducescatter": tp.reduce_scatter, "scan": tp.scan_reduce,
-             "reduce": tp.reduce_to_root}
+             "reduce": tp.reduce_to_root, "broadcast": tp.broadcast,
+             "gather": tp.gather_blocks}
     out = {}
     for fam, alg, dt, op, kw in FLAT:
         x = rows("blocks" if fam == "alltoall" else dt)
-        if fam == "alltoall":
+        if fam == "scatter":  # one buffer every rank sees
+            x = torch.from_numpy(data[dt]).to(dev)
+            got = tp.scatter_blocks(x, flat, algorithm=alg, **kw)
+        elif fam == "alltoall":
             got = tp.all_to_all_blocks(x, flat, algorithm=alg)
         elif op is None:
-            got = entry[fam](x, flat, algorithm=alg)
+            got = entry[fam](x, flat, algorithm=alg, **kw)
         else:
             got = entry[fam](x, flat, algorithm=alg, op=op, **kw)
         out[_name(fam, alg, dt, op, *sorted(kw.items()))] = got
@@ -194,6 +237,78 @@ def run_cases(flat, hybrid, data: dict) -> dict:
             out[f"pt2pt/halo_left/{periodic}"] = left
             out[f"pt2pt/halo_right/{periodic}"] = right
         out["pt2pt/barrier"] = x + pt2pt.barrier(RANKS, dev)[:, None]
+    out.update(_extra_cases(flat, data, rows, record))
+    return out
+
+
+def _counted(record, name, run):
+    """``run()``, with the sort and checksum kernels' launches of the
+    call put in ``record["case_launches"][name]``."""
+    from icikit_torch.ops import cuda_integrity, cuda_sort
+
+    cuda_sort.reset_launches()
+    cuda_integrity.reset_launches()
+    got = run()
+    if record is not None:
+        record.setdefault("case_launches", {})[name] = {
+            **cuda_sort.LAUNCHES, **cuda_integrity.LAUNCHES}
+    return got
+
+
+def _extra_cases(flat, data: dict, rows, record) -> dict:
+    """The cases of EXTRA on this process's rows (see :func:`run_cases`);
+    a 0-d result stands as one row a rank."""
+    from icikit_torch import chaos
+    from icikit_torch import parallel as tp
+    from icikit_torch.models.sort import sort, sort_kv
+    from icikit_torch.parallel import integrity
+
+    lo, hi = flat.local
+    dev = flat.device
+    k = hi - lo
+    out = {}
+    x = rows("int32")
+    for op in ("maxloc", "minloc"):
+        val, idx = tp.allreduce_loc(x, flat, op=op)
+        out[f"reduceloc/{op}"] = torch.stack([val, idx]).expand(k, 2)
+    own = rows("own_counts")
+    out["all_gather_v/rows"], out["all_gather_v/counts"] = tp.all_gather_v(
+        x, own, flat, algorithm="ring")
+    (out["all_to_all_v/rows"], out["all_to_all_v/counts"],
+     out["all_to_all_v/overflow"]) = tp.all_to_all_v(
+        x, rows("send_counts"), flat, algorithm="wraparound")
+    f = rows("float32")
+    out["checked/allreduce/ring"] = _counted(
+        record, "checked/allreduce/ring",
+        lambda: tp.all_reduce(f, flat, algorithm="ring", checked=True))
+    integrity.reset_stats()
+    plan = chaos.FaultPlan(schedule={f"corrupt:{DRILL_SITE}": (0,)})
+    with chaos.inject(plan):
+        out["checked/allreduce/ring/drilled"] = tp.all_reduce(
+            f, flat, algorithm="ring", checked=True)
+    if record is not None:
+        st = integrity.stats()
+        record["drill"] = {key: st[key] for key in
+                           ("detected", "retries", "recoveries")}
+        record["drill"]["fired"] = plan.fired("corrupt", DRILL_SITE)
+    n = data["skeys"].size
+    part = slice(lo * n // RANKS, hi * n // RANKS)
+
+    def part_of(name):
+        return torch.from_numpy(data[name][part]).to(dev)
+
+    keys = part_of("skeys")
+    for alg in SORTS:
+        out[f"sort/{alg}"] = _counted(
+            record, f"sort/{alg}",
+            lambda alg=alg: sort(keys, flat, algorithm=alg)).view(k, -1)
+    out["checked/sort/bitonic"] = _counted(
+        record, "checked/sort/bitonic",
+        lambda: sort(keys, flat, algorithm="bitonic", checked=True)
+    ).view(k, -1)
+    ks, vs = sort_kv(part_of("kv_keys"), part_of("kv_values"), flat)
+    out["sort_kv/keys"], out["sort_kv/values"] = ks.view(k, -1), \
+        vs.view(k, -1)
     return out
 
 
@@ -335,10 +450,12 @@ def worker(args) -> int:
                            f"{hybrid.local}")
     data = inputs(args.m, args.log2n)
     t0 = time.perf_counter()
+    extra = {}
     rows = {k: v.cpu().numpy() for k, v in
-            run_cases(flat, hybrid, data).items()}
+            run_cases(flat, hybrid, data, extra).items()}
     cases_s = time.perf_counter() - t0
     sorted_rows, record = sort_case(flat, data["keys"], args.sort_runs)
+    record.update(extra)
     if args.keep_sorted:
         rows["sort/bitonic"] = sorted_rows.cpu().numpy()
     os.makedirs(args.out, exist_ok=True)
@@ -355,53 +472,13 @@ def worker(args) -> int:
 
 def launch(argv: list, out: str, timeout: float, env=None,
            cwd=None) -> list:
-    """Start PROCESSES workers with ``argv`` (:func:`worker_argv`) on a
-    fresh coordinator port and wait for all of them, ``timeout``
-    seconds at most; once one fails, the others get five seconds before
-    they are killed. A failure whose output shows a lost port race
-    (``utils.net.PORT_RACE_SIGS``) retries on a fresh port,
-    LAUNCH_ATTEMPTS times in all. Returns ``[(returncode, output)]`` (a
-    negative code for a worker killed at the deadline); ``free_port``'s
-    ``OSError`` (no local port can be bound) propagates."""
-    from icikit_torch.utils.net import PORT_RACE_SIGS, free_port
+    """Start PROCESSES workers with ``argv`` (:func:`worker_argv`) and
+    wait for them (``parallel.multihost.launch_processes``). Returns
+    ``[(returncode, output)]``."""
+    from icikit_torch.parallel.multihost import launch_processes
 
-    os.makedirs(out, exist_ok=True)
-    results = []
-    for _ in range(LAUNCH_ATTEMPTS):
-        port = free_port()
-        logs = [os.path.join(out, f"worker{i}.log") for i in
-                range(PROCESSES)]
-        procs = []
-        for i, log in enumerate(logs):
-            with open(log, "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "icikit_torch.examples.multihost",
-                     *argv, "--port", str(port), "--process-id", str(i)],
-                    stdout=f, stderr=subprocess.STDOUT, env=env, cwd=cwd))
-        deadline = time.monotonic() + timeout
-        failed_at = None
-        while any(p.poll() is None for p in procs):
-            now = time.monotonic()
-            if failed_at is None and any(p.poll() not in (None, 0)
-                                         for p in procs):
-                failed_at = now
-            if now > deadline or (failed_at and now > failed_at + 5):
-                break
-            time.sleep(0.1)
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        codes = [p.returncode for p in procs]
-        results = []
-        for code, log in zip(codes, logs):
-            with open(log) as f:
-                results.append((code, f.read()))
-        if all(c == 0 for c in codes):
-            return results
-        if not any(sig in o for _, o in results for sig in PORT_RACE_SIGS):
-            return results
-    return results
+    return launch_processes("icikit_torch.examples.multihost", argv,
+                            PROCESSES, out, timeout, env=env, cwd=cwd)
 
 
 def worker_result(output: str) -> dict:

@@ -14,11 +14,9 @@ All take a flat tensor of any length, pad with dtype-max sentinels to
 equal blocks, sort across the mesh's ranks, and return the flat sorted
 tensor. ``sort_kv`` and ``argsort_dist`` carry values with the keys.
 ``check_sort`` is the inversion-count verifier (C18). Across processes
-(a mesh split over ``torch.distributed`` processes) ``sort`` and
-``check_sort`` run the bitonic sort and the verifier on each process's
-ranks, the flat input and output being this process's part; the other
-sorts, ``sort_kv`` and checked mode raise ``NotImplementedError`` there
-(ROADMAP A5). ``sort`` probes
+(a mesh split over ``torch.distributed`` processes) every sort, checked
+or not, ``sort_kv`` and ``check_sort`` run on each process's ranks, the
+flat input and output being this process's part. ``sort`` probes
 the chaos sites ``sort.<algorithm>`` (a delay, a death) at its dispatch
 boundary, and ``checked=True`` runs the bitonic network's exchanges
 through the checksum-carrying transport (``parallel.integrity``).
@@ -40,8 +38,8 @@ from icikit_torch.models.sort.verify import (  # noqa: F401
     check_sort,
     check_sort_shard,
 )
-from icikit_torch.utils.mesh import (DEFAULT_AXIS, RankMesh,
-                                     require_single_process)
+from icikit_torch.parallel.shmap import on_mesh
+from icikit_torch.utils.mesh import DEFAULT_AXIS, RankMesh
 from icikit_torch.utils.registry import get_algorithm, register_algorithm
 
 # Block-level implementations (signature: (x2d, mesh, axis, **kw) ->
@@ -80,9 +78,6 @@ def sort(x: torch.Tensor, mesh: RankMesh, axis: str = DEFAULT_AXIS,
     # only ever be slow, never wrong
     chaos.maybe_delay(f"sort.{algorithm}")
     chaos.maybe_die(f"sort.{algorithm}")
-    if checked or algorithm != "bitonic":
-        require_single_process(
-            mesh, f"sort(algorithm={algorithm!r}, checked={checked})")
     n = x.shape[0]
     if checked:
         if algorithm != "bitonic":
@@ -94,9 +89,10 @@ def sort(x: torch.Tensor, mesh: RankMesh, axis: str = DEFAULT_AXIS,
         from icikit_torch.parallel import integrity
         blocks, _ = prepare_blocks(x, mesh, axis, pow2_local=True)
         prog, n_steps = build_checked(mesh, axis)
-        out2d = integrity.checked_run(
-            "sort.bitonic.exchange", prog, n_steps, mesh.shape[axis],
-            (blocks,), retries=retries, label="sort/bitonic")
+        with on_mesh(mesh, axis):
+            out2d = integrity.checked_run(
+                "sort.bitonic.exchange", prog, n_steps, mesh.shape[axis],
+                (blocks,), retries=retries, label="sort/bitonic")
         return take_sorted(out2d, n)
     impl = get_algorithm("sort", algorithm)
     blocks, _ = prepare_blocks(x, mesh, axis,

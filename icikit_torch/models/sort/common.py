@@ -6,7 +6,8 @@ The reference's ragged exchanges (``MPI_Alltoallv`` in sample sort,
 quicksort, ``:440-482``) become fixed-capacity rows plus explicit count
 vectors, with overflow detected and surfaced rather than silently
 truncated (``icikit_torch.parallel.alltoallv``). Every function here
-takes all p ranks at once on a leading rank axis.
+takes all p ranks at once on a leading rank axis, or under a process
+view (``parallel.shmap.on_mesh``) this process's ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from icikit_torch.parallel.alltoallv import (  # noqa: F401
     ragged_payload,
     unpack_rows,
 )
+from icikit_torch.parallel.shmap import gather_ranks, rank_ids
 from icikit_torch.utils.dtypes import sentinel_for
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, RankMesh, mesh_axis_size,
                                      shard_along)
@@ -102,42 +104,50 @@ def rebalance_sorted(flat: torch.Tensor, count: torch.Tensor, n_loc: int,
     [k*n_loc, (k+1)*n_loc), padded with sentinels past the global total.
     With ``values`` (same shape as ``flat``, payload lanes paired with
     the keys) the same routing applies to it and ``(keys, values)`` is
-    returned, values zero past the total: the KV form.
+    returned, values zero past the total: the KV form. Under a process
+    view the rows are this process's ranks.
 
     The regular-shape answer to the reference's "local sizes change"
     (``psort.cc:274``): one more capacity-padded all-to-all instead of
-    leaving ragged results in place. JAX's all_gather of the counts is
-    the rank axis itself here.
+    leaving ragged results in place. The counts cross as JAX's do, one
+    int32 a rank by an all-gather (``shmap.gather_ranks``).
     """
-    count = count.to(torch.int64)
-    offsets = torch.cumsum(count, 0) - count          # each run's start
+    rows_n = flat.shape[0]
+    all_counts = gather_ranks(count.to(torch.int32)[:, None])[:, 0]
+    all_counts = all_counts.to(torch.int64)
+    offsets = torch.cumsum(all_counts, 0) - all_counts  # each run's start
+    mine = rank_ids(p, flat.device)
+    my_off, count = offsets[mine], count.to(torch.int64)
     d_idx = torch.arange(p, device=flat.device)
     # piece for dest d: my elements whose global position lands in
     # [d*n_loc, (d+1)*n_loc), contiguous because my run is
-    seg_lo = torch.minimum((d_idx * n_loc)[None] - offsets[:, None],
+    seg_lo = torch.minimum((d_idx * n_loc)[None] - my_off[:, None],
                            count[:, None]).clamp_min(0)
-    seg_hi = torch.minimum(((d_idx + 1) * n_loc)[None] - offsets[:, None],
+    seg_hi = torch.minimum(((d_idx + 1) * n_loc)[None] - my_off[:, None],
                            count[:, None]).clamp_min(0)
-    starts, counts = seg_lo, seg_hi - seg_lo
+    starts = seg_lo.to(torch.int32)
+    counts = (seg_hi - seg_lo).to(torch.int32)
     # a piece inside [k*n_loc, (k+1)*n_loc) cannot exceed n_loc
     rows, recv_counts, _ = ragged_all_to_all(flat, starts, counts, n_loc, p)
     # piece from source s starts at global position max(offsets[s],
     # k*n_loc); its local offset is that less k*n_loc
-    base = d_idx * n_loc
+    base = mine * n_loc
     piece_off = (offsets[None] - base[:, None]).clamp(0, n_loc)
     piece_end = (piece_off + recv_counts).contiguous()
     t = torch.arange(n_loc, device=flat.device)
     # the source covering t: pieces tile [0, n_loc) in source order
-    s_of_t = torch.searchsorted(piece_end, t.expand(p, n_loc).contiguous(),
-                                right=True).clamp_max(p - 1)
+    s_of_t = torch.searchsorted(
+        piece_end, t.expand(rows_n, n_loc).contiguous(),
+        right=True).clamp_max(p - 1)
     col = (t - piece_off.gather(1, s_of_t)).clamp(0, n_loc - 1)
     src = s_of_t * n_loc + col
     in_range = t[None] < piece_end[:, -1:]
-    keys_out = torch.where(in_range, rows.reshape(p, -1).gather(1, src),
+    keys_out = torch.where(in_range,
+                           rows.reshape(rows_n, -1).gather(1, src),
                            sentinel_for(flat.dtype))
     if values is None:
         return keys_out
     # data leg only: the keys leg exchanged the counts for these pieces
     vrows = ragged_payload(values, starts, counts, n_loc, p)
-    v = vrows.reshape(p, -1).gather(1, src)
+    v = vrows.reshape(rows_n, -1).gather(1, src)
     return keys_out, torch.where(in_range, v, torch.zeros_like(v))

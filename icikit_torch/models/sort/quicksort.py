@@ -23,6 +23,13 @@ keys equal to the dtype's maximum (the sentinel) sort correctly;
 sentinels only keep invalid tails at the buffer end. uint32 keys ride
 as their order-preserving int32 image; float keys as in
 ``models.sort.sample``.
+
+Across processes (a mesh split over ``torch.distributed`` processes)
+each process holds its ranks' buffers: the medians cross by the
+backend's all-gather (each subcube's pivot is then computed on every
+process that holds one of its ranks), a half whose partner lives in
+another process by the process backend, and the overflow flag is summed
+over the processes, so every process doubles the capacity together.
 """
 
 from __future__ import annotations
@@ -32,31 +39,33 @@ import torch
 from icikit_torch.models.sort.common import RETRIES, rebalance_sorted
 from icikit_torch.ops.cuda_sort import _i32_as_u32, _u32_as_i32, local_sort
 from icikit_torch.parallel import transport
-from icikit_torch.parallel.shmap import xor_perm
+from icikit_torch.parallel.shmap import (gather_ranks, on_mesh, rank_ids,
+                                         reduce_ranks, xor_perm)
 from icikit_torch.utils.dtypes import sentinel_for
 from icikit_torch.utils.mesh import (DEFAULT_AXIS, UnsupportedMeshError,
                                      ilog2, is_pow2)
 
 
 def hypercube_quicksort_shard(a: torch.Tensor, p: int, cap: int):
-    """Rank-vectorised hypercube quicksort of ``a`` (p, n_loc). Returns
-    (sorted (p, n_loc), overflow (p,)). ``cap`` >= n_loc is the working
-    buffer's capacity."""
+    """Rank-vectorised hypercube quicksort of ``a`` (p, n_loc), or under
+    a process view this process's ranks. Returns (sorted (p, n_loc),
+    overflow (p,)). ``cap`` >= n_loc is the working buffer's
+    capacity."""
     if not is_pow2(p):
         raise UnsupportedMeshError(
             f"hypercube quicksort requires a power-of-2 device count "
             f"(got {p}), as in the reference (psort.cc:378-382)")
-    n_loc = a.shape[1]
+    rows, n_loc = a.shape
     dev = a.device
     if p == 1:
         return local_sort(a), torch.zeros(1, dtype=torch.int32, device=dev)
     sent = sentinel_for(a.dtype)
-    r = torch.arange(p, device=dev)
+    r = rank_ids(p, dev)
     # working buffers: a valid prefix of count[r] elements, sentinel tail
-    buf = torch.full((p, cap), sent, dtype=a.dtype, device=dev)
+    buf = torch.full((rows, cap), sent, dtype=a.dtype, device=dev)
     buf[:, :n_loc] = a
-    count = torch.full((p,), n_loc, dtype=torch.int64, device=dev)
-    overflow = torch.zeros(p, dtype=torch.int32, device=dev)
+    count = torch.full((rows,), n_loc, dtype=torch.int64, device=dev)
+    overflow = torch.zeros(rows, dtype=torch.int32, device=dev)
     t = torch.arange(cap, device=dev)
 
     def take(idx):
@@ -72,7 +81,8 @@ def hypercube_quicksort_shard(a: torch.Tensor, p: int, cap: int):
         my_med = take(((count - 1) // 2)[:, None])[:, 0]
         my_med = torch.where(count > 0, my_med, torch.full_like(my_med,
                                                                  sent))
-        gmeds = my_med[base[:, None] + torch.arange(g, device=dev)]
+        gmeds = gather_ranks(my_med)[base[:, None]
+                                     + torch.arange(g, device=dev)]
         pivot = torch.sort(gmeds, dim=1).values[:, half]
         # partition at lower_bound(pivot) (:429): elements equal to the
         # pivot go to the upper half, as in the reference
@@ -89,7 +99,8 @@ def hypercube_quicksort_shard(a: torch.Tensor, p: int, cap: int):
                           take(send_start[:, None] + t), sent)
         perm = xor_perm(p, half)
         recv = transport.ppermute(seg, perm)
-        recv_count = transport.ppermute(send_count, perm)
+        recv_count = transport.ppermute(send_count.to(torch.int32),
+                                        perm).to(torch.int64)
         new_count = keep_count + recv_count
         overflow |= (new_count > cap).to(torch.int32)
         recv_used = torch.minimum(recv_count, cap - keep_count)
@@ -101,7 +112,7 @@ def hypercube_quicksort_shard(a: torch.Tensor, p: int, cap: int):
                                       sent))
         count = new_count.clamp_max(cap)
     buf = local_sort(buf)  # final local sort (:486)
-    overflow = overflow.sum(dtype=torch.int32).expand(p)
+    overflow = reduce_ranks(overflow, "sum").expand(rows)
     return rebalance_sorted(buf, count, n_loc, p), overflow
 
 
@@ -113,7 +124,8 @@ def hypercube_quicksort_blocks(x2d: torch.Tensor, mesh,
                                axis: str = DEFAULT_AXIS,
                                cap_factor: float = DEFAULT_CAP_FACTOR,
                                max_cap_factor: float = 8.0):
-    """Sort (p, n_loc) data globally ascending.
+    """Sort (p, n_loc) data globally ascending (across processes,
+    ``x2d`` and the result hold this process's ranks).
 
     The working capacity starts at ``cap_factor * n_loc`` (the
     reference over-allocated to n in all, ``psort.cc:385``) and doubles
@@ -124,9 +136,10 @@ def hypercube_quicksort_blocks(x2d: torch.Tensor, mesh,
     even that 1.25 n_loc sufficed under uniform and odd_dist keys at p
     in {4, 8}, n in {2^20, 2^22} (``capacity_study.json``).
     """
-    p, n_loc = x2d.shape
-    if p != mesh.shape[axis]:
-        raise ValueError(f"leading dim {p} != p={mesh.shape[axis]}")
+    rows, n_loc = x2d.shape
+    p = mesh.shape[axis]
+    if rows != p // getattr(mesh, "procs", 1):
+        raise ValueError(f"leading dim {rows} != p={p}")
     if x2d.dtype == torch.uint32:
         return _i32_as_u32(hypercube_quicksort_blocks(
             _u32_as_i32(x2d), mesh, axis, cap_factor, max_cap_factor))
@@ -136,7 +149,8 @@ def hypercube_quicksort_blocks(x2d: torch.Tensor, mesh,
     f = cap_factor
     while True:
         cap = int(f * n_loc)
-        out, overflow = hypercube_quicksort_shard(x2d, p, cap)
+        with on_mesh(mesh, axis):
+            out, overflow = hypercube_quicksort_shard(x2d, p, cap)
         if int(overflow.sum()) == 0:
             return out
         f *= 2

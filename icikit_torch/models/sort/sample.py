@@ -21,6 +21,14 @@ the local sorts sort every rank's row in the same launches
 image. Float keys: NaN order follows the network's min/max (the study's
 keys hold none); -0.0 and 0.0 compare equal, so values agree and bits
 may not.
+
+Across processes (a mesh split over ``torch.distributed`` processes)
+each process holds its ranks' rows and runs them in the same launches:
+the samples (or the bitonic splitter's medians) and the rebalance's
+counts cross by the backend's all-gather (``shmap.gather_ranks``), the
+ragged exchange by the ``xla`` alltoall's all-to-all, and the overflow
+flag is summed over the processes, so every process takes the capacity
+retry together.
 """
 
 from __future__ import annotations
@@ -31,15 +39,16 @@ from icikit_torch.models.sort.bitonic import bitonic_sort_shard
 from icikit_torch.models.sort.common import (RETRIES, ragged_all_to_all,
                                              rebalance_sorted, unpack_rows)
 from icikit_torch.ops.cuda_sort import _i32_as_u32, _u32_as_i32, local_sort
+from icikit_torch.parallel.shmap import gather_ranks, on_mesh
 from icikit_torch.utils.mesh import DEFAULT_AXIS
 
 
 def _splitters_allgather(samples: torch.Tensor, p: int) -> torch.Tensor:
     """C15 splitter selection: every rank sorts all p(p-1) samples and
     picks p-1 evenly spaced global splitters (psort.cc:221-234, with the
-    stride defect fixed). ``samples`` (p, p-1); returns (p-1,), the same
-    for every rank."""
-    s = torch.sort(samples.reshape(-1)).values
+    stride defect fixed). ``samples`` (p, p-1), gathered from every
+    rank; returns (p-1,), the same for every rank."""
+    s = torch.sort(gather_ranks(samples).reshape(-1)).values
     idx = (torch.arange(1, p, device=s.device) * s.shape[0]) // p
     return s[idx]
 
@@ -49,7 +58,7 @@ def _splitters_bitonic(samples: torch.Tensor, p: int) -> torch.Tensor:
     ranks (each holds one length-(p-1) vector), then gather each rank's
     median (psort.cc:312-317)."""
     sorted_block = bitonic_sort_shard(samples, p)
-    meds = sorted_block[:, (sorted_block.shape[1] - 1) // 2]
+    meds = gather_ranks(sorted_block[:, (sorted_block.shape[1] - 1) // 2])
     return meds[:-1]
 
 
@@ -65,24 +74,26 @@ def bucket_route(a: torch.Tensor, p: int, splitter: str):
     every instance of a splitter-valued key to one bucket, which the KV
     sort's stability rests on.
     """
-    n_loc = a.shape[1]
+    rows, n_loc = a.shape
     samp_idx = (torch.arange(1, p, device=a.device) * n_loc) // p
     samples = a[:, samp_idx]
     if splitter == "bitonic":
         splitters = _splitters_bitonic(samples, p)
     else:
         splitters = _splitters_allgather(samples, p)
-    bounds = torch.searchsorted(a, splitters.expand(p, p - 1).contiguous(),
-                                right=False)
-    zero = torch.zeros((p, 1), dtype=bounds.dtype, device=a.device)
+    bounds = torch.searchsorted(
+        a, splitters.expand(rows, p - 1).contiguous(), right=False,
+        out_int32=True)
+    zero = torch.zeros((rows, 1), dtype=bounds.dtype, device=a.device)
     starts = torch.cat([zero, bounds], 1)
     ends = torch.cat([bounds, zero + n_loc], 1)
     return starts, ends - starts
 
 
 def sample_sort_shard(a: torch.Tensor, p: int, cap: int, splitter: str):
-    """Rank-vectorised sample sort of ``a`` (p, n_loc). Returns (sorted
-    (p, n_loc), overflow (p,)).
+    """Rank-vectorised sample sort of ``a`` (p, n_loc), or under a
+    process view this process's ranks. Returns (sorted (p, n_loc),
+    overflow (p,)).
 
     ``cap``: the per-(source, destination) bucket capacity of the padded
     exchange; a nonzero overflow means some bucket exceeded it and the
@@ -107,6 +118,8 @@ def run_with_capacity_retry(build, n_loc: int, p: int, cap_factor: float,
     retry once at the safe capacity n_loc if any bucket overflowed.
     ``build(cap)`` returns a callable whose result tuple ends with the
     overflow flag. Each retry adds one to ``common.RETRIES["sample"]``.
+    Across processes the flag is already summed over the processes
+    (``ragged_all_to_all``), so every process retries or none does.
 
     The default ``cap_factor = 4.0`` comes from the JAX package's
     overflow study (``capacity_study.json``; ``bench.capacity`` here
@@ -131,14 +144,17 @@ DEFAULT_CAP_FACTOR = 4.0
 def sample_sort_blocks(x2d: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
                        splitter: str = "allgather",
                        cap_factor: float = DEFAULT_CAP_FACTOR):
-    """Sort (p, n_loc) data globally ascending."""
-    p, n_loc = x2d.shape
-    if p != mesh.shape[axis]:
-        raise ValueError(f"leading dim {p} != p={mesh.shape[axis]}")
+    """Sort (p, n_loc) data globally ascending (across processes,
+    ``x2d`` and the result hold this process's ranks)."""
+    rows, n_loc = x2d.shape
+    p = mesh.shape[axis]
+    if rows != p // getattr(mesh, "procs", 1):
+        raise ValueError(f"leading dim {rows} != p={p}")
     if x2d.dtype == torch.uint32:
         return _i32_as_u32(sample_sort_blocks(_u32_as_i32(x2d), mesh, axis,
                                               splitter, cap_factor))
-    out, _ = run_with_capacity_retry(
-        lambda cap: (lambda x: sample_sort_shard(x, p, cap, splitter)),
-        n_loc, p, cap_factor, x2d)
+    with on_mesh(mesh, axis):
+        out, _ = run_with_capacity_retry(
+            lambda cap: (lambda x: sample_sort_shard(x, p, cap, splitter)),
+            n_loc, p, cap_factor, x2d)
     return out

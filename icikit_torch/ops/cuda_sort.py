@@ -411,7 +411,10 @@ def local_sort(x: torch.Tensor, backend: str = "auto", *,
     backend: 'auto' (the network for supported dtypes and sizes, else
     ``torch.sort``), 'kernel' (the network: CUDA kernels on a CUDA
     tensor, their plain versions on a CPU tensor), or 'torch'.
-    ``plain`` runs the network's plain versions on any device.
+    ``plain`` runs the network's plain versions on any device. A
+    ``meta`` tensor (a dry run that counts a schedule's communication,
+    ``bench.schedule_stats``) has no data to sort: it gets
+    ``torch.sort``'s shape.
     """
     if x.dim() not in (1, 2):
         raise ValueError(f"local_sort takes (n,) or (rows, n), got "
@@ -423,7 +426,7 @@ def local_sort(x: torch.Tensor, backend: str = "auto", *,
     kernel_dtype = (torch.float32 if half
                     else torch.int32 if usgn else in_dtype)
     backend = _resolve_backend(backend, kernel_dtype, n)
-    if backend == "torch" or n < 2 or x.numel() == 0:
+    if backend == "torch" or n < 2 or x.numel() == 0 or x.is_meta:
         return torch.sort(x, dim=-1).values
     if not kernel_supported(kernel_dtype, n):
         raise ValueError(

@@ -13,11 +13,10 @@ multi-process layer (``multihost``: ``init_distributed``, the hybrid
 (dcn, ici) mesh and the four hierarchical collectives). Across OS
 processes a mesh's ranks split into contiguous ranges, one a process,
 and an exchange with another process's rank crosses the process backend
-of ``transport`` (``torch.distributed``, gloo by default): the bitonic
-sort, pt2pt and the allgather, allreduce, reducescatter, alltoall, scan
-and reduce families run there; checked mode, the other families and
-the other three sorts raise ``NotImplementedError`` across processes
-(ROADMAP A5).
+of ``transport`` (``torch.distributed``, gloo by default): every
+family, ``reduceloc``, ``alltoallv``, checked mode, pt2pt and the four
+sorts run there. A flat schedule over one axis of a multi-process
+hybrid mesh raises ``NotImplementedError`` (ROADMAP A5).
 
 Terminology note: the reference calls its *broadcast-semantics*
 collective "AllToAll" (an allgather, ``Communication/src/main.cc:38-223``)

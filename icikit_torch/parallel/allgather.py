@@ -30,6 +30,7 @@ import torch
 
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
+    gather_ranks,
     rank_put_,
     rank_take,
     run_collective,
@@ -153,8 +154,7 @@ def _xla(x: torch.Tensor, p: int) -> torch.Tensor:
     """Vendor baseline (JAX: ``lax.all_gather`` over ICI): every rank's
     copy of the (p, ...) operand, written once by ``expand`` (across
     processes, the operand gathered by the backend's all-gather)."""
-    view = transport.process_view()
-    full = x if view is None else view.all_gather(x)
+    full = gather_ranks(x)
     return full.unsqueeze(0).expand((x.shape[0],) + full.shape).contiguous()
 
 

@@ -118,14 +118,15 @@ def _xla(buf: torch.Tensor, p: int) -> torch.Tensor:
     another process's ranks, then the local transpose)."""
     view = transport.process_view()
     if view is None:
-        return buf.transpose(0, 1).contiguous()
+        return transport.vendor("all_to_all", buf,
+                                buf.transpose(0, 1).contiguous())
     k, tail = buf.shape[0], buf.shape[2:]
     # [q, r, d]: what my rank r sends to rank d of process q
     got = view.all_to_all(
         buf.reshape((k, view.procs, k) + tail).transpose(0, 1))
     # [q, r, d]: what rank r of process q sends to my rank d
-    return got.permute(2, 0, 1, *range(3, got.dim())).reshape(
-        (k, p) + tail)
+    return transport.vendor("all_to_all", buf, got.permute(
+        2, 0, 1, *range(3, got.dim())).reshape((k, p) + tail))
 
 
 ALLTOALL_ALGORITHMS = ("wraparound", "naive", "ecube", "hypercube", "xla")

@@ -15,14 +15,21 @@ Layout follows MPI: each rank's send buffer holds p contiguous segments
 ordered by destination (displacements = exclusive cumsum of counts); the
 receive side lands as ``(p, cap)`` sentinel-padded rows ordered by
 source, with the true lengths in ``recv_counts``.
+
+Across processes (a mesh split over ``torch.distributed`` processes) the
+entry points take this process's ranks as rows: the blocks and their
+counts ride the schedule's exchanges through the process backend, and
+the overflow count is summed over the processes, so every process
+reports it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from icikit_torch.parallel.shmap import on_mesh, reduce_ranks
 from icikit_torch.utils.dtypes import sentinel_for
-from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
+from icikit_torch.utils.mesh import DEFAULT_AXIS
 from icikit_torch.utils.registry import get_algorithm
 
 
@@ -79,12 +86,13 @@ def ragged_all_to_all(a: torch.Tensor, starts: torch.Tensor,
     Returns (rows ``(p, p, cap)`` sentinel-padded by source,
     recv_counts ``(p, p)``, overflow ``(p,)``): overflow counts the
     ranks with a segment over ``cap`` (content would be truncated), the
-    same on every rank, for the caller to surface.
+    same on every rank, for the caller to surface. Under a process view
+    the leading dims are this process's ranks.
     """
     if p is None:
         p = counts.shape[-1]
     per_rank = (counts > cap).any(-1).to(torch.int32)
-    overflow = per_rank.sum(dtype=torch.int32).expand(p)
+    overflow = reduce_ranks(per_rank, "sum").expand(per_rank.shape[0])
     rows = ragged_payload(a, starts, counts, cap, p, algorithm)
     recv_counts = exchange_counts(counts, p, algorithm).clamp_max(cap)
     return rows, recv_counts, overflow
@@ -104,17 +112,21 @@ def all_gather_v(x: torch.Tensor, counts: torch.Tensor, mesh,
       ``(rows, all_counts)``: ``rows`` ``(p, p, cap)``, every rank's
       stack of all p blocks in rank order with their padding;
       ``all_counts`` ``(p, p)``, every rank's copy of the count vector.
+      Across processes ``x``, ``counts`` and both results hold this
+      process's ranks as rows.
     """
-    require_single_process(mesh, "all_gather_v")
     p = mesh.shape[axis]
-    if x.dim() != 2 or x.shape[0] != p:
+    rows = p // getattr(mesh, "procs", 1)
+    if x.dim() != 2 or x.shape[0] != rows:
         raise ValueError(f"expected one (cap,) block per device: "
-                         f"(p={p}, cap) input, got {tuple(x.shape)}")
-    if tuple(counts.shape) != (p,):
-        raise ValueError(f"counts must be ({p},), got {tuple(counts.shape)}")
+                         f"(p={rows}, cap) input, got {tuple(x.shape)}")
+    if tuple(counts.shape) != (rows,):
+        raise ValueError(f"counts must be ({rows},), got "
+                         f"{tuple(counts.shape)}")
     impl = get_algorithm("allgather", algorithm)
     x, counts = x.to(mesh.device), counts.to(mesh.device)
-    return impl(x, p), impl(counts[:, None], p)[..., 0]
+    with on_mesh(mesh, axis):
+        return impl(x, p), impl(counts[:, None], p)[..., 0]
 
 
 def all_to_all_v(x: torch.Tensor, send_counts: torch.Tensor, mesh,
@@ -138,11 +150,13 @@ def all_to_all_v(x: torch.Tensor, send_counts: torch.Tensor, mesh,
       row ``[d, s]`` the segment source s sent to rank d,
       sentinel-padded past ``recv_counts[d, s]``; ``overflow`` ``(p,)``,
       nonzero when some segment exceeded ``capacity`` and was truncated.
+      Across processes the leading dim of ``x``, ``send_counts`` and
+      each result is this process's ranks.
     """
-    require_single_process(mesh, "all_to_all_v")
     p = mesh.shape[axis]
     cap = int(capacity if capacity is not None else x.shape[1])
     x, counts = x.to(mesh.device), send_counts.to(mesh.device)
     ends = torch.cumsum(counts, -1, dtype=counts.dtype)
     starts = ends - counts
-    return ragged_all_to_all(x, starts, counts, cap, p, algorithm)
+    with on_mesh(mesh, axis):
+        return ragged_all_to_all(x, starts, counts, cap, p, algorithm)

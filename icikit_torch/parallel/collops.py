@@ -9,7 +9,12 @@ axis. The binomial trees run in *relative-rank* space
 ``rr = (r - root) mod p`` so any root works with the same static
 schedule. The ``xla`` variants keep JAX's name for the vendor baseline;
 here each is PyTorch's own op over the rank axis (``expand`` of root's
-block, a copy of root's buffer, ``expand`` of all blocks).
+block, a copy of root's buffer, ``expand`` of all blocks), and across
+processes the backend's broadcast or all-gather.
+
+Across processes (``shmap.run_collective`` under a process view) a body
+holds this process's ranks as rows: scatter's operand is still the whole
+buffer, which every process holds, and only root's process reads it.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
+    gather_ranks,
+    my_ranks,
     rank_put_,
     rank_take,
     rank_where,
@@ -74,8 +81,18 @@ def _bcast_binomial(x, p, root):
 @register_algorithm("broadcast", "xla")
 def _bcast_xla(x, p, root):
     """Vendor baseline (JAX: a masked psum): root's block written to
-    every rank by ``expand``."""
-    return x[root:root + 1].expand((p,) + x.shape[1:]).contiguous()
+    every rank by ``expand`` (across processes, by the backend's
+    broadcast from root's process)."""
+    view = transport.process_view()
+    if view is None:
+        block = x[root:root + 1]
+    else:
+        mine = my_ranks(p)
+        block = view.broadcast(
+            x[root - mine.start:root - mine.start + 1] if root in mine
+            else x.new_empty((1,) + x.shape[1:]), root)
+    out = block.expand(x.shape).contiguous()
+    return transport.vendor("psum", x, out)
 
 
 BROADCAST_ALGORITHMS = ("ring", "binomial", "xla")
@@ -97,8 +114,9 @@ def broadcast(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
 
 
 def _everyone(block: torch.Tensor, p: int) -> torch.Tensor:
-    """The same buffer seen by every rank, as a (p, ...) view."""
-    return block.unsqueeze(0).expand((p,) + block.shape)
+    """The same buffer seen by every rank this process holds, as a
+    (rows, ...) view."""
+    return block.unsqueeze(0).expand((len(my_ranks(p)),) + block.shape)
 
 
 @register_algorithm("scatter", "linear")
@@ -121,8 +139,10 @@ def _scatter_binomial(buf, p, root):
     rr = _rel(p, root)
     # relative block order: rel[k] = block for rank (root+k)%p, held by
     # root alone at the start
-    rel = buf.new_zeros((p,) + buf.shape)
-    rel[root] = torch.roll(buf, -root, 0)
+    mine = my_ranks(p)
+    rel = buf.new_zeros((len(mine),) + buf.shape)
+    if root in mine:
+        rel[root - mine.start] = torch.roll(buf, -root, 0)
     half = p // 2
     while half >= 1:
         seg = rank_take(rel, [(q + half) % p for q in rr], half)
@@ -140,9 +160,16 @@ def _scatter_binomial(buf, p, root):
 def _scatter_xla(buf, p, root):
     """Vendor baseline (JAX: root's buffer broadcast by a masked psum,
     each rank slicing its block): root's buffer copied out, row d to
-    rank d."""
-    del p, root
-    return buf.clone(memory_format=torch.contiguous_format)
+    rank d (across processes, broadcast from root's process by the
+    backend, each process keeping its ranks' rows)."""
+    view = transport.process_view()
+    if view is None:
+        out = buf.clone(memory_format=torch.contiguous_format)
+    else:
+        mine = my_ranks(p)
+        out = view.broadcast(buf, root)[mine.start:mine.stop].contiguous()
+    return transport.vendor("psum", buf, out,
+                            buf.numel() * buf.element_size())
 
 
 SCATTER_ALGORITHMS = ("linear", "binomial", "xla")
@@ -168,7 +195,7 @@ def scatter_blocks(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
 def _gather_linear(x, p, root):
     """Each rank sends its block straight to root (partial perms). As in
     JAX, every rank's buffer starts with its own block in slot root."""
-    buf = x.new_zeros((p, p) + x.shape[1:])
+    buf = x.new_zeros((x.shape[0], p) + x.shape[1:])
     buf[:, root] = x
     for j in range(1, p):
         d = (root + j) % p
@@ -182,7 +209,7 @@ def _gather_binomial(x, p, root):
     if not is_pow2(p):
         raise UnsupportedMeshError("binomial gather requires power-of-2 p")
     rr = _rel(p, root)
-    rel = x.new_zeros((p, p) + x.shape[1:])
+    rel = x.new_zeros((x.shape[0], p) + x.shape[1:])
     rank_put_(rel, rr, x[:, None])
     half = 1
     while half < p:
@@ -202,8 +229,9 @@ def _gather_binomial(x, p, root):
 def _gather_xla(x, p, root):
     """Vendor baseline (JAX: ``lax.all_gather``, root keeping the
     result): every block written to every rank by ``expand``."""
-    del root
-    return x.unsqueeze(0).expand((p,) + x.shape).contiguous()
+    del p, root
+    full = gather_ranks(x)
+    return full.unsqueeze(0).expand((x.shape[0],) + full.shape).contiguous()
 
 
 GATHER_ALGORITHMS = ("linear", "binomial", "xla")

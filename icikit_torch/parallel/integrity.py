@@ -26,6 +26,14 @@ shape, dtype, extra).
 The ``xla`` variants are refused (PyTorch's op over the rank axis, like
 XLA's collective, has no receive step to verify inside), as are the
 ragged ``alltoallv`` paths.
+
+Across processes (a mesh split over ``torch.distributed`` processes) a
+checked run holds this process's ranks: a remote block crosses with its
+checksums and the receiving process folds and compares them. Each
+process's verdict rows are gathered before the decision, so every
+process sees the whole (p, n_steps) verdict, quarantines the same ranks
+and retries together; the chaos plan's decision is a hash of its seed
+and call count, the same in every process that arms the same plan.
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import torch
 
 from icikit_torch import chaos, obs
 from icikit_torch.parallel import transport
-from icikit_torch.parallel.shmap import family_body, rank_operand
-from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
+from icikit_torch.parallel.shmap import family_body, on_mesh, rank_operand
+from icikit_torch.utils.mesh import DEFAULT_AXIS
 
 CHECKED_FAMILIES = ("allgather", "allreduce", "alltoall",
                     "reducescatter", "scan")
@@ -94,16 +102,26 @@ _STEPS: dict = {}
 
 
 def steps_of(key: tuple, inner, x: torch.Tensor) -> int:
-    """Transport-call count of ``inner`` on operands shaped as ``x``,
-    from a run on ``meta`` tensors under a counting tracker (nothing
-    computed, no chaos decision consumed), cached under ``key``."""
+    """Transport-call count of ``inner`` on operands shaped as ``x``
+    (``x`` holding every rank), from a run on ``meta`` tensors under a
+    counting tracker and no process view (nothing computed or sent, no
+    chaos decision consumed), cached under ``key``."""
     n = _STEPS.get(key)
     if n is None:
         tr = _StepCounter(DEFAULT_AXIS, None)
-        with transport.checked(tr):
+        with transport.checked(tr), transport.no_view():
             inner(torch.empty(x.shape, dtype=x.dtype, device="meta"))
         n = _STEPS[key] = tr.calls
     return n
+
+
+def _whole_verdict(ok: torch.Tensor):
+    """The (p, n_steps) verdict on the host: this process's rows, or
+    under a process view every process's, gathered."""
+    view = transport.process_view()
+    if view is not None:
+        ok = view.all_gather(ok.to(torch.uint8)) != 0
+    return ok.cpu().numpy()
 
 
 # -- quarantine ledger + drill-visible stats -------------------------
@@ -145,13 +163,14 @@ def checked_run(site: str, prog, n_steps: int, p: int, args: tuple,
     On detection the flagged ranks' counters land on the obs bus, the
     attempt's output is dropped, and the deterministic schedule runs
     again, at most ``retries`` times before :class:`IntegrityError`.
+    Under a process view every process decides on the whole verdict.
     """
     label = label or site
     bad = []
     for attempt in range(retries + 1):
         taint = chaos.traced_corrupt_spec(site, n_steps, p)
         out, ok = prog(*args, taint)
-        ok_host = ok.cpu().numpy()
+        ok_host = _whole_verdict(ok)
         if ok_host.all():
             if attempt:
                 with _ledger_lock:
@@ -191,16 +210,18 @@ def run_checked(family: str, x: torch.Tensor, mesh,
     output of the ``algorithm`` schedule over the (p, ...) ``x``, with
     detection and bounded retry at this boundary."""
     _require_checkable(family, algorithm)
-    require_single_process(mesh, "checked mode")
     extra = tuple(extra)
     p = mesh.shape[axis]
     inner = family_body(family, algorithm, p, *extra)
     x = rank_operand(family, mesh, axis, x)
-    n_steps = steps_of((family, algorithm, p, tuple(x.shape), x.dtype,
-                        extra), inner, x)
-    return checked_run(f"collective.{family}", tracked_shard(inner, axis),
-                       n_steps, p, (x,), retries=retries,
-                       label=f"{family}/{algorithm}")
+    whole = (p,) + tuple(x.shape[1:])
+    n_steps = steps_of((family, algorithm, p, whole, x.dtype, extra),
+                       inner, torch.empty(whole, dtype=x.dtype,
+                                          device="meta"))
+    with on_mesh(mesh, axis):
+        return checked_run(f"collective.{family}",
+                           tracked_shard(inner, axis), n_steps, p, (x,),
+                           retries=retries, label=f"{family}/{algorithm}")
 
 
 # -- the checked twins of the family dispatchers ---------------------

@@ -13,6 +13,8 @@ fast tier (ICI) and only the minimum crosses the slow one (DCN). Here:
   no-op in a single process with no cluster in the environment,
   idempotent, a raced double init counted as live).
 - :func:`process_info` — ``MPI_Comm_rank``/``size`` at process level.
+- :func:`launch_processes` — ``mpirun -np n`` on one host: n copies of a
+  module's worker on a fresh coordinator port.
 - :func:`make_hybrid_mesh` — a 2-D :class:`HybridMesh` (dcn, ici), flat
   rank ``s * p_ici + j``. In a multi-process run the dcn axis is the
   process boundary: process s holds ranks ``[s p_ici, (s + 1) p_ici)``.
@@ -31,6 +33,9 @@ Chaos sites, JAX's: ``multihost.init`` (delay/die during bring-up) and
 from __future__ import annotations
 
 import os
+import subprocess
+import sys
+import time
 from dataclasses import dataclass
 
 import torch
@@ -125,6 +130,59 @@ def process_info() -> tuple[int, int, int]:
     proc, procs = process_layout()
     local = torch.cuda.device_count() if torch.cuda.is_available() else 1
     return proc, procs, local
+
+
+LAUNCH_ATTEMPTS = 3
+
+
+def launch_processes(module: str, argv: list, n: int, out: str,
+                     timeout: float, env=None, cwd=None) -> list:
+    """Start ``n`` workers, ``python -m module *argv --port P
+    --process-id i``, on a fresh coordinator port P and wait for all of
+    them, ``timeout`` seconds at most; once one fails, the others get
+    five seconds before they are killed. Each worker's output goes to
+    ``out/worker<i>.log``. A failure whose output shows a lost port
+    race (``utils.net.PORT_RACE_SIGS``) retries on a fresh port,
+    LAUNCH_ATTEMPTS times in all. Returns ``[(returncode, output)]`` (a
+    negative code for a worker killed at the deadline); ``free_port``'s
+    ``OSError`` (no local port can be bound) propagates."""
+    from icikit_torch.utils.net import PORT_RACE_SIGS, free_port
+
+    os.makedirs(out, exist_ok=True)
+    results = []
+    for _ in range(LAUNCH_ATTEMPTS):
+        port = free_port()
+        logs = [os.path.join(out, f"worker{i}.log") for i in range(n)]
+        procs = []
+        for i, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", module, *argv, "--port",
+                     str(port), "--process-id", str(i)],
+                    stdout=f, stderr=subprocess.STDOUT, env=env, cwd=cwd))
+        deadline = time.monotonic() + timeout
+        failed_at = None
+        while any(p.poll() is None for p in procs):
+            now = time.monotonic()
+            if failed_at is None and any(p.poll() not in (None, 0)
+                                         for p in procs):
+                failed_at = now
+            if now > deadline or (failed_at and now > failed_at + 5):
+                break
+            time.sleep(0.1)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        results = []
+        for p, log in zip(procs, logs):
+            with open(log) as f:
+                results.append((p.returncode, f.read()))
+        if all(c == 0 for c, _ in results):
+            return results
+        if not any(sig in o for _, o in results for sig in PORT_RACE_SIGS):
+            return results
+    return results
 
 
 @dataclass(frozen=True)

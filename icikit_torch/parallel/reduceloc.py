@@ -8,28 +8,35 @@ block plus offset), as ``icikit.parallel.reduceloc`` does, with its tie
 rules: the lowest global index wins a tie, and the top-k keeps the
 lower index first (a stable sort, since ``torch.topk`` promises no
 order among ties).
+
+Across processes (a mesh split over ``torch.distributed`` processes)
+``x`` holds this process's ranks: the value and the index reduce over
+the processes by the backend's all-reduce, the top-k's candidates are
+gathered by its all-gather (``shmap.reduce_ranks``, ``gather_ranks``),
+and every process returns the same answer.
 """
 
 from __future__ import annotations
 
 import torch
 
-from icikit_torch.parallel.transport import index
-from icikit_torch.utils.mesh import DEFAULT_AXIS, require_single_process
+from icikit_torch.parallel.shmap import (gather_ranks, on_mesh, rank_ids,
+                                         reduce_ranks)
+from icikit_torch.utils.mesh import DEFAULT_AXIS
 
 
 def _check_blocks(x: torch.Tensor, mesh, axis: str) -> None:
-    require_single_process(mesh, "reduceloc")
-    p = mesh.shape[axis]
+    p = mesh.shape[axis] // getattr(mesh, "procs", 1)
     if x.dim() != 2 or x.shape[0] != p:
         raise ValueError(
             f"expected one (n,) block per device: (p={p}, n) input, "
             f"got {tuple(x.shape)}")
 
 
-def _global_index(local: torch.Tensor, n: int) -> torch.Tensor:
-    """Rank r's offsets ``local[r]`` as int32 global indices r n + o."""
-    ranks = index(tuple(range(local.shape[0])), local.device)
+def _global_index(local: torch.Tensor, n: int, p: int) -> torch.Tensor:
+    """Rank r's offsets ``local[r]`` as int32 global indices r n + o
+    (the rows being this process's ranks of p)."""
+    ranks = rank_ids(p, local.device)
     return (ranks.view(-1, *([1] * (local.dim() - 1))) * n
             + local).to(torch.int32)
 
@@ -51,14 +58,16 @@ def allreduce_loc(x: torch.Tensor, mesh, axis: str = DEFAULT_AXIS,
         raise ValueError(f"op must be 'maxloc' or 'minloc', got {op!r}")
     _check_blocks(x, mesh, axis)
     x = x.to(mesh.device)
-    local_idx = x.argmax(1) if op == "maxloc" else x.argmin(1)
-    local_val = x.gather(1, local_idx[:, None])[:, 0]
-    best = local_val.max() if op == "maxloc" else local_val.min()
-    # lowest global index among ranks holding the extremum
-    cand = torch.where(local_val == best,
-                       _global_index(local_idx, x.shape[1]),
-                       torch.iinfo(torch.int32).max)
-    return best, cand.min()
+    p = mesh.shape[axis]
+    with on_mesh(mesh, axis):
+        local_idx = x.argmax(1) if op == "maxloc" else x.argmin(1)
+        local_val = x.gather(1, local_idx[:, None])[:, 0]
+        best = reduce_ranks(local_val, "max" if op == "maxloc" else "min")
+        # lowest global index among ranks holding the extremum
+        cand = torch.where(local_val == best,
+                           _global_index(local_idx, x.shape[1], p),
+                           torch.iinfo(torch.int32).max)
+        return best, reduce_ranks(cand, "min")
 
 
 def _best(vals: torch.Tensor, k: int, largest: bool):
@@ -100,8 +109,11 @@ def top_k_dist(x: torch.Tensor, mesh, k: int, axis: str = DEFAULT_AXIS,
             f"cannot contribute enough candidates for exactness; "
             f"reshape to larger blocks or reduce k")
     x = x.to(mesh.device)
-    lv, li = _best(x, min(k, n), largest)
-    # candidate pool: every rank's local top-k, in rank order
-    vals, idxs = lv.reshape(-1), _global_index(li, n).reshape(-1)
+    p = mesh.shape[axis]
+    with on_mesh(mesh, axis):
+        lv, li = _best(x, min(k, n), largest)
+        # candidate pool: every rank's local top-k, in rank order
+        vals = gather_ranks(lv).reshape(-1)
+        idxs = gather_ranks(_global_index(li, n, p)).reshape(-1)
     fv, fi = _best(vals, k, largest)
     return fv, idxs[fi]

@@ -101,7 +101,8 @@ def _xla(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
     (across processes the backend's all-reduce, then this process's
     chunks)."""
     mine = my_ranks(p)
-    out = reduce_ranks(x, op).reshape((p, x.shape[1] // p) + x.shape[2:])
+    red = reduce_ranks(x, op, "reduce_scatter" if op == "sum" else None)
+    out = red.reshape((p, x.shape[1] // p) + x.shape[2:])
     return out[mine.start:mine.stop]
 
 

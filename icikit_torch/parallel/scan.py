@@ -25,6 +25,7 @@ import torch
 from icikit_torch.parallel import transport
 from icikit_torch.parallel.shmap import (
     COMBINE,
+    gather_ranks,
     my_ranks,
     partial_shift_perm,
     rank_where,
@@ -78,11 +79,8 @@ def _linear(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
 def _xla(x: torch.Tensor, p: int, op: str) -> torch.Tensor:
     """Vendor baseline: the cumulative op over the rank axis (across
     processes, over the rows gathered by the backend's all-gather)."""
-    view = transport.process_view()
-    if view is None:
-        return _CUM[op](x)
     mine = my_ranks(p)
-    return _CUM[op](view.all_gather(x))[mine.start:mine.stop]
+    return _CUM[op](gather_ranks(x))[mine.start:mine.stop]
 
 
 SCAN_ALGORITHMS = ("hillis_steele", "linear", "xla")

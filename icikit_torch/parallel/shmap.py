@@ -13,8 +13,14 @@ Across processes (a mesh whose ranks split over ``torch.distributed``
 processes) :func:`run_collective` runs the body under the mesh's
 ``transport.ProcessView``: the operand holds this process's ranks, each
 per-rank list is cut to them (:func:`mine`), and :func:`reduce_ranks`
-reduces over the processes by the backend's own collective. The
-families written for that are :data:`PROCESS_FAMILIES`.
+reduces over the processes by the backend's own collective. Every
+family runs so (:data:`PROCESS_FAMILIES`).
+
+Where JAX calls a vendor collective inside a body (the ``xla`` variants,
+``all_gather`` and ``psum`` in the sorts), the port calls
+:func:`gather_ranks` or :func:`reduce_ranks`: the rank axis itself in
+one process, the backend's collective under a process view, and one
+``transport.vendor`` call either way.
 """
 
 from __future__ import annotations
@@ -53,11 +59,19 @@ def family_body(family: str, algorithm: str, p: int, *extra):
     return lambda x: impl(x, p, *extra)
 
 
+# the families whose operand is one buffer every rank sees (JAX's
+# "replicated" input kind): (p, ...) in every process
+REPLICATED = ("scatter",)
+
+
 def rank_operand(family: str, mesh, axis: str,
                  x: torch.Tensor) -> torch.Tensor:
     """``x`` on the mesh's device, after checking it is ``(p, ...)``
-    (across processes: this process's ``(p / procs, ...)`` rows)."""
-    p = mesh.shape[axis] // getattr(mesh, "procs", 1)
+    (across processes: this process's ``(p / procs, ...)`` rows, or the
+    whole buffer of a :data:`REPLICATED` family)."""
+    p = mesh.shape[axis]
+    if family not in REPLICATED:
+        p //= getattr(mesh, "procs", 1)
     if x.dim() < 1 or x.shape[0] != p:
         raise ValueError(f"{family} needs a (p={p}, ...) operand; got "
                          f"{tuple(x.shape)}")
@@ -66,7 +80,7 @@ def rank_operand(family: str, mesh, axis: str,
 
 # the families whose every variant runs under a process view
 PROCESS_FAMILIES = ("allgather", "allreduce", "reducescatter", "alltoall",
-                    "scan", "reduce")
+                    "scan", "reduce", "broadcast", "scatter", "gather")
 
 
 def run_collective(family: str, algorithm: str, mesh, axis: str,
@@ -104,18 +118,40 @@ def mine(seq) -> tuple:
     return tuple(seq) if view is None else view.mine(seq)
 
 
-def reduce_ranks(x: torch.Tensor, op: str) -> torch.Tensor:
+def rank_ids(p: int, device) -> torch.Tensor:
+    """The ranks of an axis of p this process holds, as a constant
+    tensor (``lax.axis_index`` over the rows)."""
+    return index(tuple(my_ranks(p)), device)
+
+
+_PRIM = {"sum": "psum", "max": "pmax", "min": "pmin"}
+
+
+def reduce_ranks(x: torch.Tensor, op: str,
+                 prim: str | None = None) -> torch.Tensor:
     """PyTorch's own reduction over the rank axis: the vendor baseline
-    that XLA's psum/pmax/pmin are in JAX. Under a process view, this
-    process's rows are reduced, then the processes' partials by the
-    backend's all-reduce (a float sum then adds in another order than
-    in one process)."""
+    that XLA's psum/pmax/pmin are in JAX (``prim`` names JAX's
+    primitive where it is another, as ``reduce_scatter``). Under a
+    process view, this process's rows are reduced, then the processes'
+    partials by the backend's all-reduce (a float sum then adds in
+    another order than in one process)."""
     if op == "sum":
         red = x.sum(0, dtype=x.dtype)
     else:
         red = x.amax(0) if op == "max" else x.amin(0)
     view = transport.process_view()
-    return red if view is None else view.all_reduce(red, op)
+    if view is not None:
+        red = view.all_reduce(red, op)
+    return transport.vendor(prim or _PRIM[op], x, red)
+
+
+def gather_ranks(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's row of ``x``, ``(p, ...)`` in rank order (JAX's
+    tiled ``all_gather`` over the axis): ``x`` itself in one process,
+    the backend's all-gather under a process view."""
+    view = transport.process_view()
+    full = x if view is None else view.all_gather(x)
+    return transport.vendor("all_gather", x, full)
 
 
 # -- partner permutations --------------------------------------------

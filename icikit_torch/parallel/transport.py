@@ -40,9 +40,16 @@ process) and its remote ones, which cross as one batched
 with (gloo by default, which carries host tensors: a block of a CUDA
 tensor crosses through pinned host memory, and every kernel and every
 other tensor stays on the card). :data:`WIRE` counts what crossed. With
-no view installed, :func:`ppermute` reads one thread-local more.
-Checked mode has no process backend yet (ROADMAP A5): a tracked
-exchange under a view raises ``NotImplementedError``.
+no view installed, :func:`ppermute` reads one thread-local more. Checked
+mode works under a view: a remote pair's block and its checksums cross
+in one batch, and the receiving process folds and compares them.
+
+The vendor collectives (the ``xla`` variants, and the all-gathers and
+psums inside the sorts and the ragged exchange) are PyTorch ops over the
+rank axis in one process, so nothing marks them as communication. Each
+site hands its result to :func:`vendor`, which an installed tracker may
+record (``bench.schedule_stats`` counts calls, bytes and depth so) and
+which costs a thread-local read otherwise.
 """
 
 from __future__ import annotations
@@ -140,13 +147,22 @@ class Tracker:
     def checked_ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
         idx = len(self.oks)
         cs = segment_checksum(x)
-        y = plain_ppermute(x, perm)
-        cs_r = plain_ppermute(cs, perm)
+        v = process_view()
+        if v is None:
+            y, cs_r, lo = plain_ppermute(x, perm), plain_ppermute(cs, perm), 0
+        else:  # the block and its checksums cross in one batch
+            (y, cs_r), lo = v.ppermute_group((x, cs), perm), v.lo
         # the in-transit corruption site: between the sender's checksum
         # and the receiver's, like a flipped wire or core
-        y = traced_flip(y, self.taint, idx)
+        y = traced_flip(y, self.taint, idx, lo)
         self.oks.append(segment_checksum(y) == cs_r)
         return y
+
+    def on_vendor(self, prim: str, operand: torch.Tensor, out: torch.Tensor,
+                  per_rank_bytes) -> torch.Tensor:
+        """A vendor collective's result inside the tracked run: one
+        opaque op with no receive step, so nothing to verify."""
+        return out
 
 
 class checked:
@@ -173,16 +189,24 @@ def ppermute(a: torch.Tensor, perm) -> torch.Tensor:
     :class:`ProcessView`, ``a`` holds this process's ranks and pairs
     with a rank of another process cross the process backend."""
     t = _tracker()
+    if t is not None:
+        return t.checked_ppermute(a, perm)
     v = process_view()
-    if v is not None:
-        if t is not None:
-            raise NotImplementedError(
-                "checked mode across processes is not ported yet "
-                "(ROADMAP A5)")
-        return v.ppermute(a, perm)
+    return plain_ppermute(a, perm) if v is None else v.ppermute(a, perm)
+
+
+def vendor(prim: str, operand: torch.Tensor, out: torch.Tensor,
+           per_rank_bytes: int | None = None) -> torch.Tensor:
+    """Mark ``out`` as the result of one vendor collective on
+    ``operand``, JAX's primitive ``prim`` (``all_gather``,
+    ``all_to_all``, ``psum``, ``pmax``, ``pmin``, ``reduce_scatter``),
+    each rank sending ``per_rank_bytes`` (default: one rank's row of
+    ``operand``). Returns ``out``, or what an installed tracker makes of
+    it."""
+    t = _tracker()
     if t is None:
-        return plain_ppermute(a, perm)
-    return t.checked_ppermute(a, perm)
+        return out
+    return t.on_vendor(prim, operand, out, per_rank_bytes)
 
 
 # -- the process backend ----------------------------------------------
@@ -267,35 +291,47 @@ class ProcessView:
         """``lax.ppermute`` on this process's rows: local pairs by one
         gather, remote ones as one send and one receive per peer
         process, ranks that receive nothing zero-filled."""
+        return self.ppermute_group((a,), perm)[0]
+
+    def ppermute_group(self, tensors, perm) -> list:
+        """:meth:`ppermute` of each of ``tensors`` (each ``(k, ...)``)
+        by one permutation, every remote block of all of them in one
+        batch of sends and receives."""
         k = self.hi - self.lo
-        if a.shape[0] != k:
-            raise ValueError(f"a (k={k}, ...) operand holds this process's "
-                             f"ranks; got {tuple(a.shape)}")
+        for a in tensors:
+            if a.shape[0] != k:
+                raise ValueError(f"a (k={k}, ...) operand holds this "
+                                 f"process's ranks; got {tuple(a.shape)}")
         ls, ld, sends, recvs, full = _proc_plan(
             tuple(map(tuple, perm)), self.p, k, self.proc)
-        out = a.new_empty(a.shape) if full else a.new_zeros(a.shape)
-        if ls:
-            out.index_copy_(0, index(ld, a.device),
-                            a.index_select(0, index(ls, a.device)))
+        outs = []
+        for a in tensors:
+            out = a.new_empty(a.shape) if full else a.new_zeros(a.shape)
+            if ls:
+                out.index_copy_(0, index(ld, a.device),
+                                a.index_select(0, index(ls, a.device)))
+            outs.append(out)
         if not (sends or recvs):
-            return out
+            return outs
         ops, inbox = [], []
-        for q, rows in sends:
-            buf = _to_wire(a.index_select(0, index(rows, a.device)))
-            ops.append(dist.P2POp(dist.isend, buf, q))
-            WIRE["bytes_sent"] += buf.numel()
-        for q, rows in recvs:
-            buf = _wire_buffer((len(rows),) + a.shape[1:], a.dtype, a)
-            ops.append(dist.P2POp(dist.irecv, buf, q))
-            inbox.append((rows, buf))
+        for a in tensors:
+            for q, rows in sends:
+                buf = _to_wire(a.index_select(0, index(rows, a.device)))
+                ops.append(dist.P2POp(dist.isend, buf, q))
+                WIRE["bytes_sent"] += buf.numel()
+        for a, out in zip(tensors, outs):
+            for q, rows in recvs:
+                buf = _wire_buffer((len(rows),) + a.shape[1:], a.dtype, a)
+                ops.append(dist.P2POp(dist.irecv, buf, q))
+                inbox.append((a, out, rows, buf))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        WIRE["messages"] += len(sends)
-        for rows, buf in inbox:
+        WIRE["messages"] += len(sends) * len(tensors)
+        for a, out, rows, buf in inbox:
             WIRE["bytes_received"] += buf.numel()
             got = buf.view(a.dtype).view((len(rows),) + a.shape[1:])
             out.index_copy_(0, index(rows, a.device), got.to(a.device))
-        return out
+        return outs
 
     @staticmethod
     def _count(h: torch.Tensor) -> None:
@@ -319,6 +355,16 @@ class ProcessView:
         parts = [torch.empty_like(h) for _ in range(self.procs)]
         dist.all_gather(parts, h)
         return torch.cat(parts).to(t.device)
+
+    def broadcast(self, t: torch.Tensor, root: int) -> torch.Tensor:
+        """``t`` as the process holding rank ``root`` has it, on every
+        process, by the backend's broadcast (``t`` must have the same
+        shape and dtype everywhere)."""
+        h = t.contiguous()
+        h = h.cpu() if h.is_cuda else h.clone()
+        self._count(h)
+        dist.broadcast(h, src=root // (self.hi - self.lo))
+        return h.to(t.device)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """The backend's all-to-all over processes: ``t`` is (procs,
@@ -349,6 +395,19 @@ class processes:
         return False
 
 
+class no_view:
+    """Run with no process view installed (a dry run of a schedule on
+    operands that hold every rank, as ``integrity.steps_of`` makes)."""
+
+    def __enter__(self):
+        self._prev = process_view()
+        _local.view = None
+
+    def __exit__(self, *exc):
+        _local.view = self._prev
+        return False
+
+
 def mesh_view(mesh, axis: str):
     """The :class:`ProcessView` of ``mesh``'s ``axis`` (a flat
     ``RankMesh``), None when its ranks live in one process."""
@@ -369,12 +428,14 @@ def mesh_view(mesh, axis: str):
 # (p,) int32 holding each rank row's uint32 fold out)
 
 
-def traced_flip(x: torch.Tensor, taint, call_idx: int) -> torch.Tensor:
+def traced_flip(x: torch.Tensor, taint, call_idx: int,
+                lo: int = 0) -> torch.Tensor:
     """The in-schedule corruption site (the device-side SDC drill).
 
     ``taint`` is int32 ``[step, rank, elem_seed, bit]`` on the host: when
     ``step == call_idx``, one bit (``bit`` mod the element's width) of
-    element ``elem_seed`` mod the row's size in row ``rank`` of ``x`` is
+    element ``elem_seed`` mod the row's size in rank ``rank``'s row of
+    ``x`` (row ``rank - lo``: ``x`` holds ranks from ``lo`` on) is
     flipped in place, as JAX's flips it on device ``rank``; bool
     payloads flip a bit of their uint8 view and read back as ``!= 0``,
     as JAX's. Otherwise ``x`` is returned untouched. ``x`` must be a
@@ -383,7 +444,7 @@ def traced_flip(x: torch.Tensor, taint, call_idx: int) -> torch.Tensor:
         return x
     p = x.shape[0]
     row = x.numel() // p if p else 0
-    rank = int(taint[1])
+    rank = int(taint[1]) - lo
     if row == 0 or not 0 <= rank < p:
         return x
     width = x.element_size()

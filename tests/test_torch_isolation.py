@@ -67,7 +67,12 @@ def test_importing_the_port_loads_no_jax():
             "icikit_torch.models.attention, "
             "icikit_torch.models.transformer, "
             "icikit_torch.models.transformer.quant, "
-            "icikit_torch.utils.threefry, icikit_torch.bench.decode; "
+            "icikit_torch.utils.threefry, icikit_torch.bench.decode, "
+            "icikit_torch.bench.schedule_stats, icikit_torch.bench.crossover, "
+            "icikit_torch.bench.scaling, icikit_torch.bench.figs, "
+            "icikit_torch.bench.procs, icikit_torch.bench.outputs, "
+            "icikit_torch.examples.collectives_study, "
+            "icikit_torch.examples.dryrun_multichip; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'icikit')])")
     r = _run(["-c", code])
